@@ -3,28 +3,42 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` (the kernels are built from ``snappier_tpu_torch/csrc`` into
-``build/`` at first use) and no network. Phases, each of which raises on
+``build/`` at first use), ``make`` and a C++ compiler (the native host
+runtime in ``native/``) and no network. Phases, each of which raises on
 failure:
 
 1. the card's name and power limit (``nvidia-smi``); build the kernels;
 2. each kernel against its plain version on the same inputs, with edge and
-   corrupt rows (exact equality: the kernels compute bytes and bits);
-3. the main path at full size: ``SnappyCodec(with_crc=True)`` compresses
+   corrupt rows (exact equality: the kernels compute bytes, bits and match
+   lengths); the probe path: the FindMatchLength golden vectors and 300
+   rows of 64 KiB with planted matches through ``match_extension_probe``;
+3. the batched codec at full size: ``SnappyCodec(with_crc=True)`` compresses
    512 blocks of 64 KiB of markup-like text (bench.py's seeded word mix),
    ``decompress_batch`` decodes them back, and the result is held against
    the input, the host CRC32C and the host oracle decoder; every kernel of
    the path must have launched; ``frame_batch`` and ``roundtrip_step`` run
    once;
-4. timings with CUDA events (warm-up, best of 3 passes).
+4. timings with CUDA events (warm-up, best of 3 passes);
+5. the public facade at full size on the same 32 MiB: ``compress`` at both
+   levels and ``decompress`` of each (multi-block, through the native
+   prescan and the decode kernel), round trips checked exactly, best no
+   larger than fast, the best stream decoded independently by the native
+   engine; ``*_into``, ``*_to_memory`` and a corrupt input on 1 MiB; then
+   host wall-clock per facade call and CUDA-event times of the candidate
+   search and the new kernels.
 
+Each path (probe, codec, facade) runs with the launch counts set to 0 just
+before it and read just after; every kernel of a path must have launched.
 The line before the last is a JSON object listing each kernel with its
-launches on the main path, its time, its bound and its plain version's
+launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -43,7 +57,17 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
                "snappier_tpu/ops/pallas/scalar_codec.py:765"),
     "crc32c": ("crc32c_blocks", "snappier_tpu_torch/csrc/crc32c.cu",
                "snappier_tpu/ops/pallas/crc32c.py:43"),
+    "encode_best": ("encode_blocks_best", "snappier_tpu_torch/csrc/encode_best.cu",
+                    "snappier_tpu/ops/pallas/scalar_codec.py:964"),
+    "probe": ("match_extension_probe", "snappier_tpu_torch/csrc/probe.cu",
+              "snappier_tpu/ops/pallas/scalar_codec.py:704"),
 }
+PATHS = {  # path -> the kernels it must launch
+    "probe": ("probe",),
+    "codec": ("encode", "decode", "crc32c"),
+    "facade": ("encode", "encode_best", "decode"),
+}
+PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
 
 
 def card_line() -> str:
@@ -94,6 +118,12 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def best_host_ms(fn, passes: int = 3) -> float:
+    """Best host wall-clock of ``passes`` calls of a function whose result
+    ends on the host (so the device work is inside the time)."""
+    return min(host_ms(fn) for _ in range(passes))
+
+
 def max_abs_err(pairs) -> int:
     """Largest |a - b| over (kernel, plain) integer arrays of equal shape."""
     err = 0
@@ -110,6 +140,42 @@ def max_abs_err(pairs) -> int:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def forbidden(module, name: str):
+    """Replace ``module.name`` with a function that raises, for the span of
+    a path that must not take it."""
+    saved = getattr(module, name)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{module.__name__}.{name} was called")
+
+    setattr(module, name, refuse)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def probe_batch():
+    """The FindMatchLength golden vectors with expected length >= 4 (the
+    walk runs only after a verified 4-byte seed) and PROBE_ROWS rows with
+    planted matches, as 64 KiB rows: (bufs, ats, cands, ns, expected)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_match_length import VECTORS, _layout
+    from torch_cases import planted_matches
+
+    golden = [(e, *_layout(s1, s2, n)) for e, s1, s2, n in VECTORS if e >= 4]
+    g_bufs = np.zeros((len(golden), BLOCK), np.uint8)
+    for i, (_, buf, _, _) in enumerate(golden):
+        g_bufs[i, : len(buf)] = np.frombuffer(buf, np.uint8)
+    bufs, ats, cands, ns, planted = planted_matches(PROBE_ROWS, BLOCK)
+    return (np.concatenate([g_bufs, bufs]),
+            np.concatenate([[g[2] for g in golden], ats]).astype(np.int32),
+            np.concatenate([np.zeros(len(golden)), cands]).astype(np.int32),
+            np.concatenate([[g[3] for g in golden], ns]).astype(np.int32),
+            np.concatenate([[g[0] for g in golden], planted]).astype(np.int32))
 
 
 def encode_rows(rng):
@@ -148,7 +214,7 @@ def corrupt_streams():
     ]
 
 
-def phase_kernels(torch, sc, crc, oracle, write_varint):
+def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     """Each kernel against its plain version; returns max_abs_err per kernel."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -206,7 +272,96 @@ def phase_kernels(torch, sc, crc, oracle, write_varint):
     check((got == want).all(), f"crc32c differs: {got} vs {want}")
     errs["crc32c"] = max_abs_err([(got.view(np.uint32), want.view(np.uint32))])
     print(f"crc32c kernel == plain on {len(clen)} rows, max_abs_err {errs['crc32c']}")
+
+    f_c, l_c = f_h.to(dev), l_h.to(dev)
+    cands = exact_candidates(f_c, l_c)
+    check(bool((cands.cpu() == exact_candidates(f_h, l_h)).all()),
+          "exact_candidates differs between the card and the CPU")
+    bodies, body_lens = sc._encode_best(f_c, l_c, cands)
+    torch.cuda.synchronize()
+    p_bodies, p_lens = (x.numpy() for x in sc.encode_best_plain(f_h, l_h, cands.cpu(), 32))
+    bodies, body_lens = bodies.cpu().numpy(), body_lens.cpu().numpy()
+    check((body_lens == p_lens).all(), f"encode_best lengths differ: {body_lens} vs {p_lens}")
+    errs["encode_best"] = max_abs_err(
+        [(body_lens, p_lens)] + [(bodies[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)]
+    )
+    for i, n in enumerate(lens):
+        blk = write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes()
+        check(oracle.decompress(blk) == frags[i, :n].tobytes(), f"encode_best row {i} round trip")
+    print(f"encode_best kernel == plain on {len(lens)} rows, max_abs_err {errs['encode_best']}")
     return errs
+
+
+def phase_probe(torch, sc, _build):
+    """The probe path: golden vectors and planted matches through the probe
+    kernel, held against the expected lengths and the plain version.
+    Returns (max_abs_err, launches on the path, probe inputs on the card,
+    expected lengths)."""
+    dev = torch.device("cuda")
+    bufs, ats, cands, ns, expected = probe_batch()
+    host = [torch.from_numpy(x) for x in (bufs, ats, cands, ns)]
+    args = [x.to(dev) for x in host]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = sc.match_extension_probe(*args)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches.get("probe", 0) > 0, "kernel probe did not launch on the probe path")
+    got = got.cpu().numpy()
+    want = sc.match_extension_probe(*host).numpy()
+    check((got == want).all(), "probe kernel differs from its plain version")
+    check((got == expected).all(), "probe lengths differ from the golden and planted lengths")
+    err = max_abs_err([(got, want)])
+    print(f"probe kernel == plain == expected on {len(got)} rows "
+          f"({len(got) - PROBE_ROWS} golden vectors), max_abs_err {err}")
+    return err, launches, args, expected
+
+
+def phase_facade(torch, st, block, native, prescan, _build, raw: bytes):
+    """The public facade at full size on ``raw``. Returns (launches on the
+    path, the fast stream, the best stream)."""
+    check(native.available(), "the native runtime did not build (prescan needs it)")
+    # The path must split every stream on the card: neither the Python
+    # prescan walk nor the window-crossing host decode may run.
+    with forbidden(block, "_host_decode"), forbidden(prescan, "scan_fragments_py"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        fast = st.compress(raw)
+        best = st.compress(raw, level="best")
+        back_fast = st.decompress(fast)
+        back_best = st.decompress(best)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    print(f"facade path launches: {launches}")
+    for k in PATHS["facade"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the facade path")
+    check(back_fast == raw, "facade round trip differs (fast)")
+    check(back_best == raw, "facade round trip differs (best)")
+    check(len(best) <= len(fast), f"best ({len(best)} B) is larger than fast ({len(fast)} B)")
+    check(native.decompress(best) == raw, "native decode of the best stream differs")
+    check(native.decompress(fast) == raw, "native decode of the fast stream differs")
+    print(f"facade: {len(raw)} B round trip exact at both levels; fast {len(fast)} B, "
+          f"best {len(best)} B; both decode through the native engine")
+
+    part = raw[: 1 << 20]
+    out = bytearray(st.get_max_compressed_length(len(part)))
+    n = st.compress_into(part, out)
+    comp = bytes(out[:n])
+    check(comp == st.compress(part), "compress_into differs from compress")
+    plain = bytearray(len(part))
+    check(st.decompress_into(comp, plain) == len(part) and plain == part, "decompress_into")
+    with st.compress_to_memory(part) as m:
+        check(bytes(m) == comp, "compress_to_memory")
+    with st.decompress_to_memory(comp) as m:
+        check(bytes(m) == part, "decompress_to_memory")
+    check(st.try_compress(part, bytearray(16)) == (False, 0), "try_compress on 16 bytes")
+    try:
+        st.decompress(comp[:-7])
+        raise AssertionError("a truncated stream decoded")
+    except st.InvalidDataError:
+        pass
+    print("facade on 1 MiB: *_into, *_to_memory, try_compress and a truncated stream ok")
+    return launches, fast, best
 
 
 def main() -> int:
@@ -216,13 +371,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
+    import snappier_tpu_torch as st
     from snappier_tpu_torch import SnappyCodec
     from snappier_tpu_torch.format import oracle
     from snappier_tpu_torch.format.crc32c import crc32c, mask_crc
     from snappier_tpu_torch.format.varint import write_varint
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import crc32c as crc
+    from snappier_tpu_torch.ops.best_match import exact_candidates
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+    from snappier_tpu_torch.runtime import block, native, prescan
 
     card = card_line()
     print(card)
@@ -232,7 +390,8 @@ def main() -> int:
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
 
     # --- 2. each kernel against its plain version ------------------------
-    errs = phase_kernels(torch, sc, crc, oracle, write_varint)
+    errs = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
+    errs["probe"], probe_launches, probe_args, probe_expected = phase_probe(torch, sc, _build)
 
     # --- 3. the main path at full size ------------------------------------
     dev = torch.device("cuda")
@@ -252,10 +411,10 @@ def main() -> int:
     block_lens = body_lens + 3
     outs, out_lens, derrs = codec.decompress_batch(blocks, block_lens, out_cap=BLOCK)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"main path launches: {launches}")
-    for k in KERNELS:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    codec_launches = dict(_build.LAUNCHES)
+    print(f"codec path launches: {codec_launches}")
+    for k in PATHS["codec"]:
+        check(codec_launches.get(k, 0) > 0, f"kernel {k} did not launch on the codec path")
 
     check(outs.shape == (B, BLOCK) and outs.dtype == torch.int32, "decode output shape")
     check(bool((derrs == 0).all()), "main-path decode errors")
@@ -306,33 +465,84 @@ def main() -> int:
         "compress_gbps": gb / (t_c / 1e3), "decompress_gbps": gb / (t_d / 1e3),
         "ratio": ratio, "blocks": B,
     }))
+
+    # --- 5. the public facade at full size ------------------------------------
+    raw = data.tobytes()
+    facade_launches, fast, best = phase_facade(torch, st, block, native, prescan, _build, raw)
+    cands = exact_candidates(frags, lengths)
+    _, best_lens = sc._encode_best(frags, lengths, cands)
+    ms["encode_best"] = cuda_ms(lambda: sc._encode_best(frags, lengths, cands))
+    ms["probe"] = cuda_ms(lambda: sc.match_extension_probe(*probe_args))
+    t_cands = cuda_ms(lambda: exact_candidates(frags, lengths), iters=3)
+    facade_ms = {  # host wall-clock per call, transfers and host work included
+        "compress_fast_ms": best_host_ms(lambda: st.compress(raw)),
+        "compress_best_ms": best_host_ms(lambda: st.compress(raw, level="best")),
+        "decompress_fast_ms": best_host_ms(lambda: st.decompress(fast)),
+        "decompress_best_ms": best_host_ms(lambda: st.decompress(best)),
+    }
+    # Where a facade call's host time goes: its stages, each timed alone.
+    arr, arr_fast = np.frombuffer(raw, np.uint8), np.frombuffer(fast, np.uint8)
+    recs = prescan.scan_fragments(arr_fast)
+    rows_fast = prescan.assemble_fragment_rows(arr_fast, recs)
+    breakdown = {
+        "fragment_rows_ms": best_host_ms(lambda: block._fragment_rows(arr)),
+        "prescan_fast_ms": best_host_ms(lambda: prescan.scan_fragments(arr_fast)),
+        "assemble_rows_fast_ms": best_host_ms(
+            lambda: prescan.assemble_fragment_rows(arr_fast, recs)),
+        "decode_rows_fast_ms": best_host_ms(
+            lambda: block._decode_rows_device(*rows_fast, BLOCK, dev)),
+    }
+    print(json.dumps({
+        "card": card, "facade_bytes": len(raw), **facade_ms, **breakdown,
+        "exact_candidates_ms": t_cands, "encode_best_ms": ms["encode_best"],
+        "fast_ratio": len(fast) / len(raw), "best_ratio": len(best) / len(raw),
+    }))
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
+    cand1 = cands[:1].cpu()
+    probe_host = [x.cpu() for x in probe_args]
     plain_ms = {
         "encode": host_ms(lambda: sc.encode_blocks_plain(f1, l1, sc.HASH_BITS, 32)),
         "decode": host_ms(lambda: sc.decode_blocks_plain(c1, cl1, BLOCK)),
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
+        "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
+        "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
     }
+    plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
+                  "probe": len(probe_expected)}
     n_in = B * BLOCK
     n_body = int(bl.sum())
+    n_best = int(best_lens.sum())
+    # The probe needs the compared bytes of each row: the match and the
+    # first differing byte on both sides, within the row.
+    _, p_ats, _, p_ns = (x.cpu().numpy().astype(np.int64) for x in probe_args)
+    compared = int((2 * np.minimum(probe_expected + 1, p_ns - p_ats)).sum())
+    n_rows = len(probe_expected)
     moved = {  # bytes each kernel must read once and write once at these shapes
         "encode": n_in + 4 * B + n_body + 4 * B,  # fragments, lengths -> bodies, lengths
         "decode": n_body + 3 * B + 4 * B + n_in + 8 * B,  # blocks, lengths -> bytes, len, err
         "crc32c": n_in + 4 * B + 4 * B,  # fragments, lengths -> CRCs
+        # fragments, lengths, int32 candidates -> bodies, lengths
+        "encode_best": n_in + 4 * B + 4 * n_in + n_best + 4 * B,
+        "probe": compared + 12 * n_rows + 4 * n_rows,  # bytes, 3 args -> lengths
     }
-    # Operations: at least one 32-bit integer step per input byte (a hash
-    # or table step; a decoded byte's store), at the card's 32-bit
-    # non-tensor peak. The byte term is the larger one for all three.
-    ops = {"encode": n_in, "decode": n_in, "crc32c": n_in}
+    # Operations: at least one 32-bit integer step per input byte (a hash,
+    # table or candidate step; a decoded byte's store; a compared byte), at
+    # the card's 32-bit non-tensor peak. The byte term is the larger one.
+    ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
+           "probe": compared}
+    by_path = {"probe": probe_launches, "codec": codec_launches, "facade": facade_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3
         t_ops = ops[k] / INT32_OPS_PER_S * 1e3
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": errs[k], "ms": ms[k],
-            "plain_ms": plain_ms[k], "plain_rows": 1, "plain_device": "cpu",
+            "launches": sum(p.get(k, 0) for p in by_path.values()),
+            "launches_by_path": {p: n[k] for p, n in by_path.items() if n.get(k)},
+            "max_abs_err": errs[k], "ms": ms[k],
+            "plain_ms": plain_ms[k], "plain_rows": plain_rows[k], "plain_device": "cpu",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": moved[k], "bound_ops": ops[k], "library_ms": None,

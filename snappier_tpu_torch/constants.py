@@ -110,6 +110,12 @@ def greedy_emit_bound(n: int) -> int:
     return n + n // 65 + 8
 
 
+#: Per-fragment output-slot width of the batched encode entry points: a
+#: 64 KiB fragment plus 2048 bytes of headroom, which covers
+#: ``greedy_emit_bound(BLOCK_SIZE)`` (66,552) with about 1 KiB to spare.
+FRAGMENT_OUT_CAP = BLOCK_SIZE + 2048
+
+
 def min_compressed_length(n: int) -> int:
     """Provable lower bound on ANY valid compressed block for ``n``
     input bytes — the fail-fast test for Try*/into destinations

@@ -1,16 +1,18 @@
-// Per-block Snappy walks shared by the CUDA kernels (decode.cu, encode.cu)
-// and, compiled by a host C++ compiler, by the tests that hold the walks
-// against the JAX reference on a machine without a GPU.
+// Per-block Snappy walks shared by the CUDA kernels (decode.cu, encode.cu,
+// encode_best.cu, probe.cu) and, compiled by a host C++ compiler, by the
+// tests that hold the walks against the JAX reference on a machine without
+// a GPU.
 //
-// Both walks are byte-serial state machines over one <= 64 KiB block, so
+// The walks are byte-serial state machines over one <= 64 KiB block, so
 // they are written once as __host__ __device__ functions: the CUDA kernels
 // give them shared-memory buffers and a lane index, a host build gives them
 // plain arrays and lane 0 of 1.
 //
 // The bytes they produce are the contract of the JAX scalar kernels in
 // snappier_tpu/ops/pallas/scalar_codec.py (_decode_kernel, _encode_kernel in
-// fast mode): the same (out[:out_len], out_len, err) triple from the decoder
-// and the same tag stream from the encoder.
+// fast and best mode, _probe_kernel): the same (out[:out_len], out_len, err)
+// triple from the decoder, the same tag streams from the encoders and the
+// same match lengths from the extension walk.
 #pragma once
 
 #include <stdint.h>
@@ -173,46 +175,70 @@ SC_HD uint32_t hash32(uint32_t key, int hash_bits) {
 }
 
 // Full match length at `at` against `cand` (whose first 4 bytes equal), in
-// [4, n - at]: the stride-8 walk of scalar_codec.py::_match_extension with
-// the same table seeding. Seeding writes table[hash(p)] = p with
-// p = min(pos - 3, n - 5) at pos = at + 4 and at each stride-8 step before
-// its compare, so the table ends up as the reference's does.
-SC_HD int32_t match_extension(const uint8_t* s, int32_t at, int32_t cand, int32_t n,
-                              uint16_t* table, int hash_bits) {
-  auto seed = [&](int32_t pos) {
-    if (table == nullptr) return;
-    int32_t p = pos - 3 < n - 5 ? pos - 3 : n - 5;
-    table[hash32(load32(s, p), hash_bits)] = (uint16_t)p;
-  };
+// [4, n - at]: the stride-8 walk of scalar_codec.py::_match_extension.
+// key(i) is the little-endian 32-bit window at byte i; seed(pos) runs at
+// pos = at + 4 and at each stride-8 step before its compare, where the fast
+// encoder writes its table.
+template <class Key, class Seed>
+SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed seed) {
   bool has12 = at + 12 <= n;
   int32_t m = 4;
   bool go = true;
   bool eq0l = true;
   if (has12) {
     seed(at + 4);
-    bool eq0w = load32(s, at + 4) == load32(s, cand + 4);
-    bool eq1w = load32(s, at + 8) == load32(s, cand + 8);
+    bool eq0w = key(at + 4) == key(cand + 4);
+    bool eq1w = key(at + 8) == key(cand + 8);
     m = 12;
     go = eq0w && eq1w;
     eq0l = eq0w;
   }
   while (go && at + m + 8 <= n) {
     seed(at + m);
-    bool eq0 = load32(s, at + m) == load32(s, cand + m);
-    bool eq1 = load32(s, at + m + 4) == load32(s, cand + m + 4);
+    bool eq0 = key(at + m) == key(cand + m);
+    bool eq1 = key(at + m + 4) == key(cand + m + 4);
     m += 8;
     go = eq0 && eq1;
     eq0l = eq0;
   }
   if (!go) m = m - 8 + (eq0l ? 4 : 0);
-  if (go && at + m + 4 <= n && load32(s, at + m) == load32(s, cand + m)) m += 4;
-  uint32_t x = load32(s, at + m) ^ load32(s, cand + m);
+  if (go && at + m + 4 <= n && key(at + m) == key(cand + m)) m += 4;
+  uint32_t x = key(at + m) ^ key(cand + m);
   if (x == 0) {
     m += 3;
   } else {
     m += ((x & 0xFFu) == 0) + ((x & 0xFFFFu) == 0) + ((x & 0xFFFFFFu) == 0);
   }
   return m < n - at ? m : n - at;
+}
+
+// extend_match over a staged fragment s. With a table it seeds
+// table[hash(p)] = p, p = min(pos - 3, n - 5), so the table ends up as the
+// reference's does; table == nullptr seeds nothing (best mode, the probe).
+SC_HD int32_t match_extension(const uint8_t* s, int32_t at, int32_t cand, int32_t n,
+                              uint16_t* table, int hash_bits) {
+  return extend_match([&](int32_t i) { return load32(s, i); }, at, cand, n,
+                      [&](int32_t pos) {
+                        if (table == nullptr) return;
+                        int32_t p = pos - 3 < n - 5 ? pos - 3 : n - 5;
+                        table[hash32(load32(s, p), hash_bits)] = (uint16_t)p;
+                      });
+}
+
+// The probe's walk over a row of cc bytes that need not be padded: bytes
+// outside [0, cc) read as zero, as the JAX key image's zero slack does
+// (scalar_codec.py:742). Never reads outside the row.
+SC_HD int32_t match_extension_row(const uint8_t* row, int64_t cc, int32_t at, int32_t cand,
+                                  int32_t n) {
+  auto byte = [&](int64_t i) -> uint32_t {
+    return (i >= 0 && i < cc) ? (uint32_t)row[i] : 0u;
+  };
+  return extend_match(
+      [&](int32_t i) {
+        return byte(i) | (byte((int64_t)i + 1) << 8) | (byte((int64_t)i + 2) << 16) |
+               (byte((int64_t)i + 3) << 24);
+      },
+      at, cand, n, [](int32_t) {});
 }
 
 // Literal tag + payload (SnappyCompressor.cs:417-464); lit_len >= 1.
@@ -307,6 +333,39 @@ SC_HD int32_t encode_fragment(const uint8_t* s, int32_t n, uint16_t* table,
     if (at > lit_start) op = emit_literal(out, op, s, lit_start, at - lit_start);
     op = emit_copy(out, op, at - cand_first, m);
     ip = at + m;
+    lit_start = ip;
+    skip = skip_base;
+  }
+  if (n > lit_start) op = emit_literal(out, op, s, lit_start, n - lit_start);
+  return op;
+}
+
+// The level="best" walk over one fragment of n bytes (scalar_codec.py
+// :964-996); returns the tag stream's length.
+//
+// s as for encode_fragment. cands[i] is the one candidate for position i
+// (ops/best_match.py::exact_candidates, nearest first), or EMPTY for none;
+// the caller stores EMPTY for any candidate outside [0, i), which a correct
+// candidate array never holds, so every hit copies from earlier bytes. A
+// hit is a candidate whose first 4 bytes equal the position's; no table,
+// no seeding, and a miss steps 1 + (skip >> 7).
+SC_HD int32_t encode_fragment_best(const uint8_t* s, int32_t n, const uint16_t* cands,
+                                   int32_t skip_base, uint8_t* out) {
+  int32_t ip = n < 1 ? n : 1;
+  int32_t lit_start = 0;
+  int32_t op = 0;
+  int32_t skip = skip_base;
+  while (ip + INPUT_MARGIN < n) {
+    int32_t c = cands[ip];
+    if (c == EMPTY || load32(s, c) != load32(s, ip)) {
+      ip += 1 + (skip >> 7);
+      skip += 1;
+      continue;
+    }
+    int32_t m = match_extension(s, ip, c, n, nullptr, 0);
+    if (ip > lit_start) op = emit_literal(out, op, s, lit_start, ip - lit_start);
+    op = emit_copy(out, op, ip - c, m);
+    ip += m;
     lit_start = ip;
     skip = skip_base;
   }

@@ -43,6 +43,11 @@ SOURCES = {
         [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P],
     ),
     "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
+    "encode_best": (
+        "snappy_encode_best_launch",
+        [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P],
+    ),
+    "probe": ("match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
 }
 
 #: Kernel launches per wrapper since the last reset.

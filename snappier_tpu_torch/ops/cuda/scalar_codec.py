@@ -1,4 +1,5 @@
-"""Snappy block decode and greedy encode, one CUDA block per Snappy block.
+"""Snappy block decode, greedy and best-mode encode, one CUDA block per
+Snappy block, and the match-extension probe.
 
 Port of ``snappier_tpu/ops/pallas/scalar_codec.py``: the wrappers keep the
 JAX functions' arguments, shapes and dtypes (byte rows as int32 or uint8,
@@ -8,10 +9,12 @@ word-packed images existed because its scalar memory is word-addressed and
 have no counterpart here.
 
 Each wrapper launches its CUDA kernel (``csrc/decode.cu``,
-``csrc/encode.cu``) for tensors on a CUDA device and runs the plain
-Python version beside it (:func:`decode_blocks_plain`,
-:func:`encode_blocks_plain`) for tensors on the CPU. Both follow the walks
-in ``csrc/scalar_codec.cuh`` step for step.
+``csrc/encode.cu``, ``csrc/encode_best.cu``, ``csrc/probe.cu``) for
+tensors on a CUDA device and runs the plain Python version beside it
+(:func:`decode_blocks_plain`, :func:`encode_blocks_plain`,
+:func:`encode_best_plain`, :func:`match_extension_probe_plain`) for tensors
+on the CPU. Both follow the walks in ``csrc/scalar_codec.cuh`` step for
+step.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from snappier_tpu_torch.constants import BLOCK_SIZE, INPUT_MARGIN_BYTES
+from snappier_tpu_torch.ops.best_match import DEFAULT_WIDTHS, exact_candidates
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda._tensors import byte_rows, lengths_vector, on_cuda
 from snappier_tpu_torch.ops.decode import (
@@ -190,70 +194,95 @@ def decode_blocks_scalar(comp, comp_lens, out_cap: int = BLOCK_SIZE, packed: boo
 # ---------------------------------------------------------------------------
 
 
-def _encode_row(row: np.ndarray, n: int, hash_bits: int, skip_base: int) -> bytes:
-    """One fragment's greedy walk; mirrors ``sc::encode_fragment``."""
-    s = np.zeros(n + 8, np.uint64)
-    s[:n] = row[:n]
-    keys_np = s[0 : n + 4] | s[1 : n + 5] << 8 | s[2 : n + 6] << 16 | s[3 : n + 7] << 24
-    hashes = (((keys_np * HASH_MUL) & _U32) >> (32 - hash_bits)).tolist()
-    keys = keys_np.tolist()
-    table = [_EMPTY] * (1 << hash_bits)
-    out = bytearray()
+def _extend(key, at: int, cand: int, n: int, seed=None) -> int:
+    """Full match length at ``at`` against ``cand``; mirrors
+    ``sc::extend_match``, with ``seed(pos)`` where the fast walk seeds its
+    table."""
+    m, go, eq0l = 4, True, True
+    if at + 12 <= n:
+        if seed:
+            seed(at + 4)
+        eq0w = key(at + 4) == key(cand + 4)
+        m, go, eq0l = 12, eq0w and key(at + 8) == key(cand + 8), eq0w
+    while go and at + m + 8 <= n:
+        if seed:
+            seed(at + m)
+        eq0 = key(at + m) == key(cand + m)
+        go = eq0 and key(at + m + 4) == key(cand + m + 4)
+        m += 8
+        eq0l = eq0
+    if not go:
+        m = m - 8 + (4 if eq0l else 0)
+    if go and at + m + 4 <= n and key(at + m) == key(cand + m):
+        m += 4
+    x = key(at + m) ^ key(cand + m)
+    if x == 0:
+        m += 3
+    else:
+        m += (x & 0xFF == 0) + (x & 0xFFFF == 0) + (x & 0xFFFFFF == 0)
+    return min(m, n - at)
 
-    def literal(start, end):
+
+class _Emitter:
+    """Tag emission into a bytearray; mirrors ``sc::emit_literal`` and
+    ``sc::emit_copy``."""
+
+    def __init__(self, s: np.ndarray):
+        self.s = s
+        self.out = bytearray()
+
+    def literal(self, start: int, end: int) -> None:
         ln = end - start
         if ln <= 0:
             return
         lm1 = ln - 1
         extra = 2 if ln > 256 else (1 if ln > 60 else 0)
+        out = self.out
         out.append(lm1 << 2 if extra == 0 else (59 + extra) << 2)
         if extra >= 1:
             out.append(lm1 & 0xFF)
         if extra == 2:
             out.append((lm1 >> 8) & 0xFF)
-        out.extend(s[start:end].astype(np.uint8).tobytes())
+        out.extend(self.s[start:end].astype(np.uint8).tobytes())
 
-    def copy_upto64(off, ln):
+    def _copy_upto64(self, off: int, ln: int) -> None:
         if ln <= 11 and off < 2048:
-            out.extend((1 | (ln - 4) << 2 | (off >> 8) << 5, off & 0xFF))
+            self.out.extend((1 | (ln - 4) << 2 | (off >> 8) << 5, off & 0xFF))
         else:
-            out.extend((2 | (ln - 1) << 2, off & 0xFF, (off >> 8) & 0xFF))
+            self.out.extend((2 | (ln - 1) << 2, off & 0xFF, (off >> 8) & 0xFF))
 
-    def copy(off, ln):
+    def copy(self, off: int, ln: int) -> None:
         while ln >= 68:
-            copy_upto64(off, 64)
+            self._copy_upto64(off, 64)
             ln -= 64
         if ln > 64:
-            copy_upto64(off, 60)
+            self._copy_upto64(off, 60)
             ln -= 60
-        copy_upto64(off, ln)
+        self._copy_upto64(off, ln)
+
+
+def _staged_keys(row: np.ndarray, n: int):
+    """The fragment as uint64 with 8 zero bytes past n, and its 4-byte keys
+    at positions 0..n+3 (bytes past n read as zero, as in the kernels'
+    staging)."""
+    s = np.zeros(n + 8, np.uint64)
+    s[:n] = row[:n]
+    keys = s[0 : n + 4] | s[1 : n + 5] << 8 | s[2 : n + 6] << 16 | s[3 : n + 7] << 24
+    return s, keys
+
+
+def _encode_row(row: np.ndarray, n: int, hash_bits: int, skip_base: int) -> bytes:
+    """One fragment's greedy walk; mirrors ``sc::encode_fragment``."""
+    s, keys_np = _staged_keys(row, n)
+    hashes = (((keys_np * HASH_MUL) & _U32) >> (32 - hash_bits)).tolist()
+    keys = keys_np.tolist()
+    key = keys.__getitem__
+    table = [_EMPTY] * (1 << hash_bits)
+    em = _Emitter(s)
 
     def seed(pos):
         p = min(pos - 3, n - 5)
         table[hashes[p]] = p
-
-    def extend(at, cand):
-        m, go, eq0l = 4, True, True
-        if at + 12 <= n:
-            seed(at + 4)
-            eq0w = keys[at + 4] == keys[cand + 4]
-            m, go, eq0l = 12, eq0w and keys[at + 8] == keys[cand + 8], eq0w
-        while go and at + m + 8 <= n:
-            seed(at + m)
-            eq0 = keys[at + m] == keys[cand + m]
-            go = eq0 and keys[at + m + 4] == keys[cand + m + 4]
-            m += 8
-            eq0l = eq0
-        if not go:
-            m = m - 8 + (4 if eq0l else 0)
-        if go and at + m + 4 <= n and keys[at + m] == keys[cand + m]:
-            m += 4
-        x = keys[at + m] ^ keys[cand + m]
-        if x == 0:
-            m += 3
-        else:
-            m += (x & 0xFF == 0) + (x & 0xFFFF == 0) + (x & 0xFFFFFF == 0)
-        return min(m, n - at)
 
     ip, lit_start, skip = min(1, n), 0, skip_base
     while ip + INPUT_MARGIN_BYTES < n:
@@ -278,13 +307,46 @@ def _encode_row(row: np.ndarray, n: int, hash_bits: int, skip_base: int) -> byte
             skip += 1
             continue
         at, cand = hit
-        m = extend(at, cand)
-        literal(lit_start, at)
-        copy(at - cand, m)
+        m = _extend(key, at, cand, n, seed)
+        em.literal(lit_start, at)
+        em.copy(at - cand, m)
         ip = lit_start = at + m
         skip = skip_base
-    literal(lit_start, n)
-    return bytes(out)
+    em.literal(lit_start, n)
+    return bytes(em.out)
+
+
+def _encode_best_row(row: np.ndarray, n: int, cands: list, skip_base: int) -> bytes:
+    """One fragment's level="best" walk; mirrors ``sc::encode_fragment_best``
+    (a candidate outside [0, i) counts as none)."""
+    s, keys_np = _staged_keys(row, n)
+    keys = keys_np.tolist()
+    key = keys.__getitem__
+    em = _Emitter(s)
+    ip, lit_start, skip = min(1, n), 0, skip_base
+    while ip + INPUT_MARGIN_BYTES < n:
+        c = cands[ip]
+        if not 0 <= c < ip or keys[c] != keys[ip]:
+            ip += 1 + (skip >> 7)
+            skip += 1
+            continue
+        m = _extend(key, ip, c, n)
+        em.literal(lit_start, ip)
+        em.copy(ip - c, m)
+        ip = lit_start = ip + m
+        skip = skip_base
+    em.literal(lit_start, n)
+    return bytes(em.out)
+
+
+def _rows_out(bodies: list, F: int):
+    """Bodies (bytes) -> (uint8[B, body_width(F)], int32[B]) tensors."""
+    out = np.zeros((len(bodies), body_width(F)), np.uint8)
+    body_lens = np.zeros(len(bodies), np.int32)
+    for b, body in enumerate(bodies):
+        out[b, : len(body)] = np.frombuffer(body, np.uint8)
+        body_lens[b] = len(body)
+    return torch.from_numpy(out), torch.from_numpy(body_lens)
 
 
 def encode_blocks_plain(frags: torch.Tensor, lengths: torch.Tensor, hash_bits: int,
@@ -294,13 +356,9 @@ def encode_blocks_plain(frags: torch.Tensor, lengths: torch.Tensor, hash_bits: i
     B, F = frags.shape
     rows = frags.numpy()
     lens = lengths.tolist()
-    out = np.zeros((B, body_width(F)), np.uint8)
-    body_lens = np.zeros(B, np.int32)
-    for b in range(B):
-        body = _encode_row(rows[b], min(max(lens[b], 0), F), hash_bits, skip_base)
-        out[b, : len(body)] = np.frombuffer(body, np.uint8)
-        body_lens[b] = len(body)
-    return torch.from_numpy(out), torch.from_numpy(body_lens)
+    return _rows_out(
+        [_encode_row(rows[b], min(max(lens[b], 0), F), hash_bits, skip_base)
+         for b in range(B)], F)
 
 
 def encode_blocks_bytes(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32):
@@ -349,3 +407,124 @@ def encode_blocks_scalar(frags, lengths, hash_bits: int = HASH_BITS, skip_base: 
         return bodies.view(torch.int32), body_lens
     F = frags.shape[1]
     return bodies[:, : F + 2048].to(torch.int32), body_lens
+
+
+# ---------------------------------------------------------------------------
+# level="best" encoder
+# ---------------------------------------------------------------------------
+
+
+def encode_best_plain(frags: torch.Tensor, lengths: torch.Tensor, cands: torch.Tensor,
+                      skip_base: int):
+    """Plain version of the best-mode encode kernel on CPU uint8 rows and
+    int32 candidates: returns ``(bodies uint8[B, body_width(F)],
+    body_lens int32[B])``."""
+    B, F = frags.shape
+    rows = frags.numpy()
+    lens = lengths.tolist()
+    cand_rows = cands.numpy()
+    bodies = []
+    for b in range(B):
+        n = min(max(lens[b], 0), F)
+        bodies.append(_encode_best_row(rows[b], n, cand_rows[b, :n].tolist(), skip_base))
+    return _rows_out(bodies, F)
+
+
+def _encode_best(frags, lengths, cands, skip_base: int = 32):
+    """Encode a batch of fragments with one given candidate per position
+    (the JAX ``_encode_best_pallas`` step, minus its unpacking).
+
+    Args:
+      frags: [B, F] int32 or uint8 byte rows, F <= 65536.
+      lengths: [B] fragment lengths (clamped to [0, F]).
+      cands: [B, F] integer candidates, -1 for none
+        (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
+        candidate outside [0, i) counts as none.
+      skip_base: skip-heuristic start constant (the miss step is
+        ``1 + (skip >> 7)``).
+
+    Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
+    """
+    frags = byte_rows(frags, "frags")
+    B, F = frags.shape
+    lengths = lengths_vector(lengths, B, "lengths")
+    if not 0 < F <= BLOCK_SIZE:
+        raise ValueError(f"fragment width must be in (0, {BLOCK_SIZE}], got {F}")
+    if not isinstance(cands, torch.Tensor) or cands.shape != (B, F):
+        raise ValueError(f"cands must be a tensor of shape ({B}, {F})")
+    if cands.dtype.is_floating_point or cands.dtype == torch.bool:
+        raise ValueError(f"cands must be integers, not {cands.dtype}")
+    cands = cands.to(torch.int32).contiguous()
+    if not on_cuda(frags, lengths, cands):
+        return encode_best_plain(frags, lengths, cands, skip_base)
+    W = body_width(F)
+    bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
+    body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
+    _build.launch(
+        "encode_best", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+        cands.data_ptr(), skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
+    )
+    return bodies, body_lens
+
+
+def encode_blocks_best(frags, lengths, widths: tuple | None = None, skip_base: int = 32):
+    """``level="best"`` encode (``encode_blocks_best`` contract): the
+    exact-nearest multi-width candidates, then the best-mode walk.
+
+    Returns ``(bodies int32[B, F + 2048], body_lens int32[B])``.
+    """
+    frags = byte_rows(frags, "frags")
+    lengths = lengths_vector(lengths, frags.shape[0], "lengths")
+    cands = exact_candidates(frags, lengths, DEFAULT_WIDTHS if widths is None else widths)
+    bodies, body_lens = _encode_best(frags, lengths, cands, skip_base)
+    return bodies[:, : frags.shape[1] + 2048].to(torch.int32), body_lens
+
+
+# ---------------------------------------------------------------------------
+# Match-extension probe (test hook)
+# ---------------------------------------------------------------------------
+
+
+def match_extension_probe_plain(bufs: torch.Tensor, ats: torch.Tensor, cands: torch.Tensor,
+                                ns: torch.Tensor) -> torch.Tensor:
+    """Plain version of the probe kernel on CPU uint8 rows and clamped
+    int32 arguments."""
+    out = np.zeros(bufs.shape[0], np.int32)
+    for b, (row, at, cand, n) in enumerate(zip(
+            bufs.numpy(), ats.tolist(), cands.tolist(), ns.tolist())):
+        buf = row.tobytes()  # a slice past the end is short: zeros above
+
+        def key(i, buf=buf):
+            return int.from_bytes(buf[i : i + 4], "little")
+
+        out[b] = _extend(key, at, cand, n)
+    return torch.from_numpy(out)
+
+
+def match_extension_probe(bufs, ats, cands, ns):
+    """TEST HOOK: the encoders' extension walk, once per row.
+
+    Args:
+      bufs: [B, CC] int32 or uint8 byte rows; bytes outside a row read as
+        zero.
+      ats, cands, ns: [B] match position, candidate position and buffer
+        length per row. Precondition, as in the encoders: the 4 bytes at
+        ``ats`` and ``cands`` are equal and ``cands < ats``. ``ns`` is
+        clamped to [0, CC], ``ats`` to [0, n] and ``cands`` to [0, CC].
+
+    Returns int32[B] full match lengths (``match_extension_probe``
+    contract), which the FindMatchLength golden vectors pin.
+    """
+    bufs = byte_rows(bufs, "bufs")
+    B, cc = bufs.shape
+    ns = lengths_vector(ns, B, "ns").clamp(0, cc)
+    ats = torch.minimum(lengths_vector(ats, B, "ats").clamp(min=0), ns)
+    cands = lengths_vector(cands, B, "cands").clamp(0, cc)
+    if not on_cuda(bufs, ats, cands, ns):
+        return match_extension_probe_plain(bufs, ats, cands, ns)
+    out = torch.empty(B, dtype=torch.int32, device=bufs.device)
+    _build.launch(
+        "probe", bufs.device, bufs.data_ptr(), cc, ats.data_ptr(), cands.data_ptr(),
+        ns.data_ptr(), B, out.data_ptr(),
+    )
+    return out

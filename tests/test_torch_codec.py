@@ -217,8 +217,15 @@ def test_port_imports_neither_jax_nor_reference():
         import snappier_tpu_torch
         import snappier_tpu_torch.convert
         import snappier_tpu_torch.format.oracle
+        import snappier_tpu_torch.ops.best_match
         import snappier_tpu_torch.ops.cuda.crc32c
         import snappier_tpu_torch.ops.cuda.scalar_codec
+        import snappier_tpu_torch.runtime.block
+        import snappier_tpu_torch.runtime.native
+        import snappier_tpu_torch.runtime.prescan
+        import snappier_tpu_torch.utils.pool
+        import snappier_tpu_torch.utils.profiling
+        snappier_tpu_torch.runtime.native.load()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "snappier_tpu" or m.startswith("snappier_tpu."))

@@ -16,19 +16,33 @@ import numpy as np
 import pytest
 import torch
 
+import snappier_tpu_torch as st
 from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.format import oracle
+from snappier_tpu_torch.ops.best_match import exact_candidates
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
+    _encode_best,
     decode_blocks_bytes,
     decode_blocks_plain,
+    encode_best_plain,
     encode_blocks_bytes,
     encode_blocks_plain,
+    match_extension_probe,
 )
-# Imported by its own name (pytest puts this directory on sys.path): a
+# Imported by their own names (pytest puts this directory on sys.path): a
 # package named ``tests`` elsewhere on the path may shadow ``tests.``.
-from torch_cases import block_stream, corrupt_streams, encode_rows, pack_streams
+from test_match_length import VECTORS, _layout
+from torch_cases import (
+    best_rows,
+    block_stream,
+    corrupt_streams,
+    encode_rows,
+    html_like,
+    pack_streams,
+    planted_matches,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +122,68 @@ def test_cuda_codec_matches_cpu_codec(cuda_device):
     for i, n in enumerate(lens.tolist()):
         blk = block_stream(n, cb[i, : cl[i]].numpy())
         assert oracle.decompress(blk) == frags[i, :n].astype(np.uint8).tobytes(), i
+
+
+@pytest.mark.parametrize("F", [4096, 65536])
+def test_cuda_best_kernel_matches_plain(cuda_device, F):
+    frags, lens = best_rows(F, lens=(F, F - 7, 3000, 17, 1, 0))
+    f_c, l_c = _t(frags).to(cuda_device), _t(lens).to(cuda_device)
+    cands = exact_candidates(f_c, l_c)
+    assert (cands.cpu() == exact_candidates(_t(frags), _t(lens))).all()
+    _build.reset_launches()
+    bodies, body_lens = _encode_best(f_c, l_c, cands)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"encode_best": 1}
+    p_bodies, p_lens = encode_best_plain(_t(frags.astype(np.uint8)), _t(lens), cands.cpu(), 32)
+    assert (body_lens.cpu() == p_lens).all()
+    _rows_equal(bodies, p_bodies, p_lens)
+    for i, n in enumerate(lens.tolist()):
+        assert oracle.decompress(block_stream(n, p_bodies[i, : p_lens[i]].numpy())) == (
+            frags[i, :n].astype(np.uint8).tobytes()), i
+
+
+def test_cuda_probe_matches_plain(cuda_device):
+    golden = [(e, *_layout(s1, s2, ln)) for e, s1, s2, ln in VECTORS if e >= 4]
+    g_bufs = np.zeros((len(golden), 65536), np.uint8)
+    for i, (_, buf, _, _) in enumerate(golden):
+        g_bufs[i, : len(buf)] = np.frombuffer(buf, np.uint8)
+    bufs, ats, cands, ns, planted = planted_matches(64, 65536)
+    bufs = np.concatenate([g_bufs, bufs])
+    ats = np.concatenate([[g[2] for g in golden], ats]).astype(np.int32)
+    cands = np.concatenate([np.zeros(len(golden)), cands]).astype(np.int32)
+    ns = np.concatenate([[g[3] for g in golden], ns]).astype(np.int32)
+    args = [_t(x) for x in (bufs, ats, cands, ns)]
+    _build.reset_launches()
+    got = match_extension_probe(*(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"probe": 1}
+    want = match_extension_probe(*args)
+    assert (got.cpu() == want).all()
+    assert got.cpu().tolist() == [g[0] for g in golden] + planted.tolist()
+    clamped = [torch.tensor([4, -5, 8]), torch.tensor([0, 0, 99]), torch.tensor([1 << 30, 16, 12])]
+    narrow = torch.zeros((3, 16), dtype=torch.uint8)
+    assert match_extension_probe(narrow.to(cuda_device),
+                                 *(c.to(cuda_device) for c in clamped)).tolist() == [12, 16, 4]
+
+
+def test_cuda_facade_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    datas = [b"", b"abc", html_like(20000, 1).tobytes(),
+             html_like(150_000, 2).tobytes() + rng.integers(0, 256, 9000, np.uint8).tobytes()]
+    for data in datas:
+        for level in ("fast", "best"):
+            _build.reset_launches()
+            comp = st.compress(data, level=level)
+            assert _build.LAUNCHES["encode_best" if level == "best" else "encode"] == 1
+            assert comp == st.compress(data, level=level, device="cpu")
+            _build.reset_launches()
+            assert st.decompress(comp) == data
+            assert _build.LAUNCHES["decode"] == 1
+    data = datas[-1]
+    comp = st.compress(data)
+    out = bytearray(len(data))
+    assert st.decompress_into(comp, out) == len(data) and bytes(out) == data
+    with st.compress_to_memory(data) as m:
+        assert bytes(m) == comp
+    with pytest.raises(st.InvalidDataError):
+        st.decompress(comp[:-4])

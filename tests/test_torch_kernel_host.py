@@ -21,11 +21,21 @@ import pytest
 
 from snappier_tpu.format import oracle
 from snappier_tpu.format.varint import write_varint
+from snappier_tpu.ops.best_match import exact_candidates
 from snappier_tpu.ops.pallas.scalar_codec import (
+    _encode_best_pallas,
     decode_blocks_scalar,
     encode_blocks_scalar,
+    match_extension_probe,
 )
-from tests.torch_cases import corrupt_streams, encode_rows, pack_streams
+from tests.test_match_length import VECTORS, _layout
+from tests.torch_cases import (
+    best_rows,
+    corrupt_streams,
+    encode_rows,
+    pack_streams,
+    planted_matches,
+)
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "snappier_tpu_torch" / "csrc"
 
@@ -113,6 +123,31 @@ extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t*
                                        bodies + b * body_w);
   }
 }
+
+extern "C" void host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                 const int32_t* cands, int64_t batch, int32_t skip_base,
+                                 uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
+  std::vector<uint16_t> c16(frag_w);
+  std::vector<uint8_t> s(frag_w + 8);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (int32_t i = 0; i < n; i++) {
+      int32_t c = cands[b * frag_w + i];
+      c16[i] = (c >= 0 && c < i) ? (uint16_t)c : sc::EMPTY;
+    }
+    for (int64_t i = 0; i < frag_w + 8; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
+    body_lens[b] = sc::encode_fragment_best(s.data(), n, c16.data(), skip_base,
+                                            bodies + b * body_w);
+  }
+}
+
+extern "C" void host_probe(const uint8_t* bufs, int64_t cc, const int32_t* ats,
+                           const int32_t* cands, const int32_t* ns, int64_t batch,
+                           int32_t* out) {
+  for (int64_t b = 0; b < batch; b++) {
+    out[b] = sc::match_extension_row(bufs + b * cc, cc, ats[b], cands[b], ns[b]);
+  }
+}
 """
 
 
@@ -135,6 +170,10 @@ def host_lib(tmp_path_factory):
     so.host_decode.restype = None
     so.host_encode.argtypes = [P, I64, P, I64, I32, I32, P, I64, P]
     so.host_encode.restype = None
+    so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, P, I64, P]
+    so.host_encode_best.restype = None
+    so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
+    so.host_probe.restype = None
     return so
 
 
@@ -189,3 +228,38 @@ def test_host_decode_walk_matches_jax(host_lib, nlanes):
     assert (out_lens == ref[1]).all()
     for i in range(len(streams)):
         assert (out[i, : out_lens[i]] == ref[0][i, : ref[1][i]]).all(), i
+
+
+def test_host_best_walk_matches_jax(host_lib):
+    frags, lens = best_rows(4096, seed=8)
+    cands = np.asarray(exact_candidates(jnp.asarray(frags), jnp.asarray(lens)), np.int32)
+    ref_b, ref_l = (np.asarray(x) for x in _encode_best_pallas(
+        jnp.asarray(frags), jnp.asarray(lens), jnp.asarray(cands), interpret=True))
+    f8 = np.ascontiguousarray(frags, np.uint8)
+    B, F = f8.shape
+    bodies = np.zeros((B, F + 2048), np.uint8)
+    body_lens = np.zeros(B, np.int32)
+    host_lib.host_encode_best(f8.ctypes.data, F, lens.ctypes.data, cands.ctypes.data, B, 32,
+                              bodies.ctypes.data, F + 2048, body_lens.ctypes.data)
+    assert (body_lens == ref_l).all(), (body_lens, ref_l)
+    for i in range(B):
+        assert (bodies[i, : body_lens[i]] == ref_b[i, : ref_l[i]]).all(), i
+
+
+def test_host_probe_walk_matches_jax(host_lib):
+    golden = [(e, *_layout(s1, s2, ln)) for e, s1, s2, ln in VECTORS if e >= 4]
+    g_bufs = np.zeros((len(golden), 8192), np.uint8)
+    for i, (_, buf, _, _) in enumerate(golden):
+        g_bufs[i, : len(buf)] = np.frombuffer(buf, np.uint8)
+    bufs, ats, cands, ns, _ = planted_matches(16, 8192, seed=12)
+    bufs = np.ascontiguousarray(np.concatenate([g_bufs, bufs]))
+    ats = np.concatenate([[g[2] for g in golden], ats]).astype(np.int32)
+    cands = np.concatenate([np.zeros(len(golden)), cands]).astype(np.int32)
+    ns = np.concatenate([[g[3] for g in golden], ns]).astype(np.int32)
+    ref = np.asarray(match_extension_probe(jnp.asarray(bufs.astype(np.int32)), ats, cands, ns,
+                                           interpret=True))
+    out = np.zeros(len(ats), np.int32)
+    host_lib.host_probe(bufs.ctypes.data, bufs.shape[1], ats.ctypes.data, cands.ctypes.data,
+                        ns.ctypes.data, len(ats), out.ctypes.data)
+    assert (out == ref).all(), (out, ref)
+    assert (out[: len(golden)] == [g[0] for g in golden]).all()

@@ -43,6 +43,45 @@ def encode_rows(F: int, seed: int = 1):
     return frags, np.array(lens, np.int32)
 
 
+def best_rows(F: int = 4096, seed: int = 3, lens=(4096, 3000, 17, 1, 0)):
+    """Rows for the candidate search and the best-mode walk: markup,
+    period-1..7 patterns, random bytes and zeros, each at every length in
+    ``lens``, with random garbage past each length. Returns
+    (frags int32[B, F], lengths int32[B])."""
+    rng = np.random.default_rng(seed)
+    kinds = [html_like(F, seed)] + [np.tile(rng.integers(0, 256, p), F)[:F] for p in range(1, 8)]
+    kinds += [rng.integers(0, 256, F), np.zeros(F, np.int64)]
+    rows, lengths = [], []
+    for kind in kinds:
+        for n in lens:
+            row = rng.integers(0, 256, F)
+            row[:n] = kind[:n]
+            rows.append(row)
+            lengths.append(n)
+    return np.stack(rows).astype(np.int32), np.array(lengths, np.int32)
+
+
+def planted_matches(B: int, cc: int, seed: int = 11):
+    """Probe rows of random bytes, each with a match planted: the bytes at
+    ``cand`` are copied to ``at`` for a random length, then one differing
+    byte. Returns (bufs uint8[B, cc], ats, cands, ns int32[B], lengths of
+    the planted matches)."""
+    rng = np.random.default_rng(seed)
+    bufs = rng.integers(0, 256, (B, cc), dtype=np.uint8)
+    ats, cands, ns, planted = (np.zeros(B, np.int32) for _ in range(4))
+    for b in range(B):
+        m = int(rng.integers(4, min(4096, cc // 4)))
+        cand = int(rng.integers(0, cc // 4))
+        at = int(rng.integers(cand + 1, cc - m))
+        for i in range(m):  # byte by byte: the source may overlap the copy
+            bufs[b, at + i] = bufs[b, cand + i]
+        if at + m < cc:
+            bufs[b, at + m] = bufs[b, cand + m] ^ 0x5A
+        n = int(rng.integers(at + 4, cc + 1))
+        ats[b], cands[b], ns[b], planted[b] = at, cand, n, min(m, n - at)
+    return bufs, ats, cands, ns, planted
+
+
 def corrupt_streams() -> list[bytes]:
     """Malformed and edge-case blocks (tests/test_scalar_kernels.py:89-105
     and :187-276, plus one of each walk failure)."""
