@@ -7,6 +7,9 @@ card, ``nvcc`` (the kernels are built from ``snappier_tpu_torch/csrc`` into
 runtime in ``native/``) and no network. Phases, each of which raises on
 failure:
 
+0. liveness: ``device_alive`` compiles the salted one-line kernel of
+   ``csrc/watch.cu`` afresh, launches it and checks it against its plain
+   version, before anything else is built;
 1. the card's name and power limit (``nvidia-smi``); build the kernels;
 2. each kernel against its plain version on the same inputs, with edge and
    corrupt rows (exact equality: the kernels compute bytes, bits and match
@@ -25,10 +28,24 @@ failure:
    larger than fast, the best stream decoded independently by the native
    engine; ``*_into``, ``*_to_memory`` and a corrupt input on 1 MiB; then
    host wall-clock per facade call and CUDA-event times of the candidate
-   search and the new kernels.
+   search and the new kernels;
+6. the framing format and the stream layers at full size: 128 MiB (2,048
+   chunks, every eighth of random bytes, so both chunk types occur)
+   through ``stream_compress`` and ``stream_decompress`` on the card in 8
+   pipelined sub-batches, round trip exact, with the host CRC functions
+   forbidden where the kernel must compute the CRC; the stream decoded by
+   the native engine and (a 4 MiB prefix) by the framing oracle; a
+   native-made stream decoded on the card; ``SnappyWriter`` /
+   ``SnappyReader`` on 32 MiB at 8 KiB and 1 MiB transfers; the async
+   twins; ``compress_iter`` / ``decompress_iter``; corrupt probes; the
+   decode-side function (decode, CRC32C of the decoded rows, packing) on
+   the card against the CPU; then timings: host wall-clock per call with
+   the pipeline as it is and with every sub-batch fetched before the next
+   is staged, and the stages of a sub-batch each timed alone.
 
-Each path (probe, codec, facade) runs with the launch counts set to 0 just
-before it and read just after; every kernel of a path must have launched.
+Each path (liveness, probe, codec, facade, stream) runs with the launch
+counts set to 0 just before it and read just after; every kernel of a path
+must have launched.
 The line before the last is a JSON object listing each kernel with its
 launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
@@ -36,7 +53,9 @@ time; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -61,13 +80,18 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
                     "snappier_tpu/ops/pallas/scalar_codec.py:964"),
     "probe": ("match_extension_probe", "snappier_tpu_torch/csrc/probe.cu",
               "snappier_tpu/ops/pallas/scalar_codec.py:704"),
+    "watch": ("device_alive", "snappier_tpu_torch/csrc/watch.cu", "tools/tpu_watch.sh:23"),
 }
 PATHS = {  # path -> the kernels it must launch
+    "liveness": ("watch",),
     "probe": ("probe",),
     "codec": ("encode", "decode", "crc32c"),
     "facade": ("encode", "encode_best", "decode"),
+    "stream": ("encode", "crc32c", "decode"),
 }
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
+STREAM_CHUNKS = 2048  # 128 MiB: 8 sub-batches of 256 chunks
+MIB = 1 << 20
 
 
 def card_line() -> str:
@@ -364,6 +388,253 @@ def phase_facade(torch, st, block, native, prescan, _build, raw: bytes):
     return launches, fast, best
 
 
+def phase_liveness(torch, watch, _build):
+    """Phase 0: the salted kernel compiles afresh, launches and agrees with
+    its plain version. Returns (max_abs_err, launches on the path, kernel
+    ms, plain ms on the CPU, ``torch.add`` ms on the card)."""
+    salt = watch.fresh_salt()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    y = watch.device_alive(salt)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches.get("watch", 0) == 1, "kernel watch did not launch on the liveness path")
+    x_h = torch.arange(y.numel(), dtype=torch.int32).reshape(watch.SHAPE)
+    err = max_abs_err([(y.cpu().numpy(), watch.add_salt_plain(x_h, salt).numpy())])
+    check(err == 0 and int(y[0, 0]) == salt, "liveness kernel differs from its plain version")
+    check(not list(_build.BUILD_DIR.glob("libwatch-*")), "a salted library was left in build/")
+    print(f"liveness: salt {salt}, fresh compile + launch + check in {secs:.2f} s, "
+          f"max_abs_err {err}")
+    x = x_h.cuda()
+    with watch.salted_launcher(salt + 1) as fn:  # one more build, kept for the timing
+        ms = cuda_ms(lambda: watch.add_salt(x, salt + 1, fn), iters=50)
+    plain_ms = min(host_ms(lambda: watch.add_salt_plain(x_h, salt)) for _ in range(5))
+    return err, launches, ms, plain_ms, cuda_ms(lambda: torch.add(x, salt), iters=50)
+
+
+def stream_bytes(n_chunks: int) -> bytes:
+    """``n_chunks`` x 64 KiB of the word mix with every eighth chunk random
+    bytes, so a stream of it holds compressed and stored chunks."""
+    html = word_mix()
+    rows = np.frombuffer((html * (-(-n_chunks * BLOCK // len(html))))[: n_chunks * BLOCK],
+                         np.uint8).reshape(n_chunks, BLOCK).copy()
+    rng = np.random.default_rng(23)
+    rows[7::8] = rng.integers(0, 256, (len(rows[7::8]), BLOCK), dtype=np.uint8)
+    return rows.tobytes()
+
+
+def expect_invalid(st, what: str, fn) -> None:
+    try:
+        fn()
+    except st.InvalidDataError:
+        return
+    raise AssertionError(f"{what} was accepted")
+
+
+def phase_streams(torch, card: str):
+    """Phase 6: the stream entry points at full size. Returns the launches
+    of the one-shot round trip."""
+    import snappier_tpu_torch as st
+    from snappier_tpu_torch.format import framing
+    from snappier_tpu_torch.models.codec import compact_words
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import crc32c as crc
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+    from snappier_tpu_torch.runtime import incremental, native
+    from snappier_tpu_torch.runtime import stream as S
+
+    dev = torch.device("cuda")
+    raw = stream_bytes(STREAM_CHUNKS)
+    n_sub = STREAM_CHUNKS // S._SUB_BATCH
+    n_stored = STREAM_CHUNKS // 8
+    n_sub_read = -(-(STREAM_CHUNKS - n_stored) // S._SUB_BATCH)
+
+    # The one-shot round trip. On the write side no host CRC may run at all,
+    # on the read side none of a decoded chunk (stored chunks are checked on
+    # the host while the feed is parsed).
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with forbidden(S, "crc32c"), forbidden(native, "crc32c"):
+        framed = st.stream_compress(raw)
+    torch.cuda.synchronize()
+    wrote = dict(_build.LAUNCHES)
+    check(wrote == {"encode": n_sub, "crc32c": n_sub}, f"write-side launches {wrote}")
+    with forbidden(S, "_host_crc_of_decoded"):
+        back = st.stream_decompress(framed)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches == {"encode": n_sub, "crc32c": n_sub + n_sub_read, "decode": n_sub_read},
+          f"stream path launches {launches}")
+    for k in PATHS["stream"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the stream path")
+    check(back == raw, "stream round trip differs")
+    types = [t for t, _, _ in framing.iter_chunks(framed)]
+    check(types.count(0x00) == STREAM_CHUNKS - n_stored and types.count(0x01) == n_stored,
+          "chunk types of the stream")
+    print(f"stream path launches: {launches}; {len(raw)} B round trip exact, "
+          f"{len(framed)} B framed ({types.count(0)} compressed and {types.count(1)} stored chunks)")
+
+    check(native.stream_decompress(framed) == raw, "native decode of the device stream differs")
+    small = raw[: 4 * MIB]
+    framed_small = st.stream_compress(small)
+    check(framed_small == framed[: len(framed_small)], "a prefix's stream is not a stream prefix")
+    check(framing.frame_decompress(framed_small) == small, "framing oracle decode differs")
+    part = raw[: 32 * MIB]
+    check(st.stream_decompress(native.stream_compress(part)) == part,
+          "device decode of a native stream differs")
+    print("device stream decodes through the native engine and the framing oracle; "
+          "a native stream decodes on the card")
+
+    reader_ms = {}
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    with st.SnappyWriter(sink, leave_open=True) as w:
+        for i in range(0, len(part), MIB):
+            w.write(part[i : i + MIB])
+    writer_ms = (time.perf_counter() - t0) * 1e3
+    check(sink.getvalue() == framed[: len(sink.getvalue())] and st.stream_decompress(
+        sink.getvalue()) == part, "SnappyWriter stream differs")
+    for transfer in (8192, MIB):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with st.SnappyReader(io.BytesIO(sink.getvalue()), transfer_size=transfer) as r:
+            got = r.read()
+        reader_ms[transfer] = (time.perf_counter() - t0) * 1e3
+        check(got == part, f"SnappyReader at {transfer} B transfers differs")
+        print(f"SnappyReader on {len(part)} B at {transfer} B transfers: "
+              f"{_build.LAUNCHES['decode']} decode launches, {reader_ms[transfer]:.1f} ms")
+
+    async def twins():
+        out = io.BytesIO()
+        async with st.AsyncSnappyWriter(out, leave_open=True) as w:
+            for i in range(0, len(small), MIB):
+                await w.write(small[i : i + MIB])
+        async with st.AsyncSnappyReader(io.BytesIO(out.getvalue())) as r:
+            return out.getvalue(), await r.read()
+
+    a_framed, a_back = asyncio.run(twins())
+    check(a_framed == framed_small and a_back == small, "async twins differ")
+
+    half = raw[: 16 * MIB]
+    pieces = [half[i : i + MIB + 1] for i in range(0, len(half), MIB + 1)]
+    comp = incremental.compress_iter(pieces)
+    check(comp == st.compress(half), "compress_iter differs from compress")
+    sunk = []
+    n = incremental.compress_iter(pieces, writer=sunk.append, batch_blocks=32)
+    check(n == len(comp) and b"".join(sunk) == comp, "compress_iter writer mode differs")
+    blocks = [comp[i : i + 65521] for i in range(0, len(comp), 65521)]
+    check(incremental.decompress_iter(blocks) == half, "decompress_iter differs")
+    sunk = []
+    check(incremental.decompress_iter(blocks, writer=sunk.append) == len(half)
+          and b"".join(sunk) == half, "decompress_iter writer mode differs")
+    print("SnappyWriter, async twins on 4 MiB and compress_iter / decompress_iter on 16 MiB ok")
+
+    flip = lambda s, i: s[:i] + bytes([s[i] ^ 0xFF]) + s[i + 1 :]  # noqa: E731
+    f1 = st.stream_compress(raw[: MIB])
+    expect_invalid(st, "a flipped CRC byte", lambda: st.stream_decompress(flip(f1, 14)))
+    expect_invalid(st, "a flipped payload byte", lambda: st.stream_decompress(flip(f1, 5000)))
+    expect_invalid(st, "a flipped stored byte",
+                   lambda: st.stream_decompress(flip(f1, len(f1) - 1)))
+    expect_invalid(st, "a truncated tail", lambda: st.stream_decompress(f1[:-3]))
+    expect_invalid(st, "a headerless stream", lambda: st.stream_decompress(f1[10:]))
+    expect_invalid(st, "an unknown unskippable chunk type", lambda: st.stream_decompress(
+        f1[:10] + bytes([0x40, 1, 0, 0, 0]) + f1[10:]))
+    ok = f1[:10] + bytes([0xFE, 2, 0, 0, 0, 0]) + bytes([0x90, 1, 0, 0, 7]) + f1[10:]
+    check(st.stream_decompress(ok) == raw[: MIB], "skippable and padding chunks")
+    check(st.stream_compress(b"") == framed[:10] and st.stream_decompress(framed[:10]) == b"",
+          "empty stream")
+    print("corrupt probes raise InvalidDataError; skippable and padding chunks are skipped")
+
+    # The decode-side function on the card against the CPU, on a few rows.
+    payloads = [p[4:] for t, p, _ in framing.iter_chunks(f1) if t == 0x00][:6]
+    payloads.append(bytes([100, 4 << 2]) + b"abcde")  # claims 100 bytes, holds 5
+    width = -(-max(len(p) for p in payloads) // 16) * 16
+    comp_h = np.zeros((len(payloads), width), np.uint8)
+    for i, pl in enumerate(payloads):
+        comp_h[i, : len(pl)] = np.frombuffer(pl, np.uint8)
+    lens_h = np.array([len(pl) for pl in payloads], np.int32)
+    on_card = S._decode_crc_pack(torch.from_numpy(comp_h).to(dev), torch.from_numpy(lens_h).to(dev))
+    on_cpu = S._decode_crc_pack(torch.from_numpy(comp_h), torch.from_numpy(lens_h))
+    for name, a, b in zip(("out_lens", "errs", "crcs"), on_card[1:], on_cpu[1:]):
+        check(bool((a.cpu() == b).all()), f"decode-side {name} differ between card and CPU")
+    for i, n in enumerate(on_cpu[1].tolist()):
+        check(bool((on_card[0][i].cpu().view(torch.uint8)[:n] == on_cpu[0][i].view(
+            torch.uint8)[:n]).all()), f"decode-side row {i} differs")
+    errs_h = on_cpu[2].tolist()
+    check(not any(errs_h[:-1]) and errs_h[-1] != 0, f"decode-side errors {errs_h}")
+    print("decode-side function (decode, CRC32C of the decoded rows, packing): card == CPU")
+
+    # --- timings ---------------------------------------------------------------
+    def with_depth(depth: int, fn):
+        saved = S._PIPELINE_DEPTH
+        S._PIPELINE_DEPTH = depth
+        try:
+            return best_host_ms(fn, passes=2)
+        finally:
+            S._PIPELINE_DEPTH = saved
+
+    t = {"compress_ms": [], "compress_serial_ms": [], "decompress_ms": [],
+         "decompress_serial_ms": []}
+    for _ in range(2):  # pipelined, serial, serial, pipelined: one card, in turns
+        for depth, tag in ((3, ""), (0, "_serial"), (0, "_serial"), (3, "")):
+            t[f"compress{tag}_ms"].append(with_depth(depth, lambda: st.stream_compress(raw)))
+            t[f"decompress{tag}_ms"].append(with_depth(depth, lambda: st.stream_decompress(framed)))
+    wall = {k: min(v) for k, v in t.items()}
+
+    # The stages of one sub-batch, each alone: host staging, the copy across,
+    # the device graph (kernels inside it timed by themselves), the fetch.
+    chunks = [raw[i : i + BLOCK] for i in range(0, S._SUB_BATCH * BLOCK, BLOCK)]
+
+    def stage_chunks():
+        stage = S._Stage(len(chunks), BLOCK, dev)
+        for j, c in enumerate(chunks):
+            stage.rows[j] = np.frombuffer(c, np.uint8)
+            stage.lens[j] = len(c)
+        return stage
+
+    stage = stage_chunks()
+    frags, lengths = stage.to(dev)
+    codec = st.SnappyCodec(with_crc=True)
+    packed, flens = codec.frame_batch_packed(frags, lengths)
+    wl = (flens + 3) >> 2
+    total_w = int(wl.sum())
+    comp_rows = [p[4:] for t_, p, _ in framing.iter_chunks(framed) if t_ == 0x00][: S._SUB_BATCH]
+    cw = -(-max(len(p) for p in comp_rows) // 16) * 16
+    cstage = S._Stage(len(comp_rows), cw, dev)
+    for j, pl in enumerate(comp_rows):
+        cstage.rows[j, : len(pl)] = np.frombuffer(pl, np.uint8)
+        cstage.lens[j] = len(pl)
+    comp_d, clens_d = cstage.to(dev)
+    outs = sc.decode_blocks_bytes(comp_d, clens_d, BLOCK)
+    sub = {
+        "stage_256_chunks_host_ms": best_host_ms(lambda: stage_chunks().release()),
+        "copy_across_ms": cuda_ms(lambda: stage.to(dev)),
+        "frame_batch_packed_ms": cuda_ms(lambda: codec.frame_batch_packed(frags, lengths)),
+        "encode_256_ms": cuda_ms(lambda: sc.encode_blocks_bytes(frags, lengths)),
+        "crc_256_ms": cuda_ms(lambda: crc.crc32c_blocks(frags, lengths)),
+        "compact_ms": cuda_ms(lambda: compact_words(packed, wl, total_w)),
+        "fetch_framed_ms": best_host_ms(lambda: compact_words(packed, wl, total_w).cpu()),
+        "decode_crc_pack_ms": cuda_ms(lambda: S._decode_crc_pack(comp_d, clens_d)),
+        "decode_256_ms": cuda_ms(lambda: sc.decode_blocks_bytes(comp_d, clens_d, BLOCK)),
+        "crc_decoded_256_ms": cuda_ms(lambda: crc.crc32c_blocks(outs[0], outs[1])),
+        "fetch_decoded_ms": best_host_ms(lambda: outs[0].cpu()),
+        "join_128MiB_host_ms": best_host_ms(lambda: b"".join(chunks * n_sub)),
+    }
+    torch.cuda.synchronize()
+    stage.release()
+    cstage.release()
+    print(json.dumps({
+        "card": card, "stream_bytes": len(raw), "framed_bytes": len(framed),
+        "sub_batches_write": n_sub, "sub_batches_read": n_sub_read, **wall,
+        "compress_gbps": len(raw) / wall["compress_ms"] / 1e6,
+        "decompress_gbps": len(raw) / wall["decompress_ms"] / 1e6,
+        "writer_32MiB_ms": writer_ms, "reader_32MiB_8KiB_ms": reader_ms[8192],
+        "reader_32MiB_1MiB_ms": reader_ms[MIB], "all_runs_ms": t, "per_sub_batch": sub,
+    }))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -380,17 +651,23 @@ def main() -> int:
     from snappier_tpu_torch.ops.cuda import crc32c as crc
     from snappier_tpu_torch.ops.best_match import exact_candidates
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+    from snappier_tpu_torch.ops.cuda import watch
     from snappier_tpu_torch.runtime import block, native, prescan
 
     card = card_line()
     print(card)
     name = torch.cuda.get_device_name(0)
+
+    # --- 0. liveness, before anything else is built ------------------------
+    errs_watch, watch_launches, watch_ms, watch_plain_ms, watch_library_ms = phase_liveness(
+        torch, watch, _build)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
 
     # --- 2. each kernel against its plain version ------------------------
     errs = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
+    errs["watch"] = errs_watch
     errs["probe"], probe_launches, probe_args, probe_expected = phase_probe(torch, sc, _build)
 
     # --- 3. the main path at full size ------------------------------------
@@ -497,6 +774,10 @@ def main() -> int:
         "exact_candidates_ms": t_cands, "encode_best_ms": ms["encode_best"],
         "fast_ratio": len(fast) / len(raw), "best_ratio": len(best) / len(raw),
     }))
+    # --- 6. the framing format and the stream layers at full size ---------------
+    stream_launches = phase_streams(torch, card)
+    ms["watch"] = watch_ms
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -508,9 +789,10 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
+        "watch": watch_plain_ms,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
-                  "probe": len(probe_expected)}
+                  "probe": len(probe_expected), "watch": watch.SHAPE[0]}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -526,13 +808,18 @@ def main() -> int:
         # fragments, lengths, int32 candidates -> bodies, lengths
         "encode_best": n_in + 4 * B + 4 * n_in + n_best + 4 * B,
         "probe": compared + 12 * n_rows + 4 * n_rows,  # bytes, 3 args -> lengths
+        "watch": 2 * 4 * watch.SHAPE[0] * watch.SHAPE[1],  # int32 words in, words out
     }
     # Operations: at least one 32-bit integer step per input byte (a hash,
     # table or candidate step; a decoded byte's store; a compared byte), at
     # the card's 32-bit non-tensor peak. The byte term is the larger one.
     ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
-           "probe": compared}
-    by_path = {"probe": probe_launches, "codec": codec_launches, "facade": facade_launches}
+           "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1]}
+    # One PyTorch call computes what the liveness kernel does (torch.add);
+    # none computes Snappy, CRC32C or a match length.
+    library_ms = {"watch": watch_library_ms}
+    by_path = {"liveness": watch_launches, "probe": probe_launches, "codec": codec_launches,
+               "facade": facade_launches, "stream": stream_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3
@@ -545,7 +832,7 @@ def main() -> int:
             "plain_ms": plain_ms[k], "plain_rows": plain_rows[k], "plain_device": "cpu",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": moved[k], "bound_ops": ops[k], "library_ms": None,
+            "bound_bytes": moved[k], "bound_ops": ops[k], "library_ms": library_ms.get(k),
         })
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -11,6 +11,12 @@ Public facade (parity with the reference's ``Snappy`` class, Snappy.cs):
 >>> comp = st.compress(b"hello hello hello hello hello", device="cpu")
 >>> st.decompress(comp, device="cpu")
 b'hello hello hello hello hello'
+
+and the framing format with its stream classes (SnappyStream.cs):
+
+>>> framed = st.stream_compress(b"hello hello hello hello hello", device="cpu")
+>>> st.stream_decompress(framed, device="cpu")
+b'hello hello hello hello hello'
 """
 
 from snappier_tpu_torch.errors import (  # noqa: F401
@@ -31,5 +37,14 @@ from snappier_tpu_torch.runtime.block import (  # noqa: F401
     get_uncompressed_length,
     try_compress,
     try_decompress,
+)
+from snappier_tpu_torch.runtime.stream import (  # noqa: F401
+    AsyncSnappyReader,
+    AsyncSnappyWriter,
+    SnappyReader,
+    SnappyStream,
+    SnappyWriter,
+    stream_compress,
+    stream_decompress,
 )
 from snappier_tpu_torch.utils.pool import PooledMemory  # noqa: F401

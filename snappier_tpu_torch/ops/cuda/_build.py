@@ -6,6 +6,8 @@ loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
 Libraries land in ``build/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. :func:`build_all` starts every ``nvcc`` at once.
+``csrc/watch.cu`` is the exception: :mod:`snappier_tpu_torch.ops.cuda.watch`
+compiles it anew at every call, which is its purpose.
 
 Every wrapper counts its launches in :data:`LAUNCHES`, so a caller can
 show that a run went through the kernels.
@@ -78,35 +80,44 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def start_nvcc(name: str, out: pathlib.Path, defines: tuple = ()):
+    """Start nvcc for ``csrc/<name>.cu`` into the library ``out`` with the
+    given ``-D`` definitions; returns the running process."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC),
+           "-o", str(out), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def finish_nvcc(proc, what: str) -> None:
+    """Wait for an nvcc run and raise with its output if it failed."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {what} ({proc.returncode}):\n" + out.decode(errors="replace")
+        )
+
+
 def _start_build(name: str):
     """Start nvcc for one source unless its library exists; returns the
     running process (or None) and the library path."""
     path = _lib_path(name)
     if path.exists():
         return None, path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return (proc, tmp), path
+    return (start_nvcc(name, tmp), tmp), path
 
 
 def _finish_build(started, path: pathlib.Path) -> None:
     if started is None:
         return
     proc, tmp = started
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {path.name} ({proc.returncode}):\n"
-            + out.decode(errors="replace")
-        )
+    finish_nvcc(proc, path.name)
     os.replace(tmp, path)  # atomic: a concurrent builder sees a whole file
 
 
-def _bind(name: str, path: pathlib.Path):
-    symbol, argtypes = SOURCES[name]
+def bind(path: pathlib.Path, symbol: str, argtypes: list):
+    """The C launcher ``symbol`` of the library at ``path``."""
     fn = getattr(ctypes.CDLL(str(path)), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -128,7 +139,7 @@ def build_all() -> None:
                     st[0].kill()
                     st[0].wait()
         for n, _, path in started:
-            _launchers[n] = _bind(n, path)
+            _launchers[n] = bind(path, *SOURCES[n])
 
 
 def launcher(name: str):
@@ -139,11 +150,15 @@ def launcher(name: str):
 
 
 def launch(name: str, device, *args) -> None:
-    """Call a launcher on ``device``'s current CUDA stream and raise on a
-    launch error; counts the launch under ``name``."""
+    """Call the launcher of ``csrc/<name>.cu`` on ``device``'s current CUDA
+    stream and raise on a launch error; counts the launch under ``name``."""
+    launch_bound(launcher(name), name, device, *args)
+
+
+def launch_bound(fn, name: str, device, *args) -> None:
+    """:func:`launch` for a launcher bound by the caller."""
     import torch
 
-    fn = launcher(name)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

@@ -6,7 +6,8 @@ library ``native/libsnappy_core.so`` is built on demand by ``make`` with the
 system compiler, under a cross-process lock file, and the entry points
 raise ``RuntimeError`` when no toolchain or library is available.
 ``SNAPPIER_NO_NATIVE=1`` disables it. It serves the ``engine="native"``
-block calls and the fragment prescan of multi-block device decodes.
+block and stream calls, the fragment prescan of multi-block device decodes
+and the host CRC32C of the stream layer.
 """
 
 from __future__ import annotations
@@ -81,6 +82,14 @@ _SIGNATURES = {  # symbol -> (restype, argtypes)
     "stpu_scan_fragments": (
         ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int64),
                        ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]),
+    "stpu_crc32c": (ctypes.c_uint32, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]),
+    "stpu_stream_max_compressed_length": (ctypes.c_size_t, [ctypes.c_size_t]),
+    "stpu_stream_uncompressed_length": (
+        ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint64)]),
+    "stpu_stream_compress": (ctypes.c_int, _BUF_FN),
+    "stpu_stream_decompress": (ctypes.c_int, _BUF_FN),
+    "stpu_stream_compress_mt": (ctypes.c_int, _BUF_FN + [ctypes.c_int]),
+    "stpu_stream_decompress_mt": (ctypes.c_int, _BUF_FN + [ctypes.c_int]),
 }
 
 
@@ -221,13 +230,23 @@ def _block_decompress_raw(lib, data: bytes, out, cap: int, threads: int) -> int:
     return out_len.value
 
 
-def _expected_length(lib, data: bytes) -> int:
+def _preamble_length(lib, data: bytes) -> int:
     val = ctypes.c_uint64()
     if lib.stpu_uncompressed_length(data, len(data), ctypes.byref(val)) != _OK:
         raise InvalidDataError("bad length preamble")
-    if val.value > plausible_uncompressed_bound(len(data)):
-        raise InvalidDataError("length preamble exceeds possible expansion")
     return val.value
+
+
+def get_uncompressed_length(data: bytes) -> int:
+    """The length preamble of a block-format buffer."""
+    return _preamble_length(_require(), bytes(data))
+
+
+def _expected_length(lib, data: bytes) -> int:
+    expected = _preamble_length(lib, data)
+    if expected > plausible_uncompressed_bound(len(data)):
+        raise InvalidDataError("length preamble exceeds possible expansion")
+    return expected
 
 
 def decompress(data: bytes, threads: int = 1) -> bytes:
@@ -269,10 +288,7 @@ def scan_fragments(data: bytes):
     streams."""
     lib = _require()
     data = bytes(data)
-    val = ctypes.c_uint64()
-    if lib.stpu_uncompressed_length(data, len(data), ctypes.byref(val)) != _OK:
-        raise InvalidDataError("bad length preamble")
-    max_frags = val.value // 65536 + 3
+    max_frags = _preamble_length(lib, data) // 65536 + 3
     recs = np.zeros((max_frags, 7), np.int64)
     nf = ctypes.c_size_t()
     rc = lib.stpu_scan_fragments(data, len(data),
@@ -289,3 +305,56 @@ def match_length_test(buf: bytes, a: int, b: int, b_limit: int) -> int:
     """TEST HOOK: the C++ engine's FindMatchLength analog, pinned by the
     golden vectors of ``tests/test_match_length.py``."""
     return int(_require().stpu_match_length_test(bytes(buf), a, b, b_limit))
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C of ``data`` continuing from ``crc`` (hardware CRC where the
+    host has it, else slicing-by-8)."""
+    data = bytes(data)
+    return int(_require().stpu_crc32c(data, len(data), crc))
+
+
+def stream_compress(data: bytes, threads: int = 0) -> bytes:
+    """One-shot framing-format compress in the C++ runtime: chunking,
+    CRC32C, headers and the uncompressed fallback.
+
+    ``threads``: 0 = one worker per hardware thread (capped at the chunk
+    count, so small inputs never spawn), 1 = the serial pipeline, N =
+    exactly N workers. The bytes are the same at every count."""
+    lib = _require()
+    data = bytes(data)
+    cap = lib.stpu_stream_max_compressed_length(len(data))
+    arr = np.empty(cap, np.uint8)
+    out_len = ctypes.c_size_t()
+    if threads != 1:
+        rc = lib.stpu_stream_compress_mt(data, len(data), _ptr(arr), cap, ctypes.byref(out_len),
+                                         threads)
+    else:
+        rc = lib.stpu_stream_compress(data, len(data), _ptr(arr), cap, ctypes.byref(out_len))
+    if rc != _OK:
+        raise InvalidDataError(f"native stream compress failed rc={rc}")
+    return arr[: out_len.value].tobytes()
+
+
+def stream_decompress(data: bytes, threads: int = 0) -> bytes:
+    """One-shot framing-format decompress with full CRC verification.
+    ``threads`` as in :func:`stream_compress`; the verdicts are those of
+    the serial pipeline."""
+    lib = _require()
+    data = bytes(data)
+    total = ctypes.c_uint64()
+    if lib.stpu_stream_uncompressed_length(data, len(data), ctypes.byref(total)) != _OK:
+        raise InvalidDataError("malformed framed stream")
+    cap = total.value + 64  # the decoder's wide copies spill past the end
+    arr = np.empty(cap, np.uint8)
+    out_len = ctypes.c_size_t()
+    if threads != 1:
+        rc = lib.stpu_stream_decompress_mt(data, len(data), _ptr(arr), cap,
+                                           ctypes.byref(out_len), threads)
+    else:
+        rc = lib.stpu_stream_decompress(data, len(data), _ptr(arr), cap, ctypes.byref(out_len))
+    if rc == _INVALID:
+        raise InvalidDataError("corrupt framed stream")
+    if rc != _OK:
+        raise InvalidDataError(f"native stream decompress failed rc={rc}")
+    return arr[: out_len.value].tobytes()

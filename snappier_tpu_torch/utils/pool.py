@@ -6,6 +6,10 @@ are recycled per size bucket to avoid re-allocating multi-megabyte numpy
 arrays on every call. Buffers are NOT zeroed by default, like the
 reference pool, which zeroizes only on dispose
 (ByteArrayPoolMemoryOwner.cs:42): a caller reads only bytes it wrote.
+
+:class:`StagingPool` is the same for the stream layer's transfer buffers:
+flat uint8 host tensors, page-locked when they feed a CUDA device, so
+that a ``non_blocking`` copy really is asynchronous.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import threading
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 
 class BufferPool:
@@ -36,6 +41,33 @@ class BufferPool:
         key = (tuple(buf.shape), buf.dtype.str)
         with self._lock:
             bucket = self._buffers[key]
+            if len(bucket) < self._max:
+                bucket.append(buf)
+
+
+class StagingPool:
+    """Thread-safe pool of flat uint8 host tensors of power-of-two sizes
+    (which bounds the bucket count), keyed by (size, page-locked). A
+    buffer must come back only after every device copy that reads or
+    writes it has finished."""
+
+    def __init__(self, max_per_bucket: int = 8) -> None:
+        self._buffers: dict = defaultdict(list)
+        self._lock = threading.Lock()
+        self._max = max_per_bucket
+
+    def rent(self, nbytes: int, pinned: bool):
+        """A buffer of at least ``nbytes`` bytes (at least 4 KiB)."""
+        size = 1 << max(12, (max(nbytes, 1) - 1).bit_length())
+        with self._lock:
+            bucket = self._buffers[(size, pinned)]
+            if bucket:
+                return bucket.pop()
+        return torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+
+    def giveback(self, buf) -> None:
+        with self._lock:
+            bucket = self._buffers[(buf.numel(), buf.is_pinned())]
             if len(bucket) < self._max:
                 bucket.append(buf)
 
@@ -90,3 +122,6 @@ class PooledMemory:
 
 #: Process-wide default pool used by the runtime staging paths.
 default_pool = BufferPool()
+
+#: Process-wide pool of the stream layer's transfer buffers.
+staging_pool = StagingPool()

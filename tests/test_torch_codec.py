@@ -216,13 +216,17 @@ def test_port_imports_neither_jax_nor_reference():
         import sys
         import snappier_tpu_torch
         import snappier_tpu_torch.convert
+        import snappier_tpu_torch.format.framing
         import snappier_tpu_torch.format.oracle
         import snappier_tpu_torch.ops.best_match
         import snappier_tpu_torch.ops.cuda.crc32c
         import snappier_tpu_torch.ops.cuda.scalar_codec
+        import snappier_tpu_torch.ops.cuda.watch
         import snappier_tpu_torch.runtime.block
+        import snappier_tpu_torch.runtime.incremental
         import snappier_tpu_torch.runtime.native
         import snappier_tpu_torch.runtime.prescan
+        import snappier_tpu_torch.runtime.stream
         import snappier_tpu_torch.utils.pool
         import snappier_tpu_torch.utils.profiling
         snappier_tpu_torch.runtime.native.load()

@@ -12,15 +12,19 @@ Bytes past a row's length are unspecified and never compared.
 
 from __future__ import annotations
 
+import asyncio
+import io
+
 import numpy as np
 import pytest
 import torch
 
 import snappier_tpu_torch as st
+import snappier_tpu_torch.runtime.stream as S
 from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.best_match import exact_candidates
-from snappier_tpu_torch.ops.cuda import _build
+from snappier_tpu_torch.ops.cuda import _build, watch
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
@@ -187,3 +191,76 @@ def test_cuda_facade_matches_cpu(cuda_device):
         assert bytes(m) == comp
     with pytest.raises(st.InvalidDataError):
         st.decompress(comp[:-4])
+
+
+def test_cuda_device_alive_compiles_afresh(cuda_device):
+    x = torch.arange(1024, dtype=torch.int32).reshape(watch.SHAPE)
+    _build.reset_launches()
+    y = watch.device_alive(4242)
+    assert y.device.type == "cuda" and dict(_build.LAUNCHES) == {"watch": 1}
+    assert (y.cpu() == watch.add_salt_plain(x, 4242)).all()
+    assert watch.device_alive()[0, 0].item() >= 0  # a salt of its own, from the clock
+    assert (watch.device_alive(5, device="cpu") == watch.add_salt_plain(x, 5)).all()
+    assert not list(_build.BUILD_DIR.glob("libwatch-*"))  # salted libraries are removed
+    with watch.salted_launcher(7) as fn:  # the salt is compiled in, not passed
+        assert watch.add_salt(x.to(cuda_device), 7, fn)[0, :2].tolist() == [7, 8]
+        assert watch.add_salt(x.to(cuda_device), 9, fn)[0, 0].item() == 7
+    with pytest.raises(ValueError):
+        watch.add_salt(x.to(cuda_device).long(), 1)
+
+
+def test_cuda_stream_matches_cpu(cuda_device, monkeypatch):
+    monkeypatch.setattr(S, "_SUB_BATCH", 4)
+    rng = np.random.default_rng(8)
+    data = (html_like(500_000, 3).tobytes() + rng.integers(0, 256, 70_000, np.uint8).tobytes()
+            + b"x" * 100_000)  # 11 chunks: sub-batches of 4, 4 and 3
+    _build.reset_launches()
+    framed = st.stream_compress(data)
+    assert dict(_build.LAUNCHES) == {"encode": 3, "crc32c": 3}
+    assert framed == st.stream_compress(data, device="cpu")
+    _build.reset_launches()
+    assert st.stream_decompress(framed) == data
+    assert _build.LAUNCHES["decode"] == _build.LAUNCHES["crc32c"] == 3
+    assert st.stream_decompress(framed, engine="oracle") == data
+    assert st.stream_decompress(st.stream_compress(data, engine="oracle")) == data
+    stage = S._Stage(3, 65536, cuda_device)
+    assert stage.buf.is_pinned() and stage.buf[:64].is_pinned()
+    stage.buf.fill_(0xAB)  # the next short chunks are staged over a dirty buffer
+    stage.release()
+    short = [data[:300], data[500_000:500_300], b"q" * 5000]
+    assert S._compress_chunks_batched(short) == S._compress_chunks_batched(short, device="cpu")
+
+    for cut in (14, len(framed) // 2, len(framed) - 1):
+        bad = framed[:cut] + bytes([framed[cut] ^ 0xFF]) + framed[cut + 1 :]
+        with pytest.raises(st.InvalidDataError):
+            st.stream_decompress(bad)
+    with pytest.raises(st.InvalidDataError):
+        st.stream_decompress(framed[:-3])
+    assert st.stream_decompress(framed) == data  # the pipeline is sound after the errors
+
+
+def test_cuda_stream_adapters(cuda_device):
+    data = html_like(200_000, 5).tobytes() + bytes(range(256)) * 40
+    sink = io.BytesIO()
+    with st.SnappyWriter(sink, leave_open=True) as w:
+        for i in range(0, len(data), 30_000):
+            w.write(data[i : i + 30_000])
+    assert sink.getvalue() == st.stream_compress(data, device="cpu")
+    for transfer in (7, 8192):
+        _build.reset_launches()
+        with st.SnappyReader(io.BytesIO(sink.getvalue()), transfer_size=transfer) as r:
+            assert r.read() == data
+        # A chunk a batch, but for chunks that end within one transfer.
+        assert _build.LAUNCHES["decode"] == _build.LAUNCHES["crc32c"]
+        assert _build.LAUNCHES["decode"] == 4 if transfer == 7 else 2 <= _build.LAUNCHES["decode"] <= 4
+
+    async def twins():
+        out = io.BytesIO()
+        async with st.AsyncSnappyWriter(out, leave_open=True) as w:
+            await asyncio.gather(*(w.write(data[i : i + 50_000])
+                                   for i in range(0, len(data), 50_000)))
+        async with st.AsyncSnappyReader(io.BytesIO(out.getvalue())) as r:
+            return out.getvalue(), await r.read()
+
+    framed, back = asyncio.run(twins())
+    assert framed == sink.getvalue() and back == data

@@ -140,3 +140,24 @@ def pack_streams(streams, cc: int, garbage_seed: int | None = 5):
 def block_stream(n: int, body: np.ndarray) -> bytes:
     """A whole block: varint(n) + body."""
     return write_varint(int(n)) + np.asarray(body, np.uint8).tobytes()
+
+
+def stream_inputs() -> dict[str, bytes]:
+    """Buffers for the framing and stream tests: empty, tiny, text, random,
+    exactly one chunk, and three chunks of which the first is a full
+    incompressible one. ``size_equal`` compresses (greedy device encoder)
+    to exactly its own 38 bytes, so it must take the uncompressed
+    fallback; ``one_less`` to one byte less than its 41, so it must not."""
+    rng = np.random.default_rng(31)
+    base = bytes(range(1, 40))
+    return {
+        "empty": b"",
+        "one_byte": b"a",
+        "size_equal": base[:16] + base[:6] + bytes(range(100, 116)),
+        "one_less": base[:16] + base[:7] + bytes(range(100, 118)),
+        "short_text": html_like(1000, 2).tobytes(),
+        "short_random": rng.integers(0, 256, 300, dtype=np.uint8).tobytes(),
+        "full_chunk": html_like(65536, 3).tobytes(),
+        "three_chunks": (rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
+                         + html_like(70000, 4).tobytes()),
+    }
