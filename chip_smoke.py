@@ -41,11 +41,26 @@ failure:
    decode-side function (decode, CRC32C of the decoded rows, packing) on
    the card against the CPU; then timings: host wall-clock per call with
    the pipeline as it is and with every sub-batch fetched before the next
-   is staged, and the stages of a sub-batch each timed alone.
+   is staged, and the stages of a sub-batch each timed alone;
+7. the decode-walk ablation and the scan engine at full size. Ablation: each
+   of the six variants (``decode_v2``, ``decode_v4``, ``decode_v3``,
+   ``decode_variant`` as v1, v1nock, v1nocp) against its plain version on
+   phase 2's rows and on more edge and corrupt rows, then the 512 blocks
+   that the encode kernel made in phase 3 through the production decode
+   kernel and every variant, each full variant's rows equal to the input and
+   to the production kernel's; timings of each beside the production
+   kernel, at the codec's row width and at the tight one. Scan:
+   ``SnappyCodec(kernel="scan", with_crc=True)`` on the same 512 blocks,
+   round trip exact, with none of the CUDA kernels launched; its bodies
+   decoded by the decode kernel and the oracle, the encode kernel's bodies
+   by the scan decoder, its CRCs against the CRC32C kernel and the host,
+   its total size no larger than the greedy encoder's; ``frame_batch``;
+   corrupt rows give the separate error bits; the facade and the streams in
+   a subprocess with ``SNAPPIER_KERNEL=scan``; timings and peak memory.
 
-Each path (liveness, probe, codec, facade, stream) runs with the launch
-counts set to 0 just before it and read just after; every kernel of a path
-must have launched.
+Each path (liveness, probe, codec, facade, stream, ablation, scan) runs with
+the launch counts set to 0 just before it and read just after; every kernel
+of a path must have launched, and the scan path must launch none.
 The line before the last is a JSON object listing each kernel with its
 launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
@@ -81,6 +96,14 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
     "probe": ("match_extension_probe", "snappier_tpu_torch/csrc/probe.cu",
               "snappier_tpu/ops/pallas/scalar_codec.py:704"),
     "watch": ("device_alive", "snappier_tpu_torch/csrc/watch.cu", "tools/tpu_watch.sh:23"),
+    "decode_v2": ("decode_v2", "snappier_tpu_torch/csrc/decode_variants.cu",
+                  "tools/perf_probe.py:45"),
+    "decode_v4": ("decode_v4", "snappier_tpu_torch/csrc/decode_variants.cu",
+                  "tools/perf_probe.py:300"),
+    "decode_v3": ("decode_v3", "snappier_tpu_torch/csrc/decode_variants.cu",
+                  "tools/perf_probe.py:548"),
+    "decode_variant": ("decode_variant", "snappier_tpu_torch/csrc/decode_variants.cu",
+                       "tools/perf_probe.py:793"),
 }
 PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
@@ -88,7 +111,10 @@ PATHS = {  # path -> the kernels it must launch
     "codec": ("encode", "decode", "crc32c"),
     "facade": ("encode", "encode_best", "decode"),
     "stream": ("encode", "crc32c", "decode"),
+    "ablation": ("decode", "decode_v2", "decode_v4", "decode_v3", "decode_variant"),
+    "scan": (),  # tensor code: it must launch none of the kernels
 }
+VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
 STREAM_CHUNKS = 2048  # 128 MiB: 8 sub-batches of 256 chunks
 MIB = 1 << 20
@@ -239,7 +265,8 @@ def corrupt_streams():
 
 
 def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
-    """Each kernel against its plain version; returns max_abs_err per kernel."""
+    """Each kernel against its plain version; returns max_abs_err per kernel
+    and the decode kernel's edge and corrupt streams."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     errs = {}
@@ -313,7 +340,7 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
         blk = write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes()
         check(oracle.decompress(blk) == frags[i, :n].tobytes(), f"encode_best row {i} round trip")
     print(f"encode_best kernel == plain on {len(lens)} rows, max_abs_err {errs['encode_best']}")
-    return errs
+    return errs, streams
 
 
 def phase_probe(torch, sc, _build):
@@ -635,6 +662,236 @@ def phase_streams(torch, card: str):
     return launches
 
 
+def variant_call(dv, name: str):
+    """The wrapper of one ablation variant as (comp, lens, out_cap) -> triple."""
+    if name in ("v2", "v3", "v4"):
+        return getattr(dv, f"decode_{name}")
+    return lambda comp, lens, out_cap: dv.decode_variant(comp, lens, out_cap, name)
+
+
+def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
+    """Phase 7, the ablation path. Returns (max_abs_err per wrapper, launches
+    on the path, ms per wrapper at the codec's row width, plain ms per
+    wrapper on one row)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_cases import corrupt_streams as more_corrupt
+    from torch_cases import pack_streams, walk_streams
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    dev = torch.device("cuda")
+    # 1. each variant against its plain version: phase 2's rows (corrupt
+    # blocks and encoded 64 KiB rows) and short offsets, overlapping copies,
+    # a 4-byte offset, long literals and more malformed blocks.
+    streams = decode_streams + walk_streams() + more_corrupt()
+    comp, clens = pack_streams(streams, 68608)
+    c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
+    c_d, l_d = c_h.to(dev), l_h.to(dev)
+    errs = {}
+    for name in VARIANTS:
+        got = [x.cpu().numpy() for x in variant_call(dv, name)(c_d, l_d, BLOCK)]
+        torch.cuda.synchronize()
+        want = [x.numpy() for x in dv.decode_variant_plain(c_h, l_h, BLOCK, name)]
+        rows = np.arange(len(streams))
+        if name == "v1nock":  # trusted input only: the rows the checked walk accepts
+            rows = rows[dv.decode_variant_plain(c_h, l_h, BLOCK, "v1")[2].numpy() == 0]
+        pairs = [(got[1][rows], want[1][rows]), (got[2][rows], want[2][rows])]
+        if name != "v1nocp":
+            pairs += [(got[0][i, : want[1][i]], want[0][i, : want[1][i]]) for i in rows]
+        err = max_abs_err(pairs)
+        check(err == 0, f"variant {name} differs from its plain version")
+        counter = dv.VARIANTS[name][1]
+        errs[counter] = max(errs.get(counter, 0), err)
+        if name == "v2":
+            seen = set(want[2].tolist())
+            check({0, 1, 2, 4, 8} <= seen, f"corrupt rows give error words {sorted(seen)}")
+            check(not want[1][want[2] != 0].any(), "out_len must be 0 on any error")
+        print(f"variant {name} == plain on {len(rows)} rows, max_abs_err {err}")
+
+    # 2. the path: the encode kernel's 512 blocks through the production
+    # decode kernel and every variant.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    k1_out, k1_lens, k1_errs = sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK)
+    results = {name: variant_call(dv, name)(comp_u8, block_lens, BLOCK) for name in VARIANTS}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"ablation path launches: {launches}")
+    for k in PATHS["ablation"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the ablation path")
+    check(launches["decode_variant"] == 3, "decode_variant runs as v1, v1nock and v1nocp")
+    check(bool((k1_errs == 0).all()) and bool((k1_out == frags).all()), "production decode")
+    for name, (out, out_lens, verrs) in results.items():
+        check(bool((verrs == 0).all()), f"variant {name}: errors on the main path")
+        check(bool((out_lens == BLOCK).all()), f"variant {name}: lengths on the main path")
+        if name != "v1nocp":
+            check(bool((out == frags).all()), f"variant {name}: rows differ from the input")
+            check(bool((out == k1_out).all()), f"variant {name}: rows differ from decode's")
+    print(f"ablation: {B} x {BLOCK} B decoded exactly by the production kernel and 5 full "
+          "variants; the walk-only variant agrees on lengths and errors")
+
+    # 3. timings at the codec's row width and at the tight one (the longest
+    # block rounded up to 1 KiB, which lets two blocks share an SM).
+    tight = comp_u8[:, : -(-(int(block_lens.max()) + 8) // 1024) * 1024].contiguous()
+    times = {}
+    for width, rows_d in (("codec_width", comp_u8), ("tight_width", tight)):
+        t = {"row_bytes": rows_d.shape[1],
+             "v0": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK))}
+        for name in VARIANTS:
+            fn = variant_call(dv, name)
+            t[name] = cuda_ms(lambda: fn(rows_d, block_lens, BLOCK))
+            t[name + "_smem"] = dv._smem_bytes(dv.VARIANTS[name][0], rows_d.shape[1], BLOCK)
+        times[width] = t
+    print(json.dumps({"card": card, "ablation_ms_per_512_blocks": times}))
+    ms = {"decode_v2": times["codec_width"]["v2"], "decode_v4": times["codec_width"]["v4"],
+          "decode_v3": times["codec_width"]["v3"], "decode_variant": times["codec_width"]["v1"]}
+    c1, cl1 = comp_u8[:1].cpu(), block_lens[:1].cpu()
+    plain = {dv.VARIANTS[name][1]: host_ms(lambda: dv.decode_variant_plain(c1, cl1, BLOCK, name))
+             for name in ("v2", "v4", "v3", "v1")}
+    return errs, launches, ms, plain
+
+
+SCAN_FACADE = """
+import json, sys
+import numpy as np
+import torch
+import snappier_tpu_torch as st
+from snappier_tpu_torch.models.codec import default_kernel
+from snappier_tpu_torch.ops.cuda import _build
+from snappier_tpu_torch.runtime import native
+raw = np.fromfile(sys.argv[1], np.uint8).tobytes()
+assert default_kernel() == "scan"
+comp = st.compress(raw)
+back = st.decompress(comp)
+native_back = st.decompress(native.compress(raw))
+framed = st.stream_compress(raw)
+unframed = st.stream_decompress(framed)
+torch.cuda.synchronize()
+print(json.dumps({"ok": back == raw and native_back == raw and unframed == raw
+                  and native.decompress(comp) == raw and native.stream_decompress(framed) == raw,
+                  "bytes": len(raw), "compressed": len(comp), "framed": len(framed),
+                  "launches": dict(_build.LAUNCHES)}))
+"""
+
+
+def phase_scan(torch, card, data, frags, lengths, comp_u8, block_lens, greedy_lens, k3_crcs):
+    """Phase 7, the scan path. Returns the launches inside the scan calls
+    (none, or the phase fails)."""
+    import tempfile
+
+    from snappier_tpu_torch import SnappyCodec
+    from snappier_tpu_torch.format import oracle
+    from snappier_tpu_torch.format.crc32c import crc32c, mask_crc
+    from snappier_tpu_torch.format.varint import write_varint
+    from snappier_tpu_torch.ops.crc32c import crc32c_blocks_scan
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+    from snappier_tpu_torch.ops.decode import decode_blocks_scan
+
+    dev = torch.device("cuda")
+    codec = SnappyCodec(kernel="scan", with_crc=True)
+    pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device=dev).expand(B, 3)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    bodies, body_lens, crcs = codec.compress_batch(frags, lengths)
+    blocks = torch.cat([pre, bodies.to(torch.uint8)], dim=1)
+    blocks = torch.nn.functional.pad(blocks, (0, (-blocks.shape[1]) % 1024)).contiguous()
+    outs, out_lens, derrs = codec.decompress_batch(blocks, body_lens + 3, out_cap=BLOCK)
+    framed, flens = codec.frame_batch(frags, lengths)
+    _, _, _, ok = codec.roundtrip_step(frags, lengths)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(not launches, f"the scan calls launched CUDA kernels: {launches}")
+    check(bool((derrs == 0).all()) and bool((out_lens == BLOCK).all()), "scan decode verdicts")
+    check(bool((outs == frags.to(torch.int32)).all()), "scan round trip differs")
+    check(bool(ok), "scan roundtrip_step not ok")
+
+    # Cross-engine: the decode kernel and the oracle on the scan bodies, the
+    # scan decoder on the encode kernel's bodies.
+    k1_out, k1_lens, k1_errs = sc.decode_blocks_bytes(blocks, body_lens + 3, BLOCK)
+    check(bool((k1_errs == 0).all()) and bool((k1_out == frags).all()),
+          "the decode kernel on the scan bodies")
+    s_out, s_lens, s_errs = decode_blocks_scan(comp_u8, block_lens, BLOCK)
+    check(bool((s_errs == 0).all()) and bool((s_out == frags.to(torch.int32)).all()),
+          "the scan decoder on the encode kernel's bodies")
+    bl = body_lens.cpu().numpy()
+    body_bytes = bodies.to(torch.uint8).cpu().numpy()
+    crc_h = crcs.cpu().numpy().view(np.uint32)
+    check(bool((crcs == k3_crcs).all()), "scan CRCs differ from the CRC32C kernel's")
+    for i in np.linspace(0, B - 1, 6).astype(int):
+        check(int(crc_h[i]) == crc32c(data[i]), f"scan CRC of row {i}")
+        blk = write_varint(BLOCK) + body_bytes[i, : bl[i]].tobytes()
+        check(oracle.decompress(blk) == data[i].tobytes(), f"oracle decode of scan row {i}")
+    check(int(bl.sum()) <= int(greedy_lens.sum()),
+          f"scan bodies ({int(bl.sum())} B) larger than greedy ({int(greedy_lens.sum())} B)")
+    fl, fr = flens.cpu().numpy(), framed.cpu().numpy()
+    for i in (0, B - 1):
+        row = fr[i, : fl[i]]
+        check(row[0] == 0 and int.from_bytes(row[1:4].tobytes(), "little") == fl[i] - 4
+              and int.from_bytes(row[4:8].tobytes(), "little") == mask_crc(crc32c(data[i]))
+              and oracle.decompress(row[8:].tobytes()) == data[i].tobytes(),
+              f"scan frame_batch row {i}")
+    print(f"scan path: {B} x {BLOCK} B round trip exact with no CUDA kernel launched; "
+          f"{int(bl.sum())} B against the greedy encoder's {int(greedy_lens.sum())} B; cross-decodes "
+          "with the decode kernel, the encode kernel and the oracle; CRCs equal the CRC32C "
+          "kernel's and the host's; frame_batch and roundtrip_step ok")
+
+    # Corrupt rows: each failure by its own bit, the card as the CPU.
+    bad = corrupt_streams()
+    comp = np.zeros((len(bad), 1024), np.uint8)
+    clens = np.array([len(x) for x in bad], np.int32)
+    for i, x in enumerate(bad):
+        comp[i, : len(x)] = np.frombuffer(x, np.uint8)
+    on_card = decode_blocks_scan(torch.from_numpy(comp).to(dev), torch.from_numpy(clens).to(dev),
+                                 BLOCK)
+    on_cpu = decode_blocks_scan(torch.from_numpy(comp), torch.from_numpy(clens), BLOCK)
+    for a, b in zip(on_card, on_cpu):
+        check(bool((a.cpu() == b).all()), "scan decode differs between the card and the CPU")
+    words = on_cpu[2].tolist()
+    check(words[0] == 8 and words[2] & 1 and words[3] == 1 and words[4] == 2 and words[5] == 2
+          and words[6] == 4, f"scan error words {words}")
+    print(f"scan decoder on corrupt rows: error words {words}, card == CPU")
+
+    # The facade and the streams with SNAPPIER_KERNEL=scan, as a user sets it.
+    with tempfile.NamedTemporaryFile(suffix=".bin") as f:
+        f.write(data[:64].tobytes())  # 4 MiB
+        f.flush()
+        env = dict(os.environ, SNAPPIER_KERNEL="scan")
+        r = subprocess.run([sys.executable, "-c", SCAN_FACADE, f.name], env=env, text=True,
+                           capture_output=True, timeout=300,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"facade under SNAPPIER_KERNEL=scan failed:\n{r.stdout}{r.stderr}")
+    facade = json.loads(r.stdout.strip().splitlines()[-1])
+    check(facade["ok"] and not facade["launches"], f"facade under scan: {facade}")
+    print(f"SNAPPIER_KERNEL=scan in a subprocess: compress / decompress and the stream "
+          f"one-shots on {facade['bytes']} B exact, no CUDA kernel launched: {facade}")
+
+    # Timings and peak memory.
+    no_crc = SnappyCodec(kernel="scan", with_crc=False)
+    peak = {}
+    for what, fn in (("compress", lambda: no_crc.compress_batch(frags, lengths)),
+                     ("decompress", lambda: codec.decompress_batch(blocks, body_lens + 3))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak[what] = torch.cuda.max_memory_allocated() - before
+    print(json.dumps({
+        "card": card, "scan_compress_ms": cuda_ms(lambda: no_crc.compress_batch(frags, lengths),
+                                                  iters=2),
+        "scan_compress_with_crc_ms": cuda_ms(lambda: codec.compress_batch(frags, lengths), iters=2),
+        "scan_decompress_ms": cuda_ms(lambda: codec.decompress_batch(blocks, body_lens + 3),
+                                      iters=2),
+        "scan_crc_ms": cuda_ms(lambda: crc32c_blocks_scan(frags, lengths), iters=2),
+        "scan_peak_bytes_above_inputs": peak, "scan_ratio": float(bl.sum()) / (B * BLOCK),
+        "blocks": B,
+    }))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -666,7 +923,7 @@ def main() -> int:
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
 
     # --- 2. each kernel against its plain version ------------------------
-    errs = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
+    errs, decode_streams = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
     errs["watch"] = errs_watch
     errs["probe"], probe_launches, probe_args, probe_expected = phase_probe(torch, sc, _build)
 
@@ -778,6 +1035,13 @@ def main() -> int:
     stream_launches = phase_streams(torch, card)
     ms["watch"] = watch_ms
 
+    # --- 7. the decode-walk ablation and the scan engine at full size ------------
+    errs_abl, ablation_launches, ms_abl, plain_abl = phase_ablation(
+        torch, card, decode_streams, frags, comp_u8, block_lens)
+    errs.update(errs_abl)
+    ms.update(ms_abl)
+    scan_launches = phase_scan(torch, card, data, frags, lengths, comp_u8, block_lens, bl, crcs)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -789,10 +1053,11 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
-        "watch": watch_plain_ms,
+        "watch": watch_plain_ms, **plain_abl,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
-                  "probe": len(probe_expected), "watch": watch.SHAPE[0]}
+                  "probe": len(probe_expected), "watch": watch.SHAPE[0],
+                  **{k: 1 for k in plain_abl}}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -810,16 +1075,20 @@ def main() -> int:
         "probe": compared + 12 * n_rows + 4 * n_rows,  # bytes, 3 args -> lengths
         "watch": 2 * 4 * watch.SHAPE[0] * watch.SHAPE[1],  # int32 words in, words out
     }
+    # The ablation variants do the decode kernel's work on the same blocks.
+    moved.update({k: moved["decode"] for k in plain_abl})
     # Operations: at least one 32-bit integer step per input byte (a hash,
     # table or candidate step; a decoded byte's store; a compared byte), at
     # the card's 32-bit non-tensor peak. The byte term is the larger one.
     ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
-           "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1]}
+           "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1],
+           **{k: n_in for k in plain_abl}}
     # One PyTorch call computes what the liveness kernel does (torch.add);
     # none computes Snappy, CRC32C or a match length.
     library_ms = {"watch": watch_library_ms}
     by_path = {"liveness": watch_launches, "probe": probe_launches, "codec": codec_launches,
-               "facade": facade_launches, "stream": stream_launches}
+               "facade": facade_launches, "stream": stream_launches,
+               "ablation": ablation_launches, "scan": scan_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

@@ -23,7 +23,9 @@ CONFIG_KEYS = ("fragment_size", "with_crc", "hash_bits", "skip_base")
 def codec_from_reference(cfg: Mapping, device=None) -> SnappyCodec:
     """The port codec equivalent to a reference codec whose
     ``fragment_size``, ``with_crc``, ``hash_bits`` and ``skip_base`` are
-    given in ``cfg``; ``device`` as for :class:`SnappyCodec`."""
+    given in ``cfg``; its ``kernel`` (``"scalar"`` or ``"scan"``) is carried
+    across when ``cfg`` has it, else the port's default engine is taken.
+    ``device`` as for :class:`SnappyCodec`."""
     missing = [k for k in CONFIG_KEYS if k not in cfg]
     if missing:
         raise KeyError(f"reference config lacks {missing}")
@@ -32,6 +34,7 @@ def codec_from_reference(cfg: Mapping, device=None) -> SnappyCodec:
         with_crc=bool(cfg["with_crc"]),
         hash_bits=int(cfg["hash_bits"]),
         skip_base=int(cfg["skip_base"]),
+        kernel=cfg.get("kernel"),
         device=device,
     )
 

@@ -7,19 +7,93 @@ the framing data-chunk pipeline, and a round trip with on-device
 verification. Arguments and results keep the JAX codec's shapes and
 dtypes. The codec runs on the card unless it is built with
 ``device="cpu"``, which runs each kernel's plain version.
+
+Two engines compute the same wire format: ``kernel="scalar"``, the
+hand-written CUDA kernels (one serial tag walk per block), and
+``kernel="scan"``, the parallel-scan engine of
+:mod:`snappier_tpu_torch.ops` (sorts, gathers and scans over whole blocks;
+tensor code, the same on either device). Either engine decodes what the
+other encodes. :func:`default_kernel` picks one when the caller does not.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
+import os
+
 import torch
 
 from snappier_tpu_torch.constants import BLOCK_SIZE, CRC_MASK_DELTA
+from snappier_tpu_torch.ops.crc32c import crc32c_blocks_scan
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
+    body_width,
     decode_blocks_bytes,
-    decode_blocks_scalar,
     encode_blocks_bytes,
 )
+from snappier_tpu_torch.ops.decode import decode_blocks_scan
+from snappier_tpu_torch.ops.encode import encode_blocks_scan
+
+KERNELS = ("scalar", "scan")
+
+
+@functools.cache
+def default_kernel(sharded: bool = False) -> str:
+    """The engine a codec, the facade and the stream layers use when the
+    caller names none: the ``SNAPPIER_KERNEL`` environment override
+    (``scalar`` or ``scan``; anything else is ignored with a warning), else
+    ``"scalar"``, the CUDA kernels (and their plain versions on the CPU).
+    The choice is read once per process and logged on logger
+    ``snappier_tpu_torch``. ``sharded`` is the reference's second question
+    (a sharded caller); both get the same answer here."""
+    log = logging.getLogger("snappier_tpu_torch")
+    k = os.environ.get("SNAPPIER_KERNEL")
+    if k is not None and k not in KERNELS:
+        log.warning(
+            "SNAPPIER_KERNEL=%r is not 'scalar' or 'scan'; ignoring the override", k
+        )
+        k = None
+    choice, why = (k, "SNAPPIER_KERNEL override") if k else ("scalar", "the CUDA kernels")
+    log.info("kernel=%s sharded=%s (%s)", choice, sharded, why)
+    return choice
+
+
+def encode_rows(frags: torch.Tensor, lengths: torch.Tensor, kernel: str, hash_bits: int = 15,
+                skip_base: int = 32):
+    """Greedy-encode byte rows [B, F] (uint8 or int32) on their device with the
+    given engine: (bodies uint8 [B, W], body_lens int32 [B]) with
+    W = body_width(F) >= F + 2048. The scan engine finds exact matches, so
+    the match-table tunables do not apply to it."""
+    if kernel == "scalar":
+        return encode_blocks_bytes(frags, lengths, hash_bits, skip_base)
+    if kernel == "scan":
+        bodies, body_lens = encode_blocks_scan(frags, lengths)
+        pad = body_width(frags.shape[1]) - bodies.shape[1]
+        return torch.nn.functional.pad(bodies.to(torch.uint8), (0, pad)), body_lens
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def decode_rows(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int, kernel: str):
+    """Decode block rows [B, CC] on their device with the given engine:
+    (out uint8 [B, out_cap], out_lens int32 [B], errs int32 [B])."""
+    if kernel == "scalar":
+        return decode_blocks_bytes(comp, comp_lens, out_cap)
+    if kernel == "scan":
+        out, out_lens, errs = decode_blocks_scan(comp, comp_lens, out_cap)
+        return out.to(torch.uint8), out_lens, errs
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def crc_rows(rows: torch.Tensor, lengths: torch.Tensor, kernel: str) -> torch.Tensor:
+    """CRC32C bit patterns (int32 [B]) of byte rows with the given engine.
+    The scan engine takes its own CRC whatever the width, as the reference
+    does whenever its kernel is scan."""
+    if kernel == "scalar":
+        return crc32c_blocks(rows, lengths)
+    if kernel == "scan":
+        return crc32c_blocks_scan(rows, lengths)
+    raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,9 +146,9 @@ class SnappyCodec:
         window).
       with_crc: also compute the framing format's per-block CRC32C during
         compression.
-      kernel: 'scalar' (the default, and the only engine ported so far).
-      hash_bits: encoder match-table size log2.
-      skip_base: encoder skip-heuristic start constant.
+      kernel: 'scalar' | 'scan' | None (:func:`default_kernel`).
+      hash_bits: scalar-encoder match-table size log2.
+      skip_base: scalar-encoder skip-heuristic start constant.
       device: 'cuda' (default) or 'cpu'; inputs are moved there.
     """
 
@@ -89,13 +163,8 @@ class SnappyCodec:
     ):
         if not 0 < fragment_size <= BLOCK_SIZE:
             raise ValueError(f"fragment_size must be in (0, {BLOCK_SIZE}]")
-        kernel = kernel or "scalar"
-        if kernel == "scan":
-            raise NotImplementedError(
-                "kernel='scan' (the parallel-scan engine) is not ported yet: "
-                "ROADMAP.md queue 1, item 9"
-            )
-        if kernel != "scalar":
+        kernel = kernel or default_kernel()
+        if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}")
         self.fragment_size = fragment_size
         self.with_crc = with_crc
@@ -111,11 +180,11 @@ class SnappyCodec:
         """(bodies uint8 [B, W], body_lens, crcs) with W >= F + 2048."""
         frags = self._in(frags)
         lengths = self._in(lengths).to(torch.int32)
-        bodies, body_lens = encode_blocks_bytes(
-            frags, lengths, hash_bits=self.hash_bits, skip_base=self.skip_base
+        bodies, body_lens = encode_rows(
+            frags, lengths, self.kernel, self.hash_bits, self.skip_base
         )
         if self.with_crc:
-            crcs = crc32c_blocks(frags, lengths)
+            crcs = crc_rows(frags, lengths, self.kernel)
         else:
             crcs = torch.zeros_like(lengths)
         return bodies, body_lens, crcs
@@ -139,8 +208,14 @@ class SnappyCodec:
         (comp [B, C], comp_lens [B]) -> (outs, out_lens, errs)."""
         out_cap = int(out_cap)
 
+        if packed and out_cap % 4:
+            raise ValueError("packed output needs out_cap % 4 == 0")
+
         def fn(comp, comp_lens):
-            return decode_blocks_scalar(self._in(comp), self._in(comp_lens), out_cap, packed)
+            out, out_lens, errs = decode_rows(
+                self._in(comp), self._in(comp_lens), out_cap, self.kernel
+            )
+            return (out.view(torch.int32) if packed else out.to(torch.int32)), out_lens, errs
 
         return fn
 
@@ -223,7 +298,7 @@ class SnappyCodec:
         raw, body_lens, crcs = self._compress_bytes(frags, lengths)
         W = frags.shape[1] + 2048
         blocks = torch.cat([_preamble3(lengths).to(torch.uint8), raw[:, :W]], dim=1)
-        outs, out_lens, errs = decode_blocks_bytes(blocks, body_lens + 3, F)
+        outs, out_lens, errs = decode_rows(blocks, body_lens + 3, F, self.kernel)
         pos = torch.arange(F, device=self.device)[None, :]
         ok = (
             torch.where(pos < lengths[:, None], outs == frags.to(torch.uint8), True).all()

@@ -50,6 +50,9 @@ SOURCES = {
         [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P],
     ),
     "probe": ("match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
+    "decode_variants": (
+        "snappy_decode_variant_launch", [_I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
+    ),
 }
 
 #: Kernel launches per wrapper since the last reset.
@@ -75,7 +78,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "scalar_codec.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -149,10 +152,11 @@ def launcher(name: str):
     return _launchers[name]
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, count_as: str | None = None) -> None:
     """Call the launcher of ``csrc/<name>.cu`` on ``device``'s current CUDA
-    stream and raise on a launch error; counts the launch under ``name``."""
-    launch_bound(launcher(name), name, device, *args)
+    stream and raise on a launch error; counts the launch under ``name``,
+    or under ``count_as`` where one source serves several wrappers."""
+    launch_bound(launcher(name), count_as or name, device, *args)
 
 
 def launch_bound(fn, name: str, device, *args) -> None:

@@ -1,0 +1,228 @@
+"""The decode-walk ablation: six variants of the batched Snappy block
+decode (port of the kernels of ``tools/perf_probe.py``).
+
+``decode_v2``, ``decode_v4``, ``decode_v3`` and ``decode_variant`` (``"v1"``,
+``"v1nock"``, ``"v1nocp"``) compute one function, the decode of a batch of
+blocks, and differ in how the kernel keeps its output image and appends a
+tag's payload (``csrc/decode_variants.cuh`` says how); the ablation
+(``tools/torch_perf_probe.py``) times them against the production kernel,
+:func:`snappier_tpu_torch.ops.cuda.scalar_codec.decode_blocks_bytes`.
+
+Each wrapper takes ``(comp [B, CC] uint8 or int32, comp_lens [B], out_cap)``
+and returns ``(out uint8 [B, out_cap], out_lens int32 [B], errs int32 [B])``.
+``out_lens`` is 0 on any error and bytes of a row past its ``out_len`` are
+unspecified. The error word is classified per tag, unlike the production
+kernel's combined word: 1 (the tag overruns the input), overwritten by 2
+(copy offset 0 or beyond the output), overwritten by 4 (the tag overruns
+the claimed length); 8 for a bad preamble, which includes a claim above
+``out_cap``; 4 for a clean walk that ends short of the claim. Lengths
+outside ``[0, CC]`` are taken as 0 or ``CC``, and bytes at or past ``CC``
+read as zero.
+
+The wrappers accept what ``decode_blocks_bytes`` accepts: any ``CC`` and
+``out_cap`` whose images fit one block's shared memory. The TPU kernels'
+``% 1024`` shapes were their DMA tiling and are not carried over, with one
+consequence: the TPU word variants round their output image up to 1024
+words, so their capacity is ``owc * 4 - 1024`` bytes, which exceeds
+``out_cap`` unless ``out_cap + 1024`` is a multiple of 4096 (68,608 at
+``out_cap`` 65,536), and they accept a preamble up to that and cut the row.
+Here every variant gives ``ERR_BAD_PREAMBLE`` for a claim above ``out_cap``,
+as ``v1`` and the production kernel do on either machine.
+
+A CUDA tensor launches the kernel (``csrc/decode_variants.cu``) or raises;
+a CPU tensor runs the plain Python walk, which the four share because they
+compute one function. Each wrapper counts its own launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from snappier_tpu_torch.constants import BLOCK_SIZE
+from snappier_tpu_torch.ops.cuda import _build
+from snappier_tpu_torch.ops.cuda._tensors import byte_rows, lengths_vector, on_cuda
+from snappier_tpu_torch.ops.cuda.scalar_codec import MAX_OUT_CAP
+from snappier_tpu_torch.ops.decode import (
+    ERR_BAD_OFFSET,
+    ERR_BAD_PREAMBLE,
+    ERR_LENGTH_MISMATCH,
+    ERR_TRUNCATED_TAG,
+)
+
+_POISON = 1 << 28
+
+#: variant name -> (the launcher's variant number, launch-counter name).
+VARIANTS = {
+    "v2": (0, "decode_v2"),
+    "v4": (1, "decode_v4"),
+    "v3": (2, "decode_v3"),
+    "v1": (3, "decode_variant"),
+    "v1nock": (4, "decode_variant"),
+    "v1nocp": (5, "decode_variant"),
+}
+
+
+def _parse_tag(rd, ip: int):
+    """The tag at ``ip``: (hdr, is_lit, length, off, advance); mirrors
+    ``sc::parse_tag`` (a 4-byte length or offset field whose top byte is set
+    is poisoned)."""
+    tag = rd(ip)
+    tt, l6 = tag & 3, tag >> 2
+    rest = rd(ip + 1) | rd(ip + 2) << 8 | rd(ip + 3) << 16
+    b4 = rd(ip + 4)
+    off = 0
+    if tt == 0:
+        if l6 < 60:
+            hdr, length = 1, l6 + 1
+        else:
+            extra = l6 - 59
+            hdr = 1 + extra
+            length = (rest & ((1 << (8 * min(extra, 3))) - 1)) + 1
+            if extra == 4 and b4 > 0:
+                length = _POISON
+    elif tt == 1:
+        hdr, length, off = 2, ((tag >> 2) & 7) + 4, ((tag >> 5) << 8) | (rest & 0xFF)
+    elif tt == 2:
+        hdr, length, off = 3, l6 + 1, rest & 0xFFFF
+    else:
+        hdr, length, off = 5, l6 + 1, _POISON if b4 > 0 else rest
+    return hdr, tt == 0, length, off, hdr + (length if tt == 0 else 0)
+
+
+def _walk_row(comp: bytes, n: int, out_cap: int, out: bytearray, checks: bool, copies: bool):
+    """One block's walk; mirrors ``sc::decode_block_words`` and
+    ``sc::decode_block_bytes16``, which compute one function. Returns
+    ``(out_len, err)`` and, with ``copies``, writes the output into ``out``.
+    Without ``checks`` no tag is tested: the result is defined for valid
+    blocks only, and a payload is cut to the room that is left."""
+    cc = len(comp)
+    n = min(max(n, 0), cc)
+
+    def rd(i):
+        return comp[i] if 0 <= i < cc else 0
+
+    pre_len, val, done, err = 0, 0, False, 0
+    while not done and pre_len < 5 and err == 0:
+        byte = rd(pre_len)
+        val |= (byte & 0x7F) << min(7 * pre_len, 28)
+        done = byte < 0x80
+        if pre_len == 4 and byte >= 8:
+            err = ERR_BAD_PREAMBLE
+        pre_len += 1
+    expected = val  # below 2**31: the 5th byte is below 8
+    if not done or pre_len > n or expected > out_cap:
+        err = ERR_BAD_PREAMBLE
+
+    ip, op = pre_len, 0
+    while ip < n and err == 0:
+        hdr, is_lit, length, off, advance = _parse_tag(rd, ip)
+        if checks:
+            if ip + advance > n:
+                err = ERR_TRUNCATED_TAG
+            if not is_lit and (off <= 0 or off > op):
+                err = ERR_BAD_OFFSET
+            if op + length > expected:
+                err = ERR_LENGTH_MISMATCH
+        else:
+            op = min(op, out_cap)
+            length = min(length, out_cap - op)
+        if err == 0:
+            if copies and length > 0:
+                if is_lit:
+                    seg = comp[ip + hdr : ip + hdr + length]
+                    out[op : op + length] = seg + bytes(length - len(seg))
+                elif 0 < off <= op:
+                    pat = out[op - off : op]
+                    out[op : op + length] = (pat * (length // off + 1))[:length]
+            op += length
+        ip += advance
+    if err == 0 and op != expected:
+        err = ERR_LENGTH_MISMATCH
+    return (expected if err == 0 else 0), err
+
+
+def decode_variant_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int,
+                         variant: str = "v1"):
+    """Plain version of the ablation kernels on CPU uint8 rows: returns
+    ``(out uint8[B, out_cap], out_lens int32[B], errs int32[B])``. Every
+    variant computes the same function; ``"v1nock"`` tests no tag and
+    ``"v1nocp"`` leaves ``out`` zero."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
+    B = comp.shape[0]
+    rows = comp.numpy()
+    lens = comp_lens.tolist()
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    for b in range(B):
+        buf = bytearray(out_cap)
+        out_lens[b], errs[b] = _walk_row(rows[b].tobytes(), lens[b], out_cap, buf,
+                                         variant != "v1nock", variant != "v1nocp")
+        out[b] = np.frombuffer(buf, np.uint8)
+    return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
+
+
+def _smem_bytes(variant: int, cc: int, out_cap: int) -> int:
+    """Dynamic shared memory of one block; mirrors ``smem_bytes`` in
+    ``csrc/decode_variants.cu``."""
+    comp_words = ((cc + 3) // 4 + 2 + 3) & ~3
+    out_words = ((out_cap + 3) // 4 + 4 + 3) & ~3
+    return 4 * (256 + comp_words + out_words + (16 if variant >= 3 else 0))
+
+
+def _decode(comp, comp_lens, out_cap: int, variant: str):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
+    number, counter = VARIANTS[variant]
+    comp = byte_rows(comp, "comp")
+    B, cc = comp.shape
+    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
+    out_cap = int(out_cap)
+    if out_cap <= 0 or _smem_bytes(number, cc, out_cap) > MAX_OUT_CAP:
+        raise ValueError(
+            f"a row of {cc} bytes and out_cap {out_cap} do not fit one block's shared memory "
+            f"({_smem_bytes(number, cc, out_cap)} of {MAX_OUT_CAP} bytes)"
+        )
+    if not on_cuda(comp, comp_lens):
+        return decode_variant_plain(comp, comp_lens, out_cap, variant)
+    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
+    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
+    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
+    _build.launch(
+        "decode_variants", comp.device, number, comp.data_ptr(), cc,
+        comp_lens.data_ptr(), B, out_cap, out.data_ptr(), out_lens.data_ptr(), errs.data_ptr(),
+        count_as=counter,
+    )
+    return out, out_lens, errs
+
+
+def decode_v2(comp, comp_lens, out_cap: int = BLOCK_SIZE):
+    """Word-packed output image, funnel-shift appends, the error word
+    carried through the walk (``tools/perf_probe.py::decode_v2``)."""
+    return _decode(comp, comp_lens, out_cap, "v2")
+
+
+def decode_v4(comp, comp_lens, out_cap: int = BLOCK_SIZE):
+    """``decode_v2`` with the words after the frontier word always stored
+    and the error word worked out once, after the walk
+    (``tools/perf_probe.py::decode_v4``)."""
+    return _decode(comp, comp_lens, out_cap, "v4")
+
+
+def decode_v3(comp, comp_lens, out_cap: int = BLOCK_SIZE):
+    """One image for the compressed and the output words, one append path
+    for literals and copies (``tools/perf_probe.py::decode_v3``)."""
+    return _decode(comp, comp_lens, out_cap, "v3")
+
+
+def decode_variant(comp, comp_lens, out_cap: int = BLOCK_SIZE, variant: str = "v1"):
+    """Byte image with a fixed 16-byte move per tag
+    (``tools/perf_probe.py::decode_variant``). ``variant`` is ``"v1"``,
+    ``"v1nock"`` (no per-tag checks: trusted input only, the result is
+    defined for valid blocks) or ``"v1nocp"`` (the walk alone: ``out`` is
+    not written, only ``out_lens`` and ``errs`` mean anything)."""
+    if variant not in ("v1", "v1nock", "v1nocp"):
+        raise ValueError(f"unknown variant {variant!r}: 'v1', 'v1nock' or 'v1nocp'")
+    return _decode(comp, comp_lens, out_cap, variant)

@@ -9,7 +9,10 @@ queries, plus the batched entry points the card wants (N independent
 
 Engines: ``"cuda"`` runs the device kernels (greedy or best-mode encode,
 decode), ``"native"`` the C++ host runtime, ``"oracle"`` the NumPy scalar
-codec. ``"auto"`` resolves to ``"cuda"``, because the port's entry points
+codec. The device engine itself comes in two kinds
+(:func:`snappier_tpu_torch.models.codec.default_kernel`): the CUDA kernels
+(``scalar``) or, with ``SNAPPIER_KERNEL=scan`` in the environment, the
+parallel-scan engine, which is tensor code on either device. ``"auto"`` resolves to ``"cuda"``, because the port's entry points
 run on the card unless the caller asks otherwise; the JAX package's
 ``"auto"`` prefers the native engine instead (its ``_pick_engine``).
 ``device=None`` puts the device engine on the card and raises without
@@ -44,13 +47,16 @@ from snappier_tpu_torch.errors import (
 )
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.format.varint import read_varint, write_varint
-from snappier_tpu_torch.models.codec import compact_words, pack_rows, resolve_device
-from snappier_tpu_torch.ops.best_match import exact_candidates
-from snappier_tpu_torch.ops.cuda.scalar_codec import (
-    _encode_best,
-    decode_blocks_bytes,
-    encode_blocks_bytes,
+from snappier_tpu_torch.models.codec import (
+    compact_words,
+    decode_rows,
+    default_kernel,
+    encode_rows,
+    pack_rows,
+    resolve_device,
 )
+from snappier_tpu_torch.ops.best_match import exact_candidates
+from snappier_tpu_torch.ops.cuda.scalar_codec import _encode_best
 from snappier_tpu_torch.ops.decode import (
     ERR_BAD_OFFSET,
     ERR_BAD_PREAMBLE,
@@ -83,6 +89,12 @@ def _as_u8(data) -> np.ndarray:
     if isinstance(data, np.ndarray):
         return data.astype(np.uint8, copy=False).ravel()
     return np.frombuffer(bytes(data), dtype=np.uint8)
+
+
+def _device_kernel() -> str:
+    """The device engine's kind, ``"scalar"`` or ``"scan"``: one shared
+    choice (models.codec.default_kernel)."""
+    return default_kernel()
 
 
 def _raise_for_err(err: int) -> None:
@@ -131,14 +143,7 @@ def _encode_rows(fs: torch.Tensor, ls: torch.Tensor, kernel: str, hash_bits: int
     body_lens) with W = body_width(F) >= F + 2048."""
     if kernel == "best":
         return _encode_best(fs, ls, exact_candidates(fs, ls), skip_base)
-    if kernel == "scalar":
-        return encode_blocks_bytes(fs, ls, hash_bits, skip_base)
-    if kernel == "scan":
-        raise NotImplementedError(
-            "kernel='scan' (the parallel-scan engine) is not ported yet: ROADMAP.md queue 1, "
-            "item 9"
-        )
-    raise ValueError(f"unknown kernel {kernel!r}")
+    return encode_rows(fs, ls, kernel, hash_bits, skip_base)
 
 
 def compress_fragments(frags, lengths, hash_bits: int = 15, skip_base: int = 32,
@@ -151,8 +156,10 @@ def compress_fragments(frags, lengths, hash_bits: int = 15, skip_base: int = 32,
       lengths: [B] actual lengths (0..F).
       hash_bits: greedy-encoder match-table size log2 (8..16).
       skip_base: skip-heuristic start constant (SnappyCompressor.cs:227).
-      kernel: ``"scalar"`` (the default, greedy) or ``"best"``
-        (``level="best"``: exact candidates and the best-mode walk).
+      kernel: ``"scalar"`` (the greedy CUDA kernel), ``"scan"`` (the
+        parallel-scan engine, which ignores the two tunables above),
+        ``"best"`` (``level="best"``: exact candidates and the best-mode
+        walk) or None for the process-wide choice (``default_kernel``).
       device: as for :func:`compress`.
 
     Returns (bodies uint8 [B, F + 2048], body_lens int32 [B]) on the
@@ -161,7 +168,7 @@ def compress_fragments(frags, lengths, hash_bits: int = 15, skip_base: int = 32,
     dev = resolve_device(device)
     fs = torch.as_tensor(frags).to(device=dev, dtype=torch.uint8)
     ls = torch.as_tensor(lengths).to(device=dev, dtype=torch.int32)
-    bodies, body_lens = _encode_rows(fs, ls, kernel or "scalar", hash_bits, skip_base)
+    bodies, body_lens = _encode_rows(fs, ls, kernel or _device_kernel(), hash_bits, skip_base)
     return bodies[:, : fs.shape[1] + 2048], body_lens
 
 
@@ -183,9 +190,9 @@ def decompress_blocks(comp, comp_lens, out_cap: int, device=None):
     """Decode a batch of full blocks (varint preamble + tags) on the
     device. Returns (outs uint8 [B, out_cap], out_lens [B], errs [B])."""
     dev = resolve_device(device)
-    return decode_blocks_bytes(torch.as_tensor(comp).to(device=dev, dtype=torch.uint8),
-                               torch.as_tensor(comp_lens).to(device=dev, dtype=torch.int32),
-                               out_cap)
+    return decode_rows(torch.as_tensor(comp).to(device=dev, dtype=torch.uint8),
+                       torch.as_tensor(comp_lens).to(device=dev, dtype=torch.int32),
+                       out_cap, _device_kernel())
 
 
 def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
@@ -194,7 +201,8 @@ def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
     frags, lengths = _fragment_rows(arr)
     fs = torch.from_numpy(frags).to(dev)
     ls = torch.from_numpy(lengths).to(dev)
-    bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else "scalar", 15, 32)
+    bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else _device_kernel(),
+                                     15, 32)
     lens_h = body_lens.cpu().numpy()
     check_body_lens(fs.shape[1] + 2048, lens_h)
     return _fetch_ragged_packed(pack_rows(bodies), lens_h), lens_h
@@ -203,7 +211,7 @@ def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
 def _decode_compact(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int, capw: int):
     """Decode, word-pack and compact the rows end to end into ``capw``
     words: (flat int32 [capw], out_lens, errs), all on the device."""
-    outs, out_lens, errs = decode_blocks_bytes(comp, comp_lens, out_cap)
+    outs, out_lens, errs = decode_rows(comp, comp_lens, out_cap, _device_kernel())
     return compact_words(pack_rows(outs), (out_lens + 3) >> 2, capw), out_lens, errs
 
 

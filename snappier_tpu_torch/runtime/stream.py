@@ -62,9 +62,14 @@ from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.format.crc32c import crc32c, mask_crc, unmask_crc
 from snappier_tpu_torch.format.framing import frame_data_chunk
 from snappier_tpu_torch.format.varint import read_varint
-from snappier_tpu_torch.models.codec import SnappyCodec, compact_words, pack_rows, resolve_device
-from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks
-from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_bytes
+from snappier_tpu_torch.models.codec import (
+    SnappyCodec,
+    compact_words,
+    crc_rows,
+    decode_rows,
+    pack_rows,
+    resolve_device,
+)
 from snappier_tpu_torch.runtime import block as block_rt
 from snappier_tpu_torch.runtime import native
 from snappier_tpu_torch.utils.pool import staging_pool
@@ -248,7 +253,7 @@ def _compress_chunks_device(chunks: list, dev: torch.device) -> list[bytes]:
     the whole data-chunk pipeline (encode, CRC32C and masking, varint,
     chunk header, uncompressed fallback) on the device, then the ragged
     framed rows compacted end to end and fetched at their true size."""
-    codec = SnappyCodec(with_crc=True, device=dev)
+    codec = SnappyCodec(with_crc=True, kernel=block_rt._device_kernel(), device=dev)
     results: list[bytes] = [b""] * len(chunks)
     nsub = -(-len(chunks) // _SUB_BATCH)
     sub = _SUB_BATCH if nsub > 1 else len(chunks)
@@ -310,10 +315,12 @@ def _decode_crc_pack(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int =
     (SnappyStreamDecompressor.cs:117-131 parity) and word-packing of the
     outputs, on the tensors' device: the decode kernel, then the CRC32C
     kernel over the decoded rows and their lengths (their plain versions
-    for CPU tensors). Returns (packed int32 [B, out_cap // 4], out_lens,
+    for CPU tensors), or the scan engine's decoder and CRC when that is the
+    process's engine. Returns (packed int32 [B, out_cap // 4], out_lens,
     errs, crcs)."""
-    outs, out_lens, errs = decode_blocks_bytes(comp, comp_lens, out_cap)
-    crcs = crc32c_blocks(outs, out_lens)
+    kernel = block_rt._device_kernel()
+    outs, out_lens, errs = decode_rows(comp, comp_lens, out_cap, kernel)
+    crcs = crc_rows(outs, out_lens, kernel)
     return pack_rows(outs), out_lens, errs, crcs
 
 

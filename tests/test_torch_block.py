@@ -263,8 +263,16 @@ def test_compress_fragments_matches_jax(jax_scalar):
     for i, n in enumerate(lens):
         assert (got[0][i, :n] == ref[0][i, :n]).all()
         assert (got[0][i, :n] == frags[i, :n]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block.compress_fragments(frags, lens, kernel="scan", **CPU)
+    # The scan engine is ported too (tests/test_torch_scan_codec.py holds it
+    # against the JAX one): its bodies decode, and are no larger than greedy.
+    sb, sl = block.compress_fragments(frags, lens, kernel="scan", **CPU)
+    assert sb.dtype == torch.uint8 and sb.shape == gb.shape
+    for i, n in enumerate(lens):
+        blk = write_varint(int(n)) + sb.numpy()[i, : int(sl[i])].tobytes()
+        assert st.decompress(blk, engine="oracle") == frags[i, :n].tobytes()
+    assert (sl <= block.compress_fragments(frags, lens, kernel="scalar", **CPU)[1]).all()
+    with pytest.raises(ValueError):
+        block.compress_fragments(frags, lens, kernel="nope", **CPU)
     with pytest.raises(RuntimeError):
         block.check_body_lens(10, np.array([11]))
 

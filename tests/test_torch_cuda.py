@@ -25,6 +25,7 @@ from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.best_match import exact_candidates
 from snappier_tpu_torch.ops.cuda import _build, watch
+from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
@@ -46,6 +47,7 @@ from torch_cases import (
     html_like,
     pack_streams,
     planted_matches,
+    walk_streams,
 )
 
 pytestmark = pytest.mark.cuda
@@ -264,3 +266,76 @@ def test_cuda_stream_adapters(cuda_device):
 
     framed, back = asyncio.run(twins())
     assert framed == sink.getvalue() and back == data
+
+
+@pytest.mark.parametrize("variant", sorted(dv.VARIANTS))
+@pytest.mark.parametrize("cc,out_cap,big", [(2048, 1024, 0), (2051, 1022, 0), (68608, 65536, 65536)])
+def test_cuda_decode_variants_match_plain(cuda_device, variant, cc, out_cap, big):
+    """Each ablation kernel against the plain walk, on valid blocks (short
+    offsets, overlapping copies, long literals, a 4-byte offset) and corrupt
+    ones, with garbage past each length; the unchecked variant on the valid
+    blocks only, the walk-only variant on lengths and error words only."""
+    valid = walk_streams(big)
+    streams = valid + ([] if variant == "v1nock" else corrupt_streams())
+    comp, lens = pack_streams(streams, cc)
+    c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    wrapper = {"v2": dv.decode_v2, "v4": dv.decode_v4, "v3": dv.decode_v3}.get(variant)
+    _build.reset_launches()
+    if wrapper:
+        got = wrapper(c_h.to(cuda_device), l_h.to(cuda_device), out_cap)
+    else:
+        got = dv.decode_variant(c_h.to(cuda_device), l_h.to(cuda_device), out_cap, variant)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[dv.VARIANTS[variant][1]] == 1
+    want = dv.decode_variant_plain(c_h, l_h, out_cap, variant)
+    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1].cpu() == want[1]).all()
+    assert int((want[2][: len(valid)] != 0).sum()) == 0
+    if variant != "v1nocp":
+        _rows_equal(got[0], want[0], want[1])
+        k1 = decode_blocks_bytes(c_h.to(cuda_device), l_h.to(cuda_device), out_cap)
+        _rows_equal(got[0], k1[0], want[1])
+        assert ((k1[2] == 0) == (got[2] == 0)).all()
+
+
+def test_cuda_decode_variants_reject_what_does_not_fit(cuda_device):
+    comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        dv.decode_v2(comp, torch.tensor([5], device=cuda_device), 65536)
+
+
+def test_cuda_scan_codec_matches_cpu(cuda_device):
+    """The scan engine is tensor code: the card and the CPU give the same
+    bodies, lengths, CRCs, decoded rows and error words, and launch none of
+    the CUDA kernels."""
+    F = 4096
+    frags, lens = encode_rows(F)
+    frags = np.where(np.arange(F)[None, :] < lens[:, None], frags, 0).astype(np.int32)
+    on_card = SnappyCodec(fragment_size=F, kernel="scan")
+    on_cpu = SnappyCodec(fragment_size=F, kernel="scan", device="cpu")
+    _build.reset_launches()
+    a, b = on_card.compress_batch(frags, lens), on_cpu.compress_batch(frags, lens)
+    for x, y in zip(a, b):
+        assert (x.cpu() == y).all()
+    streams = corrupt_streams() + [block_stream(n, b[0][i, : b[1][i]].numpy())
+                                   for i, n in enumerate(lens)]
+    comp, clens = pack_streams(streams, F + 3072, garbage_seed=None)
+    da, db = on_card.decompress_batch(comp, clens), on_cpu.decompress_batch(comp, clens)
+    for x, y in zip(da, db):
+        assert (x.cpu() == y).all()
+    fa, fb = on_card.frame_batch(frags, lens), on_cpu.frame_batch(frags, lens)
+    for x, y in zip(fa, fb):
+        assert (x.cpu() == y).all()
+    assert bool(on_card.roundtrip_step(frags, lens)[3])
+    assert not _build.LAUNCHES, dict(_build.LAUNCHES)
+    # Cross-engine: the scalar kernels decode the scan bodies and the reverse.
+    scalar = SnappyCodec(fragment_size=F, kernel="scalar")
+    ok = slice(len(corrupt_streams()), None)
+    ds = scalar.decompress_batch(comp[ok], clens[ok])
+    assert (ds[2] == 0).all() and (ds[1].cpu() == db[1][ok]).all()
+    _rows_equal(ds[0], db[0][ok], db[1][ok])
+    sb, sl, _ = scalar.compress_batch(frags, lens)
+    comp2, clens2 = pack_streams([block_stream(n, sb[i, : sl[i]].cpu().numpy())
+                                  for i, n in enumerate(lens)], F + 3072, garbage_seed=None)
+    d2 = on_card.decompress_batch(comp2, clens2)
+    assert (d2[2] == 0).all() and (d2[0].cpu() == db[0][ok]).all()  # both zero past the length

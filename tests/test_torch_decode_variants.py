@@ -1,0 +1,163 @@
+"""The plain versions of the decode-walk ablation variants
+(``snappier_tpu_torch/ops/cuda/decode_variants.py``) against the TPU kernels
+of ``tools/perf_probe.py`` run in Pallas interpret mode on the CPU.
+
+``tools/perf_probe.py`` passes ``interpret=False`` literally, so the fixture
+swaps the module's ``pl`` for a copy whose ``pallas_call`` forces
+``interpret=True``; nothing under ``tools/`` changes. Importing the tool
+points JAX's compilation cache at a directory of its own; the fixture puts
+that setting back. The TPU word variants cut a row at ``owc * 4 - 1024``
+bytes rather than at ``out_cap``, so the shapes here keep ``out_cap + 1024``
+a multiple of 4096, where the two agree; every compressed row keeps 8 bytes
+of room past its length, where the TPU kernels' window never clamps.
+Comparisons are exact; bytes past ``out_len`` are unspecified and never
+compared.
+"""
+
+from __future__ import annotations
+
+import importlib
+import pathlib
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snappier_tpu_torch.format import oracle
+from snappier_tpu_torch.ops.cuda import decode_variants as dv
+from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_plain
+from tests.torch_cases import corrupt_streams, pack_streams, tag_sweep_sample, walk_streams
+
+CC, OUT_CAP = 4096, 3072  # OUT_CAP + 1024 is a multiple of 4096
+WRAPPERS = {"v2": dv.decode_v2, "v4": dv.decode_v4, "v3": dv.decode_v3}
+
+
+@pytest.fixture(scope="module")
+def probe():
+    """``tools/perf_probe.py`` with its kernels in interpret mode."""
+    tools = str(pathlib.Path(__file__).resolve().parents[1] / "tools")
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
+    sys.path.insert(0, tools)
+    try:
+        mod = importlib.import_module("perf_probe")
+    finally:
+        sys.path.remove(tools)
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    real_pl = mod.pl
+
+    def interpreted(*args, **kwargs):
+        kwargs["interpret"] = True
+        return real_pl.pallas_call(*args, **kwargs)
+
+    fake = types.SimpleNamespace(**{k: getattr(real_pl, k) for k in dir(real_pl)
+                                    if not k.startswith("__")})
+    fake.pallas_call = interpreted
+    mod.pl = fake
+    yield mod
+    mod.pl = real_pl
+
+
+def _reference(probe, variant, comp, lens, out_cap):
+    if variant in WRAPPERS:
+        fn = getattr(probe, f"decode_{variant}")
+        res = fn(jnp.asarray(comp), jnp.asarray(lens), out_cap)
+    else:
+        res = probe.decode_variant(jnp.asarray(comp), jnp.asarray(lens), out_cap, variant)
+    return [np.asarray(x) for x in res]
+
+
+def _port(variant, comp, lens, out_cap):
+    c, n = torch.from_numpy(comp), torch.from_numpy(lens)  # int32 rows, as the JAX side takes
+    if variant in WRAPPERS:
+        res = WRAPPERS[variant](c, n, out_cap)
+    else:
+        res = dv.decode_variant(c, n, out_cap, variant)
+    return [x.numpy() for x in res]
+
+
+@pytest.mark.parametrize("garbage", [None, 5], ids=["zero_tail", "garbage_tail"])
+@pytest.mark.parametrize("variant", ["v2", "v4", "v3", "v1", "v1nock", "v1nocp"])
+def test_plain_matches_interpreted_tpu_kernel(probe, variant, garbage):
+    valid = walk_streams()
+    streams = valid + ([] if variant == "v1nock" else corrupt_streams())
+    comp, lens = pack_streams(streams, CC, garbage_seed=garbage)
+    want = _reference(probe, variant, comp, lens, OUT_CAP)
+    got = _port(variant, comp, lens, OUT_CAP)
+    assert got[0].dtype == np.uint8 and got[0].shape == (len(streams), OUT_CAP)
+    assert (got[2] == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1] == want[1]).all()
+    assert not got[2][: len(valid)].any()
+    if variant != "v1nock":
+        assert {1, 2, 4, 8} <= set(got[2].tolist())  # the separate error words
+        assert not got[1][got[2] != 0].any()  # out_len is 0 on any error
+    if variant != "v1nocp":
+        for i in range(len(streams)):
+            assert (got[0][i, : got[1][i]] == want[0][i, : want[1][i]]).all(), i
+
+
+def test_plain_matches_interpreted_tpu_kernel_on_the_tag_sweep(probe):
+    """Every 23rd stream of the exhaustive tag-byte sweep through one word
+    variant and the byte variant."""
+    streams = tag_sweep_sample()
+    comp, lens = pack_streams(streams, CC, garbage_seed=None)
+    for variant in ("v3", "v1"):
+        want = _reference(probe, variant, comp, lens, OUT_CAP)
+        got = _port(variant, comp, lens, OUT_CAP)
+        assert (got[2] == want[2]).all() and (got[1] == want[1]).all()
+        for i in range(len(streams)):
+            assert (got[0][i, : got[1][i]] == want[0][i, : want[1][i]]).all(), i
+
+
+@pytest.mark.parametrize("variant", ["v2", "v4", "v3", "v1", "v1nock"])
+def test_variants_match_production_decode_on_valid_input(variant):
+    """On valid blocks every full variant gives the production decoder's
+    rows (its plain version's) and the plaintext."""
+    streams = walk_streams(big=65536)
+    comp, lens = pack_streams(streams, 68608)
+    got = _port(variant, comp, lens, 65536)
+    c8 = torch.from_numpy(comp.astype(np.uint8))
+    k1 = [x.numpy() for x in decode_blocks_plain(c8, torch.from_numpy(lens), 65536)]
+    assert not got[2].any() and not k1[2].any() and (got[1] == k1[1]).all()
+    for i, s in enumerate(streams):
+        assert (got[0][i, : got[1][i]] == k1[0][i, : k1[1][i]]).all(), i
+        assert got[0][i, : got[1][i]].tobytes() == oracle.decompress(s), i
+
+
+def test_variant_errors_against_production_decode():
+    """The variants reject exactly the blocks the production decoder rejects,
+    by their own words: 8 where it says 8, one of 1, 2, 4 where it says its
+    combined 7 or 4."""
+    streams = corrupt_streams()
+    comp, lens = pack_streams(streams, 2048)
+    got = _port("v2", comp, lens, 1024)
+    k1 = decode_blocks_plain(torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(lens), 1024)
+    k1_err = k1[2].numpy()
+    assert ((got[2] == 0) == (k1_err == 0)).all()
+    assert ((got[2] == 8) == (k1_err == 8)).all()
+    assert set(got[2][(k1_err == 7) | (k1_err == 4)].tolist()) <= {1, 2, 4}
+    nocp = _port("v1nocp", comp, lens, 1024)
+    assert (nocp[1] == got[1]).all() and (nocp[2] == got[2]).all() and not nocp[0].any()
+
+
+def test_wrapper_argument_checks():
+    comp = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.tensor([3, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown variant"):
+        dv.decode_variant(comp, lens, 64, "v9")
+    with pytest.raises(ValueError, match="unknown variant"):
+        dv.decode_variant(comp, lens, 64, "v2")  # has a wrapper of its own
+    with pytest.raises(ValueError, match="shared memory"):
+        dv.decode_v2(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+    with pytest.raises(ValueError):
+        dv.decode_v3(comp, lens[:1], 64)
+    with pytest.raises(ValueError):
+        dv.decode_v4(comp.float(), lens, 64)
+    # Lengths outside the row are taken as 0 or the row's width.
+    out = dv.decode_v2(comp, torch.tensor([-4, 1000], dtype=torch.int32), 64)
+    assert out[2].tolist() == [8, 4] and out[1].tolist() == [0, 0]

@@ -1,6 +1,8 @@
 """The CUDA kernels' per-block walks (``snappier_tpu_torch/csrc/scalar_codec.cuh``),
 compiled for the host with g++ and held against the JAX scalar kernels in
-Pallas interpret mode.
+Pallas interpret mode; and the ablation variants' walks
+(``csrc/decode_variants.cuh``), held against their plain versions (which
+tests/test_torch_decode_variants.py holds against the TPU kernels).
 
 The walks are ``__host__ __device__`` functions, so this is the one place
 their own logic runs without a GPU. The decode walk runs both on one lane
@@ -35,6 +37,7 @@ from tests.torch_cases import (
     encode_rows,
     pack_streams,
     planted_matches,
+    walk_streams,
 )
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "snappier_tpu_torch" / "csrc"
@@ -45,6 +48,7 @@ SHIM = r"""
 #include <thread>
 #include <vector>
 
+#include "decode_variants.cuh"
 #include "scalar_codec.cuh"
 
 namespace {
@@ -105,6 +109,80 @@ extern "C" void host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens
         res[0].err = -1;  // lanes disagreed: never a valid error word
       }
     }
+    out_lens[b] = res[0].out_len;
+    errs[b] = res[0].err;
+  }
+}
+
+// One block through an ablation variant's walk on `nlanes` threads: 0 v2,
+// 1 v4, 2 v3 (word images), 3 v1, 4 v1nock, 5 v1nocp (byte image). The image
+// is laid out and staged as decode_variants.cu does it, and starts poisoned.
+template <class Sync>
+static sc::DecodeResult run_variant(int variant, uint32_t* img, int32_t wc, int32_t owc,
+                                    const int32_t* lut, int32_t n, int32_t out_cap, int lane,
+                                    int nlanes, Sync sync) {
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(img);
+  int32_t total = (wc + owc + 16) * 4;
+  switch (variant) {
+    case 0:
+      return sc::decode_block_words<false, false, false>(img, wc, owc, lut, n, out_cap, lane,
+                                                          nlanes, sync);
+    case 1:
+      return sc::decode_block_words<false, true, true>(img, wc, owc, lut, n, out_cap, lane,
+                                                        nlanes, sync);
+    case 2:
+      return sc::decode_block_words<true, false, true>(img, wc, owc, lut, n, out_cap, lane,
+                                                        nlanes, sync);
+    case 3:
+      return sc::decode_block_bytes16<true, true>(bytes, wc * 4, total, lut, n, out_cap, lane,
+                                                   nlanes, sync);
+    case 4:
+      return sc::decode_block_bytes16<false, true>(bytes, wc * 4, total, lut, n, out_cap, lane,
+                                                    nlanes, sync);
+    default:
+      return sc::decode_block_bytes16<true, false>(bytes, wc * 4, total, lut, n, out_cap, lane,
+                                                    nlanes, sync);
+  }
+}
+
+extern "C" void host_variant(int32_t variant, const uint8_t* comp, int64_t cc,
+                             const int32_t* lens, int64_t batch, int32_t out_cap,
+                             int32_t nlanes, uint8_t* out, int32_t* out_lens, int32_t* errs) {
+  int32_t lut[256];
+  for (int t = 0; t < 256; t++) lut[t] = sc::tag_descriptor(t);
+  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
+  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
+  std::vector<uint32_t> img(wc + owc + 16);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
+    for (auto& w : img) w = 0xDEADBEEFu;
+    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
+      uint32_t v = 0;
+      for (int j = 0; j < 4; j++) {
+        int64_t i = (int64_t)w * 4 + j;
+        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
+      }
+      img[w] = v;
+    }
+    std::vector<sc::DecodeResult> res(nlanes);
+    if (nlanes == 1) {
+      res[0] = run_variant(variant, img.data(), wc, owc, lut, n, out_cap, 0, 1, NoSync());
+    } else {
+      Barrier bar(nlanes);
+      std::vector<std::thread> lanes;
+      for (int lane = 0; lane < nlanes; lane++) {
+        lanes.emplace_back([&, lane] {
+          res[lane] = run_variant(variant, img.data(), wc, owc, lut, n, out_cap, lane, nlanes,
+                                  BarrierSync{&bar});
+        });
+      }
+      for (auto& t : lanes) t.join();
+      for (int lane = 1; lane < nlanes; lane++) {
+        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
+      }
+    }
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
+    for (int32_t i = 0; i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
     out_lens[b] = res[0].out_len;
     errs[b] = res[0].err;
   }
@@ -174,6 +252,8 @@ def host_lib(tmp_path_factory):
     so.host_encode_best.restype = None
     so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
     so.host_probe.restype = None
+    so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, P, P, P]
+    so.host_variant.restype = None
     return so
 
 
@@ -263,3 +343,36 @@ def test_host_probe_walk_matches_jax(host_lib):
                         ns.ctypes.data, len(ats), out.ctypes.data)
     assert (out == ref).all(), (out, ref)
     assert (out[: len(golden)] == [g[0] for g in golden]).all()
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+@pytest.mark.parametrize("variant", ["v2", "v4", "v3", "v1", "v1nock", "v1nocp"])
+def test_host_variant_walk_matches_plain(host_lib, variant, nlanes):
+    """Each ablation walk on one lane, on 4 and on 32 threads that meet at a
+    barrier wherever the lanes of a warp meet at ``__syncwarp`` (32 is the
+    warp: it reaches the rounds of an append whose source overlaps its
+    destination), against the plain version: valid blocks with every short
+    offset, a 64 KiB block, corrupt blocks, garbage past each length."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
+
+    valid = walk_streams(big=0 if nlanes == 32 else 65536)
+    streams = valid + ([] if variant == "v1nock" else corrupt_streams())
+    cc, out_cap = (68611, 65536) if nlanes != 32 else (2051, 1022)
+    comp, lens = pack_streams(streams, cc)
+    comp8 = np.ascontiguousarray(comp, np.uint8)
+    B = len(streams)
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    host_lib.host_variant(dv.VARIANTS[variant][0], comp8.ctypes.data, cc, lens.ctypes.data, B,
+                          out_cap, nlanes, out.ctypes.data, out_lens.ctypes.data,
+                          errs.ctypes.data)
+    want = [x.numpy() for x in dv.decode_variant_plain(
+        torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, variant)]
+    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
+    assert (out_lens == want[1]).all()
+    if variant != "v1nocp":
+        for i in range(B):
+            assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i

@@ -194,7 +194,8 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_build_names_every_source():
-    assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe"}
+    assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
+                                   "decode_variants"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build._lib_path(name).name.startswith(f"lib{name}-")

@@ -113,6 +113,30 @@ def corrupt_streams() -> list[bytes]:
     ] + [bytes([64, 0xFC]) + w + b"x" * 64 for w in wraps]
 
 
+def walk_streams(big: int = 0) -> list[bytes]:
+    """Valid blocks for the decode walks: empty and tiny inputs, copies with
+    every offset below 8 and lengths on both sides of 14 and 16, offsets of
+    8 to 17 that overlap their own output, literals of 1, 2 and 3 length
+    bytes, a 4-byte-offset copy, markup and, with ``big``, one markup and
+    one pattern block of that many bytes."""
+    rng = np.random.default_rng(17)
+    plains = [b"", b"a", b"ab" * 50, b"a" * 300, b"the quick brown snappy " * 20, bytes(500),
+              html_like(1000, 3).tobytes(), rng.integers(0, 256, 700, dtype=np.uint8).tobytes()]
+    plains += [bytes(range(1, 1 + p)) * (n // p + 1) for p in range(1, 18) for n in (13, 40, 200)]
+    if big:
+        plains += [html_like(big, 5).tobytes(), (bytes(range(7)) * big)[:big],
+                   rng.integers(0, 256, big, dtype=np.uint8).tobytes()]
+    streams = [oracle.compress(np.frombuffer(d, np.uint8)) for d in plains]
+    lit4 = bytes([(4 - 1) << 2]) + b"abcd"
+    streams.append(bytes([8]) + lit4 + bytes([3 | (3 << 2), 4, 0, 0, 0]))  # copy-4
+    streams.append(bytes([5, 0xFC, 4, 0, 0, 0]) + b"abcde")  # 4-byte literal length
+    for off in range(1, 12):  # hand-made overlapping copies of 64 bytes
+        pat = bytes(range(65, 65 + off))
+        streams.append(write_varint(off + 64) + bytes([(off - 1) << 2]) + pat
+                       + bytes([2 | (63 << 2), off, 0]))
+    return streams
+
+
 def tag_sweep_sample(step: int = 23) -> list[bytes]:
     """Every ``step``-th stream of the exhaustive tag-byte sweep
     (tests/test_tag_sweep.py): all tag classes, extra-field patterns and

@@ -3,9 +3,12 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools/torch_stream_profile.py [MiB]
+    python3 tools/torch_stream_profile.py [MiB] [--kernel scalar|scan]
 
-It makes the seeded buffer of ``chip_smoke.py`` phase 6 (64 KiB chunks of
+``--kernel`` sets ``SNAPPIER_KERNEL`` before the port reads it, so the same
+trace can be taken of the stream calls on the parallel-scan engine (tensor
+code: many small device operations instead of two kernels per sub-batch);
+the default is the port's own choice. It makes the seeded buffer of ``chip_smoke.py`` phase 6 (64 KiB chunks of
 the word mix, every eighth of random bytes; 128 MiB unless told otherwise),
 warms ``snappier_tpu_torch.stream_compress`` / ``stream_decompress`` up,
 then runs each once under ``torch.profiler`` and prints one JSON line per
@@ -20,8 +23,10 @@ card's name and power limit first. If the profiler records no device time
 
 from __future__ import annotations
 
+import argparse
 import cProfile
 import json
+import os
 import pathlib
 import pstats
 import sys
@@ -34,14 +39,22 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mib", nargs="?", type=int, default=128)
+    ap.add_argument("--kernel", choices=("scalar", "scan"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stream_profile: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel:
+        os.environ["SNAPPIER_KERNEL"] = args.kernel  # read once, at the first stream call
     import chip_smoke
     import snappier_tpu_torch as st
+    from snappier_tpu_torch.models.codec import default_kernel
 
-    mib = int(sys.argv[1]) if len(sys.argv) > 1 else 128
+    mib = args.mib
     print(chip_smoke.card_line())
+    print(json.dumps({"kernel": default_kernel(), "MiB": mib}))
     raw = chip_smoke.stream_bytes(mib * 16)
     framed = st.stream_compress(raw)
     if st.stream_decompress(framed) != raw:
@@ -57,6 +70,10 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_name = {}
         for e in prof.key_averages():
+            # Device activities only (kernels, copies): a host operator's
+            # entry repeats the device time of the kernels it launched.
+            if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
+                continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
