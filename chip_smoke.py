@@ -56,11 +56,30 @@ failure:
    by the scan decoder, its CRCs against the CRC32C kernel and the host,
    its total size no larger than the greedy encoder's; ``frame_batch``;
    corrupt rows give the separate error bits; the facade and the streams in
-   a subprocess with ``SNAPPIER_KERNEL=scan``; timings and peak memory.
+   a subprocess with ``SNAPPIER_KERNEL=scan``; timings and peak memory;
+8. block-axis sharding and the encode-walk and pipelined-decode ablation at
+   full size. Sharded: ``sharded_roundtrip_step`` on the 512 blocks over a
+   mesh of 4 shards on the card (the card listed four times, a stream each)
+   with both engines, the bodies, lengths and offsets held against the
+   unsharded codec's; ``compress_corpus_sharded`` and
+   ``decompress_corpus_sharded`` on 256 MiB (scalar kernels) and 32 MiB
+   (scan), each stream also decoded by the native engine; a corrupt stream;
+   two processes of ``tools/torch_dist_worker.py`` on the card joined over
+   loopback, their union exact; one process on an NCCL group where the
+   build has NCCL; ``graft_entry.dryrun_multichip(4)``; timings of the
+   4-shard step beside the unsharded one and of the length gather and the
+   assembly. Encode ablation: ``encode_variant`` under every named flag
+   tuple, ``encode_r4`` under every name, ``decode_pipe`` and
+   ``decode_pipe2`` in every form, each against its plain version on edge
+   rows and on rows of the full 65,536 bytes, then on the 512 blocks: a variant that gives the production
+   encoder's bytes held to them, any other decoded by the decode kernel to
+   the input, the decoders' rows equal to the production kernel's; timings
+   of each beside the production kernels.
 
-Each path (liveness, probe, codec, facade, stream, ablation, scan) runs with
-the launch counts set to 0 just before it and read just after; every kernel
-of a path must have launched, and the scan path must launch none.
+Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
+sharded_scan, encode_ablation) runs with the launch counts set to 0 just
+before it and read just after; every kernel of a path must have launched,
+and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
 launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
@@ -104,6 +123,14 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
                   "tools/perf_probe.py:548"),
     "decode_variant": ("decode_variant", "snappier_tpu_torch/csrc/decode_variants.cu",
                        "tools/perf_probe.py:793"),
+    "encode_variant": ("encode_variant", "snappier_tpu_torch/csrc/encode_variants.cu",
+                       "tools/perf_probe_enc.py:56"),
+    "decode_pipe": ("decode_pipe", "snappier_tpu_torch/csrc/decode_pipe.cu",
+                    "tools/perf_probe_r4.py:111"),
+    "decode_pipe2": ("decode_pipe2", "snappier_tpu_torch/csrc/decode_pipe.cu",
+                     "tools/perf_probe_r4.py:422"),
+    "encode_r4": ("encode_r4", "snappier_tpu_torch/csrc/encode_r4.cu",
+                  "tools/perf_probe_r4.py:784"),
 }
 PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
@@ -113,11 +140,16 @@ PATHS = {  # path -> the kernels it must launch
     "stream": ("encode", "crc32c", "decode"),
     "ablation": ("decode", "decode_v2", "decode_v4", "decode_v3", "decode_variant"),
     "scan": (),  # tensor code: it must launch none of the kernels
+    "sharded": ("encode", "decode"),
+    "sharded_scan": (),
+    "encode_ablation": ("encode", "decode", "encode_variant", "encode_r4", "decode_pipe",
+                        "decode_pipe2"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
 STREAM_CHUNKS = 2048  # 128 MiB: 8 sub-batches of 256 chunks
 MIB = 1 << 20
+SHARDS = 4  # the mesh of phase 8: one card listed four times
 
 
 def card_line() -> str:
@@ -675,6 +707,7 @@ def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
     wrapper on one row)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from torch_cases import corrupt_streams as more_corrupt
+    from torch_cases import PIPE_CASES as pipe_cases
     from torch_cases import pack_streams, walk_streams
 
     from snappier_tpu_torch.ops.cuda import _build
@@ -778,7 +811,7 @@ print(json.dumps({"ok": back == raw and native_back == raw and unframed == raw
 
 def phase_scan(torch, card, data, frags, lengths, comp_u8, block_lens, greedy_lens, k3_crcs):
     """Phase 7, the scan path. Returns the launches inside the scan calls
-    (none, or the phase fails)."""
+    (none, or the phase fails) and the scan codec's bodies and lengths."""
     import tempfile
 
     from snappier_tpu_torch import SnappyCodec
@@ -889,7 +922,389 @@ def phase_scan(torch, card, data, frags, lengths, comp_u8, block_lens, greedy_le
         "scan_peak_bytes_above_inputs": peak, "scan_ratio": float(bl.sum()) / (B * BLOCK),
         "blocks": B,
     }))
-    return launches
+    return launches, bodies, body_lens
+
+
+def timed(module, name: str, sink: dict):
+    """Replace ``module.name`` with a wrapper that adds its host time (the
+    device drained before and after) to ``sink[name]``; returns the original."""
+    import torch
+
+    saved = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink[name] = sink.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    setattr(module, name, wrapper)
+    return saved
+
+
+def phase_sharded(torch, card, data, frags, lengths, k2_bodies, k2_lens, scan_bodies, scan_lens):
+    """Phase 8, the sharded paths. Returns the launches of the scalar-engine
+    path and of the scan-engine path (none, or the phase fails)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_cases import check_union, run_workers, worker_module
+
+    import snappier_tpu_torch as st
+    from snappier_tpu_torch import SnappyCodec, graft_entry
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.parallel import distributed as pdist
+    from snappier_tpu_torch.parallel import make_mesh, sharded_roundtrip_step
+    from snappier_tpu_torch.parallel import mesh as pmesh
+    from snappier_tpu_torch.runtime import block, native
+
+    mesh = make_mesh(["cuda:0"] * SHARDS)
+    raw32 = data.tobytes()
+    raw256 = stream_bytes(STREAM_CHUNKS) * 2
+    n_frag = len(raw256) // BLOCK
+    per = B // SHARDS
+
+    def step(kernel, ref_bodies, ref_lens):
+        bodies, body_lens, offsets, ok = sharded_roundtrip_step(frags, lengths, mesh=mesh,
+                                                                kernel=kernel)
+        torch.cuda.synchronize()
+        check(bool(ok), f"sharded round trip not ok ({kernel})")
+        check([r for r, _ in bodies.addressable_shards] == [
+            range(s * per, (s + 1) * per) for s in range(SHARDS)], "shard row ranges")
+        check(bool((body_lens == ref_lens).all()), f"sharded body_lens differ ({kernel})")
+        check(offsets.dtype == torch.int64 and bool(
+            (offsets == torch.cumsum(ref_lens.long(), 0) - ref_lens).all()),
+            f"offsets are not the running sum of the lengths ({kernel})")
+        got = bodies.gather()
+        keep = torch.arange(got.shape[1], device=got.device)[None, :] < body_lens[:, None]
+        check(bool(((got == ref_bodies[:, : got.shape[1]].to(torch.uint8)) | ~keep).all()),
+              f"sharded bodies differ from the unsharded codec's ({kernel})")
+        return int(body_lens.sum())
+
+    def corpus(raw, kernel):
+        payload, meta = pdist.compress_corpus_sharded(raw, mesh=mesh, kernel=kernel)
+        plain, dmeta = pdist.decompress_corpus_sharded(payload, mesh=mesh, kernel=kernel)
+        n = len(raw) // BLOCK
+        check(plain == raw, f"sharded corpus round trip differs ({kernel})")
+        check(meta["local_blocks"] == list(range(n)) and dmeta["local_fragments"] == list(
+            range(n)), f"local sets incomplete ({kernel})")
+        check(not dmeta.get("window_crossing_fallback"), "window-crossing fallback taken")
+        check(native.decompress(payload) == raw, f"native decode of the sharded stream ({kernel})")
+        off, bl_ = meta["block_offsets"], meta["block_lengths"]
+        check(bool((np.diff(off) == bl_[:-1]).all()) and int(off[-1] + bl_[-1]) == len(payload),
+              "block offsets of the sharded stream")
+        return payload
+
+    # The scalar-engine path. Neither the host decoder nor the Python
+    # prescan may run: every fragment decodes on the card.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    total = step("scalar", k2_bodies, k2_lens)
+    with forbidden(block, "_host_decode"):
+        payload256 = corpus(raw256, "scalar")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"sharded path launches: {launches}")
+    check(launches == {"encode": 2 * SHARDS, "decode": 2 * SHARDS},
+          f"sharded path launches {launches}")
+    print(f"sharded step: {SHARDS} shards x {per} x {BLOCK} B on one card, ok, {total} B of "
+          f"bodies equal to the unsharded codec's; corpus: {len(raw256)} B in {n_frag} fragments "
+          f"-> {len(payload256)} B, round trip exact on the mesh and through the native engine")
+
+    # The scan-engine path: tensor code, no kernel.
+    _build.reset_launches()
+    total = step("scan", scan_bodies, scan_lens)
+    payload32 = corpus(raw32, "scan")
+    torch.cuda.synchronize()
+    scan_launches = dict(_build.LAUNCHES)
+    check(not scan_launches, f"the sharded scan calls launched CUDA kernels: {scan_launches}")
+    print(f"sharded scan step: ok, {total} B of bodies equal to the unsharded scan codec's; "
+          f"corpus: {len(raw32)} B -> {len(payload32)} B, round trip exact, no kernel launched")
+
+    expect_invalid(st, "a sharded stream cut in half", lambda: pdist.decompress_corpus_sharded(
+        payload32[: len(payload32) // 2], mesh=mesh, kernel="scalar"))
+    bad = bytearray(payload32[: 3 + 4000])
+    bad[0:3] = bytes([0x80, 0x80, 0x04])  # claims 65536 bytes, holds fewer
+    expect_invalid(st, "a sharded stream that ends short of its claim",
+                   lambda: pdist.decompress_corpus_sharded(bytes(bad), mesh=mesh))
+    print("corrupt sharded streams raise InvalidDataError")
+
+    # Two processes on the card, joined over loopback (lengths travel as
+    # host tensors on a gloo group, payload stays on the card).
+    worker = worker_module()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        metas, payloads, plains = run_workers(d, 2, 2, 16, "cuda", "gloo", timeout=300)
+        secs = time.perf_counter() - t0
+    for meta in metas:
+        check(meta["process_count"] == 2 and meta["mesh_size"] == 4 and meta["backend"] == "gloo"
+              and meta["device"].startswith("cuda"), f"worker meta {meta}")
+        check(meta["launches"].get("encode", 0) > 0 and meta["launches"].get("decode", 0) > 0,
+              f"a worker launched no kernel: {meta['launches']}")
+    stream = check_union(metas, payloads,
+                         ("block_lengths", "block_offsets", "local_blocks")).tobytes()
+    check(native.decompress(stream) == worker.corpus(16), "the workers' union does not decode")
+    single, _ = pdist.compress_corpus_sharded(worker.corpus(16), mesh=mesh, kernel="scalar")
+    check(stream == single, "the workers' union differs from the single-process stream")
+    plain = check_union(metas, plains,
+                        ("fragment_lengths", "fragment_offsets", "local_fragments"))
+    check(plain.tobytes() == worker.stream_case(3 * 2 + 2)[0], "the workers' decoded union")
+    print(f"two worker processes on the card (gloo over loopback, 2 shards each) in {secs:.1f} s: "
+          f"identical maps, local sets partition 16 blocks, union exact: {metas[0]['launches']}")
+
+    if dist.is_nccl_available():
+        with tempfile.TemporaryDirectory() as d:
+            (meta,), (part,), _ = run_workers(d, 1, SHARDS, 16, "cuda", "nccl", timeout=300)
+        check(meta["backend"] == "nccl" and part.tobytes() == single,
+              f"the NCCL run differs: {meta}")
+        print("NCCL: one process on an NCCL group, lengths gathered as a CUDA tensor, stream "
+              "equal to the gloo run's")
+    else:
+        print("NCCL: this PyTorch build has no NCCL; the NCCL run was not made")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        graft_entry.dryrun_multichip(SHARDS)
+    line = out.getvalue().strip().splitlines()[-1]
+    check(line.startswith("dryrun_multichip ok: mesh={'blocks': 4}"), line)
+    print(line)
+    fn, args = graft_entry.entry()
+    e_bodies, e_lens, e_crcs = fn(*args)
+    check(args[0].is_cuda and tuple(e_lens.shape) == (4,) and bool((e_lens > 0).all()),
+          "graft_entry.entry() on the card")
+
+    # Timings: the 4-shard step against the unsharded one, and where a
+    # sharded corpus call's host time goes.
+    codec = SnappyCodec(with_crc=False)
+    t_step = {}
+    for _ in range(2):  # unsharded, sharded, sharded, unsharded: one card, in turns
+        for name, fn in (("unsharded", lambda: codec.roundtrip_step(frags, lengths)),
+                         ("sharded", lambda: sharded_roundtrip_step(
+                             frags, lengths, mesh=mesh, kernel="scalar")),
+                         ("sharded", lambda: sharded_roundtrip_step(
+                             frags, lengths, mesh=mesh, kernel="scalar")),
+                         ("unsharded", lambda: codec.roundtrip_step(frags, lengths))):
+            t_step.setdefault(name + "_cuda_ms", []).append(cuda_ms(fn, iters=3, passes=2))
+
+            def whole(fn=fn):
+                fn()
+                torch.cuda.synchronize()
+
+            t_step.setdefault(name + "_host_ms", []).append(best_host_ms(whole, passes=2))
+    parts: dict = {}
+    saved = [(pmesh, "_replicated_lengths", timed(pmesh, "_replicated_lengths", parts)),
+             (pdist, "_scatter_rows", timed(pdist, "_scatter_rows", parts)),
+             (pdist, "sharded_compress", timed(pdist, "sharded_compress", parts)),
+             (pdist, "sharded_decompress", timed(pdist, "sharded_decompress", parts))]
+    try:
+        t0 = time.perf_counter()
+        payload, _ = pdist.compress_corpus_sharded(raw256, mesh=mesh, kernel="scalar")
+        t_comp = (time.perf_counter() - t0) * 1e3
+        comp_parts = dict(parts)
+        parts.clear()
+        t0 = time.perf_counter()
+        pdist.decompress_corpus_sharded(payload, mesh=mesh, kernel="scalar")
+        t_dec = (time.perf_counter() - t0) * 1e3
+        dec_parts = dict(parts)
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    print(json.dumps({
+        "card": card, "shards": SHARDS, "blocks": B,
+        "roundtrip_step_ms": {k: min(v) for k, v in t_step.items()}, "all_runs_ms": t_step,
+        "corpus_bytes": len(raw256), "compress_corpus_sharded_host_ms": t_comp,
+        "compress_parts_host_ms": comp_parts, "decompress_corpus_sharded_host_ms": t_dec,
+        "decompress_parts_host_ms": dec_parts,
+    }))
+    return launches, scan_launches
+
+
+def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, comp_u8,
+                          block_lens):
+    """Phase 8, the encode-ablation path. Returns (max_abs_err per wrapper,
+    launches on the path, ms per wrapper, plain ms per wrapper on one row,
+    bytes of bodies that the timed variant of each encode wrapper wrote)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    from torch_cases import corrupt_streams as more_corrupt
+    from torch_cases import encode_rows as small_rows
+    from torch_cases import PIPE_CASES as pipe_cases
+    from torch_cases import pack_streams, walk_streams
+    from torch_perf_probe import tag_mix
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    dev = torch.device("cuda")
+    errs = {}
+    PIPE_CASES = dict(pipe_cases)  # name -> decode_pipe2's arguments ("pipe": decode_pipe)
+    enc_cases = [("encode_variant", name, flags) for name, flags in ev.VARIANT_FLAGS.items()]
+    enc_cases += [("encode_variant", "none", ()), ("encode_variant", "probe8,st1,hb9",
+                                                   ("probe8", "st1", "hb9"))]
+    enc_cases += [("encode_r4", name, name) for name in ev.R4_VARIANTS]
+    wrappers = {"encode_variant": (ev.encode_variant, ev.encode_variant_plain),
+                "encode_r4": (ev.encode_r4, ev.encode_r4_plain)}
+
+    def emits(counter, arg):
+        return "noemit" not in arg if counter == "encode_variant" else arg not in ev.R4_NO_BYTES
+
+    # 1. each kernel against its plain version. Encoders: markup, random,
+    # all-zero and period-1..7 rows of 4 KiB, a ragged tail, rows of 1, 15,
+    # 16, 17 and 40 bytes and an empty row, with garbage past each length;
+    # then at the main path's row width: three of its 65,536-byte fragments,
+    # markup at full and ragged length, random bytes, a period-2 pattern, a
+    # 15-byte row and 20,000 random bytes repeated (matches at offsets that
+    # need a copy-2 tag, table positions across the whole row).
+    f_small, l_small = small_rows(4096)
+    f_small = np.concatenate([f_small, f_small[:1]]).astype(np.uint8)
+    l_small = np.concatenate([l_small, [0]]).astype(np.int32)
+    f_wide, l_wide = small_rows(BLOCK)
+    far = np.tile(np.random.default_rng(23).integers(0, 256, 20000, dtype=np.uint8), 4)[:BLOCK]
+    f_wide = np.concatenate([frags[[0, B // 2, B - 1]].cpu().numpy(),
+                             f_wide[[0, 1, 2, 5, 12]].astype(np.uint8), far[None]])
+    l_wide = np.concatenate([[BLOCK] * 3, l_wide[[0, 1, 2, 5, 12]], [BLOCK]]).astype(np.int32)
+    t0 = time.perf_counter()
+    for f_rows, l_rows in ((f_small, l_small), (f_wide, l_wide)):
+        fs_h, ls_h = torch.from_numpy(f_rows), torch.from_numpy(l_rows)
+        fs_d, ls_d = fs_h.to(dev), ls_h.to(dev)
+        for counter, name, arg in enc_cases:
+            fn, plain = wrappers[counter]
+            got_b, got_l = (x.cpu().numpy() for x in fn(fs_d, ls_d, arg))
+            torch.cuda.synchronize()
+            want_b, want_l = (x.numpy() for x in plain(fs_h, ls_h, arg))
+            pairs = [(got_l, want_l)]
+            if emits(counter, arg):
+                pairs += [(got_b[i, :n], want_b[i, :n]) for i, n in enumerate(want_l)]
+            err = max_abs_err(pairs)
+            check(err == 0, f"{counter} {name} differs from its plain version on rows of "
+                            f"{f_rows.shape[1]} B")
+            errs[counter] = max(errs.get(counter, 0), err)
+    print(f"encode_variant ({len(ev.VARIANT_FLAGS)} named tuples and 2 others) and encode_r4 "
+          f"({len(ev.R4_VARIANTS)} names) == plain on {len(l_small)} rows of 4096 B and "
+          f"{len(l_wide)} rows of {BLOCK} B, max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+    # Decoders: phase 2's rows (corrupt blocks and encoded 64 KiB rows), short
+    # offsets, overlapping copies, long literals and more malformed blocks.
+    streams = decode_streams + walk_streams() + more_corrupt()
+    comp, clens = pack_streams(streams, 68608)
+    c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
+    c_d, l_d = c_h.to(dev), l_h.to(dev)
+    plain_rows = {fold: [x.numpy() for x in dv.decode_pipe_plain(c_h, l_h, BLOCK, fold)]
+                  for fold in (False, True)}
+
+    def pipe_call(name, rows, lens):
+        if name == "pipe":
+            return dv.decode_pipe(rows, lens, BLOCK)
+        return dv.decode_pipe2(rows, lens, BLOCK, **PIPE_CASES[name])
+
+    for name, kw in PIPE_CASES.items():
+        got = [x.cpu().numpy() for x in pipe_call(name, c_d, l_d)]
+        torch.cuda.synchronize()
+        want = plain_rows[name != "pipe"]
+        pairs = [(got[1], want[1]), (got[2], want[2])]
+        if kw.get("emit", True):
+            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+        err = max_abs_err(pairs)
+        check(err == 0, f"{name} differs from its plain version")
+        counter = "decode_pipe" if name == "pipe" else "decode_pipe2"
+        errs[counter] = max(errs.get(counter, 0), err)
+    seen = set(plain_rows[True][2].tolist())
+    check(seen == {0, 4, 7, 8}, f"corrupt rows give error words {sorted(seen)}")
+    print(f"decode_pipe and decode_pipe2 ({len(PIPE_CASES) - 1} forms) == plain on "
+          f"{len(streams)} rows, max_abs_err 0")
+
+    # 2. the path: the 512 fragments through the encode kernel and every
+    # named encode variant, the encode kernel's 512 blocks through the decode
+    # kernel and every pipelined form.
+    pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device=dev).expand(B, 3)
+    k2_lens_sum = int(k2_lens.sum())
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    e_bodies, e_lens = sc.encode_blocks_bytes(frags, lengths)
+    check(bool((e_lens == k2_lens).all()), "the encode kernel's lengths changed")
+    k1_out, _, k1_errs = sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK)
+    check(bool((k1_errs == 0).all()) and bool((k1_out == frags).all()), "production decode")
+    sizes, identical = {}, []
+    for counter, name, arg in enc_cases:
+        bodies, body_lens = wrappers[counter][0](frags, lengths, arg)
+        sizes[name] = int(body_lens.sum())
+        if not emits(counter, arg):
+            continue
+        if name in ev.R4_PRODUCTION_BYTES:
+            keep = torch.arange(bodies.shape[1], device=dev)[None, :] < body_lens[:, None]
+            check(bool((body_lens == k2_lens).all()) and bool(
+                ((bodies == e_bodies[:, : bodies.shape[1]]) | ~keep).all()),
+                f"{name}: bytes differ from the encode kernel's")
+            identical.append(name)
+            continue
+        rows = torch.cat([pre, bodies], dim=1)
+        out, out_lens, derrs = sc.decode_blocks_bytes(rows, body_lens + 3, BLOCK)
+        check(bool((derrs == 0).all()) and bool((out_lens == BLOCK).all())
+              and bool((out == frags).all()), f"{name}: does not decode to the input")
+    check(sizes["encnoemit"] == sizes["enccopywhen"], "encnoemit counts its walk's lengths")
+    check(sizes["encdmaonly"] == B * BLOCK and sizes["edma"] == 0, "the variants without a walk")
+    check(all(sizes[k] > 0 and sizes[k] % 2 == 0 for k in ("e4", "e7n", "e6n")),
+          "the variants that count matches")
+    for name in PIPE_CASES:
+        out, out_lens, perrs = pipe_call(name, comp_u8, block_lens)
+        check(bool((perrs == 0).all()) and bool((out_lens == BLOCK).all()),
+              f"{name}: verdicts on the main path")
+        if name != "denoemit":
+            check(bool((out == k1_out).all()), f"{name}: rows differ from decode's")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"encode_ablation path launches: {launches}")
+    for k in PATHS["encode_ablation"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the encode_ablation path")
+    check(launches["encode_variant"] == len(ev.VARIANT_FLAGS) + 2
+          and launches["encode_r4"] == len(ev.R4_VARIANTS) and launches["decode_pipe"] == 1
+          and launches["decode_pipe2"] == len(PIPE_CASES) - 1, f"launch counts {launches}")
+    print(f"encode ablation: {B} x {BLOCK} B; {identical} give the encode kernel's bytes, every "
+          f"other emitting variant decodes to the input through the decode kernel; "
+          f"{len(PIPE_CASES) - 1} pipelined forms give the decode kernel's rows")
+
+    # 3. timings beside the production kernels. Decoders at the codec's row
+    # width and at the tight one; ns per tag over the waves of blocks that
+    # the card runs at once.
+    ntags, _ = tag_mix(comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes())
+    t_enc = {"k2": {"ms": cuda_ms(lambda: sc.encode_blocks_bytes(frags, lengths), iters=3),
+                    "size_share": 1.0}}
+    for counter, name, arg in enc_cases:
+        fn = wrappers[counter][0]
+        t_enc[name] = {"ms": cuda_ms(lambda: fn(frags, lengths, arg), iters=3),
+                       "size_share": sizes[name] / k2_lens_sum}
+    tight = comp_u8[:, : -(-(int(block_lens.max()) + 8) // 1024) * 1024].contiguous()
+    t_dec = {}
+    for width, rows_d in (("codec_width", comp_u8), ("tight_width", tight)):
+        smem = dv._pipe_smem_bytes(rows_d.shape[1], BLOCK)
+        in_flight = 132 * max(1, 233472 // (smem + 1024))
+        t = {"row_bytes": rows_d.shape[1], "smem": smem, "blocks_in_flight": in_flight,
+             "k1": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK))}
+        for name in PIPE_CASES:
+            t[name] = cuda_ms(lambda: pipe_call(name, rows_d, block_lens))
+            t[name + "_ns_per_tag"] = t[name] * 1e6 / -(-B // in_flight) / ntags
+        t_dec[width] = t
+    print(json.dumps({"card": card, "tags_per_block": ntags,
+                      "encode_ablation_per_512_blocks": t_enc,
+                      "pipe_ms_per_512_blocks": t_dec}))
+    ms = {"encode_variant": t_enc["e3"]["ms"], "encode_r4": t_enc["encpre"]["ms"],
+          "decode_pipe": t_dec["codec_width"]["pipe"],
+          "decode_pipe2": t_dec["codec_width"]["pipe2u2"]}
+    f1, l1 = frags[:1].cpu(), lengths[:1].cpu()
+    c1, cl1 = comp_u8[:1].cpu(), block_lens[:1].cpu()
+    plain = {
+        "encode_variant": host_ms(lambda: ev.encode_variant_plain(f1, l1, ev.VARIANT_FLAGS["e3"])),
+        "encode_r4": host_ms(lambda: ev.encode_r4_plain(f1, l1, "encpre")),
+        "decode_pipe": host_ms(lambda: dv.decode_pipe_plain(c1, cl1, BLOCK, False)),
+        "decode_pipe2": host_ms(lambda: dv.decode_pipe_plain(c1, cl1, BLOCK, True)),
+    }
+    return errs, launches, ms, plain, {"encode_variant": sizes["e3"], "encode_r4": sizes["encpre"]}
 
 
 def main() -> int:
@@ -1040,7 +1455,16 @@ def main() -> int:
         torch, card, decode_streams, frags, comp_u8, block_lens)
     errs.update(errs_abl)
     ms.update(ms_abl)
-    scan_launches = phase_scan(torch, card, data, frags, lengths, comp_u8, block_lens, bl, crcs)
+    scan_launches, scan_bodies, scan_lens = phase_scan(
+        torch, card, data, frags, lengths, comp_u8, block_lens, bl, crcs)
+
+    # --- 8. block-axis sharding, the encode-walk and pipelined-decode ablation ---
+    sharded_launches, sharded_scan_launches = phase_sharded(
+        torch, card, data, frags, lengths, bodies, body_lens, scan_bodies, scan_lens)
+    errs_enc, enc_launches, ms_enc, plain_enc, enc_body_bytes = phase_encode_ablation(
+        torch, card, decode_streams, frags, lengths, body_lens, comp_u8, block_lens)
+    errs.update(errs_enc)
+    ms.update(ms_enc)
 
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
@@ -1053,11 +1477,11 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
-        "watch": watch_plain_ms, **plain_abl,
+        "watch": watch_plain_ms, **plain_abl, **plain_enc,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
                   "probe": len(probe_expected), "watch": watch.SHAPE[0],
-                  **{k: 1 for k in plain_abl}}
+                  **{k: 1 for k in (*plain_abl, *plain_enc)}}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -1076,19 +1500,24 @@ def main() -> int:
         "watch": 2 * 4 * watch.SHAPE[0] * watch.SHAPE[1],  # int32 words in, words out
     }
     # The ablation variants do the decode kernel's work on the same blocks.
-    moved.update({k: moved["decode"] for k in plain_abl})
+    moved.update({k: moved["decode"] for k in (*plain_abl, "decode_pipe", "decode_pipe2")})
+    # The encode ablation does the encode kernel's work; each variant writes
+    # its own bodies.
+    moved.update({k: n_in + 4 * B + n + 4 * B for k, n in enc_body_bytes.items()})
     # Operations: at least one 32-bit integer step per input byte (a hash,
     # table or candidate step; a decoded byte's store; a compared byte), at
     # the card's 32-bit non-tensor peak. The byte term is the larger one.
     ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
            "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1],
-           **{k: n_in for k in plain_abl}}
+           **{k: n_in for k in (*plain_abl, *plain_enc)}}
     # One PyTorch call computes what the liveness kernel does (torch.add);
     # none computes Snappy, CRC32C or a match length.
     library_ms = {"watch": watch_library_ms}
     by_path = {"liveness": watch_launches, "probe": probe_launches, "codec": codec_launches,
                "facade": facade_launches, "stream": stream_launches,
-               "ablation": ablation_launches, "scan": scan_launches}
+               "ablation": ablation_launches, "scan": scan_launches,
+               "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
+               "encode_ablation": enc_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

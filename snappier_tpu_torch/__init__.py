@@ -25,6 +25,7 @@ from snappier_tpu_torch.errors import (  # noqa: F401
     InvalidOperationError,
     SnappyError,
 )
+from snappier_tpu_torch import parallel  # noqa: F401
 from snappier_tpu_torch.models.codec import SnappyCodec  # noqa: F401
 from snappier_tpu_torch.runtime.block import (  # noqa: F401
     compress,

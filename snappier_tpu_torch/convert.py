@@ -3,7 +3,8 @@
 The codec has no weights: its state is its configuration (the constant
 tables are rebuilt from the format law in :mod:`snappier_tpu_torch.format`).
 :func:`codec_from_reference` takes the configuration of a
-``snappier_tpu.models.codec.SnappyCodec`` as plain values, and
+``snappier_tpu.models.codec.SnappyCodec`` as plain values,
+:func:`mesh_from_reference` the axis and device count of a reference mesh, and
 :func:`stream_from_reference` reads the state of a reference stream object
 taken mid-stream by attribute, so the port never imports the reference.
 """
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-from snappier_tpu_torch.models.codec import SnappyCodec
+from snappier_tpu_torch.models.codec import SnappyCodec, resolve_device
+from snappier_tpu_torch.parallel.mesh import BLOCK_AXIS, Mesh, make_mesh
 from snappier_tpu_torch.runtime.incremental import BlockDecompressor
 from snappier_tpu_torch.runtime.stream import StreamCompressor, StreamDecompressor
 
@@ -37,6 +39,17 @@ def codec_from_reference(cfg: Mapping, device=None) -> SnappyCodec:
         kernel=cfg.get("kernel"),
         device=device,
     )
+
+
+def mesh_from_reference(mesh, device=None) -> Mesh:
+    """The port's mesh of as many shards as a reference mesh has devices.
+    ``mesh`` is a ``jax.sharding.Mesh`` taken as a plain object (its
+    ``axis_names`` must be the block axis alone, its ``devices`` give the
+    count); every shard lies on ``device`` (default: the card)."""
+    if tuple(mesh.axis_names) != (BLOCK_AXIS,):
+        raise ValueError(f"the reference mesh's axes are {tuple(mesh.axis_names)}, "
+                         f"not ({BLOCK_AXIS!r},)")
+    return make_mesh([resolve_device(device)] * int(mesh.devices.size))
 
 
 def _port_engine(engine: str) -> str:

@@ -1,0 +1,68 @@
+// The encode-walk ablation on Hopper, first family: the greedy walk under
+// the flag tuples of encode_variant.
+//
+// Replaces: tools/perf_probe_enc.py::_encode_kernel_v (wrapper
+// encode_variant), the TPU scalar-core experiments on the encode walk:
+// seeding merged into the extension loop, a branch-free tail and copy tag,
+// a stride-8 extension, an eight-wide probe, a wider miss advance, thinner
+// table stores, a narrower hash, no emission, no walk.
+//
+// What bounds it: as encode.cu, the serial walk of one thread per fragment
+// (a chain of dependent shared-memory loads per probe group); the bytes,
+// 32 MiB in and about 7 MiB out for 512 fragments, take about 12 us at
+// 3.35 TB/s.
+//
+// What the design does about it: encode.cu's layout (fragment and match
+// table in dynamic shared memory, one block per fragment, one walking
+// thread), with the table at the variant's hash width: at the TPU probe's
+// 14 bits it is 32 KiB, a block needs about 96 KiB and two blocks share an
+// SM, where encode.cu's 15 bits leave one. Each named tuple is a kernel of
+// its own (the mask is a template argument, so the walk holds only that
+// variant's code); any other legal tuple runs the same walk with the mask
+// as a run-time value.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "encode_variants.cuh"
+
+namespace {
+
+using namespace sc;
+constexpr uint32_t E3 = EV_EXT_4 | EV_XOR_TAIL | EV_BFREE_COPY;
+constexpr uint32_t E6 = EV_EXT_8U | EV_POST_SEED | EV_XOR_TAIL | EV_BFREE_COPY;
+
+}  // namespace
+
+// mask: the EV_* bits of the walk (ops/cuda/encode_variants.py builds it
+// from the flags). frags: uint8[B, frag_w]; lengths, body_lens: int32[B];
+// bodies: uint8[B, body_w].
+extern "C" int snappy_encode_variant_launch(uint32_t mask, int32_t hash_bits,
+                                            int32_t store_step, const void* frags,
+                                            int64_t frag_w, const void* lengths, int64_t batch,
+                                            void* bodies, int64_t body_w, void* body_lens,
+                                            void* stream) {
+  if (batch == 0) return 0;
+#define SNAPPY_CASE(m)                                                                      \
+  case (m):                                                                                 \
+    return ev::launch(sc::StaticWalk<(m)>{hash_bits, store_step}, frags, frag_w, lengths,   \
+                      batch, bodies, body_w, body_lens, stream)
+  switch (mask) {
+    SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED);                        // the empty tuple
+    SNAPPY_CASE(EV_EXT_4);                                           // e1
+    SNAPPY_CASE(EV_EXT_4 | EV_XOR_TAIL);                             // e2
+    SNAPPY_CASE(E3);                                                 // e3, e9, e10, e11
+    SNAPPY_CASE(E3 | EV_EMIT_HITS);                                  // e4
+    SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED | EV_XOR_TAIL);          // eb
+    SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED | EV_BFREE_COPY);        // ec
+    SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED | EV_XOR_TAIL | EV_BFREE_COPY);  // ebc
+    SNAPPY_CASE(E6);                                                 // e6
+    SNAPPY_CASE(E6 | EV_ADV4);                                       // e6a
+    SNAPPY_CASE(E6 | EV_ADV4 | EV_PROBE8);                           // e7
+    SNAPPY_CASE(E6 | EV_ADV4 | EV_PROBE8 | EV_EMIT_HITS);            // e7n
+    SNAPPY_CASE(E6 | EV_ADV4 | EV_EMIT_HITS);                        // e6n
+    SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED | EV_EMIT_HITS | EV_NOSCAN);  // edma
+  }
+#undef SNAPPY_CASE
+  return ev::launch(sc::DynWalk{mask, hash_bits, store_step}, frags, frag_w, lengths, batch,
+                    bodies, body_w, body_lens, stream);
+}

@@ -1,0 +1,426 @@
+// The encode-walk ablation (encode_variants.cu, encode_r4.cu): one greedy
+// walk over a fragment whose parts are chosen by a mask, written as a
+// __host__ __device__ function like the walks in scalar_codec.cuh.
+//
+// It computes what tools/perf_probe_enc.py::_encode_kernel_v (wrapper
+// encode_variant, the flag tuples) and tools/perf_probe_r4.py::
+// _encode_kernel_r4 (wrapper encode_r4, the named restructurings) compute:
+// the tag stream of one fragment and its length. The two TPU kernels are
+// one family: a probe of 4 or 8 positions against the match table, an
+// extension walk that also seeds the table, a tail of up to 3 bytes, and the
+// emission of a literal and a copy. The mask says which form each part
+// takes; the hash width and the thinning of the probe's table stores are
+// run-time values. A StaticWalk<mask> fixes the mask at compile time, so
+// that every test of it folds away and each named variant is a kernel of
+// its own; a DynWalk carries any legal mask.
+//
+// Some parts change the bytes (another valid encoding of the same input:
+// the seeding of the extension walks, the probe width, the miss advance,
+// the store thinning, the hash width), some only the order of the work (the
+// preloaded next group, the detection-only probe, the two nested loops, the
+// branch-free tail and copy tag): the latter give the bytes of the walk
+// they restructure. The table is fresh per fragment (16-bit slots, EMPTY
+// for none), which is what the TPU kernels' epoch tag amounts to.
+#pragma once
+
+#include "scalar_codec.cuh"
+
+namespace sc {
+
+enum : uint32_t {
+  // Extension walk, bits 0-2.
+  EV_EXT_LOOP4 = 0,   // stride 4, no seeding (encode_variant without "merged")
+  EV_EXT_4 = 1,       // stride 4, one seed per step ("merged"; encode_r4's base walk)
+  EV_EXT_8 = 2,       // stride 8 whose advance depends on the compares ("encext8")
+  EV_EXT_8U = 3,      // stride 8, unconditional advance, backs up at the end ("ext8", "encext8u")
+  EV_EXT_8S2 = 4,     // EXT_8U with two seeds per step ("encext8s2")
+  EV_EXT_16U = 5,     // stride 16, two seeds per step ("encext16u")
+  EV_EXT_MASK = 7,
+  EV_POST_SEED = 1u << 3,   // seed at + 1 + 4k over the match after emission
+  EV_XOR_TAIL = 1u << 4,    // the tail from one XOR of two windows ("btail")
+  EV_BFREE_COPY = 1u << 5,  // a copy tag always stores 3 bytes ("bcopy")
+  EV_EMIT_COUNT = 1u << 6,  // lengths only, no stores ("encnoemit")
+  EV_EMIT_HITS = 1u << 7,   // 2 per hit, no stores, no final literal ("noemit")
+  EV_PROBE8 = 1u << 8,      // 8 positions a probe, advance 7 + (skip >> 5) ("probe8")
+  EV_OCT = 1u << 9,         // 8 positions, all stored, advance 6 + 2 * (skip >> 5) ("encoct")
+  EV_ADV4 = 1u << 10,       // a miss advances by the probe width ("adv4")
+  EV_TRIM = 1u << 11,       // detection-only probe, candidates chosen in the hit branch
+  EV_LOOP_PRE = 1u << 12,   // the next miss position's keys and hashes loaded before the resolve
+  EV_LOOP_TWO = 1u << 13,   // an inner loop over misses, the hit work once per outer step
+  EV_NOSCAN = 1u << 14,     // no walk at all: length 0 ("noscan")
+  EV_DMA_ONLY = 1u << 15,   // no walk at all: length n ("encdmaonly")
+};
+
+template <uint32_t kMask>
+struct StaticWalk {
+  int hash_bits;
+  int store_step;  // the probe stores positions 0, store_step, 2 * store_step, ...: 1, 2, 4 or 8
+  SC_HD constexpr uint32_t mask() const { return kMask; }
+};
+
+struct DynWalk {
+  uint32_t m;
+  int hash_bits;
+  int store_step;
+  SC_HD uint32_t mask() const { return m; }
+};
+
+// A copy tag of length 4..64 that always stores 3 bytes; the third is
+// overwritten by the next tag when the tag has 2.
+SC_HD int32_t emit_copy_upto64_bfree(uint8_t* out, int32_t op, int32_t off, int32_t len) {
+  bool is1 = len <= 11 && off < 2048;
+  out[op] = (uint8_t)(is1 ? (1 | ((len - 4) << 2) | ((off >> 8) << 5)) : (2 | ((len - 1) << 2)));
+  out[op + 1] = (uint8_t)(off & 0xFF);
+  out[op + 2] = (uint8_t)((off >> 8) & 0xFF);
+  return op + (is1 ? 2 : 3);
+}
+
+// Emission of one literal run and one copy under a mask: stores and the new
+// output position, or the position alone.
+struct VariantEmitter {
+  uint32_t mk;
+  const uint8_t* s;
+  uint8_t* out;
+
+  SC_HD int32_t literal(int32_t op, int32_t start, int32_t end) const {
+    int32_t len = end - start;
+    if (len <= 0) return op;
+    if (mk & EV_EMIT_COUNT) return op + 1 + (len > 256 ? 2 : (len > 60 ? 1 : 0)) + len;
+    return emit_literal(out, op, s, start, len);
+  }
+
+  SC_HD int32_t upto64(int32_t op, int32_t off, int32_t len) const {
+    if (mk & EV_EMIT_COUNT) return op + ((len <= 11 && off < 2048) ? 2 : 3);
+    if (mk & EV_BFREE_COPY) return emit_copy_upto64_bfree(out, op, off, len);
+    return emit_copy_upto64(out, op, off, len);
+  }
+
+  SC_HD int32_t copy(int32_t op, int32_t off, int32_t len) const {
+    while (len >= 68) {
+      op = upto64(op, off, 64);
+      len -= 64;
+    }
+    if (len > 64) {
+      op = upto64(op, off, 60);
+      len -= 60;
+    }
+    return upto64(op, off, len);
+  }
+};
+
+// The match length at `at` against `cand` before the tail, by the mask's
+// extension walk. seed(pos) stores min(pos, n - 5) in the table.
+template <class Key, class Seed>
+SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32_t cand,
+                             int32_t n) {
+  int32_t m = 4;
+  bool go = true;
+  if (ext == EV_EXT_LOOP4) {
+    while (at + m + 4 <= n && key(at + m) == key(cand + m)) m += 4;
+  } else if (ext == EV_EXT_4) {
+    while (go && at + m + 4 <= n) {
+      seed(at + m - 3);
+      go = key(at + m) == key(cand + m);
+      m += 4;
+    }
+    if (!go) m -= 4;
+  } else if (ext == EV_EXT_8) {
+    while (go && at + m + 8 <= n) {
+      seed(at + m - 3);
+      bool eq0 = key(at + m) == key(cand + m);
+      bool eq1 = key(at + m + 4) == key(cand + m + 4);
+      m += eq0 ? (eq1 ? 8 : 4) : 0;
+      go = eq0 && eq1;
+    }
+    if (go && at + m + 4 <= n && key(at + m) == key(cand + m)) m += 4;
+  } else if (ext == EV_EXT_8U || ext == EV_EXT_8S2) {
+    bool eq0l = true;
+    while (go && at + m + 8 <= n) {
+      seed(at + m - 3);
+      if (ext == EV_EXT_8S2) seed(at + m + 1);
+      bool eq0 = key(at + m) == key(cand + m);
+      bool eq1 = key(at + m + 4) == key(cand + m + 4);
+      m += 8;
+      go = eq0 && eq1;
+      eq0l = eq0;
+    }
+    if (!go) m = m - 8 + (eq0l ? 4 : 0);
+    if (go && at + m + 4 <= n && key(at + m) == key(cand + m)) m += 4;
+  } else {  // EV_EXT_16U
+    bool e0 = true, e01 = true, e012 = true;
+    while (go && at + m + 16 <= n) {
+      seed(at + m - 3);
+      seed(at + m + 5);
+      e0 = key(at + m) == key(cand + m);
+      e01 = e0 && key(at + m + 4) == key(cand + m + 4);
+      e012 = e01 && key(at + m + 8) == key(cand + m + 8);
+      go = e012 && key(at + m + 12) == key(cand + m + 12);
+      m += 16;
+    }
+    if (!go) {
+      m = m - 16 + (e0 ? 4 : 0) + (e01 ? 4 : 0) + (e012 ? 4 : 0);
+    } else {  // the bounds ended the walk: up to 3 groups of 4 remain
+      while (go && at + m + 4 <= n) {
+        go = key(at + m) == key(cand + m);
+        m += 4;
+      }
+      if (!go) m -= 4;
+    }
+  }
+  return m;
+}
+
+// Greedy LZ77 over one fragment of n bytes under a mask; returns the tag
+// stream's length. s holds the fragment followed by 8 readable bytes (their
+// values never change the result); table holds 1 << cfg.hash_bits slots, all
+// EMPTY on entry; out holds the bound of greedy emission plus 3 bytes.
+template <class Cfg>
+SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* table, Cfg cfg,
+                                      uint8_t* out) {
+  const uint32_t mk = cfg.mask();
+  if (mk & EV_DMA_ONLY) return n;
+  if (mk & EV_NOSCAN) return 0;
+  const int hb = cfg.hash_bits;
+  const int W = (mk & (EV_PROBE8 | EV_OCT)) ? 8 : 4;
+  const int store_step = (mk & EV_OCT) ? 1 : cfg.store_step;
+  const int32_t margin = INPUT_MARGIN + ((mk & EV_OCT) ? 4 : 0);
+  const int32_t skip_base = 32;
+  const VariantEmitter em{mk, s, out};
+
+  auto key = [&](int32_t i) { return load32(s, i); };
+  auto seed = [&](int32_t pos) {
+    int32_t p = pos < n - 5 ? pos : n - 5;
+    table[hash32(load32(s, p), hb)] = (uint16_t)p;
+  };
+  auto miss_step = [&](int32_t skip) {
+    if (mk & EV_OCT) return 6 + 2 * (skip >> 5);
+    return ((mk & EV_ADV4) ? W : W - 1) + (skip >> 5);
+  };
+  const int32_t skip_inc = (mk & EV_OCT) ? 2 : 1;
+  // The loops over a group's positions run to 8 under a test against W, with
+  // the arrays indexed by the loop counter alone, so that they unroll and
+  // the arrays stay in registers.
+  //
+  // Keys and hashes of the W positions at ip; ip is clamped so that a
+  // speculative load stays inside the staged bytes.
+  auto loads_at = [&](int32_t ip, uint32_t* cur, uint32_t* h) {
+    if (ip > n - 3) ip = n - 3 < 0 ? 0 : n - 3;
+#pragma unroll
+    for (int d = 0; d < 8; d++) {
+      if (d < W) {
+        cur[d] = load32(s, ip + d);
+        h[d] = hash32(cur[d], hb);
+      }
+    }
+  };
+  // The probe of the group at ip: reads the W slots, stores the group's
+  // positions (every store_step-th, a power of two), and finds the first
+  // position whose candidate verifies. Returns its index (or -1) and sets
+  // cand_first.
+  auto probe = [&](int32_t ip, const uint32_t* cur, const uint32_t* h, int32_t& cand_first) {
+    int32_t ent[8];
+#pragma unroll
+    for (int d = 0; d < 8; d++) {
+      if (d < W) ent[d] = table[h[d]];
+    }
+#pragma unroll
+    for (int d = 0; d < 8; d++) {
+      if (d < W && (d & (store_step - 1)) == 0) table[h[d]] = (uint16_t)(ip + d);
+    }
+    if (mk & EV_TRIM) {
+      // Detection only: an EMPTY slot fails the bound test by itself, so
+      // one compare stands for the empty test and the bound. Candidates are
+      // chosen after the miss case has left.
+      bool hit[8];
+      bool any = false;
+#pragma unroll
+      for (int d = 0; d < 8; d++) {
+        if (d < W) {
+          bool ok = ent[d] < ip + d && load32(s, ent[d]) == cur[d];
+#pragma unroll
+          for (int i = 0; i < d; i++) ok = ok || cur[i] == cur[d];
+          hit[d] = ok;
+          any = any || ok;
+        }
+      }
+      if (!any) return -1;
+      int d_first = -1;
+#pragma unroll
+      for (int d = 0; d < 8; d++) {
+        if (d < W && d_first < 0 && hit[d]) {
+          int32_t cand = ent[d];
+#pragma unroll
+          for (int i = 0; i < d; i++) {
+            if (cur[i] == cur[d]) cand = ip + i;
+          }
+          cand_first = cand;
+          d_first = d;
+        }
+      }
+      return d_first;
+    }
+    int d_first = -1;
+#pragma unroll
+    for (int d = 0; d < 8; d++) {
+      if (d < W && d_first < 0) {
+        bool ok = ent[d] != EMPTY && ent[d] < ip + d && load32(s, ent[d]) == cur[d];
+        int32_t cand = ok ? ent[d] : 0;
+#pragma unroll
+        for (int i = 0; i < d; i++) {
+          if (cur[i] == cur[d]) {  // the nearest earlier equal key wins
+            cand = ip + i;
+            ok = true;
+          }
+        }
+        if (ok) {
+          cand_first = cand;
+          d_first = d;
+        }
+      }
+    }
+    return d_first;
+  };
+  // Extension, tail, emission and the seeding after it; returns the match
+  // end and moves op.
+  auto on_hit = [&](int32_t at, int32_t cand, int32_t lit_start, int32_t& op) {
+    int32_t m = variant_extend(mk & EV_EXT_MASK, key, seed, at, cand, n);
+    if (mk & EV_XOR_TAIL) {
+      uint32_t x = key(at + m) ^ key(cand + m);
+      m += x == 0 ? 3 : ((x & 0xFFu) == 0) + ((x & 0xFFFFu) == 0) + ((x & 0xFFFFFFu) == 0);
+    } else {
+      for (int t = 0; t < 3 && at + m < n && s[at + m] == s[cand + m]; t++) m++;
+    }
+    if (m > n - at) m = n - at;
+    int32_t end = at + m;
+    if (mk & EV_EMIT_HITS) {
+      op += 2;
+    } else {
+      op = em.literal(op, lit_start, at);
+      op = em.copy(op, at - cand, m);
+    }
+    if (mk & EV_POST_SEED) {
+      int32_t stop = end < n - 4 ? end : n - 4;
+      for (int32_t p = at + 1; p + 3 <= stop; p += 4) seed(p);
+    }
+    return end;
+  };
+
+  int32_t ip = n < 1 ? n : 1;
+  int32_t lit_start = 0;
+  int32_t op = 0;
+  int32_t skip = skip_base;
+  uint32_t cur[8], h[8];
+  int32_t cand = 0;
+  if (mk & EV_LOOP_TWO) {
+    while (ip + margin < n) {
+      int d = -1;
+      while (d < 0 && ip + margin < n) {  // misses only: probe and advance
+        loads_at(ip, cur, h);
+        d = probe(ip, cur, h, cand);
+        if (d < 0) ip += miss_step(skip);
+        skip += skip_inc;
+      }
+      if (d >= 0) {  // the hit work, once per outer step
+        ip = on_hit(ip + d, cand, lit_start, op);
+        lit_start = ip;
+        skip = skip_base;
+      }
+    }
+  } else if (mk & EV_LOOP_PRE) {
+    uint32_t ncur[8], nh[8];
+    loads_at(ip, cur, h);
+    while (ip + margin < n) {
+      int32_t ipm = ip + miss_step(skip);
+      loads_at(ipm, ncur, nh);  // the next miss position, before this group resolves
+      int d = probe(ip, cur, h, cand);
+      if (d < 0) {
+        ip = ipm;
+        skip += skip_inc;
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+          if (i < W) {
+            cur[i] = ncur[i];
+            h[i] = nh[i];
+          }
+        }
+      } else {
+        ip = on_hit(ip + d, cand, lit_start, op);
+        lit_start = ip;
+        skip = skip_base;
+        loads_at(ip, cur, h);
+      }
+    }
+  } else {
+    while (ip + margin < n) {
+      loads_at(ip, cur, h);
+      int d = probe(ip, cur, h, cand);
+      if (d < 0) {
+        ip += miss_step(skip);
+        skip += skip_inc;
+        continue;
+      }
+      ip = on_hit(ip + d, cand, lit_start, op);
+      lit_start = ip;
+      skip = skip_base;
+    }
+  }
+  if (!(mk & EV_EMIT_HITS)) op = em.literal(op, lit_start, n);
+  return op;
+}
+
+}  // namespace sc
+
+#ifdef __CUDACC__
+// The kernel and its launch, shared by encode_variants.cu and encode_r4.cu.
+//
+// One block per fragment, as encode.cu: all threads clear the match table
+// and stage the fragment in dynamic shared memory, one thread walks and
+// stores the tags straight into the body's row.
+namespace ev {
+
+constexpr int kThreads = 256;
+
+template <class Cfg>
+__global__ void encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
+                                      const int32_t* __restrict__ lengths, Cfg cfg,
+                                      uint8_t* __restrict__ bodies, int64_t body_w,
+                                      int32_t* __restrict__ body_lens) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* s = smem + (sizeof(uint16_t) << cfg.hash_bits);
+  const int64_t b = blockIdx.x;
+  int32_t n = lengths[b];
+  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
+
+  uint4* t4 = reinterpret_cast<uint4*>(table);
+  const int words = (int)((sizeof(uint16_t) << cfg.hash_bits) / sizeof(uint4));
+  const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
+  const uint8_t* row = frags + b * frag_w;
+  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    body_lens[b] = sc::encode_fragment_variant(s, n, table, cfg, bodies + b * body_w);
+  }
+}
+
+inline size_t smem_bytes(int hash_bits, int64_t frag_w) {
+  return (sizeof(uint16_t) << hash_bits) + (size_t)((frag_w + 8 + 15) & ~15);
+}
+
+template <class Cfg>
+int launch(Cfg cfg, const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
+           void* bodies, int64_t body_w, void* body_lens, void* stream) {
+  size_t smem = smem_bytes(cfg.hash_bits, frag_w);
+  cudaError_t e = cudaFuncSetAttribute(encode_variant_kernel<Cfg>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  encode_variant_kernel<Cfg><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, cfg, (uint8_t*)bodies, body_w,
+      (int32_t*)body_lens);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ev
+#endif  // __CUDACC__

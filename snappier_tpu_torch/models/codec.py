@@ -138,6 +138,27 @@ def _preamble3(lengths: torch.Tensor) -> torch.Tensor:
     )
 
 
+def roundtrip_rows(frags: torch.Tensor, lengths: torch.Tensor, kernel: str,
+                   hash_bits: int = 15, skip_base: int = 32):
+    """Encode byte rows [B, F], re-wrap each body as a block with a 3-byte
+    preamble, decode at ``out_cap = F`` and compare, all on the rows' device
+    with the given engine: ``(bodies uint8 [B, F + 2048], body_lens, ok)``
+    with ``ok`` a bool tensor: the bytes below each length came back, no
+    block gave an error and every output length equals its input length."""
+    F = frags.shape[1]
+    raw, body_lens = encode_rows(frags, lengths, kernel, hash_bits, skip_base)
+    raw = raw[:, : F + 2048]
+    blocks = torch.cat([_preamble3(lengths).to(torch.uint8), raw], dim=1)
+    outs, out_lens, errs = decode_rows(blocks, body_lens + 3, F, kernel)
+    pos = torch.arange(F, device=frags.device)[None, :]
+    ok = (
+        torch.where(pos < lengths[:, None], outs == frags.to(torch.uint8), True).all()
+        & (errs == 0).all()
+        & (out_lens == lengths).all()
+    )
+    return raw, body_lens, ok
+
+
 class SnappyCodec:
     """Batched block codec with a fixed fragment size.
 
@@ -292,17 +313,13 @@ class SnappyCodec:
     def roundtrip_step(self, frags, lengths):
         """Compress + decompress + bit-exact check: (bodies, body_lens,
         crcs, ok) with ``ok`` a bool tensor on the codec's device."""
-        F = self.fragment_size
         frags = self._in(frags)
         lengths = self._in(lengths).to(torch.int32)
-        raw, body_lens, crcs = self._compress_bytes(frags, lengths)
-        W = frags.shape[1] + 2048
-        blocks = torch.cat([_preamble3(lengths).to(torch.uint8), raw[:, :W]], dim=1)
-        outs, out_lens, errs = decode_rows(blocks, body_lens + 3, F, self.kernel)
-        pos = torch.arange(F, device=self.device)[None, :]
-        ok = (
-            torch.where(pos < lengths[:, None], outs == frags.to(torch.uint8), True).all()
-            & (errs == 0).all()
-            & (out_lens == lengths).all()
+        raw, body_lens, ok = roundtrip_rows(
+            frags, lengths, self.kernel, self.hash_bits, self.skip_base
         )
-        return raw[:, :W].to(torch.int32), body_lens, crcs, ok
+        if self.with_crc:
+            crcs = crc_rows(frags, lengths, self.kernel)
+        else:
+            crcs = torch.zeros_like(lengths)
+        return raw.to(torch.int32), body_lens, crcs, ok

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
+_U32 = ctypes.c_uint32
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
@@ -52,6 +53,18 @@ SOURCES = {
     "probe": ("match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
     "decode_variants": (
         "snappy_decode_variant_launch", [_I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
+    ),
+    "decode_pipe": (
+        "snappy_decode_pipe_launch",
+        [_I32, _I32, _I32, _I32, _I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
+    ),
+    "encode_variants": (
+        "snappy_encode_variant_launch",
+        [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
+    ),
+    "encode_r4": (
+        "snappy_encode_r4_launch",
+        [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
     ),
 }
 

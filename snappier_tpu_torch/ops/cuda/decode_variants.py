@@ -32,6 +32,16 @@ as ``v1`` and the production kernel do on either machine.
 A CUDA tensor launches the kernel (``csrc/decode_variants.cu``) or raises;
 a CPU tensor runs the plain Python walk, which the four share because they
 compute one function. Each wrapper counts its own launches.
+
+``decode_pipe`` and ``decode_pipe2`` (port of the pipelined walks of
+``tools/perf_probe_r4.py``; kernel in ``csrc/decode_pipe.cu``) take the same
+arguments and return the same triple, with the production kernel's error
+words: 8 for the preamble, the combined 7 for any bad tag, 4 for a clean
+walk that ends short of the claim. What they vary is the walk: the next
+tag's loads started before this tag's stores, and for ``decode_pipe2`` the
+error folded into the input position, ``unroll`` tags per loop iteration,
+unconditional first stores (``unc``), the drain of the finished row by the
+copy engine (``dma_pipe``) and a walk that stores nothing (``emit=False``).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from snappier_tpu_torch.ops.decode import (
     ERR_BAD_OFFSET,
     ERR_BAD_PREAMBLE,
     ERR_LENGTH_MISMATCH,
+    ERR_MALFORMED,
     ERR_TRUNCATED_TAG,
 )
 
@@ -226,3 +237,150 @@ def decode_variant(comp, comp_lens, out_cap: int = BLOCK_SIZE, variant: str = "v
     if variant not in ("v1", "v1nock", "v1nocp"):
         raise ValueError(f"unknown variant {variant!r}: 'v1', 'v1nock' or 'v1nocp'")
     return _decode(comp, comp_lens, out_cap, variant)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined walks
+# ---------------------------------------------------------------------------
+
+
+def _int32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _pipe_row(comp: bytes, n: int, out_cap: int, out: bytearray, fold: bool, emit: bool):
+    """One block's walk; mirrors ``sc::decode_block_pipe`` (what it computes:
+    the order of its loads has no plain counterpart). Returns ``(out_len,
+    err)`` and, with ``emit``, writes the output into ``out``. With ``fold``
+    a 4-byte literal length keeps all 32 bits and wraps, so ``0xFFFFFFFF``
+    is a literal of no bytes; without it a set 4th byte poisons the length."""
+    cc = len(comp)
+    n = min(max(n, 0), cc)
+
+    def rd(i):
+        return comp[i] if 0 <= i < cc else 0
+
+    pre_len, val, done, err = 0, 0, False, 0
+    while not done and pre_len < 5 and err == 0:
+        byte = rd(pre_len)
+        val |= (byte & 0x7F) << min(7 * pre_len, 28)
+        done = byte < 0x80
+        if pre_len == 4 and byte >= 8:
+            err = ERR_BAD_PREAMBLE
+        pre_len += 1
+    expected = val
+    if not done or pre_len > n or expected > out_cap:
+        return 0, ERR_BAD_PREAMBLE
+    if err:
+        return 0, err
+
+    ip, op = pre_len, 0
+    while ip < n:
+        tag = rd(ip)
+        rest = rd(ip + 1) | rd(ip + 2) << 8 | rd(ip + 3) << 16 | rd(ip + 4) << 24
+        tt, l6, off = tag & 3, tag >> 2, 0
+        if tt == 0:
+            if l6 < 60:
+                hdr, length = 1, l6 + 1
+            else:
+                extra = l6 - 59
+                hdr = 1 + extra
+                if fold:
+                    length = _int32((rest & ((1 << (8 * extra)) - 1)) + 1)
+                else:
+                    length = (rest & ((1 << (8 * min(extra, 3))) - 1)) + 1
+                    if extra == 4 and rest >> 24:
+                        length = _POISON
+        elif tt == 1:
+            hdr, length, off = 2, ((tag >> 2) & 7) + 4, ((tag >> 5) << 8) | (rest & 0xFF)
+        elif tt == 2:
+            hdr, length, off = 3, l6 + 1, rest & 0xFFFF
+        else:
+            hdr, length, off = 5, l6 + 1, _int32(rest)
+        ip2 = ip + hdr + (length if tt == 0 else 0)
+        if (ip2 > n or length < 0 or op + length > expected
+                or (tt != 0 and (off <= 0 or off > op))):
+            return 0, ERR_MALFORMED
+        if emit and length > 0:
+            if tt == 0:
+                out[op : op + length] = comp[ip + hdr : ip2]
+            else:
+                pat = out[op - off : op]
+                out[op : op + length] = (pat * (length // off + 1))[:length]
+        op += length
+        ip = ip2
+    if op != expected:
+        return 0, ERR_LENGTH_MISMATCH
+    return expected, 0
+
+
+def decode_pipe_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int,
+                      fold: bool = False, emit: bool = True):
+    """Plain version of the pipelined kernels on CPU uint8 rows: returns
+    ``(out uint8[B, out_cap], out_lens int32[B], errs int32[B])``.
+    ``fold`` chooses ``decode_pipe2``'s reading of a 4-byte literal length;
+    without ``emit`` ``out`` stays zero."""
+    B = comp.shape[0]
+    rows = comp.numpy()
+    lens = comp_lens.tolist()
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    for b in range(B):
+        buf = bytearray(out_cap)
+        out_lens[b], errs[b] = _pipe_row(rows[b].tobytes(), lens[b], out_cap, buf, fold, emit)
+        out[b] = np.frombuffer(buf, np.uint8)
+    return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
+
+
+def _pipe_smem_bytes(cc: int, out_cap: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/decode_pipe.cu``: three
+    tag tables and the two word images."""
+    return _smem_bytes(0, cc, out_cap) + 4 * 512
+
+
+def _decode_pipe(comp, comp_lens, out_cap: int, counter: str, fold: bool, unroll: int,
+                 emit: bool, unc: int, dma_pipe: bool):
+    comp = byte_rows(comp, "comp")
+    B, cc = comp.shape
+    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
+    out_cap, unroll, unc = int(out_cap), int(unroll), int(unc)
+    if not 1 <= unroll <= 4:
+        raise ValueError(f"unroll must be 1, 2, 3 or 4, got {unroll}")
+    if unc not in (0, 1, 2):
+        raise ValueError(f"unc must be 0, 1 or 2, got {unc}")
+    if out_cap <= 0 or _pipe_smem_bytes(cc, out_cap) > MAX_OUT_CAP:
+        raise ValueError(
+            f"a row of {cc} bytes and out_cap {out_cap} do not fit one block's shared memory "
+            f"({_pipe_smem_bytes(cc, out_cap)} of {MAX_OUT_CAP} bytes)"
+        )
+    if not on_cuda(comp, comp_lens):
+        return decode_pipe_plain(comp, comp_lens, out_cap, fold, bool(emit))
+    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
+    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
+    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
+    _build.launch(
+        "decode_pipe", comp.device, int(fold), unroll, unc, int(bool(emit)), int(bool(dma_pipe)),
+        comp.data_ptr(), cc, comp_lens.data_ptr(), B, out_cap, out.data_ptr(),
+        out_lens.data_ptr(), errs.data_ptr(), count_as=counter,
+    )
+    return out, out_lens, errs
+
+
+def decode_pipe(comp, comp_lens, out_cap: int = BLOCK_SIZE):
+    """The walk with the next tag's loads started before this tag's stores
+    (``tools/perf_probe_r4.py::decode_pipe``)."""
+    return _decode_pipe(comp, comp_lens, out_cap, "decode_pipe", False, 1, True, 0, False)
+
+
+def decode_pipe2(comp, comp_lens, out_cap: int = BLOCK_SIZE, unroll: int = 1, emit: bool = True,
+                 unc: int = 0, dma_pipe: bool = False):
+    """``decode_pipe`` with the error folded into the input position and
+    ``unroll`` tags per loop iteration (``tools/perf_probe_r4.py::decode_pipe2``).
+    ``unc`` 1 stores the two words after an append's frontier word whatever
+    its length, 2 the four; ``dma_pipe`` drains the finished row by a bulk
+    asynchronous copy; without ``emit`` the walk stores nothing and only
+    ``out_lens`` and ``errs`` mean anything."""
+    return _decode_pipe(comp, comp_lens, out_cap, "decode_pipe2", True, unroll, emit, unc,
+                        dma_pipe)

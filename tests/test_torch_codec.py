@@ -215,25 +215,22 @@ def test_codec_rejects_unported_engine():
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """Every module of the port, found by walking the package, imports
+    without JAX, without the reference package, without a card and without
+    joining ``torch.distributed``."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         import snappier_tpu_torch
-        import snappier_tpu_torch.convert
-        import snappier_tpu_torch.format.framing
-        import snappier_tpu_torch.format.oracle
-        import snappier_tpu_torch.ops
-        import snappier_tpu_torch.ops.best_match
-        import snappier_tpu_torch.ops.cuda.crc32c
-        import snappier_tpu_torch.ops.cuda.decode_variants
-        import snappier_tpu_torch.ops.cuda.scalar_codec
-        import snappier_tpu_torch.ops.cuda.watch
-        import snappier_tpu_torch.runtime.block
-        import snappier_tpu_torch.runtime.incremental
-        import snappier_tpu_torch.runtime.native
-        import snappier_tpu_torch.runtime.prescan
-        import snappier_tpu_torch.runtime.stream
-        import snappier_tpu_torch.utils.pool
-        import snappier_tpu_torch.utils.profiling
+        names = [m.name for m in pkgutil.walk_packages(snappier_tpu_torch.__path__,
+                                                       "snappier_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for must in ("parallel.mesh", "parallel.distributed", "graft_entry",
+                     "ops.cuda.encode_variants", "ops.cuda.decode_variants"):
+            assert "snappier_tpu_torch." + must in names, must
+        assert snappier_tpu_torch.parallel.make_mesh(["cpu"] * 2).size == 2
+        import torch.distributed
+        assert not torch.distributed.is_initialized()
         snappier_tpu_torch.runtime.native.load()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -247,15 +244,23 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
+    """No import line of ``chip_smoke.py``, of a ``tools/torch_*.py`` or of a
+    module of the port names JAX or the reference package."""
     import pathlib
 
-    src = (pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
-    for line in src.splitlines():
-        words = line.split()
-        if words[:1] in (["import"], ["from"]):
-            mod = words[1]
-            assert mod != "jax" and not mod.startswith("jax."), line
-            assert mod != "snappier_tpu" and not mod.startswith("snappier_tpu."), line
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("torch_*.py")),
+             *sorted((root / "snappier_tpu_torch").rglob("*.py"))]
+    names = {f.name for f in files}
+    assert {"torch_dist_worker.py", "torch_perf_probe_enc.py", "torch_perf_probe_r4.py",
+            "graft_entry.py", "mesh.py", "distributed.py", "encode_variants.py"} <= names
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                mod = words[1]
+                assert mod != "jax" and not mod.startswith("jax."), (f.name, line)
+                assert mod != "snappier_tpu" and not mod.startswith("snappier_tpu."), (f.name, line)
 
 
 def test_port_format_copies_match_reference(corpus_file):

@@ -26,6 +26,7 @@ from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.best_match import exact_candidates
 from snappier_tpu_torch.ops.cuda import _build, watch
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
+from snappier_tpu_torch.ops.cuda import encode_variants as ev
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
@@ -40,6 +41,7 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
 # package named ``tests`` elsewhere on the path may shadow ``tests.``.
 from test_match_length import VECTORS, _layout
 from torch_cases import (
+    PIPE_CASES,
     best_rows,
     block_stream,
     corrupt_streams,
@@ -339,3 +341,94 @@ def test_cuda_scan_codec_matches_cpu(cuda_device):
                                   for i, n in enumerate(lens)], F + 3072, garbage_seed=None)
     d2 = on_card.decompress_batch(comp2, clens2)
     assert (d2[2] == 0).all() and (d2[0].cpu() == db[0][ok]).all()  # both zero past the length
+
+
+@pytest.mark.parametrize("case", PIPE_CASES, ids=[c[0] for c in PIPE_CASES])
+@pytest.mark.parametrize("cc,out_cap,big", [(2048, 1024, 0), (2051, 1022, 0), (68608, 65536, 65536)])
+def test_cuda_decode_pipe_matches_plain(cuda_device, case, cc, out_cap, big):
+    """The pipelined kernels against their plain version on valid and corrupt
+    blocks with garbage past each length, at capacities that are and are not
+    a multiple of 16 (the bulk drain needs one that is)."""
+    name, kw = case
+    valid = walk_streams(big)
+    streams = valid + corrupt_streams()
+    comp, lens = pack_streams(streams, cc)
+    c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    c_d, l_d = c_h.to(cuda_device), l_h.to(cuda_device)
+    _build.reset_launches()
+    got = dv.decode_pipe(c_d, l_d, out_cap) if name == "pipe" else dv.decode_pipe2(
+        c_d, l_d, out_cap, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decode_pipe" if name == "pipe" else "decode_pipe2": 1}
+    want = dv.decode_pipe_plain(c_h, l_h, out_cap, name != "pipe", kw.get("emit", True))
+    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1].cpu() == want[1]).all()
+    assert not want[2][: len(valid)].any()
+    if kw.get("emit", True):
+        _rows_equal(got[0], want[0], want[1])
+        k1 = decode_blocks_bytes(c_d, l_d, out_cap)
+        _rows_equal(got[0][: len(valid)], k1[0][: len(valid)], want[1][: len(valid)])
+
+
+def _encode_cases():
+    cases = [("variant", name, flags) for name, flags in ev.VARIANT_FLAGS.items()]
+    cases += [("variant", "none", ()), ("variant", "probe8-st1-hb9", ("probe8", "st1", "hb9"))]
+    return cases + [("r4", name, name) for name in ev.R4_VARIANTS]
+
+
+@pytest.mark.parametrize("case", _encode_cases(), ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("F", [1024, 65536])
+def test_cuda_encode_variants_match_plain(cuda_device, case, F):
+    """Every named walk of the encode ablation, and two tuples no name has
+    (they run the kernel whose mask is a run-time value), against the plain
+    version; every emitting variant is decoded back by the decode kernel."""
+    family, name, arg = case
+    frags, lens = encode_rows(F)
+    if F == 65536:
+        frags, lens = frags[[0, 1, 2, 5, 12]], lens[[0, 1, 2, 5, 12]]
+    f_h, l_h = _t(frags.astype(np.uint8)), _t(lens)
+    fn, plain, counter = ((ev.encode_variant, ev.encode_variant_plain, "encode_variant")
+                          if family == "variant" else
+                          (ev.encode_r4, ev.encode_r4_plain, "encode_r4"))
+    _build.reset_launches()
+    bodies, body_lens = fn(f_h.to(cuda_device), l_h.to(cuda_device), arg)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {counter: 1}
+    p_bodies, p_lens = plain(f_h, l_h, arg)
+    assert (body_lens.cpu() == p_lens).all(), (body_lens.tolist(), p_lens.tolist())
+    if (family == "variant" and "noemit" in arg) or name in ev.R4_NO_BYTES:
+        return
+    _rows_equal(bodies, p_bodies, p_lens)
+    streams = [block_stream(n, p_bodies[i, : p_lens[i]].numpy()) for i, n in enumerate(lens)]
+    comp, clens = pack_streams(streams, F + 4096)
+    out, out_lens, errs = decode_blocks_bytes(_t(comp).to(cuda_device), _t(clens).to(cuda_device), F)
+    assert not errs.any() and (out_lens.cpu() == l_h).all()
+    _rows_equal(out, f_h, l_h)
+    if name in ev.R4_PRODUCTION_BYTES:
+        k2_b, k2_l = encode_blocks_bytes(f_h.to(cuda_device), l_h.to(cuda_device))
+        assert (k2_l == body_lens).all()
+        _rows_equal(bodies, k2_b[:, : F + 2048], p_lens)
+
+
+@pytest.mark.parametrize("kernel", ["scalar", "scan"])
+def test_cuda_sharded_roundtrip_step_on_two_shards(cuda_device, kernel):
+    """One card listed twice: two shards, a stream each, the bodies and
+    lengths of the unsharded codec."""
+    from snappier_tpu_torch.parallel import make_mesh, sharded_roundtrip_step
+
+    F = 4096
+    frags, lens = encode_rows(F)
+    frags = np.where(np.arange(F)[None, :] < lens[:, None], frags, 0).astype(np.int32)
+    mesh = make_mesh([cuda_device, cuda_device])
+    _build.reset_launches()
+    bodies, body_lens, offsets, ok = sharded_roundtrip_step(frags, lens, mesh=mesh, kernel=kernel)
+    torch.cuda.synchronize()
+    assert bool(ok)
+    want = {"encode": 2, "decode": 2} if kernel == "scalar" else {}
+    assert dict(_build.LAUNCHES) == want
+    codec = SnappyCodec(fragment_size=F, kernel=kernel, with_crc=False)
+    b1, l1, _ = codec.compress_batch(frags, lens)
+    assert (body_lens == l1).all()
+    assert (offsets.cpu() == torch.cumsum(l1.cpu().long(), 0) - l1.cpu()).all()
+    _rows_equal(bodies.gather(), b1.to(torch.uint8), l1)
+    assert [r for r, _ in bodies.addressable_shards] == [range(0, 8), range(8, 16)]

@@ -2,11 +2,12 @@
 (``snappier_tpu_torch/ops/cuda/decode_variants.py``) against the TPU kernels
 of ``tools/perf_probe.py`` run in Pallas interpret mode on the CPU.
 
-``tools/perf_probe.py`` passes ``interpret=False`` literally, so the fixture
-swaps the module's ``pl`` for a copy whose ``pallas_call`` forces
-``interpret=True``; nothing under ``tools/`` changes. Importing the tool
-points JAX's compilation cache at a directory of its own; the fixture puts
-that setting back. The TPU word variants cut a row at ``owc * 4 - 1024``
+The probes pass ``interpret=False`` literally, so the fixtures swap the
+module's ``pl`` for a copy whose ``pallas_call`` forces ``interpret=True``
+(``tests/torch_cases.py::interpreted_tool``); nothing under ``tools/``
+changes. The pipelined walks (``decode_pipe``, ``decode_pipe2``) are held
+against the kernels of ``tools/perf_probe_r4.py`` the same way. The TPU word
+variants cut a row at ``owc * 4 - 1024``
 bytes rather than at ``out_cap``, so the shapes here keep ``out_cap + 1024``
 a multiple of 4096, where the two agree; every compressed row keeps 8 bytes
 of room past its length, where the TPU kernels' window never clamps.
@@ -16,12 +17,6 @@ compared.
 
 from __future__ import annotations
 
-import importlib
-import pathlib
-import sys
-import types
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +25,14 @@ import torch
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_plain
-from tests.torch_cases import corrupt_streams, pack_streams, tag_sweep_sample, walk_streams
+from tests.torch_cases import (
+    PIPE_CASES,
+    corrupt_streams,
+    interpreted_tool,
+    pack_streams,
+    tag_sweep_sample,
+    walk_streams,
+)
 
 CC, OUT_CAP = 4096, 3072  # OUT_CAP + 1024 is a multiple of 4096
 WRAPPERS = {"v2": dv.decode_v2, "v4": dv.decode_v4, "v3": dv.decode_v3}
@@ -39,28 +41,15 @@ WRAPPERS = {"v2": dv.decode_v2, "v4": dv.decode_v4, "v3": dv.decode_v3}
 @pytest.fixture(scope="module")
 def probe():
     """``tools/perf_probe.py`` with its kernels in interpret mode."""
-    tools = str(pathlib.Path(__file__).resolve().parents[1] / "tools")
-    saved = {k: getattr(jax.config, k) for k in (
-        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
-    sys.path.insert(0, tools)
-    try:
-        mod = importlib.import_module("perf_probe")
-    finally:
-        sys.path.remove(tools)
-        for k, v in saved.items():
-            jax.config.update(k, v)
-    real_pl = mod.pl
+    with interpreted_tool("perf_probe") as mod:
+        yield mod
 
-    def interpreted(*args, **kwargs):
-        kwargs["interpret"] = True
-        return real_pl.pallas_call(*args, **kwargs)
 
-    fake = types.SimpleNamespace(**{k: getattr(real_pl, k) for k in dir(real_pl)
-                                    if not k.startswith("__")})
-    fake.pallas_call = interpreted
-    mod.pl = fake
-    yield mod
-    mod.pl = real_pl
+@pytest.fixture(scope="module")
+def probe_r4():
+    """``tools/perf_probe_r4.py`` with its kernels in interpret mode."""
+    with interpreted_tool("perf_probe_r4") as mod:
+        yield mod
 
 
 def _reference(probe, variant, comp, lens, out_cap):
@@ -161,3 +150,77 @@ def test_wrapper_argument_checks():
     # Lengths outside the row are taken as 0 or the row's width.
     out = dv.decode_v2(comp, torch.tensor([-4, 1000], dtype=torch.int32), 64)
     assert out[2].tolist() == [8, 4] and out[1].tolist() == [0, 0]
+
+
+def _pipe_port(name, comp, lens, out_cap, kw):
+    c, n = torch.from_numpy(comp), torch.from_numpy(lens)
+    res = dv.decode_pipe(c, n, out_cap) if name == "pipe" else dv.decode_pipe2(c, n, out_cap, **kw)
+    return [x.numpy() for x in res]
+
+
+@pytest.mark.parametrize("garbage", [None, 5], ids=["zero_tail", "garbage_tail"])
+@pytest.mark.parametrize("case", PIPE_CASES, ids=[c[0] for c in PIPE_CASES])
+def test_pipe_plain_matches_interpreted_tpu_kernel(probe_r4, case, garbage):
+    """``decode_pipe`` and ``decode_pipe2`` at every unroll, with ``unc``,
+    ``dma_pipe`` and ``emit=False``, on valid, edge and corrupt blocks and a
+    sample of the tag sweep: the TPU kernel's error words, lengths and bytes
+    below each length (none compared without emission)."""
+    name, kw = case
+    valid = walk_streams()
+    streams = valid + corrupt_streams() + tag_sweep_sample(97)
+    comp, lens = pack_streams(streams, CC, garbage_seed=garbage)
+    fn = probe_r4.decode_pipe if name == "pipe" else probe_r4.decode_pipe2
+    want = [np.asarray(x) for x in fn(jnp.asarray(comp), jnp.asarray(lens), OUT_CAP, **kw)]
+    got = _pipe_port(name, comp, lens, OUT_CAP, kw)
+    assert got[0].dtype == np.uint8 and got[0].shape == (len(streams), OUT_CAP)
+    assert (got[2] == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1] == want[1]).all()
+    assert not got[2][: len(valid)].any()
+    assert set(got[2].tolist()) == {0, 4, 7, 8}  # the production kernel's words
+    assert not got[1][got[2] != 0].any()  # out_len is 0 on any error
+    if kw.get("emit", True):
+        for i in range(len(streams)):
+            assert (got[0][i, : got[1][i]] == want[0][i, : want[1][i]]).all(), i
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["pipe", "pipe2"])
+def test_pipe_matches_production_decode(fold):
+    """On valid blocks (one of 64 KiB among them) the pipelined walks give
+    the production decoder's rows; on corrupt blocks its error words, but for
+    ``decode_pipe2``'s literal of no bytes."""
+    streams = walk_streams(big=65536)
+    comp, lens = pack_streams(streams, 68608)
+    c8, n = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(lens)
+    got = [x.numpy() for x in dv.decode_pipe_plain(c8, n, 65536, fold)]
+    k1 = [x.numpy() for x in decode_blocks_plain(c8, n, 65536)]
+    assert not got[2].any() and (got[1] == k1[1]).all()
+    for i, s in enumerate(streams):
+        assert got[0][i, : got[1][i]].tobytes() == oracle.decompress(s), i
+    empty_literal = bytes([0xFC, 0xFF, 0xFF, 0xFF, 0xFF])
+    bad = corrupt_streams() + [bytes([4]) + empty_literal + bytes([3 << 2]) + b"abcd"]
+    comp, lens = pack_streams(bad, 2048)
+    c8, n = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(lens)
+    got = [x.numpy() for x in dv.decode_pipe_plain(c8, n, 1024, fold)]
+    k1 = [x.numpy() for x in decode_blocks_plain(c8, n, 1024)]
+    same = np.array([not fold or empty_literal not in s for s in bad])
+    assert same.sum() >= len(bad) - 2
+    assert (got[2][same] == k1[2][same]).all() and (got[1][same] == k1[1][same]).all()
+    assert k1[2][-1] == 7 and got[2][-1] == (0 if fold else 7)
+    assert got[1][-1] == (4 if fold else 0)
+
+
+def test_pipe_wrapper_argument_checks():
+    comp = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.tensor([3, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="unroll"):
+        dv.decode_pipe2(comp, lens, 64, unroll=5)
+    with pytest.raises(ValueError, match="unc"):
+        dv.decode_pipe2(comp, lens, 64, unc=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        dv.decode_pipe(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+    # Lengths outside the row are taken as 0 or the row's width.
+    out = dv.decode_pipe(comp, torch.tensor([-4, 1000], dtype=torch.int32), 64)
+    assert out[2].tolist() == [8, 7] and out[1].tolist() == [0, 0]
+    comp[:, 0] = 2
+    out = dv.decode_pipe2(comp, lens + 2, 64, unroll=4, emit=False)  # two literals of 1 byte
+    assert out[2].tolist() == [0, 0] and out[1].tolist() == [2, 2] and not out[0].any()

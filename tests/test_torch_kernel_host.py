@@ -1,8 +1,9 @@
 """The CUDA kernels' per-block walks (``snappier_tpu_torch/csrc/scalar_codec.cuh``),
 compiled for the host with g++ and held against the JAX scalar kernels in
 Pallas interpret mode; and the ablation variants' walks
-(``csrc/decode_variants.cuh``), held against their plain versions (which
-tests/test_torch_decode_variants.py holds against the TPU kernels).
+(``csrc/decode_variants.cuh``, ``csrc/encode_variants.cuh``), held against
+their plain versions (which tests/test_torch_decode_variants.py and
+tests/test_torch_encode_variants.py hold against the TPU kernels).
 
 The walks are ``__host__ __device__`` functions, so this is the one place
 their own logic runs without a GPU. The decode walk runs both on one lane
@@ -49,6 +50,7 @@ SHIM = r"""
 #include <vector>
 
 #include "decode_variants.cuh"
+#include "encode_variants.cuh"
 #include "scalar_codec.cuh"
 
 namespace {
@@ -188,6 +190,104 @@ extern "C" void host_variant(int32_t variant, const uint8_t* comp, int64_t cc,
   }
 }
 
+// One block through a pipelined walk on `nlanes` threads, staged as
+// decode_pipe.cu does it, the image poisoned first.
+template <class Sync>
+static sc::DecodeResult run_pipe(int fold, int unc, uint32_t* img, int32_t wc, int32_t owc,
+                                 const int32_t* luts, int32_t n, int32_t out_cap, int unroll,
+                                 bool emit, int lane, int nlanes, Sync sync) {
+  if (!fold) {
+    return sc::decode_block_pipe<false, 0>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
+                                           nlanes, sync);
+  }
+  switch (unc) {
+    case 0:
+      return sc::decode_block_pipe<true, 0>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
+                                            nlanes, sync);
+    case 1:
+      return sc::decode_block_pipe<true, 2>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
+                                            nlanes, sync);
+    default:
+      return sc::decode_block_pipe<true, 4>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
+                                            nlanes, sync);
+  }
+}
+
+extern "C" void host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emit,
+                          const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
+                          int32_t out_cap, int32_t nlanes, uint8_t* out, int32_t* out_lens,
+                          int32_t* errs) {
+  int32_t luts[768];
+  for (int t = 0; t < 256; t++) {
+    sc::pipe_lut_entry(t, fold != 0, luts[t], luts[256 + t], luts[512 + t]);
+  }
+  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
+  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
+  std::vector<uint32_t> img(wc + owc);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
+    for (auto& w : img) w = 0xDEADBEEFu;
+    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
+      uint32_t v = 0;
+      for (int j = 0; j < 4; j++) {
+        int64_t i = (int64_t)w * 4 + j;
+        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
+      }
+      img[w] = v;
+    }
+    std::vector<sc::DecodeResult> res(nlanes);
+    if (nlanes == 1) {
+      res[0] = run_pipe(fold, unc, img.data(), wc, owc, luts, n, out_cap, unroll, emit != 0, 0,
+                        1, NoSync());
+    } else {
+      Barrier bar(nlanes);
+      std::vector<std::thread> lanes;
+      for (int lane = 0; lane < nlanes; lane++) {
+        lanes.emplace_back([&, lane] {
+          res[lane] = run_pipe(fold, unc, img.data(), wc, owc, luts, n, out_cap, unroll,
+                               emit != 0, lane, nlanes, BarrierSync{&bar});
+        });
+      }
+      for (auto& t : lanes) t.join();
+      for (int lane = 1; lane < nlanes; lane++) {
+        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
+      }
+    }
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
+    for (int32_t i = 0; emit && i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
+    out_lens[b] = res[0].out_len;
+    errs[b] = res[0].err;
+  }
+}
+
+// The encode-ablation walk under a mask; `fixed` takes the walk whose mask
+// is a template argument where the shim has it, as the kernels do.
+extern "C" void host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t store_step,
+                                    int32_t fixed, const uint8_t* frags, int64_t frag_w,
+                                    const int32_t* lens, int64_t batch, uint8_t* bodies,
+                                    int64_t body_w, int32_t* body_lens) {
+  constexpr uint32_t E3 = sc::EV_EXT_4 | sc::EV_XOR_TAIL | sc::EV_BFREE_COPY;
+  constexpr uint32_t PRE = E3 | sc::EV_LOOP_PRE;
+  std::vector<uint16_t> table((size_t)1 << hash_bits);
+  std::vector<uint8_t> s(frag_w + 16);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (auto& e : table) e = sc::EMPTY;
+    for (int64_t i = 0; i < frag_w + 16; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
+    uint8_t* out = bodies + b * body_w;
+    if (fixed && mask == E3) {
+      body_lens[b] = sc::encode_fragment_variant(
+          s.data(), n, table.data(), sc::StaticWalk<E3>{hash_bits, store_step}, out);
+    } else if (fixed && mask == PRE) {
+      body_lens[b] = sc::encode_fragment_variant(
+          s.data(), n, table.data(), sc::StaticWalk<PRE>{hash_bits, store_step}, out);
+    } else {
+      body_lens[b] = sc::encode_fragment_variant(
+          s.data(), n, table.data(), sc::DynWalk{mask, hash_bits, store_step}, out);
+    }
+  }
+}
+
 extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                             int64_t batch, int32_t hash_bits, int32_t skip_base,
                             uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
@@ -254,6 +354,10 @@ def host_lib(tmp_path_factory):
     so.host_probe.restype = None
     so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, P, P, P]
     so.host_variant.restype = None
+    so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, P, P, P]
+    so.host_pipe.restype = None
+    so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, P, I64, P]
+    so.host_encode_variant.restype = None
     return so
 
 
@@ -376,3 +480,102 @@ def test_host_variant_walk_matches_plain(host_lib, variant, nlanes):
     if variant != "v1nocp":
         for i in range(B):
             assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+
+
+PIPE_CASES = [
+    ("pipe", dict(fold=0)),
+    ("pipe2u1", dict(fold=1, unroll=1)),
+    ("pipe2u2", dict(fold=1, unroll=2)),
+    ("pipe2u3", dict(fold=1, unroll=3)),
+    ("pipe2u4", dict(fold=1, unroll=4)),
+    ("pipe2unc", dict(fold=1, unroll=2, unc=1)),
+    ("pipe2unc2", dict(fold=1, unroll=2, unc=2)),
+    ("denoemit", dict(fold=1, unroll=2, emit=0)),
+]
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+@pytest.mark.parametrize("case", PIPE_CASES, ids=[c[0] for c in PIPE_CASES])
+def test_host_pipe_walk_matches_plain(host_lib, case, nlanes):
+    """The pipelined walks on 1, 4 and 32 lanes against their plain version:
+    valid blocks with every short offset, a 64 KiB block, corrupt blocks,
+    garbage past each length; capacities that are no multiple of 4 or 16."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
+
+    kw = dict(dict(unroll=1, unc=0, emit=1), **case[1])
+    streams = walk_streams(big=0 if nlanes == 32 else 65536) + corrupt_streams()
+    cc, out_cap = (68611, 65536) if nlanes != 32 else (2051, 1022)
+    comp, lens = pack_streams(streams, cc)
+    comp8 = np.ascontiguousarray(comp, np.uint8)
+    B = len(streams)
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    host_lib.host_pipe(kw["fold"], kw["unroll"], kw["unc"], kw["emit"], comp8.ctypes.data, cc,
+                       lens.ctypes.data, B, out_cap, nlanes, out.ctypes.data,
+                       out_lens.ctypes.data, errs.ctypes.data)
+    want = [x.numpy() for x in dv.decode_pipe_plain(
+        torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, bool(kw["fold"]),
+        bool(kw["emit"]))]
+    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
+    assert (out_lens == want[1]).all()
+    assert {0, 4, 7, 8} <= set(errs.tolist())
+    if kw["emit"]:
+        for i in range(B):
+            assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+
+
+def _host_encode_variant(lib, frags, lens, mask, hash_bits, store_step, fixed=0):
+    frags = np.ascontiguousarray(frags, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    B, F = frags.shape
+    bodies = np.zeros((B, F + 2048), np.uint8)
+    body_lens = np.zeros(B, np.int32)
+    lib.host_encode_variant(mask, hash_bits, store_step, fixed, frags.ctypes.data, F,
+                            lens.ctypes.data, B, bodies.ctypes.data, F + 2048,
+                            body_lens.ctypes.data)
+    return bodies, body_lens
+
+
+def _encode_variant_cases():
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+
+    cases = [(name, *ev.flags_mask(flags)) for name, flags in ev.VARIANT_FLAGS.items()]
+    cases += [(name, mask, 15, 1) for name, mask in ev.R4_VARIANTS.items()]
+    cases += [("plain_walk", *ev.flags_mask(())), ("st1_probe8", *ev.flags_mask(("probe8", "st1"))),
+              ("pre_oct", ev.R4_VARIANTS["encoct8"] | ev.LOOP_PRE, 12, 1),
+              ("two_trim_probe8", ev.R4_VARIANTS["enctrim"] | ev.LOOP_TWO | ev.PROBE8, 13, 2)]
+    return cases
+
+
+@pytest.mark.parametrize("case", _encode_variant_cases(), ids=lambda c: c[0])
+def test_host_encode_variant_walk_matches_plain(host_lib, case):
+    """The encode-ablation walk of ``csrc/encode_variants.cuh`` under every
+    named mask, and under masks no name has, against its plain version, at
+    2 KiB and (one markup and one random row) at 64 KiB. The parts that only
+    reorder the work (the preloaded group, the detection-only probe, the two
+    nested loops) have no plain counterpart: they give the bytes of the walk
+    they restructure, which is what this holds them to."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+
+    name, mask, hash_bits, store_step = case
+    for F, rows in ((2048, slice(None)), (65536, slice(0, 3, 2))):
+        frags, lens = encode_rows(F)
+        frags, lens = frags[rows], lens[rows]
+        f8 = torch.from_numpy(frags.astype(np.uint8))
+        want_b, want_l = (x.numpy() for x in ev.encode_walk_plain(
+            f8, torch.from_numpy(lens), mask, hash_bits, store_step))
+        for fixed in (0, 1):
+            got_b, got_l = _host_encode_variant(host_lib, frags, lens, mask, hash_bits, store_step,
+                                                fixed)
+            assert (got_l == want_l).all(), (name, got_l, want_l)
+            if mask & (ev.EMIT_COUNT | ev.EMIT_HITS | ev.DMA_ONLY | ev.NOSCAN):
+                continue
+            for i in range(len(lens)):
+                assert (got_b[i, : got_l[i]] == want_b[i, : want_l[i]]).all(), (name, i)
+                comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
+                assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()

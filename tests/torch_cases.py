@@ -8,10 +8,39 @@ reference's), so the CUDA tests can use it on a machine without JAX.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import importlib.util
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import types
+
 import numpy as np
 
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.format.varint import write_varint
+
+WORKER = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_dist_worker.py"
+
+# The forms of the pipelined decode walks: name -> decode_pipe2's arguments
+# ("pipe" is decode_pipe, which takes none).
+PIPE_CASES = [
+    ("pipe", {}),
+    ("pipe2u1", dict(unroll=1)),
+    ("pipe2u2", dict(unroll=2)),
+    ("pipe2u3", dict(unroll=3)),
+    ("pipe2u4", dict(unroll=4)),
+    ("pipe2unc", dict(unroll=2, unc=1)),
+    ("pipe2unc2", dict(unroll=2, unc=2)),
+    ("pipe2u3unc", dict(unroll=3, unc=1)),
+    ("pipe2dma", dict(unroll=2, unc=1, dma_pipe=True)),
+    ("pipe2u1dma", dict(unroll=1, dma_pipe=True)),
+    ("denoemit", dict(unroll=2, emit=False)),
+]
 
 
 def html_like(n: int, seed: int = 0) -> np.ndarray:
@@ -185,3 +214,113 @@ def stream_inputs() -> dict[str, bytes]:
         "three_chunks": (rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
                          + html_like(70000, 4).tobytes()),
     }
+
+
+def worker_module():
+    """``tools/torch_dist_worker.py`` as a module (for its ``corpus`` and
+    ``stream_case``)."""
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", WORKER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_workers(outdir, nprocs: int, shards: int, n_blocks: int, device: str = "cpu",
+                backend: str = "gloo", timeout: float = 240):
+    """Start ``nprocs`` processes of ``tools/torch_dist_worker.py`` joined over
+    loopback, wait for each with a timeout of its own, and fail on a timeout
+    or a non-zero exit. Returns (metas, payloads, plains)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(WORKER), f"tcp://localhost:{port}", str(nprocs), str(rank),
+             str(outdir), str(n_blocks), device, str(shards), backend],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(WORKER.parents[1]),
+        )
+        for rank in range(nprocs)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            logs.append(out.decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a worker did not finish within {timeout} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed ({p.returncode}):\n{log[-3000:]}"
+    outdir = pathlib.Path(outdir)
+    metas = [json.loads((outdir / f"meta_{r}.json").read_text()) for r in range(nprocs)]
+    payloads = [np.frombuffer((outdir / f"payload_{r}.bin").read_bytes(), np.uint8)
+                for r in range(nprocs)]
+    plains = [np.frombuffer((outdir / f"plain_{r}.bin").read_bytes(), np.uint8)
+              for r in range(nprocs)]
+    return metas, payloads, plains
+
+
+def check_union(metas, parts, keys) -> np.ndarray:
+    """Identical maps, local sets that partition the batch, and the union of
+    the partial buffers. ``keys`` names the lengths, offsets and local set."""
+    k_len, k_off, k_local = keys
+    for m in metas[1:]:
+        assert m[k_len] == metas[0][k_len], "the workers' assembly maps differ"
+        assert m[k_off] == metas[0][k_off], "the workers' assembly maps differ"
+    assert len({len(p) for p in parts}) == 1, "the workers' buffers differ in size"
+    union: set = set()
+    for m in metas:
+        local = set(m[k_local])
+        assert local, "a process produced nothing"
+        assert union.isdisjoint(local), "the workers' local sets overlap"
+        union |= local
+    assert union == set(range(len(metas[0][k_len]))), "the local sets do not cover the batch"
+    combined = parts[0].copy()
+    for m, p in zip(metas[1:], parts[1:]):
+        for i in m[k_local]:
+            o, ln = m[k_off][i], m[k_len][i]
+            combined[o : o + ln] = p[o : o + ln]
+    return combined
+
+
+@contextlib.contextmanager
+def interpreted_tool(name: str):
+    """``tools/<name>.py`` (a TPU probe) with its kernels in Pallas interpret
+    mode, for the span of the context.
+
+    The probes pass ``interpret=False`` literally, so the module's ``pl`` is
+    swapped for a copy whose ``pallas_call`` forces ``interpret=True``;
+    nothing under ``tools/`` changes. Importing a probe points JAX's
+    compilation cache at a directory of its own; that setting is put back.
+    JAX is imported here, not with this module."""
+    import jax
+
+    tools = str(pathlib.Path(__file__).resolve().parents[1] / "tools")
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
+    sys.path.insert(0, tools)
+    try:
+        mod = importlib.import_module(name)
+    finally:
+        sys.path.remove(tools)
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    real_pl = mod.pl
+
+    def interpreted(*args, **kwargs):
+        kwargs["interpret"] = True
+        return real_pl.pallas_call(*args, **kwargs)
+
+    fake = types.SimpleNamespace(**{k: getattr(real_pl, k) for k in dir(real_pl)
+                                    if not k.startswith("__")})
+    fake.pallas_call = interpreted
+    mod.pl = fake
+    try:
+        yield mod
+    finally:
+        mod.pl = real_pl
