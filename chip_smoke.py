@@ -74,10 +74,20 @@ failure:
    rows and on rows of the full 65,536 bytes, then on the 512 blocks: a variant that gives the production
    encoder's bytes held to them, any other decoded by the decode kernel to
    the input, the decoders' rows equal to the production kernel's; timings
-   of each beside the production kernels.
+   of each beside the production kernels;
+9. the descriptor-driven decode at full size: ``decode_v5``,
+   ``decode_v5_spec`` (on a pre-pass computed beforehand), ``decode_v6`` and
+   ``decode_v7`` (with and without ``unroll2``), each against its plain
+   version on phase 2's rows, edge and corrupt rows and 9 of the main path's
+   blocks of 65,536 bytes, their pre-passes on the card against the CPU's,
+   their verdicts against the production kernel's; then the 512 blocks
+   through the production kernel and every form at the codec's row width
+   and the tight one, each row equal to the input; timings beside the
+   production kernel (ns per tag), the pre-passes alone, the kernel alone and
+   the peak device memory of one call.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
-sharded_scan, encode_ablation) runs with the launch counts set to 0 just
+sharded_scan, encode_ablation, hybrid) runs with the launch counts set to 0 just
 before it and read just after; every kernel of a path must have launched,
 and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
@@ -131,6 +141,14 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
                      "tools/perf_probe_r4.py:422"),
     "encode_r4": ("encode_r4", "snappier_tpu_torch/csrc/encode_r4.cu",
                   "tools/perf_probe_r4.py:784"),
+    "decode_v5": ("decode_v5", "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                  "tools/perf_probe_hybrid.py:580"),
+    "decode_v5_parts": ("decode_v5_spec", "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                        "tools/perf_probe_hybrid.py:827"),
+    "decode_v6": ("decode_v6", "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                  "tools/perf_probe_hybrid.py:965"),
+    "decode_v7": ("decode_v7", "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                  "tools/perf_probe_hybrid.py:1341"),
 }
 PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
@@ -144,6 +162,7 @@ PATHS = {  # path -> the kernels it must launch
     "sharded_scan": (),
     "encode_ablation": ("encode", "decode", "encode_variant", "encode_r4", "decode_pipe",
                         "decode_pipe2"),
+    "hybrid": ("decode", "decode_v5", "decode_v5_parts", "decode_v6", "decode_v7"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
@@ -1307,6 +1326,162 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
     return errs, launches, ms, plain, {"encode_variant": sizes["e3"], "encode_r4": sizes["encpre"]}
 
 
+HYBRID_FORMS = ("v5", "v6", "v7", "v7u")  # v7u: decode_v7(unroll2=True)
+
+
+def hybrid_call(dh, form: str):
+    """The wrapper of one descriptor-driven form as (comp, lens, out_cap) -> triple."""
+    if form == "v7u":
+        return lambda comp, lens, out_cap: dh.decode_v7(comp, lens, out_cap, unroll2=True)
+    return getattr(dh, f"decode_{form}")
+
+
+def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
+    """Phase 9, the hybrid path. Returns (max_abs_err per wrapper, launches
+    on the path, ms per wrapper at the codec's row width, plain ms per
+    wrapper on one row)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    from torch_cases import corrupt_streams as more_corrupt
+    from torch_cases import pack_streams, walk_streams
+    from torch_perf_probe import tag_mix
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    dev = torch.device("cuda")
+    errs = {}
+    # 1. each form against its plain version, the pre-passes on the card
+    # against the CPU's: phase 2's rows (corrupt blocks and encoded rows of
+    # up to 64 KiB), short offsets, overlapping copies, long literals, three
+    # 64 KiB oracle blocks, more malformed blocks, and 9 of the main path's
+    # blocks of 65,536 bytes.
+    t0 = time.perf_counter()
+    picks = torch.from_numpy(np.linspace(0, B - 1, 9).astype(np.int64)).to(dev)
+    main_rows = comp_u8[picks].cpu().numpy()
+    main_streams = [main_rows[i, :n].tobytes() for i, n in enumerate(block_lens[picks].tolist())]
+    streams = decode_streams + walk_streams(big=BLOCK) + more_corrupt() + main_streams
+    comp, clens = pack_streams(streams, 68608)
+    c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
+    c_d, l_d = c_h.to(dev), l_h.to(dev)
+    k1 = [x.cpu().numpy() for x in sc.decode_blocks_bytes(c_d, l_d, BLOCK)]
+    n_main = 0
+    for base in ("v5", "v6", "v7"):
+        pre_h = dh._prepass(c_h, base)
+        pre_d = dh._prepass(c_d, base)
+        for a, b in zip(pre_d, pre_h):
+            check(b is None or bool((a.cpu() == b).all()), f"pre-pass of {base}: card != CPU")
+        want = [x.numpy() for x in dh.walk_plain(c_h, pre_h[0], pre_h[1], l_h, BLOCK, base)]
+        forms = [f for f in HYBRID_FORMS if f[:2] == base]
+        for form in forms:
+            got = [x.cpu().numpy() for x in hybrid_call(dh, form)(c_d, l_d, BLOCK)]
+            pairs = [(got[1], want[1]), (got[2], want[2])]
+            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+            err = max_abs_err(pairs)
+            check(err == 0, f"{form} differs from its plain version")
+            check(bool(((got[2] == 0) == (k1[2] == 0)).all()), f"{form}: verdicts differ from K1's")
+            check(all((got[0][i, :n] == k1[0][i, :n]).all() for i, n in enumerate(k1[1])),
+                  f"{form}: rows differ from K1's")
+            errs[dh.FORMS[base][1]] = max(errs.get(dh.FORMS[base][1], 0), err)
+        if base == "v5":
+            spec_d = dh.spec_from_comp(c_d)
+            got = [x.cpu().numpy() for x in dh.decode_v5_spec(dh.pack_words(c_d), spec_d, l_d,
+                                                               BLOCK)]
+            pairs = [(got[1], want[1]), (got[2], want[2])]
+            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+            errs["decode_v5_parts"] = max_abs_err(pairs)
+            check(errs["decode_v5_parts"] == 0, "decode_v5_spec differs from decode_v5's plain")
+        seen = set(want[2].tolist())
+        check(seen == ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}),
+              f"{base}: corrupt rows give error words {sorted(seen)}")
+        check(not want[1][want[2] != 0].any(), "out_len must be 0 on any error")
+        n_main = int((want[1] == BLOCK).sum())
+    check(n_main >= 9, f"only {n_main} rows of {BLOCK} B")
+    print(f"decode_v5, decode_v5_spec, decode_v6, decode_v7 (and unroll2) == plain on "
+          f"{len(streams)} rows ({n_main} of {BLOCK} B), pre-passes card == CPU, verdicts == K1's, "
+          f"max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+
+    # 2. the path: the encode kernel's 512 blocks through the production
+    # decode kernel and each form, at the codec's row width and the tight one.
+    tight = comp_u8[:, : -(-(int(block_lens.max()) + 8) // 1024) * 1024].contiguous()
+    widths = (("codec_width", comp_u8), ("tight_width", tight))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for width, rows_d in widths:
+        k1_out, k1_lens, k1_errs = sc.decode_blocks_bytes(rows_d, block_lens, BLOCK)
+        check(bool((k1_errs == 0).all()) and bool((k1_out == frags).all()), "production decode")
+        results = {f: hybrid_call(dh, f)(rows_d, block_lens, BLOCK) for f in HYBRID_FORMS}
+        results["v5parts"] = dh.decode_v5_spec(dh.pack_words(rows_d), dh.spec_from_comp(rows_d),
+                                               block_lens, BLOCK)
+        for form, (out, out_lens, ferrs) in results.items():
+            check(bool((ferrs == 0).all()), f"{form}: errors on the main path ({width})")
+            check(bool((out_lens == BLOCK).all()), f"{form}: lengths on the main path ({width})")
+            check(bool((out == frags).all()), f"{form}: rows differ from the input ({width})")
+            check(bool((out == k1_out).all()), f"{form}: rows differ from decode's ({width})")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"hybrid path launches: {launches}")
+    for k in PATHS["hybrid"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the hybrid path")
+    check(launches.get("decode_v7") == 4 and launches.get("decode_v5_parts") == 2,
+          f"launch counts {launches}")
+    print(f"hybrid: {B} x {BLOCK} B decoded exactly by K1, decode_v5, decode_v5_spec, decode_v6 "
+          "and decode_v7 (with and without unroll2) at both row widths")
+
+    # 3. timings beside K1 at both widths; the pre-passes alone; T15's
+    # kernel alone; the peak device memory of one call of each form.
+    ntags, _ = tag_mix(comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes())
+    times = {}
+    for width, rows_d in widths:
+        cc = rows_d.shape[1]
+        smem = dh.smem_bytes(cc, BLOCK)
+        in_flight = 132 * max(1, 233472 // (smem + 1024))
+        waves = -(-B // in_flight)
+        words, spec = dh.pack_words(rows_d), dh.spec_from_comp(rows_d)
+        t = {"row_bytes": cc, "smem": smem, "blocks_in_flight": in_flight,
+             "k1": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK)),
+             "prepass_v5": cuda_ms(lambda: (dh.spec_from_comp(rows_d), dh.pack_words(rows_d))),
+             "prepass_v6": cuda_ms(lambda: dh.spec_from_words(dh.pack_words(rows_d), cc)),
+             "prepass_v7": cuda_ms(lambda: dh.spec2_from_words(dh.pack_words(rows_d), cc)),
+             "v5parts_kernel": cuda_ms(lambda: dh.decode_v5_spec(words, spec, block_lens,
+                                                                 BLOCK))}
+        t["v5parts_kernel_ns_per_tag"] = t["v5parts_kernel"] * 1e6 / waves / ntags
+        # The other walks alone, each on its own pre-pass made beforehand.
+        for form in ("v6", "v7", "v7u"):
+            pre = dh._prepass(rows_d, form[:2])
+            t[form + "_walk"] = cuda_ms(lambda: dh._launch(
+                form[:2], form == "v7u", rows_d, pre[0], pre[1], block_lens, BLOCK,
+                dh.FORMS[form[:2]][1]))
+            t[form + "_walk_ns_per_tag"] = t[form + "_walk"] * 1e6 / waves / ntags
+            del pre
+        k1_in_flight = 132 * max(1, 233472 // (((BLOCK + 15) & ~15) + 1024))  # csrc/decode.cu
+        t["k1_ns_per_tag"] = t["k1"] * 1e6 / -(-B // k1_in_flight) / ntags
+        del words, spec
+        base_mem = torch.cuda.memory_allocated()
+        for form in HYBRID_FORMS:
+            fn = hybrid_call(dh, form)
+            t[form] = cuda_ms(lambda: fn(rows_d, block_lens, BLOCK))
+            t[form + "_ns_per_tag"] = t[form] * 1e6 / waves / ntags
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn(rows_d, block_lens, BLOCK)
+            torch.cuda.synchronize()
+            t[form + "_peak_bytes"] = torch.cuda.max_memory_allocated() - base_mem
+        times[width] = t
+    print(json.dumps({"card": card, "tags_per_block": ntags, "hybrid_ms_per_512_blocks": times}))
+    cw = times["codec_width"]
+    ms = {"decode_v5": cw["v5"], "decode_v5_parts": cw["v5parts_kernel"],
+          "decode_v6": cw["v6"], "decode_v7": cw["v7"]}
+    c1, cl1 = comp_u8[:1].cpu(), block_lens[:1].cpu()
+    w1, s1 = dh.pack_words(c1), dh.spec_from_comp(c1)
+    plain = {dh.FORMS[f][1]: host_ms(lambda: dh.decode_hybrid_plain(c1, cl1, BLOCK, f))
+             for f in ("v5", "v6", "v7")}
+    plain["decode_v5_parts"] = host_ms(lambda: dh.decode_v5_spec(w1, s1, cl1, BLOCK))
+    return errs, launches, ms, plain
+
+
 def main() -> int:
     import torch
 
@@ -1466,6 +1641,12 @@ def main() -> int:
     errs.update(errs_enc)
     ms.update(ms_enc)
 
+    # --- 9. the descriptor-driven decode ----------------------------------------
+    errs_hy, hybrid_launches, ms_hy, plain_hy = phase_hybrid(
+        torch, card, decode_streams, frags, comp_u8, block_lens)
+    errs.update(errs_hy)
+    ms.update(ms_hy)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -1477,11 +1658,11 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
-        "watch": watch_plain_ms, **plain_abl, **plain_enc,
+        "watch": watch_plain_ms, **plain_abl, **plain_enc, **plain_hy,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
                   "probe": len(probe_expected), "watch": watch.SHAPE[0],
-                  **{k: 1 for k in (*plain_abl, *plain_enc)}}
+                  **{k: 1 for k in (*plain_abl, *plain_enc, *plain_hy)}}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -1499,8 +1680,10 @@ def main() -> int:
         "probe": compared + 12 * n_rows + 4 * n_rows,  # bytes, 3 args -> lengths
         "watch": 2 * 4 * watch.SHAPE[0] * watch.SHAPE[1],  # int32 words in, words out
     }
-    # The ablation variants do the decode kernel's work on the same blocks.
-    moved.update({k: moved["decode"] for k in (*plain_abl, "decode_pipe", "decode_pipe2")})
+    # The ablation variants and the descriptor-driven forms do the decode
+    # kernel's work on the same blocks.
+    moved.update({k: moved["decode"] for k in (*plain_abl, "decode_pipe", "decode_pipe2",
+                                               *plain_hy)})
     # The encode ablation does the encode kernel's work; each variant writes
     # its own bodies.
     moved.update({k: n_in + 4 * B + n + 4 * B for k, n in enc_body_bytes.items()})
@@ -1509,7 +1692,7 @@ def main() -> int:
     # the card's 32-bit non-tensor peak. The byte term is the larger one.
     ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
            "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1],
-           **{k: n_in for k in (*plain_abl, *plain_enc)}}
+           **{k: n_in for k in (*plain_abl, *plain_enc, *plain_hy)}}
     # One PyTorch call computes what the liveness kernel does (torch.add);
     # none computes Snappy, CRC32C or a match length.
     library_ms = {"watch": watch_library_ms}
@@ -1517,7 +1700,7 @@ def main() -> int:
                "facade": facade_launches, "stream": stream_launches,
                "ablation": ablation_launches, "scan": scan_launches,
                "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
-               "encode_ablation": enc_launches}
+               "encode_ablation": enc_launches, "hybrid": hybrid_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each with a plain version beside
 it: block decode, greedy and best-mode encode and the match-extension probe
 (:mod:`.scalar_codec`), CRC32C (:mod:`.crc32c`), the liveness kernel
-(:mod:`.watch`) and the decode-walk ablation variants
-(:mod:`.decode_variants`). Sources are in ``snappier_tpu_torch/csrc``."""
+(:mod:`.watch`), the decode-walk ablation variants
+(:mod:`.decode_variants`, :mod:`.encode_variants`) and the descriptor-driven
+decode (:mod:`.decode_hybrid`). Sources are in ``snappier_tpu_torch/csrc``."""

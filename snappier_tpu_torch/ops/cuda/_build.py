@@ -66,6 +66,10 @@ SOURCES = {
         "snappy_encode_r4_launch",
         [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
     ),
+    "decode_hybrid": (
+        "snappy_decode_hybrid_launch",
+        [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
+    ),
 }
 
 #: Kernel launches per wrapper since the last reset.

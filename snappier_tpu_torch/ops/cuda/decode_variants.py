@@ -101,6 +101,24 @@ def _parse_tag(rd, ip: int):
     return hdr, tt == 0, length, off, hdr + (length if tt == 0 else 0)
 
 
+def read_preamble(comp: bytes, n: int, out_cap: int):
+    """``(pre_len, expected, err)`` of a row's varint preamble, bytes at or
+    past the row's end read as zero; mirrors ``sc::read_preamble``: err is
+    ``ERR_BAD_PREAMBLE`` for more than 5 bytes, a 5th byte of 8 or more, a
+    preamble longer than ``n`` or a claim above ``out_cap``, else 0."""
+    pre_len, val, done, err = 0, 0, False, 0
+    while not done and pre_len < 5 and err == 0:
+        byte = comp[pre_len] if pre_len < len(comp) else 0
+        val |= (byte & 0x7F) << min(7 * pre_len, 28)
+        done = byte < 0x80
+        if pre_len == 4 and byte >= 8:
+            err = ERR_BAD_PREAMBLE
+        pre_len += 1
+    if not done or pre_len > n or val > out_cap:  # val is below 2**31: the 5th byte is below 8
+        err = ERR_BAD_PREAMBLE
+    return pre_len, val, err
+
+
 def _walk_row(comp: bytes, n: int, out_cap: int, out: bytearray, checks: bool, copies: bool):
     """One block's walk; mirrors ``sc::decode_block_words`` and
     ``sc::decode_block_bytes16``, which compute one function. Returns
@@ -113,18 +131,7 @@ def _walk_row(comp: bytes, n: int, out_cap: int, out: bytearray, checks: bool, c
     def rd(i):
         return comp[i] if 0 <= i < cc else 0
 
-    pre_len, val, done, err = 0, 0, False, 0
-    while not done and pre_len < 5 and err == 0:
-        byte = rd(pre_len)
-        val |= (byte & 0x7F) << min(7 * pre_len, 28)
-        done = byte < 0x80
-        if pre_len == 4 and byte >= 8:
-            err = ERR_BAD_PREAMBLE
-        pre_len += 1
-    expected = val  # below 2**31: the 5th byte is below 8
-    if not done or pre_len > n or expected > out_cap:
-        err = ERR_BAD_PREAMBLE
-
+    pre_len, expected, err = read_preamble(comp, n, out_cap)
     ip, op = pre_len, 0
     while ip < n and err == 0:
         hdr, is_lit, length, off, advance = _parse_tag(rd, ip)
@@ -261,17 +268,7 @@ def _pipe_row(comp: bytes, n: int, out_cap: int, out: bytearray, fold: bool, emi
     def rd(i):
         return comp[i] if 0 <= i < cc else 0
 
-    pre_len, val, done, err = 0, 0, False, 0
-    while not done and pre_len < 5 and err == 0:
-        byte = rd(pre_len)
-        val |= (byte & 0x7F) << min(7 * pre_len, 28)
-        done = byte < 0x80
-        if pre_len == 4 and byte >= 8:
-            err = ERR_BAD_PREAMBLE
-        pre_len += 1
-    expected = val
-    if not done or pre_len > n or expected > out_cap:
-        return 0, ERR_BAD_PREAMBLE
+    pre_len, expected, err = read_preamble(comp, n, out_cap)
     if err:
         return 0, err
 

@@ -6,7 +6,8 @@ runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance is exact equality: the kernels compute bytes and CRC bits.
+Tolerance is exact equality: the kernels compute bytes and CRC bits, the
+pre-passes integer descriptors.
 Bytes past a row's length are unspecified and never compared.
 """
 
@@ -25,6 +26,7 @@ from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.best_match import exact_candidates
 from snappier_tpu_torch.ops.cuda import _build, watch
+from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda import encode_variants as ev
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
@@ -432,3 +434,53 @@ def test_cuda_sharded_roundtrip_step_on_two_shards(cuda_device, kernel):
     assert (offsets.cpu() == torch.cumsum(l1.cpu().long(), 0) - l1.cpu()).all()
     _rows_equal(bodies.gather(), b1.to(torch.uint8), l1)
     assert [r for r, _ in bodies.addressable_shards] == [range(0, 8), range(8, 16)]
+
+
+@pytest.mark.parametrize("form", ["v5", "v6", "v7", "v7u"])
+@pytest.mark.parametrize("cc,out_cap,big", [(2048, 1024, 0), (2051, 1022, 0), (68608, 65536, 65536)])
+def test_cuda_decode_hybrid_matches_plain(cuda_device, form, cc, out_cap, big):
+    """The descriptor-driven kernels against their plain version on valid and
+    corrupt blocks with garbage past each length, the pre-pass on the card
+    equal to the one on the CPU, the verdicts equal to the production
+    kernel's and the rows equal to its rows."""
+    base = form[:2]
+    valid = walk_streams(big)
+    streams = valid + corrupt_streams()
+    comp, lens = pack_streams(streams, cc)
+    c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    c_d, l_d = c_h.to(cuda_device), l_h.to(cuda_device)
+    for a, b in zip(dh._prepass(c_d, base), dh._prepass(c_h, base)):
+        if b is not None:
+            assert (a.cpu() == b).all()
+    _build.reset_launches()
+    fn = {"v5": dh.decode_v5, "v6": dh.decode_v6, "v7": dh.decode_v7}[base]
+    got = fn(c_d, l_d, out_cap, unroll2=True) if form == "v7u" else fn(c_d, l_d, out_cap)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {dh.FORMS[base][1]: 1}
+    want = dh.decode_hybrid_plain(c_h, l_h, out_cap, base)
+    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1].cpu() == want[1]).all()
+    assert not want[2][: len(valid)].any()
+    _rows_equal(got[0], want[0], want[1])
+    k1 = decode_blocks_bytes(c_d, l_d, out_cap)
+    _rows_equal(got[0], k1[0], want[1])
+    assert ((k1[2] == 0) == (got[2] == 0)).all()
+
+
+def test_cuda_decode_v5_spec_matches_decode_v5(cuda_device):
+    streams = walk_streams(65536) + corrupt_streams()
+    comp, lens = pack_streams(streams, 68608)
+    c_d, l_d = _t(comp.astype(np.uint8)).to(cuda_device), _t(lens).to(cuda_device)
+    want = dh.decode_v5(c_d, l_d, 65536)
+    _build.reset_launches()
+    got = dh.decode_v5_spec(dh.pack_words(c_d), dh.spec_from_comp(c_d), l_d, 65536)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decode_v5_parts": 1}
+    assert (got[2] == want[2]).all() and (got[1] == want[1]).all()
+    _rows_equal(got[0], want[0], want[1])
+
+
+def test_cuda_decode_hybrid_rejects_what_does_not_fit(cuda_device):
+    comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        dh.decode_v7(comp, torch.tensor([5], device=cuda_device), 65536)

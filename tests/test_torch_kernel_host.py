@@ -3,7 +3,9 @@ compiled for the host with g++ and held against the JAX scalar kernels in
 Pallas interpret mode; and the ablation variants' walks
 (``csrc/decode_variants.cuh``, ``csrc/encode_variants.cuh``), held against
 their plain versions (which tests/test_torch_decode_variants.py and
-tests/test_torch_encode_variants.py hold against the TPU kernels).
+tests/test_torch_encode_variants.py hold against the TPU kernels); and the
+descriptor-driven walks (``csrc/decode_hybrid.cuh``), held against theirs
+(which tests/test_torch_hybrid_decode.py holds against the TPU kernels).
 
 The walks are ``__host__ __device__`` functions, so this is the one place
 their own logic runs without a GPU. The decode walk runs both on one lane
@@ -38,6 +40,7 @@ from tests.torch_cases import (
     encode_rows,
     pack_streams,
     planted_matches,
+    tag_sweep_sample,
     walk_streams,
 )
 
@@ -49,6 +52,7 @@ SHIM = r"""
 #include <thread>
 #include <vector>
 
+#include "decode_hybrid.cuh"
 #include "decode_variants.cuh"
 #include "encode_variants.cuh"
 #include "scalar_codec.cuh"
@@ -260,6 +264,71 @@ extern "C" void host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emi
   }
 }
 
+// One block through a descriptor-driven walk on `nlanes` threads, staged as
+// decode_hybrid.cu does it, the image poisoned first.
+template <class Sync>
+static sc::DecodeResult run_hybrid(int form, int unroll2, uint32_t* img, int32_t wc, int32_t owc,
+                                   const int32_t* s0, const int32_t* s1, int32_t n,
+                                   int32_t out_cap, int lane, int nlanes, Sync sync) {
+  if (form == 5) {
+    return hy::decode_block_hybrid<5, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes,
+                                             sync);
+  }
+  if (form == 6) {
+    return hy::decode_block_hybrid<6, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes,
+                                             sync);
+  }
+  if (unroll2) {
+    return hy::decode_block_hybrid<7, true>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes, sync);
+  }
+  return hy::decode_block_hybrid<7, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes, sync);
+}
+
+extern "C" void host_hybrid(int32_t form, int32_t unroll2, const uint8_t* comp, int64_t cc,
+                            const int32_t* spec0, const int32_t* spec1, int64_t spec_cc,
+                            const int32_t* lens, int64_t batch, int32_t out_cap, int32_t nlanes,
+                            uint8_t* out, int32_t* out_lens, int32_t* errs) {
+  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
+  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
+  std::vector<uint32_t> img(wc + owc);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > spec_cc ? (int32_t)spec_cc : lens[b]);
+    for (auto& w : img) w = 0xDEADBEEFu;
+    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
+      uint32_t v = 0;
+      for (int j = 0; j < 4; j++) {
+        int64_t i = (int64_t)w * 4 + j;
+        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
+      }
+      img[w] = v;
+    }
+    const int32_t* s0 = spec0 + b * spec_cc;
+    const int32_t* s1 = spec1 + b * spec_cc;
+    std::vector<sc::DecodeResult> res(nlanes);
+    if (nlanes == 1) {
+      res[0] = run_hybrid(form, unroll2, img.data(), wc, owc, s0, s1, n, out_cap, 0, 1,
+                          NoSync());
+    } else {
+      Barrier bar(nlanes);
+      std::vector<std::thread> lanes;
+      for (int lane = 0; lane < nlanes; lane++) {
+        lanes.emplace_back([&, lane] {
+          res[lane] = run_hybrid(form, unroll2, img.data(), wc, owc, s0, s1, n, out_cap, lane,
+                                 nlanes, BarrierSync{&bar});
+        });
+      }
+      for (auto& t : lanes) t.join();
+      for (int lane = 1; lane < nlanes; lane++) {
+        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
+      }
+    }
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
+    for (int32_t i = 0; i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
+    out_lens[b] = res[0].out_len;
+    errs[b] = res[0].err;
+  }
+}
+
 // The encode-ablation walk under a mask; `fixed` takes the walk whose mask
 // is a template argument where the shim has it, as the kernels do.
 extern "C" void host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t store_step,
@@ -358,6 +427,8 @@ def host_lib(tmp_path_factory):
     so.host_pipe.restype = None
     so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, P, I64, P]
     so.host_encode_variant.restype = None
+    so.host_hybrid.argtypes = [I32, I32, P, I64, P, P, I64, P, I64, I32, I32, P, P, P]
+    so.host_hybrid.restype = None
     return so
 
 
@@ -579,3 +650,40 @@ def test_host_encode_variant_walk_matches_plain(host_lib, case):
                 assert (got_b[i, : got_l[i]] == want_b[i, : want_l[i]]).all(), (name, i)
                 comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
                 assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+@pytest.mark.parametrize("form", ["v5", "v6", "v7", "v7u"])
+def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
+    """The descriptor-driven walks on 1, 4 and 32 lanes over the port's
+    pre-pass, against their plain version: valid blocks with every short
+    offset, 64 KiB blocks, corrupt blocks, a sample of the tag sweep,
+    garbage past each length; rows and capacities that are no multiple of
+    4."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+
+    base = form[:2]
+    streams = (walk_streams(big=0 if nlanes == 32 else 65536) + corrupt_streams()
+               + tag_sweep_sample(97))
+    cc, out_cap = (68611, 65536) if nlanes != 32 else (2051, 1022)
+    comp, lens = pack_streams(streams, cc)
+    comp8 = np.ascontiguousarray(comp, np.uint8)
+    c8 = torch.from_numpy(comp8)
+    spec0, spec1 = dh._prepass(c8, base)
+    s0 = np.ascontiguousarray(spec0.numpy())
+    s1 = np.ascontiguousarray((spec1 if spec1 is not None else spec0).numpy())
+    B = len(streams)
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    host_lib.host_hybrid(dh.FORMS[base][0], int(form == "v7u"), comp8.ctypes.data, cc,
+                         s0.ctypes.data, s1.ctypes.data, cc, lens.ctypes.data, B, out_cap,
+                         nlanes, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data)
+    want = [x.numpy() for x in dh.decode_hybrid_plain(c8, torch.from_numpy(lens), out_cap, base)]
+    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
+    assert (out_lens == want[1]).all()
+    assert ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}) <= set(errs.tolist())
+    for i in range(B):
+        assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i

@@ -196,7 +196,7 @@ def test_cpu_path_launches_no_kernel():
 def test_build_names_every_source():
     assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
                                    "decode_variants", "decode_pipe", "encode_variants",
-                                   "encode_r4"}
+                                   "encode_r4", "decode_hybrid"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES) | {"watch"}
     for name in _build.SOURCES:
