@@ -84,12 +84,23 @@ failure:
    through the production kernel and every form at the codec's row width
    and the tight one, each row equal to the input; timings beside the
    production kernel (ns per tag), the pre-passes alone, the kernel alone and
-   the peak device memory of one call.
+   the peak device memory of one call;
+10. the micro-probes: ``encode_stats`` (the encoder's budget) against its
+   plain walk on rows of 4 KiB and 9 of the main path's fragments, and
+   ``chain`` / ``chainrec``, ``vcopy`` (2d, 3d) and ``coissue`` (nvec 0, 1,
+   2, 8; from interpret mode's fill and from a random tile, at 8,192
+   iterations and at 5) against theirs on the advance array and records of
+   the encode kernel's block 0, exact, the record buffer, image and tile
+   included; then the path: ``encode_stats`` on the 512 fragments (the 9
+   held to the plain walk), ``chain`` and ``chainrec`` at 200 walks,
+   ``vcopy`` in both modes at twice the block's tags, ``coissue`` at nvec 0
+   and 8; timings of each kernel alone, ``encode_stats`` beside the encode
+   kernel.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
-sharded_scan, encode_ablation, hybrid) runs with the launch counts set to 0 just
-before it and read just after; every kernel of a path must have launched,
-and the scan paths must launch none.
+sharded_scan, encode_ablation, hybrid, micro_probes) runs with the launch
+counts set to 0 just before it and read just after; every kernel of a path
+must have launched, and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
 launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
@@ -149,6 +160,14 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
                   "tools/perf_probe_hybrid.py:965"),
     "decode_v7": ("decode_v7", "snappier_tpu_torch/csrc/decode_hybrid.cu",
                   "tools/perf_probe_hybrid.py:1341"),
+    "encode_stats": ("encode_stats", "snappier_tpu_torch/csrc/encode_stats.cu",
+                     "tools/perf_probe_r4.py:1420"),
+    "chain": ("chain", "snappier_tpu_torch/csrc/hybrid_probes.cu",
+              "tools/perf_probe_hybrid.py:116"),
+    "vcopy": ("vcopy", "snappier_tpu_torch/csrc/hybrid_probes.cu",
+              "tools/perf_probe_hybrid.py:189"),
+    "coissue": ("coissue", "snappier_tpu_torch/csrc/hybrid_probes.cu",
+                "tools/perf_probe_hybrid.py:324"),
 }
 PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
@@ -163,6 +182,7 @@ PATHS = {  # path -> the kernels it must launch
     "encode_ablation": ("encode", "decode", "encode_variant", "encode_r4", "decode_pipe",
                         "decode_pipe2"),
     "hybrid": ("decode", "decode_v5", "decode_v5_parts", "decode_v6", "decode_v7"),
+    "micro_probes": ("encode_stats", "chain", "vcopy", "coissue"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
@@ -1482,6 +1502,140 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     return errs, launches, ms, plain
 
 
+def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
+    """Phase 10, the micro_probes path. Returns (max_abs_err per wrapper,
+    launches on the path, ms per wrapper, plain ms per wrapper on one input,
+    (bytes, operations) per wrapper at the timed call)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_cases import encode_rows as small_rows
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    dev = torch.device("cuda")
+    errs = {}
+    t0 = time.perf_counter()
+    # 1. each kernel against its plain version. T9: markup, random, zero,
+    # period-1..7 and short rows of 4 KiB with garbage past each length, an
+    # empty row, and 9 of the main path's fragments of 65,536 B.
+    f_small, l_small = small_rows(4096)
+    picks = torch.from_numpy(np.linspace(0, B - 1, 9).astype(np.int64)).to(dev)
+    f_main, l_main = frags[picks].cpu(), lengths[picks].cpu()
+    cases = [(torch.from_numpy(np.concatenate([f_small, f_small[:1]]).astype(np.uint8)),
+              torch.from_numpy(np.concatenate([l_small, [0]]).astype(np.int32))),
+             (f_main, l_main)]
+    errs["encode_stats"] = 0
+    for f_h, l_h in cases:
+        got = ev.encode_stats(f_h.to(dev), l_h.to(dev)).cpu().numpy()
+        want = ev.encode_stats_plain(f_h, l_h).numpy()
+        err = max_abs_err([(got, want)])
+        check(err == 0, f"encode_stats differs from its plain walk on rows of {f_h.shape[1]} B")
+        errs["encode_stats"] = max(errs["encode_stats"], err)
+    stats_picks = want
+    # T10-T12 on the encode kernel's block 0: its advance array, its records.
+    block = comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes()
+    adv, n, ntags = hp.chain_inputs(block)
+    rec = hp.vcopy_records(hp.tags_from_block(block)[1])
+    count = int(rec[hp.COUNT_AT])
+    img = np.arange(hp.IMAGE_WORDS, dtype=np.int32)
+    adv_h, rec_h, img_h = (torch.from_numpy(x) for x in (adv, rec, img))
+    adv_d, rec_d, img_d = (x.to(dev) for x in (adv_h, rec_h, img_h))
+    fill = torch.full(hp.TILE, hp.FILL, dtype=torch.int32)
+    rand = torch.from_numpy(np.random.default_rng(29).integers(
+        -(1 << 31), 1 << 31, hp.TILE, dtype=np.int64).astype(np.int32))
+    fill_d = fill.to(dev)
+
+    def compare(name, got, want, what):
+        err = max_abs_err([(a.cpu().numpy(), b.numpy()) for a, b in zip(got, want)])
+        check(err == 0, f"{name} differs from its plain version ({what})")
+        errs[name] = max(errs.get(name, 0), err)
+
+    plain_chk = {}
+    for wr in (False, True):
+        want = hp.chain_plain(adv_h, n, 3, hp.CHAIN_R, wr)
+        compare("chain", hp.chain(adv_d, n, 3, hp.CHAIN_R, wr), want, f"with_rec={wr}")
+        plain_chk[wr] = int(want[0])
+    for mode in hp.MODES:
+        compare("vcopy", hp.vcopy(rec_d, img_d, mode), hp.vcopy_plain(rec_h, img_h, mode), mode)
+    for nvec in hp.COISSUE_NVEC:
+        for tile, iters in ((fill, 8192), (rand, 8192), (rand, 5)):
+            compare("coissue", hp.coissue(3, nvec, tile.to(dev), iters),
+                    hp.coissue_plain(3, nvec, tile, iters), f"nvec {nvec}, {iters} iterations")
+    steps = plain_chk[True] - plain_chk[False]  # chainrec adds each trial's steps
+    check(steps > 0, "chainrec's checksum must exceed chain's")
+    print(f"encode_stats == plain on {len(cases[0][1])} rows of 4096 B and 9 of {BLOCK} B; "
+          f"chain, chainrec ({hp.CHAIN_R} walks, {steps} steps), vcopy 2d and 3d "
+          f"({count} records), coissue (nvec {hp.COISSUE_NVEC}) == plain on block 0 "
+          f"({ntags} tags), max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+
+    # 2. the path: the encoder's budget of the 512 fragments; the probes at
+    # the tool's sizes.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    stats = ev.encode_stats(frags, lengths)
+    chk = {wr: hp.chain(adv_d, n, 3, hp.CHAIN_R, wr) for wr in (False, True)}
+    vc = {mode: hp.vcopy(rec_d, img_d, mode) for mode in hp.MODES}
+    co = {nvec: hp.coissue(3, nvec, fill_d) for nvec in (0, 8)}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"micro_probes path launches: {launches}")
+    for k in PATHS["micro_probes"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the micro_probes path")
+    check(launches == {"encode_stats": 1, "chain": 2, "vcopy": 2, "coissue": 2},
+          f"launch counts {launches}")
+    st = stats.cpu().numpy()
+    check(st.shape == (B, 4) and (st >= 0).all() and (st[:, 3] <= BLOCK).all(),
+          "encode_stats: counts out of range")
+    check(bool((st[picks.cpu().numpy()] == stats_picks).all()),
+          "encode_stats: the 9 fragments differ from the plain walk on the path")
+    check([int(chk[wr][0]) for wr in (False, True)] == [plain_chk[False], plain_chk[True]],
+          "chain checksums on the path")
+    check(int(vc["2d"][0]) != int(vc["3d"][0]), "vcopy 2d and 3d agree where the TPU's differ")
+    check(int(co[0][0]) == int(co[8][0]), "coissue's sum must not see the tile at 8,192")
+    avg = st.sum(axis=0) / B
+    print(f"encstats (per block avg): miss_iters={avg[0]:.0f} hits={avg[1]:.0f} "
+          f"ext_iters={avg[2]:.0f} match_bytes={avg[3]:.0f} "
+          f"(ext iters/hit={avg[2] / max(avg[1], 1):.2f}, "
+          f"match len avg={avg[3] / max(avg[1], 1):.1f})")
+
+    # 3. timings: each kernel alone (the wrappers' checks sync with the
+    # host), encode_stats beside the encode kernel.
+    t = {"k2": cuda_ms(lambda: sc.encode_blocks_bytes(frags, lengths), iters=3),
+         "encode_stats": cuda_ms(lambda: ev.encode_stats(frags, lengths), iters=3)}
+    for wr, name in ((False, "chain"), (True, "chainrec")):
+        t[name] = cuda_ms(lambda: hp.launch_chain(adv_d, n, 3, hp.CHAIN_R, wr))
+        t[name + "_ns_per_step"] = t[name] * 1e6 / steps
+        t[name + "_ns_per_tag"] = t[name] * 1e6 / hp.CHAIN_R / ntags
+    for mode in hp.MODES:
+        t["vcopy" + mode] = cuda_ms(lambda: hp.launch_vcopy(rec_d, img_d, mode))
+        t["vcopy" + mode + "_ns_per_record"] = t["vcopy" + mode] * 1e6 / count
+    for nvec in hp.COISSUE_NVEC:
+        t[f"coissue{nvec}"] = cuda_ms(lambda: hp.launch_coissue(3, nvec, fill_d))
+        t[f"coissue{nvec}_ns_per_iter"] = t[f"coissue{nvec}"] * 1e6 / hp.COISSUE_ITERS
+    print(json.dumps({"card": card, "tags_block0": ntags, "chain_walks": hp.CHAIN_R,
+                      "chain_steps": steps, "vcopy_records": count,
+                      "encode_stats_per_block_avg": avg.tolist(), "micro_probe_ms": t}))
+    ms = {"encode_stats": t["encode_stats"], "chain": t["chain"], "vcopy": t["vcopy2d"],
+          "coissue": t["coissue8"]}
+    f1, l1 = frags[:1].cpu(), lengths[:1].cpu()
+    plain = {"encode_stats": host_ms(lambda: ev.encode_stats_plain(f1, l1)),
+             "chain": host_ms(lambda: hp.chain_plain(adv_h, n, 3, hp.CHAIN_R)),
+             "vcopy": host_ms(lambda: hp.vcopy_plain(rec_h, img_h, "2d")),
+             "coissue": host_ms(lambda: hp.coissue_plain(3, 8))}
+    # Bytes each timed call must move (inputs read once, outputs written
+    # once) and its operations: a step per byte (T9), per walk step (T10),
+    # per record lane (T11), per scalar operation and tile update (T12).
+    work = {"encode_stats": (B * BLOCK + 4 * B + 16 * B, B * BLOCK),
+            "chain": (4 * len(adv) + 4, steps),
+            "vcopy": (4 * (hp.VCOPY_WORDS + 2 * hp.IMAGE_WORDS) + 4, count * hp.LANES),
+            "coissue": (2 * 4 * hp.TILE[0] * hp.TILE[1] + 4,
+                        hp.COISSUE_ITERS * (24 + 8 * hp.TILE[0] * hp.TILE[1]))}
+    return errs, launches, ms, plain, work
+
+
 def main() -> int:
     import torch
 
@@ -1647,6 +1801,12 @@ def main() -> int:
     errs.update(errs_hy)
     ms.update(ms_hy)
 
+    # --- 10. the micro-probes ----------------------------------------------------
+    errs_mp, micro_launches, ms_mp, plain_mp, work_mp = phase_micro_probes(
+        torch, card, frags, lengths, comp_u8, block_lens)
+    errs.update(errs_mp)
+    ms.update(ms_mp)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -1658,11 +1818,11 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
-        "watch": watch_plain_ms, **plain_abl, **plain_enc, **plain_hy,
+        "watch": watch_plain_ms, **plain_abl, **plain_enc, **plain_hy, **plain_mp,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
                   "probe": len(probe_expected), "watch": watch.SHAPE[0],
-                  **{k: 1 for k in (*plain_abl, *plain_enc, *plain_hy)}}
+                  **{k: 1 for k in (*plain_abl, *plain_enc, *plain_hy, *plain_mp)}}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -1687,12 +1847,14 @@ def main() -> int:
     # The encode ablation does the encode kernel's work; each variant writes
     # its own bodies.
     moved.update({k: n_in + 4 * B + n + 4 * B for k, n in enc_body_bytes.items()})
+    moved.update({k: w[0] for k, w in work_mp.items()})
     # Operations: at least one 32-bit integer step per input byte (a hash,
     # table or candidate step; a decoded byte's store; a compared byte), at
     # the card's 32-bit non-tensor peak. The byte term is the larger one.
     ops = {"encode": n_in, "decode": n_in, "crc32c": n_in, "encode_best": n_in,
            "probe": compared, "watch": watch.SHAPE[0] * watch.SHAPE[1],
-           **{k: n_in for k in (*plain_abl, *plain_enc, *plain_hy)}}
+           **{k: n_in for k in (*plain_abl, *plain_enc, *plain_hy)},
+           **{k: w[1] for k, w in work_mp.items()}}
     # One PyTorch call computes what the liveness kernel does (torch.add);
     # none computes Snappy, CRC32C or a match length.
     library_ms = {"watch": watch_library_ms}
@@ -1700,7 +1862,8 @@ def main() -> int:
                "facade": facade_launches, "stream": stream_launches,
                "ablation": ablation_launches, "scan": scan_launches,
                "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
-               "encode_ablation": enc_launches, "hybrid": hybrid_launches}
+               "encode_ablation": enc_launches, "hybrid": hybrid_launches,
+               "micro_probes": micro_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

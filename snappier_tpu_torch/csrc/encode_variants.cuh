@@ -109,16 +109,21 @@ struct VariantEmitter {
 };
 
 // The match length at `at` against `cand` before the tail, by the mask's
-// extension walk. seed(pos) stores min(pos, n - 5) in the table.
+// extension walk; `steps` gains the walk's loop iterations. seed(pos) stores
+// min(pos, n - 5) in the table.
 template <class Key, class Seed>
 SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32_t cand,
-                             int32_t n) {
+                             int32_t n, int32_t& steps) {
   int32_t m = 4;
   bool go = true;
   if (ext == EV_EXT_LOOP4) {
-    while (at + m + 4 <= n && key(at + m) == key(cand + m)) m += 4;
+    while (at + m + 4 <= n && key(at + m) == key(cand + m)) {
+      m += 4;
+      steps++;
+    }
   } else if (ext == EV_EXT_4) {
     while (go && at + m + 4 <= n) {
+      steps++;
       seed(at + m - 3);
       go = key(at + m) == key(cand + m);
       m += 4;
@@ -126,6 +131,7 @@ SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32
     if (!go) m -= 4;
   } else if (ext == EV_EXT_8) {
     while (go && at + m + 8 <= n) {
+      steps++;
       seed(at + m - 3);
       bool eq0 = key(at + m) == key(cand + m);
       bool eq1 = key(at + m + 4) == key(cand + m + 4);
@@ -136,6 +142,7 @@ SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32
   } else if (ext == EV_EXT_8U || ext == EV_EXT_8S2) {
     bool eq0l = true;
     while (go && at + m + 8 <= n) {
+      steps++;
       seed(at + m - 3);
       if (ext == EV_EXT_8S2) seed(at + m + 1);
       bool eq0 = key(at + m) == key(cand + m);
@@ -149,6 +156,7 @@ SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32
   } else {  // EV_EXT_16U
     bool e0 = true, e01 = true, e012 = true;
     while (go && at + m + 16 <= n) {
+      steps++;
       seed(at + m - 3);
       seed(at + m + 5);
       e0 = key(at + m) == key(cand + m);
@@ -161,6 +169,7 @@ SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32
       m = m - 16 + (e0 ? 4 : 0) + (e01 ? 4 : 0) + (e012 ? 4 : 0);
     } else {  // the bounds ended the walk: up to 3 groups of 4 remain
       while (go && at + m + 4 <= n) {
+        steps++;
         go = key(at + m) == key(cand + m);
         m += 4;
       }
@@ -170,13 +179,38 @@ SC_HD int32_t variant_extend(uint32_t ext, Key key, Seed seed, int32_t at, int32
   return m;
 }
 
+// What a walk counts: nothing (the ablation kernels), or the budget of
+// tools/perf_probe_r4.py::_encode_stats_kernel.
+struct NoStats {
+  SC_HD void miss() {}
+  SC_HD void hit(int32_t, int32_t) {}
+};
+
+struct WalkStats {
+  int32_t miss_iters = 0;  // probe groups without a hit
+  int32_t hits = 0;
+  int32_t ext_iters = 0;  // loop iterations of the extension walks
+  int32_t match_bytes = 0;  // match lengths after the tail and the clamp to n
+  SC_HD void miss() { miss_iters++; }
+  SC_HD void hit(int32_t steps, int32_t m) {
+    hits++;
+    ext_iters += steps;
+    match_bytes += m;
+  }
+};
+
+// encode_stats.cu's walk: K2's probe of 4 positions, all stored, the
+// stride-4 extension that seeds, the tail from one XOR, no emission.
+constexpr uint32_t EV_STATS_WALK = EV_EXT_4 | EV_XOR_TAIL | EV_EMIT_HITS;
+
 // Greedy LZ77 over one fragment of n bytes under a mask; returns the tag
-// stream's length. s holds the fragment followed by 8 readable bytes (their
-// values never change the result); table holds 1 << cfg.hash_bits slots, all
-// EMPTY on entry; out holds the bound of greedy emission plus 3 bytes.
-template <class Cfg>
+// stream's length and counts the walk into `stats`. s holds the fragment
+// followed by 8 readable bytes (their values never change the result); table
+// holds 1 << cfg.hash_bits slots, all EMPTY on entry; out holds the bound of
+// greedy emission plus 3 bytes (nothing without emission).
+template <class Cfg, class Stats>
 SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* table, Cfg cfg,
-                                      uint8_t* out) {
+                                      uint8_t* out, Stats& stats) {
   const uint32_t mk = cfg.mask();
   if (mk & EV_DMA_ONLY) return n;
   if (mk & EV_NOSCAN) return 0;
@@ -283,7 +317,8 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
   // Extension, tail, emission and the seeding after it; returns the match
   // end and moves op.
   auto on_hit = [&](int32_t at, int32_t cand, int32_t lit_start, int32_t& op) {
-    int32_t m = variant_extend(mk & EV_EXT_MASK, key, seed, at, cand, n);
+    int32_t steps = 0;
+    int32_t m = variant_extend(mk & EV_EXT_MASK, key, seed, at, cand, n, steps);
     if (mk & EV_XOR_TAIL) {
       uint32_t x = key(at + m) ^ key(cand + m);
       m += x == 0 ? 3 : ((x & 0xFFu) == 0) + ((x & 0xFFFFu) == 0) + ((x & 0xFFFFFFu) == 0);
@@ -291,6 +326,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
       for (int t = 0; t < 3 && at + m < n && s[at + m] == s[cand + m]; t++) m++;
     }
     if (m > n - at) m = n - at;
+    stats.hit(steps, m);
     int32_t end = at + m;
     if (mk & EV_EMIT_HITS) {
       op += 2;
@@ -317,7 +353,10 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
       while (d < 0 && ip + margin < n) {  // misses only: probe and advance
         loads_at(ip, cur, h);
         d = probe(ip, cur, h, cand);
-        if (d < 0) ip += miss_step(skip);
+        if (d < 0) {
+          ip += miss_step(skip);
+          stats.miss();
+        }
         skip += skip_inc;
       }
       if (d >= 0) {  // the hit work, once per outer step
@@ -336,6 +375,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
       if (d < 0) {
         ip = ipm;
         skip += skip_inc;
+        stats.miss();
 #pragma unroll
         for (int i = 0; i < 8; i++) {
           if (i < W) {
@@ -357,6 +397,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
       if (d < 0) {
         ip += miss_step(skip);
         skip += skip_inc;
+        stats.miss();
         continue;
       }
       ip = on_hit(ip + d, cand, lit_start, op);
@@ -366,6 +407,13 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
   }
   if (!(mk & EV_EMIT_HITS)) op = em.literal(op, lit_start, n);
   return op;
+}
+
+template <class Cfg>
+SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* table, Cfg cfg,
+                                      uint8_t* out) {
+  NoStats none;
+  return encode_fragment_variant(s, n, table, cfg, out, none);
 }
 
 }  // namespace sc
@@ -380,6 +428,25 @@ namespace ev {
 
 constexpr int kThreads = 256;
 
+// All threads clear the match table at the front of smem and stage the
+// block's fragment (n bytes and 8 zero bytes) after it; returns n, the
+// length clamped to [0, frag_w].
+__device__ inline int32_t stage_fragment(uint8_t* smem, int hash_bits,
+                                         const uint8_t* __restrict__ frags, int64_t frag_w,
+                                         const int32_t* __restrict__ lengths, int64_t b) {
+  uint8_t* s = smem + (sizeof(uint16_t) << hash_bits);
+  int32_t n = lengths[b];
+  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
+  uint4* t4 = reinterpret_cast<uint4*>(smem);
+  const int words = (int)((sizeof(uint16_t) << hash_bits) / sizeof(uint4));
+  const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
+  const uint8_t* row = frags + b * frag_w;
+  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
+  __syncthreads();
+  return n;
+}
+
 template <class Cfg>
 __global__ void encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
                                       const int32_t* __restrict__ lengths, Cfg cfg,
@@ -389,16 +456,7 @@ __global__ void encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t
   uint16_t* table = reinterpret_cast<uint16_t*>(smem);
   uint8_t* s = smem + (sizeof(uint16_t) << cfg.hash_bits);
   const int64_t b = blockIdx.x;
-  int32_t n = lengths[b];
-  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
-
-  uint4* t4 = reinterpret_cast<uint4*>(table);
-  const int words = (int)((sizeof(uint16_t) << cfg.hash_bits) / sizeof(uint4));
-  const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
-  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
-  const uint8_t* row = frags + b * frag_w;
-  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
-  __syncthreads();
+  const int32_t n = stage_fragment(smem, cfg.hash_bits, frags, frag_w, lengths, b);
 
   if (threadIdx.x == 0) {
     body_lens[b] = sc::encode_fragment_variant(s, n, table, cfg, bodies + b * body_w);

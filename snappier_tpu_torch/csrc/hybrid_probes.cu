@@ -1,0 +1,218 @@
+// The hybrid decode's micro-probes on Hopper: the primitive costs of a
+// decode that walks tag boundaries on one thread and copies payloads with a
+// vector of lanes. They are probes: each measures a chain of dependent
+// steps, and no design of the same work beats that chain's latency. None is
+// a kernel to make fast.
+//
+// chain_kernel<kRec>: tools/perf_probe_hybrid.py::_chain_kernel (wrapper
+// chain; with_rec is chainrec). The TPU walks ip += adv[ip] on the scalar
+// core over SMEM; here one thread over the advance array in shared memory.
+// Bound: the bytes (the advance array in, one word out, the record buffer
+// out) take well under a microsecond; the latency floor is R x steps
+// dependent shared-memory loads, which is what the probe times. The record
+// stores go to a shared buffer that the block copies out at the end, so
+// that they are not dead code; they sit beside the chain, not on it.
+//
+// vcopy_kernel<k3d>: _vcopy_kernel (wrapper vcopy, modes 2d and 3d). The TPU
+// copies a record with VPU row operations on a VMEM image (a dynamic row
+// load, lane rotates, a funnel shift, masked row stores); here one warp
+// holds the 128 lanes, 4 words a lane, over the image in shared memory, and
+// reads the three record words from device memory (uniform loads through
+// L1). Each lane loads its two source words, the warp meets (a record's
+// destination may overlap its source), then stores under the masks and
+// meets again: records form a chain through the image. Bound: 192 KiB in
+// and 64 KiB out, about 0.08 us; the floor is the records times one round
+// of shared loads, barrier, stores and barrier.
+//
+// coissue_kernel<kNvec>: _coissue_kernel (wrapper coissue; nvec 0, 1, 2,
+// 8; iters 8,192 as on the TPU, fewer for the tests). The TPU asks whether
+// Mosaic issues the scalar unit's chain and the VPU's tile updates in the
+// same bundles. The SIMT counterpart: warp 0 (one thread) runs the
+// 24-operation scalar chain through a 64-word scratch in shared memory,
+// warps 1-8 (one tile row each, 4 words a lane, the lane rotation by
+// shuffles) run the nvec updates a step, and the SM's schedulers interleave
+// the warps. Nothing syncs them inside the loop, so
+// the time is the longer of the two streams if they overlap and their sum
+// if they do not. Bound: 8 KiB of bytes; the floor is 8,192 x 24 dependent
+// steps of the scalar chain. The scratch starts as interpret mode leaves it
+// (0x80000000, the seed at word 0) and the tile comes from device memory
+// (by default 0x80000000 everywhere): on the TPU both hold whatever SMEM
+// and VMEM held, and a tile that the compiler could see would fold away.
+// (The TPU's result never depends on the vector work: 4,096 updates take
+// any tile to 0 modulo 2^32, ops/cuda/hybrid_probes.py says why. The work
+// is done all the same: nvcc cannot know it.)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hybrid_probes.cuh"
+
+namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+template <bool kRec>
+__global__ void chain_kernel(const int32_t* __restrict__ adv, int32_t words, int32_t n,
+                             int32_t start, int32_t R, int32_t* __restrict__ out,
+                             int32_t* __restrict__ recs) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* adv_s = smem;
+  int32_t* rec_s = smem + ((words + 3) & ~3);
+  for (int32_t i = threadIdx.x; i < words; i += blockDim.x) adv_s[i] = adv[i];
+  if (kRec) {
+    for (int32_t i = threadIdx.x; i < hp::kRecWords; i += blockDim.x) rec_s[i] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) out[0] = hp::chain_walk<kRec>(adv_s, n, start, R, rec_s);
+  if (kRec) {
+    __syncthreads();
+    for (int32_t i = threadIdx.x; i < hp::kRecWords; i += blockDim.x) recs[i] = rec_s[i];
+  }
+}
+
+template <bool k3d>
+__global__ void vcopy_kernel(const int32_t* __restrict__ rec, const int32_t* __restrict__ img_in,
+                             int32_t* __restrict__ out, int32_t* __restrict__ img_out) {
+  extern __shared__ __align__(16) uint32_t img[];
+  const int lane = threadIdx.x;
+  for (int32_t i = lane; i < hp::kImageWords; i += 32) img[i] = (uint32_t)img_in[i];
+  __syncwarp();
+  const int32_t count = rec[hp::kCountAt];
+  uint32_t acc = 0;
+  for (int32_t t = 0; t < count; t++) {
+    const hp::VcopyRecord r = hp::vcopy_record<k3d>(
+        __ldg(rec + t), __ldg(rec + t + hp::kRecHalf), __ldg(rec + t + 2 * hp::kRecHalf));
+    uint32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      v[k] = hp::vcopy_lane(img, r, lane + 32 * k);
+      acc += v[k] & 1u;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; k++) hp::vcopy_store(img, r, lane + 32 * k, v[k]);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+  if (lane == 0) out[0] = (int32_t)acc;
+  for (int32_t i = lane; i < hp::kImageWords; i += 32) img_out[i] = (int32_t)img[i];
+}
+
+template <int kNvec>
+__global__ void coissue_kernel(int32_t seed, int32_t iters, const int32_t* __restrict__ tile,
+                               int32_t* __restrict__ out, int32_t* __restrict__ tile_out) {
+  __shared__ uint32_t scratch[64];
+  __shared__ uint32_t sums[9];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {
+    if (lane == 0) {
+      hp::coissue_init(scratch, seed);
+      uint32_t acc = 0;
+      for (uint32_t t = 0; t < (uint32_t)iters; t++) {
+        acc += hp::coissue_step(scratch, t);
+      }
+      sums[0] = acc;
+    }
+  } else {
+    // Row warp - 1 of the tile; element lane + 32 k in v[k]. roll(v, s)[p]
+    // is v[(p - s) & 127]: lane (lane - s) & 31 holds it, in slot k or,
+    // for lanes below s, in slot k - 1.
+    const int32_t* row = tile + (warp - 1) * hp::kLanes;
+    uint32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++) v[k] = (uint32_t)row[lane + 32 * k];
+    for (int32_t t = 0; t < (kNvec ? iters : 0); t++) {
+#pragma unroll
+      for (int s = 1; s <= kNvec; s++) {
+        uint32_t a[4];
+#pragma unroll
+        for (int k = 0; k < 4; k++) a[k] = __shfl_sync(kFull, v[k], (lane - s) & 31);
+#pragma unroll
+        for (int k = 0; k < 4; k++) {
+          v[k] = hp::coissue_update(v[k], lane >= s ? a[k] : a[(k + 3) & 3]);
+        }
+      }
+    }
+    uint32_t par = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      tile_out[(warp - 1) * hp::kLanes + lane + 32 * k] = (int32_t)v[k];
+      par += v[k] & 1u;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) par += __shfl_xor_sync(kFull, par, o);
+    if (lane == 0) sums[warp] = par;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t total = 0;
+    for (int w = 0; w < 9; w++) total += sums[w];
+    out[0] = (int32_t)total;
+  }
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+}  // namespace
+
+// adv: int32[words] (the walk reads adv[start:n]); out: int32[1]; recs:
+// int32[16384] with with_rec, else unused.
+extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int64_t words, int32_t n,
+                                  int32_t start, int32_t R, void* out, void* recs,
+                                  void* stream) {
+  const size_t smem = ((size_t)((words + 3) & ~3) + (with_rec ? hp::kRecWords : 0)) * 4;
+#define PROBE_LAUNCH(REC)                                                                   \
+  do {                                                                                      \
+    int e = set_smem(chain_kernel<REC>, smem);                                              \
+    if (e != 0) return e;                                                                   \
+    chain_kernel<REC><<<1, 256, smem, (cudaStream_t)stream>>>(                              \
+        (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)recs);   \
+  } while (0)
+  if (with_rec) {
+    PROBE_LAUNCH(true);
+  } else {
+    PROBE_LAUNCH(false);
+  }
+#undef PROBE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// rec: int32[32768] (dst, src, len at 0, 8192, 16384; the count at 24576);
+// img, img_out: int32[16384]; out: int32[1].
+extern "C" int probe_vcopy_launch(int32_t mode3d, const void* rec, const void* img, void* out,
+                                  void* img_out, void* stream) {
+  const size_t smem = hp::kImageWords * 4;
+  int e = mode3d ? set_smem(vcopy_kernel<true>, smem) : set_smem(vcopy_kernel<false>, smem);
+  if (e != 0) return e;
+  if (mode3d) {
+    vcopy_kernel<true><<<1, 32, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);
+  } else {
+    vcopy_kernel<false><<<1, 32, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// tile, tile_out: int32[8, 128]; out: int32[1].
+extern "C" int probe_coissue_launch(int32_t nvec, int32_t seed, int32_t iters, const void* tile,
+                                    void* out, void* tile_out, void* stream) {
+#define PROBE_CASE(N)                                                                      \
+  case N:                                                                                  \
+    coissue_kernel<N><<<1, 9 * 32, 0, (cudaStream_t)stream>>>(                             \
+        seed, iters, (const int32_t*)tile, (int32_t*)out, (int32_t*)tile_out);             \
+    break
+  switch (nvec) {
+    PROBE_CASE(0);
+    PROBE_CASE(1);
+    PROBE_CASE(2);
+    PROBE_CASE(8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}

@@ -7,7 +7,9 @@ Libraries land in ``build/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. :func:`build_all` starts every ``nvcc`` at once.
 ``csrc/watch.cu`` is the exception: :mod:`snappier_tpu_torch.ops.cuda.watch`
-compiles it anew at every call, which is its purpose.
+compiles it anew at every call, which is its purpose. A launcher is named
+after its source, except where one source has several
+(:data:`SHARED_SOURCE`).
 
 Every wrapper counts its launches in :data:`LAUNCHES`, so a caller can
 show that a run went through the kernels.
@@ -36,7 +38,7 @@ _U32 = ctypes.c_uint32
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
-#: C signature of each source's launcher: (symbol, argtypes).
+#: C signature of each launcher: (symbol, argtypes).
 SOURCES = {
     "decode": (
         "snappy_decode_launch", [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
@@ -70,7 +72,13 @@ SOURCES = {
         "snappy_decode_hybrid_launch",
         [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
     ),
+    "encode_stats": ("snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
+    "chain": ("probe_chain_launch", [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P]),
+    "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
+    "coissue": ("probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
 }
+#: The source of each launcher that is not ``csrc/<launcher>.cu``.
+SHARED_SOURCE = {"chain": "hybrid_probes", "vcopy": "hybrid_probes", "coissue": "hybrid_probes"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -91,6 +99,11 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def source_of(name: str) -> str:
+    """The stem of the source in ``csrc/`` that holds launcher ``name``."""
+    return SHARED_SOURCE.get(name, name)
 
 
 def _lib_path(name: str) -> pathlib.Path:
@@ -146,10 +159,10 @@ def bind(path: pathlib.Path, symbol: str, argtypes: list):
 
 def build_all() -> None:
     """Build every source not yet built, all nvcc runs at once, and bind
-    them."""
+    their launchers."""
     with _lock:
         todo = [n for n in SOURCES if n not in _launchers]
-        started = [(n, *_start_build(n)) for n in todo]
+        started = [(s, *_start_build(s)) for s in sorted({source_of(n) for n in todo})]
         try:
             for _, st, path in started:
                 _finish_build(st, path)
@@ -158,21 +171,22 @@ def build_all() -> None:
                 if st is not None and st[0].poll() is None:
                     st[0].kill()
                     st[0].wait()
-        for n, _, path in started:
-            _launchers[n] = bind(path, *SOURCES[n])
+        paths = {s: path for s, _, path in started}
+        for n in todo:
+            _launchers[n] = bind(paths[source_of(n)], *SOURCES[n])
 
 
 def launcher(name: str):
-    """The bound C launcher of ``csrc/<name>.cu``, built at first use."""
+    """The bound C launcher ``name``, built at first use."""
     if name not in _launchers:
         build_all()
     return _launchers[name]
 
 
 def launch(name: str, device, *args, count_as: str | None = None) -> None:
-    """Call the launcher of ``csrc/<name>.cu`` on ``device``'s current CUDA
-    stream and raise on a launch error; counts the launch under ``name``,
-    or under ``count_as`` where one source serves several wrappers."""
+    """Call the launcher ``name`` on ``device``'s current CUDA stream and
+    raise on a launch error; counts the launch under ``name``, or under
+    ``count_as`` where one launcher serves several wrappers."""
     launch_bound(launcher(name), count_as or name, device, *args)
 
 

@@ -23,10 +23,16 @@ Without emission (``noemit``, ``encnoemit``) only ``body_lens`` means
 anything: twice the number of matches for ``noemit``, the true lengths for
 ``encnoemit``; ``noscan`` gives 0 and ``encdmaonly`` the input lengths.
 
+``encode_stats(frags, lengths)`` (``tools/perf_probe_r4.py::encode_stats``)
+runs the walk of :data:`STATS_MASK` at 15 hash bits and returns its budget
+per fragment, int32 [B, 4]: miss iterations, hits, extension iterations and
+matched bytes.
+
 A CUDA tensor launches the kernel (``csrc/encode_variants.cu``,
-``csrc/encode_r4.cu``) or raises; a CPU tensor runs the plain Python walk,
-which computes each variant's function (the parts that only reorder work
-have no plain counterpart). Each wrapper counts its own launches.
+``csrc/encode_r4.cu``, ``csrc/encode_stats.cu``) or raises; a CPU tensor
+runs the plain Python walk, which computes each variant's function (the
+parts that only reorder work have no plain counterpart). Each wrapper counts
+its own launches.
 """
 
 from __future__ import annotations
@@ -112,6 +118,9 @@ R4_VARIANTS = {
 R4_PRODUCTION_BYTES = ("encr4", "encext8u", "encwhen8")
 #: The ``encode_r4`` variants that store no tags.
 R4_NO_BYTES = ("encnoemit", "encdmaonly")
+#: ``encode_stats``' walk: K2's probe of 4 positions, all stored, the
+#: stride-4 extension that seeds, the tail from one XOR, no emission.
+STATS_MASK = EXT_4 | XOR_TAIL | EMIT_HITS
 
 
 def flags_mask(flags: tuple) -> tuple[int, int, int]:
@@ -146,22 +155,26 @@ def flags_mask(flags: tuple) -> tuple[int, int, int]:
     return mask, hb, (width // nstores if nstores < width else 1)
 
 
-def _extend(mask: int, key, seed, at: int, cand: int, n: int) -> int:
-    """The match length before the tail; mirrors ``sc::variant_extend``."""
+def _extend(mask: int, key, seed, at: int, cand: int, n: int) -> tuple[int, int]:
+    """The match length before the tail and the extension walk's loop
+    iterations; mirrors ``sc::variant_extend``."""
     ext = mask & EXT_MASK
-    m, go = 4, True
+    m, go, steps = 4, True, 0
     if ext == EXT_LOOP4:
         while at + m + 4 <= n and key(at + m) == key(cand + m):
             m += 4
+            steps += 1
     elif ext == EXT_4:
         while go and at + m + 4 <= n:
             seed(at + m - 3)
             go = key(at + m) == key(cand + m)
             m += 4
+            steps += 1
         if not go:
             m -= 4
     elif ext == EXT_8:
         while go and at + m + 8 <= n:
+            steps += 1
             seed(at + m - 3)
             eq0 = key(at + m) == key(cand + m)
             eq1 = key(at + m + 4) == key(cand + m + 4)
@@ -172,6 +185,7 @@ def _extend(mask: int, key, seed, at: int, cand: int, n: int) -> int:
     elif ext in (EXT_8U, EXT_8S2):
         eq0l = True
         while go and at + m + 8 <= n:
+            steps += 1
             seed(at + m - 3)
             if ext == EXT_8S2:
                 seed(at + m + 1)
@@ -186,6 +200,7 @@ def _extend(mask: int, key, seed, at: int, cand: int, n: int) -> int:
     else:  # EXT_16U
         e0 = e01 = e012 = True
         while go and at + m + 16 <= n:
+            steps += 1
             seed(at + m - 3)
             seed(at + m + 5)
             e0 = key(at + m) == key(cand + m)
@@ -199,14 +214,19 @@ def _extend(mask: int, key, seed, at: int, cand: int, n: int) -> int:
             while go and at + m + 4 <= n:
                 go = key(at + m) == key(cand + m)
                 m += 4
+                steps += 1
             if not go:
                 m -= 4
-    return m
+    return m, steps
 
 
-def _walk_row(row: np.ndarray, n: int, mask: int, hash_bits: int, store_step: int):
+def _walk_row(row: np.ndarray, n: int, mask: int, hash_bits: int, store_step: int,
+              stats: list | None = None):
     """One fragment's walk; mirrors ``sc::encode_fragment_variant``. Returns
-    ``(body bytes, body_len)``; without emission the bytes are empty."""
+    ``(body bytes, body_len)``; without emission the bytes are empty. A
+    ``stats`` list of four counts gains the walk's miss iterations, hits,
+    extension iterations and matched bytes (``sc::WalkStats``)."""
+    stats = [0, 0, 0, 0] if stats is None else stats
     if mask & DMA_ONLY:
         return b"", n
     if mask & NOSCAN:
@@ -249,9 +269,10 @@ def _walk_row(row: np.ndarray, n: int, mask: int, hash_bits: int, store_step: in
         if hit is None:
             ip += 6 + 2 * (skip >> 5) if oct_ else miss_adv + (skip >> 5)
             skip += 2 if oct_ else 1
+            stats[0] += 1
             continue
         at, cand = hit
-        m = _extend(mask, key, seed, at, cand, n)
+        m, steps = _extend(mask, key, seed, at, cand, n)
         if mask & XOR_TAIL:
             x = key(at + m) ^ key(cand + m)
             m += 3 if x == 0 else (x & 0xFF == 0) + (x & 0xFFFF == 0) + (x & 0xFFFFFF == 0)
@@ -262,6 +283,7 @@ def _walk_row(row: np.ndarray, n: int, mask: int, hash_bits: int, store_step: in
         m = min(m, n - at)
         end = at + m
         hits += 1
+        stats[1:] = [stats[1] + 1, stats[2] + steps, stats[3] + m]
         if not mask & EMIT_HITS:
             em.literal(lit_start, at)
             em.copy(at - cand, m)
@@ -342,3 +364,33 @@ def encode_r4(frags, lengths, variant: str = "encpre"):
 def encode_r4_plain(frags: torch.Tensor, lengths: torch.Tensor, variant: str = "encpre"):
     """Plain version of :func:`encode_r4` on CPU uint8 rows."""
     return encode_walk_plain(frags, lengths, _r4_mask(variant), HASH_BITS, 1)
+
+
+def encode_stats_plain(frags: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`encode_stats` on CPU uint8 rows."""
+    B, F = frags.shape
+    rows = frags.numpy()
+    lens = lengths.tolist()
+    stats = np.zeros((B, 4), np.int32)
+    for b in range(B):
+        st = [0, 0, 0, 0]
+        _walk_row(rows[b], min(max(lens[b], 0), F), STATS_MASK, HASH_BITS, 1, st)
+        stats[b] = st
+    return torch.from_numpy(stats)
+
+
+def encode_stats(frags, lengths) -> torch.Tensor:
+    """The encoder's budget per fragment (``tools/perf_probe_r4.py::
+    encode_stats``): int32 [B, 4] of miss iterations, hits, extension
+    iterations and matched bytes of the walk of :data:`STATS_MASK`."""
+    frags = byte_rows(frags, "frags")
+    B, F = frags.shape
+    lengths = lengths_vector(lengths, B, "lengths")
+    if not 0 < F <= BLOCK_SIZE:
+        raise ValueError(f"fragment width must be in (0, {BLOCK_SIZE}], got {F}")
+    if not on_cuda(frags, lengths):
+        return encode_stats_plain(frags, lengths)
+    stats = torch.empty((B, 4), dtype=torch.int32, device=frags.device)
+    _build.launch("encode_stats", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+                  stats.data_ptr())
+    return stats

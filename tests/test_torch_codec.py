@@ -227,7 +227,7 @@ def test_port_imports_neither_jax_nor_reference():
             importlib.import_module(name)
         for must in ("parallel.mesh", "parallel.distributed", "graft_entry",
                      "ops.cuda.encode_variants", "ops.cuda.decode_variants",
-                     "ops.cuda.decode_hybrid"):
+                     "ops.cuda.decode_hybrid", "ops.cuda.hybrid_probes"):
             assert "snappier_tpu_torch." + must in names, must
         assert snappier_tpu_torch.parallel.make_mesh(["cpu"] * 2).size == 2
         import torch.distributed
@@ -255,7 +255,7 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
     names = {f.name for f in files}
     assert {"torch_dist_worker.py", "torch_perf_probe_enc.py", "torch_perf_probe_r4.py",
             "torch_perf_probe_hybrid.py", "graft_entry.py", "mesh.py", "distributed.py",
-            "encode_variants.py", "decode_hybrid.py"} <= names
+            "encode_variants.py", "decode_hybrid.py", "hybrid_probes.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()

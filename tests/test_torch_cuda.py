@@ -29,6 +29,7 @@ from snappier_tpu_torch.ops.cuda import _build, watch
 from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda import encode_variants as ev
+from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
@@ -51,6 +52,8 @@ from torch_cases import (
     html_like,
     pack_streams,
     planted_matches,
+    probe_blocks,
+    vcopy_edges,
     walk_streams,
 )
 
@@ -484,3 +487,61 @@ def test_cuda_decode_hybrid_rejects_what_does_not_fit(cuda_device):
     comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         dh.decode_v7(comp, torch.tensor([5], device=cuda_device), 65536)
+
+
+@pytest.mark.parametrize("F", [4096, 65536])
+def test_cuda_encode_stats_matches_plain(cuda_device, F):
+    """The encoder's budget (T9) against its plain walk, exact, on the
+    encoder rows with garbage past each length."""
+    frags, lens = encode_rows(F)
+    rows = slice(None) if F == 4096 else [0, 1, 2, 5, 12]
+    f_h, l_h = _t(frags[rows].astype(np.uint8)), _t(lens[rows])
+    _build.reset_launches()
+    got = ev.encode_stats(f_h.to(cuda_device), l_h.to(cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"encode_stats": 1}
+    assert (got.cpu() == ev.encode_stats_plain(f_h, l_h)).all()
+
+
+@pytest.mark.parametrize("with_rec", [False, True], ids=["chain", "chainrec"])
+def test_cuda_chain_matches_plain(cuda_device, with_rec):
+    """T10 on both probe blocks and on a walk of 20,000 steps: checksum and
+    record buffer."""
+    cases = [hp.chain_inputs(b)[:2] for b in probe_blocks().values()]
+    cases.append((np.ones(20480, np.int32), 20000))
+    for adv, n in cases:
+        for R in (1, 5, 200):
+            _build.reset_launches()
+            got = hp.chain(_t(adv).to(cuda_device), n, 3, R, with_rec)
+            torch.cuda.synchronize()
+            assert dict(_build.LAUNCHES) == {"chain": 1}
+            want = hp.chain_plain(_t(adv), n, 3, R, with_rec)
+            assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+@pytest.mark.parametrize("mode", ["2d", "3d"])
+def test_cuda_vcopy_matches_plain(cuda_device, mode):
+    """T11 over both probe blocks' records and the edge records: checksum
+    and final image."""
+    img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
+    recs = [hp.vcopy_records(hp.tags_from_block(b)[1]) for b in probe_blocks().values()]
+    for rec in recs + [vcopy_edges(mode)]:
+        _build.reset_launches()
+        got = hp.vcopy(_t(rec).to(cuda_device), _t(img).to(cuda_device), mode)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"vcopy": 1}
+        want = hp.vcopy_plain(_t(rec), _t(img), mode)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+@pytest.mark.parametrize("nvec", hp.COISSUE_NVEC)
+def test_cuda_coissue_matches_plain(cuda_device, nvec):
+    """T12 from interpret mode's fill and from a random tile, at the TPU's
+    8,192 iterations and at 5 (where the tile updates still show)."""
+    rand = _t(np.random.default_rng(nvec).integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
+              .astype(np.int32))
+    for seed, tile, iters in ((3, None, 8192), (-5, rand, 8192), (7, rand, 5), (9, rand, 37)):
+        got = hp.coissue(seed, nvec, None if tile is None else tile.to(cuda_device), iters,
+                         device=cuda_device)
+        want = hp.coissue_plain(seed, nvec, tile, iters)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()

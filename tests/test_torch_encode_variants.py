@@ -1,8 +1,8 @@
 """The plain versions of the encode-walk ablation
 (``snappier_tpu_torch/ops/cuda/encode_variants.py``) against the TPU kernels
 of ``tools/perf_probe_enc.py`` (``encode_variant``) and
-``tools/perf_probe_r4.py`` (``encode_r4``) run in Pallas interpret mode on
-the CPU (``tests/torch_cases.py::interpreted_tool``).
+``tools/perf_probe_r4.py`` (``encode_r4``, ``encode_stats``) run in Pallas
+interpret mode on the CPU (``tests/torch_cases.py::interpreted_tool``).
 
 Comparisons are exact: ``body_lens`` always, and the bytes below each length
 where the variant emits; bytes past a length are unspecified and never
@@ -136,3 +136,48 @@ def test_wrapper_argument_checks():
     _, got = ev.encode_variant(frags, lens, ev.VARIANT_FLAGS["edma"])
     assert got.tolist() == [0, 0]
     assert ev.flags_mask(ev.VARIANT_FLAGS["e7"])[2] == 2  # 4 stores over 8 positions
+
+
+def test_encode_stats_plain_matches_interpreted_tpu_kernel(probe_r4):
+    """The encoder's budget, int32 [B, 4], on every row of ``encode_rows``
+    (markup, random, zeros, periods 1-7, rows of 1-40 bytes), garbage past
+    each length."""
+    frags, lens = encode_rows(F)
+    want = np.asarray(probe_r4.encode_stats(jnp.asarray(frags), jnp.asarray(lens)))
+    got = ev.encode_stats(torch.from_numpy(frags), torch.from_numpy(lens))
+    assert got.dtype == torch.int32 and got.shape == (len(lens), 4)
+    assert (got.numpy() == want).all(), (got.tolist(), want.tolist())
+    assert want[:, 0].any() and want[:, 1].any() and want[:, 2].any()
+
+
+def test_encode_stats_counts_its_walk():
+    """Two per hit is what the same walk counts without stats, and the
+    matches cover no more than the fragment, on 64 KiB rows."""
+    frags = np.stack([html_like(65536, 9), np.zeros(65536, np.uint8)])
+    f8, n = torch.from_numpy(frags), torch.tensor([65536, 40000], dtype=torch.int32)
+    st = ev.encode_stats(f8, n).numpy()
+    _, hits2 = ev.encode_walk_plain(f8, n, ev.STATS_MASK, HASH_BITS, 1)
+    assert (hits2.numpy() == 2 * st[:, 1]).all()
+    assert (st[:, 3] <= n.numpy()).all() and st[1, 3] > 39000
+    assert (st[:, 2] >= (st[:, 3] - 7 * st[:, 1]) // 4).all()  # a step per 4 bytes past the first
+
+
+def test_encode_stats_argument_checks_and_tool_without_a_card():
+    """``tools/torch_perf_probe_r4.py encstats`` exits 2 without a card and
+    times nothing."""
+    with pytest.raises(ValueError, match="fragment width"):
+        ev.encode_stats(torch.zeros((1, 70000), dtype=torch.uint8), torch.tensor([5]))
+    with pytest.raises(ValueError):
+        ev.encode_stats(torch.zeros((2, 64)), torch.tensor([5, 5]))
+    got = ev.encode_stats(torch.zeros((2, 64), dtype=torch.uint8), torch.tensor([-3, 900]))
+    assert got.tolist() == [[0, 0, 0, 0], [0, 1, 14, 62]]  # lengths taken as 0 and 64
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    import pathlib
+    import subprocess
+    import sys
+
+    tool = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_perf_probe_r4.py"
+    r = subprocess.run([sys.executable, str(tool), "4", "encstats"], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "no CUDA device" in r.stderr and not r.stdout

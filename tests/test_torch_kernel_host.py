@@ -5,7 +5,11 @@ Pallas interpret mode; and the ablation variants' walks
 their plain versions (which tests/test_torch_decode_variants.py and
 tests/test_torch_encode_variants.py hold against the TPU kernels); and the
 descriptor-driven walks (``csrc/decode_hybrid.cuh``), held against theirs
-(which tests/test_torch_hybrid_decode.py holds against the TPU kernels).
+(which tests/test_torch_hybrid_decode.py holds against the TPU kernels); and
+the micro-probes' step bodies (``csrc/hybrid_probes.cuh``) and the encode
+walk's stats sink, held against their plain versions (which
+tests/test_torch_hybrid_probes.py and tests/test_torch_encode_variants.py
+hold against the TPU kernels).
 
 The walks are ``__host__ __device__`` functions, so this is the one place
 their own logic runs without a GPU. The decode walk runs both on one lane
@@ -55,6 +59,7 @@ SHIM = r"""
 #include "decode_hybrid.cuh"
 #include "decode_variants.cuh"
 #include "encode_variants.cuh"
+#include "hybrid_probes.cuh"
 #include "scalar_codec.cuh"
 
 namespace {
@@ -357,6 +362,71 @@ extern "C" void host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t st
   }
 }
 
+// encode_stats.cu's walk: (miss iterations, hits, extension iterations,
+// matched bytes) per fragment.
+extern "C" void host_encode_stats(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                  int64_t batch, int32_t* stats) {
+  std::vector<uint16_t> table((size_t)1 << 15);
+  std::vector<uint8_t> s(frag_w + 8);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (auto& e : table) e = sc::EMPTY;
+    for (int64_t i = 0; i < frag_w + 8; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
+    sc::WalkStats st;
+    sc::encode_fragment_variant(s.data(), n, table.data(),
+                                sc::StaticWalk<sc::EV_STATS_WALK>{15, 1}, nullptr, st);
+    int32_t* row = stats + b * 4;
+    row[0] = st.miss_iters;
+    row[1] = st.hits;
+    row[2] = st.ext_iters;
+    row[3] = st.match_bytes;
+  }
+}
+
+extern "C" int32_t host_chain(int32_t with_rec, const int32_t* adv, int32_t n, int32_t start,
+                              int32_t R, int32_t* recs) {
+  return with_rec ? hp::chain_walk<true>(adv, n, start, R, recs)
+                  : hp::chain_walk<false>(adv, n, start, R, recs);
+}
+
+// vcopy over all 128 lanes: every lane's loads, then every lane's stores.
+extern "C" int32_t host_vcopy(int32_t mode3d, const int32_t* rec, int32_t* img) {
+  uint32_t* im = reinterpret_cast<uint32_t*>(img);
+  uint32_t acc = 0, v[hp::kLanes];
+  for (int32_t t = 0; t < rec[hp::kCountAt]; t++) {
+    const int32_t dst = rec[t], src = rec[t + hp::kRecHalf], ln = rec[t + 2 * hp::kRecHalf];
+    const hp::VcopyRecord r = mode3d ? hp::vcopy_record<true>(dst, src, ln)
+                                     : hp::vcopy_record<false>(dst, src, ln);
+    for (int i = 0; i < hp::kLanes; i++) {
+      v[i] = hp::vcopy_lane(im, r, i);
+      acc += v[i] & 1u;
+    }
+    for (int i = 0; i < hp::kLanes; i++) hp::vcopy_store(im, r, i, v[i]);
+  }
+  return (int32_t)acc;
+}
+
+// coissue with the tile's rolls done on whole rows.
+extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32_t* tile) {
+  uint32_t scratch[64];
+  hp::coissue_init(scratch, seed);
+  uint32_t acc = 0;
+  uint32_t* v = reinterpret_cast<uint32_t*>(tile);
+  std::vector<uint32_t> nv(8 * hp::kLanes);
+  for (uint32_t t = 0; t < (uint32_t)iters; t++) {
+    acc += hp::coissue_step(scratch, t);
+    for (int s = 1; s <= nvec; s++) {
+      for (int e = 0; e < 8 * hp::kLanes; e++) {
+        const int row = e & ~(hp::kLanes - 1), i = e & (hp::kLanes - 1);
+        nv[e] = hp::coissue_update(v[e], v[row + ((i - s) & (hp::kLanes - 1))]);
+      }
+      for (int e = 0; e < 8 * hp::kLanes; e++) v[e] = nv[e];
+    }
+  }
+  for (int e = 0; e < 8 * hp::kLanes; e++) acc += v[e] & 1u;
+  return (int32_t)acc;
+}
+
 extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                             int64_t batch, int32_t hash_bits, int32_t skip_base,
                             uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
@@ -429,6 +499,14 @@ def host_lib(tmp_path_factory):
     so.host_encode_variant.restype = None
     so.host_hybrid.argtypes = [I32, I32, P, I64, P, P, I64, P, I64, I32, I32, P, P, P]
     so.host_hybrid.restype = None
+    so.host_encode_stats.argtypes = [P, I64, P, I64, P]
+    so.host_encode_stats.restype = None
+    so.host_chain.argtypes = [I32, P, I32, I32, I32, P]
+    so.host_chain.restype = I32
+    so.host_vcopy.argtypes = [I32, P, P]
+    so.host_vcopy.restype = I32
+    so.host_coissue.argtypes = [I32, I32, I32, P]
+    so.host_coissue.restype = I32
     return so
 
 
@@ -687,3 +765,92 @@ def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
     assert ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}) <= set(errs.tolist())
     for i in range(B):
         assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+
+
+def test_host_encode_stats_walk_matches_plain(host_lib):
+    """``encode_stats.cu``'s walk (the stats sink of ``csrc/encode_variants.cuh``)
+    against its plain version at 2 KiB and, on a markup and a random row, at
+    64 KiB."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+
+    for F, rows in ((2048, slice(None)), (65536, slice(0, 3, 2))):
+        frags, lens = encode_rows(F)
+        frags = np.ascontiguousarray(frags[rows], np.uint8)
+        lens = np.ascontiguousarray(lens[rows], np.int32)
+        got = np.zeros((len(lens), 4), np.int32)
+        host_lib.host_encode_stats(frags.ctypes.data, F, lens.ctypes.data, len(lens),
+                                   got.ctypes.data)
+        want = ev.encode_stats_plain(torch.from_numpy(frags), torch.from_numpy(lens)).numpy()
+        assert (got == want).all(), (got.tolist(), want.tolist())
+        assert got[:, 1].any() and got[:, 2].any()
+
+
+def _probe_inputs():
+    from tests.torch_cases import probe_blocks
+
+    return probe_blocks()
+
+
+@pytest.mark.parametrize("with_rec", [False, True], ids=["chain", "chainrec"])
+def test_host_chain_walk_matches_plain(host_lib, with_rec):
+    """The boundary walk on both probe blocks at R = 1, 4 and 5, and on a
+    walk of 20,000 steps (its record index wraps at 8,192): checksum and
+    record buffer."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    cases = [hp.chain_inputs(b)[:2] for b in _probe_inputs().values()]
+    cases.append((np.ones(20480, np.int32), 20000))
+    for adv, n in cases:
+        adv = np.ascontiguousarray(adv, np.int32)
+        for R in (1, 4, 5):
+            recs = np.zeros(hp.REC_WORDS, np.int32)
+            got = host_lib.host_chain(int(with_rec), adv.ctypes.data, n, 3, R, recs.ctypes.data)
+            want, want_recs = hp.chain_plain(torch.from_numpy(adv), n, 3, R, with_rec)
+            assert got == int(want[0]), (n, R)
+            if with_rec:
+                assert (recs == want_recs.numpy()).all(), (n, R)
+
+
+@pytest.mark.parametrize("mode", ["2d", "3d"])
+def test_host_vcopy_matches_plain(host_lib, mode):
+    """The copy body over both probe blocks' records and over edge records:
+    checksum and the image after the last record."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    from tests.torch_cases import vcopy_edges
+
+    recs = [hp.vcopy_records(hp.tags_from_block(b)[1]) for b in _probe_inputs().values()]
+    for rec in recs + [vcopy_edges(mode)]:
+        rec = np.ascontiguousarray(rec, np.int32)
+        img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
+        want, want_img = hp.vcopy_plain(torch.from_numpy(rec), torch.from_numpy(img), mode)
+        got = host_lib.host_vcopy(int(mode == "3d"), rec.ctypes.data, img.ctypes.data)
+        assert got == int(want[0])
+        assert (img == want_img.numpy()).all()
+
+
+@pytest.mark.parametrize("nvec", [0, 1, 2, 8])
+def test_host_coissue_matches_plain(host_lib, nvec):
+    """The scalar chain and the tile updates, from interpret mode's fill and
+    from a random tile, at two seeds, over the TPU's 8,192 iterations and
+    over 5 (where the tile is not yet 0)."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    rand = np.random.default_rng(nvec).integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
+    for seed, tile, iters in ((3, None, 8192), (-5, rand.astype(np.int32), 8192),
+                              (7, rand.astype(np.int32), 5)):
+        t = np.full(hp.TILE, hp.FILL, np.int32) if tile is None else tile.copy()
+        given = None if tile is None else torch.from_numpy(t)
+        want, want_tile = hp.coissue_plain(seed, nvec, given, iters)
+        got = host_lib.host_coissue(seed, nvec, iters, t.ctypes.data)
+        assert got == int(want[0]), (seed, nvec)
+        assert (t == want_tile.numpy()).all()
+        assert (iters == 8192 and nvec > 0) == (not t.any())

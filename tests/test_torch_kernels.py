@@ -196,9 +196,12 @@ def test_cpu_path_launches_no_kernel():
 def test_build_names_every_source():
     assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
                                    "decode_variants", "decode_pipe", "encode_variants",
-                                   "encode_r4", "decode_hybrid"}
+                                   "encode_r4", "decode_hybrid", "encode_stats", "chain",
+                                   "vcopy", "coissue"}
+    stems = {_build.source_of(n) for n in _build.SOURCES}
+    assert stems == set(_build.SOURCES) - {"chain", "vcopy", "coissue"} | {"hybrid_probes"}
     # Every source but the salted liveness kernel, which is built per call.
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES) | {"watch"}
-    for name in _build.SOURCES:
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}
+    for name in stems:
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build._lib_path(name).name.startswith(f"lib{name}-")

@@ -166,6 +166,37 @@ def walk_streams(big: int = 0) -> list[bytes]:
     return streams
 
 
+def probe_blocks() -> dict[str, bytes]:
+    """Compressed blocks for the hybrid micro-probes: 12,000 bytes of markup
+    and the first 65,536 bytes of bench.py's word mix (``chip_smoke.py``'s
+    main path), each through the port's oracle."""
+    import chip_smoke
+
+    mix = np.frombuffer(chip_smoke.word_mix()[:65536], np.uint8)
+    return {"markup": oracle.compress(html_like(12000, 4)), "word_mix": oracle.compress(mix)}
+
+
+def vcopy_edges(mode: str) -> np.ndarray:
+    """A record array for ``vcopy`` at every case of the two bodies: source
+    rows that end a 3d tile (srow 7; in 3d the image's last row, whose next
+    tile the 3d body clamps to 15), destinations at row 7 of a tile that
+    spill into the next row, more than 128 words (``nw`` above 128 wraps the
+    copy), every byte phase, a negative length; every row inside the image
+    for the mode."""
+    rng = np.random.default_rng(12)
+    last = 15 if mode == "3d" else 14
+    srcs = [7 * 512 + 4 * 100 + 1, last * 4096 + 7 * 512 + 13, 3 * 512 + 2, 64000, 0]
+    dsts = [7 * 512 + 4 * 120 + 3, 31 * 512 + 4 * 127, 5, 63000, 2 * 4096 + 7 * 512 + 4 * 64]
+    lens = [64, 40, 1000, -7, 64]
+    n, half = 200, 8192
+    rec = np.zeros(4 * half, np.int32)
+    rec[:n] = np.concatenate([dsts, rng.integers(0, 63 * 1024, n - len(dsts))])
+    rec[half : half + n] = np.concatenate([srcs, rng.integers(0, 63 * 1024, n - len(srcs))])
+    rec[2 * half : 2 * half + n] = np.concatenate([lens, rng.integers(1, 600, n - len(lens))])
+    rec[3 * half] = n
+    return rec
+
+
 def tag_sweep_sample(step: int = 23) -> list[bytes]:
     """Every ``step``-th stream of the exhaustive tag-byte sweep
     (tests/test_tag_sweep.py): all tag classes, extra-field patterns and

@@ -25,6 +25,10 @@ gives the production encoder's bytes is held to them on every block; one
 that is another valid encoding is decoded by the decode kernel and reports
 its size as a share of production's; ``encnoemit`` is held to the lengths
 of the walk it counts; ``encdmaonly`` is only timed.
+``encstats`` (csrc/encode_stats.cu) prints the JAX tool's line, the
+encoder's budget per block on average (miss iterations, hits, extension
+iterations, matched bytes), after holding block 0 to the plain walk, and
+then its time.
 
 The blocks are the seeded word mix that ``chip_smoke.py`` drives. The first
 line is the card's name and power limit, the second the batch and the tag
@@ -72,7 +76,7 @@ def main() -> int:
     argv = sys.argv[1:]
     B = int(argv.pop(0)) if argv and argv[0].isdigit() else 512
     variants = argv or ["base", "pipe"]
-    known = {"base", "pipe", "encbase", *DECODE_VARIANTS, *ev.R4_VARIANTS}
+    known = {"base", "pipe", "encbase", "encstats", *DECODE_VARIANTS, *ev.R4_VARIANTS}
     unknown = [v for v in variants if v not in known]
     if unknown:
         print(f"unknown variants {unknown}: choose from {sorted(known)}", file=sys.stderr)
@@ -100,6 +104,19 @@ def main() -> int:
     print(f"B={B}, row width {bd.shape[1]}, tags/block={tags}")
 
     enc_in_flight = base.blocks_in_flight(enc.encode_smem_bytes(sc.HASH_BITS))
+    if "encstats" in variants:
+        st = ev.encode_stats(fd, ld)
+        want = ev.encode_stats_plain(fd[:1].cpu(), ld[:1].cpu())
+        assert bool((st[:1].cpu() == want).all()), "encstats differs from its plain walk"
+        tot = st.sum(dim=0).double().cpu().numpy() / B
+        print(f"encstats (per block avg): miss_iters={tot[0]:.0f} hits={tot[1]:.0f} "
+              f"ext_iters={tot[2]:.0f} match_bytes={tot[3]:.0f} "
+              f"(ext iters/hit={tot[2] / max(tot[1], 1):.2f}, "
+              f"match len avg={tot[3] / max(tot[1], 1):.1f})")
+        t = base.timeit(lambda: ev.encode_stats(fd, ld))
+        print(f"encstats: {t * 1e3:.3f} ms/batch, {t / -(-B // enc_in_flight) * 1e6:.1f} "
+              f"us/block", flush=True)
+        variants = [x for x in variants if x != "encstats"]
     for v in [x for x in variants if x.startswith("enc")]:
         if v == "encbase":
             efn = lambda: sc.encode_blocks_bytes(fd, ld)  # noqa: E731
