@@ -15,7 +15,6 @@ constexpr int32_t kRecWords = 2 * kRecHalf;
 constexpr int32_t kImageWords = 16384;  // vcopy's image: 128 rows of 128 lanes
 constexpr int32_t kLanes = 128;
 constexpr int32_t kCountAt = 3 * kRecHalf;  // vcopy's loop count in its record array
-constexpr int32_t kCoissueIters = 8192;
 constexpr uint32_t kFill = 0x80000000u;  // interpret mode's unwritten scratch word
 
 // --- chain / chainrec (_chain_kernel) -------------------------------------
