@@ -95,10 +95,18 @@ failure:
    held to the plain walk), ``chain`` and ``chainrec`` at 200 walks,
    ``vcopy`` in both modes at twice the block's tags, ``coissue`` at nvec 0
    and 8; timings of each kernel alone, ``encode_stats`` beside the encode
-   kernel.
+   kernel;
+11. the isolation, branch, cliff and sort probes on the encode kernel's
+   block 0: ``iso`` in its six modes (the records 20 times), ``bprobe`` at
+   nwhen 0, 1, 3 and 8, ``cliff`` in its five modes at 200 walks and
+   ``bitonic`` on the tool's keys and on keys with many ties, each against
+   its plain version, exact, the image, scratch and indices included; then
+   the path, the same calls once each with exact launch counts; timings of
+   each kernel alone, every built nwhen of ``bprobe``, and ``torch.sort``
+   of the same keys beside ``bitonic``.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
-sharded_scan, encode_ablation, hybrid, micro_probes) runs with the launch
+sharded_scan, encode_ablation, hybrid, micro_probes, isolation) runs with the launch
 counts set to 0 just before it and read just after; every kernel of a path
 must have launched, and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
@@ -168,6 +176,13 @@ KERNELS = {  # launch-counter name -> (reported name, source, TPU kernel it repl
               "tools/perf_probe_hybrid.py:189"),
     "coissue": ("coissue", "snappier_tpu_torch/csrc/hybrid_probes.cu",
                 "tools/perf_probe_hybrid.py:324"),
+    "iso": ("iso", "snappier_tpu_torch/csrc/hybrid_probes.cu", "tools/perf_probe_hybrid.py:416"),
+    "bprobe": ("bprobe", "snappier_tpu_torch/csrc/hybrid_probes.cu",
+               "tools/perf_probe_hybrid.py:1225"),
+    "cliff": ("cliff", "snappier_tpu_torch/csrc/hybrid_probes.cu",
+              "tools/perf_probe_hybrid.py:1629"),
+    "bitonic": ("bitonic", "snappier_tpu_torch/csrc/bitonic_probe.cu",
+                "tools/perf_probe_hybrid.py:1724"),
 }
 PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
@@ -183,6 +198,7 @@ PATHS = {  # path -> the kernels it must launch
                         "decode_pipe2"),
     "hybrid": ("decode", "decode_v5", "decode_v5_parts", "decode_v6", "decode_v7"),
     "micro_probes": ("encode_stats", "chain", "vcopy", "coissue"),
+    "isolation": ("iso", "bprobe", "cliff", "bitonic"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
@@ -1636,6 +1652,129 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     return errs, launches, ms, plain, work
 
 
+ISOLATION_NWHEN = (0, 1, 3, 8)  # compared and on the path; every built nwhen is timed
+
+
+def phase_isolation(torch, card, comp_u8, block_lens):
+    """Phase 11, the isolation path. Returns (max_abs_err per wrapper,
+    launches on the path, ms per wrapper, plain ms per wrapper, (bytes,
+    operations) per wrapper at the timed call, torch.sort's ms)."""
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    block = comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes()
+    adv, n, ntags = hp.chain_inputs(block)
+    irec = hp.iso_records(hp.tags_from_block(block)[1])
+    count = int(irec[hp.COUNT_AT])
+    rng = np.random.default_rng(5)  # the JAX tool's keys
+    keys = rng.integers(-(2**31), 2**31 - 1, hp.SORT_SHAPE, np.int64).astype(np.int32)
+    ties = np.random.default_rng(9).integers(-4, 4, hp.SORT_SHAPE).astype(np.int32)
+    h = {k: torch.from_numpy(v) for k, v in dict(
+        adv=adv, irec=irec, img=np.arange(hp.IMAGE_WORDS, dtype=np.int32), keys=keys,
+        ties=ties).items()}
+    d = {k: v.to(dev) for k, v in h.items()}
+    R = hp.CHAIN_R
+    calls = {  # name -> (wrapper, kernel alone, plain version)
+        **{("iso", m): (lambda m=m: hp.iso(d["irec"], d["img"], m),
+                        lambda m=m: hp.launch_iso(d["irec"], d["img"], m),
+                        lambda m=m: hp.iso_plain(h["irec"], h["img"], m)) for m in hp.ISO_MODES},
+        **{("bprobe", w): (lambda w=w: hp.bprobe(w, 3, dev),
+                           lambda w=w: hp.launch_bprobe(w, 3, dev),
+                           lambda w=w: hp.bprobe_plain(w, 3)) for w in hp.BPROBE_NWHEN},
+        **{("cliff", m): (lambda m=m: hp.cliff(d["adv"], n, m, 3, R),
+                          lambda m=m: hp.launch_cliff(d["adv"], n, m, 3, R),
+                          lambda m=m: hp.cliff_plain(h["adv"], n, m, 3, R))
+           for m in hp.CLIFF_MODES},
+        **{("bitonic", k): (lambda k=k: hp.bitonic(d[k]), lambda k=k: hp.launch_bitonic(d[k]),
+                            lambda k=k: hp.bitonic_plain(h[k])) for k in ("keys", "ties")},
+    }
+    compared = [c for c in calls if c[0] != "bprobe" or c[1] in ISOLATION_NWHEN]
+
+    # 1. each wrapper against its plain version on block 0, exact, the
+    # image, scratch and indices included; the plain call timed by the host.
+    errs, plain, results = {}, {}, {}
+    for c in compared:
+        got = [x.cpu().numpy() for x in calls[c][0]()]
+        ts = time.perf_counter()
+        want = [x.numpy() for x in calls[c][2]()]
+        plain_ms = (time.perf_counter() - ts) * 1e3
+        err = max_abs_err(zip(got, want))
+        check(err == 0, f"{c[0]} differs from its plain version ({c[1]})")
+        errs[c[0]] = max(errs.get(c[0], 0), err)
+        plain[c] = plain_ms
+        results[c] = want
+    print(f"iso ({', '.join(hp.ISO_MODES)}; {hp.ISO_PASSES} x {count} records), bprobe (nwhen "
+          f"{ISOLATION_NWHEN}), cliff ({', '.join(hp.CLIFF_MODES)}; {R} walks) and bitonic "
+          f"(the tool's keys, keys with ties) == plain on block 0 ({ntags} tags), max_abs_err 0 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # What the checksums do not see, seen here: four iso modes give one sum
+    # and four images; bprobe 0 and 3 are one function; cliff's img[0].
+    iso_sums = {m: int(results[("iso", m)][0][0]) for m in hp.ISO_MODES}
+    check(len({iso_sums[m] for m in ("dynload", "dynload8", "statroll", "dynroll")}) == 1,
+          f"iso's row modes should share one checksum: {iso_sums}")
+    check(len({results[("iso", m)][1].tobytes() for m in hp.ISO_MODES}) == len(hp.ISO_MODES),
+          "iso's six images should differ")
+    b0, b3 = results[("bprobe", 0)], results[("bprobe", 3)]
+    check(int(b0[0][0]) == int(b3[0][0]) and (b0[1] == b3[1]).all(), "bprobe 0 and 3 differ")
+    for k, x in (("keys", keys), ("ties", ties)):
+        kv, vv = (a.reshape(-1) for a in results[("bitonic", k)])
+        check((kv == x.reshape(-1)[vv]).all() and len(np.unique(vv)) == hp.SORT_N,
+              f"bitonic's indices on the {k} are not where its keys came from")
+
+    # 2. the path: the same calls once each, on the card.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    path = {c: calls[c][0]() for c in compared}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"isolation path launches: {launches}")
+    for k in PATHS["isolation"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the isolation path")
+    check(launches == {"iso": len(hp.ISO_MODES), "bprobe": len(ISOLATION_NWHEN),
+                       "cliff": len(hp.CLIFF_MODES), "bitonic": 2}, f"launch counts {launches}")
+    for c, out in path.items():
+        check(all((a.cpu().numpy() == b).all() for a, b in zip(out, results[c])),
+              f"{c} on the path differs from its plain version")
+    cliff_img0 = {m: int(results[("cliff", m)][1][0]) for m in hp.CLIFF_MODES}
+
+    # 3. timings: each kernel alone; torch.sort of the same keys (a full
+    # stable sort with its indices: not the same function) beside bitonic.
+    t = {f"{c[0]}:{c[1]}": cuda_ms(calls[c][1]) for c in calls}
+    flat = d["keys"].reshape(-1)
+    sort_ms = cuda_ms(lambda: torch.sort(flat, stable=True))
+    # Walk steps of cliff's 200 trials (odd trials start one byte in).
+    adv_l = adv.tolist()
+    walk = {s: hp._chain_trial(adv_l, n, s, None)[1] for s in (3, 4)}
+    steps = sum(walk[3 + (r & 1)] for r in range(R))
+    per = {"iso_ns_per_record": {m: t[f"iso:{m}"] * 1e6 / (hp.ISO_PASSES * count - 10)
+                                 for m in hp.ISO_MODES},
+           "bprobe_ns_per_iter": {w: t[f"bprobe:{w}"] * 1e6 / hp.BPROBE_ITERS
+                                  for w in hp.BPROBE_NWHEN},
+           "cliff_ns_per_tag": {m: t[f"cliff:{m}"] * 1e6 / R / ntags for m in hp.CLIFF_MODES},
+           "cliff_ns_per_step": {m: t[f"cliff:{m}"] * 1e6 / steps for m in hp.CLIFF_MODES}}
+    print(json.dumps({"card": card, "tags_block0": ntags, "iso_records": count,
+                      "cliff_steps": steps, "iso_checksums": iso_sums,
+                      "cliff_img0": cliff_img0, "isolation_ms": t, "torch_sort_ms": sort_ms,
+                      **per}))
+    ms = {"iso": t["iso:full"], "bprobe": t["bprobe:8"], "cliff": t["cliff:store4"],
+          "bitonic": t["bitonic:keys"]}
+    plain_ms = {"iso": plain[("iso", "full")], "bprobe": plain[("bprobe", 8)],
+                "cliff": plain[("cliff", "store4")], "bitonic": plain[("bitonic", "keys")]}
+    # Bytes each timed call must move (inputs read once, outputs written
+    # once) and its 32-bit operations: a lane of a record (iso full), the
+    # chain's 13 operations and a test and a store per conditional store
+    # (bprobe 8), a walk step and its 4 stores (cliff store4), a
+    # compare-exchange per element per stage (bitonic).
+    work = {"iso": (4 * (hp.VCOPY_WORDS + 2 * hp.IMAGE_WORDS) + 4,
+                    (hp.ISO_PASSES * count - 10) * hp.LANES),
+            "bprobe": (4 + 4 * hp.SCRATCH_WORDS, hp.BPROBE_ITERS * (13 + 2 * 8)),
+            "cliff": (4 * len(adv) + 4 + 4 * hp.IMAGE_WORDS, steps * 5),
+            "bitonic": (4 * hp.SORT_N + 8 * hp.SORT_N, (hp.BITONIC_K + 1) * hp.SORT_N)}
+    return errs, launches, ms, plain_ms, work, sort_ms
+
+
 def main() -> int:
     import torch
 
@@ -1807,6 +1946,13 @@ def main() -> int:
     errs.update(errs_mp)
     ms.update(ms_mp)
 
+    # --- 11. the isolation, branch, cliff and sort probes --------------------------
+    errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms = phase_isolation(
+        torch, card, comp_u8, block_lens)
+    errs.update(errs_iso)
+    ms.update(ms_iso)
+    work_mp.update(work_iso)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -1818,11 +1964,11 @@ def main() -> int:
         "crc32c": host_ms(lambda: crc.crc32c_blocks_plain(f1, l1)),
         "encode_best": host_ms(lambda: sc.encode_best_plain(f1, l1, cand1, 32)),
         "probe": host_ms(lambda: sc.match_extension_probe_plain(*probe_host)),
-        "watch": watch_plain_ms, **plain_abl, **plain_enc, **plain_hy, **plain_mp,
+        "watch": watch_plain_ms, **plain_abl, **plain_enc, **plain_hy, **plain_mp, **plain_iso,
     }
     plain_rows = {"encode": 1, "decode": 1, "crc32c": 1, "encode_best": 1,
                   "probe": len(probe_expected), "watch": watch.SHAPE[0],
-                  **{k: 1 for k in (*plain_abl, *plain_enc, *plain_hy, *plain_mp)}}
+                  **{k: 1 for k in (*plain_abl, *plain_enc, *plain_hy, *plain_mp, *plain_iso)}}
     n_in = B * BLOCK
     n_body = int(bl.sum())
     n_best = int(best_lens.sum())
@@ -1856,14 +2002,16 @@ def main() -> int:
            **{k: n_in for k in (*plain_abl, *plain_enc, *plain_hy)},
            **{k: w[1] for k, w in work_mp.items()}}
     # One PyTorch call computes what the liveness kernel does (torch.add);
-    # none computes Snappy, CRC32C or a match length.
-    library_ms = {"watch": watch_library_ms}
+    # none computes Snappy, CRC32C or a match length. torch.sort stands
+    # beside bitonic as the JAX tool's lax.sort does: a full sort, not the
+    # same function.
+    library_ms = {"watch": watch_library_ms, "bitonic": sort_ms}
     by_path = {"liveness": watch_launches, "probe": probe_launches, "codec": codec_launches,
                "facade": facade_launches, "stream": stream_launches,
                "ablation": ablation_launches, "scan": scan_launches,
                "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
                "encode_ablation": enc_launches, "hybrid": hybrid_launches,
-               "micro_probes": micro_launches}
+               "micro_probes": micro_launches, "isolation": iso_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

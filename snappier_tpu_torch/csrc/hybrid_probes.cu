@@ -41,6 +41,36 @@
 // (The TPU's result never depends on the vector work: 4,096 updates take
 // any tile to 0 modulo 2^32, ops/cuda/hybrid_probes.py says why. The work
 // is done all the same: nvcc cannot know it.)
+//
+// iso_kernel<kMode>: _iso_kernel (wrapper iso; modes scalar, dynload,
+// dynload8, statroll, dynroll, full). The TPU times each part of vcopy's
+// body alone: Mosaic's dynamic row load and store, an 8-row load, a roll by
+// a static and by a dynamic amount, the whole body. The SIMT counterpart of
+// a dynamic row load is a shared-memory load at a run-time address, which
+// costs what a static one does; of a roll, a lane's load at (p - s) & 127 of
+// the same row, so a static and a dynamic roll are the same instructions.
+// One warp, 4 words a lane (32 in dynload8), the image in shared memory, the
+// record words through __ldg, as vcopy_kernel; scalar runs the 8-step chain
+// on every lane and touches no image. 20 passes over the records (pass r
+// from record r & 1); the image persists across them. Bound: the record
+// array and image in, the image out, about 0.08 us; the floor is 20 x the
+// records, each a round of shared loads, barrier, stores and barrier.
+//
+// bprobe_kernel<kNwhen>: _bprobe_kernel (wrapper bprobe; nwhen 0, 1, 2, 3,
+// 4, 8). The TPU asks what a pl.when costs on the scalar core. Here one
+// thread over a 64-word scratch in shared memory, pl.when an if; whether
+// nvcc makes a branch or a predicated store of each is its choice (PERF.md
+// records what cuobjdump shows). Bound: 260 bytes; the floor is 524,288
+// iterations of a dependent chain (a shared load, 4 x shift-add-mask).
+//
+// cliff_kernel<kMode>: _cliff_kernel (wrapper cliff; modes when1, when2,
+// fori, store4, load4). The TPU looks for the body size at which chain's
+// 20 ns walk falls off a cliff. Here one thread walks, as chain_kernel,
+// with the advance array and the 16,384-word image both in shared memory
+// (the image persists across the trials, from 0x80000000 as interpret mode
+// leaves it); a conditional body is an if, the inner loop a loop. Bound: the
+// advance array in and the image out, well under a microsecond; the floor
+// is R x steps dependent shared-memory loads, plus the body's stores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,7 +136,7 @@ __global__ void coissue_kernel(int32_t seed, int32_t iters, const int32_t* __res
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == 0) {
     if (lane == 0) {
-      hp::coissue_init(scratch, seed);
+      hp::scratch_init(scratch, seed);
       uint32_t acc = 0;
       for (uint32_t t = 0; t < (uint32_t)iters; t++) {
         acc += hp::coissue_step(scratch, t);
@@ -149,6 +179,79 @@ __global__ void coissue_kernel(int32_t seed, int32_t iters, const int32_t* __res
     for (int w = 0; w < 9; w++) total += sums[w];
     out[0] = (int32_t)total;
   }
+}
+
+template <int kMode>
+__global__ void iso_kernel(const int32_t* __restrict__ rec, const int32_t* __restrict__ img_in,
+                           int32_t* __restrict__ out, int32_t* __restrict__ img_out) {
+  constexpr int kWords = kMode == hp::kIsoDynload8 ? 32 : 4;  // words a lane stores
+  extern __shared__ __align__(16) uint32_t img[];
+  const int lane = threadIdx.x;
+  for (int32_t i = lane; i < hp::kImageWords; i += 32) img[i] = (uint32_t)img_in[i];
+  __syncwarp();
+  const int32_t count = rec[hp::kCountAt];
+  uint32_t acc = 0;
+  for (int32_t pass = 0; pass < hp::kIsoPasses; pass++) {
+    for (int32_t t = pass & 1; t < count; t++) {
+      const int32_t dst = __ldg(rec + t), src = __ldg(rec + t + hp::kRecHalf);
+      if (kMode == hp::kIsoScalar) {
+        acc += hp::iso_scalar(dst, src, __ldg(rec + t + 2 * hp::kRecHalf));
+        continue;
+      }
+      acc += (uint32_t)dst;
+      uint32_t v[kWords];
+      if (kMode == hp::kIsoFull) {
+        const hp::VcopyRecord r =
+            hp::vcopy_record<false>(dst, src, __ldg(rec + t + 2 * hp::kRecHalf));
+#pragma unroll
+        for (int k = 0; k < kWords; k++) v[k] = hp::vcopy_lane(img, r, lane + 32 * k);
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kWords; k++) hp::vcopy_store(img, r, lane + 32 * k, v[k]);
+      } else {
+        const hp::IsoRecord r = hp::iso_record<kMode>(dst, src);
+#pragma unroll
+        for (int k = 0; k < kWords; k++) v[k] = hp::iso_word(img, r, lane + 32 * k);
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kWords; k++) hp::iso_store(img, r, lane + 32 * k, v[k]);
+      }
+      __syncwarp();
+    }
+  }
+  uint32_t par = 0;  // row 0's odd words
+#pragma unroll
+  for (int k = 0; k < 4; k++) par += img[lane + 32 * k] & 1u;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) par += __shfl_xor_sync(kFull, par, o);
+  if (lane == 0) out[0] = (int32_t)(acc + par);
+  for (int32_t i = lane; i < hp::kImageWords; i += 32) img_out[i] = (int32_t)img[i];
+}
+
+template <int kNwhen>
+__global__ void bprobe_kernel(int32_t seed, int32_t* __restrict__ out,
+                              int32_t* __restrict__ scratch_out) {
+  __shared__ uint32_t scratch[64];
+  hp::scratch_init(scratch, seed);
+  uint32_t acc = 0;
+  for (int32_t t = 0; t < hp::kBprobeIters; t++) acc += hp::bprobe_step<kNwhen>(scratch, t);
+  out[0] = (int32_t)acc;
+  for (int i = 0; i < 64; i++) scratch_out[i] = (int32_t)scratch[i];
+}
+
+template <int kMode>
+__global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t words, int32_t n,
+                             int32_t start, int32_t R, int32_t* __restrict__ out,
+                             int32_t* __restrict__ img_out) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* adv_s = smem;
+  uint32_t* img = reinterpret_cast<uint32_t*>(smem + ((words + 3) & ~3));
+  for (int32_t i = threadIdx.x; i < words; i += blockDim.x) adv_s[i] = adv[i];
+  for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) img[i] = hp::kFill;
+  __syncthreads();
+  if (threadIdx.x == 0) out[0] = hp::cliff_walk<kMode>(adv_s, n, start, R, img);
+  __syncthreads();
+  for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) img_out[i] = (int32_t)img[i];
 }
 
 template <class Kernel>
@@ -210,6 +313,82 @@ extern "C" int probe_coissue_launch(int32_t nvec, int32_t seed, int32_t iters, c
     PROBE_CASE(1);
     PROBE_CASE(2);
     PROBE_CASE(8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+// rec: int32[32768] (dst, src, len at 0, 8192, 16384; the count at 24576);
+// img, img_out: int32[16384]; out: int32[1]; mode: hp::IsoMode.
+extern "C" int probe_iso_launch(int32_t mode, const void* rec, const void* img, void* out,
+                                void* img_out, void* stream) {
+  const size_t smem = hp::kImageWords * 4;
+#define PROBE_CASE(M)                                                                        \
+  case M: {                                                                                  \
+    int e = set_smem(iso_kernel<M>, smem);                                                   \
+    if (e != 0) return e;                                                                    \
+    iso_kernel<M><<<1, 32, smem, (cudaStream_t)stream>>>(                                    \
+        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);         \
+    break;                                                                                   \
+  }
+  switch (mode) {
+    PROBE_CASE(hp::kIsoScalar)
+    PROBE_CASE(hp::kIsoDynload)
+    PROBE_CASE(hp::kIsoDynload8)
+    PROBE_CASE(hp::kIsoStatroll)
+    PROBE_CASE(hp::kIsoDynroll)
+    PROBE_CASE(hp::kIsoFull)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+// out: int32[1]; scratch_out: int32[64].
+extern "C" int probe_bprobe_launch(int32_t nwhen, int32_t seed, void* out, void* scratch_out,
+                                   void* stream) {
+#define PROBE_CASE(N)                                                                        \
+  case N:                                                                                    \
+    bprobe_kernel<N><<<1, 1, 0, (cudaStream_t)stream>>>(seed, (int32_t*)out,                 \
+                                                        (int32_t*)scratch_out);              \
+    break;
+  switch (nwhen) {
+    PROBE_CASE(0)
+    PROBE_CASE(1)
+    PROBE_CASE(2)
+    PROBE_CASE(3)
+    PROBE_CASE(4)
+    PROBE_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+// adv: int32[words] (the walk reads adv[start:n]); out: int32[1]; img_out:
+// int32[16384]; mode: hp::CliffMode.
+extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int64_t words, int32_t n,
+                                  int32_t start, int32_t R, void* out, void* img_out,
+                                  void* stream) {
+  const size_t smem = ((size_t)((words + 3) & ~3) + hp::kImageWords) * 4;
+#define PROBE_CASE(M)                                                                        \
+  case M: {                                                                                  \
+    int e = set_smem(cliff_kernel<M>, smem);                                                 \
+    if (e != 0) return e;                                                                    \
+    cliff_kernel<M><<<1, 256, smem, (cudaStream_t)stream>>>(                                 \
+        (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)img_out); \
+    break;                                                                                   \
+  }
+  switch (mode) {
+    PROBE_CASE(hp::kCliffWhen1)
+    PROBE_CASE(hp::kCliffWhen2)
+    PROBE_CASE(hp::kCliffFori)
+    PROBE_CASE(hp::kCliffStore4)
+    PROBE_CASE(hp::kCliffLoad4)
     default:
       return (int)cudaErrorInvalidValue;
   }

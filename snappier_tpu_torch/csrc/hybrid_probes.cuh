@@ -1,7 +1,8 @@
-// Step bodies of the hybrid decode's micro-probes (hybrid_probes.cu), as
-// __host__ __device__ functions that a host C++ compiler also builds for the
-// tests. Each computes what its TPU kernel in tools/perf_probe_hybrid.py
-// computes, with int32 arithmetic done in uint32 where XLA wraps.
+// Step bodies of the hybrid decode's micro-probes (hybrid_probes.cu and,
+// for the sort, bitonic_probe.cu), as __host__ __device__ functions that a
+// host C++ compiler also builds for the tests. Each computes what its TPU
+// kernel in tools/perf_probe_hybrid.py computes, with int32 arithmetic done
+// in uint32 where XLA wraps.
 #pragma once
 
 #include <stdint.h>
@@ -113,8 +114,9 @@ SC_HD void vcopy_store(uint32_t* img, const VcopyRecord& r, int32_t i, uint32_t 
 
 // --- coissue (_coissue_kernel) ---------------------------------------------
 
-// The scratch as interpret mode leaves it: 0x80000000, seed at word 0.
-SC_HD void coissue_init(uint32_t* scratch, int32_t seed) {
+// A 64-word scratch as interpret mode leaves it: 0x80000000, seed at word 0
+// (coissue and bprobe).
+SC_HD void scratch_init(uint32_t* scratch, int32_t seed) {
   for (int i = 0; i < 64; i++) scratch[i] = kFill;
   scratch[0] = (uint32_t)seed;
 }
@@ -135,5 +137,169 @@ SC_HD uint32_t coissue_step(uint32_t* scratch, uint32_t t) {
 // One vector update of a tile element: v * 3 + roll(v, s)[i], the rolled
 // value taken by the caller from lane (i - s) & 127 of the same row.
 SC_HD uint32_t coissue_update(uint32_t v, uint32_t rolled) { return v * 3u + rolled; }
+
+// --- iso (_iso_kernel) -------------------------------------------------------
+
+// One part of vcopy's body alone per mode, over the records 20 times (pass r
+// from record r & 1). Every mode but scalar adds dst to the sum; full is
+// vcopy's 2d body (vcopy_record<false>, vcopy_lane, vcopy_store).
+enum IsoMode { kIsoScalar = 0, kIsoDynload, kIsoDynload8, kIsoStatroll, kIsoDynroll, kIsoFull };
+constexpr int32_t kIsoPasses = 20;
+
+// scalar: the record's words through an 8-step chain, no image work.
+SC_HD uint32_t iso_scalar(int32_t dst, int32_t src, int32_t ln) {
+  uint32_t x = ((uint32_t)dst * 5u + (uint32_t)src) ^ (uint32_t)ln;
+#pragma unroll
+  for (int i = 0; i < 8; i++) x = (x * 5u + 1u) & 0x7FFFFFFFu;
+  return x;
+}
+
+// The row modes: rows [sr, sr + rows) stored at [dr, dr + rows), each row
+// rolled by shift lanes (pltpu.roll: roll(v, s)[p] = v[(p - s) & 127]).
+// dynload8 moves the 8 rows of the aligned group; statroll rolls by 5,
+// dynroll by (128 - sl) & 127, which brings lane sl to lane 0.
+struct IsoRecord {
+  int32_t sr, dr, rows, shift;
+};
+
+template <int kMode>
+SC_HD IsoRecord iso_record(int32_t dst, int32_t src) {
+  const int32_t sw = src >> 2, dw = dst >> 2;
+  IsoRecord r{sw >> 7, dw >> 7, 1, 0};
+  if (kMode == kIsoDynload8) {
+    r.sr &= 120;
+    r.dr &= 120;
+    r.rows = 8;
+  }
+  if (kMode == kIsoStatroll) r.shift = 5;
+  if (kMode == kIsoDynroll) r.shift = (128 - (sw & 127)) & 127;
+  return r;
+}
+
+// Word i (0 <= i < 128 * rows) of what the record stores at row dr.
+SC_HD uint32_t iso_word(const uint32_t* img, const IsoRecord& r, int32_t i) {
+  return img[(r.sr + (i >> 7)) * kLanes + (((i & 127) - r.shift) & 127)];
+}
+
+SC_HD void iso_store(uint32_t* img, const IsoRecord& r, int32_t i, uint32_t v) {
+  img[r.dr * kLanes + i] = v;
+}
+
+// --- bprobe (_bprobe_kernel) -------------------------------------------------
+
+constexpr int32_t kBprobeIters = 524288;
+
+// Iteration t: a 4-step mix of the scratch word at t & 63, then kNwhen
+// stores under a data-dependent condition (pl.when), or with kNwhen 0 three
+// select-stores that write the old word back where the bit is clear.
+// Shifts are arithmetic on int32 (a word never written reads 0x80000000, so
+// x may start negative); adds wrap. Returns x, which the TPU adds to its sum.
+template <int kNwhen>
+SC_HD uint32_t bprobe_step(uint32_t* scratch, uint32_t t) {
+  int32_t x = (int32_t)(scratch[t & 63] ^ t);
+#pragma unroll
+  for (int i = 0; i < 4; i++) x = (int32_t)(((uint32_t)x + (uint32_t)(x >> 3)) & 0x7FFFFFFFu);
+  if (kNwhen) {
+#pragma unroll
+    for (int k = 0; k < kNwhen; k++) {
+      if ((x >> k) & 1) scratch[(t + k) & 63] = (uint32_t)x + k;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; k++) {
+      const uint32_t old = scratch[(t + k) & 63];
+      scratch[(t + k) & 63] = ((x >> k) & 1) ? (uint32_t)x + k : old;
+    }
+  }
+  return (uint32_t)x;
+}
+
+// --- cliff (_cliff_kernel) ---------------------------------------------------
+
+// chain's walk with a body per tag that writes a 16,384-word image, which
+// persists across the trials.
+enum CliffMode { kCliffWhen1 = 0, kCliffWhen2, kCliffFori, kCliffStore4, kCliffLoad4 };
+constexpr uint32_t kCliffMask = kImageWords - 1;
+
+template <int kMode>
+SC_HD void cliff_body(uint32_t* img, int32_t ip, int32_t op, int32_t a) {
+  const uint32_t o = (uint32_t)op, ua = (uint32_t)a, ui = (uint32_t)ip;
+  if (kMode == kCliffWhen1) {
+    if (a > 3) img[o & kCliffMask] = ua;
+  } else if (kMode == kCliffWhen2) {
+    if (a > 2) {
+      img[o & kCliffMask] = ua;
+      img[(o + 1) & kCliffMask] = ua ^ ui;
+      if (a > 13) {
+        img[(o + 2) & kCliffMask] = ua + ui;
+        img[(o + 3) & kCliffMask] = ua - ui;
+      }
+    }
+  } else if (kMode == kCliffFori) {
+    if (a > 2) {
+      uint32_t carry = ua;
+      for (uint32_t k = 0; k < (ua & 7); k++) {
+        img[(o + k) & kCliffMask] = carry + k;
+        carry ^= k;
+      }
+    }
+  } else if (kMode == kCliffStore4) {
+    img[o & kCliffMask] = ua;
+    img[(o + 1) & kCliffMask] = ua ^ ui;
+    img[(o + 2) & kCliffMask] = ua + ui;
+    img[(o + 3) & kCliffMask] = ua - ui;
+  } else {  // load4: both loads before both stores
+    const uint32_t s0 = img[(o - ua) & kCliffMask], s1 = img[(o - ua + 1) & kCliffMask];
+    img[o & kCliffMask] = s0;
+    img[(o + 1) & kCliffMask] = s1;
+  }
+}
+
+// R trials from start + (r & 1); the sum of each trial's final ip and step
+// count, plus img[0] after the last.
+template <int kMode>
+SC_HD int32_t cliff_walk(const int32_t* adv, int32_t n, int32_t start, int32_t R, uint32_t* img) {
+  uint32_t acc = 0;
+  for (int32_t r = 0; r < R; r++) {
+    int32_t ip = start + (r & 1), op = 0, t = 0;
+    while (ip < n) {
+      const int32_t a = adv[ip];
+      cliff_body<kMode>(img, ip, op, a);
+      ip += a;
+      op += a;
+      t++;
+    }
+    acc += (uint32_t)ip + (uint32_t)t;
+  }
+  return (int32_t)(acc + img[0]);
+}
+
+// --- bitonic (_bitonic_kernel) -----------------------------------------------
+
+constexpr int32_t kSortN = 65536;
+constexpr int32_t kBitonicK = 15;  // the one merge pass the TPU runs: j = 32768 ... 1
+
+// The TPU's rule for the element at idx against its partner idx ^ j: keep
+// its own key and index, or take the partner's. Equal keys keep their own.
+SC_HD bool bitonic_keep(int32_t idx, int32_t j, int32_t key, int32_t partner) {
+  const bool up = ((idx >> (kBitonicK + 1)) & 1) == 0;
+  const bool is_lo = (idx & j) == 0;
+  return up == is_lo ? (key <= partner) : (key >= partner);
+}
+
+// The pair (lo, lo | j), lo with bit j clear, whose keys and indices sit at
+// ka, kb, va, vb: both sides by the TPU's rule.
+SC_HD void bitonic_exchange(int32_t lo, int32_t j, int32_t* ka, int32_t* kb, int32_t* va,
+                            int32_t* vb) {
+  const int32_t k0 = *ka, k1 = *kb, v0 = *va, v1 = *vb;
+  const bool keep0 = bitonic_keep(lo, j, k0, k1), keep1 = bitonic_keep(lo | j, j, k1, k0);
+  *ka = keep0 ? k0 : k1;
+  *va = keep0 ? v0 : v1;
+  *kb = keep1 ? k1 : k0;
+  *vb = keep1 ? v1 : v0;
+}
+
+// Pair p's lower index at stride j: p with a 0 bit inserted at j.
+SC_HD int32_t bitonic_lo(int32_t p, int32_t j) { return ((p & ~(j - 1)) << 1) | (p & (j - 1)); }
 
 }  // namespace hp

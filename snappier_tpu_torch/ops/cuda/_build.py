@@ -76,9 +76,15 @@ SOURCES = {
     "chain": ("probe_chain_launch", [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P]),
     "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
     "coissue": ("probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
+    "iso": ("probe_iso_launch", [_I32, _P, _P, _P, _P, _P]),
+    "bprobe": ("probe_bprobe_launch", [_I32, _I32, _P, _P, _P]),
+    "cliff": ("probe_cliff_launch", [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P]),
+    "bitonic": ("probe_bitonic_launch", [_P, _P, _P, _P]),
 }
 #: The source of each launcher that is not ``csrc/<launcher>.cu``.
-SHARED_SOURCE = {"chain": "hybrid_probes", "vcopy": "hybrid_probes", "coissue": "hybrid_probes"}
+SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
+                                                 "cliff")},
+                 "bitonic": "bitonic_probe"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

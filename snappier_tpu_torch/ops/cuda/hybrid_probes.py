@@ -1,6 +1,7 @@
-"""The hybrid decode's micro-probes (port of ``chain``, ``vcopy`` and
-``coissue`` of ``tools/perf_probe_hybrid.py``): the primitives of a decode
-that parses tag boundaries on one thread and copies payloads on many.
+"""The hybrid decode's micro-probes (port of ``chain``, ``vcopy``,
+``coissue``, ``iso``, ``bprobe``, ``cliff`` and ``bitonic`` of
+``tools/perf_probe_hybrid.py``): the primitives of a decode that parses tag
+boundaries on one thread and copies payloads on many.
 
 Inputs (plain numpy, shared by the tests, the tool and ``chip_smoke.py``):
 
@@ -11,9 +12,12 @@ Inputs (plain numpy, shared by the tests, the tool and ``chip_smoke.py``):
   words, as ``chain`` stages it;
 - :func:`vcopy_records`: ``vcopy``'s record array (dst, src, len at 0, 8,192
   and 16,384, the loop count at 24,576), with its ``2 * nrec`` loop count:
-  the records past ``nrec`` read the other regions, as on the TPU.
+  the records past ``nrec`` read the other regions, as on the TPU;
+- :func:`iso_records`: the same array with the loop count ``nrec``, as
+  ``iso`` stages it.
 
-Probes (``csrc/hybrid_probes.cu`` over ``csrc/hybrid_probes.cuh``):
+Probes (``csrc/hybrid_probes.cu`` and ``csrc/bitonic_probe.cu`` over
+``csrc/hybrid_probes.cuh``):
 
 - :func:`chain` (``_chain_kernel``; ``with_rec`` is ``chainrec``): ``R``
   trials of the walk ``ip += adv[ip]`` from ``start + (r & 1)`` while
@@ -31,13 +35,40 @@ Probes (``csrc/hybrid_probes.cu`` over ``csrc/hybrid_probes.cuh``):
 - :func:`coissue` (``_coissue_kernel``): 8,192 iterations (``iters``) of a
   24-operation scalar chain through a 64-word scratch beside ``nvec``
   updates ``v = v * 3 + roll(v, 1 + k)`` of an int32 [8, 128] tile; returns
-  ``(checksum int32 [1], tile int32 [8, 128])``.
+  ``(checksum int32 [1], tile int32 [8, 128])``;
+- :func:`iso` (``_iso_kernel``, :data:`ISO_MODES`): 20 passes over the
+  records (pass ``r`` from record ``r & 1``), each doing one part of
+  ``vcopy``'s 2d body alone to the image (``scalar``: an 8-step chain of the
+  record's words and no image work; ``dynload``: row ``src >> 9`` stored at
+  row ``dst >> 9``; ``dynload8``: the aligned group of 8 rows; ``statroll``,
+  ``dynroll``: the row rolled by 5 and by ``(128 - sl) & 127`` lanes;
+  ``full``: the whole body); returns ``(checksum int32 [1], image int32
+  [16384])``, the checksum the sum of ``dst`` (``scalar``: of the chain)
+  plus row 0's odd words;
+- :func:`bprobe` (``_bprobe_kernel``): 524,288 iterations of a 4-step mix of
+  a 64-word scratch followed by ``nwhen`` conditional stores (or, at 0,
+  three select-stores); returns ``(checksum int32 [1], scratch int32
+  [64])``;
+- :func:`cliff` (``_cliff_kernel``, :data:`CLIFF_MODES`): ``chain``'s walk
+  with a body per tag that stores into a 16,384-word image kept across the
+  ``R`` trials; returns ``(checksum int32 [1], image int32 [16384])``, the
+  checksum the sum of each trial's final ``ip`` and step count plus
+  ``image[0]``;
+- :func:`bitonic` (``_bitonic_kernel``): one merge pass (16 stages, ``j =
+  32768 ... 1``, ``k = 15``) of a bitonic network over 65,536 int32 keys and
+  their indices; returns ``(keys, vals)``, both int32 [512, 128].
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version. ``chain`` and ``vcopy`` check their inputs on the host first (a
-sync); :func:`launch_chain`, :func:`launch_vcopy` and :func:`launch_coissue`
-launch the kernel alone on inputs that the wrapper has accepted, for
-timing. The launches count as ``chain``, ``vcopy`` and ``coissue``.
+version. ``chain``, ``vcopy``, ``iso`` and ``cliff`` check their inputs on
+the host first (a sync); the ``launch_*`` functions launch the kernel alone
+on inputs that the wrapper has accepted, for timing. Each launch counts
+under the wrapper's name.
+
+The TPU's checksums cannot see most of what these probes do: on the
+tool's inputs ``iso``'s sum is blind to the image (four of its modes give
+one sum), ``cliff``'s ``img[0]`` is never written in four modes,
+``bprobe`` at 0 and 3 compute the same thing, and ``bitonic`` drops its
+indices. So each returns the state beside the sum.
 
 No result of the TPU's ``coissue`` depends on its vector work: an update is
 ``v <- (3 + S^k) v`` (``S`` the rotation by one lane), and modulo 2
@@ -61,6 +92,18 @@ Divergences from the TPU functions, by design:
   seed``, unless the caller passes a tile.
 - The TPU's ``chain`` never ends on an advance of 0 below ``n``; the port
   refuses advances outside ``[1, 2**24]`` below ``n``.
+- ``iso`` refuses a record whose rows leave the image (``full``: as
+  ``vcopy`` 2d; the other row modes: a row outside 0-127), as ``vcopy``
+  does; ``scalar`` touches no row and takes any record.
+- ``bprobe`` and ``cliff`` read their scratch and image before they write
+  them; the port starts from what interpret mode holds, ``0x80000000`` in
+  every word but ``scratch[0] = seed``. The kernel is built for ``nwhen`` in
+  :data:`BPROBE_NWHEN` and refuses any other on the card; the plain version
+  takes 0-31 (a shift by 32 or more is not defined on the TPU).
+- ``cliff`` refuses what ``chain`` refuses, and an advance array that with
+  the image does not fit one block's shared memory.
+- ``bitonic`` returns the indices beside the keys; the TPU computes and
+  drops them.
 """
 
 from __future__ import annotations
@@ -86,6 +129,15 @@ FILL = -(1 << 31)  # 0x80000000: what interpret mode reads from unwritten scratc
 MAX_ADV = 1 << 24
 SMEM_LIMIT = 232448  # dynamic shared memory a block may have (227 KB)
 MODES = ("2d", "3d")
+ISO_MODES = ("scalar", "dynload", "dynload8", "statroll", "dynroll", "full")  # hp::IsoMode
+ISO_PASSES = 20
+BPROBE_ITERS = 524288
+BPROBE_NWHEN = (0, 1, 2, 3, 4, 8)  # the kernel's instantiations
+SCRATCH_WORDS = 64
+CLIFF_MODES = ("when1", "when2", "fori", "store4", "load4")  # hp::CliffMode
+SORT_SHAPE = (512, 128)
+SORT_N = SORT_SHAPE[0] * SORT_SHAPE[1]
+BITONIC_K = 15  # the one merge pass: j = 32768 ... 1
 
 _M32 = 0xFFFFFFFF
 
@@ -173,6 +225,14 @@ def vcopy_records(recs: np.ndarray) -> np.ndarray:
     return rec
 
 
+def iso_records(recs: np.ndarray) -> np.ndarray:
+    """``iso``'s record array: :func:`vcopy_records` with the loop count
+    ``nrec`` (``tools/perf_probe_hybrid.py:497``)."""
+    rec = vcopy_records(recs)
+    rec[COUNT_AT] = len(recs)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -225,28 +285,44 @@ def _vcopy_rows(mode: str, sw: int, dw: int):
     return r0, r1, dr, spill
 
 
+def _roll(v: np.ndarray, s: int) -> np.ndarray:
+    """``pltpu.roll(v, s)`` on one row: ``out[p] = v[(p - s) & 127]``."""
+    s &= LANES - 1
+    return np.concatenate((v[LANES - s :], v[: LANES - s]))
+
+
+def _vcopy_step(flat: np.ndarray, mode: str, dst: int, src: int, ln: int) -> np.ndarray:
+    """One record of the copy body on the uint32 image ``flat`` (in place);
+    returns the rolled row."""
+    sw, dw = src >> 2, dst >> 2
+    nw = (_i32(ln + 3) >> 2) + 1
+    r0, r1, dr, spill = _vcopy_rows(mode, sw, dw)
+    sl, dl = sw & 127, dw & 127
+    # w[q]: word q of the 128 from lane sl of row r0 on, going on in row r1.
+    w = np.concatenate((flat[r0 * LANES + sl : (r0 + 1) * LANES],
+                        flat[r1 * LANES : r1 * LANES + sl]))
+    a8 = (src & 3) * 8
+    if a8:  # the funnel from the next lane's word (lane 127 takes lane 0)
+        w = (w >> np.uint32(a8)) | (_roll(w, -1) << np.uint32(32 - a8))
+    rolled = _roll(w, dl)
+    end = min(dl + nw, LANES)  # row dr under lanes [dl, dl + nw)
+    if end > dl:
+        flat[dr * LANES + dl : dr * LANES + end] = rolled[dl:end]
+    end = min(dl + nw - LANES, LANES)  # row dr + 1 under lanes below dl + nw - 128
+    if spill and end > 0:
+        flat[(dr + 1) * LANES : (dr + 1) * LANES + end] = rolled[:end]
+    return rolled
+
+
+def _records(rec: np.ndarray, t: int):
+    return int(rec[t]), int(rec[t + REC_HALF]), int(rec[t + 2 * REC_HALF])
+
+
 def _vcopy_walk(rec: np.ndarray, img: np.ndarray, mode: str):
     flat = img.astype(np.uint32).copy()
-    lanes = np.arange(LANES)
     acc = 0
     for t in range(int(rec[COUNT_AT])):
-        dst, src, ln = int(rec[t]), int(rec[t + REC_HALF]), int(rec[t + 2 * REC_HALF])
-        sw, dw = src >> 2, dst >> 2
-        nw = (_i32(ln + 3) >> 2) + 1
-        r0, r1, dr, spill = _vcopy_rows(mode, sw, dw)
-        sl, dl = sw & 127, dw & 127
-        row0 = flat[r0 * LANES : (r0 + 1) * LANES]
-        row1 = flat[r1 * LANES : (r1 + 1) * LANES]
-        w = np.where(lanes < LANES - sl, np.roll(row0, -sl), np.roll(row1, -sl))
-        a8 = (src & 3) * 8
-        sv = w if a8 == 0 else (w >> np.uint32(a8)) | (np.roll(w, -1) << np.uint32(32 - a8))
-        rolled = np.roll(sv, dl)
-        m0 = (lanes >= dl) & (lanes < dl + nw)
-        flat[dr * LANES + lanes[m0]] = rolled[m0]
-        if spill:
-            m1 = lanes < dl + nw - LANES
-            flat[(dr + 1) * LANES + lanes[m1]] = rolled[m1]
-        acc += int((rolled & 1).sum())
+        acc += int((_vcopy_step(flat, mode, *_records(rec, t)) & 1).sum())
     return _i32(acc), flat.view(np.int32)
 
 
@@ -282,6 +358,119 @@ def coissue_plain(seed: int, nvec: int, tile: torch.Tensor | None = None,
     return torch.tensor([_i32(acc)], dtype=torch.int32), torch.from_numpy(v.view(np.int32))
 
 
+def iso_plain(rec: torch.Tensor, img: torch.Tensor, mode: str):
+    """Plain version of :func:`iso` on CPU tensors."""
+    r = rec.numpy()
+    count = max(int(r[COUNT_AT]), 0)
+    flat = img.reshape(-1).numpy().astype(np.uint32).copy()
+    im = flat.reshape(LANES, LANES)
+    acc = 0
+    if mode == "scalar":  # records are independent: each pass sums them from r & 1
+        dst, src, ln = (r[k * REC_HALF : k * REC_HALF + count].astype(np.uint32) for k in range(3))
+        x = (dst * np.uint32(5) + src) ^ ln
+        for _ in range(8):
+            x = (x * np.uint32(5) + np.uint32(1)) & np.uint32(0x7FFFFFFF)
+        x = x.astype(np.int64)
+        acc = (ISO_PASSES // 2) * (int(x.sum()) + int(x[1:].sum()))
+    passes = 0 if mode == "scalar" else ISO_PASSES
+    for p in range(passes):
+        for t in range(p & 1, count):
+            dst, src, ln = _records(r, t)
+            acc += dst
+            if mode == "full":
+                _vcopy_step(flat, "2d", dst, src, ln)
+                continue
+            sw = src >> 2
+            sr, dr = sw >> 7, (dst >> 2) >> 7
+            if mode == "dynload8":
+                im[dr & 120 : (dr & 120) + 8] = im[sr & 120 : (sr & 120) + 8].copy()
+            elif mode == "dynload":
+                im[dr] = im[sr]
+            else:
+                im[dr] = _roll(im[sr], 5 if mode == "statroll" else 128 - (sw & 127))
+    acc += int((im[0] & 1).sum())
+    return torch.tensor([_i32(acc)], dtype=torch.int32), torch.from_numpy(flat.view(np.int32))
+
+
+def bprobe_plain(nwhen: int, seed: int = 3):
+    """Plain version of :func:`bprobe` (``nwhen`` in 0-31); mirrors
+    ``hp::bprobe_step``."""
+    scratch = [FILL & _M32] * SCRATCH_WORDS
+    scratch[0] = seed & _M32
+    acc = 0
+    for t in range(BPROBE_ITERS):
+        x = _i32(scratch[t & 63] ^ t)
+        for _ in range(4):
+            x = (x + (x >> 3)) & 0x7FFFFFFF  # x >> 3 is arithmetic on the signed value
+        for k in range(nwhen or 3):
+            if (x >> k) & 1:
+                scratch[(t + k) & 63] = (x + k) & _M32
+        acc += x
+    return (torch.tensor([_i32(acc)], dtype=torch.int32),
+            torch.tensor([_i32(v) for v in scratch], dtype=torch.int32))
+
+
+def cliff_plain(adv: torch.Tensor, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
+    """Plain version of :func:`cliff` on a CPU tensor; mirrors
+    ``hp::cliff_walk``."""
+    adv_l = adv.tolist()
+    img = [FILL & _M32] * IMAGE_WORDS
+    m = IMAGE_WORDS - 1
+    acc = 0
+    for r in range(R):
+        ip, op, t = start + (r & 1), 0, 0
+        while ip < n:
+            a = adv_l[ip]
+            if mode == "when1":
+                if a > 3:
+                    img[op & m] = a
+            elif mode == "when2":
+                if a > 2:
+                    img[op & m] = a
+                    img[(op + 1) & m] = a ^ ip
+                    if a > 13:
+                        img[(op + 2) & m] = a + ip
+                        img[(op + 3) & m] = (a - ip) & _M32
+            elif mode == "fori":
+                if a > 2:
+                    carry = a
+                    for k in range(a & 7):
+                        img[(op + k) & m] = carry + k
+                        carry ^= k
+            elif mode == "store4":
+                img[op & m] = a
+                img[(op + 1) & m] = a ^ ip
+                img[(op + 2) & m] = a + ip
+                img[(op + 3) & m] = (a - ip) & _M32
+            else:  # load4: both loads, then both stores
+                s0, s1 = img[(op - a) & m], img[(op - a + 1) & m]
+                img[op & m] = s0
+                img[(op + 1) & m] = s1
+            ip += a
+            op += a
+            t += 1
+        acc += ip + t
+    return (torch.tensor([_i32(acc + img[0])], dtype=torch.int32),
+            torch.tensor([_i32(v) for v in img], dtype=torch.int32))
+
+
+def bitonic_plain(x: torch.Tensor):
+    """Plain version of :func:`bitonic` on a CPU tensor: the TPU's stages,
+    each over the whole array at once."""
+    keys = x.reshape(-1).clone()
+    idx = torch.arange(SORT_N, dtype=torch.int32)
+    vals = idx.clone()
+    up = ((idx >> (BITONIC_K + 1)) & 1) == 0
+    for jj in range(BITONIC_K, -1, -1):
+        j = 1 << jj
+        partner = (idx ^ j).long()
+        kq, vq = keys[partner], vals[partner]
+        keep = torch.where(up == ((idx & j) == 0), torch.minimum(keys, kq) == keys,
+                           torch.maximum(keys, kq) == keys)
+        keys, vals = torch.where(keep, keys, kq), torch.where(keep, vals, vq)
+    return keys.reshape(SORT_SHAPE), vals.reshape(SORT_SHAPE)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -302,18 +491,24 @@ def chain_smem_bytes(adv_words: int, with_rec: bool) -> int:
     return 4 * (((adv_words + 3) & ~3) + (REC_WORDS if with_rec else 0))
 
 
-def chain(adv, n: int, start: int = 3, R: int = CHAIN_R, with_rec: bool = False):
-    """``R`` trials of the tag-boundary walk over ``adv`` (int32 [len])
-    (``tools/perf_probe_hybrid.py::chain``; ``with_rec`` is ``chainrec``).
-    Returns ``(checksum int32 [1], records int32 [16384] or [0])``."""
-    adv = _int32_vector(adv, "adv")
-    n, start, R = int(n), int(start), int(R)
+def _check_walk(adv: torch.Tensor, n: int, start: int, R: int) -> None:
+    """Refuse a walk that could leave ``adv`` or never end (``chain``,
+    ``cliff``)."""
     if not 0 <= n <= adv.numel() or not 0 <= start < (1 << 30) or not 0 <= R < (1 << 31):
         raise ValueError(f"need 0 <= n <= len(adv), 0 <= start < 2**30, R >= 0; got n={n}, "
                          f"len(adv)={adv.numel()}, start={start}, R={R}")
     below = adv[min(start, n) : n]
     if bool(((below < 1) | (below > MAX_ADV)).any()):
         raise ValueError(f"adv[start:n] must lie in [1, {MAX_ADV}]: the walk would not end")
+
+
+def chain(adv, n: int, start: int = 3, R: int = CHAIN_R, with_rec: bool = False):
+    """``R`` trials of the tag-boundary walk over ``adv`` (int32 [len])
+    (``tools/perf_probe_hybrid.py::chain``; ``with_rec`` is ``chainrec``).
+    Returns ``(checksum int32 [1], records int32 [16384] or [0])``."""
+    adv = _int32_vector(adv, "adv")
+    n, start, R = int(n), int(start), int(R)
+    _check_walk(adv, n, start, R)
     if chain_smem_bytes(adv.numel(), with_rec) > SMEM_LIMIT:
         raise ValueError(f"an advance array of {adv.numel()} words does not fit one block's "
                          f"shared memory")
@@ -334,13 +529,17 @@ def launch_chain(adv: torch.Tensor, n: int, start: int, R: int, with_rec: bool):
 
 def _check_records(rec: torch.Tensor, mode: str) -> None:
     """Refuse a loop count past the record array and any record whose rows
-    leave the image."""
+    leave the image (modes of ``vcopy`` and ``iso``)."""
     count = int(rec[COUNT_AT])
     if count > REC_WORDS:
         raise ValueError(f"loop count {count}: records past {REC_WORDS} lie outside the array")
+    if mode == "scalar":
+        return
     t = torch.arange(max(count, 0), device=rec.device)
     sw, dw = rec[t + REC_HALF] >> 2, rec[t] >> 2
-    top = IMAGE_WORDS - LANES if mode == "2d" else IMAGE_WORDS  # 2d reads and writes row + 1
+    # 2d and full read and write row + 1; the other row modes one row (or
+    # the aligned 8), 3d clamps to tile 15.
+    top = IMAGE_WORDS - LANES if mode in ("2d", "full") else IMAGE_WORDS
     bad = (sw < 0) | (sw >= top) | (dw < 0) | (dw >= top)
     if bool(bad.any()):
         i = int(bad.nonzero()[0])
@@ -407,3 +606,109 @@ def launch_coissue(seed: int, nvec: int, tile: torch.Tensor, iters: int = COISSU
     _build.launch("coissue", tile.device, nvec, _i32(int(seed)), iters, tile.data_ptr(),
                   out.data_ptr(), tile_out.data_ptr())
     return out, tile_out
+
+
+def iso(rec, img, mode: str):
+    """One part of the copy body alone, 20 passes over ``rec`` (int32
+    [32768], see :func:`iso_records`) and an image of 16,384 int32 words
+    (any shape) (``tools/perf_probe_hybrid.py::iso``). Returns ``(checksum
+    int32 [1], image int32 [16384])``."""
+    if mode not in ISO_MODES:
+        raise ValueError(f"unknown mode {mode!r}: one of {ISO_MODES}")
+    rec = _int32_vector(rec, "rec", VCOPY_WORDS)
+    img = _int32_vector(img, "img", IMAGE_WORDS)
+    cuda = on_cuda(rec, img)
+    _check_records(rec, mode)
+    if not cuda:
+        return iso_plain(rec, img, mode)
+    return launch_iso(rec, img, mode)
+
+
+def launch_iso(rec: torch.Tensor, img: torch.Tensor, mode: str):
+    """:func:`iso`'s kernel on contiguous CUDA int32 inputs that :func:`iso`
+    accepts, without its checks."""
+    out = torch.empty(1, dtype=torch.int32, device=rec.device)
+    img_out = torch.empty(IMAGE_WORDS, dtype=torch.int32, device=rec.device)
+    _build.launch("iso", rec.device, ISO_MODES.index(mode), rec.data_ptr(), img.data_ptr(),
+                  out.data_ptr(), img_out.data_ptr())
+    return out, img_out
+
+
+def bprobe(nwhen: int, seed: int = 3, device=None):
+    """524,288 iterations of the mix and ``nwhen`` conditional stores on
+    ``device`` (the card unless given) (``tools/perf_probe_hybrid.py::bprobe``,
+    which passes seed 3). Returns ``(checksum int32 [1], scratch int32
+    [64])``."""
+    nwhen = int(nwhen)
+    if not 0 <= nwhen < 32:
+        raise ValueError(f"need 0 <= nwhen < 32, got {nwhen}")
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cpu":
+        return bprobe_plain(nwhen, seed)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if nwhen not in BPROBE_NWHEN:
+        raise ValueError(f"the kernel is built for nwhen in {BPROBE_NWHEN}, not {nwhen}")
+    return launch_bprobe(nwhen, seed, device)
+
+
+def launch_bprobe(nwhen: int, seed: int, device):
+    """:func:`bprobe`'s kernel on a CUDA ``device`` (``nwhen`` in
+    :data:`BPROBE_NWHEN`)."""
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    scratch = torch.empty(SCRATCH_WORDS, dtype=torch.int32, device=device)
+    _build.launch("bprobe", device, nwhen, _i32(int(seed)), out.data_ptr(), scratch.data_ptr())
+    return out, scratch
+
+
+def cliff_smem_bytes(adv_words: int) -> int:
+    """Dynamic shared memory of :func:`cliff`'s block; mirrors
+    ``csrc/hybrid_probes.cu``."""
+    return 4 * (((adv_words + 3) & ~3) + IMAGE_WORDS)
+
+
+def cliff(adv, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
+    """``R`` trials of the walk over ``adv`` (int32 [len]) with ``mode``'s
+    body into an image (``tools/perf_probe_hybrid.py::cliff``). Returns
+    ``(checksum int32 [1], image int32 [16384])``."""
+    if mode not in CLIFF_MODES:
+        raise ValueError(f"unknown mode {mode!r}: one of {CLIFF_MODES}")
+    adv = _int32_vector(adv, "adv")
+    n, start, R = int(n), int(start), int(R)
+    _check_walk(adv, n, start, R)
+    if cliff_smem_bytes(adv.numel()) > SMEM_LIMIT:
+        raise ValueError(f"an advance array of {adv.numel()} words and the image do not fit one "
+                         f"block's shared memory")
+    if not on_cuda(adv):
+        return cliff_plain(adv, n, mode, start, R)
+    return launch_cliff(adv, n, mode, start, R)
+
+
+def launch_cliff(adv: torch.Tensor, n: int, mode: str, start: int, R: int):
+    """:func:`cliff`'s kernel on a contiguous CUDA int32 ``adv`` that
+    :func:`cliff` accepts, without its checks."""
+    out = torch.empty(1, dtype=torch.int32, device=adv.device)
+    img = torch.empty(IMAGE_WORDS, dtype=torch.int32, device=adv.device)
+    _build.launch("cliff", adv.device, CLIFF_MODES.index(mode), adv.data_ptr(), adv.numel(), n,
+                  start, R, out.data_ptr(), img.data_ptr())
+    return out, img
+
+
+def bitonic(x):
+    """One merge pass of the bitonic network over 65,536 int32 keys (any
+    shape) and their indices (``tools/perf_probe_hybrid.py::bitonic``).
+    Returns ``(keys, vals)``, int32 [512, 128]: the keys after the pass and
+    the flat index each came from."""
+    x = _int32_vector(x, "x", SORT_N)
+    if not on_cuda(x):
+        return bitonic_plain(x)
+    return launch_bitonic(x)
+
+
+def launch_bitonic(x: torch.Tensor):
+    """:func:`bitonic`'s kernels (five launches, counted as one call) on a
+    contiguous CUDA int32 ``x`` of 65,536 words."""
+    keys = torch.empty(SORT_SHAPE, dtype=torch.int32, device=x.device)
+    vals = torch.empty(SORT_SHAPE, dtype=torch.int32, device=x.device)
+    _build.launch("bitonic", x.device, x.data_ptr(), keys.data_ptr(), vals.data_ptr())
+    return keys, vals

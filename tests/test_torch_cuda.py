@@ -545,3 +545,62 @@ def test_cuda_coissue_matches_plain(cuda_device, nvec):
                          device=cuda_device)
         want = hp.coissue_plain(seed, nvec, tile, iters)
         assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+@pytest.mark.parametrize("mode", hp.ISO_MODES)
+def test_cuda_iso_matches_plain(cuda_device, mode):
+    """T13 over both probe blocks' records and vcopy's 2d edge records:
+    checksum and the image after the 20 passes."""
+    img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
+    edges = vcopy_edges("2d")
+    edges[hp.COUNT_AT] = 200
+    recs = [hp.iso_records(hp.tags_from_block(b)[1]) for b in probe_blocks().values()]
+    for rec in recs + [edges]:
+        _build.reset_launches()
+        got = hp.iso(_t(rec).to(cuda_device), _t(img).to(cuda_device), mode)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"iso": 1}
+        want = hp.iso_plain(_t(rec), _t(img), mode)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+@pytest.mark.parametrize("nwhen", hp.BPROBE_NWHEN)
+def test_cuda_bprobe_matches_plain(cuda_device, nwhen):
+    """T17 at each built nwhen, seed 3 and -5: checksum and scratch; any
+    other nwhen is refused on the card."""
+    for seed in (3, -5):
+        got = hp.bprobe(nwhen, seed, device=cuda_device)
+        want = hp.bprobe_plain(nwhen, seed)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+    with pytest.raises(ValueError, match="built for nwhen"):
+        hp.bprobe(5, device=cuda_device)
+
+
+@pytest.mark.parametrize("mode", hp.CLIFF_MODES)
+def test_cuda_cliff_matches_plain(cuda_device, mode):
+    """T19 on both probe blocks at R = 1, 5 and 200: checksum and image."""
+    for b in probe_blocks().values():
+        adv, n, _ = hp.chain_inputs(b)
+        for R in (1, 5, 200):
+            _build.reset_launches()
+            got = hp.cliff(_t(adv).to(cuda_device), n, mode, 3, R)
+            torch.cuda.synchronize()
+            assert dict(_build.LAUNCHES) == {"cliff": 1}
+            want = hp.cliff_plain(_t(adv), n, mode, 3, R)
+            assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+def test_cuda_bitonic_matches_plain(cuda_device):
+    """T20 on the tool's keys, on keys with many ties and on sorted and
+    reversed keys: keys and indices; one wrapper call counts one launch."""
+    rng = np.random.default_rng(5)
+    cases = [rng.integers(-(2**31), 2**31 - 1, hp.SORT_N, np.int64).astype(np.int32),
+             rng.integers(-4, 4, hp.SORT_N).astype(np.int32),
+             np.arange(hp.SORT_N, dtype=np.int32), np.arange(hp.SORT_N, 0, -1, dtype=np.int32)]
+    for x in cases:
+        _build.reset_launches()
+        keys, vals = hp.bitonic(_t(x).to(cuda_device))
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"bitonic": 1}
+        want = hp.bitonic_plain(_t(x))
+        assert (keys.cpu() == want[0]).all() and (vals.cpu() == want[1]).all()

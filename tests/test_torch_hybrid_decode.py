@@ -230,8 +230,8 @@ def test_wrapper_argument_checks():
 
 def test_probe_tool_names_what_is_not_ported():
     """``tools/torch_perf_probe_hybrid.py`` runs the five decode probes and
-    the micro-probes and refuses, by name, the four probes of the JAX tool
-    that are not ported; without a card it exits 2 and times nothing."""
+    every micro-probe of the JAX tool (none is left unported) and refuses an
+    unknown name or mode; without a card it exits 2 and times nothing."""
     import importlib.util
     import pathlib
 
@@ -241,16 +241,20 @@ def test_probe_tool_names_what_is_not_ported():
     spec.loader.exec_module(tool)
     for name in tool.PROBES:
         tool.check_probe(name)
-    assert {"chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue8"} <= set(tool.PROBES)
-    for name in ("iso:full", "bprobe2", "cliff:when1", "bitonic"):
-        with pytest.raises(NotImplementedError, match=f"{name!r}.*not ported yet"):
+    assert {"chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue8", "iso:full",
+            "iso:dynload8", "bprobe0", "bprobe2", "bprobe8", "cliff:when1", "cliff:load4",
+            "bitonic"} <= set(tool.PROBES)
+    assert not hasattr(tool, "NOT_PORTED")
+    for name in ("iso:bogus", "cliff:bogus", "bprobe5", "bitonic2", "vcopy1d"):
+        with pytest.raises(ValueError, match=f"unknown probe {name!r}"):
             tool.check_probe(name)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the tool would time it")
     import subprocess
     import sys
 
-    for probes in (["v5"], ["chain", "vcopy3d", "coissue8"]):
+    for probes in (["v5"], ["chain", "vcopy3d", "coissue8"],
+                   ["iso:full", "bprobe3", "cliff:load4", "bitonic"]):
         r = subprocess.run([sys.executable, str(path), *probes], capture_output=True, text=True,
                            timeout=120)
         assert r.returncode == 2 and "no CUDA device" in r.stderr and not r.stdout

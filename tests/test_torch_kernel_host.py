@@ -6,7 +6,8 @@ their plain versions (which tests/test_torch_decode_variants.py and
 tests/test_torch_encode_variants.py hold against the TPU kernels); and the
 descriptor-driven walks (``csrc/decode_hybrid.cuh``), held against theirs
 (which tests/test_torch_hybrid_decode.py holds against the TPU kernels); and
-the micro-probes' step bodies (``csrc/hybrid_probes.cuh``) and the encode
+the micro-probes' step bodies (``csrc/hybrid_probes.cuh``, the sort's
+stages in ``csrc/bitonic_probe.cu``'s order too) and the encode
 walk's stats sink, held against their plain versions (which
 tests/test_torch_hybrid_probes.py and tests/test_torch_encode_variants.py
 hold against the TPU kernels).
@@ -409,7 +410,7 @@ extern "C" int32_t host_vcopy(int32_t mode3d, const int32_t* rec, int32_t* img) 
 // coissue with the tile's rolls done on whole rows.
 extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32_t* tile) {
   uint32_t scratch[64];
-  hp::coissue_init(scratch, seed);
+  hp::scratch_init(scratch, seed);
   uint32_t acc = 0;
   uint32_t* v = reinterpret_cast<uint32_t*>(tile);
   std::vector<uint32_t> nv(8 * hp::kLanes);
@@ -425,6 +426,104 @@ extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32
   }
   for (int e = 0; e < 8 * hp::kLanes; e++) acc += v[e] & 1u;
   return (int32_t)acc;
+}
+
+// iso over all 128 lanes (1,024 words in dynload8): every lane's loads, then
+// every lane's stores.
+template <int kMode>
+uint32_t host_iso_mode(const int32_t* rec, uint32_t* im) {
+  uint32_t acc = 0, v[8 * hp::kLanes];
+  for (int32_t pass = 0; pass < hp::kIsoPasses; pass++) {
+    for (int32_t t = pass & 1; t < rec[hp::kCountAt]; t++) {
+      const int32_t dst = rec[t], src = rec[t + hp::kRecHalf], ln = rec[t + 2 * hp::kRecHalf];
+      if (kMode == hp::kIsoScalar) {
+        acc += hp::iso_scalar(dst, src, ln);
+        continue;
+      }
+      acc += (uint32_t)dst;
+      if (kMode == hp::kIsoFull) {
+        const hp::VcopyRecord r = hp::vcopy_record<false>(dst, src, ln);
+        for (int i = 0; i < hp::kLanes; i++) v[i] = hp::vcopy_lane(im, r, i);
+        for (int i = 0; i < hp::kLanes; i++) hp::vcopy_store(im, r, i, v[i]);
+      } else {
+        const hp::IsoRecord r = hp::iso_record<kMode>(dst, src);
+        for (int i = 0; i < r.rows * hp::kLanes; i++) v[i] = hp::iso_word(im, r, i);
+        for (int i = 0; i < r.rows * hp::kLanes; i++) hp::iso_store(im, r, i, v[i]);
+      }
+    }
+  }
+  for (int i = 0; i < hp::kLanes; i++) acc += im[i] & 1u;
+  return acc;
+}
+
+extern "C" int32_t host_iso(int32_t mode, const int32_t* rec, int32_t* img) {
+  uint32_t* im = reinterpret_cast<uint32_t*>(img);
+  switch (mode) {
+    case hp::kIsoScalar: return (int32_t)host_iso_mode<hp::kIsoScalar>(rec, im);
+    case hp::kIsoDynload: return (int32_t)host_iso_mode<hp::kIsoDynload>(rec, im);
+    case hp::kIsoDynload8: return (int32_t)host_iso_mode<hp::kIsoDynload8>(rec, im);
+    case hp::kIsoStatroll: return (int32_t)host_iso_mode<hp::kIsoStatroll>(rec, im);
+    case hp::kIsoDynroll: return (int32_t)host_iso_mode<hp::kIsoDynroll>(rec, im);
+    default: return (int32_t)host_iso_mode<hp::kIsoFull>(rec, im);
+  }
+}
+
+template <int kNwhen>
+int32_t host_bprobe_n(int32_t seed, int32_t* scratch) {
+  uint32_t* s = reinterpret_cast<uint32_t*>(scratch);
+  hp::scratch_init(s, seed);
+  uint32_t acc = 0;
+  for (int32_t t = 0; t < hp::kBprobeIters; t++) acc += hp::bprobe_step<kNwhen>(s, t);
+  return (int32_t)acc;
+}
+
+extern "C" int32_t host_bprobe(int32_t nwhen, int32_t seed, int32_t* scratch) {
+  switch (nwhen) {
+    case 0: return host_bprobe_n<0>(seed, scratch);
+    case 1: return host_bprobe_n<1>(seed, scratch);
+    case 2: return host_bprobe_n<2>(seed, scratch);
+    case 3: return host_bprobe_n<3>(seed, scratch);
+    case 4: return host_bprobe_n<4>(seed, scratch);
+    default: return host_bprobe_n<8>(seed, scratch);
+  }
+}
+
+extern "C" int32_t host_cliff(int32_t mode, const int32_t* adv, int32_t n, int32_t start,
+                              int32_t R, int32_t* img) {
+  uint32_t* im = reinterpret_cast<uint32_t*>(img);
+  for (int i = 0; i < hp::kImageWords; i++) im[i] = hp::kFill;
+  switch (mode) {
+    case hp::kCliffWhen1: return hp::cliff_walk<hp::kCliffWhen1>(adv, n, start, R, im);
+    case hp::kCliffWhen2: return hp::cliff_walk<hp::kCliffWhen2>(adv, n, start, R, im);
+    case hp::kCliffFori: return hp::cliff_walk<hp::kCliffFori>(adv, n, start, R, im);
+    case hp::kCliffStore4: return hp::cliff_walk<hp::kCliffStore4>(adv, n, start, R, im);
+    default: return hp::cliff_walk<hp::kCliffLoad4>(adv, n, start, R, im);
+  }
+}
+
+// bitonic_probe.cu's stages in its order: j >= 4096 over the whole arrays,
+// then each tile of 4,096 alone for j = 2048 ... 1.
+extern "C" void host_bitonic(const int32_t* x, int32_t* keys, int32_t* vals) {
+  for (int32_t i = 0; i < hp::kSortN; i++) {
+    keys[i] = x[i];
+    vals[i] = i;
+  }
+  for (int32_t j = hp::kSortN / 2; j >= 4096; j >>= 1) {
+    for (int32_t p = 0; p < hp::kSortN / 2; p++) {
+      const int32_t lo = hp::bitonic_lo(p, j);
+      hp::bitonic_exchange(lo, j, &keys[lo], &keys[lo | j], &vals[lo], &vals[lo | j]);
+    }
+  }
+  for (int32_t base = 0; base < hp::kSortN; base += 4096) {
+    int32_t* ks = keys + base;
+    int32_t* vs = vals + base;
+    for (int32_t j = 2048; j >= 1; j >>= 1) {
+      for (int32_t p = 0; p < 2048; p++) {
+        const int32_t lo = hp::bitonic_lo(p, j);
+        hp::bitonic_exchange(base + lo, j, &ks[lo], &ks[lo | j], &vs[lo], &vs[lo | j]);
+      }
+    }
+  }
 }
 
 extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
@@ -507,6 +606,14 @@ def host_lib(tmp_path_factory):
     so.host_vcopy.restype = I32
     so.host_coissue.argtypes = [I32, I32, I32, P]
     so.host_coissue.restype = I32
+    so.host_iso.argtypes = [I32, P, P]
+    so.host_iso.restype = I32
+    so.host_bprobe.argtypes = [I32, I32, P]
+    so.host_bprobe.restype = I32
+    so.host_cliff.argtypes = [I32, P, I32, I32, I32, P]
+    so.host_cliff.restype = I32
+    so.host_bitonic.argtypes = [P, P, P]
+    so.host_bitonic.restype = None
     return so
 
 
@@ -854,3 +961,80 @@ def test_host_coissue_matches_plain(host_lib, nvec):
         assert got == int(want[0]), (seed, nvec)
         assert (t == want_tile.numpy()).all()
         assert (iters == 8192 and nvec > 0) == (not t.any())
+
+
+@pytest.mark.parametrize("mode", ["scalar", "dynload", "dynload8", "statroll", "dynroll", "full"])
+def test_host_iso_matches_plain(host_lib, mode):
+    """iso's bodies over both probe blocks' records (20 passes) and over
+    vcopy's edge records where they stay inside the image: checksum and the
+    image after the last pass."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    from tests.torch_cases import vcopy_edges
+
+    recs = [hp.iso_records(hp.tags_from_block(b)[1]) for b in _probe_inputs().values()]
+    edges = vcopy_edges("2d")
+    edges[hp.COUNT_AT] = 200
+    for rec in recs + [edges]:
+        rec = np.ascontiguousarray(rec, np.int32)
+        img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
+        want, want_img = hp.iso(torch.from_numpy(rec), torch.from_numpy(img), mode)
+        got = host_lib.host_iso(hp.ISO_MODES.index(mode), rec.ctypes.data, img.ctypes.data)
+        assert got == int(want[0])
+        assert (img == want_img.numpy()).all()
+
+
+@pytest.mark.parametrize("nwhen", [0, 1, 2, 3, 4, 8])
+def test_host_bprobe_matches_plain(host_lib, nwhen):
+    """bprobe's 524,288 iterations at each built nwhen, at seed 3 or -5:
+    checksum and scratch."""
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    seed = (3, -5)[nwhen & 1]
+    scratch = np.zeros(hp.SCRATCH_WORDS, np.int32)
+    got = host_lib.host_bprobe(nwhen, seed, scratch.ctypes.data)
+    want, want_scratch = hp.bprobe_plain(nwhen, seed)
+    assert got == int(want[0])
+    assert (scratch == want_scratch.numpy()).all()
+
+
+@pytest.mark.parametrize("mode", ["when1", "when2", "fori", "store4", "load4"])
+def test_host_cliff_matches_plain(host_lib, mode):
+    """cliff's walk and bodies on both probe blocks at R = 1, 4 and 5, from
+    start 3 and 0: checksum and image."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    for b in _probe_inputs().values():
+        adv, n, _ = hp.chain_inputs(b)
+        adv = np.ascontiguousarray(adv, np.int32)
+        for R, start in ((1, 3), (4, 3), (5, 0)):
+            img = np.zeros(hp.IMAGE_WORDS, np.int32)
+            got = host_lib.host_cliff(hp.CLIFF_MODES.index(mode), adv.ctypes.data, n, start, R,
+                                      img.ctypes.data)
+            want, want_img = hp.cliff_plain(torch.from_numpy(adv), n, mode, start, R)
+            assert got == int(want[0]), (n, R, start)
+            assert (img == want_img.numpy()).all()
+
+
+@pytest.mark.parametrize("seed", [5, 9])
+def test_host_bitonic_matches_plain(host_lib, seed):
+    """The sort's stages in the kernels' order (device-memory stages, then
+    tiles of 4,096) against the plain version's whole-array stages: random
+    keys (seed 5 is the tool's) and keys with many ties."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-(2**31), 2**31 - 1, hp.SORT_N, np.int64) if seed == 5
+         else rng.integers(-4, 4, hp.SORT_N)).astype(np.int32)
+    keys = np.zeros(hp.SORT_N, np.int32)
+    vals = np.zeros(hp.SORT_N, np.int32)
+    host_lib.host_bitonic(x.ctypes.data, keys.ctypes.data, vals.ctypes.data)
+    want_keys, want_vals = hp.bitonic_plain(torch.from_numpy(x))
+    assert (keys == want_keys.reshape(-1).numpy()).all()
+    assert (vals == want_vals.reshape(-1).numpy()).all()

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Descriptor-driven decode probe and hybrid micro-probes for the
-PyTorch/CUDA port (run on an NVIDIA GPU; port of ``tools/perf_probe_hybrid.py``
-but for its isolation, branch, cliff and sort probes).
+PyTorch/CUDA port (run on an NVIDIA GPU; port of ``tools/perf_probe_hybrid.py``).
 
 A tensor pre-pass decodes the tag at every byte position into a descriptor;
 the walk reads one descriptor per tag (``ops/cuda/decode_hybrid.py``,
@@ -17,26 +16,32 @@ Probes:
   v6       spec_from_words (the descriptor from the word image) + v5's walk
   v7       spec2_from_words (two arrays, one validity test per tag) + its walk
   v7u      v7 with two tags per loop iteration
-Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``) on
-block 0:
-  chain     200 walks ip += adv[ip] over the block's advance array
-  chainrec  the same walk storing a packed record per step
-  vcopy2d   the per-record vector copy body, 2 x the block's tags records
-  vcopy3d   the same in the 3d body (tile-aligned rows)
-  coissueN  the scalar chain beside N tile updates a step (N: 0, 1, 2, 8)
+Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
+``csrc/bitonic_probe.cu``) on block 0:
+  chain       200 walks ip += adv[ip] over the block's advance array
+  chainrec    the same walk storing a packed record per step
+  vcopy2d     the per-record vector copy body, 2 x the block's tags records
+  vcopy3d     the same in the 3d body (tile-aligned rows)
+  coissueN    the scalar chain beside N tile updates a step (N: 0, 1, 2, 8)
+  iso:MODE    one part of the copy body alone, 20 x the block's tags records
+              (MODE: scalar, dynload, dynload8, statroll, dynroll, full)
+  bprobeN     524,288 iterations of a mix and N conditional stores (N: 0, 1,
+              2, 3, 4, 8; 0 is three select-stores)
+  cliff:MODE  chain's 200 walks with a body per tag into an image (MODE:
+              when1, when2, fori, store4, load4)
+  bitonic     one merge pass (16 stages) of a bitonic network over 65,536
+              keys and their indices, beside torch.sort (a full stable sort:
+              not the same function)
 
-The JAX tool's other probes (iso:MODE, bprobeN, cliff:MODE, bitonic) are not
-ported yet: naming one is an error. The blocks are
-``tools/torch_perf_probe.py::build_blocks`` (the seeded word mix that
-``chip_smoke.py`` drives, at the tight row width). The first line is the
-card's name and power limit. For the decode probes, the next gives the
-batch, the row width, the tag count of block 0 and its tag mix; then one
+The blocks are ``tools/torch_perf_probe.py::build_blocks`` (the seeded word
+mix that ``chip_smoke.py`` drives, at the tight row width). The first line
+is the card's name and power limit. For the decode probes, the next gives
+the batch, the row width, the tag count of block 0 and its tag mix; then one
 line per probe: ms per call, us per block, GB/s of output and ns per tag,
 where a block's time is the call's time over the waves of blocks the card
 runs at once. Each micro-probe is held to its plain version (checksum and
-records, image or tile), then its kernel alone is timed and the JAX tool's
-line printed: ms for R walks and ns per step; ms and ns per record; ms and
-ns per iteration.
+records, image, tile, scratch or indices), then its kernel alone is timed
+and the JAX tool's line printed.
 """
 
 from __future__ import annotations
@@ -50,20 +55,22 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
+from snappier_tpu_torch.ops.cuda import hybrid_probes as hp  # noqa: E402
+
 BLOCK_SIZE = 65536
 DECODE_PROBES = ("v5", "v5parts", "v6", "v7", "v7u")
 MICRO_PROBES = ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue1", "coissue2",
-                "coissue8")
+                "coissue8", *(f"iso:{m}" for m in hp.ISO_MODES),
+                *(f"bprobe{n}" for n in hp.BPROBE_NWHEN), *(f"cliff:{m}" for m in hp.CLIFF_MODES),
+                "bitonic")
 PROBES = DECODE_PROBES + MICRO_PROBES
-NOT_PORTED = ("iso:", "bprobe", "cliff:", "bitonic")
+DEFAULT = DECODE_PROBES + ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue8")
 
 
 def check_probe(name: str) -> None:
-    """Raise for a probe of the JAX tool that has no port yet; argparse
-    refuses any other unknown name."""
-    if name not in PROBES and name.startswith(NOT_PORTED):
-        raise NotImplementedError(f"probe {name!r} of tools/perf_probe_hybrid.py is not ported "
-                                  f"yet: this tool runs {', '.join(PROBES)}")
+    """Raise ValueError for a name this tool does not run."""
+    if name not in PROBES:
+        raise ValueError(f"unknown probe {name!r}: choose from {', '.join(PROBES)}")
 
 
 def form_fn(name: str, comp_d, lens_d):
@@ -85,63 +92,96 @@ def run_micro(names) -> bool:
     import torch
     from torch_perf_probe import build_blocks, timeit
 
-    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
-
     _, comp, lens, _, _ = build_blocks(1)
     block = comp[0, : lens[0]].tobytes()
     adv, n, ntags = hp.chain_inputs(block)
-    rec = hp.vcopy_records(hp.tags_from_block(block)[1])
+    recs = hp.tags_from_block(block)[1]
+    rec, irec = hp.vcopy_records(recs), hp.iso_records(recs)
     count = int(rec[hp.COUNT_AT])
     img = np.arange(hp.IMAGE_WORDS, dtype=np.int32)
-    adv_d, rec_d, img_d = (torch.from_numpy(x).cuda() for x in (adv, rec, img))
+    keys = np.random.default_rng(5).integers(-(2**31), 2**31 - 1, hp.SORT_SHAPE,
+                                             np.int64).astype(np.int32)  # the JAX tool's
+    host = {k: torch.from_numpy(v) for k, v in
+            dict(adv=adv, rec=rec, irec=irec, img=img, keys=keys).items()}
+    d = {k: v.cuda() for k, v in host.items()}
     fill = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
+    dev = torch.device("cuda")
     R = hp.CHAIN_R
     ok = True
     for p in names:
         if p.startswith("chain"):
             wr = p == "chainrec"
-            got = hp.chain(adv_d, n, 3, R, wr)
-            want = hp.chain_plain(torch.from_numpy(adv), n, 3, R, wr)
-            fn = lambda wr=wr: hp.launch_chain(adv_d, n, 3, R, wr)  # noqa: E731
+            got = hp.chain(d["adv"], n, 3, R, wr)
+            want = hp.chain_plain(host["adv"], n, 3, R, wr)
+            fn = lambda wr=wr: hp.launch_chain(d["adv"], n, 3, R, wr)  # noqa: E731
+            line = lambda t: (f"{p}: {t * 1e3:.3f} ms for {R} walks of {ntags} tags "  # noqa: E731
+                              f"-> {t / R / ntags * 1e9:.1f} ns/tag")
         elif p.startswith("vcopy"):
             mode = p[-2:]
-            got = hp.vcopy(rec_d, img_d, mode)
-            want = hp.vcopy_plain(torch.from_numpy(rec), torch.from_numpy(img), mode)
-            fn = lambda mode=mode: hp.launch_vcopy(rec_d, img_d, mode)  # noqa: E731
-        else:
+            got = hp.vcopy(d["rec"], d["img"], mode)
+            want = hp.vcopy_plain(host["rec"], host["img"], mode)
+            fn = lambda mode=mode: hp.launch_vcopy(d["rec"], d["img"], mode)  # noqa: E731
+            line = lambda t: (f"vcopy[{mode}]: {t * 1e3:.3f} ms for {count} records "  # noqa: E731
+                              f"-> {t / count * 1e9:.1f} ns/record")
+        elif p.startswith("coissue"):
             nvec = int(p[len("coissue"):])
             got = hp.coissue(3, nvec, fill)
             want = hp.coissue_plain(3, nvec)
             fn = lambda nvec=nvec: hp.launch_coissue(3, nvec, fill)  # noqa: E731
+            line = lambda t: (f"coissue[nvec={nvec}]: {t * 1e3:.3f} ms for "  # noqa: E731
+                              f"{hp.COISSUE_ITERS} iters -> "
+                              f"{t / hp.COISSUE_ITERS * 1e9:.1f} ns/iter")
+        elif p.startswith("iso:"):
+            mode = p[len("iso:"):]
+            got = hp.iso(d["irec"], d["img"], mode)
+            want = hp.iso_plain(host["irec"], host["img"], mode)
+            fn = lambda mode=mode: hp.launch_iso(d["irec"], d["img"], mode)  # noqa: E731
+            line = lambda t: (f"iso[{mode}]: {t * 1e3:.3f} ms for "  # noqa: E731
+                              f"{hp.ISO_PASSES}x{ntags} records -> "
+                              f"{t / hp.ISO_PASSES / ntags * 1e9:.1f} ns/record")
+        elif p.startswith("bprobe"):
+            nwhen = int(p[len("bprobe"):])
+            got = hp.bprobe(nwhen)
+            want = hp.bprobe_plain(nwhen)
+            fn = lambda nwhen=nwhen: hp.launch_bprobe(nwhen, 3, dev)  # noqa: E731
+            line = lambda t: (f"bprobe[nwhen={nwhen}]: "  # noqa: E731
+                              f"{t / hp.BPROBE_ITERS * 1e9:.1f} ns/iter")
+        elif p.startswith("cliff:"):
+            mode = p[len("cliff:"):]
+            got = hp.cliff(d["adv"], n, mode, 3, R)
+            want = hp.cliff_plain(host["adv"], n, mode, 3, R)
+            fn = lambda mode=mode: hp.launch_cliff(d["adv"], n, mode, 3, R)  # noqa: E731
+            line = lambda t: f"cliff[{mode}]: {t / R / ntags * 1e9:.1f} ns/tag"  # noqa: E731
+        else:  # bitonic, beside the library's full sort of the same keys
+            got = hp.bitonic(d["keys"])
+            want = hp.bitonic_plain(host["keys"])
+            fn = lambda: hp.launch_bitonic(d["keys"])  # noqa: E731
+            flat = d["keys"].reshape(-1)
+            srt = torch.sort(flat, stable=True)
+            ok_s = bool((srt.values.cpu().numpy() == np.sort(keys.reshape(-1))).all())
+            t_s = timeit(lambda: torch.sort(flat, stable=True))
+            line = lambda t: (f"bitonic 64K merge pass (16 of 136 stages): "  # noqa: E731
+                              f"{t * 1e6:.0f} us; torch.sort (key+val, a full sort, not the same function): "
+                              f"{'OK' if ok_s else 'BAD'} {t_s * 1e6:.0f} us")
         same = all(bool((a.cpu() == b).all()) for a, b in zip(got, want))
         if not same:
             print(f"{p}: kernel differs from its plain version", file=sys.stderr)
             ok = False
             continue
-        t = timeit(fn)
-        if p.startswith("chain"):
-            print(f"{p}: {t * 1e3:.3f} ms for {R} walks of {ntags} tags "
-                  f"-> {t / R / ntags * 1e9:.1f} ns/tag", flush=True)
-        elif p.startswith("vcopy"):
-            print(f"vcopy[{mode}]: {t * 1e3:.3f} ms for {count} records "
-                  f"-> {t / count * 1e9:.1f} ns/record", flush=True)
-        else:
-            print(f"coissue[nvec={nvec}]: {t * 1e3:.3f} ms for {hp.COISSUE_ITERS} iters "
-                  f"-> {t / hp.COISSUE_ITERS * 1e9:.1f} ns/iter", flush=True)
+        print(line(timeit(fn)), flush=True)
     return ok
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("-B", "--blocks", type=int, default=128)
-    ap.add_argument("probes", nargs="*", default=list(DECODE_PROBES) + [
-        p for p in MICRO_PROBES if p not in ("coissue1", "coissue2")])
+    ap.add_argument("probes", nargs="*", default=list(DEFAULT))
     args = ap.parse_args()
     for p in args.probes:
-        check_probe(p)
-    unknown = [p for p in args.probes if p not in PROBES]
-    if unknown:
-        ap.error(f"unknown probes {unknown}: choose from {PROBES}")
+        try:
+            check_probe(p)
+        except ValueError as e:
+            ap.error(str(e))
 
     import torch
 
