@@ -261,6 +261,23 @@ def best_host_ms(fn, passes: int = 3) -> float:
     return min(host_ms(fn) for _ in range(passes))
 
 
+def ptxas_figures(log: str, needle: str) -> list:
+    """ptxas's figures (``-Xptxas=-v``) for each kernel whose mangled name
+    holds ``needle``: registers, stack frame and spill bytes."""
+    figs, cur = {}, None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+            cur = figs.setdefault(name, {"function": name}) if needle in name else None
+        elif cur is not None and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and line.startswith("ptxas info") and "Used" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+    return list(figs.values())
+
+
 def max_abs_err(pairs) -> int:
     """Largest |a - b| over (kernel, plain) integer arrays of equal shape."""
     err = 0
@@ -373,6 +390,26 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
         blk = write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes()
         check(oracle.decompress(blk) == frags[i, :n].tobytes(), f"encode row {i} round trip")
     print(f"encode kernel == plain on {len(lens)} rows, max_abs_err {errs['encode']}")
+    # The same rows 1 byte into a larger buffer (the byte loader), and at
+    # width 65,535 with the last row full, ending at the buffer's end.
+    buf = torch.zeros(frags.size + 1, dtype=torch.uint8, device=dev)
+    view = buf[1:].view(frags.shape)
+    view.copy_(f_h.to(dev))
+    check(sc.encode_layout(view)["loader"] == "bytes", "an unaligned view takes the byte loader")
+    u_bodies, u_lens = (x.cpu().numpy() for x in sc.encode_blocks_bytes(view, l_h.to(dev)))
+    odd_f = np.concatenate([frags[:, : BLOCK - 1], frags[:1, : BLOCK - 1]])
+    odd_l = np.concatenate([np.minimum(lens, BLOCK - 1), [BLOCK - 1]]).astype(np.int32)
+    o_h, ol_h = torch.from_numpy(odd_f), torch.from_numpy(odd_l)
+    o_bodies, o_lens = (x.cpu().numpy() for x in sc.encode_blocks_bytes(o_h.to(dev), ol_h.to(dev)))
+    po_bodies, po_lens = (x.numpy() for x in sc.encode_blocks_plain(o_h, ol_h, sc.HASH_BITS, 32))
+    check((u_lens == p_lens).all() and (o_lens == po_lens).all(), "unaligned encode lengths")
+    err = max_abs_err(
+        [(u_lens, p_lens), (o_lens, po_lens)]
+        + [(u_bodies[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)]
+        + [(o_bodies[i, :n], po_bodies[i, :n]) for i, n in enumerate(po_lens)])
+    check(err == 0, "the encode kernel differs from its plain version on unaligned rows")
+    print(f"encode kernel == plain on the rows 1 byte into a buffer and on {len(odd_l)} rows of "
+          f"{BLOCK - 1} B, max_abs_err {err}")
 
     streams = corrupt_streams() + [
         write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes() for i, n in enumerate(lens)
@@ -504,8 +541,8 @@ def phase_facade(torch, st, block, native, prescan, _build, raw: bytes):
 
 def phase_liveness(torch, watch, _build):
     """Phase 0: the salted kernel compiles afresh, launches and agrees with
-    its plain version. Returns (max_abs_err, launches on the path, kernel
-    ms, plain ms on the CPU, ``torch.add`` ms on the card)."""
+    its plain version. Returns (max_abs_err, launches on the path, the
+    timings of :func:`watch_times`, plain ms on the CPU)."""
     salt = watch.fresh_salt()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -522,9 +559,68 @@ def phase_liveness(torch, watch, _build):
           f"max_abs_err {err}")
     x = x_h.cuda()
     with watch.salted_launcher(salt + 1) as fn:  # one more build, kept for the timing
-        ms = cuda_ms(lambda: watch.add_salt(x, salt + 1, fn), iters=50)
+        t = watch_times(torch, watch, fn, x, salt + 1)
+    print(json.dumps({"liveness_ms_per_call": t}))
     plain_ms = min(host_ms(lambda: watch.add_salt_plain(x_h, salt)) for _ in range(5))
-    return err, launches, ms, plain_ms, cuda_ms(lambda: torch.add(x, salt), iters=50)
+    return err, launches, t, plain_ms
+
+
+def watch_times(torch, watch, fn, x, salt: int, n: int = 50) -> dict:
+    """T21 beside ``torch.add(x, salt)`` on the same tensor, ms per call:
+    (a) ``cuda_ms`` over ``n`` calls back to back, host included; (b) the
+    bare launcher with the stream handle fetched once (CUDA events), and
+    each wrapper's host time alone (host clock over ``n`` calls, no wait);
+    (c) the device time of a launch: ``n`` launches captured in one CUDA
+    graph, replayed, over ``n``. Each graph's output is held to the plain
+    version."""
+    want = watch.add_salt_plain(x.cpu(), salt)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), y.data_ptr(), x.numel())
+
+    def bare():
+        check(fn(*args, stream) == 0, "the watch launcher failed")
+
+    def host_per_call(call):
+        call()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            best = min(best, (time.perf_counter() - t0) * 1e3 / n)
+            torch.cuda.synchronize()
+        return best
+
+    def graph_per_launch(capture):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            capture()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = [capture() for _ in range(n)]
+        return cuda_ms(g.replay, iters=10) / n, out[-1]
+
+    def capture_kernel():
+        check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0, "launch in capture")
+        return y
+
+    t = {
+        "a_add_salt": cuda_ms(lambda: watch.add_salt(x, salt, fn), iters=n),
+        "a_torch_add": cuda_ms(lambda: torch.add(x, salt), iters=n),
+        "b_bare_launcher": cuda_ms(bare, iters=n),
+        "b_add_salt_host": host_per_call(lambda: watch.add_salt(x, salt, fn)),
+        "b_torch_add_host": host_per_call(lambda: torch.add(x, salt)),
+    }
+    t["c_graph_kernel"], g_y = graph_per_launch(capture_kernel)
+    t["c_graph_torch_add"], g_add = graph_per_launch(lambda: torch.add(x, salt))
+    torch.cuda.synchronize()
+    check(bool((g_y.cpu() == want).all()) and bool((g_add.cpu() == want).all()),
+          "the graph-replayed kernel or torch.add differs from the plain version")
+    return t
 
 
 def stream_bytes(n_chunks: int) -> bytes:
@@ -1799,11 +1895,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
 
     # --- 0. liveness, before anything else is built ------------------------
-    errs_watch, watch_launches, watch_ms, watch_plain_ms, watch_library_ms = phase_liveness(
-        torch, watch, _build)
+    errs_watch, watch_launches, watch_t, watch_plain_ms = phase_liveness(torch, watch, _build)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    encode_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode", ""), "encode_kernel")
 
     # --- 2. each kernel against its plain version ------------------------
     errs, decode_streams = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
@@ -1872,6 +1968,8 @@ def main() -> int:
         "decode": cuda_ms(lambda: sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK)),
         "crc32c": cuda_ms(lambda: crc.crc32c_blocks(frags, lengths)),
     }
+    k2_layout = sc.encode_layout(frags)
+    print(json.dumps({"card": card, "encode_layout": k2_layout, "encode_ptxas": encode_ptxas}))
     # bench.py's metric: 2 * uncompressed bytes / (compress + decompress),
     # CRC32C not timed inside compress (bench.py:98-103, :156-160).
     gb = B * BLOCK / 1e9
@@ -1916,7 +2014,7 @@ def main() -> int:
     }))
     # --- 6. the framing format and the stream layers at full size ---------------
     stream_launches = phase_streams(torch, card)
-    ms["watch"] = watch_ms
+    ms["watch"] = watch_t["a_add_salt"]
 
     # --- 7. the decode-walk ablation and the scan engine at full size ------------
     errs_abl, ablation_launches, ms_abl, plain_abl = phase_ablation(
@@ -2005,7 +2103,7 @@ def main() -> int:
     # none computes Snappy, CRC32C or a match length. torch.sort stands
     # beside bitonic as the JAX tool's lax.sort does: a full sort, not the
     # same function.
-    library_ms = {"watch": watch_library_ms, "bitonic": sort_ms}
+    library_ms = {"watch": watch_t["a_torch_add"], "bitonic": sort_ms}
     by_path = {"liveness": watch_launches, "probe": probe_launches, "codec": codec_launches,
                "facade": facade_launches, "stream": stream_launches,
                "ablation": ablation_launches, "scan": scan_launches,
@@ -2026,6 +2124,10 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": moved[k], "bound_ops": ops[k], "library_ms": library_ms.get(k),
         })
+        if k == "watch":
+            rows[-1]["ms_by_method"] = watch_t
+        if k == "encode":
+            rows[-1]["layout"] = {**k2_layout, "ptxas": encode_ptxas}
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

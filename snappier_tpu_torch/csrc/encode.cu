@@ -5,66 +5,224 @@
 //
 // What bounds it: the greedy walk is serial per fragment (each probe group
 // depends on the table writes and the match end of the one before), so a
-// fragment's time is its probe count times the latency of a dependent
-// shared-memory round trip; 32 MiB in and about 7 MiB out at 3.35 TB/s is
-// about 12 us for the whole batch, far below the walk.
+// fragment's time is its probe groups times the latency of their dependent
+// loads; 32 MiB in and about 7 MiB out at 3.35 TB/s is about 12 us for the
+// whole batch, far below the walk. The card's time is then the waves of
+// fragments times one walk, and the walks an SM holds at once are what the
+// layout decides.
 //
-// What the design does about it: one block per fragment. The match table
-// (16-bit slots, 64 KiB at 15 hash bits) and the fragment itself (64 KiB)
-// live in dynamic shared memory, so every probe, verify and extension read
-// is a shared-memory load. All threads clear the table and stage the
-// fragment with coalesced loads; one thread then walks. 128 KiB of shared
-// memory per block leaves one block per SM, so 132 fragments walk at once.
+// What the design does about it: one block per fragment; only the match
+// table (16-bit slots, 64 KiB at 15 hash bits) lives in dynamic shared
+// memory, so three blocks fit an SM at 15 bits (396 walks at once on 132
+// SMs: 512 fragments in 2 waves) where a staged fragment beside the table
+// left one. The walk reads the fragment from device memory through the
+// read-only path, as aligned 32-bit words where the rows allow it
+// (sc::RowWords: base and width multiples of 16), a byte at a time
+// otherwise (sc::RowBytes); bytes at or past the length read as zero and
+// nothing past the row is read. All threads clear the table; thread 0
+// walks (sc::encode_fragment in scalar_codec.cuh, its probe group unrolled
+// in registers) and stores the tags straight into the body's row.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "scalar_codec.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 32;  // one warp: it clears the table, then lane 0 walks
 
-__global__ void encode_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
-                              const int32_t* __restrict__ lengths, int hash_bits,
-                              int32_t skip_base, uint8_t* __restrict__ bodies,
-                              int64_t body_w, int32_t* __restrict__ body_lens) {
+// Staged layout, for the measurement against the one above: the fragment
+// staged as words in shared memory beside the table (one block per SM at
+// 15 bits), read by the same walk as aligned shared words.
+constexpr int kStagedThreads = 256;
+
+struct SharedWords {
+  const uint32_t* s;
+  int32_t n;
+  uint32_t tail;
+  SC_HD SharedWords(const uint32_t* s_, int32_t n_) : s(s_), n(n_), tail(sc::live_mask(n_ & 3)) {}
+  SC_HD uint32_t word_in(int32_t k) const { return s[k]; }
+  SC_HD uint32_t word(int32_t k) const {
+    uint32_t v = 4 * k < n ? s[k] : 0u;
+    return k == (n >> 2) ? v & tail : v;
+  }
+  SC_HD uint32_t window(int32_t i) const {
+    return sc::funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
+  }
+};
+
+template <bool kWords>
+__global__ void __launch_bounds__(kThreads)
+    encode_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
+                  const int32_t* __restrict__ lengths, int hash_bits, int32_t skip_base,
+                  uint8_t* __restrict__ bodies, int64_t body_w,
+                  int32_t* __restrict__ body_lens) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem);
+  const int64_t b = blockIdx.x;
+  uint4* t4 = reinterpret_cast<uint4*>(table);
+  const int words = (int)((sizeof(uint16_t) << hash_bits) / sizeof(uint4));
+  const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int32_t n = lengths[b];
+  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
+  const uint8_t* row = frags + b * frag_w;
+  uint8_t* out = bodies + b * body_w;
+  if (kWords) {
+    body_lens[b] = sc::encode_fragment(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n},
+                                       n, table, hash_bits, skip_base, out);
+  } else {
+    body_lens[b] = sc::encode_fragment(sc::RowBytes{row, n}, n, table, hash_bits, skip_base, out);
+  }
+}
+
+__global__ void __launch_bounds__(kStagedThreads)
+    encode_staged_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
+                         const int32_t* __restrict__ lengths, int hash_bits, int32_t skip_base,
+                         uint8_t* __restrict__ bodies, int64_t body_w,
+                         int32_t* __restrict__ body_lens) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* table = reinterpret_cast<uint16_t*>(smem);
   uint8_t* s = smem + (sizeof(uint16_t) << hash_bits);
   const int64_t b = blockIdx.x;
   int32_t n = lengths[b];
   n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
-
   uint4* t4 = reinterpret_cast<uint4*>(table);
   const int words = (int)((sizeof(uint16_t) << hash_bits) / sizeof(uint4));
   const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
   for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
-  // Bytes past n read as zero (8 of them are read at most).
-  const uint8_t* row = frags + b * frag_w;
-  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
+  const uint4* row4 = reinterpret_cast<const uint4*>(frags + b * frag_w);
+  uint4* s4 = reinterpret_cast<uint4*>(s);
+  for (int32_t i = threadIdx.x; i < (int32_t)(frag_w / 16); i += blockDim.x) s4[i] = row4[i];
+  if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(s + frag_w)[threadIdx.x] = 0u;
   __syncthreads();
-
   if (threadIdx.x == 0) {
-    body_lens[b] = sc::encode_fragment(s, n, table, hash_bits, skip_base,
-                                       bodies + b * body_w);
+    body_lens[b] = sc::encode_fragment(SharedWords{reinterpret_cast<const uint32_t*>(s), n}, n,
+                                       table, hash_bits, skip_base, bodies + b * body_w);
   }
+}
+
+// Sets the kernel's shared-memory attributes for hash_bits when they were
+// last set for another width (once per process at a fixed width): the
+// dynamic size, and a carveout that holds as many blocks as fit an SM and
+// leaves the rest to L1, which caches the fragments' reads.
+template <class Kernel>
+cudaError_t configure(Kernel kernel, std::atomic<int>& set_for, int hash_bits, size_t smem,
+                      int threads) {
+  if (set_for.load() == hash_bits) return cudaSuccess;
+  int dev = 0, per_sm = 0, reserved = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  }
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  size_t per_block = smem + (size_t)reserved;
+  size_t fit = (size_t)per_sm / per_block;
+  size_t by_threads = 2048 / threads;  // and at most 32 blocks an SM
+  fit = fit < by_threads ? fit : by_threads;
+  fit = fit < 32 ? fit : 32;
+  fit = fit < 1 ? 1 : fit;
+  int carveout = (int)((fit * per_block * 100 + per_sm - 1) / per_sm);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           carveout > 100 ? 100 : carveout);
+  if (e == cudaSuccess) set_for.store(hash_bits);
+  return e;
+}
+
+std::atomic<int> g_set_words{-1}, g_set_bytes{-1}, g_set_staged{-1};
+
+size_t table_bytes(int hash_bits) { return sizeof(uint16_t) << hash_bits; }
+
+bool word_rows(const void* frags, int64_t frag_w) {
+  return ((uintptr_t)frags % 16) == 0 && frag_w % 16 == 0;
 }
 
 }  // namespace
 
-// frags: uint8[B, frag_w]; lengths, body_lens: int32[B];
-// bodies: uint8[B, body_w] with body_w >= frag_w + frag_w / 65 + 8.
+// frags: uint8[B, frag_w], any address and width; lengths, body_lens:
+// int32[B]; bodies: uint8[B, body_w] with body_w >= frag_w + frag_w / 65 + 11
+// (the greedy emission bound and the 3 bytes a tag may store past it).
 extern "C" int snappy_encode_launch(const void* frags, int64_t frag_w, const void* lengths,
                                     int64_t batch, int32_t hash_bits, int32_t skip_base,
                                     void* bodies, int64_t body_w, void* body_lens,
                                     void* stream) {
   if (batch == 0) return 0;
-  size_t smem = (sizeof(uint16_t) << hash_bits) + (size_t)((frag_w + 8 + 15) & ~15);
-  cudaError_t e = cudaFuncSetAttribute(encode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  size_t smem = table_bytes(hash_bits);
+  cudaError_t e;
+  if (word_rows(frags, frag_w)) {
+    e = configure(encode_kernel<true>, g_set_words, hash_bits, smem, kThreads);
+    if (e != cudaSuccess) return (int)e;
+    encode_kernel<true><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
+        (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+  } else {
+    e = configure(encode_kernel<false>, g_set_bytes, hash_bits, smem, kThreads);
+    if (e != cudaSuccess) return (int)e;
+    encode_kernel<false><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
+        (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The launch's layout for rows at frags of width frag_w: out[0] blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes
+// the launch sets), out[1] dynamic shared bytes per block, out[2] threads
+// per block, out[3] 1 for the word loader and 0 for the byte loader.
+extern "C" int snappy_encode_layout(const void* frags, int64_t frag_w, int32_t hash_bits,
+                                    int32_t* out) {
+  size_t smem = table_bytes(hash_bits);
+  bool words = word_rows(frags, frag_w);
+  cudaError_t e;
+  int nb = 0;
+  if (words) {
+    e = configure(encode_kernel<true>, g_set_words, hash_bits, smem, kThreads);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<true>, kThreads, smem);
+    }
+  } else {
+    e = configure(encode_kernel<false>, g_set_bytes, hash_bits, smem, kThreads);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<false>, kThreads,
+                                                        smem);
+    }
+  }
+  out[0] = nb;
+  out[1] = (int32_t)smem;
+  out[2] = kThreads;
+  out[3] = words ? 1 : 0;
+  return (int)e;
+}
+
+// The staged layout (word rows only), same arguments as snappy_encode_launch;
+// out as snappy_encode_layout's, written at every call.
+extern "C" int snappy_encode_staged_launch(const void* frags, int64_t frag_w, const void* lengths,
+                                           int64_t batch, int32_t hash_bits, int32_t skip_base,
+                                           void* bodies, int64_t body_w, void* body_lens,
+                                           int32_t* out, void* stream) {
+  if (!word_rows(frags, frag_w)) return (int)cudaErrorInvalidValue;
+  size_t smem = table_bytes(hash_bits) + (size_t)frag_w + 16;
+  cudaError_t e = configure(encode_staged_kernel, g_set_staged, hash_bits, smem, kStagedThreads);
   if (e != cudaSuccess) return (int)e;
-  encode_kernel<<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+  int nb = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_staged_kernel, kStagedThreads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = nb;
+  out[1] = (int32_t)smem;
+  out[2] = kStagedThreads;
+  out[3] = 1;
+  if (batch == 0) return 0;
+  encode_staged_kernel<<<(unsigned)batch, kStagedThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
       (uint8_t*)bodies, body_w, (int32_t*)body_lens);
   return (int)cudaGetLastError();

@@ -65,16 +65,6 @@ struct DynWalk {
   SC_HD uint32_t mask() const { return m; }
 };
 
-// A copy tag of length 4..64 that always stores 3 bytes; the third is
-// overwritten by the next tag when the tag has 2.
-SC_HD int32_t emit_copy_upto64_bfree(uint8_t* out, int32_t op, int32_t off, int32_t len) {
-  bool is1 = len <= 11 && off < 2048;
-  out[op] = (uint8_t)(is1 ? (1 | ((len - 4) << 2) | ((off >> 8) << 5)) : (2 | ((len - 1) << 2)));
-  out[op + 1] = (uint8_t)(off & 0xFF);
-  out[op + 2] = (uint8_t)((off >> 8) & 0xFF);
-  return op + (is1 ? 2 : 3);
-}
-
 // Emission of one literal run and one copy under a mask: stores and the new
 // output position, or the position alone.
 struct VariantEmitter {

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #ifndef __CUDACC__
 #define __host__
@@ -174,25 +175,106 @@ SC_HD uint32_t hash32(uint32_t key, int hash_bits) {
   return (key * HASH_MUL) >> (32 - hash_bits);
 }
 
+// The low 32 bits of (hi:lo) >> sh, sh in [0, 31].
+SC_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, uint32_t sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, sh);
+#else
+  return (uint32_t)(((((uint64_t)hi) << 32) | lo) >> (sh & 31));
+#endif
+}
+
+// Of word k of a fragment of n bytes (bytes 4k .. 4k + 3), the bytes below
+// n: r = n - 4k of them.
+SC_HD uint32_t live_mask(int32_t r) {
+  return r >= 4 ? 0xFFFFFFFFu : (r <= 0 ? 0u : (1u << (8 * r)) - 1u);
+}
+
+// Fragment loaders of the greedy walk. word(k) is the little-endian 32-bit
+// word of bytes 4k .. 4k + 3 and window(i) the one of bytes i .. i + 3;
+// bytes at or past n read as zero, and no loader reads a byte at or past n
+// of its row, so the last row of a batch may end where its buffer ends.
+// word_in(k) is word(k) for a caller that knows all four bytes lie below
+// n: one load, no test.
+//
+// A staged fragment: s holds n bytes and at least 4 readable bytes more.
+struct PaddedBytes {
+  const uint8_t* s;
+  int32_t n;
+  uint32_t tail;  // the live bytes of word n >> 2
+  SC_HD PaddedBytes(const uint8_t* s_, int32_t n_) : s(s_), n(n_), tail(live_mask(n_ & 3)) {}
+  SC_HD uint32_t word_in(int32_t k) const { return load32(s, 4 * k); }
+  SC_HD uint32_t word(int32_t k) const {
+    uint32_t v = 4 * k < n ? word_in(k) : 0u;
+    return k == (n >> 2) ? v & tail : v;
+  }
+  SC_HD uint32_t window(int32_t i) const {
+    return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
+  }
+};
+
+// A row in device memory whose base is 4-byte aligned, read as aligned
+// words through the read-only path: a window is two word loads and a
+// funnel shift. A word holding byte n - 1 is read whole, so the row's
+// width must be a multiple of 4.
+struct RowWords {
+  const uint32_t* w;
+  int32_t n;
+  uint32_t tail;
+  SC_HD RowWords(const uint32_t* w_, int32_t n_) : w(w_), n(n_), tail(live_mask(n_ & 3)) {}
+  SC_HD uint32_t word_in(int32_t k) const {
+#ifdef __CUDA_ARCH__
+    return __ldg(w + k);
+#else
+    uint32_t v;
+    memcpy(&v, w + k, 4);
+    return v;
+#endif
+  }
+  SC_HD uint32_t word(int32_t k) const {
+    uint32_t v = 4 * k < n ? word_in(k) : 0u;
+    return k == (n >> 2) ? v & tail : v;
+  }
+  SC_HD uint32_t window(int32_t i) const {
+    return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
+  }
+};
+
+// A row in device memory at any address and width, read a byte at a time.
+struct RowBytes {
+  const uint8_t* p;
+  int32_t n;
+  SC_HD RowBytes(const uint8_t* p_, int32_t n_) : p(p_), n(n_) {}
+  SC_HD uint32_t ld(int32_t i) const {
+#ifdef __CUDA_ARCH__
+    return (uint32_t)__ldg(p + i);
+#else
+    return (uint32_t)p[i];
+#endif
+  }
+  SC_HD uint32_t byte(int32_t i) const { return i < n ? ld(i) : 0u; }
+  SC_HD uint32_t word_in(int32_t k) const {
+    int32_t i = 4 * k;
+    return ld(i) | (ld(i + 1) << 8) | (ld(i + 2) << 16) | (ld(i + 3) << 24);
+  }
+  SC_HD uint32_t window(int32_t i) const {
+    return byte(i) | (byte(i + 1) << 8) | (byte(i + 2) << 16) | (byte(i + 3) << 24);
+  }
+  SC_HD uint32_t word(int32_t k) const { return window(4 * k); }
+};
+
 // Full match length at `at` against `cand` (whose first 4 bytes equal), in
 // [4, n - at]: the stride-8 walk of scalar_codec.py::_match_extension.
 // key(i) is the little-endian 32-bit window at byte i; seed(pos) runs at
 // pos = at + 4 and at each stride-8 step before its compare, where the fast
 // encoder writes its table.
+//
+// extend_match_from continues the walk from its state after the first
+// step (m, go and the last step's first compare, eq0l), for a caller that
+// made that step from words it already holds.
 template <class Key, class Seed>
-SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed seed) {
-  bool has12 = at + 12 <= n;
-  int32_t m = 4;
-  bool go = true;
-  bool eq0l = true;
-  if (has12) {
-    seed(at + 4);
-    bool eq0w = key(at + 4) == key(cand + 4);
-    bool eq1w = key(at + 8) == key(cand + 8);
-    m = 12;
-    go = eq0w && eq1w;
-    eq0l = eq0w;
-  }
+SC_HD int32_t extend_match_from(Key key, int32_t at, int32_t cand, int32_t n, Seed seed,
+                                int32_t m, bool go, bool eq0l) {
   while (go && at + m + 8 <= n) {
     seed(at + m);
     bool eq0 = key(at + m) == key(cand + m);
@@ -210,6 +292,15 @@ SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed se
     m += ((x & 0xFFu) == 0) + ((x & 0xFFFFu) == 0) + ((x & 0xFFFFFFu) == 0);
   }
   return m < n - at ? m : n - at;
+}
+
+template <class Key, class Seed>
+SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed seed) {
+  if (at + 12 > n) return extend_match_from(key, at, cand, n, seed, 4, true, true);
+  seed(at + 4);
+  bool eq0w = key(at + 4) == key(cand + 4);
+  bool eq1w = key(at + 8) == key(cand + 8);
+  return extend_match_from(key, at, cand, n, seed, 12, eq0w && eq1w, eq0w);
 }
 
 // extend_match over a staged fragment s. With a table it seeds
@@ -280,16 +371,82 @@ SC_HD int32_t emit_copy(uint8_t* out, int32_t op, int32_t off, int32_t len) {
   return emit_copy_upto64(out, op, off, len);
 }
 
-// Greedy LZ77 over one fragment of n bytes; returns the tag stream's length.
+// A copy tag of length 4..64 that always stores 3 bytes; the third is
+// overwritten by the next tag when the tag has 2, or lies past the stream.
+SC_HD int32_t emit_copy_upto64_bfree(uint8_t* out, int32_t op, int32_t off, int32_t len) {
+  bool is1 = len <= 11 && off < 2048;
+  out[op] = (uint8_t)(is1 ? (1 | ((len - 4) << 2) | ((off >> 8) << 5)) : (2 | ((len - 1) << 2)));
+  out[op + 1] = (uint8_t)(off & 0xFF);
+  out[op + 2] = (uint8_t)((off >> 8) & 0xFF);
+  return op + (is1 ? 2 : 3);
+}
+
+// emit_copy's tags through emit_copy_upto64_bfree.
+SC_HD int32_t emit_copy_bfree(uint8_t* out, int32_t op, int32_t off, int32_t len) {
+  while (len >= 68) {
+    op = emit_copy_upto64_bfree(out, op, off, 64);
+    len -= 64;
+  }
+  if (len > 64) {
+    op = emit_copy_upto64_bfree(out, op, off, 60);
+    len -= 60;
+  }
+  return emit_copy_upto64_bfree(out, op, off, len);
+}
+
+// emit_literal with the payload read through a fragment loader, one word
+// and four byte stores at a time: up to 3 bytes past the literal are
+// stored too, which the next tag overwrites or which lie past the stream.
+template <class Ld, class = decltype(&Ld::word)>
+SC_HD int32_t emit_literal(uint8_t* out, int32_t op, const Ld& ld, int32_t start,
+                           int32_t lit_len) {
+  int32_t lm1 = lit_len - 1;
+  int32_t extra = lit_len > 256 ? 2 : (lit_len > 60 ? 1 : 0);
+  out[op] = (uint8_t)(extra == 0 ? lm1 << 2 : (59 + extra) << 2);
+  if (extra >= 1) out[op + 1] = (uint8_t)(lm1 & 0xFF);
+  if (extra == 2) out[op + 2] = (uint8_t)((lm1 >> 8) & 0xFF);
+  op += 1 + extra;
+  int32_t k = start >> 2;
+  const uint32_t sh = 8u * (uint32_t)(start & 3);
+  uint32_t lo = ld.word(k);
+  for (int32_t i = 0; i < lit_len; i += 4) {
+    uint32_t hi = ld.word(++k);
+    uint32_t v = funnel_r(lo, hi, sh);
+    out[op + i] = (uint8_t)v;
+    out[op + i + 1] = (uint8_t)(v >> 8);
+    out[op + i + 2] = (uint8_t)(v >> 16);
+    out[op + i + 3] = (uint8_t)(v >> 24);
+    lo = hi;
+  }
+  return op + lit_len;
+}
+
+// Greedy LZ77 over one fragment of n bytes read through a loader (PaddedBytes,
+// RowWords, RowBytes); returns the tag stream's length.
 //
-// s holds the fragment followed by at least 4 readable bytes (their values
-// never change the result). table holds 1 << hash_bits slots, all EMPTY on
-// entry: a fresh table is what the reference's epoch-tagged table amounts
-// to, since every slot another block wrote fails its epoch check
-// (scalar_codec.py:813-816). Positions stay below 65536, so a slot is 16
-// bits and EMPTY is never a position (ip + 3 < n - 12).
-SC_HD int32_t encode_fragment(const uint8_t* s, int32_t n, uint16_t* table,
-                              int hash_bits, int32_t skip_base, uint8_t* out) {
+// table holds 1 << hash_bits slots, all EMPTY on entry: a fresh table is
+// what the reference's epoch-tagged table amounts to, since every slot
+// another block wrote fails its epoch check (scalar_codec.py:813-816).
+// Positions stay below 65536, so a slot is 16 bits and EMPTY is never a
+// position (ip + 3 < n - 12). out holds the bound of greedy emission plus
+// 3 bytes: a literal's payload and a copy tag may store up to 3 bytes past
+// their end (emit_literal above, emit_copy_bfree).
+//
+// The probe group is unrolled so that every array lives in registers.
+// Five words cover ip .. ip + 16 and give a[j], the window at ip + 4j, so
+// each position's key, the windows of the first extension step and the
+// seed after it are funnel shifts by constants. A candidate's four words,
+// loaded at once, give its verify and its side of the first extension
+// step, so a hit costs three dependent loads before the extension: the
+// words at ip, the table slots, the candidate's words.
+template <class Ld, class = decltype(&Ld::word_in)>
+SC_HD int32_t encode_fragment(const Ld& ld, int32_t n, uint16_t* table, int hash_bits,
+                              int32_t skip_base, uint8_t* out) {
+  auto key = [&](int32_t i) { return ld.window(i); };
+  auto seed = [&](int32_t pos) {
+    int32_t p = pos - 3 < n - 5 ? pos - 3 : n - 5;
+    table[hash32(ld.window(p), hash_bits)] = (uint16_t)p;
+  };
   int32_t ip = n < 1 ? n : 1;
   int32_t lit_start = 0;
   int32_t op = 0;
@@ -297,47 +454,87 @@ SC_HD int32_t encode_fragment(const uint8_t* s, int32_t n, uint16_t* table,
   while (ip + INPUT_MARGIN < n) {
     // Quad probe (scalar_codec.py:1007-1043): read four slots, then write
     // them in order (the last write wins on a collision), then take the
-    // first position whose candidate verifies.
-    uint32_t cur[4];
-    uint32_t h[4];
+    // first position whose candidate verifies. Words k .. k + 3 end at
+    // ip + 15 at most, below n; word k + 4 may pass it.
+    const int32_t k = ip >> 2;
+    uint32_t w[5], a[4], cur[4], h[4];
     int32_t ent[4];
+#pragma unroll
+    for (int j = 0; j < 4; j++) w[j] = ld.word_in(k + j);
+    w[4] = ld.word(k + 4);
+#pragma unroll
+    for (int j = 0; j < 4; j++) a[j] = funnel_r(w[j], w[j + 1], 8u * (uint32_t)(ip & 3));
+#pragma unroll
     for (int d = 0; d < 4; d++) {
-      cur[d] = load32(s, ip + d);
+      cur[d] = funnel_r(a[0], a[1], 8u * d);
       h[d] = hash32(cur[d], hash_bits);
     }
+#pragma unroll
     for (int d = 0; d < 4; d++) ent[d] = table[h[d]];
+#pragma unroll
     for (int d = 0; d < 4; d++) table[h[d]] = (uint16_t)(ip + d);
-    int d_first = -1;
-    int32_t cand_first = 0;
-    for (int d = 0; d < 4 && d_first < 0; d++) {
-      bool ok = ent[d] != EMPTY && ent[d] < ip + d && load32(s, ent[d]) == cur[d];
-      int32_t cand = ok ? ent[d] : 0;
+    bool found = false;
+    int32_t at = 0, cand = 0;
+    uint32_t at4 = 0, at8 = 0, c4 = 0, c8 = 0, s1 = 0;
+#pragma unroll
+    for (int d = 0; d < 4; d++) {
+      if (found) continue;
+      int32_t eq = -1;  // the nearest earlier position with an equal key wins
+#pragma unroll
       for (int i = 0; i < d; i++) {
-        if (cur[i] == cur[d]) {  // the nearest earlier equal key wins
-          cand = ip + i;
-          ok = true;
+        if (cur[i] == cur[d]) eq = i;
+      }
+      if (eq >= 0) {
+        found = true;
+        cand = ip + eq;
+        c4 = funnel_r(a[1], a[2], 8u * (uint32_t)eq);
+        c8 = funnel_r(a[2], a[3], 8u * (uint32_t)eq);
+      } else if (ent[d] < ip + d) {  // EMPTY fails: ip + d < 65536 - 12
+        // The candidate's words: bytes up to ent + 11 <= ip + 13 lie below
+        // n, the fourth word may pass it.
+        const int32_t e = ent[d];
+        const uint32_t csh = 8u * (uint32_t)(e & 3);
+        uint32_t c0 = ld.word_in(e >> 2), c1 = ld.word_in((e >> 2) + 1);
+        uint32_t c2 = ld.word_in((e >> 2) + 2), c3 = ld.word((e >> 2) + 3);
+        if (funnel_r(c0, c1, csh) == cur[d]) {
+          found = true;
+          cand = e;
+          c4 = funnel_r(c1, c2, csh);
+          c8 = funnel_r(c2, c3, csh);
         }
       }
-      if (ok) {
-        d_first = d;
-        cand_first = cand;
+      if (found) {
+        at = ip + d;
+        at4 = funnel_r(a[1], a[2], 8u * d);
+        at8 = funnel_r(a[2], a[3], 8u * d);
+        s1 = d < 3 ? funnel_r(a[0], a[1], 8u * (d + 1)) : a[1];
       }
     }
-    if (d_first < 0) {
+    if (!found) {
       ip += 3 + (skip >> 5);
       skip += 1;
       continue;
     }
-    int32_t at = ip + d_first;
-    int32_t m = match_extension(s, at, cand_first, n, table, hash_bits);
-    if (at > lit_start) op = emit_literal(out, op, s, lit_start, at - lit_start);
-    op = emit_copy(out, op, at - cand_first, m);
+    // extend_match's first step from the words in hand (at + 12 <= n here):
+    // the seed at pos = at + 4 stores at + 1, then two compares.
+    table[hash32(s1, hash_bits)] = (uint16_t)(at + 1);
+    bool eq0 = at4 == c4;
+    int32_t m = extend_match_from(key, at, cand, n, seed, 12, eq0 && at8 == c8, eq0);
+    if (at > lit_start) op = emit_literal(out, op, ld, lit_start, at - lit_start);
+    op = emit_copy_bfree(out, op, at - cand, m);
     ip = at + m;
     lit_start = ip;
     skip = skip_base;
   }
-  if (n > lit_start) op = emit_literal(out, op, s, lit_start, n - lit_start);
+  if (n > lit_start) op = emit_literal(out, op, ld, lit_start, n - lit_start);
   return op;
+}
+
+// The greedy walk over a staged fragment: s holds n bytes followed by at
+// least 4 readable bytes (their values never change the result).
+SC_HD int32_t encode_fragment(const uint8_t* s, int32_t n, uint16_t* table, int hash_bits,
+                              int32_t skip_base, uint8_t* out) {
+  return encode_fragment(PaddedBytes{s, n}, n, table, hash_bits, skip_base, out);
 }
 
 // The level="best" walk over one fragment of n bytes (scalar_codec.py

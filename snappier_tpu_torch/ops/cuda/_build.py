@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -46,6 +46,11 @@ SOURCES = {
     "encode": (
         "snappy_encode_launch",
         [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P],
+    ),
+    "encode_layout": ("snappy_encode_layout", [_P, _I64, _I32, _P]),
+    "encode_staged": (
+        "snappy_encode_staged_launch",
+        [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P, _P],
     ),
     "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
     "encode_best": (
@@ -84,10 +89,13 @@ SOURCES = {
 #: The source of each launcher that is not ``csrc/<launcher>.cu``.
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff")},
-                 "bitonic": "bitonic_probe"}
+                 "bitonic": "bitonic_probe", "encode_layout": "encode", "encode_staged": "encode"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
+#: nvcc's output (ptxas's registers, stack, spills and shared memory per
+#: kernel) for each source this process built, by source stem.
+BUILD_LOG: dict = {}
 
 _lock = threading.Lock()
 _launchers: dict = {}
@@ -128,13 +136,14 @@ def start_nvcc(name: str, out: pathlib.Path, defines: tuple = ()):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
-def finish_nvcc(proc, what: str) -> None:
-    """Wait for an nvcc run and raise with its output if it failed."""
+def finish_nvcc(proc, what: str) -> str:
+    """Wait for an nvcc run, raise with its output if it failed, and
+    return the output."""
     out, _ = proc.communicate()
+    text = out.decode(errors="replace")
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {what} ({proc.returncode}):\n" + out.decode(errors="replace")
-        )
+        raise RuntimeError(f"nvcc failed for {what} ({proc.returncode}):\n" + text)
+    return text
 
 
 def _start_build(name: str):
@@ -147,11 +156,11 @@ def _start_build(name: str):
     return (start_nvcc(name, tmp), tmp), path
 
 
-def _finish_build(started, path: pathlib.Path) -> None:
+def _finish_build(name: str, started, path: pathlib.Path) -> None:
     if started is None:
         return
     proc, tmp = started
-    finish_nvcc(proc, path.name)
+    BUILD_LOG[name] = finish_nvcc(proc, path.name)
     os.replace(tmp, path)  # atomic: a concurrent builder sees a whole file
 
 
@@ -170,8 +179,8 @@ def build_all() -> None:
         todo = [n for n in SOURCES if n not in _launchers]
         started = [(s, *_start_build(s)) for s in sorted({source_of(n) for n in todo})]
         try:
-            for _, st, path in started:
-                _finish_build(st, path)
+            for src, st, path in started:
+                _finish_build(src, st, path)
         finally:
             for _, st, _ in started:
                 if st is not None and st[0].poll() is None:
@@ -197,11 +206,21 @@ def launch(name: str, device, *args, count_as: str | None = None) -> None:
 
 
 def launch_bound(fn, name: str, device, *args) -> None:
-    """:func:`launch` for a launcher bound by the caller."""
+    """:func:`launch` for a launcher bound by the caller. On the current
+    device it reads the current stream's handle (a graph capture's stream
+    inside a capture) and calls at once; another device is made current
+    for the call."""
     import torch
 
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    cur = torch._C._cuda_getDevice()
+    idx = cur if device.index is None else device.index
+    if idx == cur:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with cudaError {rc}")
     LAUNCHES[name] += 1

@@ -19,6 +19,8 @@ step.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -392,6 +394,46 @@ def encode_blocks_bytes(frags, lengths, hash_bits: int = HASH_BITS, skip_base: i
         hash_bits, skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
     )
     return bodies, body_lens
+
+
+def encode_layout(frags, hash_bits: int = HASH_BITS) -> dict:
+    """The encode kernel's launch layout for these rows on their CUDA
+    device, as :func:`encode_blocks_bytes` launches it: ``blocks_per_sm``
+    (the CUDA occupancy calculator's count under the attributes the launch
+    sets), ``smem_bytes`` of dynamic shared memory and ``threads`` per
+    block, and ``loader``: ``"words"`` (base and width multiples of 16) or
+    ``"bytes"``."""
+    frags = byte_rows(frags, "frags")
+    if not 8 <= hash_bits <= 16:
+        raise ValueError(f"hash_bits must be in [8, 16], got {hash_bits}")
+    if not on_cuda(frags):
+        raise ValueError("the layout is the CUDA kernel's: frags must be on a CUDA device")
+    out = (ctypes.c_int32 * 4)()
+    with torch.cuda.device(frags.device):
+        rc = _build.launcher("encode_layout")(frags.data_ptr(), frags.shape[1], hash_bits, out)
+    if rc != 0:
+        raise RuntimeError(f"encode layout query failed with cudaError {rc}")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "threads": out[2],
+            "loader": "words" if out[3] else "bytes"}
+
+
+def _encode_staged(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32):
+    """The encode walk with the fragment staged in shared memory beside the
+    table (rows of a 16-byte multiple width at a 16-byte aligned base), for
+    the layout measurement. Returns ``(bodies, body_lens, layout)``."""
+    frags = byte_rows(frags, "frags")
+    B, F = frags.shape
+    lengths = lengths_vector(lengths, B, "lengths")
+    W = body_width(F)
+    bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
+    body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
+    out = (ctypes.c_int32 * 4)()
+    _build.launch(
+        "encode_staged", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+        hash_bits, skip_base, bodies.data_ptr(), W, body_lens.data_ptr(), out,
+    )
+    return bodies, body_lens, {"blocks_per_sm": out[0], "smem_bytes": out[1],
+                               "threads": out[2]}
 
 
 def encode_blocks_scalar(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32,

@@ -55,7 +55,9 @@ def add_salt(x: torch.Tensor, salt: int, launcher=None) -> torch.Tensor:
     """``x + salt`` for an int32 tensor. A CUDA tensor goes through the
     kernel compiled for ``salt``: ``launcher`` if given (from
     :func:`salted_launcher` with the same salt), else one built for this
-    call. A CPU tensor takes the plain version."""
+    call. A CPU tensor takes the plain version. With a launcher the call
+    holds no state across calls: it reads the current stream at each one,
+    so it may be captured in a CUDA graph."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
         raise ValueError("x must be an int32 tensor")
     if not -(1 << 31) <= salt < 1 << 31:
@@ -64,8 +66,10 @@ def add_salt(x: torch.Tensor, salt: int, launcher=None) -> torch.Tensor:
     if not on_cuda(x):
         return add_salt_plain(x, salt)
     y = torch.empty_like(x)
-    with contextlib.ExitStack() as stack:
-        fn = launcher or stack.enter_context(salted_launcher(salt))
+    if launcher is not None:
+        _build.launch_bound(launcher, "watch", x.device, x.data_ptr(), y.data_ptr(), x.numel())
+        return y
+    with salted_launcher(salt) as fn:
         _build.launch_bound(fn, "watch", x.device, x.data_ptr(), y.data_ptr(), x.numel())
     return y
 

@@ -30,6 +30,7 @@ from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda import encode_variants as ev
 from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
@@ -216,6 +217,55 @@ def test_cuda_device_alive_compiles_afresh(cuda_device):
         assert watch.add_salt(x.to(cuda_device), 9, fn)[0, 0].item() == 7
     with pytest.raises(ValueError):
         watch.add_salt(x.to(cuda_device).long(), 1)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 4099, 4194311, 8388608])
+@pytest.mark.parametrize("where", ["aligned", "misaligned_y", "misaligned_x"])
+def test_cuda_watch_sizes_match_plain(cuda_device, n, where):
+    """T21's 16-byte path (n a multiple of 4, both pointers aligned), its
+    word path (any other n or a pointer 4 bytes off), and the grid-stride
+    loop past 1,024 blocks of 256 threads."""
+    x_buf = torch.arange(n + 1, dtype=torch.int32, device=cuda_device) * 3 - 7
+    y_buf = torch.full((n + 1,), -1, dtype=torch.int32, device=cuda_device)
+    x = x_buf[1:] if where == "misaligned_x" else x_buf[:n]
+    y = y_buf[1:] if where == "misaligned_y" else y_buf[:n]
+    with watch.salted_launcher(11) as fn:
+        _build.reset_launches()
+        _build.launch_bound(fn, "watch", cuda_device, x.data_ptr(), y.data_ptr(), n)
+        got = watch.add_salt(x, 11, fn)
+        torch.cuda.synchronize()
+    want = watch.add_salt_plain(x.cpu(), 11)
+    assert (y.cpu() == want).all() and (got.cpu() == want).all()
+    assert dict(_build.LAUNCHES) == {"watch": 2}
+    if where == "misaligned_y":
+        assert y_buf[0].item() == -1  # nothing stored before y
+    else:
+        assert y_buf[n].item() == -1  # nothing stored past y
+
+
+@pytest.mark.parametrize("hash_bits", [8, 12, 15, 16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_encode_unaligned_rows_match_plain(cuda_device, offset, hash_bits):
+    """K2 on a frags view 1-3 bytes into a larger buffer, at widths 65,535
+    and 65,536, the last row full and ending at the buffer's end (the byte
+    loader), then on the aligned rows (the word loader)."""
+    for F in (65535, 65536):
+        frags, lens = encode_rows(F, seed=offset)
+        frags = np.concatenate([frags, np.tile(np.arange(5), F)[None, :F]]).astype(np.uint8)
+        lens = np.concatenate([lens, [F]]).astype(np.int32)
+        buf = torch.zeros(frags.size + offset, dtype=torch.uint8, device=cuda_device)
+        view = buf[offset:].view(frags.shape)
+        view.copy_(_t(frags).to(cuda_device))
+        assert sc.encode_layout(view, hash_bits)["loader"] == "bytes"
+        want_b, want_l = encode_blocks_plain(_t(frags), _t(lens), hash_bits, 32)
+        for rows in (view, _t(frags).to(cuda_device)):
+            got_b, got_l = encode_blocks_bytes(rows, _t(lens).to(cuda_device),
+                                               hash_bits=hash_bits)
+            assert (got_l.cpu() == want_l).all()
+            _rows_equal(got_b, want_b, want_l)
+    layout = sc.encode_layout(_t(frags).to(cuda_device), hash_bits)
+    assert layout["loader"] == "words" and layout["smem_bytes"] == 2 << hash_bits
+    assert layout["blocks_per_sm"] >= (3 if hash_bits <= 15 else 1)
 
 
 def test_cuda_stream_matches_cpu(cuda_device, monkeypatch):

@@ -43,6 +43,7 @@ from tests.torch_cases import (
     best_rows,
     corrupt_streams,
     encode_rows,
+    html_like,
     pack_streams,
     planted_matches,
     tag_sweep_sample,
@@ -52,7 +53,11 @@ from tests.torch_cases import (
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "snappier_tpu_torch" / "csrc"
 
 SHIM = r"""
+#include <sys/mman.h>
+#include <unistd.h>
+
 #include <condition_variable>
+#include <cstring>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -540,6 +545,46 @@ extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t*
   }
 }
 
+// The rows copied `offset` bytes into a buffer whose last byte lies just
+// below a page the process may not read, then each through the greedy walk
+// as the encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. A
+// read past the buffer faults. Returns 0, or -1 if the buffer was refused.
+extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                int64_t batch, int32_t offset, int32_t loader,
+                                int32_t hash_bits, int32_t skip_base, uint8_t* bodies,
+                                int64_t body_w, int32_t* body_lens) {
+  const size_t page = (size_t)sysconf(_SC_PAGESIZE);
+  const size_t bytes = (size_t)offset + (size_t)(batch * frag_w);
+  const size_t span = (bytes + page - 1) / page * page;
+  void* mem = mmap(nullptr, span + page, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS,
+                   -1, 0);
+  if (mem == MAP_FAILED) return -1;
+  uint8_t* guard = static_cast<uint8_t*>(mem) + span;
+  if (mprotect(guard, page, PROT_NONE) != 0) {
+    munmap(mem, span + page);
+    return -1;
+  }
+  uint8_t* buf = guard - bytes;
+  memset(buf, 0xA5, (size_t)offset);
+  uint8_t* rows = buf + offset;
+  memcpy(rows, frags, (size_t)(batch * frag_w));
+  std::vector<uint16_t> table((size_t)1 << hash_bits);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (auto& e : table) e = sc::EMPTY;
+    const uint8_t* row = rows + b * frag_w;
+    uint8_t* out = bodies + b * body_w;
+    body_lens[b] =
+        loader == 0
+            ? sc::encode_fragment(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n,
+                                  table.data(), hash_bits, skip_base, out)
+            : sc::encode_fragment(sc::RowBytes{row, n}, n, table.data(), hash_bits, skip_base,
+                                  out);
+  }
+  munmap(mem, span + page);
+  return 0;
+}
+
 extern "C" void host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                                  const int32_t* cands, int64_t batch, int32_t skip_base,
                                  uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
@@ -586,6 +631,8 @@ def host_lib(tmp_path_factory):
     so.host_decode.restype = None
     so.host_encode.argtypes = [P, I64, P, I64, I32, I32, P, I64, P]
     so.host_encode.restype = None
+    so.host_encode_rows.argtypes = [P, I64, P, I64, I32, I32, I32, I32, P, I64, P]
+    so.host_encode_rows.restype = I32
     so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, P, I64, P]
     so.host_encode_best.restype = None
     so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
@@ -641,17 +688,75 @@ def _host_encode(lib, frags, lens, hash_bits=15, skip_base=32):
     return bodies, body_lens
 
 
-@pytest.mark.parametrize("F", [1024, 8192, 65536])
-def test_host_encode_walk_matches_jax(host_lib, F):
+def _host_encode_rows(lib, frags, lens, offset, loader, hash_bits):
+    frags = np.ascontiguousarray(frags, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    B, F = frags.shape
+    W = F + 2048
+    bodies = np.zeros((B, W), np.uint8)
+    body_lens = np.zeros(B, np.int32)
+    rc = lib.host_encode_rows(frags.ctypes.data, F, lens.ctypes.data, B, offset, loader,
+                              hash_bits, 32, bodies.ctypes.data, W, body_lens.ctypes.data)
+    assert rc == 0
+    return bodies, body_lens
+
+
+def _walk_rows(F: int):
+    """encode_rows(F), a markup row of 100 bytes and, last, a period-5 row
+    of the full width, so that a match runs to the end of the buffer."""
     frags, lens = encode_rows(F)
-    ref_b, ref_l = encode_blocks_scalar(jnp.asarray(frags), jnp.asarray(lens), interpret=True)
+    rng = np.random.default_rng(F)
+    extra = rng.integers(0, 256, (2, F)).astype(np.int32)
+    short = min(100, F)
+    extra[0, :short] = html_like(short, 5)
+    extra[1] = np.tile(rng.integers(0, 256, 5), F)[:F]
+    return np.concatenate([frags, extra]), np.concatenate([lens, [short, F]]).astype(np.int32)
+
+
+# (F, hash_bits): the widths the JAX kernel takes at 15 bits (ids F), then
+# widths with no 16-byte or 4-byte multiple, at 8-16 bits.
+_WALK_CASES = [(F, 15) for F in (1024, 8192, 65536)] + [
+    (F, hb) for F in (100, 4097, 65535, 65536) for hb in (8, 12, 15, 16) if (F, hb) != (65536, 15)]
+
+
+@pytest.mark.parametrize("F,hash_bits", _WALK_CASES,
+                         ids=[str(F) if hb == 15 and F % 1024 == 0 else f"{F}-hb{hb}"
+                              for F, hb in _WALK_CASES])
+def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
+    """The greedy walk through each of its loaders: a staged fragment, the
+    kernel's word loader (widths of a 4-byte multiple) and its byte loader,
+    the rows 0-7 bytes into a buffer that ends at the last row's end, each
+    equal to the JAX kernel in interpret mode (on rows padded to its
+    1,024-byte multiple) and to the plain version."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda.scalar_codec import encode_blocks_plain
+
+    frags, lens = _walk_rows(F)
+    Fj = -(-F // 1024) * 1024
+    padded = np.random.default_rng(2).integers(0, 256, (len(lens), Fj)).astype(np.int32)
+    padded[:, :F] = frags
+    ref_b, ref_l = encode_blocks_scalar(jnp.asarray(padded), jnp.asarray(lens), interpret=True,
+                                        hash_bits=hash_bits)
     ref_b, ref_l = np.asarray(ref_b), np.asarray(ref_l)
-    got_b, got_l = _host_encode(host_lib, frags, lens)
-    assert (got_l == ref_l).all(), (got_l, ref_l)
+    f_u8, l_t = torch.from_numpy(frags.astype(np.uint8)), torch.from_numpy(lens)
+    plain_b, plain_l = (x.numpy() for x in encode_blocks_plain(f_u8, l_t, hash_bits, 32))
+
+    def same(got_b, got_l, what):
+        assert (got_l == ref_l).all(), (what, got_l, ref_l)
+        for i in range(len(lens)):
+            assert (got_b[i, : got_l[i]] == ref_b[i, : ref_l[i]]).all(), (what, i)
+
+    same(plain_b, plain_l, "plain")
+    got_b, got_l = _host_encode(host_lib, frags, lens, hash_bits)
+    same(got_b, got_l, "staged")
     for i in range(len(lens)):
-        assert (got_b[i, : got_l[i]] == ref_b[i, : ref_l[i]]).all(), i
         comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
         assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
+    for loader in ((0, 1) if F % 4 == 0 else (1,)):
+        for offset in range(8):
+            same(*_host_encode_rows(host_lib, frags, lens, offset, loader, hash_bits),
+                 f"loader {loader} at offset {offset}")
 
 
 @pytest.mark.parametrize("nlanes", [1, 4])
