@@ -9,19 +9,25 @@ failure:
 
 0. liveness: ``device_alive`` compiles the salted one-line kernel of
    ``csrc/watch.cu`` afresh, launches it and checks it against its plain
-   version, before anything else is built;
+   version, before anything else is built; then it is timed beside
+   ``torch.add`` per call (host included), as a bare launcher, by each
+   wrapper's host time, and replayed from a CUDA graph;
 1. the card's name and power limit (``nvidia-smi``); build the kernels;
 2. each kernel against its plain version on the same inputs, with edge and
    corrupt rows (exact equality: the kernels compute bytes, bits and match
-   lengths); the probe path: the FindMatchLength golden vectors and 300
-   rows of 64 KiB with planted matches through ``match_extension_probe``;
+   lengths), the encode kernel also on its rows 1 byte into a larger buffer
+   and on rows of 65,535 bytes (its byte loader); the probe path: the
+   FindMatchLength golden vectors and 300 rows of 64 KiB with planted
+   matches through ``match_extension_probe``;
 3. the batched codec at full size: ``SnappyCodec(with_crc=True)`` compresses
    512 blocks of 64 KiB of markup-like text (bench.py's seeded word mix),
    ``decompress_batch`` decodes them back, and the result is held against
    the input, the host CRC32C and the host oracle decoder; every kernel of
    the path must have launched; ``frame_batch`` and ``roundtrip_step`` run
    once;
-4. timings with CUDA events (warm-up, best of 3 passes);
+4. timings with CUDA events (warm-up, best of 3 passes); the encode
+   kernel's layout (blocks per SM, shared bytes per block, its loader) and
+   ptxas's registers, stack and spills for it;
 5. the public facade at full size on the same 32 MiB: ``compress`` at both
    levels and ``decompress`` of each (multi-block, through the native
    prescan and the decode kernel), round trips checked exactly, best no
@@ -118,6 +124,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -400,7 +407,8 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     odd_f = np.concatenate([frags[:, : BLOCK - 1], frags[:1, : BLOCK - 1]])
     odd_l = np.concatenate([np.minimum(lens, BLOCK - 1), [BLOCK - 1]]).astype(np.int32)
     o_h, ol_h = torch.from_numpy(odd_f), torch.from_numpy(odd_l)
-    o_bodies, o_lens = (x.cpu().numpy() for x in sc.encode_blocks_bytes(o_h.to(dev), ol_h.to(dev)))
+    o_bodies, o_lens = (x.cpu().numpy()
+                        for x in sc.encode_blocks_bytes(o_h.to(dev), ol_h.to(dev)))
     po_bodies, po_lens = (x.numpy() for x in sc.encode_blocks_plain(o_h, ol_h, sc.HASH_BITS, 32))
     check((u_lens == p_lens).all() and (o_lens == po_lens).all(), "unaligned encode lengths")
     err = max_abs_err(
@@ -559,20 +567,22 @@ def phase_liveness(torch, watch, _build):
           f"max_abs_err {err}")
     x = x_h.cuda()
     with watch.salted_launcher(salt + 1) as fn:  # one more build, kept for the timing
-        t = watch_times(torch, watch, fn, x, salt + 1)
+        t = watch_times(torch, watch, _build, fn, x, salt + 1)
     print(json.dumps({"liveness_ms_per_call": t}))
     plain_ms = min(host_ms(lambda: watch.add_salt_plain(x_h, salt)) for _ in range(5))
     return err, launches, t, plain_ms
 
 
-def watch_times(torch, watch, fn, x, salt: int, n: int = 50) -> dict:
+def watch_times(torch, watch, _build, fn, x, salt: int, n: int = 50) -> dict:
     """T21 beside ``torch.add(x, salt)`` on the same tensor, ms per call:
-    (a) ``cuda_ms`` over ``n`` calls back to back, host included; (b) the
-    bare launcher with the stream handle fetched once (CUDA events), and
-    each wrapper's host time alone (host clock over ``n`` calls, no wait);
-    (c) the device time of a launch: ``n`` launches captured in one CUDA
-    graph, replayed, over ``n``. Each graph's output is held to the plain
-    version."""
+    (a) ``cuda_ms`` over ``n`` calls back to back, host included, in turns
+    with ``torch.add``, the best of four; (b) the bare launcher with the
+    stream handle fetched once (CUDA events), each wrapper's host time
+    alone (host clock over ``n`` calls, no wait), and T21's in parts:
+    ``torch.empty_like``, ``launch_bound`` and the two ways to read the
+    current stream's handle; (c) the device time of a
+    launch: ``n`` launches captured in one CUDA graph, replayed, over ``n``.
+    Each graph's output is held to the plain version."""
     want = watch.add_salt_plain(x.cpu(), salt)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
@@ -608,13 +618,26 @@ def watch_times(torch, watch, fn, x, salt: int, n: int = 50) -> dict:
         check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0, "launch in capture")
         return y
 
-    t = {
-        "a_add_salt": cuda_ms(lambda: watch.add_salt(x, salt, fn), iters=n),
-        "a_torch_add": cuda_ms(lambda: torch.add(x, salt), iters=n),
-        "b_bare_launcher": cuda_ms(bare, iters=n),
-        "b_add_salt_host": host_per_call(lambda: watch.add_salt(x, salt, fn)),
-        "b_torch_add_host": host_per_call(lambda: torch.add(x, salt)),
-    }
+    # In turns (kernel, torch.add, torch.add, kernel, ...), the best of each.
+    t = {}
+    for turn in range(4):
+        pair = [("a_add_salt", lambda: cuda_ms(lambda: watch.add_salt(x, salt, fn), iters=n)),
+                ("a_torch_add", lambda: cuda_ms(lambda: torch.add(x, salt), iters=n)),
+                ("b_add_salt_host", lambda: host_per_call(lambda: watch.add_salt(x, salt, fn))),
+                ("b_torch_add_host", lambda: host_per_call(lambda: torch.add(x, salt)))]
+        for key, measure in (pair if turn % 2 == 0 else pair[::-1]):
+            t[key] = min(t.get(key, float("inf")), measure())
+    t["b_bare_launcher"] = cuda_ms(bare, iters=n)
+    # add_salt's host time in parts: its output, and the launch alone.
+    t["b_empty_like_host"] = host_per_call(lambda: torch.empty_like(x))
+    t["b_launch_bound_host"] = host_per_call(
+        lambda: _build.launch_bound(fn, "watch_timing", x.get_device(), *args))
+    _build.LAUNCHES.pop("watch_timing", None)
+    # The current stream's handle, which launch_bound reads at each call, by
+    # the public call (it builds a torch.cuda.Stream) and by the raw one.
+    dev = x.get_device()
+    t["b_current_stream_host"] = host_per_call(lambda: torch.cuda.current_stream(dev).cuda_stream)
+    t["b_raw_stream_host"] = host_per_call(lambda: torch._C._cuda_getCurrentRawStream(dev))
     t["c_graph_kernel"], g_y = graph_per_launch(capture_kernel)
     t["c_graph_torch_add"], g_add = graph_per_launch(lambda: torch.add(x, salt))
     torch.cuda.synchronize()
@@ -1878,6 +1901,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
+    if importlib.util.find_spec("snappier_tpu_torch") is None:
+        print("chip_smoke: snappier_tpu_torch not found; run this script from the repo's root",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+
     import snappier_tpu_torch as st
     from snappier_tpu_torch import SnappyCodec
     from snappier_tpu_torch.format import oracle
@@ -1970,6 +1999,14 @@ def main() -> int:
     }
     k2_layout = sc.encode_layout(frags)
     print(json.dumps({"card": card, "encode_layout": k2_layout, "encode_ptxas": encode_ptxas}))
+    # The layout the redesign is for: at 15 hash bits more than one walk an
+    # SM, and the walk's probe group in registers (no stack frame, no spill).
+    check(k2_layout["blocks_per_sm"] >= 2,
+          f"encode kernel: {k2_layout['blocks_per_sm']} block(s) an SM at 15 hash bits")
+    check(len(encode_ptxas) == 2, f"ptxas figures for the two encode kernels: {encode_ptxas}")
+    for fig in encode_ptxas:
+        check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
+              f"encode kernel stack frame or spills: {fig}")
     # bench.py's metric: 2 * uncompressed bytes / (compress + decompress),
     # CRC32C not timed inside compress (bench.py:98-103, :156-160).
     gb = B * BLOCK / 1e9
@@ -2128,6 +2165,8 @@ def main() -> int:
             rows[-1]["ms_by_method"] = watch_t
         if k == "encode":
             rows[-1]["layout"] = {**k2_layout, "ptxas": encode_ptxas}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
+          "the kernels' build included")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,17 +11,20 @@
 // fragments times one walk, and the walks an SM holds at once are what the
 // layout decides.
 //
-// What the design does about it: one block per fragment; only the match
-// table (16-bit slots, 64 KiB at 15 hash bits) lives in dynamic shared
-// memory, so three blocks fit an SM at 15 bits (396 walks at once on 132
-// SMs: 512 fragments in 2 waves) where a staged fragment beside the table
-// left one. The walk reads the fragment from device memory through the
-// read-only path, as aligned 32-bit words where the rows allow it
-// (sc::RowWords: base and width multiples of 16), a byte at a time
-// otherwise (sc::RowBytes); bytes at or past the length read as zero and
-// nothing past the row is read. All threads clear the table; thread 0
-// walks (sc::encode_fragment in scalar_codec.cuh, its probe group unrolled
-// in registers) and stores the tags straight into the body's row.
+// What the design does about it: one block of one warp per fragment; only
+// the match table (16-bit slots, 64 KiB at 15 hash bits) lives in dynamic
+// shared memory, so three blocks fit an SM at 15 bits (396 walks at once
+// on 132 SMs: 512 fragments in 2 waves) where a staged fragment beside the
+// table left one. A walk over device memory through L1 is slower than one
+// over a staged fragment, but by less than the waves it saves. The walk
+// reads the fragment through the read-only path, as aligned 32-bit words
+// where the rows allow it (sc::RowWords: base and width multiples of 16),
+// a byte at a time otherwise (sc::RowBytes); bytes at or past the length
+// read as zero and nothing past the row is read. The warp clears the
+// table; lane 0 walks (sc::encode_fragment in scalar_codec.cuh, its probe
+// group unrolled in registers) and stores the tags straight into the
+// body's row. One warp a block puts the three walkers of an SM on
+// different schedulers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,26 +35,6 @@
 namespace {
 
 constexpr int kThreads = 32;  // one warp: it clears the table, then lane 0 walks
-
-// Staged layout, for the measurement against the one above: the fragment
-// staged as words in shared memory beside the table (one block per SM at
-// 15 bits), read by the same walk as aligned shared words.
-constexpr int kStagedThreads = 256;
-
-struct SharedWords {
-  const uint32_t* s;
-  int32_t n;
-  uint32_t tail;
-  SC_HD SharedWords(const uint32_t* s_, int32_t n_) : s(s_), n(n_), tail(sc::live_mask(n_ & 3)) {}
-  SC_HD uint32_t word_in(int32_t k) const { return s[k]; }
-  SC_HD uint32_t word(int32_t k) const {
-    uint32_t v = 4 * k < n ? s[k] : 0u;
-    return k == (n >> 2) ? v & tail : v;
-  }
-  SC_HD uint32_t window(int32_t i) const {
-    return sc::funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
-  }
-};
 
 template <bool kWords>
 __global__ void __launch_bounds__(kThreads)
@@ -80,68 +63,71 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kStagedThreads)
-    encode_staged_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
-                         const int32_t* __restrict__ lengths, int hash_bits, int32_t skip_base,
-                         uint8_t* __restrict__ bodies, int64_t body_w,
-                         int32_t* __restrict__ body_lens) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* table = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* s = smem + (sizeof(uint16_t) << hash_bits);
-  const int64_t b = blockIdx.x;
-  int32_t n = lengths[b];
-  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
-  uint4* t4 = reinterpret_cast<uint4*>(table);
-  const int words = (int)((sizeof(uint16_t) << hash_bits) / sizeof(uint4));
-  const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
-  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
-  const uint4* row4 = reinterpret_cast<const uint4*>(frags + b * frag_w);
-  uint4* s4 = reinterpret_cast<uint4*>(s);
-  for (int32_t i = threadIdx.x; i < (int32_t)(frag_w / 16); i += blockDim.x) s4[i] = row4[i];
-  if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(s + frag_w)[threadIdx.x] = 0u;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    body_lens[b] = sc::encode_fragment(SharedWords{reinterpret_cast<const uint32_t*>(s), n}, n,
-                                       table, hash_bits, skip_base, bodies + b * body_w);
-  }
-}
+// The devices a process may address at once; configure sets the attributes
+// of a device at or past it on every launch.
+constexpr int kMaxDevices = 64;
 
-// Sets the kernel's shared-memory attributes for hash_bits when they were
-// last set for another width (once per process at a fixed width): the
-// dynamic size, and a carveout that holds as many blocks as fit an SM and
-// leaves the rest to L1, which caches the fragments' reads.
-template <class Kernel>
-cudaError_t configure(Kernel kernel, std::atomic<int>& set_for, int hash_bits, size_t smem,
-                      int threads) {
-  if (set_for.load() == hash_bits) return cudaSuccess;
+// Sets encode_kernel<kWords>'s shared-memory attributes on the current
+// device for hash_bits when they were last set there for another width
+// (once per device and process at a fixed width; a function attribute holds
+// only on the device that was current when it was set): the dynamic size,
+// and a carveout that holds as many blocks as fit an SM and leaves the rest
+// to L1, which caches the fragments' reads.
+template <bool kWords>
+cudaError_t configure(int hash_bits, size_t smem) {
+  static std::atomic<int> set_for[kMaxDevices];  // hash_bits + 1 per device, 0 for none
   int dev = 0, per_sm = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  }
+  if (e != cudaSuccess) return e;
+  std::atomic<int>* done = dev < kMaxDevices ? &set_for[dev] : nullptr;
+  if (done != nullptr && done->load() == hash_bits + 1) return cudaSuccess;
+  e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   }
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cudaFuncSetAttribute(encode_kernel<kWords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (e != cudaSuccess) return e;
   size_t per_block = smem + (size_t)reserved;
   size_t fit = (size_t)per_sm / per_block;
-  size_t by_threads = 2048 / threads;  // and at most 32 blocks an SM
-  fit = fit < by_threads ? fit : by_threads;
-  fit = fit < 32 ? fit : 32;
-  fit = fit < 1 ? 1 : fit;
+  fit = fit < 32 ? (fit < 1 ? 1 : fit) : 32;  // an SM holds at most 32 blocks
   int carveout = (int)((fit * per_block * 100 + per_sm - 1) / per_sm);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  e = cudaFuncSetAttribute(encode_kernel<kWords>, cudaFuncAttributePreferredSharedMemoryCarveout,
                            carveout > 100 ? 100 : carveout);
-  if (e == cudaSuccess) set_for.store(hash_bits);
+  if (e == cudaSuccess && done != nullptr) done->store(hash_bits + 1);
   return e;
 }
 
-std::atomic<int> g_set_words{-1}, g_set_bytes{-1}, g_set_staged{-1};
+template <bool kWords>
+int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
+           int32_t hash_bits, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
+           void* stream) {
+  const size_t smem = sizeof(uint16_t) << hash_bits;
+  cudaError_t e = configure<kWords>(hash_bits, smem);
+  if (e != cudaSuccess) return (int)e;
+  encode_kernel<kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
+      (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+  return (int)cudaGetLastError();
+}
 
-size_t table_bytes(int hash_bits) { return sizeof(uint16_t) << hash_bits; }
+template <bool kWords>
+int layout(int32_t hash_bits, int32_t* out) {
+  const size_t smem = sizeof(uint16_t) << hash_bits;
+  cudaError_t e = configure<kWords>(hash_bits, smem);
+  int nb = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<kWords>, kThreads, smem);
+  }
+  out[0] = nb;
+  out[1] = (int32_t)smem;
+  out[2] = kThreads;
+  out[3] = kWords ? 1 : 0;
+  return (int)e;
+}
 
+// The word loader takes rows whose base and width are multiples of 16.
 bool word_rows(const void* frags, int64_t frag_w) {
   return ((uintptr_t)frags % 16) == 0 && frag_w % 16 == 0;
 }
@@ -156,22 +142,11 @@ extern "C" int snappy_encode_launch(const void* frags, int64_t frag_w, const voi
                                     void* bodies, int64_t body_w, void* body_lens,
                                     void* stream) {
   if (batch == 0) return 0;
-  size_t smem = table_bytes(hash_bits);
-  cudaError_t e;
-  if (word_rows(frags, frag_w)) {
-    e = configure(encode_kernel<true>, g_set_words, hash_bits, smem, kThreads);
-    if (e != cudaSuccess) return (int)e;
-    encode_kernel<true><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
-        (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  } else {
-    e = configure(encode_kernel<false>, g_set_bytes, hash_bits, smem, kThreads);
-    if (e != cudaSuccess) return (int)e;
-    encode_kernel<false><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
-        (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  }
-  return (int)cudaGetLastError();
+  return word_rows(frags, frag_w)
+             ? launch<true>(frags, frag_w, lengths, batch, hash_bits, skip_base, bodies, body_w,
+                            body_lens, stream)
+             : launch<false>(frags, frag_w, lengths, batch, hash_bits, skip_base, bodies, body_w,
+                             body_lens, stream);
 }
 
 // The launch's layout for rows at frags of width frag_w: out[0] blocks per
@@ -180,50 +155,5 @@ extern "C" int snappy_encode_launch(const void* frags, int64_t frag_w, const voi
 // per block, out[3] 1 for the word loader and 0 for the byte loader.
 extern "C" int snappy_encode_layout(const void* frags, int64_t frag_w, int32_t hash_bits,
                                     int32_t* out) {
-  size_t smem = table_bytes(hash_bits);
-  bool words = word_rows(frags, frag_w);
-  cudaError_t e;
-  int nb = 0;
-  if (words) {
-    e = configure(encode_kernel<true>, g_set_words, hash_bits, smem, kThreads);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<true>, kThreads, smem);
-    }
-  } else {
-    e = configure(encode_kernel<false>, g_set_bytes, hash_bits, smem, kThreads);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<false>, kThreads,
-                                                        smem);
-    }
-  }
-  out[0] = nb;
-  out[1] = (int32_t)smem;
-  out[2] = kThreads;
-  out[3] = words ? 1 : 0;
-  return (int)e;
-}
-
-// The staged layout (word rows only), same arguments as snappy_encode_launch;
-// out as snappy_encode_layout's, written at every call.
-extern "C" int snappy_encode_staged_launch(const void* frags, int64_t frag_w, const void* lengths,
-                                           int64_t batch, int32_t hash_bits, int32_t skip_base,
-                                           void* bodies, int64_t body_w, void* body_lens,
-                                           int32_t* out, void* stream) {
-  if (!word_rows(frags, frag_w)) return (int)cudaErrorInvalidValue;
-  size_t smem = table_bytes(hash_bits) + (size_t)frag_w + 16;
-  cudaError_t e = configure(encode_staged_kernel, g_set_staged, hash_bits, smem, kStagedThreads);
-  if (e != cudaSuccess) return (int)e;
-  int nb = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_staged_kernel, kStagedThreads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = nb;
-  out[1] = (int32_t)smem;
-  out[2] = kStagedThreads;
-  out[3] = 1;
-  if (batch == 0) return 0;
-  encode_staged_kernel<<<(unsigned)batch, kStagedThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
-      (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  return (int)cudaGetLastError();
+  return word_rows(frags, frag_w) ? layout<true>(hash_bits, out) : layout<false>(hash_bits, out);
 }

@@ -184,11 +184,9 @@ SC_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, uint32_t sh) {
 #endif
 }
 
-// Of word k of a fragment of n bytes (bytes 4k .. 4k + 3), the bytes below
-// n: r = n - 4k of them.
-SC_HD uint32_t live_mask(int32_t r) {
-  return r >= 4 ? 0xFFFFFFFFu : (r <= 0 ? 0u : (1u << (8 * r)) - 1u);
-}
+// Of word n >> 2 of a fragment of n bytes, the bytes below n (none when n
+// is a multiple of 4).
+SC_HD uint32_t tail_mask(int32_t n) { return (1u << (8 * (n & 3))) - 1u; }
 
 // Fragment loaders of the greedy walk. word(k) is the little-endian 32-bit
 // word of bytes 4k .. 4k + 3 and window(i) the one of bytes i .. i + 3;
@@ -196,22 +194,6 @@ SC_HD uint32_t live_mask(int32_t r) {
 // of its row, so the last row of a batch may end where its buffer ends.
 // word_in(k) is word(k) for a caller that knows all four bytes lie below
 // n: one load, no test.
-//
-// A staged fragment: s holds n bytes and at least 4 readable bytes more.
-struct PaddedBytes {
-  const uint8_t* s;
-  int32_t n;
-  uint32_t tail;  // the live bytes of word n >> 2
-  SC_HD PaddedBytes(const uint8_t* s_, int32_t n_) : s(s_), n(n_), tail(live_mask(n_ & 3)) {}
-  SC_HD uint32_t word_in(int32_t k) const { return load32(s, 4 * k); }
-  SC_HD uint32_t word(int32_t k) const {
-    uint32_t v = 4 * k < n ? word_in(k) : 0u;
-    return k == (n >> 2) ? v & tail : v;
-  }
-  SC_HD uint32_t window(int32_t i) const {
-    return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
-  }
-};
 
 // A row in device memory whose base is 4-byte aligned, read as aligned
 // words through the read-only path: a window is two word loads and a
@@ -221,7 +203,7 @@ struct RowWords {
   const uint32_t* w;
   int32_t n;
   uint32_t tail;
-  SC_HD RowWords(const uint32_t* w_, int32_t n_) : w(w_), n(n_), tail(live_mask(n_ & 3)) {}
+  SC_HD RowWords(const uint32_t* w_, int32_t n_) : w(w_), n(n_), tail(tail_mask(n_)) {}
   SC_HD uint32_t word_in(int32_t k) const {
 #ifdef __CUDA_ARCH__
     return __ldg(w + k);
@@ -421,8 +403,8 @@ SC_HD int32_t emit_literal(uint8_t* out, int32_t op, const Ld& ld, int32_t start
   return op + lit_len;
 }
 
-// Greedy LZ77 over one fragment of n bytes read through a loader (PaddedBytes,
-// RowWords, RowBytes); returns the tag stream's length.
+// Greedy LZ77 over one fragment of n bytes read through a loader (RowWords,
+// RowBytes); returns the tag stream's length.
 //
 // table holds 1 << hash_bits slots, all EMPTY on entry: a fresh table is
 // what the reference's epoch-tagged table amounts to, since every slot
@@ -528,13 +510,6 @@ SC_HD int32_t encode_fragment(const Ld& ld, int32_t n, uint16_t* table, int hash
   }
   if (n > lit_start) op = emit_literal(out, op, ld, lit_start, n - lit_start);
   return op;
-}
-
-// The greedy walk over a staged fragment: s holds n bytes followed by at
-// least 4 readable bytes (their values never change the result).
-SC_HD int32_t encode_fragment(const uint8_t* s, int32_t n, uint16_t* table, int hash_bits,
-                              int32_t skip_base, uint8_t* out) {
-  return encode_fragment(PaddedBytes{s, n}, n, table, hash_bits, skip_base, out);
 }
 
 // The level="best" walk over one fragment of n bytes (scalar_codec.py

@@ -48,10 +48,6 @@ SOURCES = {
         [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P],
     ),
     "encode_layout": ("snappy_encode_layout", [_P, _I64, _I32, _P]),
-    "encode_staged": (
-        "snappy_encode_staged_launch",
-        [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P, _P],
-    ),
     "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
     "encode_best": (
         "snappy_encode_best_launch",
@@ -89,12 +85,13 @@ SOURCES = {
 #: The source of each launcher that is not ``csrc/<launcher>.cu``.
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff")},
-                 "bitonic": "bitonic_probe", "encode_layout": "encode", "encode_staged": "encode"}
+                 "bitonic": "bitonic_probe", "encode_layout": "encode"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
 #: nvcc's output (ptxas's registers, stack, spills and shared memory per
-#: kernel) for each source this process built, by source stem.
+#: kernel) for each source built, by source stem; kept beside each library
+#: in ``build/`` as ``<library>.log`` and read back when it is reused.
 BUILD_LOG: dict = {}
 
 _lock = threading.Lock()
@@ -151,6 +148,9 @@ def _start_build(name: str):
     running process (or None) and the library path."""
     path = _lib_path(name)
     if path.exists():
+        log = path.with_suffix(".log")
+        if log.exists():
+            BUILD_LOG[name] = log.read_text()
         return None, path
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     return (start_nvcc(name, tmp), tmp), path
@@ -161,6 +161,9 @@ def _finish_build(name: str, started, path: pathlib.Path) -> None:
         return
     proc, tmp = started
     BUILD_LOG[name] = finish_nvcc(proc, path.name)
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(BUILD_LOG[name])
+    os.replace(log_tmp, path.with_suffix(".log"))  # before the library, which marks it built
     os.replace(tmp, path)  # atomic: a concurrent builder sees a whole file
 
 
@@ -206,16 +209,18 @@ def launch(name: str, device, *args, count_as: str | None = None) -> None:
 
 
 def launch_bound(fn, name: str, device, *args) -> None:
-    """:func:`launch` for a launcher bound by the caller. On the current
-    device it reads the current stream's handle (a graph capture's stream
-    inside a capture) and calls at once; another device is made current
-    for the call."""
+    """:func:`launch` for a launcher bound by the caller; ``device`` is a
+    device or a device index. On the current device it reads the current
+    stream's handle (a graph capture's stream inside a capture) and calls
+    at once; another device is made current for the call. The handle is
+    read raw: ``torch.cuda.current_stream`` builds a Stream object at each
+    call, which costs the host about as much as a small kernel's whole gap
+    to ``torch.add`` (``chip_smoke.py`` phase 0 times both reads)."""
     import torch
 
-    if not isinstance(device, torch.device):
-        device = torch.device(device)
-    cur = torch._C._cuda_getDevice()
-    idx = cur if device.index is None else device.index
+    cur = torch.cuda.current_device()
+    idx = device if isinstance(device, int) else torch.device(device).index
+    idx = cur if idx is None else idx
     if idx == cur:
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:

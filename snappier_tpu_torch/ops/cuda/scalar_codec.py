@@ -417,25 +417,6 @@ def encode_layout(frags, hash_bits: int = HASH_BITS) -> dict:
             "loader": "words" if out[3] else "bytes"}
 
 
-def _encode_staged(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32):
-    """The encode walk with the fragment staged in shared memory beside the
-    table (rows of a 16-byte multiple width at a 16-byte aligned base), for
-    the layout measurement. Returns ``(bodies, body_lens, layout)``."""
-    frags = byte_rows(frags, "frags")
-    B, F = frags.shape
-    lengths = lengths_vector(lengths, B, "lengths")
-    W = body_width(F)
-    bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
-    body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
-    out = (ctypes.c_int32 * 4)()
-    _build.launch(
-        "encode_staged", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
-        hash_bits, skip_base, bodies.data_ptr(), W, body_lens.data_ptr(), out,
-    )
-    return bodies, body_lens, {"blocks_per_sm": out[0], "smem_bytes": out[1],
-                               "threads": out[2]}
-
-
 def encode_blocks_scalar(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32,
                          packed: bool = False):
     """Compress a batch of fragments (``encode_blocks_scalar`` contract).

@@ -67,7 +67,8 @@ def add_salt(x: torch.Tensor, salt: int, launcher=None) -> torch.Tensor:
         return add_salt_plain(x, salt)
     y = torch.empty_like(x)
     if launcher is not None:
-        _build.launch_bound(launcher, "watch", x.device, x.data_ptr(), y.data_ptr(), x.numel())
+        _build.launch_bound(launcher, "watch", x.get_device(), x.data_ptr(), y.data_ptr(),
+                            x.numel())
         return y
     with salted_launcher(salt) as fn:
         _build.launch_bound(fn, "watch", x.device, x.data_ptr(), y.data_ptr(), x.numel())

@@ -268,6 +268,47 @@ def test_cuda_encode_unaligned_rows_match_plain(cuda_device, offset, hash_bits):
     assert layout["blocks_per_sm"] >= (3 if hash_bits <= 15 else 1)
 
 
+def test_cuda_encode_on_each_card_matches_plain(cuda_device):
+    """K2 on cuda:0 and then on cuda:1 in one process, each loader: the
+    kernel's shared-memory attributes hold only on the device they were
+    set on, so each card sets its own. Then the sharded compress over every
+    card (``make_mesh()``'s default)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    F = 65536
+    frags, lens = encode_rows(F, seed=4)
+    frags = frags.astype(np.uint8)
+    want_b, want_l = encode_blocks_plain(_t(frags), _t(lens), 15, 32)
+    for offset in (0, 1):
+        for d in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", d)
+            buf = torch.zeros(frags.size + offset, dtype=torch.uint8, device=dev)
+            rows = buf[offset:].view(frags.shape)
+            rows.copy_(_t(frags).to(dev))
+            layout = sc.encode_layout(rows)
+            assert layout["loader"] == ("bytes" if offset else "words")
+            assert layout["blocks_per_sm"] >= 3
+            got_b, got_l = encode_blocks_bytes(rows, _t(lens).to(dev))
+            assert got_b.device == dev
+            assert (got_l.cpu() == want_l).all(), (d, offset)
+            _rows_equal(got_b, want_b, want_l)
+    from snappier_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    n = len(mesh.devices)
+    B = -(-len(lens) // n) * n
+    f_all = np.zeros((B, F), np.uint8)
+    f_all[: len(lens)] = frags
+    l_all = np.zeros(B, np.int32)
+    l_all[: len(lens)] = lens
+    bodies, body_lens, _ = parallel.sharded_compress(_t(f_all), _t(l_all), mesh)
+    want_b, want_l = encode_blocks_plain(_t(f_all), _t(l_all), 15, 32)
+    got_b = bodies.gather()
+    w = min(got_b.shape[1], want_b.shape[1])
+    assert (body_lens.cpu() == want_l).all()
+    _rows_equal(got_b[:, :w], want_b[:, :w], want_l)
+
+
 def test_cuda_stream_matches_cpu(cuda_device, monkeypatch):
     monkeypatch.setattr(S, "_SUB_BATCH", 4)
     rng = np.random.default_rng(8)

@@ -531,20 +531,6 @@ extern "C" void host_bitonic(const int32_t* x, int32_t* keys, int32_t* vals) {
   }
 }
 
-extern "C" void host_encode(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
-                            int64_t batch, int32_t hash_bits, int32_t skip_base,
-                            uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
-  std::vector<uint16_t> table((size_t)1 << hash_bits);
-  std::vector<uint8_t> s(frag_w + 8);
-  for (int64_t b = 0; b < batch; b++) {
-    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
-    for (auto& e : table) e = sc::EMPTY;
-    for (int64_t i = 0; i < frag_w + 8; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
-    body_lens[b] = sc::encode_fragment(s.data(), n, table.data(), hash_bits, skip_base,
-                                       bodies + b * body_w);
-  }
-}
-
 // The rows copied `offset` bytes into a buffer whose last byte lies just
 // below a page the process may not read, then each through the greedy walk
 // as the encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. A
@@ -629,8 +615,6 @@ def host_lib(tmp_path_factory):
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     so.host_decode.argtypes = [P, I64, P, I64, I32, I32, P, P, P]
     so.host_decode.restype = None
-    so.host_encode.argtypes = [P, I64, P, I64, I32, I32, P, I64, P]
-    so.host_encode.restype = None
     so.host_encode_rows.argtypes = [P, I64, P, I64, I32, I32, I32, I32, P, I64, P]
     so.host_encode_rows.restype = I32
     so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, P, I64, P]
@@ -676,18 +660,6 @@ def _host_decode(lib, comp, lens, out_cap, nlanes):
     return out, out_lens, errs
 
 
-def _host_encode(lib, frags, lens, hash_bits=15, skip_base=32):
-    frags = np.ascontiguousarray(frags, np.uint8)
-    lens = np.ascontiguousarray(lens, np.int32)
-    B, F = frags.shape
-    W = F + 2048
-    bodies = np.zeros((B, W), np.uint8)
-    body_lens = np.zeros(B, np.int32)
-    lib.host_encode(frags.ctypes.data, F, lens.ctypes.data, B, hash_bits, skip_base,
-                    bodies.ctypes.data, W, body_lens.ctypes.data)
-    return bodies, body_lens
-
-
 def _host_encode_rows(lib, frags, lens, offset, loader, hash_bits):
     frags = np.ascontiguousarray(frags, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
@@ -723,8 +695,8 @@ _WALK_CASES = [(F, 15) for F in (1024, 8192, 65536)] + [
                          ids=[str(F) if hb == 15 and F % 1024 == 0 else f"{F}-hb{hb}"
                               for F, hb in _WALK_CASES])
 def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
-    """The greedy walk through each of its loaders: a staged fragment, the
-    kernel's word loader (widths of a 4-byte multiple) and its byte loader,
+    """The greedy walk through each of the kernel's loaders, the word loader
+    (widths of a 4-byte multiple) and the byte loader,
     the rows 0-7 bytes into a buffer that ends at the last row's end, each
     equal to the JAX kernel in interpret mode (on rows padded to its
     1,024-byte multiple) and to the plain version."""
@@ -748,15 +720,13 @@ def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
             assert (got_b[i, : got_l[i]] == ref_b[i, : ref_l[i]]).all(), (what, i)
 
     same(plain_b, plain_l, "plain")
-    got_b, got_l = _host_encode(host_lib, frags, lens, hash_bits)
-    same(got_b, got_l, "staged")
+    for loader in ((0, 1) if F % 4 == 0 else (1,)):
+        for offset in range(8):
+            got_b, got_l = _host_encode_rows(host_lib, frags, lens, offset, loader, hash_bits)
+            same(got_b, got_l, f"loader {loader} at offset {offset}")
     for i in range(len(lens)):
         comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
         assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
-    for loader in ((0, 1) if F % 4 == 0 else (1,)):
-        for offset in range(8):
-            same(*_host_encode_rows(host_lib, frags, lens, offset, loader, hash_bits),
-                 f"loader {loader} at offset {offset}")
 
 
 @pytest.mark.parametrize("nlanes", [1, 4])

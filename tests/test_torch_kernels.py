@@ -197,10 +197,11 @@ def test_build_names_every_source():
     assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
                                    "decode_variants", "decode_pipe", "encode_variants",
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
-                                   "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic"}
+                                   "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
+                                   "encode_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
-    probes = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic"}
-    assert stems == set(_build.SOURCES) - probes | {"hybrid_probes", "bitonic_probe"}
+    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout"}
+    assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}
     for name in stems:

@@ -27,8 +27,10 @@ The blocks are the seeded word mix that ``chip_smoke.py`` drives. The first
 line is the card's name and power limit. Then one line per variant: ms per
 call, us per block, GB/s of input and the compression ratio, where a block's
 time is the call's time over the waves of blocks the card runs
-(``blocks_in_flight``: the table and the fragment of a block live in shared
-memory, so 14 hash bits let two blocks share an SM and 15 leave one).
+(``blocks_in_flight``: the variants keep the table and the fragment of a
+block in shared memory, so 14 hash bits let two blocks share an SM and 15
+leave one; e0 keeps the table alone there, and its count is the occupancy
+the launch reports, ``scalar_codec.encode_layout``).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def build_blocks(B: int = 128):
 
 
 def encode_smem_bytes(hash_bits: int) -> int:
-    """Dynamic shared memory of one block of the encode kernels: the match
+    """Dynamic shared memory of one block of the encode variants: the match
     table and the staged fragment."""
     return (2 << hash_bits) + BLOCK_SIZE + 16
 
@@ -109,7 +111,13 @@ def main() -> int:
                 ok = ok and oracle.decompress(np.frombuffer(pre + body, np.uint8)) == \
                     frags[b].tobytes()
         t = base.timeit(fn)
-        in_flight = base.blocks_in_flight(encode_smem_bytes(hash_bits))
+        if v == "e0":
+            from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            in_flight = sms * sc.encode_layout(frags_d)["blocks_per_sm"]
+        else:
+            in_flight = base.blocks_in_flight(encode_smem_bytes(hash_bits))
         waves = -(-B // in_flight)
         print(
             f"{v}: {'OK ' if ok else 'BAD'} {t * 1e3:.3f} ms total, "
