@@ -16,25 +16,35 @@ failure:
 2. each kernel against its plain version on the same inputs, with edge and
    corrupt rows (exact equality: the kernels compute bytes, bits and match
    lengths), the encode kernel also on its rows 1 byte into a larger buffer
-   and on rows of 65,535 bytes (its byte loader); the probe path: the
-   FindMatchLength golden vectors and 300 rows of 64 KiB with planted
-   matches through ``match_extension_probe``;
+   and on rows of 65,535 bytes (its byte loader); the decode kernel also on
+   its rows 1 byte into a buffer and on the batch walk's edge rows
+   (``torch_cases.batch_streams``) at out_cap 8,190, both loaders, the last
+   row ending at its buffer's end, and its one-warp and read-only-path forms;
+   the best encode kernel also 1 byte into a buffer and in its staged form;
+   the probe path: the FindMatchLength golden
+   vectors and 300 rows of 64 KiB with planted matches through
+   ``match_extension_probe``;
 3. the batched codec at full size: ``SnappyCodec(with_crc=True)`` compresses
    512 blocks of 64 KiB of markup-like text (bench.py's seeded word mix),
    ``decompress_batch`` decodes them back, and the result is held against
    the input, the host CRC32C and the host oracle decoder; every kernel of
    the path must have launched; ``frame_batch`` and ``roundtrip_step`` run
    once;
-4. timings with CUDA events (warm-up, best of 3 passes); the encode
-   kernel's layout (blocks per SM, shared bytes per block, its loader) and
-   ptxas's registers, stack and spills for it;
+4. timings with CUDA events (warm-up, best of 3 passes); the encode and
+   decode kernels' layouts (blocks per SM, shared bytes per block, threads,
+   loader; the decode kernel must hold three blocks an SM at out_cap
+   65,536) and ptxas's registers, stack and spills for the encode, decode
+   and best encode kernels (any stack or spill fails);
 5. the public facade at full size on the same 32 MiB: ``compress`` at both
    levels and ``decompress`` of each (multi-block, through the native
    prescan and the decode kernel), round trips checked exactly, best no
    larger than fast, the best stream decoded independently by the native
    engine; ``*_into``, ``*_to_memory`` and a corrupt input on 1 MiB; then
    host wall-clock per facade call and CUDA-event times of the candidate
-   search and the new kernels;
+   search and the new kernels; the decode kernel, its one-warp and
+   read-only-path forms, T4 ``v1`` (a tag a warp step), the best encode
+   kernel and its staged form on the 512 blocks in turns (each twice, the
+   second time in reverse order), with the best encode kernel's layouts;
 6. the framing format and the stream layers at full size: 128 MiB (2,048
    chunks, every eighth of random bytes, so both chunk types occur)
    through ``stream_compress`` and ``stream_decompress`` on the card in 8
@@ -378,6 +388,9 @@ def corrupt_streams():
 def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     """Each kernel against its plain version; returns max_abs_err per kernel
     and the decode kernel's edge and corrupt streams."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_cases import batch_streams
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     errs = {}
@@ -444,6 +457,47 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     check((derr[n_bad:] == 0).all(), "encoded rows must decode")
     print(f"decode kernel == plain on {len(streams)} rows (errors {derr[:n_bad].tolist()}),"
           f" max_abs_err {errs['decode']}")
+    # The same rows 1 byte into a larger buffer (the byte loader); the batch
+    # walk's edges (overlapping copies at every phase of a round, copies of
+    # the batch's own output, literals with 1-4 length bytes, tag programs)
+    # at a width that ends at the longest stream and at an out_cap that is
+    # not a multiple of 16, the last row ending at its buffer's end.
+    edges = batch_streams()
+    e_comp = rng.integers(0, 256, (len(edges), max(map(len, edges))), dtype=np.uint8)
+    e_lens = np.array([len(e) for e in edges], np.int32)
+    for i, e in enumerate(edges):
+        e_comp[i, : len(e)] = np.frombuffer(e, np.uint8)
+    e_comp[-1] = np.frombuffer(max(edges, key=len), np.uint8)
+    e_lens[-1] = e_comp.shape[1]
+    cases = []
+    for rows_h, lens_h, cap in ((c_h, cl_h, BLOCK), (torch.from_numpy(e_comp),
+                                                     torch.from_numpy(e_lens), 8190)):
+        ubuf = torch.zeros(rows_h.numel() + 1, dtype=torch.uint8, device=dev)
+        uview = ubuf[1:].view(rows_h.shape)
+        uview.copy_(rows_h.to(dev))
+        check(sc.decode_layout(uview, cap)["loader"] == "bytes",
+              "an unaligned view takes the byte loader")
+        want = [x.numpy() for x in sc.decode_blocks_plain(rows_h, lens_h, cap)]
+        for rows_d in (uview, rows_h.to(dev)):
+            got = [x.cpu().numpy() for x in sc.decode_blocks_bytes(rows_d, lens_h.to(dev), cap)]
+            check((got[2] == want[2]).all() and (got[1] == want[1]).all(),
+                  f"decode triple differs at out_cap {cap}")
+            cases += [(got[2], want[2]), (got[1], want[1])] + [
+                (got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+    # The measured forms (one warp; one warp reading words through the
+    # read-only path) on the aligned rows.
+    want = [x.numpy() for x in sc.decode_blocks_plain(c_h, cl_h, BLOCK)]
+    for form in (sc.decode_blocks_one_warp, sc.decode_blocks_ldg):
+        got = [x.cpu().numpy() for x in form(c_h.to(dev), cl_h.to(dev), BLOCK)]
+        cases += [(got[2], want[2]), (got[1], want[1])] + [
+            (got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+    err = max_abs_err(cases)
+    check(err == 0, "the decode kernel differs from its plain version on the byte loader")
+    errs["decode"] = max(errs["decode"], err)
+    print(f"decode kernel == plain on those rows 1 byte into a buffer and on {len(edges)} "
+          f"batch-edge rows at out_cap 8190 (both loaders), the one-warp and ldg forms on the "
+          f"aligned rows, "
+          f"max_abs_err {err}")
 
     clen = np.array([0, 1, 15, 16, 17, 4095, 57344, BLOCK - 3, BLOCK], np.int32)
     rows = rng.integers(0, 256, (len(clen), BLOCK), dtype=np.uint8)
@@ -472,6 +526,20 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
         blk = write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes()
         check(oracle.decompress(blk) == frags[i, :n].tobytes(), f"encode_best row {i} round trip")
     print(f"encode_best kernel == plain on {len(lens)} rows, max_abs_err {errs['encode_best']}")
+    # The same rows 1 byte into a larger buffer (the byte loader) and through
+    # the staged form.
+    check(sc.best_layout(view)["loader"] == "bytes", "an unaligned view takes the byte loader")
+    pairs = []
+    for got_b, got_l in (sc._encode_best(view, l_c, cands),
+                         sc.encode_best_staged(f_c, l_c, cands),
+                         sc.encode_best_staged(view, l_c, cands)):
+        got_b, got_l = got_b.cpu().numpy(), got_l.cpu().numpy()
+        pairs += [(got_l, p_lens)] + [(got_b[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)]
+    err = max_abs_err(pairs)
+    check(err == 0, "encode_best differs from its plain version unaligned or staged")
+    errs["encode_best"] = max(errs["encode_best"], err)
+    print(f"encode_best kernel == plain on the rows 1 byte into a buffer, staged form too, "
+          f"max_abs_err {err}")
     return errs, streams
 
 
@@ -866,6 +934,43 @@ def phase_streams(torch, card: str):
         "reader_32MiB_1MiB_ms": reader_ms[MIB], "all_runs_ms": t, "per_sub_batch": sub,
     }))
     return launches
+
+
+def redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8, block_lens):
+    """K1 and K4 on the main path's 512 blocks beside T4 v1 (a walk of a
+    tag a step), K1's one-warp and read-only-path forms and K4's staged
+    form, in turns (each timed twice, the second time in the reverse order);
+    returns K4's layouts and the times."""
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
+
+    layouts = {"kept": sc.best_layout(frags), "staged": sc.best_layout(frags, staged=True)}
+    check(layouts["kept"]["smem_bytes"] == 0 and layouts["kept"]["blocks_per_sm"] >= 4,
+          f"encode_best kernel: {layouts['kept']}")
+    check(layouts["staged"]["blocks_per_sm"] >= 2, f"staged encode_best: {layouts['staged']}")
+    staged = sc.encode_best_staged(frags, lengths, cands)
+    kept = sc._encode_best(frags, lengths, cands)
+    check(bool((staged[1] == kept[1]).all()), "the staged form's lengths differ")
+    for form in (sc.decode_blocks_one_warp, sc.decode_blocks_ldg):
+        got = form(comp_u8, block_lens, BLOCK)
+        check(bool((got[2] == 0).all()) and bool((got[0] == frags).all()), f"{form.__name__} rows")
+    for i in range(0, B, 64):
+        n = int(kept[1][i])
+        check(bool((staged[0][i, :n] == kept[0][i, :n]).all()), f"the staged form's row {i}")
+    fns = {
+        "v1": lambda: dv.decode_variant(comp_u8, block_lens, BLOCK, "v1"),
+        "decode": lambda: sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK),
+        "decode_one_warp": lambda: sc.decode_blocks_one_warp(comp_u8, block_lens, BLOCK),
+        "decode_ldg": lambda: sc.decode_blocks_ldg(comp_u8, block_lens, BLOCK),
+        "encode_best": lambda: sc._encode_best(frags, lengths, cands),
+        "encode_best_staged": lambda: sc.encode_best_staged(frags, lengths, cands),
+    }
+    turns = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            turns[k].append(cuda_ms(fns[k]))
+    print(json.dumps({"card": card, "encode_best_layouts": layouts,
+                      "ms_per_512_in_turns": turns}))
+    return layouts, turns
 
 
 def variant_call(dv, name: str):
@@ -1929,6 +2034,8 @@ def main() -> int:
     _build.build_all()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
     encode_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode", ""), "encode_kernel")
+    decode_ptxas = ptxas_figures(_build.BUILD_LOG.get("decode", ""), "_kernel")
+    best_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode_best", ""), "encode_best_kernel")
 
     # --- 2. each kernel against its plain version ------------------------
     errs, decode_streams = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
@@ -2003,10 +2110,19 @@ def main() -> int:
     # SM, and the walk's probe group in registers (no stack frame, no spill).
     check(k2_layout["blocks_per_sm"] >= 2,
           f"encode kernel: {k2_layout['blocks_per_sm']} block(s) an SM at 15 hash bits")
-    check(len(encode_ptxas) == 2, f"ptxas figures for the two encode kernels: {encode_ptxas}")
-    for fig in encode_ptxas:
-        check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
-              f"encode kernel stack frame or spills: {fig}")
+    # The decode redesign's layout: three walks (blocks of two warps) an SM at
+    # out_cap 65,536, and both walks (decode, best encode) in registers.
+    k1_layout = sc.decode_layout(comp_u8, BLOCK)
+    print(json.dumps({"card": card, "decode_layout": k1_layout, "decode_ptxas": decode_ptxas,
+                      "encode_best_ptxas": best_ptxas}))
+    check(k1_layout["blocks_per_sm"] >= 3 and k1_layout["loader"] == "ring",
+          f"decode kernel: {k1_layout} at out_cap {BLOCK}")
+    for what, figs, count in (("encode", encode_ptxas, 2), ("decode", decode_ptxas, 5),
+                              ("encode_best", best_ptxas, 4)):
+        check(len(figs) == count, f"ptxas figures for the {count} {what} kernels: {figs}")
+        for fig in figs:
+            check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
+                  f"{what} kernel stack frame or spills: {fig}")
     # bench.py's metric: 2 * uncompressed bytes / (compress + decompress),
     # CRC32C not timed inside compress (bench.py:98-103, :156-160).
     gb = B * BLOCK / 1e9
@@ -2049,6 +2165,8 @@ def main() -> int:
         "exact_candidates_ms": t_cands, "encode_best_ms": ms["encode_best"],
         "fast_ratio": len(fast) / len(raw), "best_ratio": len(best) / len(raw),
     }))
+    k4_layouts, turns = redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8,
+                                       block_lens)
     # --- 6. the framing format and the stream layers at full size ---------------
     stream_launches = phase_streams(torch, card)
     ms["watch"] = watch_t["a_add_salt"]
@@ -2165,6 +2283,13 @@ def main() -> int:
             rows[-1]["ms_by_method"] = watch_t
         if k == "encode":
             rows[-1]["layout"] = {**k2_layout, "ptxas": encode_ptxas}
+        if k == "decode":
+            rows[-1]["layout"] = {**k1_layout, "ptxas": decode_ptxas}
+            rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("decode", "decode_one_warp",
+                                                              "decode_ldg", "v1")}
+        if k == "encode_best":
+            rows[-1]["layout"] = {**k4_layouts, "ptxas": best_ptxas}
+            rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("encode_best", "encode_best_staged")}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
           "the kernels' build included")
     print(card)

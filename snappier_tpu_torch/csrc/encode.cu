@@ -28,9 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "scalar_codec.cuh"
+#include "smem_config.cuh"
 
 namespace {
 
@@ -63,40 +62,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The devices a process may address at once; configure sets the attributes
-// of a device at or past it on every launch.
-constexpr int kMaxDevices = 64;
-
 // Sets encode_kernel<kWords>'s shared-memory attributes on the current
-// device for hash_bits when they were last set there for another width
-// (once per device and process at a fixed width; a function attribute holds
-// only on the device that was current when it was set): the dynamic size,
-// and a carveout that holds as many blocks as fit an SM and leaves the rest
-// to L1, which caches the fragments' reads.
+// device for hash_bits (smem_config.cuh: once per device and width).
 template <bool kWords>
-cudaError_t configure(int hash_bits, size_t smem) {
-  static std::atomic<int> set_for[kMaxDevices];  // hash_bits + 1 per device, 0 for none
-  int dev = 0, per_sm = 0, reserved = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<int>* done = dev < kMaxDevices ? &set_for[dev] : nullptr;
-  if (done != nullptr && done->load() == hash_bits + 1) return cudaSuccess;
-  e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  }
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(encode_kernel<kWords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  size_t per_block = smem + (size_t)reserved;
-  size_t fit = (size_t)per_sm / per_block;
-  fit = fit < 32 ? (fit < 1 ? 1 : fit) : 32;  // an SM holds at most 32 blocks
-  int carveout = (int)((fit * per_block * 100 + per_sm - 1) / per_sm);
-  e = cudaFuncSetAttribute(encode_kernel<kWords>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           carveout > 100 ? 100 : carveout);
-  if (e == cudaSuccess && done != nullptr) done->store(hash_bits + 1);
-  return e;
+cudaError_t configure(size_t smem) {
+  static attrs::SetFor set_for;
+  return attrs::configure(encode_kernel<kWords>, smem, set_for);
 }
 
 template <bool kWords>
@@ -104,7 +75,7 @@ int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch
            int32_t hash_bits, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
            void* stream) {
   const size_t smem = sizeof(uint16_t) << hash_bits;
-  cudaError_t e = configure<kWords>(hash_bits, smem);
+  cudaError_t e = configure<kWords>(smem);
   if (e != cudaSuccess) return (int)e;
   encode_kernel<kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
@@ -115,7 +86,7 @@ int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch
 template <bool kWords>
 int layout(int32_t hash_bits, int32_t* out) {
   const size_t smem = sizeof(uint16_t) << hash_bits;
-  cudaError_t e = configure<kWords>(hash_bits, smem);
+  cudaError_t e = configure<kWords>(smem);
   int nb = 0;
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<kWords>, kThreads, smem);

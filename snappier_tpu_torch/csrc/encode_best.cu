@@ -7,74 +7,166 @@
 //
 // What bounds it: as in fast mode, the walk is serial per fragment (each
 // step depends on the match end of the one before), so a fragment's time is
-// its step count times the latency of dependent shared-memory loads. The
-// bytes it must move (32 MiB of fragments, 128 MiB of int32 candidates,
-// about 8 MiB of bodies for 512 fragments) take about 0.05 ms at 3.35 TB/s,
-// far below the walk.
+// its step count times the latency of its dependent loads. The bytes it
+// must move (32 MiB of fragments, 128 MiB of int32 candidates, about 8 MiB
+// of bodies for 512 fragments) take about 0.05 ms at 3.35 TB/s, far below
+// the walk. The card's time is then the waves of fragments times one walk.
 //
-// What the design does about it: one block per fragment. An int32 candidate
-// array of a 64 KiB fragment is 256 KiB, more than a block's 227 KB of
-// shared memory, so the staging pass narrows each candidate to 16 bits
-// (EMPTY = 0xFFFF for none, safe because a candidate lies below its
-// position, which is below 65536) with coalesced loads by all threads, beside
-// the fragment itself: 192 KiB, one block per SM. One thread then walks, so
-// every candidate, verify and extension read is a shared-memory load.
+// What the design does about it: the walk needs no table, so nothing has to
+// live in shared memory. One block of one warp per fragment, no dynamic
+// shared memory, and lane 0 walks (sc::encode_fragment_best in
+// scalar_codec.cuh): it reads its candidate at ip as an int32 through the
+// read-only path (a value outside [0, ip) is none) and the fragment through
+// a loader, aligned words where the rows allow it (sc::RowWords: base and
+// width multiples of 4), a byte at a time otherwise (sc::RowBytes); bytes
+// at or past the length read as zero and nothing past the row is read. The
+// candidates and the fragment stream forward, so the walk asks L1 for their
+// lines 128 positions ahead. An SM holds up to 32 such blocks, so 512 fragments run in one wave where a
+// layout that staged the candidates (narrowed to 16 bits) beside the
+// fragment, 192 KiB, one block an SM, took four. The form that stages only
+// the fragment (64 KiB, three blocks an SM, two waves) stays beside it as
+// a measurement (snappy_encode_best_staged_launch).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "scalar_codec.cuh"
+#include "smem_config.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 32;  // one warp: lane 0 walks (the staged form: all stage)
 
-__host__ __device__ inline size_t cand_bytes(int64_t frag_w) {
-  return (size_t)((2 * frag_w + 15) & ~(int64_t)15);
-}
+// A fragment staged in shared memory as words, the bytes past n zero.
+struct StagedWords {
+  const uint32_t* w;
+  int32_t n;
+  SC_HD uint32_t word(int32_t k) const { return 4 * k < n ? w[k] : 0u; }
+  SC_HD uint32_t window(int32_t i) const {
+    return sc::funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
+  }
+  SC_HD void prefetch(int32_t) const {}
+};
 
-__global__ void encode_best_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
-                                   const int32_t* __restrict__ lengths,
-                                   const int32_t* __restrict__ cands, int32_t skip_base,
-                                   uint8_t* __restrict__ bodies, int64_t body_w,
-                                   int32_t* __restrict__ body_lens) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* c16 = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* s = smem + cand_bytes(frag_w);
+template <bool kWords, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    encode_best_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
+                       const int32_t* __restrict__ lengths, const int32_t* __restrict__ cands,
+                       int32_t skip_base, uint8_t* __restrict__ bodies, int64_t body_w,
+                       int32_t* __restrict__ body_lens) {
   const int64_t b = blockIdx.x;
   int32_t n = lengths[b];
   n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
-
-  const int32_t* crow = cands + b * frag_w;
-  for (int32_t i = threadIdx.x; i < n; i += blockDim.x) {
-    int32_t c = crow[i];
-    c16[i] = (c >= 0 && c < i) ? (uint16_t)c : sc::EMPTY;
-  }
-  // Bytes past n read as zero (8 of them are read at most).
   const uint8_t* row = frags + b * frag_w;
-  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    body_lens[b] = sc::encode_fragment_best(s, n, c16, skip_base, bodies + b * body_w);
+  const int32_t* crow = cands + b * frag_w;
+  uint8_t* out = bodies + b * body_w;
+  const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), n};
+  const sc::RowBytes bytes{row, n};
+  if constexpr (kStaged) {
+    extern __shared__ __align__(16) uint32_t s[];
+    for (int32_t k = threadIdx.x; 4 * k < n; k += kThreads) {
+      s[k] = kWords ? words.word(k) : bytes.word(k);
+    }
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      body_lens[b] = sc::encode_fragment_best(StagedWords{s, n}, n, crow, skip_base, out);
+    }
+  } else if (threadIdx.x == 0) {
+    if constexpr (kWords) {
+      body_lens[b] = sc::encode_fragment_best(words, n, crow, skip_base, out);
+    } else {
+      body_lens[b] = sc::encode_fragment_best(bytes, n, crow, skip_base, out);
+    }
   }
+}
+
+size_t dyn_bytes(bool staged, int64_t frag_w) {
+  return staged ? (size_t)((frag_w + 15) & ~(int64_t)15) : 0;
+}
+
+// The word loader takes rows whose base and width are multiples of 4.
+bool word_rows(const void* frags, int64_t frag_w) {
+  return ((uintptr_t)frags % 4) == 0 && frag_w % 4 == 0;
+}
+
+template <bool kWords, bool kStaged>
+cudaError_t configure(int64_t frag_w) {
+  static attrs::SetFor set_for;
+  return attrs::configure(encode_best_kernel<kWords, kStaged>, dyn_bytes(kStaged, frag_w),
+                         set_for);
+}
+
+template <bool kWords, bool kStaged>
+int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
+           const void* cands, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
+           void* stream) {
+  cudaError_t e = configure<kWords, kStaged>(frag_w);
+  if (e != cudaSuccess) return (int)e;
+  encode_best_kernel<kWords, kStaged>
+      <<<(unsigned)batch, kThreads, dyn_bytes(kStaged, frag_w), (cudaStream_t)stream>>>(
+          (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands,
+          skip_base, (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+  return (int)cudaGetLastError();
+}
+
+template <bool kStaged>
+int launch_rows(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
+                const void* cands, int32_t skip_base, void* bodies, int64_t body_w,
+                void* body_lens, void* stream) {
+  if (batch == 0) return 0;
+  return word_rows(frags, frag_w)
+             ? launch<true, kStaged>(frags, frag_w, lengths, batch, cands, skip_base, bodies,
+                                     body_w, body_lens, stream)
+             : launch<false, kStaged>(frags, frag_w, lengths, batch, cands, skip_base, bodies,
+                                      body_w, body_lens, stream);
+}
+
+template <bool kWords, bool kStaged>
+int layout(int64_t frag_w, int32_t* out) {
+  cudaError_t e = configure<kWords, kStaged>(frag_w);
+  int nb = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, encode_best_kernel<kWords, kStaged>, kThreads, dyn_bytes(kStaged, frag_w));
+  }
+  out[0] = nb;
+  out[1] = (int32_t)dyn_bytes(kStaged, frag_w);
+  out[2] = kThreads;
+  out[3] = kWords ? 1 : 0;
+  return (int)e;
 }
 
 }  // namespace
 
-// frags: uint8[B, frag_w]; lengths, body_lens: int32[B]; cands: int32[B, frag_w];
-// bodies: uint8[B, body_w] with body_w >= frag_w + frag_w / 65 + 8.
+// frags: uint8[B, frag_w], any address and width; lengths, body_lens:
+// int32[B]; cands: int32[B, frag_w]; bodies: uint8[B, body_w] with body_w >=
+// frag_w + frag_w / 65 + 11 (the greedy emission bound and the 3 bytes a
+// literal may store past it).
 extern "C" int snappy_encode_best_launch(const void* frags, int64_t frag_w,
                                          const void* lengths, int64_t batch,
                                          const void* cands, int32_t skip_base, void* bodies,
                                          int64_t body_w, void* body_lens, void* stream) {
-  if (batch == 0) return 0;
-  size_t smem = cand_bytes(frag_w) + (size_t)((frag_w + 8 + 15) & ~15);
-  cudaError_t e = cudaFuncSetAttribute(encode_best_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  encode_best_kernel<<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands,
-      skip_base, (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  return (int)cudaGetLastError();
+  return launch_rows<false>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
+                            body_lens, stream);
+}
+
+// The same function with the fragment staged in shared memory first (a
+// measurement of the layout, not a path of the port).
+extern "C" int snappy_encode_best_staged_launch(const void* frags, int64_t frag_w,
+                                                const void* lengths, int64_t batch,
+                                                const void* cands, int32_t skip_base,
+                                                void* bodies, int64_t body_w, void* body_lens,
+                                                void* stream) {
+  return launch_rows<true>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
+                           body_lens, stream);
+}
+
+// The layout of either form for rows at frags of width frag_w: out[0]
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the
+// attributes the launch sets), out[1] dynamic shared bytes per block, out[2]
+// threads per block, out[3] 1 for the word loader and 0 for the byte loader.
+extern "C" int snappy_encode_best_layout(const void* frags, int64_t frag_w, int32_t staged,
+                                         int32_t* out) {
+  const bool w = word_rows(frags, frag_w);
+  if (staged) return w ? layout<true, true>(frag_w, out) : layout<false, true>(frag_w, out);
+  return w ? layout<true, false>(frag_w, out) : layout<false, false>(frag_w, out);
 }

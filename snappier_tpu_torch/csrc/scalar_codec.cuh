@@ -3,10 +3,11 @@
 // tests that hold the walks against the JAX reference on a machine without
 // a GPU.
 //
-// The walks are byte-serial state machines over one <= 64 KiB block, so
-// they are written once as __host__ __device__ functions: the CUDA kernels
-// give them shared-memory buffers and a lane index, a host build gives them
-// plain arrays and lane 0 of 1.
+// The walks run over one <= 64 KiB block and are written once as
+// __host__ __device__ functions: the CUDA kernels give them rows in device
+// memory through loaders (RowWords, RowBytes, RingWords), shared-memory
+// buffers and, for the decode walk, the warp (CudaWarp); a host build gives
+// them plain arrays and a warp whose lanes are arrays run in lock step.
 //
 // The bytes they produce are the contract of the JAX scalar kernels in
 // snappier_tpu/ops/pallas/scalar_codec.py (_decode_kernel, _encode_kernel in
@@ -46,123 +47,8 @@ struct DecodeResult {
   int32_t err;
 };
 
-// Decode one Snappy block: varint preamble, then the tag walk.
-//
-// comp holds cc bytes; bytes at or past cc read as zero (the JAX key image
-// pads the same way). n is the block's compressed length, out_cap the
-// caller's capacity: a preamble claiming more is ERR_BAD_PREAMBLE. out must
-// hold out_cap bytes; bytes past out_len are left as they are.
-//
-// Every lane of a group runs the same walk on the same input, so the
-// control flow stays uniform; lanes split each tag's payload bytes, and
-// sync() orders one tag's stores before the next tag's copy reads them.
-template <class Sync>
-SC_HD DecodeResult decode_block(const uint8_t* comp, int64_t cc, int32_t n,
-                                int32_t out_cap, uint8_t* out, int lane,
-                                int nlanes, Sync sync) {
-  auto rd = [&](int64_t i) -> uint32_t {
-    return (i >= 0 && i < cc) ? (uint32_t)comp[i] : 0u;
-  };
-
-  // Varint preamble (VarIntEncoding.Read.cs semantics, scalar_codec.py
-  // :217-239): at most 5 bytes, the 5th below 8.
-  int32_t pre_len = 0;
-  uint32_t val = 0;
-  bool done = false;
-  int32_t err = 0;
-  while (!done && pre_len < 5 && err == 0) {
-    uint32_t byte = rd(pre_len);
-    int sh = 7 * pre_len < 28 ? 7 * pre_len : 28;
-    val |= (byte & 0x7Fu) << sh;
-    done = byte < 0x80u;
-    if (pre_len == 4 && byte >= 8u) err = ERR_BAD_PREAMBLE;
-    pre_len++;
-  }
-  int32_t expected = (int32_t)val;
-  if (!done) err = ERR_BAD_PREAMBLE;
-  if (pre_len > n) err = ERR_BAD_PREAMBLE;
-  if (expected > out_cap) err = ERR_BAD_PREAMBLE;
-  if (expected < 0) err = ERR_BAD_PREAMBLE;
-
-  int32_t op = 0;
-  if (err == 0) {
-    int64_t ip = pre_len;
-    bool bad = false;
-    while (ip < n) {
-      uint32_t tag = rd(ip);
-      uint32_t rest =
-          rd(ip + 1) | (rd(ip + 2) << 8) | (rd(ip + 3) << 16) | (rd(ip + 4) << 24);
-      uint32_t tt = tag & 3u;
-      int32_t hdr;
-      int32_t length;
-      int32_t off = 0;
-      bool is_lit = tt == 0;
-      if (tt == 0) {
-        uint32_t l6 = tag >> 2;
-        if (l6 < 60) {
-          hdr = 1;
-          length = (int32_t)l6 + 1;
-        } else {
-          // 1..4 little-endian length bytes; a 4-byte field keeps all 32
-          // bits and wraps exactly as the int32 reference does.
-          int32_t extra = (int32_t)l6 - 59;
-          uint32_t lm = extra < 4 ? ((1u << (8 * extra)) - 1u) : 0xFFFFFFFFu;
-          hdr = 1 + extra;
-          length = (int32_t)((rest & lm) + 1u);
-        }
-      } else if (tt == 1) {
-        hdr = 2;
-        length = (int32_t)((tag >> 2) & 7u) + 4;
-        off = (int32_t)(((tag >> 5) << 8) | (rest & 0xFFu));
-      } else if (tt == 2) {
-        hdr = 3;
-        length = (int32_t)(tag >> 2) + 1;
-        off = (int32_t)(rest & 0xFFFFu);
-      } else {
-        hdr = 5;
-        length = (int32_t)(tag >> 2) + 1;
-        off = (int32_t)rest;  // a 4th offset byte >= 0x80 is negative: bad
-      }
-      int64_t ip2 = ip + hdr + (is_lit ? (int64_t)length : 0);
-      // One unsigned compare rejects lengths past the remaining output,
-      // negative lengths and the length-0 wrap (scalar_codec.py:409-424).
-      bool b = ip2 > n ||
-               (uint32_t)length - 1u >= (uint32_t)expected - (uint32_t)op;
-      if (!is_lit && (off <= 0 || off > op)) b = true;
-      if (b) {
-        bad = true;
-        break;
-      }
-      if (is_lit) {
-        int64_t src = ip + hdr;
-        for (int32_t i = lane; i < length; i += nlanes) out[op + i] = (uint8_t)rd(src + i);
-      } else if (off >= length) {
-        const uint8_t* s = out + (op - off);
-        for (int32_t i = lane; i < length; i += nlanes) out[op + i] = s[i];
-      } else {
-        // Overlapping copy: byte op+i repeats byte op-off+(i mod off), which
-        // is what a forward byte-serial copy (IncrementalCopy) produces.
-        const uint8_t* s = out + (op - off);
-        for (int32_t i = lane; i < length; i += nlanes) out[op + i] = s[i % off];
-      }
-      sync();
-      op += length;
-      ip = ip2;
-    }
-    if (bad || ip != n) {
-      err = ERR_MALFORMED;
-    } else if (op != expected) {
-      err = ERR_LENGTH_MISMATCH;
-    }
-  }
-  DecodeResult r;
-  r.err = err;
-  r.out_len = err == 0 ? expected : 0;
-  return r;
-}
-
 // ---------------------------------------------------------------------------
-// Encoder
+// Words and row loaders
 // ---------------------------------------------------------------------------
 
 // Unaligned little-endian 32-bit window at byte i.
@@ -220,6 +106,20 @@ struct RowWords {
   SC_HD uint32_t window(int32_t i) const {
     return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
   }
+  SC_HD uint32_t byte(int32_t i) const { return (word(i >> 2) >> (8 * (i & 3))) & 0xFFu; }
+  // Asks L1 for the line that holds byte i, if i < n (no load, no result).
+  SC_HD void prefetch(int32_t i) const {
+#ifdef __CUDA_ARCH__
+    if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(w + (i >> 2)));
+#endif
+  }
+  // The decode walk's hook at each batch's ip: the line 512 bytes ahead.
+  template <class W>
+  SC_HD void advance(const W& warp, int32_t ip) const {
+    warp.each([&](int l) {
+      if (l == 0) prefetch(ip + 512);
+    });
+  }
 };
 
 // A row in device memory at any address and width, read a byte at a time.
@@ -243,7 +143,503 @@ struct RowBytes {
     return byte(i) | (byte(i + 1) << 8) | (byte(i + 2) << 16) | (byte(i + 3) << 24);
   }
   SC_HD uint32_t word(int32_t k) const { return window(4 * k); }
+  SC_HD void prefetch(int32_t i) const {
+#ifdef __CUDA_ARCH__
+    if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(p + i));
+#endif
+  }
+  template <class W>
+  SC_HD void advance(const W& warp, int32_t ip) const {
+    warp.each([&](int l) {
+      if (l == 0) prefetch(ip + 512);
+    });
+  }
 };
+
+// A RowWords row read through a ring of kRing words in shared memory that
+// the decode walk's warp fills ahead of ip (advance, once a batch): a warp
+// of words a fill by cp.async, kAhead words ahead, the last kInFlight fills
+// left in flight. A word in the ring's readable span is a shared load, any
+// other (behind it, ahead of it: a long literal's payload) is the row's.
+// The decode kernel's input for word rows (RowWords' prefetch is its
+// measured alternative).
+template <int kRing>
+struct RingWords {
+  static constexpr int kAhead = 96, kInFlight = 2;
+  RowWords row;
+  uint32_t* ring;
+  int32_t n;
+  int32_t lo = 0, ready = 0, hi = 0;  // words [lo, ready) readable, [ready, hi) in flight
+  SC_HD RingWords(const RowWords& r, uint32_t* ring_) : row(r), ring(ring_), n(r.n) {}
+  SC_HD uint32_t word(int32_t k) const {
+    return k >= lo && k < ready ? ring[k & (kRing - 1)] : row.word(k);
+  }
+  SC_HD uint32_t window(int32_t i) const {
+    return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
+  }
+  SC_HD uint32_t byte(int32_t i) const { return (word(i >> 2) >> (8 * (i & 3))) & 0xFFu; }
+  template <class W>
+  SC_HD void advance(const W& warp, int32_t ip) {
+    constexpr int C = W::kLanes;  // words a fill
+    static_assert(kRing >= kAhead + 2 * C && (kRing & (kRing - 1)) == 0, "ring size");
+    const int32_t k0 = ip >> 2;
+    if (k0 >= ready) {  // jumped past the ring: start it again at ip
+#ifdef __CUDA_ARCH__
+      asm volatile("cp.async.wait_all;\n" ::);  // no fill in flight to an old slot
+#endif
+      lo = ready = hi = k0 & ~(C - 1);
+    }
+    bool filled = false;
+    while (hi < k0 + kAhead) {
+      const int32_t at = hi;
+      warp.each([&](int l) { fill(at + l); });
+#ifdef __CUDA_ARCH__
+      asm volatile("cp.async.commit_group;\n" ::);
+#endif
+      hi += C;
+      filled = true;
+    }
+    if (!filled) return;
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kInFlight));
+#endif
+    ready = hi - kInFlight * C;
+    lo = hi - kRing > lo ? hi - kRing : lo;
+    warp.sync();
+  }
+  // Word k into its slot, zero at or past the row's end (no read there).
+  SC_HD void fill(int32_t k) const {
+#ifdef __CUDA_ARCH__
+    const bool in_row = 4 * k < n;
+    const uint32_t slot = (uint32_t)__cvta_generic_to_shared(ring + (k & (kRing - 1)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(slot),
+                 "l"(in_row ? row.w + k : row.w), "r"(in_row ? 4 : 0));
+#else
+    ring[k & (kRing - 1)] = row.word(k);
+#endif
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Decoder
+// ---------------------------------------------------------------------------
+
+// One entry of the decode walk's 256-entry tag table: bits 0-2 the header
+// length, 3-9 the base length, 10-12 how many length bytes follow the tag
+// (a long literal's 1-4), 13-15 how many offset bytes (1, 2 or 4), 16-26 a
+// copy-1 tag's offset high bits, bit 27 literal. A tag's length is its base
+// plus its length bytes, its offset the high bits plus its offset bytes.
+SC_HD uint32_t tag_entry(uint32_t t) {
+  const uint32_t tt = t & 3u, l6 = t >> 2;
+  uint32_t hdr, base, nlen = 0, noff = 0, offhi = 0, lit = 0;
+  if (tt == 0) {
+    lit = 1;
+    nlen = l6 < 60 ? 0 : l6 - 59;
+    hdr = 1 + nlen;
+    base = l6 < 60 ? l6 + 1 : 1;
+  } else if (tt == 1) {
+    hdr = 2;
+    base = (l6 & 7u) + 4;
+    noff = 1;
+    offhi = (t >> 5) << 8;
+  } else {
+    hdr = tt == 2 ? 3 : 5;
+    base = l6 + 1;
+    noff = tt == 2 ? 2 : 4;
+  }
+  return hdr | base << 3 | nlen << 10 | noff << 13 | offhi << 16 | lit << 27;
+}
+
+// The low k bytes of v, k in [0, 4].
+SC_HD uint32_t low_bytes(uint32_t v, uint32_t k) {
+  return v & (uint32_t)(0xFFFFFFFFull >> (32 - 8 * k));
+}
+
+SC_HD int popc(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+// The highest set bit of m != 0.
+SC_HD int top_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(m);
+#else
+  return 31 - __builtin_clz(m);
+#endif
+}
+
+// The position of the k-th (from 0) set bit of m, k < popc(m): a binary
+// search on the halves' counts, in registers.
+SC_HD int nth_bit(uint32_t m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const int c = popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Bytes p .. p + 4 (and more) of a row, little-endian, from its two words.
+template <class Ld>
+SC_HD uint64_t bytes_at(const Ld& in, int32_t p) {
+  const uint64_t lo = in.word(p >> 2), hi = in.word((p >> 2) + 1);
+  return (hi << 32 | lo) >> (8 * (p & 3));
+}
+
+// The warp of the decode walk on the card: a lane's value is one register
+// and the walk's exchanges are the warp's own instructions. A host build
+// gives the walk another policy with the same members, whose lanes are
+// arrays run in lock step (the tests' ArrayWarp).
+struct CudaWarp {
+  static constexpr int kLanes = 32;
+  template <class T>
+  struct Lanes {
+    T v;
+    SC_HD T& operator[](int) { return v; }
+    SC_HD const T& operator[](int) const { return v; }
+  };
+  // f(lane) on every lane.
+  template <class F>
+  SC_HD void each(F f) const {
+#ifdef __CUDA_ARCH__
+    f((int)(threadIdx.x & 31u));
+#endif
+  }
+  // Lane l gets x of lane src[l].
+  template <class T>
+  SC_HD Lanes<T> gather(const Lanes<T>& x, const Lanes<int32_t>& src) const {
+#ifdef __CUDA_ARCH__
+    return {__shfl_sync(0xFFFFFFFFu, x.v, src.v)};
+#else
+    return x;
+#endif
+  }
+  SC_HD Lanes<bool> gather_bool(const Lanes<bool>& x, const Lanes<int32_t>& src) const {
+#ifdef __CUDA_ARCH__
+    return {__shfl_sync(0xFFFFFFFFu, (int)x.v, src.v) != 0};
+#else
+    return x;
+#endif
+  }
+  // x of one lane, on every lane.
+  template <class T>
+  SC_HD T read(const Lanes<T>& x, int lane) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(0xFFFFFFFFu, x.v, lane);
+#else
+    return x.v;
+#endif
+  }
+  SC_HD uint32_t ballot(const Lanes<bool>& p) const {
+#ifdef __CUDA_ARCH__
+    return __ballot_sync(0xFFFFFFFFu, p.v);
+#else
+    return p.v;
+#endif
+  }
+  SC_HD uint32_t or_all(const Lanes<uint32_t>& x) const {
+#ifdef __CUDA_ARCH__
+    return __reduce_or_sync(0xFFFFFFFFu, x.v);
+#else
+    return x.v;
+#endif
+  }
+  // Orders the lanes' shared-memory stores before the next reads.
+  SC_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
+  // A batch of `tags` tags passed its checks (a host build counts them).
+  SC_HD void batch(int) const {}
+};
+
+template <class W, class T>
+using LanesOf = typename W::template Lanes<T>;
+
+// The varint preamble of a block of n compressed bytes
+// (VarIntEncoding.Read.cs semantics, scalar_codec.py:217-239): at most 5
+// bytes, the 5th below 8, a claim in [0, out_cap]. Returns 0 or
+// ERR_BAD_PREAMBLE, with the preamble's length and the claim.
+template <class Ld>
+SC_HD int32_t read_preamble(const Ld& in, int32_t n, int32_t out_cap, int32_t* pre_len,
+                            int32_t* expected) {
+  int32_t len = 0;
+  uint32_t val = 0;
+  bool done = false;
+  int32_t err = 0;
+  while (!done && len < 5 && err == 0) {
+    uint32_t byte = in.byte(len);
+    int sh = 7 * len < 28 ? 7 * len : 28;
+    val |= (byte & 0x7Fu) << sh;
+    done = byte < 0x80u;
+    if (len == 4 && byte >= 8u) err = ERR_BAD_PREAMBLE;
+    len++;
+  }
+  *pre_len = len;
+  *expected = (int32_t)val;
+  if (!done || len > n || *expected > out_cap || *expected < 0) err = ERR_BAD_PREAMBLE;
+  return err;
+}
+
+// One parsed batch of tags, the same on every lane; its tags' fields are
+// the caller's per-lane arrays, tag k on lane k (see parse_batch).
+struct Batch {
+  uint32_t total;  // output bytes
+  uint32_t lits;   // bit k: tag k is a literal
+  int32_t ntags;
+  int32_t next;    // ip after the batch
+  bool bad;        // a tag failed its checks: the block is malformed
+};
+
+// Parse the batch of tags that start in the window of kLanes bytes at ip
+// (ip < n, op bytes written so far of the claimed `expected`).
+//
+// Lane l decodes the tag that would start at ip + l (its 5 header bytes
+// from two words of `in`, then lut). The chain of real tag starts from lane
+// 0 is resolved by pointer doubling over the lanes' successors: a tag
+// advances at least 2 bytes, so a window holds at most kLanes / 2 tags and
+// log2 of that many rounds of three gathers suffice; the same rounds give
+// each tag the output length from it to the end of the chain, and so its
+// output offset. The batch ends at the first tag whose successor leaves the
+// window (a long literal, the end of the block). Each tag is checked against
+// its own op as one tag at a time would be (scalar_codec.py:409-424): one
+// unsigned compare rejects lengths past the remaining output, negative
+// lengths and the length-0 wrap; a copy's offset must lie in (0, op]; a tag
+// may not end past n. The first bad tag fails the block.
+//
+// On return lane k < ntags holds tag k's output offset in the batch (start)
+// and the source of its bytes (delta): output byte x of the batch (0 at the
+// batch's first byte) is compressed byte x + delta of a literal, and output
+// byte x + delta of a copy (x - off: what a forward byte-serial copy reads).
+template <class W, class Ld>
+SC_HD Batch parse_batch(const W& w, const Ld& in, const uint32_t* lut, int32_t ip, int32_t op,
+                        int32_t n, int32_t expected, LanesOf<W, int32_t>& delta,
+                        LanesOf<W, uint32_t>& start) {
+  constexpr int N = W::kLanes;
+  LanesOf<W, int32_t> succ, nxt, off, at, from;
+  LanesOf<W, uint32_t> len, reach, sum;
+  LanesOf<W, bool> lit, past, flag;
+  w.each([&](int l) {
+    const int32_t p = ip + l;
+    const uint64_t v = bytes_at(in, p);
+    const uint32_t rest = (uint32_t)(v >> 8);
+    const uint32_t e = lut[(uint32_t)v & 0xFFu];
+    const int32_t hdr = (int32_t)(e & 7u);
+    const bool is_lit = (e >> 27) & 1u;
+    const uint32_t ln = ((e >> 3) & 127u) + low_bytes(rest, (e >> 10) & 7u);
+    // A 4-byte length field keeps all 32 bits and wraps exactly as the
+    // int32 reference does; a 4th offset byte >= 0x80 is negative: bad.
+    const int64_t next = (int64_t)p + hdr + (is_lit ? (int64_t)(int32_t)ln : 0);
+    const int64_t d = next - ip;
+    succ[l] = (next > p && next < n && d < N) ? (int32_t)d : N;
+    nxt[l] = (int32_t)next;  // read only where next <= n
+    off[l] = (int32_t)(((e >> 16) & 0x7FFu) + low_bytes(rest, (e >> 13) & 7u));
+    at[l] = p + hdr;
+    len[l] = ln;
+    lit[l] = is_lit;
+    past[l] = next > n;
+    reach[l] = 1u << l;
+    sum[l] = ln;
+  });
+  // The chain: reach[l] gathers the tag starts of 2^k hops from l, sum[l]
+  // their output lengths, succ[l] the lane 2^k hops on.
+  for (int h = 1; h < (N + 1) / 2; h <<= 1) {
+    w.each([&](int l) { from[l] = succ[l] < N ? succ[l] : l; });
+    const LanesOf<W, uint32_t> r2 = w.gather(reach, from), s2 = w.gather(sum, from);
+    const LanesOf<W, int32_t> p2 = w.gather(succ, from);
+    w.each([&](int l) {
+      if (succ[l] < N) {
+        reach[l] |= r2[l];
+        sum[l] += s2[l];
+        succ[l] = p2[l];
+      }
+    });
+  }
+  const uint32_t chain = w.read(reach, 0);
+  Batch bt;
+  bt.total = w.read(sum, 0);
+  bt.ntags = popc(chain);
+  w.each([&](int l) {
+    const uint32_t o = bt.total - sum[l];  // output before this tag, mod 2^32
+    const uint32_t opl = (uint32_t)op + o;
+    const bool b = past[l] || len[l] - 1u >= (uint32_t)expected - opl ||
+                   (!lit[l] && (off[l] <= 0 || off[l] > (int32_t)opl));
+    sum[l] = o;
+    at[l] = lit[l] ? at[l] - (int32_t)o : (int32_t)((uint32_t)op - (uint32_t)off[l]);
+    flag[l] = ((chain >> l) & 1u) && b;
+  });
+  bt.bad = w.ballot(flag) != 0;
+  bt.next = w.read(nxt, top_bit(chain));
+  // Tag k's fields move to lane k.
+  w.each([&](int l) { from[l] = nth_bit(chain, l < bt.ntags ? l : bt.ntags - 1); });
+  delta = w.gather(at, from);
+  start = w.gather(sum, from);
+  const LanesOf<W, bool> tl = w.gather_bool(lit, from);
+  w.each([&](int l) { flag[l] = l < bt.ntags && tl[l]; });
+  bt.lits = w.ballot(flag);
+  return bt;
+}
+
+// Write a parsed batch's bt.total output bytes at op: kSub rounds of kLanes
+// bytes a step, one byte a lane a round, across tag boundaries. Round j of a
+// step writes bytes xr + j * kLanes + l: a byte's tag is its rank among the
+// round's tag starts (a bit mask), and the look-ups of a step's rounds are
+// independent of each other. A source in the round's own output is resolved
+// through the lane that writes it (pointer jumping over the round's lanes)
+// before any lane reads shared memory; one sync a round orders the stores
+// before the next round's reads. The rest of a long literal that ends a
+// batch moves four bytes a lane. delta and start are parse_batch's: tag k's
+// on lane k.
+template <class W, class Ld>
+SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uint8_t* out,
+                      const LanesOf<W, int32_t>& delta, const LanesOf<W, uint32_t>& start) {
+  constexpr int N = W::kLanes;
+  constexpr int kSub = 4;
+  const int ntags = bt.ntags;
+  const bool last_lit = (bt.lits >> (ntags - 1)) & 1u;
+  const int32_t last_delta = w.read(delta, ntags - 1);
+  LanesOf<W, int32_t> from;
+  LanesOf<W, bool> flag;
+  int cnt = 0;  // tags that start before the step
+  for (uint32_t xr = 0; xr < bt.total;) {
+    if (cnt == ntags && last_lit && bt.total - xr >= 4u * N) {
+      w.each([&](int l) {
+        const int32_t x = (int32_t)xr + 4 * l;
+        const uint32_t v = in.window(x + last_delta);
+        uint8_t* d = out + op + x;
+        d[0] = (uint8_t)v;
+        d[1] = (uint8_t)(v >> 8);
+        d[2] = (uint8_t)(v >> 16);
+        d[3] = (uint8_t)(v >> 24);
+      });
+      w.sync();
+      xr += 4u * N;
+      continue;
+    }
+    // Per round: its tag starts, each lane's tag rank, and where its byte
+    // comes from (desc < 0: compressed byte -1 - desc; else output byte).
+    LanesOf<W, uint32_t> bits[kSub];
+    LanesOf<W, int32_t> rank[kSub], desc[kSub];
+    w.each([&](int l) {
+#pragma unroll
+      for (int j = 0; j < kSub; j++) {
+        const uint32_t d = start[l] - (xr + (uint32_t)(j * N));
+        bits[j][l] = l < ntags && d < (uint32_t)N ? 1u << d : 0u;
+      }
+    });
+    uint32_t starts[kSub];
+    int first[kSub + 1];
+    first[0] = cnt;
+#pragma unroll
+    for (int j = 0; j < kSub; j++) {
+      starts[j] = w.or_all(bits[j]);
+      first[j + 1] = first[j] + popc(starts[j]);
+    }
+    w.each([&](int l) {
+#pragma unroll
+      for (int j = 0; j < kSub; j++) {
+        const int k = first[j] + popc(starts[j] & ((2u << l) - 1u)) - 1;
+        rank[j][l] = k < 0 ? 0 : (k < ntags ? k : ntags - 1);
+      }
+    });
+#pragma unroll
+    for (int j = 0; j < kSub; j++) {
+      const LanesOf<W, int32_t> dl = w.gather(delta, rank[j]);
+      w.each([&](int l) {
+        const int32_t pos = (int32_t)xr + j * N + l + dl[l];
+        desc[j][l] = ((bt.lits >> rank[j][l]) & 1u) ? -1 - pos : pos;
+      });
+    }
+#pragma unroll
+    for (int j = 0; j < kSub; j++) {
+      const uint32_t xj = xr + (uint32_t)(j * N);
+      if (xj >= bt.total) break;
+      const int32_t base = op + (int32_t)xj;
+      w.each([&](int l) { flag[l] = xj + l < bt.total && desc[j][l] >= base; });
+      while (w.ballot(flag)) {
+        w.each([&](int l) { from[l] = flag[l] ? desc[j][l] - base : l; });
+        const LanesOf<W, int32_t> d2 = w.gather(desc[j], from);
+        w.each([&](int l) {
+          if (flag[l]) {
+            desc[j][l] = d2[l];
+            flag[l] = desc[j][l] >= base;
+          }
+        });
+      }
+      w.each([&](int l) {
+        if (xj + l < bt.total) {
+          const int32_t d = desc[j][l];
+          out[base + l] = d < 0 ? (uint8_t)in.byte(-1 - d) : out[d];
+        }
+      });
+      w.sync();
+    }
+    cnt = first[kSub];
+    xr += (uint32_t)(kSub * N);
+  }
+}
+
+// The walk's verdict once it stopped at ip after op output bytes.
+SC_HD DecodeResult walk_result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
+                               int32_t expected) {
+  if (err == 0 && (bad || ip != n)) err = ERR_MALFORMED;
+  if (err == 0 && op != expected) err = ERR_LENGTH_MISMATCH;
+  DecodeResult r;
+  r.err = err;
+  r.out_len = err == 0 ? expected : 0;
+  return r;
+}
+
+// Decode one Snappy block: varint preamble, then the tags, a batch of them
+// per warp step (parse_batch, then emit_batch).
+//
+// in is a row loader (RowWords, RowBytes, RingWords) over the block's row of
+// cc bytes, its n the row's width: bytes at or past it read as zero (the
+// JAX key image pads the same way) and are never read; in.advance(w, ip)
+// readies the input ahead of each batch. n here is the block's compressed
+// length, out_cap the caller's capacity: a preamble claiming more is
+// ERR_BAD_PREAMBLE. out must hold out_cap bytes; bytes past out_len are
+// unspecified (a failed walk may have written some). lut holds tag_entry(t)
+// for t in [0, 256). Every mid-stream failure is ERR_MALFORMED, as the JAX
+// scalar kernel reports it.
+template <class W, class Ld>
+SC_HD DecodeResult decode_block_batched(const W& w, Ld in, int32_t n, int32_t out_cap,
+                                        uint8_t* out, const uint32_t* lut) {
+  int32_t pre_len, expected, op = 0, ip = 0;
+  const int32_t err = read_preamble(in, n, out_cap, &pre_len, &expected);
+  bool bad = false;
+  if (err == 0) {
+    LanesOf<W, int32_t> delta;
+    LanesOf<W, uint32_t> start;
+    for (ip = pre_len; ip < n;) {
+      in.advance(w, ip);
+      const Batch bt = parse_batch(w, in, lut, ip, op, n, expected, delta, start);
+      if (bt.bad) {
+        bad = true;
+        break;
+      }
+      w.batch(bt.ntags);
+      emit_batch(w, in, bt, op, out, delta, start);
+      op += (int32_t)bt.total;
+      ip = bt.next;
+    }
+  }
+  return walk_result(err, bad, ip, n, op, expected);
+}
+
+// ---------------------------------------------------------------------------
+// Encoder
+// ---------------------------------------------------------------------------
 
 // Full match length at `at` against `cand` (whose first 4 bytes equal), in
 // [4, n - at]: the stride-8 walk of scalar_codec.py::_match_extension.
@@ -283,19 +679,6 @@ SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed se
   bool eq0w = key(at + 4) == key(cand + 4);
   bool eq1w = key(at + 8) == key(cand + 8);
   return extend_match_from(key, at, cand, n, seed, 12, eq0w && eq1w, eq0w);
-}
-
-// extend_match over a staged fragment s. With a table it seeds
-// table[hash(p)] = p, p = min(pos - 3, n - 5), so the table ends up as the
-// reference's does; table == nullptr seeds nothing (best mode, the probe).
-SC_HD int32_t match_extension(const uint8_t* s, int32_t at, int32_t cand, int32_t n,
-                              uint16_t* table, int hash_bits) {
-  return extend_match([&](int32_t i) { return load32(s, i); }, at, cand, n,
-                      [&](int32_t pos) {
-                        if (table == nullptr) return;
-                        int32_t p = pos - 3 < n - 5 ? pos - 3 : n - 5;
-                        table[hash32(load32(s, p), hash_bits)] = (uint16_t)p;
-                      });
 }
 
 // The probe's walk over a row of cc bytes that need not be padded: bytes
@@ -512,36 +895,62 @@ SC_HD int32_t encode_fragment(const Ld& ld, int32_t n, uint16_t* table, int hash
   return op;
 }
 
-// The level="best" walk over one fragment of n bytes (scalar_codec.py
-// :964-996); returns the tag stream's length.
+// An int32 of device memory through the read-only path.
+SC_HD int32_t load_i32(const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// Asks L1 for the line of p[i], if i < n.
+SC_HD void prefetch_i32(const int32_t* p, int32_t i, int32_t n) {
+#ifdef __CUDA_ARCH__
+  if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(p + i));
+#endif
+}
+
+// The level="best" walk over one fragment of n bytes read through a loader
+// (RowWords, RowBytes; scalar_codec.py:964-996); returns the tag stream's
+// length.
 //
-// s as for encode_fragment. cands[i] is the one candidate for position i
-// (ops/best_match.py::exact_candidates, nearest first), or EMPTY for none;
-// the caller stores EMPTY for any candidate outside [0, i), which a correct
-// candidate array never holds, so every hit copies from earlier bytes. A
-// hit is a candidate whose first 4 bytes equal the position's; no table,
-// no seeding, and a miss steps 1 + (skip >> 7).
-SC_HD int32_t encode_fragment_best(const uint8_t* s, int32_t n, const uint16_t* cands,
+// cands is the fragment's row of int32 candidates, read in device memory:
+// cands[i] is the one candidate for position i
+// (ops/best_match.py::exact_candidates, nearest first), and any value
+// outside [0, i), which a correct candidate array never holds, counts as
+// none, so every hit copies from earlier bytes. A hit is a candidate whose
+// first 4 bytes equal the position's; no table, no seeding, and a miss
+// steps 1 + (skip >> 7). out holds the bound of greedy emission plus 3
+// bytes (a literal's payload may store up to 3 bytes past its end). ld has
+// prefetch(i) (a no-op for a staged fragment).
+template <class Ld>
+SC_HD int32_t encode_fragment_best(const Ld& ld, int32_t n, const int32_t* cands,
                                    int32_t skip_base, uint8_t* out) {
+  auto key = [&](int32_t i) { return ld.window(i); };
   int32_t ip = n < 1 ? n : 1;
   int32_t lit_start = 0;
   int32_t op = 0;
   int32_t skip = skip_base;
   while (ip + INPUT_MARGIN < n) {
-    int32_t c = cands[ip];
-    if (c == EMPTY || load32(s, c) != load32(s, ip)) {
+    // The candidates and the fragment stream forward: ask L1 for their lines
+    // 128 positions ahead.
+    prefetch_i32(cands, ip + 128, n);
+    ld.prefetch(ip + 128);
+    const int32_t c = load_i32(cands + ip);
+    if (c < 0 || c >= ip || key(c) != key(ip)) {
       ip += 1 + (skip >> 7);
       skip += 1;
       continue;
     }
-    int32_t m = match_extension(s, ip, c, n, nullptr, 0);
-    if (ip > lit_start) op = emit_literal(out, op, s, lit_start, ip - lit_start);
+    const int32_t m = extend_match(key, ip, c, n, [](int32_t) {});
+    if (ip > lit_start) op = emit_literal(out, op, ld, lit_start, ip - lit_start);
     op = emit_copy(out, op, ip - c, m);
     ip += m;
     lit_start = ip;
     skip = skip_base;
   }
-  if (n > lit_start) op = emit_literal(out, op, s, lit_start, n - lit_start);
+  if (n > lit_start) op = emit_literal(out, op, ld, lit_start, n - lit_start);
   return op;
 }
 

@@ -13,8 +13,10 @@ Each wrapper launches its CUDA kernel (``csrc/decode.cu``,
 tensors on a CUDA device and runs the plain Python version beside it
 (:func:`decode_blocks_plain`, :func:`encode_blocks_plain`,
 :func:`encode_best_plain`, :func:`match_extension_probe_plain`) for tensors
-on the CPU. Both follow the walks in ``csrc/scalar_codec.cuh`` step for
-step.
+on the CPU. The encoders' and the probe's plain versions follow the walks
+in ``csrc/scalar_codec.cuh`` step for step; the decoder's takes one tag at
+a time where the kernel's walk resolves a batch of tags per warp step, and
+computes the same triple.
 """
 
 from __future__ import annotations
@@ -61,8 +63,9 @@ def _as_int32(v: int) -> int:
 
 
 def _decode_row(comp: bytes, n: int, out_cap: int, out: bytearray):
-    """One block's walk; mirrors ``sc::decode_block``. Returns
-    ``(out_len, err)`` and writes the output into ``out``."""
+    """One block's walk, a tag at a time; computes what
+    ``sc::decode_block_batched`` computes. Returns ``(out_len, err)`` and
+    writes the output into ``out``."""
     cc = len(comp)
 
     def rd(i):
@@ -147,6 +150,27 @@ def decode_blocks_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
     return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
 
 
+def _decode_launch(name: str, comp, comp_lens, out_cap: int):
+    """Checks the decode arguments and runs launcher ``name`` (or the plain
+    version for CPU tensors)."""
+    comp = byte_rows(comp, "comp")
+    B, cc = comp.shape
+    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
+    out_cap = int(out_cap)
+    if not 0 < out_cap <= MAX_OUT_CAP:
+        raise ValueError(f"out_cap must be in (0, {MAX_OUT_CAP}], got {out_cap}")
+    if not on_cuda(comp, comp_lens):
+        return decode_blocks_plain(comp, comp_lens, out_cap)
+    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
+    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
+    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
+    _build.launch(
+        name, comp.device, comp.data_ptr(), cc, comp_lens.data_ptr(), B,
+        out_cap, out.data_ptr(), out_lens.data_ptr(), errs.data_ptr(),
+    )
+    return out, out_lens, errs
+
+
 def decode_blocks_bytes(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int):
     """Decode a batch of Snappy blocks into uint8 rows.
 
@@ -160,22 +184,52 @@ def decode_blocks_bytes(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
     Returns ``(out uint8[B, out_cap], out_lens int32[B], errs int32[B])``;
     bytes of a row past its out_len are unspecified.
     """
+    return _decode_launch("decode", comp, comp_lens, out_cap)
+
+
+def decode_blocks_one_warp(comp, comp_lens, out_cap: int):
+    """:func:`decode_blocks_bytes` by the kernel's one-warp form, in which
+    one warp parses and writes each batch of tags in turn where the kernel
+    gives each its own warp: the form the kernel's note measures against,
+    not a path of the port. Its launches count under ``decode_one_warp``."""
+    return _decode_launch("decode_one_warp", comp, comp_lens, out_cap)
+
+
+def decode_blocks_ldg(comp, comp_lens, out_cap: int):
+    """The one-warp form with its input words read through the read-only
+    path and an L1 prefetch instead of the ring in shared memory: the input
+    form the kernel's note measures against, not a path of the port. The
+    rows' base and width must be multiples of 4 on the card. Its launches
+    count under ``decode_ldg``."""
+    return _decode_launch("decode_ldg", comp, comp_lens, out_cap)
+
+
+def _layout(name: str, rows: torch.Tensor, *args, loaders=("bytes", "words")) -> dict:
+    """A kernel's launch layout for ``rows`` on their CUDA device, from its
+    layout query ``name``: ``blocks_per_sm`` (the CUDA occupancy
+    calculator's count under the attributes the launch sets),
+    ``smem_bytes`` of shared memory and ``threads`` per block, and
+    ``loader``, named by ``loaders[code]``."""
+    if not on_cuda(rows):
+        raise ValueError("the layout is the CUDA kernel's: the rows must be on a CUDA device")
+    out = (ctypes.c_int32 * 4)()
+    with torch.cuda.device(rows.device):
+        rc = _build.launcher(name)(rows.data_ptr(), rows.shape[1], *args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} query failed with cudaError {rc}")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "threads": out[2],
+            "loader": loaders[out[3]]}
+
+
+def decode_layout(comp, out_cap: int = BLOCK_SIZE) -> dict:
+    """The decode kernel's launch layout for these rows, as
+    :func:`decode_blocks_bytes` launches it (:func:`_layout`; shared bytes
+    dynamic and static, the loader ``"ring"`` for a base and width that are
+    multiples of 4, else ``"bytes"``)."""
     comp = byte_rows(comp, "comp")
-    B, cc = comp.shape
-    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
-    out_cap = int(out_cap)
-    if not 0 < out_cap <= MAX_OUT_CAP:
+    if not 0 < int(out_cap) <= MAX_OUT_CAP:
         raise ValueError(f"out_cap must be in (0, {MAX_OUT_CAP}], got {out_cap}")
-    if not on_cuda(comp, comp_lens):
-        return decode_blocks_plain(comp, comp_lens, out_cap)
-    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
-    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
-    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
-    _build.launch(
-        "decode", comp.device, comp.data_ptr(), cc, comp_lens.data_ptr(), B,
-        out_cap, out.data_ptr(), out_lens.data_ptr(), errs.data_ptr(),
-    )
-    return out, out_lens, errs
+    return _layout("decode_layout", comp, int(out_cap), loaders=("ring", "words", "bytes"))
 
 
 def decode_blocks_scalar(comp, comp_lens, out_cap: int = BLOCK_SIZE, packed: bool = False):
@@ -397,24 +451,14 @@ def encode_blocks_bytes(frags, lengths, hash_bits: int = HASH_BITS, skip_base: i
 
 
 def encode_layout(frags, hash_bits: int = HASH_BITS) -> dict:
-    """The encode kernel's launch layout for these rows on their CUDA
-    device, as :func:`encode_blocks_bytes` launches it: ``blocks_per_sm``
-    (the CUDA occupancy calculator's count under the attributes the launch
-    sets), ``smem_bytes`` of dynamic shared memory and ``threads`` per
-    block, and ``loader``: ``"words"`` (base and width multiples of 16) or
-    ``"bytes"``."""
+    """The encode kernel's launch layout for these rows, as
+    :func:`encode_blocks_bytes` launches it (:func:`_layout`; dynamic
+    shared bytes, the loader ``"words"`` for a base and width that are
+    multiples of 16)."""
     frags = byte_rows(frags, "frags")
     if not 8 <= hash_bits <= 16:
         raise ValueError(f"hash_bits must be in [8, 16], got {hash_bits}")
-    if not on_cuda(frags):
-        raise ValueError("the layout is the CUDA kernel's: frags must be on a CUDA device")
-    out = (ctypes.c_int32 * 4)()
-    with torch.cuda.device(frags.device):
-        rc = _build.launcher("encode_layout")(frags.data_ptr(), frags.shape[1], hash_bits, out)
-    if rc != 0:
-        raise RuntimeError(f"encode layout query failed with cudaError {rc}")
-    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "threads": out[2],
-            "loader": "words" if out[3] else "bytes"}
+    return _layout("encode_layout", frags, hash_bits)
 
 
 def encode_blocks_scalar(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32,
@@ -453,21 +497,9 @@ def encode_best_plain(frags: torch.Tensor, lengths: torch.Tensor, cands: torch.T
     return _rows_out(bodies, F)
 
 
-def _encode_best(frags, lengths, cands, skip_base: int = 32):
-    """Encode a batch of fragments with one given candidate per position
-    (the JAX ``_encode_best_pallas`` step, minus its unpacking).
-
-    Args:
-      frags: [B, F] int32 or uint8 byte rows, F <= 65536.
-      lengths: [B] fragment lengths (clamped to [0, F]).
-      cands: [B, F] integer candidates, -1 for none
-        (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
-        candidate outside [0, i) counts as none.
-      skip_base: skip-heuristic start constant (the miss step is
-        ``1 + (skip >> 7)``).
-
-    Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
-    """
+def _best_launch(name: str, frags, lengths, cands, skip_base: int):
+    """Checks the best-mode arguments and runs launcher ``name`` (or the
+    plain version for CPU tensors)."""
     frags = byte_rows(frags, "frags")
     B, F = frags.shape
     lengths = lengths_vector(lengths, B, "lengths")
@@ -484,10 +516,45 @@ def _encode_best(frags, lengths, cands, skip_base: int = 32):
     bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
     body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
     _build.launch(
-        "encode_best", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+        name, frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
         cands.data_ptr(), skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
     )
     return bodies, body_lens
+
+
+def _encode_best(frags, lengths, cands, skip_base: int = 32):
+    """Encode a batch of fragments with one given candidate per position
+    (the JAX ``_encode_best_pallas`` step, minus its unpacking).
+
+    Args:
+      frags: [B, F] int32 or uint8 byte rows, F <= 65536.
+      lengths: [B] fragment lengths (clamped to [0, F]).
+      cands: [B, F] integer candidates, -1 for none
+        (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
+        candidate outside [0, i) counts as none.
+      skip_base: skip-heuristic start constant (the miss step is
+        ``1 + (skip >> 7)``).
+
+    Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
+    """
+    return _best_launch("encode_best", frags, lengths, cands, skip_base)
+
+
+def encode_best_staged(frags, lengths, cands, skip_base: int = 32):
+    """:func:`_encode_best` with each fragment staged in shared memory
+    before its walk: the layout the kernel's note measures against (three
+    blocks an SM at 64 KiB), not a path of the port. Its launches count
+    under ``encode_best_staged``."""
+    return _best_launch("encode_best_staged", frags, lengths, cands, skip_base)
+
+
+def best_layout(frags, staged: bool = False) -> dict:
+    """The best-mode encode kernel's launch layout for these rows
+    (:func:`_layout`; dynamic shared bytes, the loader ``"words"`` for a
+    base and width that are multiples of 4), as :func:`_encode_best` or,
+    with ``staged``, :func:`encode_best_staged` launches it."""
+    frags = byte_rows(frags, "frags")
+    return _layout("best_layout", frags, int(bool(staged)))
 
 
 def encode_blocks_best(frags, lengths, widths: tuple | None = None, skip_base: int = 32):

@@ -46,6 +46,7 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
 from test_match_length import VECTORS, _layout
 from torch_cases import (
     PIPE_CASES,
+    batch_streams,
     best_rows,
     block_stream,
     corrupt_streams,
@@ -154,6 +155,110 @@ def test_cuda_best_kernel_matches_plain(cuda_device, F):
     for i, n in enumerate(lens.tolist()):
         assert oracle.decompress(block_stream(n, p_bodies[i, : p_lens[i]].numpy())) == (
             frags[i, :n].astype(np.uint8).tobytes()), i
+
+
+def _offset_rows(rows: np.ndarray, offset: int, dev) -> torch.Tensor:
+    """The rows on ``dev``, ``offset`` bytes into a buffer that ends where
+    the last row ends."""
+    buf = torch.zeros(rows.size + offset, dtype=torch.uint8, device=dev)
+    view = buf[offset:].view(rows.shape)
+    view.copy_(_t(rows.astype(np.uint8)).to(dev))
+    return view
+
+
+def _decode_rows(tight: bool):
+    """Corrupt blocks, the batch walk's edges and encoded rows of 64 KiB, at
+    the codec's width (68,608 bytes) or, ``tight``, at the longest block's
+    length; the longest block last, so that at the tight width it ends where
+    the buffer ends."""
+    frags, lens = encode_rows(65536, seed=6)
+    p_bodies, p_lens = encode_blocks_plain(_t(frags.astype(np.uint8)), _t(lens), 15, 32)
+    streams = corrupt_streams() + batch_streams(programs=8) + [
+        block_stream(n, p_bodies[i, : p_lens[i]].numpy()) for i, n in enumerate(lens)]
+    streams.sort(key=len)
+    return pack_streams(streams, len(streams[-1]) if tight else 68608)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("out_cap", [65536, 65530])
+@pytest.mark.parametrize("tight", [False, True], ids=["codec_width", "tight_width"])
+def test_cuda_decode_matches_plain(cuda_device, tight, out_cap, offset):
+    """K1 at the codec's width (cc 68,608) and at the longest block's, at
+    out_cap 65,536 and at one that is not a multiple of 16, the rows 0 or 1
+    bytes into a buffer that ends at the last row's end (the ring and the
+    byte loader), against the plain version, corrupt rows included, and its
+    one-warp and (on word rows) read-only-path forms; the layout holds three
+    blocks of two warps an SM at 65,536."""
+    comp, clens = _decode_rows(tight)
+    rows = _offset_rows(comp, offset, cuda_device)
+    layout = sc.decode_layout(rows, out_cap)
+    assert layout["loader"] == ("ring" if offset == 0 and comp.shape[1] % 4 == 0 else "bytes")
+    assert layout["threads"] == 64
+    if out_cap == 65536:
+        assert layout["blocks_per_sm"] >= 3, layout
+    _build.reset_launches()
+    got = decode_blocks_bytes(rows, _t(clens).to(cuda_device), out_cap)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decode": 1}
+    ref = decode_blocks_plain(_t(comp.astype(np.uint8)), _t(clens), out_cap)
+    assert (got[2].cpu() == ref[2]).all() and (got[1].cpu() == ref[1]).all()
+    _rows_equal(got[0], ref[0], ref[1])
+    assert (ref[2] != 0).sum() >= 10 and (ref[2] == 0).sum() >= 50
+    forms = [sc.decode_blocks_one_warp]
+    if layout["loader"] == "ring":  # the read-only-path form reads word rows only
+        forms.append(sc.decode_blocks_ldg)
+    for form in forms:
+        got = form(rows, _t(clens).to(cuda_device), out_cap)
+        assert (got[2].cpu() == ref[2]).all() and (got[1].cpu() == ref[1]).all(), form
+        _rows_equal(got[0], ref[0], ref[1])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_best_kernel_unaligned_and_staged_match_plain(cuda_device, offset):
+    """K4 and its staged form on rows of 65,536 bytes 0, 1 or 3 bytes into a
+    buffer that ends at the last row's end, against the plain version; the
+    kept form runs without dynamic shared memory."""
+    F = 65536
+    frags, lens = best_rows(F, seed=offset, lens=(F, F - 5, 30000, 17, 0))
+    rows = _offset_rows(frags, offset, cuda_device)
+    l_c = _t(lens).to(cuda_device)
+    cands = exact_candidates(rows, l_c)
+    want_b, want_l = encode_best_plain(_t(frags.astype(np.uint8)), _t(lens), cands.cpu(), 32)
+    layout = sc.best_layout(rows)
+    assert layout["loader"] == ("bytes" if offset else "words") and layout["smem_bytes"] == 0
+    assert layout["blocks_per_sm"] >= 4, layout
+    assert sc.best_layout(rows, staged=True)["blocks_per_sm"] >= 2
+    for fn in (_encode_best, sc.encode_best_staged):
+        got_b, got_l = fn(rows, l_c, cands)
+        assert (got_l.cpu() == want_l).all(), fn
+        _rows_equal(got_b, want_b, want_l)
+
+
+def test_cuda_decode_and_best_on_each_card_match_plain(cuda_device):
+    """K1 and K4 on cuda:0 and then on each other card in one process, each
+    loader: their shared-memory attributes hold only on the device they were
+    set on, so each card sets its own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    comp, clens = _decode_rows(tight=True)
+    want = decode_blocks_plain(_t(comp.astype(np.uint8)), _t(clens), 65536)
+    F = 65536
+    frags, lens = best_rows(F, seed=4, lens=(F, 20000, 17))
+    cands = exact_candidates(_t(frags), _t(lens))
+    want_b, want_l = encode_best_plain(_t(frags.astype(np.uint8)), _t(lens), cands, 32)
+    for offset in (0, 1):
+        for d in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", d)
+            assert sc.decode_layout(_offset_rows(comp, offset, dev))["blocks_per_sm"] >= 3
+            got = decode_blocks_bytes(_offset_rows(comp, offset, dev), _t(clens).to(dev), 65536)
+            assert got[0].device == dev
+            assert (got[2].cpu() == want[2]).all() and (got[1].cpu() == want[1]).all(), d
+            _rows_equal(got[0], want[0], want[1])
+            for fn in (_encode_best, sc.encode_best_staged):
+                got_b, got_l = fn(_offset_rows(frags, offset, dev), _t(lens).to(dev),
+                                  cands.to(dev))
+                assert (got_l.cpu() == want_l).all(), (d, offset, fn)
+                _rows_equal(got_b, want_b, want_l)
 
 
 def test_cuda_probe_matches_plain(cuda_device):

@@ -13,9 +13,12 @@ tests/test_torch_hybrid_probes.py and tests/test_torch_encode_variants.py
 hold against the TPU kernels).
 
 The walks are ``__host__ __device__`` functions, so this is the one place
-their own logic runs without a GPU. The decode walk runs both on one lane
-and split over 4 threads that meet at a barrier after every tag, as the
-lanes of a warp do at ``__syncwarp``. The port never uses this host build.
+their own logic runs without a GPU. The batched decode walk runs on a warp
+of 1, 4 and 32 lanes whose values are arrays run in lock step (``ArrayWarp``,
+the host twin of ``sc::CudaWarp``), each loader reading rows placed just
+below a page the process may not read; it is also held to the oracle's
+verdicts on the block mutation set of tests/test_mutation_parity.py. The
+port never uses this host build.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from snappier_tpu.ops.pallas.scalar_codec import (
 )
 from tests.test_match_length import VECTORS, _layout
 from tests.torch_cases import (
+    batch_streams,
     best_rows,
     corrupt_streams,
     encode_rows,
@@ -99,36 +103,133 @@ struct BarrierSync {
 };
 }  // namespace
 
-extern "C" void host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens,
-                            int64_t batch, int32_t out_cap, int32_t nlanes, uint8_t* out,
-                            int32_t* out_lens, int32_t* errs) {
-  for (int64_t b = 0; b < batch; b++) {
-    const uint8_t* row = comp + b * cc;
-    uint8_t* dst = out + b * out_cap;
-    if (nlanes == 1) {
-      sc::DecodeResult r = sc::decode_block(row, cc, lens[b], out_cap, dst, 0, 1, NoSync());
-      out_lens[b] = r.out_len;
-      errs[b] = r.err;
-      continue;
-    }
-    Barrier bar(nlanes);
-    std::vector<sc::DecodeResult> res(nlanes);
-    std::vector<std::thread> lanes;
-    for (int lane = 0; lane < nlanes; lane++) {
-      lanes.emplace_back([&, lane] {
-        res[lane] = sc::decode_block(row, cc, lens[b], out_cap, dst, lane, nlanes,
-                                     BarrierSync{&bar});
-      });
-    }
-    for (auto& t : lanes) t.join();
-    for (int lane = 1; lane < nlanes; lane++) {
-      if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) {
-        res[0].err = -1;  // lanes disagreed: never a valid error word
-      }
-    }
-    out_lens[b] = res[0].out_len;
-    errs[b] = res[0].err;
+// A warp for the batched decode walk whose N lanes are arrays, run in lock
+// step: each() runs a lane body on every lane (highest lane first, so a
+// body that read another lane's result of the same step would differ from
+// the card), gather/read/ballot/or_all are __shfl_sync, __ballot_sync and
+// __reduce_or_sync over the arrays, sync() has nothing to order, and
+// batch() counts the walk's batches and their tags.
+template <int N>
+struct ArrayWarp {
+  static constexpr int kLanes = N;
+  template <class T>
+  struct Lanes {
+    T v[N];
+    T& operator[](int l) { return v[l]; }
+    const T& operator[](int l) const { return v[l]; }
+  };
+  template <class F>
+  void each(F f) const {
+    for (int l = N - 1; l >= 0; l--) f(l);
   }
+  template <class T>
+  Lanes<T> gather(const Lanes<T>& x, const Lanes<int32_t>& src) const {
+    Lanes<T> r;
+    for (int l = 0; l < N; l++) r.v[l] = x.v[((src.v[l] % N) + N) % N];
+    return r;
+  }
+  Lanes<bool> gather_bool(const Lanes<bool>& x, const Lanes<int32_t>& src) const {
+    return gather(x, src);
+  }
+  template <class T>
+  T read(const Lanes<T>& x, int lane) const { return x.v[lane]; }
+  uint32_t ballot(const Lanes<bool>& p) const {
+    uint32_t m = 0;
+    for (int l = 0; l < N; l++) m |= p.v[l] ? 1u << l : 0u;
+    return m;
+  }
+  uint32_t or_all(const Lanes<uint32_t>& x) const {
+    uint32_t m = 0;
+    for (int l = 0; l < N; l++) m |= x.v[l];
+    return m;
+  }
+  void sync() const {}
+  void batch(int tags) const {
+    batches++;
+    tags_seen += tags;
+  }
+  mutable int64_t batches = 0, tags_seen = 0;
+};
+
+// `batch` rows of `width` bytes copied `offset` bytes into a buffer whose
+// last byte lies just below a page the process may not read, so a read past
+// the last row faults.
+struct GuardedRows {
+  void* mem = nullptr;
+  size_t span = 0, page = 0;
+  uint8_t* rows = nullptr;
+  GuardedRows(const uint8_t* src, int64_t batch, int64_t width, int32_t offset) {
+    page = (size_t)sysconf(_SC_PAGESIZE);
+    const size_t bytes = (size_t)offset + (size_t)(batch * width);
+    span = (bytes + page - 1) / page * page;
+    void* m = mmap(nullptr, span + page, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS,
+                   -1, 0);
+    if (m == MAP_FAILED) return;
+    uint8_t* guard = static_cast<uint8_t*>(m) + span;
+    if (mprotect(guard, page, PROT_NONE) != 0) {
+      munmap(m, span + page);
+      return;
+    }
+    mem = m;
+    uint8_t* buf = guard - bytes;
+    memset(buf, 0xA5, (size_t)offset);
+    rows = buf + offset;
+    memcpy(rows, src, (size_t)(batch * width));
+  }
+  ~GuardedRows() {
+    if (mem != nullptr) munmap(mem, span + page);
+  }
+};
+
+template <int N, class Ld>
+static sc::DecodeResult batched(const Ld& ld, int32_t n, int32_t out_cap, uint8_t* out,
+                                int64_t* counts) {
+  static uint32_t lut[256];
+  for (int t = 0; t < 256; t++) lut[t] = sc::tag_entry((uint32_t)t);
+  ArrayWarp<N> w;
+  sc::DecodeResult r = sc::decode_block_batched(w, ld, n, out_cap, out, lut);
+  counts[0] += w.batches;
+  counts[1] += w.tags_seen;
+  return r;
+}
+
+template <class Ld>
+static sc::DecodeResult batched_lanes(int nlanes, const Ld& ld, int32_t n, int32_t out_cap,
+                                      uint8_t* out, int64_t* counts) {
+  if (nlanes == 1) return batched<1>(ld, n, out_cap, out, counts);
+  if (nlanes == 4) return batched<4>(ld, n, out_cap, out, counts);
+  return batched<32>(ld, n, out_cap, out, counts);
+}
+
+// The batched decode walk on each row as the decode kernel reads it, the
+// rows guarded (GuardedRows), a warp of `nlanes` (1, 4 or 32) lanes, loader
+// 0 sc::RowWords (offset and cc multiples of 4), 1 sc::RowBytes, 2 the same
+// rows as loader 0 through sc::RingWords (its ring poisoned); the output
+// starts poisoned. counts[0] gets the batches that passed their checks and
+// counts[1] their tags. Returns 0, or -1 if the buffer was refused.
+extern "C" int host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
+                           int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
+                           uint8_t* out, int32_t* out_lens, int32_t* errs, int64_t* counts) {
+  counts[0] = counts[1] = 0;
+  GuardedRows g(comp, batch, cc, offset);
+  if (g.mem == nullptr) return -1;
+  std::vector<uint32_t> ring(256);
+  for (int64_t b = 0; b < batch; b++) {
+    const uint8_t* row = g.rows + b * cc;
+    uint8_t* dst = out + b * out_cap;
+    memset(dst, 0xDB, (size_t)out_cap);
+    for (auto& v : ring) v = 0xDEADBEEFu;
+    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
+    const sc::DecodeResult r =
+        loader == 0   ? batched_lanes(nlanes, words, lens[b], out_cap, dst, counts)
+        : loader == 1 ? batched_lanes(nlanes, sc::RowBytes{row, (int32_t)cc}, lens[b], out_cap,
+                                      dst, counts)
+                      : batched_lanes(nlanes, sc::RingWords<256>(words, ring.data()), lens[b],
+                                      out_cap, dst, counts);
+    out_lens[b] = r.out_len;
+    errs[b] = r.err;
+  }
+  return 0;
 }
 
 // One block through an ablation variant's walk on `nlanes` threads: 0 v2,
@@ -531,34 +632,20 @@ extern "C" void host_bitonic(const int32_t* x, int32_t* keys, int32_t* vals) {
   }
 }
 
-// The rows copied `offset` bytes into a buffer whose last byte lies just
-// below a page the process may not read, then each through the greedy walk
-// as the encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. A
-// read past the buffer faults. Returns 0, or -1 if the buffer was refused.
+// The rows, guarded (GuardedRows), each through the greedy walk as the
+// encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. Returns 0,
+// or -1 if the buffer was refused.
 extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                                 int64_t batch, int32_t offset, int32_t loader,
                                 int32_t hash_bits, int32_t skip_base, uint8_t* bodies,
                                 int64_t body_w, int32_t* body_lens) {
-  const size_t page = (size_t)sysconf(_SC_PAGESIZE);
-  const size_t bytes = (size_t)offset + (size_t)(batch * frag_w);
-  const size_t span = (bytes + page - 1) / page * page;
-  void* mem = mmap(nullptr, span + page, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS,
-                   -1, 0);
-  if (mem == MAP_FAILED) return -1;
-  uint8_t* guard = static_cast<uint8_t*>(mem) + span;
-  if (mprotect(guard, page, PROT_NONE) != 0) {
-    munmap(mem, span + page);
-    return -1;
-  }
-  uint8_t* buf = guard - bytes;
-  memset(buf, 0xA5, (size_t)offset);
-  uint8_t* rows = buf + offset;
-  memcpy(rows, frags, (size_t)(batch * frag_w));
+  GuardedRows g(frags, batch, frag_w, offset);
+  if (g.mem == nullptr) return -1;
   std::vector<uint16_t> table((size_t)1 << hash_bits);
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
     for (auto& e : table) e = sc::EMPTY;
-    const uint8_t* row = rows + b * frag_w;
+    const uint8_t* row = g.rows + b * frag_w;
     uint8_t* out = bodies + b * body_w;
     body_lens[b] =
         loader == 0
@@ -567,25 +654,31 @@ extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int3
             : sc::encode_fragment(sc::RowBytes{row, n}, n, table.data(), hash_bits, skip_base,
                                   out);
   }
-  munmap(mem, span + page);
   return 0;
 }
 
-extern "C" void host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
-                                 const int32_t* cands, int64_t batch, int32_t skip_base,
-                                 uint8_t* bodies, int64_t body_w, int32_t* body_lens) {
-  std::vector<uint16_t> c16(frag_w);
-  std::vector<uint8_t> s(frag_w + 8);
+// The rows and their int32 candidates, each guarded (GuardedRows), through
+// the level="best" walk as the best encode kernel reads them: loader 0
+// sc::RowWords, 1 sc::RowBytes. Returns 0, or -1 if a buffer was refused.
+extern "C" int host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                const int32_t* cands, int64_t batch, int32_t offset,
+                                int32_t loader, int32_t skip_base, uint8_t* bodies,
+                                int64_t body_w, int32_t* body_lens) {
+  GuardedRows g(frags, batch, frag_w, offset);
+  GuardedRows gc(reinterpret_cast<const uint8_t*>(cands), batch, frag_w * 4, 0);
+  if (g.mem == nullptr || gc.mem == nullptr) return -1;
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
-    for (int32_t i = 0; i < n; i++) {
-      int32_t c = cands[b * frag_w + i];
-      c16[i] = (c >= 0 && c < i) ? (uint16_t)c : sc::EMPTY;
-    }
-    for (int64_t i = 0; i < frag_w + 8; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
-    body_lens[b] = sc::encode_fragment_best(s.data(), n, c16.data(), skip_base,
-                                            bodies + b * body_w);
+    const uint8_t* row = g.rows + b * frag_w;
+    const int32_t* crow = reinterpret_cast<const int32_t*>(gc.rows) + b * frag_w;
+    uint8_t* out = bodies + b * body_w;
+    body_lens[b] =
+        loader == 0
+            ? sc::encode_fragment_best(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n},
+                                       n, crow, skip_base, out)
+            : sc::encode_fragment_best(sc::RowBytes{row, n}, n, crow, skip_base, out);
   }
+  return 0;
 }
 
 extern "C" void host_probe(const uint8_t* bufs, int64_t cc, const int32_t* ats,
@@ -613,12 +706,12 @@ def host_lib(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    so.host_decode.argtypes = [P, I64, P, I64, I32, I32, P, P, P]
-    so.host_decode.restype = None
+    so.host_decode.argtypes = [P, I64, P, I64, I32, I32, I32, I32, P, P, P, P]
+    so.host_decode.restype = I32
     so.host_encode_rows.argtypes = [P, I64, P, I64, I32, I32, I32, I32, P, I64, P]
     so.host_encode_rows.restype = I32
-    so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, P, I64, P]
-    so.host_encode_best.restype = None
+    so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, I32, I32, P, I64, P]
+    so.host_encode_best.restype = I32
     so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
     so.host_probe.restype = None
     so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, P, P, P]
@@ -648,16 +741,22 @@ def host_lib(tmp_path_factory):
     return so
 
 
-def _host_decode(lib, comp, lens, out_cap, nlanes):
+def _host_decode(lib, comp, lens, out_cap, nlanes, offset=0, loader=0):
+    """The batched decode walk on a warp of ``nlanes`` lanes, the rows
+    ``offset`` bytes into a guarded buffer, through loader 0 (words) or 1
+    (bytes): ``(out, out_lens, errs, (batches, tags))``."""
     comp = np.ascontiguousarray(comp, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
     B, cc = comp.shape
     out = np.zeros((B, out_cap), np.uint8)
     out_lens = np.zeros(B, np.int32)
     errs = np.zeros(B, np.int32)
-    lib.host_decode(comp.ctypes.data, cc, lens.ctypes.data, B, out_cap, nlanes,
-                    out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data)
-    return out, out_lens, errs
+    counts = np.zeros(2, np.int64)
+    rc = lib.host_decode(comp.ctypes.data, cc, lens.ctypes.data, B, out_cap, nlanes, offset,
+                         loader, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data,
+                         counts.ctypes.data)
+    assert rc == 0
+    return out, out_lens, errs, tuple(counts.tolist())
 
 
 def _host_encode_rows(lib, frags, lens, offset, loader, hash_bits):
@@ -729,36 +828,164 @@ def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
         assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
 
 
-@pytest.mark.parametrize("nlanes", [1, 4])
-def test_host_decode_walk_matches_jax(host_lib, nlanes):
-    streams = [oracle.compress(np.frombuffer(d, np.uint8)) for d in (
+def _decode_groups():
+    """(name, streams, cc, out_cap) of the batched decode walk's cases:
+    small and corrupt blocks; the tag-sweep sample; oracle blocks of up to
+    64 KiB with the main path's word mix; the batch edges of
+    ``torch_cases.batch_streams`` at a width that ends at the longest
+    stream (rows end just below the guard page)."""
+    import chip_smoke
+
+    small = [oracle.compress(np.frombuffer(d, np.uint8)) for d in (
         b"", b"a", b"ab" * 50, b"a" * 300, b"the quick brown snappy " * 20, bytes(500),
         bytes(range(1, 6)) * 150,
     )] + corrupt_streams()
-    comp, lens = pack_streams(streams, 2048)
-    ref = [np.asarray(x) for x in decode_blocks_scalar(
-        jnp.asarray(comp), jnp.asarray(lens), out_cap=1024, interpret=True)]
-    out, out_lens, errs = _host_decode(host_lib, comp, lens, 1024, nlanes)
-    assert (errs == ref[2]).all(), (errs, ref[2])
-    assert (out_lens == ref[1]).all()
-    for i in range(len(streams)):
-        assert (out[i, : out_lens[i]] == ref[0][i, : ref[1][i]]).all(), i
+    datas = [html_like(65536, 3).tobytes(), html_like(40000, 4).tobytes(), b"", b"a",
+             bytes(65536), bytes(range(1, 6)) * 9000,
+             np.random.default_rng(2).integers(0, 256, 3000, np.uint8).tobytes(),
+             chip_smoke.word_mix()[:65536]]
+    big = [oracle.compress(np.frombuffer(d, np.uint8)) for d in datas]
+    edges = batch_streams()
+    return [("small", small, 2048, 1024), ("sweep", tag_sweep_sample(), 1024, 2048),
+            ("oracle", big, 68608, 65536), ("edges", edges, max(map(len, edges)), 8192)]
+
+
+@pytest.fixture(scope="module")
+def decode_refs():
+    """Each group with the JAX kernel's triple in interpret mode (on rows
+    padded to a multiple of 1,024 bytes: bytes past a length never change a
+    verdict)."""
+    refs = []
+    for name, streams, cc, out_cap in _decode_groups():
+        comp, lens = pack_streams(streams, cc)
+        wide, _ = pack_streams(streams, -(-cc // 1024) * 1024)
+        ref = [np.asarray(x) for x in decode_blocks_scalar(
+            jnp.asarray(wide), jnp.asarray(lens), out_cap=out_cap, interpret=True)]
+        refs.append((name, comp, lens, out_cap, ref))
+    return refs
+
+
+def _loader_cases(cc: int, ring: bool = False):
+    """(offset, loader) pairs: the byte loader 0-7 bytes into the buffer, the
+    word loader (and, with ``ring``, the ring over it) where base and width
+    are multiples of 4."""
+    words = [(0, 0), (4, 0)] + ([(0, 2), (4, 2)] if ring else [])
+    return [(o, 1) for o in range(8)] + (words if cc % 4 == 0 else [])
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_decode_walk_matches_jax(host_lib, decode_refs, nlanes):
+    """The batched decode walk on a warp of 1, 4 and 32 lanes (the card's),
+    through each loader at offsets 0-7 into a buffer that ends at the last
+    row's end (the ring too), equal to the JAX kernel in interpret mode on
+    every group:
+    the same error word, out_len and out[:out_len]. On the word mix the 32
+    lanes resolve more than 8 tags a step."""
+    for name, comp, lens, out_cap, ref in decode_refs:
+        for offset, loader in _loader_cases(comp.shape[1], ring=True):
+            what = f"{name}, offset {offset}, loader {loader}"
+            out, out_lens, errs, (batches, tags) = _host_decode(
+                host_lib, comp, lens, out_cap, nlanes, offset, loader)
+            assert (errs == ref[2]).all(), (what, errs, ref[2])
+            assert (out_lens == ref[1]).all(), what
+            for i in range(len(lens)):
+                assert (out[i, : out_lens[i]] == ref[0][i, : ref[1][i]]).all(), (what, i)
+            assert tags <= nlanes * batches, what
+    name, comp, lens, out_cap, ref = decode_refs[2]
+    mix = comp[-1:], lens[-1:]
+    _, out_lens, errs, (batches, tags) = _host_decode(host_lib, *mix, out_cap, nlanes)
+    assert errs[0] == 0 and out_lens[0] == 65536
+    assert tags > (8 * batches if nlanes == 32 else batches if nlanes == 4 else 0)
+
+
+def _mutant_rows():
+    from tests.test_mutation_parity import CC, OUT_CAP, _base_streams, _mutants
+
+    mutants = _mutants(_base_streams())
+    comp, lens = pack_streams(mutants, CC, garbage_seed=None)
+    return mutants, comp, lens, OUT_CAP
+
+
+def _oracle_verdicts(mutants, out_cap):
+    """Per mutant: None for a claim past out_cap (a capacity rejection, not
+    a stream verdict), else the oracle's decoded bytes or False."""
+    from snappier_tpu.errors import InvalidDataError, SnappyError
+    from snappier_tpu.format.varint import read_varint
+
+    verdicts = []
+    for mb in mutants:
+        try:
+            claim, _ = read_varint(np.frombuffer(mb, np.uint8))
+        except Exception:
+            claim = None
+        if claim is not None and claim > out_cap:
+            verdicts.append(None)
+            continue
+        try:
+            verdicts.append(bytes(oracle.decompress(np.frombuffer(mb, np.uint8))))
+        except (SnappyError, InvalidDataError):
+            verdicts.append(False)
+    return verdicts
+
+
+def _hold_to_oracle(verdicts, out, out_lens, errs, what):
+    accepted = 0
+    for i, v in enumerate(verdicts):
+        if v is None or v is False:
+            assert errs[i] != 0, (what, i)
+            continue
+        accepted += 1
+        assert errs[i] == 0 and out_lens[i] == len(v), (what, i, errs[i])
+        assert out[i, : len(v)].tobytes() == v, (what, i)
+    assert accepted >= 20 and len(verdicts) - accepted >= 500, (what, accepted)
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_decode_walk_matches_oracle_on_mutants(host_lib, nlanes):
+    """Verdict parity on the block mutation set of tests/test_mutation_parity.py
+    (all of it): the batched walk, through each loader, accepts what the
+    oracle accepts with its bytes and rejects what it rejects; claims past
+    out_cap are rejected."""
+    mutants, comp, lens, out_cap = _mutant_rows()
+    verdicts = _oracle_verdicts(mutants, out_cap)
+    for offset, loader in ((0, 0), (3, 1), (4, 2)):
+        out, out_lens, errs, _ = _host_decode(host_lib, comp, lens, out_cap, nlanes, offset,
+                                              loader)
+        _hold_to_oracle(verdicts, out, out_lens, errs, f"loader {loader}")
+
+
+def test_plain_decode_matches_oracle_on_mutants():
+    """The same verdict parity for the decode kernel's plain version."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_plain
+
+    mutants, comp, lens, out_cap = _mutant_rows()
+    out, out_lens, errs = (x.numpy() for x in decode_blocks_plain(
+        torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(lens), out_cap))
+    _hold_to_oracle(_oracle_verdicts(mutants, out_cap), out, out_lens, errs, "plain")
 
 
 def test_host_best_walk_matches_jax(host_lib):
+    """The level="best" walk through each loader, the rows and their
+    candidates in guarded buffers, the rows 0-7 bytes in (the word loader at
+    0 and 4), equal to the JAX kernel in interpret mode."""
     frags, lens = best_rows(4096, seed=8)
     cands = np.asarray(exact_candidates(jnp.asarray(frags), jnp.asarray(lens)), np.int32)
     ref_b, ref_l = (np.asarray(x) for x in _encode_best_pallas(
         jnp.asarray(frags), jnp.asarray(lens), jnp.asarray(cands), interpret=True))
     f8 = np.ascontiguousarray(frags, np.uint8)
     B, F = f8.shape
-    bodies = np.zeros((B, F + 2048), np.uint8)
-    body_lens = np.zeros(B, np.int32)
-    host_lib.host_encode_best(f8.ctypes.data, F, lens.ctypes.data, cands.ctypes.data, B, 32,
-                              bodies.ctypes.data, F + 2048, body_lens.ctypes.data)
-    assert (body_lens == ref_l).all(), (body_lens, ref_l)
-    for i in range(B):
-        assert (bodies[i, : body_lens[i]] == ref_b[i, : ref_l[i]]).all(), i
+    for offset, loader in _loader_cases(F):
+        bodies = np.zeros((B, F + 2048), np.uint8)
+        body_lens = np.zeros(B, np.int32)
+        rc = host_lib.host_encode_best(f8.ctypes.data, F, lens.ctypes.data, cands.ctypes.data,
+                                       B, offset, loader, 32, bodies.ctypes.data, F + 2048,
+                                       body_lens.ctypes.data)
+        assert rc == 0
+        assert (body_lens == ref_l).all(), (offset, loader, body_lens, ref_l)
+        for i in range(B):
+            assert (bodies[i, : body_lens[i]] == ref_b[i, : ref_l[i]]).all(), (offset, loader, i)
 
 
 def test_host_probe_walk_matches_jax(host_lib):

@@ -22,6 +22,7 @@ from snappier_tpu.ops.pallas.scalar_codec import (
     encode_blocks_scalar as jax_encode,
 )
 from snappier_tpu_torch.ops.cuda import _build
+from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     decode_blocks_bytes,
@@ -188,8 +189,14 @@ def test_wrappers_reject_bad_arguments():
 def test_cpu_path_launches_no_kernel():
     _build.reset_launches()
     frags, lens = encode_rows(1024)
-    encode_blocks_bytes(_t(frags), _t(lens))
+    bodies, body_lens = encode_blocks_bytes(_t(frags), _t(lens))
     crc32c_blocks(_t(frags), _t(lens))
+    decode_blocks_bytes(bodies, body_lens, out_cap=1024)
+    sc.decode_blocks_ldg(bodies, body_lens, out_cap=1024)
+    sc.decode_blocks_one_warp(bodies, body_lens, out_cap=1024)
+    cands = torch.full(frags.shape, -1, dtype=torch.int32)
+    sc._encode_best(_t(frags), _t(lens), cands)
+    sc.encode_best_staged(_t(frags), _t(lens), cands)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -198,9 +205,12 @@ def test_build_names_every_source():
                                    "decode_variants", "decode_pipe", "encode_variants",
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
                                    "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
-                                   "encode_layout"}
+                                   "encode_layout", "decode_layout", "encode_best_staged",
+                                   "best_layout", "decode_ldg", "decode_one_warp"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
-    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout"}
+    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout",
+              "decode_layout", "encode_best_staged", "best_layout", "decode_ldg",
+              "decode_one_warp"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

@@ -166,6 +166,64 @@ def walk_streams(big: int = 0) -> list[bytes]:
     return streams
 
 
+def _literal(data: bytes, nlen: int = 0) -> bytes:
+    """A literal tag with ``nlen`` (0-4) length bytes, then its payload."""
+    if nlen == 0:
+        return bytes([(len(data) - 1) << 2]) + data
+    return bytes([(59 + nlen) << 2]) + (len(data) - 1).to_bytes(nlen, "little") + data
+
+
+def _copy(off: int, n: int, kind: int) -> bytes:
+    """A copy tag of ``kind`` 1 (n 4-11, off < 2048), 2 or 4 (n 1-64)."""
+    if kind == 1:
+        return bytes([1 | (n - 4) << 2 | (off >> 8) << 5, off & 0xFF])
+    return bytes([(2 if kind == 2 else 3) | (n - 1) << 2]) + off.to_bytes(kind, "little")
+
+
+def batch_streams(programs: int = 24, seed: int = 31) -> list[bytes]:
+    """Valid blocks for the batched decode walk, whose warp step resolves
+    the tags that start in a window of 32 compressed bytes and writes their
+    output 32 bytes a round: for each offset 1-40, an overlapping copy of 64
+    bytes and one of 37 behind a literal of 1-7 bytes (so they straddle a
+    round at every phase); copies whose source is the output of an earlier
+    copy of the same batch; literals with 1-4 length bytes; and ``programs``
+    random tag programs of 300 tags (literals of 1-70 bytes with 0-4 length
+    bytes, copy-1, copy-2 and copy-4 tags of 1-64 bytes at offsets of 1-40
+    or anywhere behind)."""
+    rng = np.random.default_rng(seed)
+    streams = []
+    for off in range(1, 41):
+        head = rng.integers(0, 256, off % 7 + 1 + off, dtype=np.uint8).tobytes()
+        body = _literal(head) + _copy(off, 64, 2) + _copy(off, 37, 4) + _literal(b"xyz")
+        streams.append(write_varint(len(head) + 104) + body)
+    own = _literal(b"abcd") + _copy(4, 4, 1) + _copy(8, 8, 1) + _copy(3, 64, 2) + _copy(1, 11, 1)
+    streams.append(write_varint(4 + 4 + 8 + 64 + 11) + own)
+    for nlen in (1, 2, 3, 4):
+        for n in (1, 33, 61, 256) + ((300,) if nlen > 1 else ()):
+            streams.append(write_varint(n + 2) + _literal(bytes(range(65, 67)))
+                           + _literal(rng.integers(0, 256, n, dtype=np.uint8).tobytes(), nlen))
+    for _ in range(programs):
+        out = bytearray(rng.integers(0, 256, 3, dtype=np.uint8).tobytes())
+        body = bytearray(_literal(bytes(out)))
+        for _ in range(300):
+            if rng.random() < 0.3:
+                n = int(rng.integers(1, 71)) if rng.random() < 0.3 else int(rng.integers(1, 9))
+                data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                nlen = int(rng.integers(0, 5)) if n <= 60 else int(rng.integers(1, 5))
+                body += _literal(data, nlen)
+                out += data
+                continue
+            off = int(rng.integers(1, min(len(out), 40) + 1)) if rng.random() < 0.7 else int(
+                rng.integers(1, len(out) + 1))
+            kind = int(rng.choice([1, 2, 4])) if off < 2048 else int(rng.choice([2, 4]))
+            n = int(rng.integers(4, 12)) if kind == 1 else int(rng.integers(1, 65))
+            body += _copy(off, n, kind)
+            for _ in range(n):  # byte by byte: the source may overlap the copy
+                out.append(out[-off])
+        streams.append(write_varint(len(out)) + bytes(body))
+    return streams
+
+
 def probe_blocks() -> dict[str, bytes]:
     """Compressed blocks for the hybrid micro-probes: 12,000 bytes of markup
     and the first 65,536 bytes of bench.py's word mix (``chip_smoke.py``'s
