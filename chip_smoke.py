@@ -19,8 +19,8 @@ failure:
    and on rows of 65,535 bytes (its byte loader); the decode kernel also on
    its rows 1 byte into a buffer and on the batch walk's edge rows
    (``torch_cases.batch_streams``) at out_cap 8,190, both loaders, the last
-   row ending at its buffer's end, and its one-warp and read-only-path forms;
-   the best encode kernel also 1 byte into a buffer and in its staged form;
+   row ending at its buffer's end; the best encode kernel also 1 byte into
+   a buffer;
    the probe path: the FindMatchLength golden
    vectors and 300 rows of 64 KiB with planted matches through
    ``match_extension_probe``;
@@ -41,10 +41,9 @@ failure:
    larger than fast, the best stream decoded independently by the native
    engine; ``*_into``, ``*_to_memory`` and a corrupt input on 1 MiB; then
    host wall-clock per facade call and CUDA-event times of the candidate
-   search and the new kernels; the decode kernel, its one-warp and
-   read-only-path forms, T4 ``v1`` (a tag a warp step), the best encode
-   kernel and its staged form on the 512 blocks in turns (each twice, the
-   second time in reverse order), with the best encode kernel's layouts;
+   search and the new kernels; the decode kernel, T4 ``v1`` (a tag a warp
+   step) and the best encode kernel on the 512 blocks in turns (each twice,
+   the second time in reverse order), with the best encode kernel's layout;
 6. the framing format and the stream layers at full size: 128 MiB (2,048
    chunks, every eighth of random bytes, so both chunk types occur)
    through ``stream_compress`` and ``stream_decompress`` on the card in 8
@@ -484,20 +483,11 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
                   f"decode triple differs at out_cap {cap}")
             cases += [(got[2], want[2]), (got[1], want[1])] + [
                 (got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
-    # The measured forms (one warp; one warp reading words through the
-    # read-only path) on the aligned rows.
-    want = [x.numpy() for x in sc.decode_blocks_plain(c_h, cl_h, BLOCK)]
-    for form in (sc.decode_blocks_one_warp, sc.decode_blocks_ldg):
-        got = [x.cpu().numpy() for x in form(c_h.to(dev), cl_h.to(dev), BLOCK)]
-        cases += [(got[2], want[2]), (got[1], want[1])] + [
-            (got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
     err = max_abs_err(cases)
     check(err == 0, "the decode kernel differs from its plain version on the byte loader")
     errs["decode"] = max(errs["decode"], err)
     print(f"decode kernel == plain on those rows 1 byte into a buffer and on {len(edges)} "
-          f"batch-edge rows at out_cap 8190 (both loaders), the one-warp and ldg forms on the "
-          f"aligned rows, "
-          f"max_abs_err {err}")
+          f"batch-edge rows at out_cap 8190 (both loaders), max_abs_err {err}")
 
     clen = np.array([0, 1, 15, 16, 17, 4095, 57344, BLOCK - 3, BLOCK], np.int32)
     rows = rng.integers(0, 256, (len(clen), BLOCK), dtype=np.uint8)
@@ -526,20 +516,14 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
         blk = write_varint(int(n)) + bodies[i, : body_lens[i]].tobytes()
         check(oracle.decompress(blk) == frags[i, :n].tobytes(), f"encode_best row {i} round trip")
     print(f"encode_best kernel == plain on {len(lens)} rows, max_abs_err {errs['encode_best']}")
-    # The same rows 1 byte into a larger buffer (the byte loader) and through
-    # the staged form.
+    # The same rows 1 byte into a larger buffer (the byte loader).
     check(sc.best_layout(view)["loader"] == "bytes", "an unaligned view takes the byte loader")
-    pairs = []
-    for got_b, got_l in (sc._encode_best(view, l_c, cands),
-                         sc.encode_best_staged(f_c, l_c, cands),
-                         sc.encode_best_staged(view, l_c, cands)):
-        got_b, got_l = got_b.cpu().numpy(), got_l.cpu().numpy()
-        pairs += [(got_l, p_lens)] + [(got_b[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)]
-    err = max_abs_err(pairs)
-    check(err == 0, "encode_best differs from its plain version unaligned or staged")
+    got_b, got_l = (x.cpu().numpy() for x in sc._encode_best(view, l_c, cands))
+    err = max_abs_err([(got_l, p_lens)] +
+                      [(got_b[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)])
+    check(err == 0, "encode_best differs from its plain version unaligned")
     errs["encode_best"] = max(errs["encode_best"], err)
-    print(f"encode_best kernel == plain on the rows 1 byte into a buffer, staged form too, "
-          f"max_abs_err {err}")
+    print(f"encode_best kernel == plain on the rows 1 byte into a buffer, max_abs_err {err}")
     return errs, streams
 
 
@@ -938,39 +922,25 @@ def phase_streams(torch, card: str):
 
 def redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8, block_lens):
     """K1 and K4 on the main path's 512 blocks beside T4 v1 (a walk of a
-    tag a step), K1's one-warp and read-only-path forms and K4's staged
-    form, in turns (each timed twice, the second time in the reverse order);
-    returns K4's layouts and the times."""
+    tag a step), in turns (each timed twice, the second time in the reverse
+    order); returns K4's layout and the times."""
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
 
-    layouts = {"kept": sc.best_layout(frags), "staged": sc.best_layout(frags, staged=True)}
-    check(layouts["kept"]["smem_bytes"] == 0 and layouts["kept"]["blocks_per_sm"] >= 4,
-          f"encode_best kernel: {layouts['kept']}")
-    check(layouts["staged"]["blocks_per_sm"] >= 2, f"staged encode_best: {layouts['staged']}")
-    staged = sc.encode_best_staged(frags, lengths, cands)
-    kept = sc._encode_best(frags, lengths, cands)
-    check(bool((staged[1] == kept[1]).all()), "the staged form's lengths differ")
-    for form in (sc.decode_blocks_one_warp, sc.decode_blocks_ldg):
-        got = form(comp_u8, block_lens, BLOCK)
-        check(bool((got[2] == 0).all()) and bool((got[0] == frags).all()), f"{form.__name__} rows")
-    for i in range(0, B, 64):
-        n = int(kept[1][i])
-        check(bool((staged[0][i, :n] == kept[0][i, :n]).all()), f"the staged form's row {i}")
+    layout = sc.best_layout(frags)
+    check(layout["smem_bytes"] == 0 and layout["blocks_per_sm"] >= 4,
+          f"encode_best kernel: {layout}")
     fns = {
         "v1": lambda: dv.decode_variant(comp_u8, block_lens, BLOCK, "v1"),
         "decode": lambda: sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK),
-        "decode_one_warp": lambda: sc.decode_blocks_one_warp(comp_u8, block_lens, BLOCK),
-        "decode_ldg": lambda: sc.decode_blocks_ldg(comp_u8, block_lens, BLOCK),
         "encode_best": lambda: sc._encode_best(frags, lengths, cands),
-        "encode_best_staged": lambda: sc.encode_best_staged(frags, lengths, cands),
     }
     turns = {k: [] for k in fns}
     for order in (list(fns), list(fns)[::-1]):
         for k in order:
             turns[k].append(cuda_ms(fns[k]))
-    print(json.dumps({"card": card, "encode_best_layouts": layouts,
+    print(json.dumps({"card": card, "encode_best_layout": layout,
                       "ms_per_512_in_turns": turns}))
-    return layouts, turns
+    return layout, turns
 
 
 def variant_call(dv, name: str):
@@ -2117,8 +2087,8 @@ def main() -> int:
                       "encode_best_ptxas": best_ptxas}))
     check(k1_layout["blocks_per_sm"] >= 3 and k1_layout["loader"] == "ring",
           f"decode kernel: {k1_layout} at out_cap {BLOCK}")
-    for what, figs, count in (("encode", encode_ptxas, 2), ("decode", decode_ptxas, 5),
-                              ("encode_best", best_ptxas, 4)):
+    for what, figs, count in (("encode", encode_ptxas, 2), ("decode", decode_ptxas, 2),
+                              ("encode_best", best_ptxas, 2)):
         check(len(figs) == count, f"ptxas figures for the {count} {what} kernels: {figs}")
         for fig in figs:
             check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
@@ -2165,7 +2135,7 @@ def main() -> int:
         "exact_candidates_ms": t_cands, "encode_best_ms": ms["encode_best"],
         "fast_ratio": len(fast) / len(raw), "best_ratio": len(best) / len(raw),
     }))
-    k4_layouts, turns = redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8,
+    k4_layout, turns = redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8,
                                        block_lens)
     # --- 6. the framing format and the stream layers at full size ---------------
     stream_launches = phase_streams(torch, card)
@@ -2285,11 +2255,10 @@ def main() -> int:
             rows[-1]["layout"] = {**k2_layout, "ptxas": encode_ptxas}
         if k == "decode":
             rows[-1]["layout"] = {**k1_layout, "ptxas": decode_ptxas}
-            rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("decode", "decode_one_warp",
-                                                              "decode_ldg", "v1")}
+            rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("decode", "v1")}
         if k == "encode_best":
-            rows[-1]["layout"] = {**k4_layouts, "ptxas": best_ptxas}
-            rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("encode_best", "encode_best_staged")}
+            rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
+            rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
           "the kernels' build included")
     print(card)

@@ -26,17 +26,17 @@
 // offsets and sources, 264 bytes) to warp 1 through a queue of four slots
 // in shared memory, and warp 1 writes it, so a batch's parse overlaps the
 // previous batch's output; 10% faster on the word mix than one warp doing
-// both (decode_one_warp_kernel, kept as snappy_decode_one_warp_launch). The
-// output leaves shared memory in one coalesced pass.
+// both (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W). The output leaves shared
+// memory in one coalesced pass.
 //
 // The input: rows whose base and width are multiples of 4 are parsed
 // through a ring of 1 KiB in static shared memory that the parsing warp
 // fills with cp.async 384 bytes ahead (sc::RingWords; 3% faster than the
-// same words read through the read-only path with an L1 prefetch, kept as
-// snappy_decode_ldg_launch), and the writing warp reads literal bytes as
-// words through the read-only path; other rows a byte at a time
-// (sc::RowBytes). No byte at or past the row's width is read, so the last
-// row may end where its buffer ends.
+// same words read through the read-only path with an L1 prefetch, on the
+// same card), and the writing warp reads literal bytes as words through the
+// read-only path; other rows a byte at a time (sc::RowBytes). No byte at or
+// past the row's width is read, so the last row may end where its buffer
+// ends.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,10 +48,10 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRingWords = 256;  // the input ring: 1 KiB
 constexpr int kQueue = 4;        // batches in flight between the two warps
+constexpr int kThreads = 2 * kWarp;
 
-// The input forms: word rows through the ring or the read-only path, any
-// row a byte at a time.
-enum Input { kRing, kWords, kBytes };
+// The input forms: word rows through the ring, any row a byte at a time.
+enum Input { kRing, kBytes };
 
 // A block's walk reads no further than about six times out_cap into its
 // row (ip passes only tags that were checked against the output left), so
@@ -83,7 +83,7 @@ struct Slot {
 };
 
 template <int kInput>
-__global__ void __launch_bounds__(2 * kWarp)
+__global__ void __launch_bounds__(kThreads)
     decode_kernel(const uint8_t* __restrict__ comp, int64_t cc,
                   const int32_t* __restrict__ comp_lens, int32_t out_cap,
                   uint8_t* __restrict__ out, int32_t* __restrict__ out_lens,
@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(2 * kWarp)
   __shared__ sc::DecodeResult res;
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x & (kWarp - 1);
-  for (int t = threadIdx.x; t < 256; t += 2 * kWarp) lut[t] = sc::tag_entry((uint32_t)t);
+  for (int t = threadIdx.x; t < 256; t += kThreads) lut[t] = sc::tag_entry((uint32_t)t);
   if (threadIdx.x == 0) head = tail = 0;
   __syncthreads();
   volatile int32_t* vhead = &head;
@@ -107,17 +107,15 @@ __global__ void __launch_bounds__(2 * kWarp)
   const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
   const sc::RowBytes bytes{row, width};
   if (threadIdx.x < kWarp) {
-    // Warp 0 parses: sc::decode_block_batched's loop, each batch handed on.
-    int32_t pre_len, expected, op = 0, ip = 0, h = 0;
-    bool bad = false;
-    sc::LanesOf<sc::CudaWarp, int32_t> delta;
-    sc::LanesOf<sc::CudaWarp, uint32_t> start;
-    auto publish = [&](const sc::Batch& bt, int32_t end) {
+    // Warp 0 parses and hands each batch on.
+    int32_t h = 0;
+    auto publish = [&](const sc::Batch& bt, int32_t op, int32_t end, int32_t delta,
+                       uint32_t start) {
       while (h - *vtail >= kQueue) {
       }
       Slot& s = q[h % kQueue];
-      s.delta[lane] = delta.v;
-      s.start[lane] = start.v;
+      s.delta[lane] = delta;
+      s.start[lane] = start;
       if (lane == 0) {
         s.bt = bt;
         s.op = op;
@@ -130,32 +128,18 @@ __global__ void __launch_bounds__(2 * kWarp)
       }
       h++;
     };
-    auto walk = [&](auto in) {
-      const int32_t err = sc::read_preamble(in, n, out_cap, &pre_len, &expected);
-      if (err == 0) {
-        for (ip = pre_len; ip < n;) {
-          in.advance(w, ip);
-          const sc::Batch bt = sc::parse_batch(w, in, lut, ip, op, n, expected, delta, start);
-          if (bt.bad) {
-            bad = true;
-            break;
-          }
-          publish(bt, 0);
-          op += (int32_t)bt.total;
-          ip = bt.next;
-        }
-      }
-      return err;
-    };
-    int32_t err;
+    auto step = [&](const auto&, const sc::Batch& bt, int32_t op, const auto& delta,
+                    const auto& start) { publish(bt, op, 0, delta.v, start.v); };
+    sc::DecodeResult r;
     if constexpr (kInput == kRing) {
-      err = walk(sc::RingWords<kRingWords>(words, ring));
+      r = sc::decode_block_batched(w, sc::RingWords<kRingWords>(words, ring), n, out_cap, lut,
+                                   step);
       asm volatile("cp.async.wait_all;\n" ::);  // no fill outlives the walk
     } else {
-      err = walk(bytes);
+      r = sc::decode_block_batched(w, bytes, n, out_cap, lut, step);
     }
-    publish(sc::Batch{}, 1);
-    if (lane == 0) res = sc::walk_result(err, bad, ip, n, op, expected);
+    publish(sc::Batch{}, 0, 1, 0, 0u);
+    if (lane == 0) res = r;
   } else {
     // Warp 1 writes each batch as it arrives, its slot first in registers
     // (the output's stores could alias it).
@@ -182,47 +166,10 @@ __global__ void __launch_bounds__(2 * kWarp)
     }
   }
   __syncthreads();
-  store_row(ow, res.out_len, out + b * (int64_t)out_cap, out_cap, threadIdx.x, 2 * kWarp);
+  store_row(ow, res.out_len, out + b * (int64_t)out_cap, out_cap, threadIdx.x, kThreads);
   if (threadIdx.x == 0) {
     out_lens[b] = res.out_len;
     errs[b] = res.err;
-  }
-}
-
-// The one-warp form (a measurement, not a path of the port): one warp
-// parses and writes each batch in turn (sc::decode_block_batched).
-template <int kInput>
-__global__ void __launch_bounds__(kWarp)
-    decode_one_warp_kernel(const uint8_t* __restrict__ comp, int64_t cc,
-                           const int32_t* __restrict__ comp_lens, int32_t out_cap,
-                           uint8_t* __restrict__ out, int32_t* __restrict__ out_lens,
-                           int32_t* __restrict__ errs) {
-  extern __shared__ __align__(16) uint8_t ow[];
-  __shared__ uint32_t lut[256];
-  __shared__ uint32_t ring[kRingWords];
-  const int64_t b = blockIdx.x;
-  const int lane = threadIdx.x;
-  for (int t = lane; t < 256; t += kWarp) lut[t] = sc::tag_entry((uint32_t)t);
-  __syncwarp();
-  const uint8_t* row = comp + b * cc;
-  const int32_t width = row_width(cc);
-  const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
-  sc::DecodeResult r;
-  if constexpr (kInput == kRing) {
-    r = sc::decode_block_batched(sc::CudaWarp{}, sc::RingWords<kRingWords>(words, ring),
-                                 comp_lens[b], out_cap, ow, lut);
-    asm volatile("cp.async.wait_all;\n" ::);  // no fill outlives the walk
-  } else if constexpr (kInput == kWords) {
-    r = sc::decode_block_batched(sc::CudaWarp{}, words, comp_lens[b], out_cap, ow, lut);
-  } else {
-    r = sc::decode_block_batched(sc::CudaWarp{}, sc::RowBytes{row, width}, comp_lens[b], out_cap,
-                                 ow, lut);
-  }
-  __syncwarp();
-  store_row(ow, r.out_len, out + b * (int64_t)out_cap, out_cap, lane, kWarp);
-  if (lane == 0) {
-    out_lens[b] = r.out_len;
-    errs[b] = r.err;
   }
 }
 
@@ -233,38 +180,19 @@ bool word_rows(const void* comp, int64_t cc) {
   return ((uintptr_t)comp % 4) == 0 && cc % 4 == 0;
 }
 
-using Kernel = void (*)(const uint8_t*, int64_t, const int32_t*, int32_t, uint8_t*, int32_t*,
-                        int32_t*);
-
-// A form's kernel and threads a block: the two-warp kernel, or (one_warp)
-// the one-warp kernel.
 template <int kInput>
-Kernel kernel_of(bool one_warp, int* threads) {
-  *threads = one_warp ? kWarp : 2 * kWarp;
-  if constexpr (kInput == kWords) {
-    return decode_one_warp_kernel<kWords>;
-  } else {
-    return one_warp ? decode_one_warp_kernel<kInput> : decode_kernel<kInput>;
-  }
+cudaError_t configure(int32_t out_cap) {
+  static attrs::SetFor set_for;
+  return attrs::configure(decode_kernel<kInput>, dyn_bytes(out_cap), set_for);
 }
 
 template <int kInput>
-cudaError_t configure(bool one_warp, int32_t out_cap) {
-  static attrs::SetFor set_two, set_one;
-  int threads;
-  return attrs::configure(kernel_of<kInput>(one_warp, &threads), dyn_bytes(out_cap),
-                          one_warp ? set_one : set_two);
-}
-
-template <int kInput>
-int launch(bool one_warp, const void* comp, int64_t cc, const void* comp_lens, int64_t batch,
-           int32_t out_cap, void* out, void* out_lens, void* errs, void* stream) {
+int launch(const void* comp, int64_t cc, const void* comp_lens, int64_t batch, int32_t out_cap,
+           void* out, void* out_lens, void* errs, void* stream) {
   if (batch == 0) return 0;
-  cudaError_t e = configure<kInput>(one_warp, out_cap);
+  cudaError_t e = configure<kInput>(out_cap);
   if (e != cudaSuccess) return (int)e;
-  int threads;
-  const Kernel k = kernel_of<kInput>(one_warp, &threads);
-  k<<<(unsigned)batch, threads, dyn_bytes(out_cap), (cudaStream_t)stream>>>(
+  decode_kernel<kInput><<<(unsigned)batch, kThreads, dyn_bytes(out_cap), (cudaStream_t)stream>>>(
       (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, (uint8_t*)out,
       (int32_t*)out_lens, (int32_t*)errs);
   return (int)cudaGetLastError();
@@ -272,17 +200,17 @@ int launch(bool one_warp, const void* comp, int64_t cc, const void* comp_lens, i
 
 template <int kInput>
 int layout(int32_t out_cap, int32_t* out) {
-  cudaError_t e = configure<kInput>(false, out_cap);
-  int nb = 0, threads;
-  const Kernel k = kernel_of<kInput>(false, &threads);
+  cudaError_t e = configure<kInput>(out_cap);
+  int nb = 0;
   cudaFuncAttributes attr;
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, k, threads, dyn_bytes(out_cap));
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, decode_kernel<kInput>, kThreads,
+                                                      dyn_bytes(out_cap));
   }
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, k);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, decode_kernel<kInput>);
   out[0] = nb;
   out[1] = e == cudaSuccess ? (int32_t)(dyn_bytes(out_cap) + attr.sharedSizeBytes) : 0;
-  out[2] = threads;
+  out[2] = kThreads;
   out[3] = kInput;
   return (int)e;
 }
@@ -294,37 +222,15 @@ int layout(int32_t out_cap, int32_t* out) {
 extern "C" int snappy_decode_launch(const void* comp, int64_t cc, const void* comp_lens,
                                     int64_t batch, int32_t out_cap, void* out,
                                     void* out_lens, void* errs, void* stream) {
-  return word_rows(comp, cc) ? launch<kRing>(false, comp, cc, comp_lens, batch, out_cap, out,
-                                             out_lens, errs, stream)
-                             : launch<kBytes>(false, comp, cc, comp_lens, batch, out_cap, out,
-                                              out_lens, errs, stream);
-}
-
-// The one-warp form of the same decode (a measurement, not a path of the
-// port): the ring for word rows, else bytes.
-extern "C" int snappy_decode_one_warp_launch(const void* comp, int64_t cc, const void* comp_lens,
-                                             int64_t batch, int32_t out_cap, void* out,
-                                             void* out_lens, void* errs, void* stream) {
-  return word_rows(comp, cc) ? launch<kRing>(true, comp, cc, comp_lens, batch, out_cap, out,
-                                             out_lens, errs, stream)
-                             : launch<kBytes>(true, comp, cc, comp_lens, batch, out_cap, out,
-                                              out_lens, errs, stream);
-}
-
-// The one-warp form with word rows read through the read-only path and an
-// L1 prefetch instead of the ring (sc::RowWords; a measurement, not a path
-// of the port). Word rows only: others give cudaErrorInvalidValue.
-extern "C" int snappy_decode_ldg_launch(const void* comp, int64_t cc, const void* comp_lens,
-                                        int64_t batch, int32_t out_cap, void* out,
-                                        void* out_lens, void* errs, void* stream) {
-  if (!word_rows(comp, cc)) return (int)cudaErrorInvalidValue;
-  return launch<kWords>(true, comp, cc, comp_lens, batch, out_cap, out, out_lens, errs, stream);
+  return word_rows(comp, cc)
+             ? launch<kRing>(comp, cc, comp_lens, batch, out_cap, out, out_lens, errs, stream)
+             : launch<kBytes>(comp, cc, comp_lens, batch, out_cap, out, out_lens, errs, stream);
 }
 
 // The launch's layout for rows at comp of width cc: out[0] blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes the
 // launch sets), out[1] shared bytes per block (dynamic and static), out[2]
-// threads per block, out[3] the input form: 0 the ring, 2 bytes.
+// threads per block, out[3] the input form: 0 the ring, 1 bytes.
 extern "C" int snappy_decode_layout(const void* comp, int64_t cc, int32_t out_cap,
                                     int32_t* out) {
   return word_rows(comp, cc) ? layout<kRing>(out_cap, out) : layout<kBytes>(out_cap, out);

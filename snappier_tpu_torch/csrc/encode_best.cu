@@ -13,19 +13,19 @@
 // the walk. The card's time is then the waves of fragments times one walk.
 //
 // What the design does about it: the walk needs no table, so nothing has to
-// live in shared memory. One block of one warp per fragment, no dynamic
-// shared memory, and lane 0 walks (sc::encode_fragment_best in
-// scalar_codec.cuh): it reads its candidate at ip as an int32 through the
-// read-only path (a value outside [0, ip) is none) and the fragment through
-// a loader, aligned words where the rows allow it (sc::RowWords: base and
-// width multiples of 4), a byte at a time otherwise (sc::RowBytes); bytes
-// at or past the length read as zero and nothing past the row is read. The
-// candidates and the fragment stream forward, so the walk asks L1 for their
-// lines 128 positions ahead. An SM holds up to 32 such blocks, so 512 fragments run in one wave where a
-// layout that staged the candidates (narrowed to 16 bits) beside the
-// fragment, 192 KiB, one block an SM, took four. The form that stages only
-// the fragment (64 KiB, three blocks an SM, two waves) stays beside it as
-// a measurement (snappy_encode_best_staged_launch).
+// live in shared memory. One block of one thread per fragment, no dynamic
+// shared memory (sc::encode_fragment_best in scalar_codec.cuh): the thread
+// reads its candidate at ip as an int32 through the read-only path (a value
+// outside [0, ip) is none) and the fragment through a loader, aligned words
+// where the rows allow it (sc::RowWords: base and width multiples of 4), a
+// byte at a time otherwise (sc::RowBytes); bytes at or past the length read
+// as zero and nothing past the row is read. The candidates and the fragment
+// stream forward, so the walk asks L1 for their lines 128 positions ahead.
+// An SM holds up to 32 such blocks, so 512 fragments run in one wave where
+// a layout that staged the candidates (narrowed to 16 bits) beside the
+// fragment, 192 KiB, one block an SM, took four. Staging only the fragment
+// (64 KiB, three blocks an SM, two waves) was slower (PERF.md; NVIDIA
+// H100 80GB HBM3, 700.00 W).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,20 +34,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp: lane 0 walks (the staged form: all stage)
+constexpr int kThreads = 1;  // one thread walks each fragment
 
-// A fragment staged in shared memory as words, the bytes past n zero.
-struct StagedWords {
-  const uint32_t* w;
-  int32_t n;
-  SC_HD uint32_t word(int32_t k) const { return 4 * k < n ? w[k] : 0u; }
-  SC_HD uint32_t window(int32_t i) const {
-    return sc::funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
-  }
-  SC_HD void prefetch(int32_t) const {}
-};
-
-template <bool kWords, bool kStaged>
+template <bool kWords>
 __global__ void __launch_bounds__(kThreads)
     encode_best_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
                        const int32_t* __restrict__ lengths, const int32_t* __restrict__ cands,
@@ -59,28 +48,12 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* row = frags + b * frag_w;
   const int32_t* crow = cands + b * frag_w;
   uint8_t* out = bodies + b * body_w;
-  const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), n};
-  const sc::RowBytes bytes{row, n};
-  if constexpr (kStaged) {
-    extern __shared__ __align__(16) uint32_t s[];
-    for (int32_t k = threadIdx.x; 4 * k < n; k += kThreads) {
-      s[k] = kWords ? words.word(k) : bytes.word(k);
-    }
-    __syncwarp();
-    if (threadIdx.x == 0) {
-      body_lens[b] = sc::encode_fragment_best(StagedWords{s, n}, n, crow, skip_base, out);
-    }
-  } else if (threadIdx.x == 0) {
-    if constexpr (kWords) {
-      body_lens[b] = sc::encode_fragment_best(words, n, crow, skip_base, out);
-    } else {
-      body_lens[b] = sc::encode_fragment_best(bytes, n, crow, skip_base, out);
-    }
+  if constexpr (kWords) {
+    body_lens[b] = sc::encode_fragment_best(
+        sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n, crow, skip_base, out);
+  } else {
+    body_lens[b] = sc::encode_fragment_best(sc::RowBytes{row, n}, n, crow, skip_base, out);
   }
-}
-
-size_t dyn_bytes(bool staged, int64_t frag_w) {
-  return staged ? (size_t)((frag_w + 15) & ~(int64_t)15) : 0;
 }
 
 // The word loader takes rows whose base and width are multiples of 4.
@@ -88,48 +61,34 @@ bool word_rows(const void* frags, int64_t frag_w) {
   return ((uintptr_t)frags % 4) == 0 && frag_w % 4 == 0;
 }
 
-template <bool kWords, bool kStaged>
-cudaError_t configure(int64_t frag_w) {
+template <bool kWords>
+cudaError_t configure() {
   static attrs::SetFor set_for;
-  return attrs::configure(encode_best_kernel<kWords, kStaged>, dyn_bytes(kStaged, frag_w),
-                         set_for);
+  return attrs::configure(encode_best_kernel<kWords>, 0, set_for);
 }
 
-template <bool kWords, bool kStaged>
+template <bool kWords>
 int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
            const void* cands, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
            void* stream) {
-  cudaError_t e = configure<kWords, kStaged>(frag_w);
+  cudaError_t e = configure<kWords>();
   if (e != cudaSuccess) return (int)e;
-  encode_best_kernel<kWords, kStaged>
-      <<<(unsigned)batch, kThreads, dyn_bytes(kStaged, frag_w), (cudaStream_t)stream>>>(
-          (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands,
-          skip_base, (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+  encode_best_kernel<kWords><<<(unsigned)batch, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands, skip_base,
+      (uint8_t*)bodies, body_w, (int32_t*)body_lens);
   return (int)cudaGetLastError();
 }
 
-template <bool kStaged>
-int launch_rows(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
-                const void* cands, int32_t skip_base, void* bodies, int64_t body_w,
-                void* body_lens, void* stream) {
-  if (batch == 0) return 0;
-  return word_rows(frags, frag_w)
-             ? launch<true, kStaged>(frags, frag_w, lengths, batch, cands, skip_base, bodies,
-                                     body_w, body_lens, stream)
-             : launch<false, kStaged>(frags, frag_w, lengths, batch, cands, skip_base, bodies,
-                                      body_w, body_lens, stream);
-}
-
-template <bool kWords, bool kStaged>
-int layout(int64_t frag_w, int32_t* out) {
-  cudaError_t e = configure<kWords, kStaged>(frag_w);
+template <bool kWords>
+int layout(int32_t* out) {
+  cudaError_t e = configure<kWords>();
   int nb = 0;
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, encode_best_kernel<kWords, kStaged>, kThreads, dyn_bytes(kStaged, frag_w));
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_best_kernel<kWords>, kThreads,
+                                                      0);
   }
   out[0] = nb;
-  out[1] = (int32_t)dyn_bytes(kStaged, frag_w);
+  out[1] = 0;
   out[2] = kThreads;
   out[3] = kWords ? 1 : 0;
   return (int)e;
@@ -145,28 +104,18 @@ extern "C" int snappy_encode_best_launch(const void* frags, int64_t frag_w,
                                          const void* lengths, int64_t batch,
                                          const void* cands, int32_t skip_base, void* bodies,
                                          int64_t body_w, void* body_lens, void* stream) {
-  return launch_rows<false>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
-                            body_lens, stream);
+  if (batch == 0) return 0;
+  return word_rows(frags, frag_w)
+             ? launch<true>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
+                            body_lens, stream)
+             : launch<false>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
+                             body_lens, stream);
 }
 
-// The same function with the fragment staged in shared memory first (a
-// measurement of the layout, not a path of the port).
-extern "C" int snappy_encode_best_staged_launch(const void* frags, int64_t frag_w,
-                                                const void* lengths, int64_t batch,
-                                                const void* cands, int32_t skip_base,
-                                                void* bodies, int64_t body_w, void* body_lens,
-                                                void* stream) {
-  return launch_rows<true>(frags, frag_w, lengths, batch, cands, skip_base, bodies, body_w,
-                           body_lens, stream);
-}
-
-// The layout of either form for rows at frags of width frag_w: out[0]
-// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the
-// attributes the launch sets), out[1] dynamic shared bytes per block, out[2]
-// threads per block, out[3] 1 for the word loader and 0 for the byte loader.
-extern "C" int snappy_encode_best_layout(const void* frags, int64_t frag_w, int32_t staged,
-                                         int32_t* out) {
-  const bool w = word_rows(frags, frag_w);
-  if (staged) return w ? layout<true, true>(frag_w, out) : layout<false, true>(frag_w, out);
-  return w ? layout<true, false>(frag_w, out) : layout<false, false>(frag_w, out);
+// The layout for rows at frags of width frag_w: out[0] blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes the
+// launch sets), out[1] dynamic shared bytes per block, out[2] threads per
+// block, out[3] 1 for the word loader and 0 for the byte loader.
+extern "C" int snappy_encode_best_layout(const void* frags, int64_t frag_w, int32_t* out) {
+  return word_rows(frags, frag_w) ? layout<true>(out) : layout<false>(out);
 }

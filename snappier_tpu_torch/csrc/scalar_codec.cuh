@@ -113,13 +113,6 @@ struct RowWords {
     if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(w + (i >> 2)));
 #endif
   }
-  // The decode walk's hook at each batch's ip: the line 512 bytes ahead.
-  template <class W>
-  SC_HD void advance(const W& warp, int32_t ip) const {
-    warp.each([&](int l) {
-      if (l == 0) prefetch(ip + 512);
-    });
-  }
 };
 
 // A row in device memory at any address and width, read a byte at a time.
@@ -148,6 +141,7 @@ struct RowBytes {
     if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(p + i));
 #endif
   }
+  // The decode walk's hook at each batch's ip: the line 512 bytes ahead.
   template <class W>
   SC_HD void advance(const W& warp, int32_t ip) const {
     warp.each([&](int l) {
@@ -161,8 +155,7 @@ struct RowBytes {
 // of words a fill by cp.async, kAhead words ahead, the last kInFlight fills
 // left in flight. A word in the ring's readable span is a shared load, any
 // other (behind it, ahead of it: a long literal's payload) is the row's.
-// The decode kernel's input for word rows (RowWords' prefetch is its
-// measured alternative).
+// The decode kernel's input for word rows.
 template <int kRing>
 struct RingWords {
   static constexpr int kAhead = 96, kInFlight = 2;
@@ -601,20 +594,24 @@ SC_HD DecodeResult walk_result(int32_t err, bool bad, int32_t ip, int32_t n, int
 }
 
 // Decode one Snappy block: varint preamble, then the tags, a batch of them
-// per warp step (parse_batch, then emit_batch).
+// per warp step: parse_batch, then step(in, bt, op, delta, start) with the
+// batch that passed its checks, the output offset where it starts and
+// parse_batch's per-lane results. A warp that writes its own batches passes
+// a step that calls emit_batch; the decode kernel's parsing warp passes one
+// that hands the batch to its writing warp.
 //
-// in is a row loader (RowWords, RowBytes, RingWords) over the block's row of
-// cc bytes, its n the row's width: bytes at or past it read as zero (the
-// JAX key image pads the same way) and are never read; in.advance(w, ip)
+// in is a row loader (RowBytes, RingWords) over the block's row of cc
+// bytes, its n the row's width: bytes at or past it read as zero (the JAX
+// key image pads the same way) and are never read; in.advance(w, ip)
 // readies the input ahead of each batch. n here is the block's compressed
 // length, out_cap the caller's capacity: a preamble claiming more is
-// ERR_BAD_PREAMBLE. out must hold out_cap bytes; bytes past out_len are
-// unspecified (a failed walk may have written some). lut holds tag_entry(t)
-// for t in [0, 256). Every mid-stream failure is ERR_MALFORMED, as the JAX
-// scalar kernel reports it.
-template <class W, class Ld>
+// ERR_BAD_PREAMBLE. Bytes of the output past out_len are unspecified (a
+// failed walk may have written some). lut holds tag_entry(t) for t in
+// [0, 256). Every mid-stream failure is ERR_MALFORMED, as the JAX scalar
+// kernel reports it.
+template <class W, class Ld, class Step>
 SC_HD DecodeResult decode_block_batched(const W& w, Ld in, int32_t n, int32_t out_cap,
-                                        uint8_t* out, const uint32_t* lut) {
+                                        const uint32_t* lut, Step step) {
   int32_t pre_len, expected, op = 0, ip = 0;
   const int32_t err = read_preamble(in, n, out_cap, &pre_len, &expected);
   bool bad = false;
@@ -629,7 +626,7 @@ SC_HD DecodeResult decode_block_batched(const W& w, Ld in, int32_t n, int32_t ou
         break;
       }
       w.batch(bt.ntags);
-      emit_batch(w, in, bt, op, out, delta, start);
+      step(in, bt, op, delta, start);
       op += (int32_t)bt.total;
       ip = bt.next;
     }
@@ -922,8 +919,7 @@ SC_HD void prefetch_i32(const int32_t* p, int32_t i, int32_t n) {
 // none, so every hit copies from earlier bytes. A hit is a candidate whose
 // first 4 bytes equal the position's; no table, no seeding, and a miss
 // steps 1 + (skip >> 7). out holds the bound of greedy emission plus 3
-// bytes (a literal's payload may store up to 3 bytes past its end). ld has
-// prefetch(i) (a no-op for a staged fragment).
+// bytes (a literal's payload may store up to 3 bytes past its end).
 template <class Ld>
 SC_HD int32_t encode_fragment_best(const Ld& ld, int32_t n, const int32_t* cands,
                                    int32_t skip_base, uint8_t* out) {

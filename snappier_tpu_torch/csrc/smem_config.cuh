@@ -1,13 +1,17 @@
 // A kernel's shared-memory attributes, set once per device and size.
 //
 // A function attribute holds only on the device that was current when it
-// was set, so each launcher keeps, per device, the dynamic size it last set
-// there, and sets the attributes again only for another device or size.
+// was set, so each launcher keeps, per device, the dynamic sizes it has set
+// there and sets the attributes again only for another device or size. The
+// largest dynamic size only grows, so a launch that found its size allowed
+// is never refused because another host thread set a smaller one; the
+// carveout follows the latest size, and is only a hint to the driver.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace attrs {
 
@@ -15,22 +19,31 @@ namespace attrs {
 // its attributes set on every launch.
 constexpr int kMaxDevices = 64;
 
-// The dynamic size last set on each device, plus 1 (0: none).
-using SetFor = std::atomic<long long>[kMaxDevices];
+// Per device, the largest dynamic size allowed there and the size the
+// carveout was set for, each plus 1 (0: none), and the lock that orders the
+// setting.
+struct SetFor {
+  std::mutex lock;
+  std::atomic<long long> max[kMaxDevices] = {};
+  std::atomic<long long> last[kMaxDevices] = {};
+};
 
 // Sets kernel's attributes on the current device for `dyn` dynamic shared
-// bytes per block, unless set_for says they were set there for that size:
-// the largest dynamic size, and a carveout that holds as many blocks as fit
-// an SM (static and reserved shared memory included, at most 32 blocks)
-// and leaves the rest to L1, which caches the kernels' reads of device
-// memory.
+// bytes per block: the largest dynamic size, raised to dyn if it was below,
+// and a carveout that holds as many blocks of dyn bytes as fit an SM
+// (static and reserved shared memory included, at most 32 blocks) and
+// leaves the rest to L1, which caches the kernels' reads of device memory.
+// Nothing is set when set_for says they were set there for dyn.
 template <class Kernel>
 cudaError_t configure(Kernel* kernel, size_t dyn, SetFor& set_for) {
   int dev = 0, per_sm = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  std::atomic<long long>* done = dev < kMaxDevices ? &set_for[dev] : nullptr;
-  if (done != nullptr && done->load() == (long long)dyn + 1) return cudaSuccess;
+  const long long want = (long long)dyn + 1;
+  const bool known = dev < kMaxDevices;
+  if (known && set_for.last[dev].load() == want) return cudaSuccess;
+  std::lock_guard<std::mutex> hold(set_for.lock);
+  if (known && set_for.last[dev].load() == want) return cudaSuccess;
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess) {
@@ -40,15 +53,18 @@ cudaError_t configure(Kernel* kernel, size_t dyn, SetFor& set_for) {
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   }
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (e != cudaSuccess) return e;
+  if (!known || set_for.max[dev].load() < want) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return e;
+    if (known) set_for.max[dev].store(want);
+  }
   size_t per_block = dyn + attr.sharedSizeBytes + (size_t)reserved;
   size_t fit = (size_t)per_sm / per_block;
   fit = fit < 32 ? (fit < 1 ? 1 : fit) : 32;  // an SM holds at most 32 blocks
   int carveout = (int)((fit * per_block * 100 + per_sm - 1) / per_sm);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            carveout > 100 ? 100 : carveout);
-  if (e == cudaSuccess && done != nullptr) done->store((long long)dyn + 1);
+  if (e == cudaSuccess && known) set_for.last[dev].store(want);
   return e;
 }
 

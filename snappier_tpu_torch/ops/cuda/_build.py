@@ -49,22 +49,12 @@ SOURCES = {
     ),
     "encode_layout": ("snappy_encode_layout", [_P, _I64, _I32, _P]),
     "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
-    "decode_ldg": (
-        "snappy_decode_ldg_launch", [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
-    ),
-    "decode_one_warp": (
-        "snappy_decode_one_warp_launch", [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
-    ),
     "decode_layout": ("snappy_decode_layout", [_P, _I64, _I32, _P]),
     "encode_best": (
         "snappy_encode_best_launch",
         [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P],
     ),
-    "encode_best_staged": (
-        "snappy_encode_best_staged_launch",
-        [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P],
-    ),
-    "best_layout": ("snappy_encode_best_layout", [_P, _I64, _I32, _P]),
+    "best_layout": ("snappy_encode_best_layout", [_P, _I64, _P]),
     "probe": ("match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
     "decode_variants": (
         "snappy_decode_variant_launch", [_I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
@@ -98,8 +88,7 @@ SOURCES = {
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff")},
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
-                 "decode_ldg": "decode", "decode_one_warp": "decode",
-                 "encode_best_staged": "encode_best", "best_layout": "encode_best"}
+                 "best_layout": "encode_best"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

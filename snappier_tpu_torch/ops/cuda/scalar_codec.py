@@ -150,27 +150,6 @@ def decode_blocks_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
     return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
 
 
-def _decode_launch(name: str, comp, comp_lens, out_cap: int):
-    """Checks the decode arguments and runs launcher ``name`` (or the plain
-    version for CPU tensors)."""
-    comp = byte_rows(comp, "comp")
-    B, cc = comp.shape
-    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
-    out_cap = int(out_cap)
-    if not 0 < out_cap <= MAX_OUT_CAP:
-        raise ValueError(f"out_cap must be in (0, {MAX_OUT_CAP}], got {out_cap}")
-    if not on_cuda(comp, comp_lens):
-        return decode_blocks_plain(comp, comp_lens, out_cap)
-    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
-    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
-    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
-    _build.launch(
-        name, comp.device, comp.data_ptr(), cc, comp_lens.data_ptr(), B,
-        out_cap, out.data_ptr(), out_lens.data_ptr(), errs.data_ptr(),
-    )
-    return out, out_lens, errs
-
-
 def decode_blocks_bytes(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int):
     """Decode a batch of Snappy blocks into uint8 rows.
 
@@ -184,24 +163,22 @@ def decode_blocks_bytes(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
     Returns ``(out uint8[B, out_cap], out_lens int32[B], errs int32[B])``;
     bytes of a row past its out_len are unspecified.
     """
-    return _decode_launch("decode", comp, comp_lens, out_cap)
-
-
-def decode_blocks_one_warp(comp, comp_lens, out_cap: int):
-    """:func:`decode_blocks_bytes` by the kernel's one-warp form, in which
-    one warp parses and writes each batch of tags in turn where the kernel
-    gives each its own warp: the form the kernel's note measures against,
-    not a path of the port. Its launches count under ``decode_one_warp``."""
-    return _decode_launch("decode_one_warp", comp, comp_lens, out_cap)
-
-
-def decode_blocks_ldg(comp, comp_lens, out_cap: int):
-    """The one-warp form with its input words read through the read-only
-    path and an L1 prefetch instead of the ring in shared memory: the input
-    form the kernel's note measures against, not a path of the port. The
-    rows' base and width must be multiples of 4 on the card. Its launches
-    count under ``decode_ldg``."""
-    return _decode_launch("decode_ldg", comp, comp_lens, out_cap)
+    comp = byte_rows(comp, "comp")
+    B, cc = comp.shape
+    comp_lens = lengths_vector(comp_lens, B, "comp_lens")
+    out_cap = int(out_cap)
+    if not 0 < out_cap <= MAX_OUT_CAP:
+        raise ValueError(f"out_cap must be in (0, {MAX_OUT_CAP}], got {out_cap}")
+    if not on_cuda(comp, comp_lens):
+        return decode_blocks_plain(comp, comp_lens, out_cap)
+    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
+    out_lens = torch.empty(B, dtype=torch.int32, device=comp.device)
+    errs = torch.empty(B, dtype=torch.int32, device=comp.device)
+    _build.launch(
+        "decode", comp.device, comp.data_ptr(), cc, comp_lens.data_ptr(), B,
+        out_cap, out.data_ptr(), out_lens.data_ptr(), errs.data_ptr(),
+    )
+    return out, out_lens, errs
 
 
 def _layout(name: str, rows: torch.Tensor, *args, loaders=("bytes", "words")) -> dict:
@@ -229,7 +206,7 @@ def decode_layout(comp, out_cap: int = BLOCK_SIZE) -> dict:
     comp = byte_rows(comp, "comp")
     if not 0 < int(out_cap) <= MAX_OUT_CAP:
         raise ValueError(f"out_cap must be in (0, {MAX_OUT_CAP}], got {out_cap}")
-    return _layout("decode_layout", comp, int(out_cap), loaders=("ring", "words", "bytes"))
+    return _layout("decode_layout", comp, int(out_cap), loaders=("ring", "bytes"))
 
 
 def decode_blocks_scalar(comp, comp_lens, out_cap: int = BLOCK_SIZE, packed: bool = False):
@@ -497,9 +474,21 @@ def encode_best_plain(frags: torch.Tensor, lengths: torch.Tensor, cands: torch.T
     return _rows_out(bodies, F)
 
 
-def _best_launch(name: str, frags, lengths, cands, skip_base: int):
-    """Checks the best-mode arguments and runs launcher ``name`` (or the
-    plain version for CPU tensors)."""
+def _encode_best(frags, lengths, cands, skip_base: int = 32):
+    """Encode a batch of fragments with one given candidate per position
+    (the JAX ``_encode_best_pallas`` step, minus its unpacking).
+
+    Args:
+      frags: [B, F] int32 or uint8 byte rows, F <= 65536.
+      lengths: [B] fragment lengths (clamped to [0, F]).
+      cands: [B, F] integer candidates, -1 for none
+        (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
+        candidate outside [0, i) counts as none.
+      skip_base: skip-heuristic start constant (the miss step is
+        ``1 + (skip >> 7)``).
+
+    Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
+    """
     frags = byte_rows(frags, "frags")
     B, F = frags.shape
     lengths = lengths_vector(lengths, B, "lengths")
@@ -516,45 +505,17 @@ def _best_launch(name: str, frags, lengths, cands, skip_base: int):
     bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
     body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
     _build.launch(
-        name, frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+        "encode_best", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
         cands.data_ptr(), skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
     )
     return bodies, body_lens
 
 
-def _encode_best(frags, lengths, cands, skip_base: int = 32):
-    """Encode a batch of fragments with one given candidate per position
-    (the JAX ``_encode_best_pallas`` step, minus its unpacking).
-
-    Args:
-      frags: [B, F] int32 or uint8 byte rows, F <= 65536.
-      lengths: [B] fragment lengths (clamped to [0, F]).
-      cands: [B, F] integer candidates, -1 for none
-        (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
-        candidate outside [0, i) counts as none.
-      skip_base: skip-heuristic start constant (the miss step is
-        ``1 + (skip >> 7)``).
-
-    Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
-    """
-    return _best_launch("encode_best", frags, lengths, cands, skip_base)
-
-
-def encode_best_staged(frags, lengths, cands, skip_base: int = 32):
-    """:func:`_encode_best` with each fragment staged in shared memory
-    before its walk: the layout the kernel's note measures against (three
-    blocks an SM at 64 KiB), not a path of the port. Its launches count
-    under ``encode_best_staged``."""
-    return _best_launch("encode_best_staged", frags, lengths, cands, skip_base)
-
-
-def best_layout(frags, staged: bool = False) -> dict:
-    """The best-mode encode kernel's launch layout for these rows
-    (:func:`_layout`; dynamic shared bytes, the loader ``"words"`` for a
-    base and width that are multiples of 4), as :func:`_encode_best` or,
-    with ``staged``, :func:`encode_best_staged` launches it."""
-    frags = byte_rows(frags, "frags")
-    return _layout("best_layout", frags, int(bool(staged)))
+def best_layout(frags) -> dict:
+    """The best-mode encode kernel's launch layout for these rows, as
+    :func:`_encode_best` launches it (:func:`_layout`; dynamic shared bytes,
+    the loader ``"words"`` for a base and width that are multiples of 4)."""
+    return _layout("best_layout", byte_rows(frags, "frags"))
 
 
 def encode_blocks_best(frags, lengths, widths: tuple | None = None, skip_base: int = 32):

@@ -186,9 +186,8 @@ def test_cuda_decode_matches_plain(cuda_device, tight, out_cap, offset):
     """K1 at the codec's width (cc 68,608) and at the longest block's, at
     out_cap 65,536 and at one that is not a multiple of 16, the rows 0 or 1
     bytes into a buffer that ends at the last row's end (the ring and the
-    byte loader), against the plain version, corrupt rows included, and its
-    one-warp and (on word rows) read-only-path forms; the layout holds three
-    blocks of two warps an SM at 65,536."""
+    byte loader), against the plain version, corrupt rows included; the
+    layout holds three blocks of two warps an SM at 65,536."""
     comp, clens = _decode_rows(tight)
     rows = _offset_rows(comp, offset, cuda_device)
     layout = sc.decode_layout(rows, out_cap)
@@ -204,20 +203,41 @@ def test_cuda_decode_matches_plain(cuda_device, tight, out_cap, offset):
     assert (got[2].cpu() == ref[2]).all() and (got[1].cpu() == ref[1]).all()
     _rows_equal(got[0], ref[0], ref[1])
     assert (ref[2] != 0).sum() >= 10 and (ref[2] == 0).sum() >= 50
-    forms = [sc.decode_blocks_one_warp]
-    if layout["loader"] == "ring":  # the read-only-path form reads word rows only
-        forms.append(sc.decode_blocks_ldg)
-    for form in forms:
-        got = form(rows, _t(clens).to(cuda_device), out_cap)
-        assert (got[2].cpu() == ref[2]).all() and (got[1].cpu() == ref[1]).all(), form
-        _rows_equal(got[0], ref[0], ref[1])
+
+
+def test_cuda_decode_caps_in_any_order_and_from_two_threads(cuda_device):
+    """K1's shared-memory attributes follow the out_cap of each launch in
+    any order: three blocks an SM at 65,536 after a smaller cap, more at the
+    smaller cap after 65,536; and two host threads decoding at 65,536 and at
+    8,192 at once both succeed (the allowed dynamic size never shrinks)."""
+    import concurrent.futures
+
+    comp, clens = _decode_rows(tight=True)
+    rows, lens = _t(comp).to(cuda_device), _t(clens).to(cuda_device)
+    caps = (65536, 8192)
+    want = {c: decode_blocks_plain(_t(comp.astype(np.uint8)), _t(clens), c) for c in caps}
+    for cap in (8192, 65536, 8192, 65536):
+        nb = sc.decode_layout(rows, cap)["blocks_per_sm"]
+        assert nb >= 3 if cap == 65536 else nb > 3, (cap, nb)
+
+    def decode_at(cap):
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got = decode_blocks_bytes(rows, lens, cap)
+                torch.cuda.synchronize()
+                assert (got[2].cpu() == want[cap][2]).all(), cap
+                _rows_equal(got[0], want[cap][0], want[cap][1])
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(decode_at, c) for c in caps]:
+            f.result()
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])
-def test_cuda_best_kernel_unaligned_and_staged_match_plain(cuda_device, offset):
-    """K4 and its staged form on rows of 65,536 bytes 0, 1 or 3 bytes into a
-    buffer that ends at the last row's end, against the plain version; the
-    kept form runs without dynamic shared memory."""
+def test_cuda_best_kernel_unaligned_matches_plain(cuda_device, offset):
+    """K4 on rows of 65,536 bytes 0, 1 or 3 bytes into a buffer that ends at
+    the last row's end, against the plain version; it runs one thread a
+    block and no dynamic shared memory."""
     F = 65536
     frags, lens = best_rows(F, seed=offset, lens=(F, F - 5, 30000, 17, 0))
     rows = _offset_rows(frags, offset, cuda_device)
@@ -226,12 +246,13 @@ def test_cuda_best_kernel_unaligned_and_staged_match_plain(cuda_device, offset):
     want_b, want_l = encode_best_plain(_t(frags.astype(np.uint8)), _t(lens), cands.cpu(), 32)
     layout = sc.best_layout(rows)
     assert layout["loader"] == ("bytes" if offset else "words") and layout["smem_bytes"] == 0
-    assert layout["blocks_per_sm"] >= 4, layout
-    assert sc.best_layout(rows, staged=True)["blocks_per_sm"] >= 2
-    for fn in (_encode_best, sc.encode_best_staged):
-        got_b, got_l = fn(rows, l_c, cands)
-        assert (got_l.cpu() == want_l).all(), fn
-        _rows_equal(got_b, want_b, want_l)
+    assert layout["threads"] == 1 and layout["blocks_per_sm"] >= 4, layout
+    _build.reset_launches()
+    got_b, got_l = _encode_best(rows, l_c, cands)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"encode_best": 1}
+    assert (got_l.cpu() == want_l).all()
+    _rows_equal(got_b, want_b, want_l)
 
 
 def test_cuda_decode_and_best_on_each_card_match_plain(cuda_device):
@@ -254,11 +275,10 @@ def test_cuda_decode_and_best_on_each_card_match_plain(cuda_device):
             assert got[0].device == dev
             assert (got[2].cpu() == want[2]).all() and (got[1].cpu() == want[1]).all(), d
             _rows_equal(got[0], want[0], want[1])
-            for fn in (_encode_best, sc.encode_best_staged):
-                got_b, got_l = fn(_offset_rows(frags, offset, dev), _t(lens).to(dev),
-                                  cands.to(dev))
-                assert (got_l.cpu() == want_l).all(), (d, offset, fn)
-                _rows_equal(got_b, want_b, want_l)
+            got_b, got_l = _encode_best(_offset_rows(frags, offset, dev), _t(lens).to(dev),
+                                        cands.to(dev))
+            assert (got_l.cpu() == want_l).all(), (d, offset)
+            _rows_equal(got_b, want_b, want_l)
 
 
 def test_cuda_probe_matches_plain(cuda_device):

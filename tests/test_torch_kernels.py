@@ -192,11 +192,8 @@ def test_cpu_path_launches_no_kernel():
     bodies, body_lens = encode_blocks_bytes(_t(frags), _t(lens))
     crc32c_blocks(_t(frags), _t(lens))
     decode_blocks_bytes(bodies, body_lens, out_cap=1024)
-    sc.decode_blocks_ldg(bodies, body_lens, out_cap=1024)
-    sc.decode_blocks_one_warp(bodies, body_lens, out_cap=1024)
     cands = torch.full(frags.shape, -1, dtype=torch.int32)
     sc._encode_best(_t(frags), _t(lens), cands)
-    sc.encode_best_staged(_t(frags), _t(lens), cands)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -205,12 +202,10 @@ def test_build_names_every_source():
                                    "decode_variants", "decode_pipe", "encode_variants",
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
                                    "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
-                                   "encode_layout", "decode_layout", "encode_best_staged",
-                                   "best_layout", "decode_ldg", "decode_one_warp"}
+                                   "encode_layout", "decode_layout", "best_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
     shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout",
-              "decode_layout", "encode_best_staged", "best_layout", "decode_ldg",
-              "decode_one_warp"}
+              "decode_layout", "best_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}
