@@ -20,7 +20,9 @@ failure:
    its rows 1 byte into a buffer and on the batch walk's edge rows
    (``torch_cases.batch_streams``) at out_cap 8,190, both loaders, the last
    row ending at its buffer's end; the best encode kernel also 1 byte into
-   a buffer;
+   a buffer; the CRC32C kernel on the edge lengths of its split
+   (``torch_cases.crc_rows``) at 64 KiB, 1 byte into a buffer, at widths
+   65,535 and 4,097 and as 2,048 rows;
    the probe path: the FindMatchLength golden
    vectors and 300 rows of 64 KiB with planted matches through
    ``match_extension_probe``;
@@ -30,11 +32,13 @@ failure:
    the input, the host CRC32C and the host oracle decoder; every kernel of
    the path must have launched; ``frame_batch`` and ``roundtrip_step`` run
    once;
-4. timings with CUDA events (warm-up, best of 3 passes); the encode and
-   decode kernels' layouts (blocks per SM, shared bytes per block, threads,
-   loader; the decode kernel must hold three blocks an SM at out_cap
-   65,536) and ptxas's registers, stack and spills for the encode, decode
-   and best encode kernels (any stack or spill fails);
+4. timings with CUDA events (warm-up, best of 3 passes); the CRC32C kernel
+   three ways (:func:`k3_times`: the wrapper, the bare launcher, replayed
+   from a CUDA graph) and its layout; the encode and decode kernels' layouts
+   (blocks per SM, shared bytes per block, threads, loader; the decode
+   kernel must hold three blocks an SM at out_cap 65,536) and ptxas's
+   registers, stack and spills for the encode, decode, best encode and
+   CRC32C kernels (any stack or spill fails);
 5. the public facade at full size on the same 32 MiB: ``compress`` at both
    levels and ``decompress`` of each (multi-block, through the native
    prescan and the decode kernel), round trips checked exactly, best no
@@ -56,7 +60,8 @@ failure:
    decode-side function (decode, CRC32C of the decoded rows, packing) on
    the card against the CPU; then timings: host wall-clock per call with
    the pipeline as it is and with every sub-batch fetched before the next
-   is staged, and the stages of a sub-batch each timed alone;
+   is staged, and the stages of a sub-batch each timed alone, the CRC32C
+   kernel three ways on a sub-batch and on its decoded rows;
 7. the decode-walk ablation and the scan engine at full size. Ablation: each
    of the six variants (``decode_v2``, ``decode_v4``, ``decode_v3``,
    ``decode_variant`` as v1, v1nock, v1nocp) against its plain version on
@@ -489,16 +494,33 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     print(f"decode kernel == plain on those rows 1 byte into a buffer and on {len(edges)} "
           f"batch-edge rows at out_cap 8190 (both loaders), max_abs_err {err}")
 
-    clen = np.array([0, 1, 15, 16, 17, 4095, 57344, BLOCK - 3, BLOCK], np.int32)
-    rows = rng.integers(0, 256, (len(clen), BLOCK), dtype=np.uint8)
-    r_h, rl_h = torch.from_numpy(rows), torch.from_numpy(clen)
-    got = crc.crc32c_blocks(r_h.to(dev), rl_h.to(dev))
-    torch.cuda.synchronize()
-    want = crc.crc32c_blocks_plain(r_h, rl_h).numpy()
-    got = got.cpu().numpy()
-    check((got == want).all(), f"crc32c differs: {got} vs {want}")
-    errs["crc32c"] = max_abs_err([(got.view(np.uint32), want.view(np.uint32))])
-    print(f"crc32c kernel == plain on {len(clen)} rows, max_abs_err {errs['crc32c']}")
+    # K3: the edge lengths of its split, garbage past them, at 64 KiB, then
+    # 1 byte into a buffer (every row past a 16-byte boundary), at odd widths
+    # (each row at another offset) and as 2,048 rows (more than the
+    # persistent blocks).
+    from torch_cases import crc_rows
+
+    pairs, n_rows = [], 0
+    for width, offset, n in ((BLOCK, 0, 0), (BLOCK, 1, 0), (BLOCK - 1, 0, 0), (4097, 3, 0),
+                             (BLOCK, 0, 2048)):
+        rows, clen = crc_rows(width)
+        base = len(clen)
+        if n > base:  # repeated to n rows, each past the first set made anew
+            rows, clen = np.tile(rows, (-(-n // base), 1))[:n], np.tile(clen, -(-n // base))[:n]
+            rows[base:] ^= rng.integers(0, 256, rows[base:].shape, dtype=np.uint8)
+        crc_buf = torch.zeros(rows.size + offset, dtype=torch.uint8, device=dev)
+        crc_view = crc_buf[offset:].view(rows.shape)
+        crc_view.copy_(torch.from_numpy(rows).to(dev))
+        got = crc.crc32c_blocks(crc_view, torch.from_numpy(clen).to(dev))
+        torch.cuda.synchronize()
+        want = crc.crc32c_blocks_plain(torch.from_numpy(rows), torch.from_numpy(clen)).numpy()
+        got = got.cpu().numpy()
+        check((got == want).all(), f"crc32c differs at width {width}, offset {offset}")
+        pairs.append((got.view(np.uint32), want.view(np.uint32)))
+        n_rows += len(rows)
+    errs["crc32c"] = max_abs_err(pairs)
+    print(f"crc32c kernel == plain on {n_rows} rows (edge lengths, 1 byte into a buffer, "
+          f"widths {BLOCK - 1} and 4097, 2048 rows), max_abs_err {errs['crc32c']}")
 
     f_c, l_c = f_h.to(dev), l_h.to(dev)
     cands = exact_candidates(f_c, l_c)
@@ -698,6 +720,62 @@ def watch_times(torch, watch, _build, fn, x, salt: int, n: int = 50) -> dict:
     return t
 
 
+def k3_times(torch, crc, _build, rows, lengths, n: int = 50) -> dict:
+    """K3 on uint8 ``rows`` and ``lengths``, ms per call: (a) the wrapper,
+    ``cuda_ms`` over ``n`` calls back to back; (b) the bare launcher with the
+    stream handle fetched once (CUDA events); (c) the device time of a
+    launch: ``n`` launches of the bare launcher captured in one CUDA graph,
+    replayed, over ``n``, on the same rows (which the 50 MB L2 may hold) and
+    (``c_graph_cold``) on copies of them that take turns, 128 MiB or more in
+    all, so that each launch reads rows the last ones evicted. Each graph's
+    output is held to the plain version."""
+    fn = _build.launcher("crc32c")
+    rows, lengths = rows.contiguous(), lengths.to(torch.int32).contiguous()
+    B, F = rows.shape
+    tables = crc._device_tables(rows.device)
+    out = torch.empty(B, dtype=torch.int32, device=rows.device)
+    n_copies = min(n, -(-(128 * MIB) // max(rows.numel(), 1)))
+    copies = [rows] + [rows.clone() for _ in range(n_copies - 1)]
+    cold_out = torch.empty(len(copies), B, dtype=torch.int32, device=rows.device)
+
+    def args(i, dst):
+        return (copies[i].data_ptr(), F, lengths.data_ptr(), B, tables.data_ptr(), dst)
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        check(fn(*args(0, out.data_ptr()), stream) == 0, "the crc32c launcher failed")
+
+    want = crc.crc32c_blocks_plain(rows.cpu(), lengths.cpu())
+
+    def graph_per_launch(cold: bool):
+        dsts = cold_out if cold else out[None]
+
+        def capture():
+            s = torch.cuda.current_stream().cuda_stream
+            for k in range(n):
+                i = k % len(copies) if cold else 0
+                check(fn(*args(i, dsts[i].data_ptr()), s) == 0, "crc32c launch in capture")
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            capture()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            capture()
+        dsts.zero_()
+        ms = cuda_ms(g.replay, iters=10) / n
+        check(bool((dsts.cpu() == want).all()),
+              "a graph-replayed crc32c differs from the plain version")
+        return ms
+
+    return {"a_wrapper": cuda_ms(lambda: crc.crc32c_blocks(rows, lengths), iters=n),
+            "b_bare_launcher": cuda_ms(bare, iters=n),
+            "c_graph": graph_per_launch(False), "c_graph_cold": graph_per_launch(True)}
+
+
 def stream_bytes(n_chunks: int) -> bytes:
     """``n_chunks`` x 64 KiB of the word mix with every eighth chunk random
     bytes, so a stream of it holds compressed and stored chunks."""
@@ -719,7 +797,8 @@ def expect_invalid(st, what: str, fn) -> None:
 
 def phase_streams(torch, card: str):
     """Phase 6: the stream entry points at full size. Returns the launches
-    of the one-shot round trip."""
+    of the one-shot round trip and K3's times on a sub-batch and on its
+    decoded rows (:func:`k3_times`)."""
     import snappier_tpu_torch as st
     from snappier_tpu_torch.format import framing
     from snappier_tpu_torch.models.codec import compact_words
@@ -903,6 +982,8 @@ def phase_streams(torch, card: str):
         "decode_crc_pack_ms": cuda_ms(lambda: S._decode_crc_pack(comp_d, clens_d)),
         "decode_256_ms": cuda_ms(lambda: sc.decode_blocks_bytes(comp_d, clens_d, BLOCK)),
         "crc_decoded_256_ms": cuda_ms(lambda: crc.crc32c_blocks(outs[0], outs[1])),
+        "crc_256_by_method": k3_times(torch, crc, _build, frags, lengths),
+        "crc_decoded_256_by_method": k3_times(torch, crc, _build, outs[0], outs[1]),
         "fetch_decoded_ms": best_host_ms(lambda: outs[0].cpu()),
         "join_128MiB_host_ms": best_host_ms(lambda: b"".join(chunks * n_sub)),
     }
@@ -917,7 +998,8 @@ def phase_streams(torch, card: str):
         "writer_32MiB_ms": writer_ms, "reader_32MiB_8KiB_ms": reader_ms[8192],
         "reader_32MiB_1MiB_ms": reader_ms[MIB], "all_runs_ms": t, "per_sub_batch": sub,
     }))
-    return launches
+    return launches, {"256": sub["crc_256_by_method"],
+                      "decoded_256": sub["crc_decoded_256_by_method"]}
 
 
 def redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8, block_lens):
@@ -2006,6 +2088,7 @@ def main() -> int:
     encode_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode", ""), "encode_kernel")
     decode_ptxas = ptxas_figures(_build.BUILD_LOG.get("decode", ""), "_kernel")
     best_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode_best", ""), "encode_best_kernel")
+    crc_ptxas = ptxas_figures(_build.BUILD_LOG.get("crc32c", ""), "crc32c_kernel")
 
     # --- 2. each kernel against its plain version ------------------------
     errs, decode_streams = phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates)
@@ -2074,6 +2157,10 @@ def main() -> int:
         "decode": cuda_ms(lambda: sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK)),
         "crc32c": cuda_ms(lambda: crc.crc32c_blocks(frags, lengths)),
     }
+    k3_by_method = {"512": k3_times(torch, crc, _build, frags, lengths)}
+    k3_layout = crc.crc32c_layout(dev)
+    print(json.dumps({"card": card, "crc32c_layout": k3_layout, "crc32c_ptxas": crc_ptxas,
+                      "crc32c_ms_by_method": k3_by_method}))
     k2_layout = sc.encode_layout(frags)
     print(json.dumps({"card": card, "encode_layout": k2_layout, "encode_ptxas": encode_ptxas}))
     # The layout the redesign is for: at 15 hash bits more than one walk an
@@ -2088,7 +2175,7 @@ def main() -> int:
     check(k1_layout["blocks_per_sm"] >= 3 and k1_layout["loader"] == "ring",
           f"decode kernel: {k1_layout} at out_cap {BLOCK}")
     for what, figs, count in (("encode", encode_ptxas, 2), ("decode", decode_ptxas, 2),
-                              ("encode_best", best_ptxas, 2)):
+                              ("encode_best", best_ptxas, 2), ("crc32c", crc_ptxas, 1)):
         check(len(figs) == count, f"ptxas figures for the {count} {what} kernels: {figs}")
         for fig in figs:
             check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
@@ -2138,7 +2225,8 @@ def main() -> int:
     k4_layout, turns = redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8,
                                        block_lens)
     # --- 6. the framing format and the stream layers at full size ---------------
-    stream_launches = phase_streams(torch, card)
+    stream_launches, k3_stream_by_method = phase_streams(torch, card)
+    k3_by_method.update(k3_stream_by_method)
     ms["watch"] = watch_t["a_add_salt"]
 
     # --- 7. the decode-walk ablation and the scan engine at full size ------------
@@ -2256,6 +2344,9 @@ def main() -> int:
         if k == "decode":
             rows[-1]["layout"] = {**k1_layout, "ptxas": decode_ptxas}
             rows[-1]["ms_in_turns"] = {n: turns[n] for n in ("decode", "v1")}
+        if k == "crc32c":
+            rows[-1]["ms_by_method"] = k3_by_method
+            rows[-1]["layout"] = {**k3_layout, "ptxas": crc_ptxas}
         if k == "encode_best":
             rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
             rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}

@@ -5,94 +5,109 @@
 //
 // What bounds it: device memory. Each row is read once (64 KiB) and one word
 // is written, so 512 rows take at least 32 MiB / 3.35 TB/s, about 10 us.
-// The byte-table recurrence is serial within a run of bytes, so a block
-// must split its row into many short runs to hide the lookup latency.
+// Next come the table look-ups, one a byte: a warp's look-up costs one
+// shared-memory wavefront only if its 32 lanes hit 32 banks, an SM issues
+// fewer than one such look-up a cycle, and a row's 64 KiB take 2,560 warp
+// look-ups with the folds; a look-up waits some 30 cycles, and a chunk's are
+// four steps in a chain.
 //
-// What the design does about it: one block of 256 threads per row. Each
-// thread runs the table recurrence from a zero state over its own
-// contiguous run (<= 256 bytes of a 64 KiB row), then shifts its partial CRC
-// past the bytes that follow its run with the GF(2) zero-shift matrices
-// (format/crc32c.py::shift_matrices); the shifted partials XOR together to
-// the row's linear part, and the affine term crc(0^n) finishes it. Bytes past
-// lengths[b] are never read.
+// What the design does about it (the row math is crc32c.cuh): a block of 8
+// warps takes a row, warp w its lines w, w + 8, ..., lanes on 16-byte chunks,
+// which cp.async copies into a ring of four batches a warp, three in flight
+// while the fourth is folded; a lane runs its batch's 8 chunks side by side;
+// the look-up tables are spread so that every look-up of the inner loop is
+// one wavefront; lanes and then warps combine through fixed 32 x 32 shift
+// matrices and XOR shuffles, and the warps meet only every 64 rows. Blocks
+// are persistent, one an SM, take rows k, k + grid, ... and fill their
+// 69 KiB of tables and row lengths once a launch. Bytes past lengths[b] are
+// never read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "crc32c.cuh"
+#include "smem_config.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = crc::kWarps * 32;
+constexpr size_t kSmemBytes = crc::kSmemWords * sizeof(uint32_t);
 
-// Advance a raw (zero-init) CRC state by nbytes zero bytes.
-__device__ uint32_t shift_zeros(uint32_t s, uint32_t nbytes, const uint32_t* mats) {
-  for (int k = 0; nbytes != 0; k++, nbytes >>= 1) {
-    if (nbytes & 1u) {
-      uint32_t r = 0;
-      const uint32_t* m = mats + 32 * k;
-      for (int i = 0; i < 32; i++) r ^= m[i] & (0u - ((s >> i) & 1u));
-      s = r;
-    }
+// The block's barrier, for the warps' combine of their rows.
+struct BlockSync {
+  SC_HD void operator()() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
   }
-  return s;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    crc32c_kernel(const uint8_t* __restrict__ rows, int64_t width,
+                  const int32_t* __restrict__ lengths, int64_t batch,
+                  const uint32_t* __restrict__ tables, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  crc::fill_shared(smem, tables, lengths, batch, blockIdx.x, gridDim.x, threadIdx.x, kThreads);
+  __syncthreads();
+  const sc::CudaWarp w{};
+  const sc::LanesOf<sc::CudaWarp, crc::Tables> t{
+      crc::lane_tables(smem, tables, threadIdx.x & 31)};
+  crc::crc_rows(w, (int)(threadIdx.x >> 5), t, smem, BlockSync{}, rows, width, lengths, batch,
+                blockIdx.x, gridDim.x, out);
 }
 
-__global__ void crc32c_kernel(const uint8_t* __restrict__ rows, int64_t width,
-                              const int32_t* __restrict__ lengths,
-                              const uint32_t* __restrict__ tables,
-                              int32_t* __restrict__ out) {
-  __shared__ uint32_t t[256];
-  __shared__ uint32_t mats[32 * 32];
-  __shared__ uint32_t partial[kThreads / 32];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) t[i] = tables[i];
-  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) mats[i] = tables[256 + i];
-  __syncthreads();
+// The kernel's attributes, set per device (smem_config.cuh).
+attrs::SetFor set_for;
 
-  const int64_t b = blockIdx.x;
-  int64_t n = lengths[b];
-  n = n < 0 ? 0 : (n > width ? width : n);
-  const uint8_t* row = rows + b * width;
-  // Runs are a multiple of 16 bytes long, so with a 16-byte aligned row
-  // every whole group in a run is an aligned uint4 load.
-  int64_t run = ((n + kThreads - 1) / kThreads + 15) & ~int64_t(15);
-  int64_t lo = threadIdx.x * run;
-  int64_t hi = lo + run < n ? lo + run : n;
-  uint32_t s = 0;
-  if (lo < hi) {
-    int64_t i = lo;
-    if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-      for (; i + 16 <= hi; i += 16) {
-        uint4 v = *reinterpret_cast<const uint4*>(row + i);
-        uint32_t w[4] = {v.x, v.y, v.z, v.w};
-        for (int k = 0; k < 4; k++) {
-          for (int j = 0; j < 4; j++) {
-            s = (s >> 8) ^ t[(s ^ (w[k] >> (8 * j))) & 0xFFu];
-          }
-        }
-      }
-    }
-    for (; i < hi; i++) s = (s >> 8) ^ t[(s ^ row[i]) & 0xFFu];
-    s = shift_zeros(s, (uint32_t)(n - hi), mats);
-  }
-  for (int o = 16; o > 0; o >>= 1) s ^= __shfl_xor_sync(0xFFFFFFFFu, s, o);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t lin = 0;
-    for (int w = 0; w < kThreads / 32; w++) lin ^= partial[w];
-    // crc(M) = linear part ^ crc(0^n), and crc(0^n) = shift(~0, n) ^ ~0.
-    uint32_t z = shift_zeros(0xFFFFFFFFu, (uint32_t)n, mats) ^ 0xFFFFFFFFu;
-    out[b] = (int32_t)(lin ^ z);
-  }
+// Runs fn with the kernel's shared-memory attributes set on the current
+// device, under the lock that orders them with its launches.
+template <class Fn>
+cudaError_t configured(Fn fn) {
+  return attrs::configure_and_launch(crc32c_kernel, kSmemBytes, set_for, fn);
+}
+
+// The persistent blocks of a launch on the current device: one an SM.
+cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev) : e;
 }
 
 }  // namespace
 
-// rows: uint8[B, width]; lengths, out: int32[B];
-// tables: uint32[256 + 32 * 32] (byte table, then the zero-shift matrices).
+// rows: uint8[B, width], any address and width; lengths, out: int32[B];
+// tables: uint32[crc::kTableWords] (ops/cuda/crc32c.py::kernel_tables).
 extern "C" int crc32c_launch(const void* rows, int64_t width, const void* lengths,
                              int64_t batch, const void* tables, void* out, void* stream) {
   if (batch == 0) return 0;
-  crc32c_kernel<<<(unsigned)batch, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)rows, width, (const int32_t*)lengths, (const uint32_t*)tables,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(batch < sms ? batch : sms);
+  return (int)configured([&] {
+    crc32c_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        (const uint8_t*)rows, width, (const int32_t*)lengths, batch, (const uint32_t*)tables,
+        (int32_t*)out);
+    return cudaGetLastError();
+  });
+}
+
+// The launch's layout on the current device: out[0] blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes the
+// launch sets), out[1] shared bytes per block (dynamic and static), out[2]
+// threads per block, out[3] the persistent blocks of a launch of that many
+// rows or more (one an SM).
+extern "C" int crc32c_layout(int32_t* out) {
+  int nb = 0, sms = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = configured([&] {
+    cudaError_t q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, crc32c_kernel, kThreads,
+                                                                  kSmemBytes);
+    return q == cudaSuccess ? cudaFuncGetAttributes(&attr, crc32c_kernel) : q;
+  });
+  if (e == cudaSuccess) e = sm_count(&sms);
+  out[0] = nb;
+  out[1] = e == cudaSuccess ? (int32_t)(kSmemBytes + attr.sharedSizeBytes) : 0;
+  out[2] = kThreads;
+  out[3] = sms;
+  return (int)e;
 }

@@ -180,34 +180,44 @@ bool word_rows(const void* comp, int64_t cc) {
   return ((uintptr_t)comp % 4) == 0 && cc % 4 == 0;
 }
 
+// decode_kernel<kInput>'s attributes, set per device (smem_config.cuh).
 template <int kInput>
-cudaError_t configure(int32_t out_cap) {
-  static attrs::SetFor set_for;
-  return attrs::configure(decode_kernel<kInput>, dyn_bytes(out_cap), set_for);
+attrs::SetFor& set_for() {
+  static attrs::SetFor s;
+  return s;
+}
+
+// Runs fn with decode_kernel<kInput>'s shared-memory attributes set on the
+// current device for out_cap, under the lock that orders them with every
+// other launch of the kernel.
+template <int kInput, class Fn>
+cudaError_t configured(int32_t out_cap, Fn fn) {
+  return attrs::configure_and_launch(decode_kernel<kInput>, dyn_bytes(out_cap),
+                                     set_for<kInput>(), fn);
 }
 
 template <int kInput>
 int launch(const void* comp, int64_t cc, const void* comp_lens, int64_t batch, int32_t out_cap,
            void* out, void* out_lens, void* errs, void* stream) {
   if (batch == 0) return 0;
-  cudaError_t e = configure<kInput>(out_cap);
-  if (e != cudaSuccess) return (int)e;
-  decode_kernel<kInput><<<(unsigned)batch, kThreads, dyn_bytes(out_cap), (cudaStream_t)stream>>>(
-      (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, (uint8_t*)out,
-      (int32_t*)out_lens, (int32_t*)errs);
-  return (int)cudaGetLastError();
+  return (int)configured<kInput>(out_cap, [&] {
+    decode_kernel<kInput><<<(unsigned)batch, kThreads, dyn_bytes(out_cap),
+                            (cudaStream_t)stream>>>(
+        (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, (uint8_t*)out,
+        (int32_t*)out_lens, (int32_t*)errs);
+    return cudaGetLastError();
+  });
 }
 
 template <int kInput>
 int layout(int32_t out_cap, int32_t* out) {
-  cudaError_t e = configure<kInput>(out_cap);
   int nb = 0;
   cudaFuncAttributes attr;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, decode_kernel<kInput>, kThreads,
-                                                      dyn_bytes(out_cap));
-  }
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, decode_kernel<kInput>);
+  cudaError_t e = configured<kInput>(out_cap, [&] {
+    cudaError_t q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, decode_kernel<kInput>, kThreads, dyn_bytes(out_cap));
+    return q == cudaSuccess ? cudaFuncGetAttributes(&attr, decode_kernel<kInput>) : q;
+  });
   out[0] = nb;
   out[1] = e == cudaSuccess ? (int32_t)(dyn_bytes(out_cap) + attr.sharedSizeBytes) : 0;
   out[2] = kThreads;

@@ -62,12 +62,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Sets encode_kernel<kWords>'s shared-memory attributes on the current
-// device for hash_bits (smem_config.cuh: once per device and width).
+// encode_kernel<kWords>'s attributes, set per device (smem_config.cuh).
 template <bool kWords>
-cudaError_t configure(size_t smem) {
-  static attrs::SetFor set_for;
-  return attrs::configure(encode_kernel<kWords>, smem, set_for);
+attrs::SetFor& set_for() {
+  static attrs::SetFor s;
+  return s;
+}
+
+// Runs fn with encode_kernel<kWords>'s shared-memory attributes set on the
+// current device for a table of smem bytes, under the lock that orders them
+// with every other launch of the kernel.
+template <bool kWords, class Fn>
+cudaError_t configured(size_t smem, Fn fn) {
+  return attrs::configure_and_launch(encode_kernel<kWords>, smem, set_for<kWords>(), fn);
 }
 
 template <bool kWords>
@@ -75,22 +82,22 @@ int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch
            int32_t hash_bits, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
            void* stream) {
   const size_t smem = sizeof(uint16_t) << hash_bits;
-  cudaError_t e = configure<kWords>(smem);
-  if (e != cudaSuccess) return (int)e;
-  encode_kernel<kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
-      (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  return (int)cudaGetLastError();
+  return (int)configured<kWords>(smem, [&] {
+    encode_kernel<kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, hash_bits, skip_base,
+        (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+    return cudaGetLastError();
+  });
 }
 
 template <bool kWords>
 int layout(int32_t hash_bits, int32_t* out) {
   const size_t smem = sizeof(uint16_t) << hash_bits;
-  cudaError_t e = configure<kWords>(smem);
   int nb = 0;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<kWords>, kThreads, smem);
-  }
+  cudaError_t e = configured<kWords>(smem, [&] {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_kernel<kWords>, kThreads,
+                                                         smem);
+  });
   out[0] = nb;
   out[1] = (int32_t)smem;
   out[2] = kThreads;

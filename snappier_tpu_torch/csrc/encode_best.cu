@@ -61,32 +61,40 @@ bool word_rows(const void* frags, int64_t frag_w) {
   return ((uintptr_t)frags % 4) == 0 && frag_w % 4 == 0;
 }
 
+// encode_best_kernel<kWords>'s attributes, set per device (smem_config.cuh).
 template <bool kWords>
-cudaError_t configure() {
-  static attrs::SetFor set_for;
-  return attrs::configure(encode_best_kernel<kWords>, 0, set_for);
+attrs::SetFor& set_for() {
+  static attrs::SetFor s;
+  return s;
+}
+
+// Runs fn with encode_best_kernel<kWords>'s carveout set on the current
+// device (no dynamic shared memory: the rest of the SM is L1), under the
+// lock that orders it with every other launch of the kernel.
+template <bool kWords, class Fn>
+cudaError_t configured(Fn fn) {
+  return attrs::configure_and_launch(encode_best_kernel<kWords>, 0, set_for<kWords>(), fn);
 }
 
 template <bool kWords>
 int launch(const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
            const void* cands, int32_t skip_base, void* bodies, int64_t body_w, void* body_lens,
            void* stream) {
-  cudaError_t e = configure<kWords>();
-  if (e != cudaSuccess) return (int)e;
-  encode_best_kernel<kWords><<<(unsigned)batch, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands, skip_base,
-      (uint8_t*)bodies, body_w, (int32_t*)body_lens);
-  return (int)cudaGetLastError();
+  return (int)configured<kWords>([&] {
+    encode_best_kernel<kWords><<<(unsigned)batch, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, (const int32_t*)cands,
+        skip_base, (uint8_t*)bodies, body_w, (int32_t*)body_lens);
+    return cudaGetLastError();
+  });
 }
 
 template <bool kWords>
 int layout(int32_t* out) {
-  cudaError_t e = configure<kWords>();
   int nb = 0;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_best_kernel<kWords>, kThreads,
-                                                      0);
-  }
+  cudaError_t e = configured<kWords>([&] {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, encode_best_kernel<kWords>,
+                                                         kThreads, 0);
+  });
   out[0] = nb;
   out[1] = 0;
   out[2] = kThreads;

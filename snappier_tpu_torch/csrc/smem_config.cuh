@@ -1,16 +1,19 @@
-// A kernel's shared-memory attributes, set once per device and size.
+// A kernel's shared-memory attributes, set per device and size, and the
+// launch that needs them, under one lock.
 //
 // A function attribute holds only on the device that was current when it
 // was set, so each launcher keeps, per device, the dynamic sizes it has set
 // there and sets the attributes again only for another device or size. The
 // largest dynamic size only grows, so a launch that found its size allowed
-// is never refused because another host thread set a smaller one; the
-// carveout follows the latest size, and is only a hint to the driver.
+// is never refused because another host thread set a smaller one. The
+// carveout follows the latest size, and a launch reads it when it is
+// enqueued: so the attributes are set and the launch is enqueued under the
+// same lock, and another host thread cannot set another size in between and
+// leave the launch with fewer blocks an SM than its own size allows.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <mutex>
 
 namespace attrs {
@@ -21,11 +24,12 @@ constexpr int kMaxDevices = 64;
 
 // Per device, the largest dynamic size allowed there and the size the
 // carveout was set for, each plus 1 (0: none), and the lock that orders the
-// setting.
+// setting and the launches. One per kernel: every launch and query of the
+// kernel goes through the same one.
 struct SetFor {
   std::mutex lock;
-  std::atomic<long long> max[kMaxDevices] = {};
-  std::atomic<long long> last[kMaxDevices] = {};
+  long long max[kMaxDevices] = {};
+  long long last[kMaxDevices] = {};
 };
 
 // Sets kernel's attributes on the current device for `dyn` dynamic shared
@@ -33,17 +37,16 @@ struct SetFor {
 // and a carveout that holds as many blocks of dyn bytes as fit an SM
 // (static and reserved shared memory included, at most 32 blocks) and
 // leaves the rest to L1, which caches the kernels' reads of device memory.
-// Nothing is set when set_for says they were set there for dyn.
+// Nothing is set when set_for says they were set there for dyn. The caller
+// holds set_for.lock.
 template <class Kernel>
-cudaError_t configure(Kernel* kernel, size_t dyn, SetFor& set_for) {
+cudaError_t configure_locked(Kernel* kernel, size_t dyn, SetFor& set_for) {
   int dev = 0, per_sm = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const long long want = (long long)dyn + 1;
   const bool known = dev < kMaxDevices;
-  if (known && set_for.last[dev].load() == want) return cudaSuccess;
-  std::lock_guard<std::mutex> hold(set_for.lock);
-  if (known && set_for.last[dev].load() == want) return cudaSuccess;
+  if (known && set_for.last[dev] == want) return cudaSuccess;
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess) {
@@ -53,10 +56,10 @@ cudaError_t configure(Kernel* kernel, size_t dyn, SetFor& set_for) {
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   }
   if (e != cudaSuccess) return e;
-  if (!known || set_for.max[dev].load() < want) {
+  if (!known || set_for.max[dev] < want) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return e;
-    if (known) set_for.max[dev].store(want);
+    if (known) set_for.max[dev] = want;
   }
   size_t per_block = dyn + attr.sharedSizeBytes + (size_t)reserved;
   size_t fit = (size_t)per_sm / per_block;
@@ -64,8 +67,19 @@ cudaError_t configure(Kernel* kernel, size_t dyn, SetFor& set_for) {
   int carveout = (int)((fit * per_block * 100 + per_sm - 1) / per_sm);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            carveout > 100 ? 100 : carveout);
-  if (e == cudaSuccess && known) set_for.last[dev].store(want);
+  if (e == cudaSuccess && known) set_for.last[dev] = want;
   return e;
+}
+
+// Sets kernel's attributes for `dyn` bytes (configure_locked) and calls
+// run() under the same lock: a launch, which the caller checks with
+// cudaGetLastError inside run(), or a query of the launch's occupancy.
+// Returns the first error.
+template <class Kernel, class Run>
+cudaError_t configure_and_launch(Kernel* kernel, size_t dyn, SetFor& set_for, Run run) {
+  std::lock_guard<std::mutex> hold(set_for.lock);
+  cudaError_t e = configure_locked(kernel, dyn, set_for);
+  return e != cudaSuccess ? e : run();
 }
 
 }  // namespace attrs

@@ -49,6 +49,7 @@ SOURCES = {
     ),
     "encode_layout": ("snappy_encode_layout", [_P, _I64, _I32, _P]),
     "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
+    "crc32c_layout": ("crc32c_layout", [_P]),
     "decode_layout": ("snappy_decode_layout", [_P, _I64, _I32, _P]),
     "encode_best": (
         "snappy_encode_best_launch",
@@ -88,7 +89,7 @@ SOURCES = {
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff")},
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
-                 "best_layout": "encode_best"}
+                 "best_layout": "encode_best", "crc32c_layout": "crc32c"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

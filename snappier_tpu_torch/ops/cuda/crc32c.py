@@ -1,14 +1,15 @@
-"""CRC32C of each row's first ``lengths[b]`` bytes, one CUDA block per row.
+"""CRC32C of each row's first ``lengths[b]`` bytes, a CUDA block per row.
 
 Port of ``snappier_tpu/ops/pallas/crc32c.py::crc32c_blocks``: the same
-arguments and the same int32 bit patterns. The kernel (``csrc/crc32c.cu``)
-takes its byte table and zero-shift matrices from
-:mod:`snappier_tpu_torch.format.crc32c`; on the CPU the wrapper runs the
-plain version, :func:`crc32c_blocks_plain`.
+arguments and the same int32 bit patterns. The kernel (``csrc/crc32c.cu``
+over ``csrc/crc32c.cuh``) takes its byte table and its shift tables from
+:func:`kernel_tables`, built from :mod:`snappier_tpu_torch.format.crc32c`;
+on the CPU the wrapper runs the plain version, :func:`crc32c_blocks_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -18,12 +19,47 @@ from snappier_tpu_torch.format.crc32c import byte_table, crc32c, shift_matrices
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda._tensors import byte_rows, lengths_vector, on_cuda
 
+#: The kernel's shapes (``csrc/crc32c.cuh``): lanes a warp, warps a block,
+#: bytes a lane loads at once, and the distance of a lane's fold.
+LANES, WARPS, CHUNK = 32, 8, 16
+FOLD = WARPS * LANES * CHUNK
+
+
+def shift_columns(nbytes: int) -> np.ndarray:
+    """uint32[32]: column ``i`` is state bit ``i`` (a raw CRC state) shifted
+    past ``nbytes`` zero bytes: the 32 x 32 GF(2) matrix of that shift,
+    composed from ``shift_matrices`` (one a set bit of ``nbytes``)."""
+    cols = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
+    for k, mat in enumerate(shift_matrices(32)):
+        if (nbytes >> k) & 1:
+            bits = (cols[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+            cols = np.bitwise_xor.reduce(np.where(bits == 1, mat[None, :], 0), axis=1)
+    return cols.astype(np.uint32)
+
+
+def shift_table(nbytes: int) -> np.ndarray:
+    """uint32[4, 256]: entry ``[j, v]`` is the raw CRC state ``v << 8 j``
+    shifted past ``nbytes`` zero bytes, so a state's shift is the XOR of four
+    entries, one a byte."""
+    cols = shift_columns(nbytes)
+    bits = (np.arange(256, dtype=np.uint32)[:, None] >> np.arange(8, dtype=np.uint32)) & 1
+    return np.stack([
+        np.bitwise_xor.reduce(np.where(bits == 1, cols[8 * j : 8 * j + 8], 0), axis=1)
+        for j in range(4)
+    ]).astype(np.uint32)
+
 
 @functools.cache
 def kernel_tables() -> np.ndarray:
-    """uint32[256 + 32 * 32]: the byte table, then the 32 matrices that
-    shift a raw CRC state by 2**k zero bytes."""
-    return np.concatenate([byte_table(), shift_matrices(32).reshape(-1)])
+    """uint32[3584], the kernel's tables in its order: the byte table; the
+    4-byte step and the fold as :func:`shift_table`; the lanes' matrices
+    (word ``32 i + l``: bit ``i`` shifted past the ``31 - l`` chunks after
+    lane ``l``'s); the warps' (word ``32 w + i``: bit ``i`` shifted past the
+    ``WARPS - 1 - w`` lines after warp ``w``'s)."""
+    lanes = np.stack([shift_columns((LANES - 1 - l) * CHUNK) for l in range(LANES)], axis=1)
+    warps = np.stack([shift_columns((WARPS - 1 - w) * LANES * CHUNK) for w in range(WARPS)])
+    return np.concatenate([byte_table(), shift_table(4).reshape(-1),
+                           shift_table(FOLD).reshape(-1), lanes.reshape(-1), warps.reshape(-1)])
 
 
 @functools.cache
@@ -61,3 +97,16 @@ def crc32c_blocks(frags, lengths) -> torch.Tensor:
         tables.data_ptr(), out.data_ptr(),
     )
     return out
+
+
+def crc32c_layout(device) -> dict:
+    """The kernel's layout on a CUDA device: blocks per SM under the
+    attributes a launch sets, shared bytes and threads per block, and the
+    persistent blocks of a launch (one an SM)."""
+    out = (ctypes.c_int32 * 4)()
+    with torch.cuda.device(device):
+        rc = _build.launcher("crc32c_layout")(out)
+    if rc != 0:
+        raise RuntimeError(f"crc32c_layout failed with cudaError {rc}")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "threads": out[2],
+            "persistent_blocks": out[3]}

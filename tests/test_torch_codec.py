@@ -177,8 +177,9 @@ def test_port_tables_equal_reference():
     mats = port_crc.shift_matrices(32)
     for k in (0, 1, 7, 16, 31):
         assert (mats[k] == ref_crc._shift_matrix_pow2(k)).all(), k
-    tables = kernel_tables()
-    assert tables.dtype == np.uint32 and tables.shape == (256 + 32 * 32,)
+    tables = kernel_tables()  # the byte table, two shift tables, the combine's matrices
+    assert tables.dtype == np.uint32 and tables.shape == (256 + 2 * 1024 + 32 * 32 + 8 * 32,)
+    assert (tables[:256] == ref_crc.byte_table()).all()
     for n in (0, 1, 255, 65535, 65536, 1 << 20):
         assert port_constants.greedy_emit_bound(n) == ref_constants.greedy_emit_bound(n)
     for name in ("BLOCK_SIZE", "INPUT_MARGIN_BYTES", "CRC_MASK_DELTA", "MAX_COPY_LENGTH"):

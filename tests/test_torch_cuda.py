@@ -31,7 +31,7 @@ from snappier_tpu_torch.ops.cuda import decode_variants as dv
 from snappier_tpu_torch.ops.cuda import encode_variants as ev
 from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 from snappier_tpu_torch.ops.cuda import scalar_codec as sc
-from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain
+from snappier_tpu_torch.ops.cuda.crc32c import crc32c_blocks, crc32c_blocks_plain, crc32c_layout
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
     _encode_best,
     decode_blocks_bytes,
@@ -45,11 +45,13 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
 # package named ``tests`` elsewhere on the path may shadow ``tests.``.
 from test_match_length import VECTORS, _layout
 from torch_cases import (
+    CRC_LENGTHS,
     PIPE_CASES,
     batch_streams,
     best_rows,
     block_stream,
     corrupt_streams,
+    crc_rows,
     encode_rows,
     html_like,
     pack_streams,
@@ -231,6 +233,112 @@ def test_cuda_decode_caps_in_any_order_and_from_two_threads(cuda_device):
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for f in [pool.submit(decode_at, c) for c in caps]:
             f.result()
+
+
+def test_cuda_attributes_and_launches_under_one_lock(cuda_device):
+    """Four host threads at once, 20 calls each: K1 at out_cap 65,536 and
+    8,192 and K2 at 15 and 12 hash bits, every launch's bytes against the
+    plain versions (each kernel's carveout is set and its launch enqueued
+    under one lock, so no launch runs under another thread's carveout);
+    then K1 still holds three blocks an SM at 65,536 and K2 three at 15
+    bits."""
+    import concurrent.futures
+
+    comp, clens = _decode_rows(tight=True)
+    rows, lens = _t(comp).to(cuda_device), _t(clens).to(cuda_device)
+    frags, flens = encode_rows(65536, seed=12)
+    f_c, fl_c = _t(frags.astype(np.uint8)).to(cuda_device), _t(flens).to(cuda_device)
+    want_dec = {c: decode_blocks_plain(_t(comp.astype(np.uint8)), _t(clens), c)
+                for c in (65536, 8192)}
+    want_enc = {hb: encode_blocks_plain(_t(frags.astype(np.uint8)), _t(flens), hb, 32)
+                for hb in (15, 12)}
+
+    def decode_at(cap):
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got = decode_blocks_bytes(rows, lens, cap)
+                torch.cuda.current_stream().synchronize()
+                assert (got[2].cpu() == want_dec[cap][2]).all(), cap
+                assert (got[1].cpu() == want_dec[cap][1]).all(), cap
+                _rows_equal(got[0], want_dec[cap][0], want_dec[cap][1])
+
+    def encode_at(hb):
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got_b, got_l = encode_blocks_bytes(f_c, fl_c, hash_bits=hb)
+                torch.cuda.current_stream().synchronize()
+                assert (got_l.cpu() == want_enc[hb][1]).all(), hb
+                _rows_equal(got_b, want_enc[hb][0], want_enc[hb][1])
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(decode_at, c) for c in (65536, 8192)]
+        jobs += [pool.submit(encode_at, hb) for hb in (15, 12)]
+        for f in jobs:
+            f.result()
+    assert sc.decode_layout(rows, 65536)["blocks_per_sm"] >= 3
+    assert sc.encode_layout(f_c, 15)["blocks_per_sm"] >= 3
+
+
+@pytest.mark.parametrize("F,offset,B", [(65536, 0, 1), (65536, 0, 3), (65536, 1, 19),
+                                        (65536, 0, 512), (65536, 3, 2048), (65535, 0, 19),
+                                        (4097, 0, 19), (1024, 5, 40), (100_000, 0, 19),
+                                        (512, 0, 9240)])
+def test_cuda_crc32c_matches_plain(cuda_device, F, offset, B):
+    """K3 against its plain version: the edge lengths of its split
+    (``torch_cases.CRC_LENGTHS``) and rows of markup and zeros, garbage past
+    each length, repeated to B rows (more than the persistent blocks at
+    2,048, more than 64 rows a block at 9,240); rows of 64 KiB, of odd widths (each row starts at another
+    offset from a 16-byte boundary) and of a width past 64 KiB, 0, 1, 3 or
+    5 bytes into a buffer that ends at the last row's end."""
+    rows, lens = crc_rows(F)
+    reps = -(-B // len(lens))
+    rows, lens = np.tile(rows, (reps, 1))[:B], np.tile(lens, reps)[:B]
+    rng = np.random.default_rng(B)
+    rows[len(CRC_LENGTHS) + 2 :] ^= rng.integers(0, 256, rows[len(CRC_LENGTHS) + 2 :].shape,
+                                                 dtype=np.uint8)
+    view = _offset_rows(rows, offset, cuda_device)
+    _build.reset_launches()
+    got = crc32c_blocks(view, _t(lens).to(cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"crc32c": 1}
+    assert (got.cpu() == crc32c_blocks_plain(_t(rows), _t(lens))).all()
+
+
+def test_cuda_crc32c_of_decoded_rows_and_in_a_graph(cuda_device):
+    """K3 on K1's output rows (int32, garbage past each length) against the
+    plain version on the same rows; then 8 launches captured in a CUDA
+    graph, replayed twice, each output equal to the plain version; and its
+    layout (one persistent block an SM of 256 threads, 204,032 shared bytes:
+    69 KiB of tables and row lengths, 2 KiB of sums, 128 KiB of rings)."""
+    comp, clens = _decode_rows(tight=False)
+    out, out_lens, _ = decode_blocks_bytes(_t(comp).to(cuda_device), _t(clens).to(cuda_device),
+                                           65536)
+    want = crc32c_blocks_plain(out.cpu(), out_lens.cpu())
+    assert (crc32c_blocks(out, out_lens).cpu() == want).all()
+
+    rows, lens = crc_rows(65536, seed=21)
+    r_c, l_c = _t(rows).to(cuda_device), _t(lens).to(cuda_device)
+    want = crc32c_blocks_plain(_t(rows), _t(lens))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        crc32c_blocks(r_c, l_c)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [crc32c_blocks(r_c, l_c) for _ in range(8)]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(0)
+        g.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            assert (o.cpu() == want).all()
+    layout = crc32c_layout(cuda_device)
+    assert layout["smem_bytes"] == 204032 and layout["threads"] == 256, layout
+    assert layout["blocks_per_sm"] >= 1
+    assert layout["persistent_blocks"] == torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])

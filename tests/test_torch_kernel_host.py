@@ -35,6 +35,7 @@ import pytest
 from snappier_tpu.format import oracle
 from snappier_tpu.format.varint import write_varint
 from snappier_tpu.ops.best_match import exact_candidates
+from snappier_tpu.ops.pallas.crc32c import crc32c_blocks
 from snappier_tpu.ops.pallas.scalar_codec import (
     _encode_best_pallas,
     decode_blocks_scalar,
@@ -43,9 +44,11 @@ from snappier_tpu.ops.pallas.scalar_codec import (
 )
 from tests.test_match_length import VECTORS, _layout
 from tests.torch_cases import (
+    CRC_LENGTHS,
     batch_streams,
     best_rows,
     corrupt_streams,
+    crc_rows,
     encode_rows,
     html_like,
     pack_streams,
@@ -66,6 +69,7 @@ SHIM = r"""
 #include <thread>
 #include <vector>
 
+#include "crc32c.cuh"
 #include "decode_hybrid.cuh"
 #include "decode_variants.cuh"
 #include "encode_variants.cuh"
@@ -681,6 +685,54 @@ extern "C" int host_encode_best(const uint8_t* frags, int64_t frag_w, const int3
   return 0;
 }
 
+// The CRC32C kernel's row walk (csrc/crc32c.cuh) on `nblocks` blocks, one
+// after another, each of crc::kWarps threads that run a warp of 32 array
+// lanes and share a barrier, block k taking rows k, k + nblocks, ..., over
+// shared tables filled from `tables` as the kernel fills them. With `guard`
+// the rows end at a page the process may not read (GuardedRows), so a read
+// past the last row's end faults; else they start `offset` bytes past a
+// 16-byte boundary. Returns 0, or -1 if the buffer was refused.
+extern "C" int host_crc32c(const uint8_t* rows, int64_t width, const int32_t* lens,
+                           int64_t batch, int32_t offset, int32_t guard, int32_t nblocks,
+                           const uint32_t* tables, int32_t* out) {
+  GuardedRows g(rows, guard ? batch : 0, width, 0);
+  std::vector<uint8_t> buf((size_t)(batch * width) + 32);
+  uint8_t* at = buf.data() + ((16 - (uintptr_t)buf.data() % 16) % 16) + offset;
+  if (guard) {
+    if (g.mem == nullptr) return -1;
+    at = g.rows;
+  } else {
+    memcpy(at, rows, (size_t)(batch * width));
+  }
+  ArrayWarp<32>::Lanes<crc::Tables> t;
+  for (int k = 0; k < nblocks; k++) {
+    std::vector<uint32_t> smem(crc::kSmemWords);
+    crc::fill_shared(smem.data(), tables, lens, batch, k, nblocks, 0, 1);
+    for (int l = 0; l < 32; l++) t[l] = crc::lane_tables(smem.data(), tables, l);
+    Barrier bar(crc::kWarps);
+    std::vector<std::thread> warps;
+    for (int wi = 0; wi < crc::kWarps; wi++) {
+      warps.emplace_back([&, wi] {
+        ArrayWarp<32> w;
+        crc::crc_rows(w, wi, t, smem.data(), BarrierSync{&bar}, at, width, lens, batch, k,
+                      nblocks, out);
+      });
+    }
+    for (auto& th : warps) th.join();
+  }
+  return 0;
+}
+
+// The state x shifted by lane `lane`'s view of the spread step table
+// (which 0) or fold table (1), as the kernel fills and reads them.
+extern "C" uint32_t host_crc_spread(const uint32_t* tables, int32_t which, int32_t lane,
+                                    uint32_t x) {
+  std::vector<uint32_t> smem(crc::kSmemWords);
+  crc::fill_shared(smem.data(), tables, nullptr, 0, 0, 1, 0, 1);
+  const crc::Tables t = crc::lane_tables(smem.data(), tables, lane);
+  return which == 0 ? t.shift<crc::Tables::kStepAt>(x) : t.shift<crc::Tables::kFoldAt>(x);
+}
+
 extern "C" void host_probe(const uint8_t* bufs, int64_t cc, const int32_t* ats,
                            const int32_t* cands, const int32_t* ns, int64_t batch,
                            int32_t* out) {
@@ -738,6 +790,10 @@ def host_lib(tmp_path_factory):
     so.host_cliff.restype = I32
     so.host_bitonic.argtypes = [P, P, P]
     so.host_bitonic.restype = None
+    so.host_crc32c.argtypes = [P, I64, P, I64, I32, I32, I32, P, P]
+    so.host_crc32c.restype = I32
+    so.host_crc_spread.argtypes = [P, I32, I32, ctypes.c_uint32]
+    so.host_crc_spread.restype = ctypes.c_uint32
     return so
 
 
@@ -1339,3 +1395,107 @@ def test_host_bitonic_matches_plain(host_lib, seed):
     want_keys, want_vals = hp.bitonic_plain(torch.from_numpy(x))
     assert (keys == want_keys.reshape(-1).numpy()).all()
     assert (vals == want_vals.reshape(-1).numpy()).all()
+
+
+def _host_crc(lib, rows, lens, offset=0, guard=False, nblocks=3):
+    """The CRC32C kernel's row walk on the host (``host_crc32c``)."""
+    from snappier_tpu_torch.ops.cuda.crc32c import kernel_tables
+
+    rows = np.ascontiguousarray(rows, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    out = np.zeros(len(lens), np.int32)
+    rc = lib.host_crc32c(rows.ctypes.data, rows.shape[1], lens.ctypes.data, len(lens), offset,
+                         int(guard), nblocks, kernel_tables().ctypes.data, out.ctypes.data)
+    assert rc == 0
+    return out.view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def crc_jax():
+    """``crc_rows(65536)`` and their CRCs from the JAX kernel in interpret
+    mode."""
+    rows, lens = crc_rows(65536)
+    want = np.asarray(crc32c_blocks(jnp.asarray(rows.astype(np.int32)), jnp.asarray(lens),
+                                    interpret=True)).view(np.uint32)
+    return rows, lens, want
+
+
+@pytest.mark.parametrize("offset", [0, 1, 15])
+def test_host_crc_walk_matches_jax(host_lib, crc_jax, offset):
+    """The kernel's split of 64 KiB rows (chunks of 16 bytes, 32 lanes, 8
+    warps with a barrier, the lane fold, the eight tree levels, the head and
+    tail walks) on 3 blocks, each taking every third row: rows starting 0, 1 or 15
+    bytes past a 16-byte boundary, lengths at every edge of the split
+    (``torch_cases.CRC_LENGTHS``) with garbage past them, equal to the JAX
+    kernel in interpret mode and to the host CRC32C."""
+    from snappier_tpu_torch.format.crc32c import crc32c
+
+    rows, lens, want = crc_jax
+    got = _host_crc(host_lib, rows, lens, offset)
+    assert (got == want).all(), np.nonzero(got != want)
+    assert [int(x) for x in got] == [crc32c(r[:n]) for r, n in zip(rows, lens)]
+
+
+def test_host_crc_reads_nothing_past_the_length(host_lib):
+    """Each length alone as a row that ends at a page the process may not
+    read (so a read past its length faults), at every start 0-15 bytes past
+    a 16-byte boundary (the start follows from the length), a batch of rows
+    of odd width on 1, 2 and 5 blocks and one of 150 rows on 1 and 2 blocks,
+    against the host CRC32C."""
+    from snappier_tpu_torch.format.crc32c import crc32c
+
+    rng = np.random.default_rng(17)
+    lengths = sorted({*CRC_LENGTHS, *range(48), *(4096 + k for k in range(16)),
+                      *(65536 - k for k in range(16))} - {0})
+    for n in lengths:
+        row = rng.integers(0, 256, (1, n), dtype=np.uint8)
+        got = _host_crc(host_lib, row, [n], guard=True, nblocks=1)
+        assert int(got[0]) == crc32c(row[0]), n
+    rows, lens = crc_rows(4097, seed=19)
+    for nblocks in (1, 2, 5):
+        got = _host_crc(host_lib, rows, lens, offset=3, guard=True, nblocks=nblocks)
+        assert [int(x) for x in got] == [crc32c(r[:n]) for r, n in zip(rows, lens)], nblocks
+    # More rows a block than the kernel keeps sums for at once (64): 150
+    # rows of up to 1,000 bytes, some with no whole chunk, on 1 and 2 blocks.
+    rows = rng.integers(0, 256, (150, 1000), dtype=np.uint8)
+    lens = rng.integers(0, 1001, 150).astype(np.int32)
+    lens[::7] = rng.integers(0, 31, len(lens[::7]))
+    for nblocks in (1, 2):
+        got = _host_crc(host_lib, rows, lens, guard=True, nblocks=nblocks)
+        assert [int(x) for x in got] == [crc32c(r[:n]) for r, n in zip(rows, lens)], nblocks
+
+
+@pytest.mark.parametrize("table", ["step", "fold", "lanes", "warps"])
+def test_crc_kernel_tables_match_combine(host_lib, table):
+    """Each shift of ``kernel_tables`` against ``crc32c_combine``: the 4-byte
+    step and the fold as 4 x 256 tables (also as every lane reads them
+    spread over the banks), the lanes' and the warps' 32 x 32 matrices (each
+    a column a state bit)."""
+    from snappier_tpu_torch.format.crc32c import crc32c_combine
+    from snappier_tpu_torch.ops.cuda.crc32c import (
+        CHUNK, FOLD, LANES, WARPS, kernel_tables, shift_table)
+
+    rng = np.random.default_rng(len(table))
+    tabs = kernel_tables()
+    pairs = rng.integers(0, 2**32, (24, 2), dtype=np.uint64).tolist()
+    if table in ("step", "fold"):
+        nbytes, at = (4, 256) if table == "step" else (FOLD, 256 + 1024)
+        t = shift_table(nbytes)
+        assert (tabs[at : at + 1024] == t.reshape(-1)).all()
+        for a, b in pairs:
+            shifted = int(t[0, a & 255] ^ t[1, (a >> 8) & 255] ^ t[2, (a >> 16) & 255]
+                          ^ t[3, a >> 24])
+            assert shifted ^ b == crc32c_combine(a, b, nbytes)
+            for lane in range(LANES):
+                assert host_lib.host_crc_spread(tabs.ctypes.data, table == "fold", lane,
+                                                a) == shifted, lane
+        return
+    mats = (tabs[256 + 2048 : 256 + 3072].reshape(32, LANES).T if table == "lanes"
+            else tabs[256 + 3072 :].reshape(WARPS, 32))
+    for k, cols in enumerate(mats):  # lane k, or warp k: column i for state bit i
+        nbytes = (LANES - 1 - k) * CHUNK if table == "lanes" else (WARPS - 1 - k) * LANES * CHUNK
+        for a, b in pairs[:4]:
+            shifted = 0
+            for i in range(32):
+                shifted ^= int(cols[i]) if (a >> i) & 1 else 0
+            assert shifted ^ b == crc32c_combine(a, b, nbytes), (table, k)

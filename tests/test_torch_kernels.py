@@ -202,10 +202,11 @@ def test_build_names_every_source():
                                    "decode_variants", "decode_pipe", "encode_variants",
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
                                    "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
-                                   "encode_layout", "decode_layout", "best_layout"}
+                                   "encode_layout", "decode_layout", "best_layout",
+                                   "crc32c_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
     shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout",
-              "decode_layout", "best_layout"}
+              "decode_layout", "best_layout", "crc32c_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

@@ -90,6 +90,25 @@ def best_rows(F: int = 4096, seed: int = 3, lens=(4096, 3000, 17, 1, 0)):
     return np.stack(rows).astype(np.int32), np.array(lengths, np.int32)
 
 
+# Row lengths at the CRC32C kernel's edges (csrc/crc32c.cuh): around a
+# 16-byte chunk, a 512-byte line of 32 chunks and a 4,096-byte batch of 8
+# lines, and near a 64 KiB row's end.
+CRC_LENGTHS = (0, 1, 15, 16, 17, 30, 31, 511, 512, 513, 4095, 4096, 4097, 57344, 65533, 65535,
+               65536)
+
+
+def crc_rows(F: int, lengths=CRC_LENGTHS, seed: int = 13):
+    """Rows of width F with the given lengths (clamped to F): random bytes,
+    a markup row and an all-zero row, with random garbage past each
+    length. Returns (rows uint8[B, F], lengths int32[B])."""
+    rng = np.random.default_rng(seed)
+    lens = np.array([min(n, F) for n in lengths] + [F, F], np.int32)
+    rows = rng.integers(0, 256, (len(lens), F), dtype=np.uint8)
+    rows[-2] = html_like(F, seed)
+    rows[-1] = 0
+    return rows, lens
+
+
 def planted_matches(B: int, cc: int, seed: int = 11):
     """Probe rows of random bytes, each with a match planted: the bytes at
     ``cand`` are copied to ``at`` for a random length, then one differing
