@@ -91,7 +91,10 @@ failure:
    assembly. Encode ablation: ``encode_variant`` under every named flag
    tuple, ``encode_r4`` under every name, ``decode_pipe`` and
    ``decode_pipe2`` in every form, each against its plain version on edge
-   rows and on rows of the full 65,536 bytes, then on the 512 blocks: a variant that gives the production
+   rows (the encoders' also 1 byte into a buffer: the byte loader) and on
+   rows of the full 65,536 bytes; the encoders' layouts (K2's: at least 3
+   blocks an SM at 15 hash bits, 4 at 14) and ptxas figures (any stack or
+   spill fails); then on the 512 blocks: a variant that gives the production
    encoder's bytes held to them, any other decoded by the decode kernel to
    the input, the decoders' rows equal to the production kernel's; timings
    of each beside the production kernels;
@@ -1454,11 +1457,22 @@ def phase_sharded(torch, card, data, frags, lengths, k2_bodies, k2_lens, scan_bo
     return launches, scan_launches
 
 
+def encode_cases(ev) -> list:
+    """Phase 8's encode-ablation calls as (wrapper, name, argument): every
+    named ``encode_variant`` tuple, the empty one and one that runs the
+    walk whose mask is a run-time value, every ``encode_r4`` name."""
+    cases = [("encode_variant", name, flags) for name, flags in ev.VARIANT_FLAGS.items()]
+    cases += [("encode_variant", "none", ()),
+              ("encode_variant", "probe8,st1,hb9", ("probe8", "st1", "hb9"))]
+    return cases + [("encode_r4", name, name) for name in ev.R4_VARIANTS]
+
+
 def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, comp_u8,
                           block_lens):
     """Phase 8, the encode-ablation path. Returns (max_abs_err per wrapper,
     launches on the path, ms per wrapper, plain ms per wrapper on one row,
-    bytes of bodies that the timed variant of each encode wrapper wrote)."""
+    bytes of bodies that the timed variant of each encode wrapper wrote, the
+    encode wrappers' layouts and ptxas figures)."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "tests"))
     sys.path.insert(0, os.path.join(root, "tools"))
@@ -1476,10 +1490,7 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
     dev = torch.device("cuda")
     errs = {}
     PIPE_CASES = dict(pipe_cases)  # name -> decode_pipe2's arguments ("pipe": decode_pipe)
-    enc_cases = [("encode_variant", name, flags) for name, flags in ev.VARIANT_FLAGS.items()]
-    enc_cases += [("encode_variant", "none", ()), ("encode_variant", "probe8,st1,hb9",
-                                                   ("probe8", "st1", "hb9"))]
-    enc_cases += [("encode_r4", name, name) for name in ev.R4_VARIANTS]
+    enc_cases = encode_cases(ev)
     wrappers = {"encode_variant": (ev.encode_variant, ev.encode_variant_plain),
                 "encode_r4": (ev.encode_r4, ev.encode_r4_plain)}
 
@@ -1501,25 +1512,67 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
     f_wide = np.concatenate([frags[[0, B // 2, B - 1]].cpu().numpy(),
                              f_wide[[0, 1, 2, 5, 12]].astype(np.uint8), far[None]])
     l_wide = np.concatenate([[BLOCK] * 3, l_wide[[0, 1, 2, 5, 12]], [BLOCK]]).astype(np.int32)
+    # The rows of 4 KiB also 1 byte into a larger buffer (the byte loader).
+    f_odd = torch.zeros(f_small.size + 1, dtype=torch.uint8, device=dev)
+    f_odd = f_odd[1:].view(f_small.shape)
+    f_odd.copy_(torch.from_numpy(f_small).to(dev))
     t0 = time.perf_counter()
-    for f_rows, l_rows in ((f_small, l_small), (f_wide, l_wide)):
+    plain_of = {}  # (row width, name) -> the plain version's bodies and lengths
+    for f_rows, l_rows, view in ((f_small, l_small, None), (f_small, l_small, f_odd),
+                                 (f_wide, l_wide, None)):
         fs_h, ls_h = torch.from_numpy(f_rows), torch.from_numpy(l_rows)
-        fs_d, ls_d = fs_h.to(dev), ls_h.to(dev)
+        fs_d, ls_d = fs_h.to(dev) if view is None else view, ls_h.to(dev)
         for counter, name, arg in enc_cases:
             fn, plain = wrappers[counter]
             got_b, got_l = (x.cpu().numpy() for x in fn(fs_d, ls_d, arg))
             torch.cuda.synchronize()
-            want_b, want_l = (x.numpy() for x in plain(fs_h, ls_h, arg))
+            key = (f_rows.shape[1], name)
+            if key not in plain_of:
+                plain_of[key] = [x.numpy() for x in plain(fs_h, ls_h, arg)]
+            want_b, want_l = plain_of[key]
             pairs = [(got_l, want_l)]
             if emits(counter, arg):
                 pairs += [(got_b[i, :n], want_b[i, :n]) for i, n in enumerate(want_l)]
             err = max_abs_err(pairs)
             check(err == 0, f"{counter} {name} differs from its plain version on rows of "
-                            f"{f_rows.shape[1]} B")
+                            f"{f_rows.shape[1]} B{'' if view is None else ' 1 byte in'}")
             errs[counter] = max(errs.get(counter, 0), err)
     print(f"encode_variant ({len(ev.VARIANT_FLAGS)} named tuples and 2 others) and encode_r4 "
-          f"({len(ev.R4_VARIANTS)} names) == plain on {len(l_small)} rows of 4096 B and "
-          f"{len(l_wide)} rows of {BLOCK} B, max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+          f"({len(ev.R4_VARIANTS)} names) == plain on {len(l_small)} rows of 4096 B (aligned and "
+          f"1 byte into a buffer) and {len(l_wide)} rows of {BLOCK} B, max_abs_err 0 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # Their layout (K2's): the match table alone in shared memory, one warp a
+    # fragment, the word loader on aligned rows; T8 at 15 hash bits at least
+    # three walks an SM, T5 at its 14 at least four; every instantiation's
+    # walk in registers (no stack frame, no spill).
+    layouts = {
+        "encode_variant": {"e3": ev.encode_variant_layout(frags, ev.VARIANT_FLAGS["e3"]),
+                           "hb9": ev.encode_variant_layout(frags, ("probe8", "st1", "hb9")),
+                           "e3_unaligned": ev.encode_variant_layout(f_odd, ev.VARIANT_FLAGS["e3"])},
+        "encode_r4": {"encpre": ev.encode_r4_layout(frags, "encpre"),
+                      "encpre_unaligned": ev.encode_r4_layout(f_odd, "encpre")},
+    }
+    ptxas = {"encode_variant": ptxas_figures(_build.BUILD_LOG.get("encode_variants", ""),
+                                             "encode_variant_kernel"),
+             "encode_r4": ptxas_figures(_build.BUILD_LOG.get("encode_r4", ""),
+                                        "encode_variant_kernel")}
+    print(json.dumps({"card": card, "encode_ablation_layouts": layouts,
+                      "encode_ablation_ptxas": ptxas}))
+    t5, t8 = layouts["encode_variant"], layouts["encode_r4"]
+    check(t8["encpre"]["blocks_per_sm"] >= 3 and t8["encpre"]["smem_bytes"] == 2 << 15,
+          f"encode_r4: {t8['encpre']} at 15 hash bits")
+    check(t5["e3"]["blocks_per_sm"] >= 4 and t5["e3"]["smem_bytes"] == 2 << 14,
+          f"encode_variant: {t5['e3']} at 14 hash bits")
+    check(t5["hb9"]["smem_bytes"] == 2 << 9, f"encode_variant: {t5['hb9']} at 9 hash bits")
+    check(all(lay["loader"] == ("bytes" if k.endswith("unaligned") else "words")
+              for t in (t5, t8) for k, lay in t.items()), "the ablation kernels' loaders")
+    # 15 walks (14 named and the run-time one) and 14, each with both loaders.
+    for what, count in (("encode_variant", 30), ("encode_r4", 28)):
+        figs = ptxas[what]
+        check(len(figs) == count, f"ptxas figures for the {count} {what} kernels: {figs}")
+        for fig in figs:
+            check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
+                  f"{what} kernel stack frame or spills: {fig}")
     # Decoders: phase 2's rows (corrupt blocks and encoded 64 KiB rows), short
     # offsets, overlapping copies, long literals and more malformed blocks.
     streams = decode_streams + walk_streams() + more_corrupt()
@@ -1635,7 +1688,8 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
         "decode_pipe": host_ms(lambda: dv.decode_pipe_plain(c1, cl1, BLOCK, False)),
         "decode_pipe2": host_ms(lambda: dv.decode_pipe_plain(c1, cl1, BLOCK, True)),
     }
-    return errs, launches, ms, plain, {"encode_variant": sizes["e3"], "encode_r4": sizes["encpre"]}
+    sizes = {"encode_variant": sizes["e3"], "encode_r4": sizes["encpre"]}
+    return errs, launches, ms, plain, sizes, {k: {**layouts[k], "ptxas": ptxas[k]} for k in ptxas}
 
 
 HYBRID_FORMS = ("v5", "v6", "v7", "v7u")  # v7u: decode_v7(unroll2=True)
@@ -2240,8 +2294,9 @@ def main() -> int:
     # --- 8. block-axis sharding, the encode-walk and pipelined-decode ablation ---
     sharded_launches, sharded_scan_launches = phase_sharded(
         torch, card, data, frags, lengths, bodies, body_lens, scan_bodies, scan_lens)
-    errs_enc, enc_launches, ms_enc, plain_enc, enc_body_bytes = phase_encode_ablation(
-        torch, card, decode_streams, frags, lengths, body_lens, comp_u8, block_lens)
+    errs_enc, enc_launches, ms_enc, plain_enc, enc_body_bytes, enc_layouts = (
+        phase_encode_ablation(torch, card, decode_streams, frags, lengths, body_lens, comp_u8,
+                              block_lens))
     errs.update(errs_enc)
     ms.update(ms_enc)
 
@@ -2347,6 +2402,8 @@ def main() -> int:
         if k == "crc32c":
             rows[-1]["ms_by_method"] = k3_by_method
             rows[-1]["layout"] = {**k3_layout, "ptxas": crc_ptxas}
+        if k in enc_layouts:
+            rows[-1]["layout"] = enc_layouts[k]
         if k == "encode_best":
             rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
             rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}

@@ -105,11 +105,6 @@ int layout(int32_t hash_bits, int32_t* out) {
   return (int)e;
 }
 
-// The word loader takes rows whose base and width are multiples of 16.
-bool word_rows(const void* frags, int64_t frag_w) {
-  return ((uintptr_t)frags % 16) == 0 && frag_w % 16 == 0;
-}
-
 }  // namespace
 
 // frags: uint8[B, frag_w], any address and width; lengths, body_lens:
@@ -120,7 +115,7 @@ extern "C" int snappy_encode_launch(const void* frags, int64_t frag_w, const voi
                                     void* bodies, int64_t body_w, void* body_lens,
                                     void* stream) {
   if (batch == 0) return 0;
-  return word_rows(frags, frag_w)
+  return sc::word_rows(frags, frag_w)
              ? launch<true>(frags, frag_w, lengths, batch, hash_bits, skip_base, bodies, body_w,
                             body_lens, stream)
              : launch<false>(frags, frag_w, lengths, batch, hash_bits, skip_base, bodies, body_w,
@@ -133,5 +128,6 @@ extern "C" int snappy_encode_launch(const void* frags, int64_t frag_w, const voi
 // per block, out[3] 1 for the word loader and 0 for the byte loader.
 extern "C" int snappy_encode_layout(const void* frags, int64_t frag_w, int32_t hash_bits,
                                     int32_t* out) {
-  return word_rows(frags, frag_w) ? layout<true>(hash_bits, out) : layout<false>(hash_bits, out);
+  return sc::word_rows(frags, frag_w) ? layout<true>(hash_bits, out)
+                                      : layout<false>(hash_bits, out);
 }

@@ -8,13 +8,17 @@
 // branch, two nested loops in place of a branch per probe, stride-8 and
 // stride-16 extension walks, an eight-wide probe, no emission, no walk.
 //
-// What bounds it: as encode.cu, the serial walk of one thread per fragment;
-// the bytes of 512 fragments take about 12 us at 3.35 TB/s.
+// What bounds it: as encode.cu, the serial walk of one thread per fragment
+// times the waves of fragments; the bytes of 512 fragments take about 12 us
+// at 3.35 TB/s.
 //
-// What the design does about it: encode.cu's layout at 15 hash bits (128 KiB
-// of shared memory, one block per SM). The TPU kernel's precomputed hash
-// image would double the staged bytes past what an SM holds, so hashes are
-// computed in the walk, as encode.cu does. Names whose TPU difference has
+// What the design does about it: encode.cu's layout at 15 hash bits
+// (encode_variants.cuh: the 64 KiB match table alone in dynamic shared
+// memory, the fragment read through the read-only path as words, one block
+// of one warp per fragment), so three walks share an SM and 512 fragments
+// run in two waves, as K2's do; encext8u and encr4 walk K2's bytes in K2's
+// layout. The TPU kernel's precomputed hash image has no counterpart: hashes
+// are computed in the walk, as encode.cu does. Names whose TPU difference has
 // no counterpart on a SIMT core share a kernel: a pl.when region against a
 // lax.cond is the same branch here (encwhen = enctrim, encwhen8 = trim with
 // the stride-8 walk, enccopywhen = the base walk), and encr4 = encext8u.
@@ -30,19 +34,13 @@ namespace {
 using namespace sc;
 constexpr uint32_t BASE = EV_XOR_TAIL | EV_BFREE_COPY;
 
-}  // namespace
-
-// mask: the EV_* bits of the walk (ops/cuda/encode_variants.py::R4_VARIANTS).
-// frags: uint8[B, frag_w]; lengths, body_lens: int32[B]; bodies: uint8[B, body_w].
-extern "C" int snappy_encode_r4_launch(uint32_t mask, int32_t hash_bits, int32_t store_step,
-                                       const void* frags, int64_t frag_w, const void* lengths,
-                                       int64_t batch, void* bodies, int64_t body_w,
-                                       void* body_lens, void* stream) {
-  if (batch == 0) return 0;
-#define SNAPPY_CASE(m)                                                                       \
-  case (m):                                                                                  \
-    return ev::launch(sc::StaticWalk<(m)>{hash_bits, store_step}, frags, frag_w, lengths,    \
-                      batch, bodies, body_w, body_lens, stream)
+// Calls op with the StaticWalk of a named mask at 15 hash bits; any other
+// mask is refused.
+template <class Op>
+int with_walk(uint32_t mask, int32_t hash_bits, int32_t store_step, Op op) {
+#define SNAPPY_CASE(m) \
+  case (m):            \
+    return op(sc::StaticWalk<(m)>{hash_bits, store_step})
   switch (mask) {
     SNAPPY_CASE(BASE | EV_EXT_4);                   // enccopywhen
     SNAPPY_CASE(BASE | EV_EXT_4 | EV_LOOP_PRE);     // encpre
@@ -61,4 +59,26 @@ extern "C" int snappy_encode_r4_launch(uint32_t mask, int32_t hash_bits, int32_t
   }
 #undef SNAPPY_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// mask: the EV_* bits of the walk (ops/cuda/encode_variants.py::R4_VARIANTS).
+// frags: uint8[B, frag_w], any address and width; lengths, body_lens:
+// int32[B]; bodies: uint8[B, body_w] (ev::launch).
+extern "C" int snappy_encode_r4_launch(uint32_t mask, int32_t hash_bits, int32_t store_step,
+                                       const void* frags, int64_t frag_w, const void* lengths,
+                                       int64_t batch, void* bodies, int64_t body_w,
+                                       void* body_lens, void* stream) {
+  return with_walk(mask, hash_bits, store_step, [&](auto cfg) {
+    return ev::launch(cfg, frags, frag_w, lengths, batch, bodies, body_w, body_lens, stream);
+  });
+}
+
+// The layout of the launch above for rows at frags of width frag_w
+// (ev::layout: blocks per SM, shared bytes, threads, loader).
+extern "C" int snappy_encode_r4_layout(const void* frags, int64_t frag_w, uint32_t mask,
+                                       int32_t hash_bits, int32_t store_step, int32_t* out) {
+  return with_walk(mask, hash_bits, store_step,
+                   [&](auto cfg) { return ev::layout(cfg, frags, frag_w, out); });
 }

@@ -8,18 +8,21 @@
 // table stores, a narrower hash, no emission, no walk.
 //
 // What bounds it: as encode.cu, the serial walk of one thread per fragment
-// (a chain of dependent shared-memory loads per probe group); the bytes,
-// 32 MiB in and about 7 MiB out for 512 fragments, take about 12 us at
-// 3.35 TB/s.
+// (a chain of dependent loads per probe group: the words at ip, the table
+// slots, the candidate's words) times the waves of fragments; the bytes, 32
+// MiB in and about 7 MiB out for 512 fragments, take about 12 us at 3.35
+// TB/s.
 //
-// What the design does about it: encode.cu's layout (fragment and match
-// table in dynamic shared memory, one block per fragment, one walking
-// thread), with the table at the variant's hash width: at the TPU probe's
-// 14 bits it is 32 KiB, a block needs about 96 KiB and two blocks share an
-// SM, where encode.cu's 15 bits leave one. Each named tuple is a kernel of
-// its own (the mask is a template argument, so the walk holds only that
-// variant's code); any other legal tuple runs the same walk with the mask
-// as a run-time value.
+// What the design does about it: encode.cu's layout (encode_variants.cuh:
+// the match table alone in dynamic shared memory, the fragment read through
+// the read-only path, one block of one warp per fragment). At the TPU
+// probe's 14 hash bits the table is 32 KiB and six walks share an SM, so
+// 512 fragments run in one wave on 132 SMs; at hb9 it is 1 KiB. Each named
+// tuple is a kernel of its own (the mask is a template argument, so the
+// walk holds only that variant's code); any other legal tuple runs the same
+// walk with the mask as a run-time value. Every kernel sets its attributes
+// and enqueues its launch under one lock (smem_config.cuh), so a launch at
+// one hash width never runs under the carveout of another.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,21 +34,13 @@ using namespace sc;
 constexpr uint32_t E3 = EV_EXT_4 | EV_XOR_TAIL | EV_BFREE_COPY;
 constexpr uint32_t E6 = EV_EXT_8U | EV_POST_SEED | EV_XOR_TAIL | EV_BFREE_COPY;
 
-}  // namespace
-
-// mask: the EV_* bits of the walk (ops/cuda/encode_variants.py builds it
-// from the flags). frags: uint8[B, frag_w]; lengths, body_lens: int32[B];
-// bodies: uint8[B, body_w].
-extern "C" int snappy_encode_variant_launch(uint32_t mask, int32_t hash_bits,
-                                            int32_t store_step, const void* frags,
-                                            int64_t frag_w, const void* lengths, int64_t batch,
-                                            void* bodies, int64_t body_w, void* body_lens,
-                                            void* stream) {
-  if (batch == 0) return 0;
-#define SNAPPY_CASE(m)                                                                      \
-  case (m):                                                                                 \
-    return ev::launch(sc::StaticWalk<(m)>{hash_bits, store_step}, frags, frag_w, lengths,   \
-                      batch, bodies, body_w, body_lens, stream)
+// Calls op with the walk of `mask`: a StaticWalk where the mask has a name,
+// else a DynWalk.
+template <class Op>
+int with_walk(uint32_t mask, int32_t hash_bits, int32_t store_step, Op op) {
+#define SNAPPY_CASE(m) \
+  case (m):            \
+    return op(sc::StaticWalk<(m)>{hash_bits, store_step})
   switch (mask) {
     SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED);                        // the empty tuple
     SNAPPY_CASE(EV_EXT_4);                                           // e1
@@ -63,6 +58,29 @@ extern "C" int snappy_encode_variant_launch(uint32_t mask, int32_t hash_bits,
     SNAPPY_CASE(EV_EXT_LOOP4 | EV_POST_SEED | EV_EMIT_HITS | EV_NOSCAN);  // edma
   }
 #undef SNAPPY_CASE
-  return ev::launch(sc::DynWalk{mask, hash_bits, store_step}, frags, frag_w, lengths, batch,
-                    bodies, body_w, body_lens, stream);
+  return op(sc::DynWalk{mask, hash_bits, store_step});
+}
+
+}  // namespace
+
+// mask: the EV_* bits of the walk (ops/cuda/encode_variants.py builds it
+// from the flags). frags: uint8[B, frag_w], any address and width; lengths,
+// body_lens: int32[B]; bodies: uint8[B, body_w] (ev::launch).
+extern "C" int snappy_encode_variant_launch(uint32_t mask, int32_t hash_bits,
+                                            int32_t store_step, const void* frags,
+                                            int64_t frag_w, const void* lengths, int64_t batch,
+                                            void* bodies, int64_t body_w, void* body_lens,
+                                            void* stream) {
+  return with_walk(mask, hash_bits, store_step, [&](auto cfg) {
+    return ev::launch(cfg, frags, frag_w, lengths, batch, bodies, body_w, body_lens, stream);
+  });
+}
+
+// The layout of the launch above for rows at frags of width frag_w
+// (ev::layout: blocks per SM, shared bytes, threads, loader).
+extern "C" int snappy_encode_variant_layout(const void* frags, int64_t frag_w, uint32_t mask,
+                                            int32_t hash_bits, int32_t store_step,
+                                            int32_t* out) {
+  return with_walk(mask, hash_bits, store_step,
+                   [&](auto cfg) { return ev::layout(cfg, frags, frag_w, out); });
 }

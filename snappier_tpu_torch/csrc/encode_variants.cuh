@@ -66,17 +66,20 @@ struct DynWalk {
 };
 
 // Emission of one literal run and one copy under a mask: stores and the new
-// output position, or the position alone.
+// output position, or the position alone. A literal's payload is read
+// through the walk's loader (sc::emit_literal's loader form, which may store
+// up to 3 bytes past the literal).
+template <class Ld>
 struct VariantEmitter {
   uint32_t mk;
-  const uint8_t* s;
+  const Ld& ld;
   uint8_t* out;
 
   SC_HD int32_t literal(int32_t op, int32_t start, int32_t end) const {
     int32_t len = end - start;
     if (len <= 0) return op;
     if (mk & EV_EMIT_COUNT) return op + 1 + (len > 256 ? 2 : (len > 60 ? 1 : 0)) + len;
-    return emit_literal(out, op, s, start, len);
+    return emit_literal(out, op, ld, start, len);
   }
 
   SC_HD int32_t upto64(int32_t op, int32_t off, int32_t len) const {
@@ -193,13 +196,14 @@ struct WalkStats {
 // stride-4 extension that seeds, the tail from one XOR, no emission.
 constexpr uint32_t EV_STATS_WALK = EV_EXT_4 | EV_XOR_TAIL | EV_EMIT_HITS;
 
-// Greedy LZ77 over one fragment of n bytes under a mask; returns the tag
-// stream's length and counts the walk into `stats`. s holds the fragment
-// followed by 8 readable bytes (their values never change the result); table
-// holds 1 << cfg.hash_bits slots, all EMPTY on entry; out holds the bound of
-// greedy emission plus 3 bytes (nothing without emission).
-template <class Cfg, class Stats>
-SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* table, Cfg cfg,
+// Greedy LZ77 over one fragment of n bytes under a mask, read through a
+// loader (sc::RowWords, sc::RowBytes on the card; Staged below for
+// encode_stats.cu); returns the tag stream's length and counts the walk into
+// `stats`. Bytes at or past n read as zero. table holds 1 << cfg.hash_bits
+// slots, all EMPTY on entry; out holds the bound of greedy emission plus 3
+// bytes (nothing without emission).
+template <class Ld, class Cfg, class Stats>
+SC_HD int32_t encode_fragment_variant(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg,
                                       uint8_t* out, Stats& stats) {
   const uint32_t mk = cfg.mask();
   if (mk & EV_DMA_ONLY) return n;
@@ -209,12 +213,12 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
   const int store_step = (mk & EV_OCT) ? 1 : cfg.store_step;
   const int32_t margin = INPUT_MARGIN + ((mk & EV_OCT) ? 4 : 0);
   const int32_t skip_base = 32;
-  const VariantEmitter em{mk, s, out};
+  const VariantEmitter<Ld> em{mk, ld, out};
 
-  auto key = [&](int32_t i) { return load32(s, i); };
+  auto key = [&](int32_t i) { return ld.window(i); };
   auto seed = [&](int32_t pos) {
     int32_t p = pos < n - 5 ? pos : n - 5;
-    table[hash32(load32(s, p), hb)] = (uint16_t)p;
+    table[hash32(ld.window(p), hb)] = (uint16_t)p;
   };
   auto miss_step = [&](int32_t skip) {
     if (mk & EV_OCT) return 6 + 2 * (skip >> 5);
@@ -225,14 +229,20 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
   // the arrays indexed by the loop counter alone, so that they unroll and
   // the arrays stay in registers.
   //
-  // Keys and hashes of the W positions at ip; ip is clamped so that a
-  // speculative load stays inside the staged bytes.
+  // Keys and hashes of the W positions at ip, from the three words that
+  // hold them (four for a probe of 8) and funnel shifts; ip is clamped to
+  // n - 3, as the staged walk of the TPU kernels clamps a speculative load.
   auto loads_at = [&](int32_t ip, uint32_t* cur, uint32_t* h) {
     if (ip > n - 3) ip = n - 3 < 0 ? 0 : n - 3;
+    const int32_t k = ip >> 2;
+    const uint32_t sh = 8u * (uint32_t)(ip & 3);
+    const uint32_t w1 = ld.word(k + 1), w2 = ld.word(k + 2);
+    const uint32_t a0 = funnel_r(ld.word(k), w1, sh), a1 = funnel_r(w1, w2, sh);
+    const uint32_t a2 = W == 8 ? funnel_r(w2, ld.word(k + 3), sh) : 0u;
 #pragma unroll
     for (int d = 0; d < 8; d++) {
       if (d < W) {
-        cur[d] = load32(s, ip + d);
+        cur[d] = d < 4 ? funnel_r(a0, a1, 8u * d) : funnel_r(a1, a2, 8u * (d - 4));
         h[d] = hash32(cur[d], hb);
       }
     }
@@ -260,7 +270,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
 #pragma unroll
       for (int d = 0; d < 8; d++) {
         if (d < W) {
-          bool ok = ent[d] < ip + d && load32(s, ent[d]) == cur[d];
+          bool ok = ent[d] < ip + d && ld.window(ent[d]) == cur[d];
 #pragma unroll
           for (int i = 0; i < d; i++) ok = ok || cur[i] == cur[d];
           hit[d] = ok;
@@ -287,7 +297,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
 #pragma unroll
     for (int d = 0; d < 8; d++) {
       if (d < W && d_first < 0) {
-        bool ok = ent[d] != EMPTY && ent[d] < ip + d && load32(s, ent[d]) == cur[d];
+        bool ok = ent[d] != EMPTY && ent[d] < ip + d && ld.window(ent[d]) == cur[d];
         int32_t cand = ok ? ent[d] : 0;
 #pragma unroll
         for (int i = 0; i < d; i++) {
@@ -313,7 +323,7 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
       uint32_t x = key(at + m) ^ key(cand + m);
       m += x == 0 ? 3 : ((x & 0xFFu) == 0) + ((x & 0xFFFFu) == 0) + ((x & 0xFFFFFFu) == 0);
     } else {
-      for (int t = 0; t < 3 && at + m < n && s[at + m] == s[cand + m]; t++) m++;
+      for (int t = 0; t < 3 && at + m < n && ld.byte(at + m) == ld.byte(cand + m); t++) m++;
     }
     if (m > n - at) m = n - at;
     stats.hit(steps, m);
@@ -399,75 +409,161 @@ SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* tab
   return op;
 }
 
-template <class Cfg>
-SC_HD int32_t encode_fragment_variant(const uint8_t* s, int32_t n, uint16_t* table, Cfg cfg,
+template <class Ld, class Cfg>
+SC_HD int32_t encode_fragment_variant(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg,
                                       uint8_t* out) {
   NoStats none;
-  return encode_fragment_variant(s, n, table, cfg, out, none);
+  return encode_fragment_variant(ld, n, table, cfg, out, none);
 }
 
 }  // namespace sc
 
-#ifdef __CUDACC__
-// The kernel and its launch, shared by encode_variants.cu and encode_r4.cu.
-//
-// One block per fragment, as encode.cu: all threads clear the match table
-// and stage the fragment in dynamic shared memory, one thread walks and
-// stores the tags straight into the body's row.
 namespace ev {
 
-constexpr int kThreads = 256;
+// A fragment staged where the walk may read past it: n bytes followed by 16
+// zero bytes (encode_stats.cu's copy in shared memory, the host tests'
+// vectors). Not a row loader: it reads the bytes past n, which hold zero.
+struct Staged {
+  const uint8_t* s;
+  int32_t n;
+  SC_HD uint32_t window(int32_t i) const { return sc::load32(s, i); }
+  SC_HD uint32_t word(int32_t k) const { return sc::load32(s, 4 * k); }
+  SC_HD uint32_t byte(int32_t i) const { return s[i]; }
+};
 
-// All threads clear the match table at the front of smem and stage the
-// block's fragment (n bytes and 8 zero bytes) after it; returns n, the
-// length clamped to [0, frag_w].
-__device__ inline int32_t stage_fragment(uint8_t* smem, int hash_bits,
-                                         const uint8_t* __restrict__ frags, int64_t frag_w,
-                                         const int32_t* __restrict__ lengths, int64_t b) {
-  uint8_t* s = smem + (sizeof(uint16_t) << hash_bits);
-  int32_t n = lengths[b];
-  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
-  uint4* t4 = reinterpret_cast<uint4*>(smem);
-  const int words = (int)((sizeof(uint16_t) << hash_bits) / sizeof(uint4));
+}  // namespace ev
+
+#ifdef __CUDACC__
+#include "smem_config.cuh"
+
+// The kernel, its launch and its layout query, shared by encode_variants.cu
+// and encode_r4.cu: encode.cu's layout. One block of one warp per fragment;
+// only the match table (1 << hash_bits 16-bit slots) lives in dynamic shared
+// memory, so 3 blocks fit an SM at 15 hash bits and 6 at 14. The warp clears
+// the table, then lane 0 walks, reading the fragment through the read-only
+// path (sc::RowWords where base and width are multiples of 16, else
+// sc::RowBytes), and stores the tags straight into the body's row.
+namespace ev {
+
+constexpr int kThreads = 32;
+
+SC_HD size_t table_bytes(int hash_bits) { return sizeof(uint16_t) << hash_bits; }
+
+// One fragment on one warp. The variants without a walk (EV_DMA_ONLY: length
+// n, EV_NOSCAN: length 0) time what their TPU kernels time, the fragment
+// brought on chip: the warp reads the fragment's words once through the
+// loader, and their XOR is stored in the 4 bytes after the returned length,
+// which a body leaves unspecified; the store has no condition, so the
+// compiler keeps the loads, and the lengths stay n and 0.
+template <class Cfg, class Ld>
+__device__ void encode_variant_row(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg,
+                                   uint8_t* out, int32_t* out_len) {
+  const uint32_t mk = cfg.mask();
+  if (mk & (sc::EV_DMA_ONLY | sc::EV_NOSCAN)) {
+    uint32_t acc = 0;
+    for (int32_t k = threadIdx.x; 4 * k < n; k += kThreads) acc ^= ld.word(k);
+    for (int o = 16; o > 0; o >>= 1) acc ^= __shfl_xor_sync(0xFFFFFFFFu, acc, o);
+    if (threadIdx.x == 0) {
+      const int32_t len = (mk & sc::EV_DMA_ONLY) ? n : 0;
+      for (int j = 0; j < 4; j++) out[len + j] = (uint8_t)(acc >> (8 * j));
+      *out_len = len;
+    }
+    return;
+  }
+  uint4* t4 = reinterpret_cast<uint4*>(table);
+  const int words = (int)(table_bytes(cfg.hash_bits) / sizeof(uint4));
   const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
-  for (int w = threadIdx.x; w < words; w += blockDim.x) t4[w] = empty;
-  const uint8_t* row = frags + b * frag_w;
-  for (int32_t i = threadIdx.x; i < n + 8; i += blockDim.x) s[i] = i < n ? row[i] : 0;
-  __syncthreads();
-  return n;
+  for (int w = threadIdx.x; w < words; w += kThreads) t4[w] = empty;
+  __syncwarp();
+  if (threadIdx.x == 0) *out_len = sc::encode_fragment_variant(ld, n, table, cfg, out);
 }
 
-template <class Cfg>
-__global__ void encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
-                                      const int32_t* __restrict__ lengths, Cfg cfg,
-                                      uint8_t* __restrict__ bodies, int64_t body_w,
-                                      int32_t* __restrict__ body_lens) {
+template <class Cfg, bool kWords>
+__global__ void __launch_bounds__(kThreads)
+    encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
+                          const int32_t* __restrict__ lengths, Cfg cfg,
+                          uint8_t* __restrict__ bodies, int64_t body_w,
+                          int32_t* __restrict__ body_lens) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* table = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* s = smem + (sizeof(uint16_t) << cfg.hash_bits);
   const int64_t b = blockIdx.x;
-  const int32_t n = stage_fragment(smem, cfg.hash_bits, frags, frag_w, lengths, b);
-
-  if (threadIdx.x == 0) {
-    body_lens[b] = sc::encode_fragment_variant(s, n, table, cfg, bodies + b * body_w);
+  int32_t n = lengths[b];
+  n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
+  const uint8_t* row = frags + b * frag_w;
+  uint8_t* out = bodies + b * body_w;
+  if (kWords) {
+    encode_variant_row(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n, table, cfg,
+                       out, body_lens + b);
+  } else {
+    encode_variant_row(sc::RowBytes{row, n}, n, table, cfg, out, body_lens + b);
   }
 }
 
-inline size_t smem_bytes(int hash_bits, int64_t frag_w) {
-  return (sizeof(uint16_t) << hash_bits) + (size_t)((frag_w + 8 + 15) & ~15);
+// Each instantiation's attributes, set per device (smem_config.cuh).
+template <class Cfg, bool kWords>
+attrs::SetFor& set_for() {
+  static attrs::SetFor s;
+  return s;
 }
 
+// Runs fn with the kernel's shared-memory attributes set on the current
+// device for a table of cfg.hash_bits, under the lock that orders them with
+// every other launch of the kernel.
+template <class Cfg, bool kWords, class Fn>
+cudaError_t configured(Cfg cfg, Fn fn) {
+  return attrs::configure_and_launch(encode_variant_kernel<Cfg, kWords>,
+                                     table_bytes(cfg.hash_bits), set_for<Cfg, kWords>(), fn);
+}
+
+template <class Cfg, bool kWords>
+int launch_rows(Cfg cfg, const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
+                void* bodies, int64_t body_w, void* body_lens, void* stream) {
+  const size_t smem = table_bytes(cfg.hash_bits);
+  return (int)configured<Cfg, kWords>(cfg, [&] {
+    encode_variant_kernel<Cfg, kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, cfg, (uint8_t*)bodies, body_w,
+        (int32_t*)body_lens);
+    return cudaGetLastError();
+  });
+}
+
+// frags: uint8[B, frag_w], any address and width; lengths, body_lens:
+// int32[B]; bodies: uint8[B, body_w], body_w at least frag_w + 4 and the
+// bound of greedy emission plus 3 bytes.
 template <class Cfg>
 int launch(Cfg cfg, const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
            void* bodies, int64_t body_w, void* body_lens, void* stream) {
-  size_t smem = smem_bytes(cfg.hash_bits, frag_w);
-  cudaError_t e = cudaFuncSetAttribute(encode_variant_kernel<Cfg>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  encode_variant_kernel<Cfg><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frags, frag_w, (const int32_t*)lengths, cfg, (uint8_t*)bodies, body_w,
-      (int32_t*)body_lens);
-  return (int)cudaGetLastError();
+  if (batch == 0) return 0;
+  return sc::word_rows(frags, frag_w)
+             ? launch_rows<Cfg, true>(cfg, frags, frag_w, lengths, batch, bodies, body_w,
+                                      body_lens, stream)
+             : launch_rows<Cfg, false>(cfg, frags, frag_w, lengths, batch, bodies, body_w,
+                                       body_lens, stream);
+}
+
+template <class Cfg, bool kWords>
+int layout_rows(Cfg cfg, int32_t* out) {
+  const size_t smem = table_bytes(cfg.hash_bits);
+  int nb = 0;
+  cudaError_t e = configured<Cfg, kWords>(cfg, [&] {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, encode_variant_kernel<Cfg, kWords>, kThreads, smem);
+  });
+  out[0] = nb;
+  out[1] = (int32_t)smem;
+  out[2] = kThreads;
+  out[3] = kWords ? 1 : 0;
+  return (int)e;
+}
+
+// The launch's layout for rows at frags of width frag_w: out[0] blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes the
+// launch sets), out[1] dynamic shared bytes per block, out[2] threads per
+// block, out[3] 1 for the word loader and 0 for the byte loader.
+template <class Cfg>
+int layout(Cfg cfg, const void* frags, int64_t frag_w, int32_t* out) {
+  return sc::word_rows(frags, frag_w) ? layout_rows<Cfg, true>(cfg, out)
+                                      : layout_rows<Cfg, false>(cfg, out);
 }
 
 }  // namespace ev

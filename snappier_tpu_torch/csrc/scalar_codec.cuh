@@ -115,6 +115,13 @@ struct RowWords {
   }
 };
 
+// The kernels that read rows as words (encode.cu, the encode ablation) take
+// RowWords for rows whose base and width are multiples of 16, RowBytes for
+// any other.
+inline bool word_rows(const void* rows, int64_t width) {
+  return ((uintptr_t)rows % 16) == 0 && width % 16 == 0;
+}
+
 // A row in device memory at any address and width, read a byte at a time.
 struct RowBytes {
   const uint8_t* p;

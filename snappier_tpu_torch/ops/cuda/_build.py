@@ -72,6 +72,8 @@ SOURCES = {
         "snappy_encode_r4_launch",
         [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
     ),
+    "encode_variant_layout": ("snappy_encode_variant_layout", [_P, _I64, _U32, _I32, _I32, _P]),
+    "encode_r4_layout": ("snappy_encode_r4_layout", [_P, _I64, _U32, _I32, _I32, _P]),
     "decode_hybrid": (
         "snappy_decode_hybrid_launch",
         [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
@@ -89,7 +91,8 @@ SOURCES = {
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff")},
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
-                 "best_layout": "encode_best", "crc32c_layout": "crc32c"}
+                 "best_layout": "encode_best", "crc32c_layout": "crc32c",
+                 "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

@@ -32,7 +32,12 @@ A CUDA tensor launches the kernel (``csrc/encode_variants.cu``,
 ``csrc/encode_r4.cu``, ``csrc/encode_stats.cu``) or raises; a CPU tensor
 runs the plain Python walk, which computes each variant's function (the
 parts that only reorder work have no plain counterpart). Each wrapper counts
-its own launches.
+its own launches. ``encode_variant`` and ``encode_r4`` run in the encode
+kernel's layout (the match table alone in shared memory, the fragment read
+through the read-only path, one warp a fragment);
+:func:`encode_variant_layout` and :func:`encode_r4_layout` give it for
+their rows, as :func:`snappier_tpu_torch.ops.cuda.scalar_codec.encode_layout`
+does for the encode kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
     HASH_BITS,
     HASH_MUL,
     _Emitter,
+    _layout,
     _staged_keys,
 )
 
@@ -344,6 +350,15 @@ def encode_variant(frags, lengths, flags: tuple = ()):
                    store_step)
 
 
+def encode_variant_layout(frags, flags: tuple = ()) -> dict:
+    """The launch layout of :func:`encode_variant` under ``flags`` for these
+    rows on their CUDA device: ``blocks_per_sm`` (the CUDA occupancy
+    calculator's count under the attributes the launch sets), ``smem_bytes``
+    (the match table), ``threads`` and ``loader`` (``"words"`` for a base and
+    width that are multiples of 16, else ``"bytes"``)."""
+    return _layout("encode_variant_layout", byte_rows(frags, "frags"), *flags_mask(tuple(flags)))
+
+
 def encode_variant_plain(frags: torch.Tensor, lengths: torch.Tensor, flags: tuple = ()):
     """Plain version of :func:`encode_variant` on CPU uint8 rows."""
     return encode_walk_plain(frags, lengths, *flags_mask(tuple(flags)))
@@ -359,6 +374,12 @@ def encode_r4(frags, lengths, variant: str = "encpre"):
     """The production walk in a named restructuring
     (``tools/perf_probe_r4.py::encode_r4``)."""
     return _encode(frags, lengths, "encode_r4", "encode_r4", _r4_mask(variant), HASH_BITS, 1)
+
+
+def encode_r4_layout(frags, variant: str = "encpre") -> dict:
+    """The launch layout of :func:`encode_r4` for ``variant`` on these rows,
+    as :func:`encode_variant_layout` gives it."""
+    return _layout("encode_r4_layout", byte_rows(frags, "frags"), _r4_mask(variant), HASH_BITS, 1)
 
 
 def encode_r4_plain(frags: torch.Tensor, lengths: torch.Tensor, variant: str = "encpre"):

@@ -739,6 +739,78 @@ def test_cuda_encode_variants_match_plain(cuda_device, case, F):
         _rows_equal(bodies, k2_b[:, : F + 2048], p_lens)
 
 
+@pytest.mark.parametrize("case", _encode_cases(), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_cuda_encode_variants_unaligned_rows_match_plain(cuda_device, case):
+    """Every walk of the encode ablation on rows 1 byte into a larger buffer
+    at width 4,097, the last row ending at the buffer's end (the byte
+    loader), against the plain version."""
+    family, name, arg = case
+    frags, lens = encode_rows(4097)
+    frags = frags.astype(np.uint8)
+    buf = torch.zeros(frags.size + 1, dtype=torch.uint8, device=cuda_device)
+    view = buf[1:].view(frags.shape)
+    view.copy_(_t(frags).to(cuda_device))
+    fn, plain, layout = ((ev.encode_variant, ev.encode_variant_plain, ev.encode_variant_layout)
+                         if family == "variant" else
+                         (ev.encode_r4, ev.encode_r4_plain, ev.encode_r4_layout))
+    assert layout(view, arg)["loader"] == "bytes"
+    bodies, body_lens = fn(view, _t(lens).to(cuda_device), arg)
+    p_bodies, p_lens = plain(_t(frags), _t(lens), arg)
+    assert (body_lens.cpu() == p_lens).all(), (body_lens.tolist(), p_lens.tolist())
+    if not ((family == "variant" and "noemit" in arg) or name in ev.R4_NO_BYTES):
+        _rows_equal(bodies, p_bodies, p_lens)
+
+
+def test_cuda_encode_variant_layouts(cuda_device):
+    """The encode ablation runs in K2's layout: the match table alone in
+    shared memory, one warp a fragment; T8 at 15 hash bits at least three
+    blocks an SM, T5 at 14 at least four (six expected), 1 KiB at hb9; the
+    word loader on aligned rows, the byte loader on an unaligned view."""
+    rows = torch.zeros((4, 65536), dtype=torch.uint8, device=cuda_device)
+    odd = torch.zeros(4 * 4097 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(4, 4097)
+    r4 = ev.encode_r4_layout(rows, "encpre")
+    assert r4 == {"blocks_per_sm": r4["blocks_per_sm"], "smem_bytes": 2 << 15, "threads": 32,
+                  "loader": "words"} and r4["blocks_per_sm"] >= 3
+    e3 = ev.encode_variant_layout(rows, ev.VARIANT_FLAGS["e3"])
+    assert e3["smem_bytes"] == 2 << 14 and e3["loader"] == "words" and e3["blocks_per_sm"] >= 4
+    assert ev.encode_variant_layout(rows, ("probe8", "st1", "hb9"))["smem_bytes"] == 2 << 9
+    assert ev.encode_r4_layout(odd, "encext8u")["loader"] == "bytes"
+    assert ev.encode_variant_layout(odd, ())["loader"] == "bytes"
+
+
+def test_cuda_encode_variants_under_one_lock(cuda_device):
+    """Four host threads at once, 20 calls each: the run-time walk at 9 and
+    14 hash bits, ``encode_r4`` at 15 and ``e3`` at 14, every launch's bytes
+    against the plain versions (each kernel's carveout is set and its launch
+    enqueued under one lock); then T8 still holds three blocks an SM at 15
+    bits and T5 four at 14."""
+    import concurrent.futures
+
+    frags, lens = encode_rows(8192, seed=12)
+    f_h, l_h = _t(frags.astype(np.uint8)), _t(lens)
+    f_c, l_c = f_h.to(cuda_device), l_h.to(cuda_device)
+    calls = [(ev.encode_variant, ev.encode_variant_plain, ("probe8", "st1", "hb9")),
+             (ev.encode_variant, ev.encode_variant_plain, ("probe8", "st1")),
+             (ev.encode_r4, ev.encode_r4_plain, "encpre"),
+             (ev.encode_variant, ev.encode_variant_plain, ev.VARIANT_FLAGS["e3"])]
+    want = [plain(f_h, l_h, arg) for _, plain, arg in calls]
+
+    def run(i):
+        fn, _, arg = calls[i]
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got_b, got_l = fn(f_c, l_c, arg)
+                torch.cuda.current_stream().synchronize()
+                assert (got_l.cpu() == want[i][1]).all(), arg
+                _rows_equal(got_b, want[i][0], want[i][1])
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(run, i) for i in range(len(calls))]:
+            f.result()
+    assert ev.encode_r4_layout(f_c, "encpre")["blocks_per_sm"] >= 3
+    assert ev.encode_variant_layout(f_c, ("probe8", "st1"))["blocks_per_sm"] >= 4
+
+
 @pytest.mark.parametrize("kernel", ["scalar", "scan"])
 def test_cuda_sharded_roundtrip_step_on_two_shards(cuda_device, kernel):
     """One card listed twice: two shards, a stream each, the bodies and

@@ -24,6 +24,7 @@ port never uses this host build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 import shutil
 import subprocess
@@ -155,17 +156,23 @@ struct ArrayWarp {
   mutable int64_t batches = 0, tags_seen = 0;
 };
 
-// `batch` rows of `width` bytes copied `offset` bytes into a buffer whose
-// last byte lies just below a page the process may not read, so a read past
-// the last row faults.
+// `batch` rows of `width` bytes in a buffer whose end lies just below a page
+// the process may not read. With offset kAtGuard the rows end at that page,
+// so a read past the last row faults (where they start follows from batch *
+// width); with an offset of 0-15 they start that many bytes past a 16-byte
+// boundary and end at most 15 bytes below the page. Every other byte of the
+// buffer is poisoned.
+constexpr int32_t kAtGuard = -1;
+
 struct GuardedRows {
   void* mem = nullptr;
   size_t span = 0, page = 0;
   uint8_t* rows = nullptr;
   GuardedRows(const uint8_t* src, int64_t batch, int64_t width, int32_t offset) {
     page = (size_t)sysconf(_SC_PAGESIZE);
-    const size_t bytes = (size_t)offset + (size_t)(batch * width);
-    span = (bytes + page - 1) / page * page;
+    const size_t bytes = (size_t)(batch * width);
+    const size_t gap = offset == kAtGuard ? 0 : (16 - ((size_t)offset + bytes) % 16) % 16;
+    span = (bytes + gap + page - 1) / page * page;
     void* m = mmap(nullptr, span + page, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS,
                    -1, 0);
     if (m == MAP_FAILED) return;
@@ -175,10 +182,9 @@ struct GuardedRows {
       return;
     }
     mem = m;
-    uint8_t* buf = guard - bytes;
-    memset(buf, 0xA5, (size_t)offset);
-    rows = buf + offset;
-    memcpy(rows, src, (size_t)(batch * width));
+    memset(m, 0xA5, span);
+    rows = guard - gap - bytes;
+    memcpy(rows, src, bytes);
   }
   ~GuardedRows() {
     if (mem != nullptr) munmap(mem, span + page);
@@ -208,9 +214,10 @@ static sc::DecodeResult batched_lanes(int nlanes, const Ld& ld, int32_t n, int32
 }
 
 // The batched decode walk on each row as the decode kernel reads it, the
-// rows guarded (GuardedRows), a warp of `nlanes` (1, 4 or 32) lanes, loader
-// 0 sc::RingWords over sc::RowWords (offset and cc multiples of 4; the ring
-// poisoned), 1 sc::RowBytes; the output starts poisoned. counts[0] gets the batches that passed their checks and
+// rows guarded at `offset` (GuardedRows), a warp of `nlanes` (1, 4 or 32)
+// lanes, loader 0 sc::RingWords over sc::RowWords (rows at a multiple of 4
+// and cc one; the ring poisoned), 1 sc::RowBytes; the output starts
+// poisoned. counts[0] gets the batches that passed their checks and
 // counts[1] their tags. Returns 0, or -1 if the buffer was refused.
 extern "C" int host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
                            int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
@@ -445,46 +452,65 @@ extern "C" void host_hybrid(int32_t form, int32_t unroll2, const uint8_t* comp, 
   }
 }
 
-// The encode-ablation walk under a mask; `fixed` takes the walk whose mask
-// is a template argument where the shim has it, as the kernels do.
-extern "C" void host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t store_step,
-                                    int32_t fixed, const uint8_t* frags, int64_t frag_w,
-                                    const int32_t* lens, int64_t batch, uint8_t* bodies,
-                                    int64_t body_w, int32_t* body_lens) {
+// The encode-ablation walk of one row under a mask; `fixed` takes the walk
+// whose mask is a template argument where the shim has it, as the kernels do.
+template <class Ld>
+static int32_t encode_variant_row(const Ld& ld, int32_t n, uint16_t* table, uint32_t mask,
+                                  int32_t hash_bits, int32_t store_step, int32_t fixed,
+                                  uint8_t* out) {
   constexpr uint32_t E3 = sc::EV_EXT_4 | sc::EV_XOR_TAIL | sc::EV_BFREE_COPY;
   constexpr uint32_t PRE = E3 | sc::EV_LOOP_PRE;
+  if (fixed && mask == E3) {
+    return sc::encode_fragment_variant(ld, n, table, sc::StaticWalk<E3>{hash_bits, store_step},
+                                       out);
+  }
+  if (fixed && mask == PRE) {
+    return sc::encode_fragment_variant(ld, n, table, sc::StaticWalk<PRE>{hash_bits, store_step},
+                                       out);
+  }
+  return sc::encode_fragment_variant(ld, n, table, sc::DynWalk{mask, hash_bits, store_step},
+                                     out);
+}
+
+// The rows, guarded at `offset` (GuardedRows), each through the
+// encode-ablation walk as the kernels read them: loader 0 sc::RowWords, 1
+// sc::RowBytes. Returns 0, or -1 if the buffer was refused.
+extern "C" int host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t store_step,
+                                   int32_t fixed, const uint8_t* frags, int64_t frag_w,
+                                   const int32_t* lens, int64_t batch, int32_t offset,
+                                   int32_t loader, uint8_t* bodies, int64_t body_w,
+                                   int32_t* body_lens) {
+  GuardedRows g(frags, batch, frag_w, offset);
+  if (g.mem == nullptr) return -1;
   std::vector<uint16_t> table((size_t)1 << hash_bits);
+  for (int64_t b = 0; b < batch; b++) {
+    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (auto& e : table) e = sc::EMPTY;
+    const uint8_t* row = g.rows + b * frag_w;
+    uint8_t* out = bodies + b * body_w;
+    body_lens[b] =
+        loader == 0
+            ? encode_variant_row(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n,
+                                 table.data(), mask, hash_bits, store_step, fixed, out)
+            : encode_variant_row(sc::RowBytes{row, n}, n, table.data(), mask, hash_bits,
+                                 store_step, fixed, out);
+  }
+  return 0;
+}
+
+// encode_stats.cu's walk over a staged copy (ev::Staged: the fragment and 16
+// zero bytes): (miss iterations, hits, extension iterations, matched bytes)
+// per fragment.
+extern "C" void host_encode_stats(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                  int64_t batch, int32_t* stats) {
+  std::vector<uint16_t> table((size_t)1 << 15);
   std::vector<uint8_t> s(frag_w + 16);
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
     for (auto& e : table) e = sc::EMPTY;
     for (int64_t i = 0; i < frag_w + 16; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
-    uint8_t* out = bodies + b * body_w;
-    if (fixed && mask == E3) {
-      body_lens[b] = sc::encode_fragment_variant(
-          s.data(), n, table.data(), sc::StaticWalk<E3>{hash_bits, store_step}, out);
-    } else if (fixed && mask == PRE) {
-      body_lens[b] = sc::encode_fragment_variant(
-          s.data(), n, table.data(), sc::StaticWalk<PRE>{hash_bits, store_step}, out);
-    } else {
-      body_lens[b] = sc::encode_fragment_variant(
-          s.data(), n, table.data(), sc::DynWalk{mask, hash_bits, store_step}, out);
-    }
-  }
-}
-
-// encode_stats.cu's walk: (miss iterations, hits, extension iterations,
-// matched bytes) per fragment.
-extern "C" void host_encode_stats(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
-                                  int64_t batch, int32_t* stats) {
-  std::vector<uint16_t> table((size_t)1 << 15);
-  std::vector<uint8_t> s(frag_w + 8);
-  for (int64_t b = 0; b < batch; b++) {
-    int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
-    for (auto& e : table) e = sc::EMPTY;
-    for (int64_t i = 0; i < frag_w + 8; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
     sc::WalkStats st;
-    sc::encode_fragment_variant(s.data(), n, table.data(),
+    sc::encode_fragment_variant(ev::Staged{s.data(), n}, n, table.data(),
                                 sc::StaticWalk<sc::EV_STATS_WALK>{15, 1}, nullptr, st);
     int32_t* row = stats + b * 4;
     row[0] = st.miss_iters;
@@ -636,8 +662,8 @@ extern "C" void host_bitonic(const int32_t* x, int32_t* keys, int32_t* vals) {
   }
 }
 
-// The rows, guarded (GuardedRows), each through the greedy walk as the
-// encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. Returns 0,
+// The rows, guarded at `offset` (GuardedRows), each through the greedy walk
+// as the encode kernel reads it: loader 0 sc::RowWords, 1 sc::RowBytes. Returns 0,
 // or -1 if the buffer was refused.
 extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                                 int64_t batch, int32_t offset, int32_t loader,
@@ -661,15 +687,16 @@ extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int3
   return 0;
 }
 
-// The rows and their int32 candidates, each guarded (GuardedRows), through
-// the level="best" walk as the best encode kernel reads them: loader 0
+// The rows, guarded at `offset`, and their int32 candidates, ending at the
+// guard page (GuardedRows), through the level="best" walk as the best encode
+// kernel reads them: loader 0
 // sc::RowWords, 1 sc::RowBytes. Returns 0, or -1 if a buffer was refused.
 extern "C" int host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                                 const int32_t* cands, int64_t batch, int32_t offset,
                                 int32_t loader, int32_t skip_base, uint8_t* bodies,
                                 int64_t body_w, int32_t* body_lens) {
   GuardedRows g(frags, batch, frag_w, offset);
-  GuardedRows gc(reinterpret_cast<const uint8_t*>(cands), batch, frag_w * 4, 0);
+  GuardedRows gc(reinterpret_cast<const uint8_t*>(cands), batch, frag_w * 4, kAtGuard);
   if (g.mem == nullptr || gc.mem == nullptr) return -1;
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
@@ -689,13 +716,13 @@ extern "C" int host_encode_best(const uint8_t* frags, int64_t frag_w, const int3
 // after another, each of crc::kWarps threads that run a warp of 32 array
 // lanes and share a barrier, block k taking rows k, k + nblocks, ..., over
 // shared tables filled from `tables` as the kernel fills them. With `guard`
-// the rows end at a page the process may not read (GuardedRows), so a read
-// past the last row's end faults; else they start `offset` bytes past a
+// the rows end at a page the process may not read (GuardedRows at kAtGuard),
+// so a read past the last row's end faults; else they start `offset` bytes past a
 // 16-byte boundary. Returns 0, or -1 if the buffer was refused.
 extern "C" int host_crc32c(const uint8_t* rows, int64_t width, const int32_t* lens,
                            int64_t batch, int32_t offset, int32_t guard, int32_t nblocks,
                            const uint32_t* tables, int32_t* out) {
-  GuardedRows g(rows, guard ? batch : 0, width, 0);
+  GuardedRows g(rows, guard ? batch : 0, width, kAtGuard);
   std::vector<uint8_t> buf((size_t)(batch * width) + 32);
   uint8_t* at = buf.data() + ((16 - (uintptr_t)buf.data() % 16) % 16) + offset;
   if (guard) {
@@ -770,8 +797,9 @@ def host_lib(tmp_path_factory):
     so.host_variant.restype = None
     so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, P, P, P]
     so.host_pipe.restype = None
-    so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, P, I64, P]
-    so.host_encode_variant.restype = None
+    so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, I32, I32,
+                                       P, I64, P]
+    so.host_encode_variant.restype = I32
     so.host_hybrid.argtypes = [I32, I32, P, I64, P, P, I64, P, I64, I32, I32, P, P, P]
     so.host_hybrid.restype = None
     so.host_encode_stats.argtypes = [P, I64, P, I64, P]
@@ -797,9 +825,27 @@ def host_lib(tmp_path_factory):
     return so
 
 
-def _host_decode(lib, comp, lens, out_cap, nlanes, offset=0, loader=0):
+#: Where the rows lie in their guarded buffer (``GuardedRows``): AT_GUARD
+#: ends them at the page the process may not read; an int starts them that
+#: many bytes past a 16-byte boundary, under the same page.
+AT_GUARD = None
+
+
+def _offset_arg(offset) -> int:
+    return -1 if offset is AT_GUARD else offset
+
+
+def _aligned_cases(width: int):
+    """(offset, loader) pairs that move a row's alignment: the byte loader
+    0-7 bytes past a 16-byte boundary, the word loader 0, 4, 8 and 12 where
+    the width is a multiple of 4."""
+    return [(o, 1) for o in range(8)] + ([(o, 0) for o in (0, 4, 8, 12)] if width % 4 == 0
+                                         else [])
+
+
+def _host_decode(lib, comp, lens, out_cap, nlanes, offset=AT_GUARD, loader=0):
     """The batched decode walk on a warp of ``nlanes`` lanes, the rows
-    ``offset`` bytes into a guarded buffer, through loader 0 (words) or 1
+    placed at ``offset`` in a guarded buffer, through loader 0 (words) or 1
     (bytes): ``(out, out_lens, errs, (batches, tags))``."""
     comp = np.ascontiguousarray(comp, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
@@ -808,9 +854,9 @@ def _host_decode(lib, comp, lens, out_cap, nlanes, offset=0, loader=0):
     out_lens = np.zeros(B, np.int32)
     errs = np.zeros(B, np.int32)
     counts = np.zeros(2, np.int64)
-    rc = lib.host_decode(comp.ctypes.data, cc, lens.ctypes.data, B, out_cap, nlanes, offset,
-                         loader, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data,
-                         counts.ctypes.data)
+    rc = lib.host_decode(comp.ctypes.data, cc, lens.ctypes.data, B, out_cap, nlanes,
+                         _offset_arg(offset), loader, out.ctypes.data, out_lens.ctypes.data,
+                         errs.ctypes.data, counts.ctypes.data)
     assert rc == 0
     return out, out_lens, errs, tuple(counts.tolist())
 
@@ -822,8 +868,9 @@ def _host_encode_rows(lib, frags, lens, offset, loader, hash_bits):
     W = F + 2048
     bodies = np.zeros((B, W), np.uint8)
     body_lens = np.zeros(B, np.int32)
-    rc = lib.host_encode_rows(frags.ctypes.data, F, lens.ctypes.data, B, offset, loader,
-                              hash_bits, 32, bodies.ctypes.data, W, body_lens.ctypes.data)
+    rc = lib.host_encode_rows(frags.ctypes.data, F, lens.ctypes.data, B, _offset_arg(offset),
+                              loader, hash_bits, 32, bodies.ctypes.data, W,
+                              body_lens.ctypes.data)
     assert rc == 0
     return bodies, body_lens
 
@@ -846,42 +893,61 @@ _WALK_CASES = [(F, 15) for F in (1024, 8192, 65536)] + [
     (F, hb) for F in (100, 4097, 65535, 65536) for hb in (8, 12, 15, 16) if (F, hb) != (65536, 15)]
 
 
-@pytest.mark.parametrize("F,hash_bits", _WALK_CASES,
-                         ids=[str(F) if hb == 15 and F % 1024 == 0 else f"{F}-hb{hb}"
-                              for F, hb in _WALK_CASES])
-def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
-    """The greedy walk through each of the kernel's loaders, the word loader
-    (widths of a 4-byte multiple) and the byte loader,
-    the rows 0-7 bytes into a buffer that ends at the last row's end, each
-    equal to the JAX kernel in interpret mode (on rows padded to its
-    1,024-byte multiple) and to the plain version."""
-    import torch
-
-    from snappier_tpu_torch.ops.cuda.scalar_codec import encode_blocks_plain
-
+@functools.lru_cache(maxsize=None)
+def _encode_walk_refs(F: int, hash_bits: int):
+    """``_walk_rows(F)`` and the JAX kernel's bodies and lengths for them in
+    interpret mode (on rows padded to its 1,024-byte multiple)."""
     frags, lens = _walk_rows(F)
     Fj = -(-F // 1024) * 1024
     padded = np.random.default_rng(2).integers(0, 256, (len(lens), Fj)).astype(np.int32)
     padded[:, :F] = frags
     ref_b, ref_l = encode_blocks_scalar(jnp.asarray(padded), jnp.asarray(lens), interpret=True,
                                         hash_bits=hash_bits)
-    ref_b, ref_l = np.asarray(ref_b), np.asarray(ref_l)
+    return frags, lens, np.asarray(ref_b), np.asarray(ref_l)
+
+
+def _same_bodies(got_b, got_l, ref_b, ref_l, what):
+    assert (got_l == ref_l).all(), (what, got_l, ref_l)
+    for i in range(len(ref_l)):
+        assert (got_b[i, : got_l[i]] == ref_b[i, : ref_l[i]]).all(), (what, i)
+
+
+_WALK_IDS = [str(F) if hb == 15 and F % 1024 == 0 else f"{F}-hb{hb}" for F, hb in _WALK_CASES]
+
+
+@pytest.mark.parametrize("F,hash_bits", _WALK_CASES, ids=_WALK_IDS)
+def test_host_encode_walk_matches_jax(host_lib, F, hash_bits):
+    """The greedy walk through each of the kernel's loaders, the word loader
+    (widths of a 4-byte multiple) and the byte loader, the rows in a buffer
+    that ends at the last row's end, each equal to the JAX kernel in
+    interpret mode (on rows padded to its 1,024-byte multiple) and to the
+    plain version."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda.scalar_codec import encode_blocks_plain
+
+    frags, lens, ref_b, ref_l = _encode_walk_refs(F, hash_bits)
     f_u8, l_t = torch.from_numpy(frags.astype(np.uint8)), torch.from_numpy(lens)
     plain_b, plain_l = (x.numpy() for x in encode_blocks_plain(f_u8, l_t, hash_bits, 32))
-
-    def same(got_b, got_l, what):
-        assert (got_l == ref_l).all(), (what, got_l, ref_l)
-        for i in range(len(lens)):
-            assert (got_b[i, : got_l[i]] == ref_b[i, : ref_l[i]]).all(), (what, i)
-
-    same(plain_b, plain_l, "plain")
+    _same_bodies(plain_b, plain_l, ref_b, ref_l, "plain")
     for loader in ((0, 1) if F % 4 == 0 else (1,)):
-        for offset in range(8):
-            got_b, got_l = _host_encode_rows(host_lib, frags, lens, offset, loader, hash_bits)
-            same(got_b, got_l, f"loader {loader} at offset {offset}")
+        got_b, got_l = _host_encode_rows(host_lib, frags, lens, AT_GUARD, loader, hash_bits)
+        _same_bodies(got_b, got_l, ref_b, ref_l, f"loader {loader}")
     for i in range(len(lens)):
         comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
         assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("F,hash_bits", _WALK_CASES, ids=_WALK_IDS)
+def test_host_encode_walk_on_unaligned_rows(host_lib, F, hash_bits):
+    """The greedy walk on rows that start 0-7 bytes past a 16-byte boundary
+    (the byte loader) and 0, 4, 8 and 12 bytes past one (the word loader,
+    widths of a 4-byte multiple), under the guard page, each equal to the
+    JAX kernel in interpret mode."""
+    frags, lens, ref_b, ref_l = _encode_walk_refs(F, hash_bits)
+    for offset, loader in _aligned_cases(F):
+        got_b, got_l = _host_encode_rows(host_lib, frags, lens, offset, loader, hash_bits)
+        _same_bodies(got_b, got_l, ref_b, ref_l, f"loader {loader} at offset {offset}")
 
 
 def _decode_groups():
@@ -922,22 +988,15 @@ def decode_refs():
 
 
 def _loader_cases(cc: int):
-    """(offset, loader) pairs: the byte loader 0-7 bytes into the buffer, the
-    word loader (the decode walk's ring over it) where base and width are
-    multiples of 4."""
-    return [(o, 1) for o in range(8)] + ([(0, 0), (4, 0)] if cc % 4 == 0 else [])
+    """(offset, loader) pairs that end the rows at the guard page: the byte
+    loader, and the word loader (the decode walk's ring over it) where the
+    width is a multiple of 4."""
+    return [(AT_GUARD, 1)] + ([(AT_GUARD, 0)] if cc % 4 == 0 else [])
 
 
-@pytest.mark.parametrize("nlanes", [1, 4, 32])
-def test_host_decode_walk_matches_jax(host_lib, decode_refs, nlanes):
-    """The batched decode walk on a warp of 1, 4 and 32 lanes (the card's),
-    through each loader at offsets 0-7 into a buffer that ends at the last
-    row's end (the ring too), equal to the JAX kernel in interpret mode on
-    every group:
-    the same error word, out_len and out[:out_len]. On the word mix the 32
-    lanes resolve more than 8 tags a step."""
+def _hold_decode_to_jax(host_lib, decode_refs, nlanes, cases):
     for name, comp, lens, out_cap, ref in decode_refs:
-        for offset, loader in _loader_cases(comp.shape[1]):
+        for offset, loader in cases(comp.shape[1]):
             what = f"{name}, offset {offset}, loader {loader}"
             out, out_lens, errs, (batches, tags) = _host_decode(
                 host_lib, comp, lens, out_cap, nlanes, offset, loader)
@@ -946,11 +1005,30 @@ def test_host_decode_walk_matches_jax(host_lib, decode_refs, nlanes):
             for i in range(len(lens)):
                 assert (out[i, : out_lens[i]] == ref[0][i, : ref[1][i]]).all(), (what, i)
             assert tags <= nlanes * batches, what
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_decode_walk_matches_jax(host_lib, decode_refs, nlanes):
+    """The batched decode walk on a warp of 1, 4 and 32 lanes (the card's),
+    through each loader into a buffer that ends at the last row's end (the
+    ring too), equal to the JAX kernel in interpret mode on every group:
+    the same error word, out_len and out[:out_len]. On the word mix the 32
+    lanes resolve more than 8 tags a step."""
+    _hold_decode_to_jax(host_lib, decode_refs, nlanes, _loader_cases)
     name, comp, lens, out_cap, ref = decode_refs[2]
     mix = comp[-1:], lens[-1:]
     _, out_lens, errs, (batches, tags) = _host_decode(host_lib, *mix, out_cap, nlanes)
     assert errs[0] == 0 and out_lens[0] == 65536
     assert tags > (8 * batches if nlanes == 32 else batches if nlanes == 4 else 0)
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_decode_walk_on_unaligned_rows(host_lib, decode_refs, nlanes):
+    """The batched decode walk with the rows 0-7 bytes past a 16-byte
+    boundary (the byte loader) and 0, 4, 8 and 12 past one (the ring over
+    the word loader, widths of a 4-byte multiple), under the guard page,
+    equal to the JAX kernel in interpret mode on every group."""
+    _hold_decode_to_jax(host_lib, decode_refs, nlanes, _aligned_cases)
 
 
 def _mutant_rows():
@@ -1003,7 +1081,7 @@ def test_host_decode_walk_matches_oracle_on_mutants(host_lib, nlanes):
     out_cap are rejected."""
     mutants, comp, lens, out_cap = _mutant_rows()
     verdicts = _oracle_verdicts(mutants, out_cap)
-    for offset, loader in ((0, 0), (3, 1), (4, 0)):
+    for offset, loader in ((AT_GUARD, 0), (3, 1), (4, 0)):
         out, out_lens, errs, _ = _host_decode(host_lib, comp, lens, out_cap, nlanes, offset,
                                               loader)
         _hold_to_oracle(verdicts, out, out_lens, errs, f"loader {loader}")
@@ -1021,26 +1099,42 @@ def test_plain_decode_matches_oracle_on_mutants():
     _hold_to_oracle(_oracle_verdicts(mutants, out_cap), out, out_lens, errs, "plain")
 
 
-def test_host_best_walk_matches_jax(host_lib):
-    """The level="best" walk through each loader, the rows and their
-    candidates in guarded buffers, the rows 0-7 bytes in (the word loader at
-    0 and 4), equal to the JAX kernel in interpret mode."""
+@functools.lru_cache(maxsize=None)
+def _best_refs():
+    """``best_rows(4096, seed=8)``, their candidates and the JAX kernel's
+    bodies and lengths in interpret mode."""
     frags, lens = best_rows(4096, seed=8)
     cands = np.asarray(exact_candidates(jnp.asarray(frags), jnp.asarray(lens)), np.int32)
     ref_b, ref_l = (np.asarray(x) for x in _encode_best_pallas(
         jnp.asarray(frags), jnp.asarray(lens), jnp.asarray(cands), interpret=True))
-    f8 = np.ascontiguousarray(frags, np.uint8)
+    return np.ascontiguousarray(frags, np.uint8), lens, cands, ref_b, ref_l
+
+
+def _hold_best_to_jax(host_lib, cases):
+    f8, lens, cands, ref_b, ref_l = _best_refs()
     B, F = f8.shape
-    for offset, loader in _loader_cases(F):
+    for offset, loader in cases(F):
         bodies = np.zeros((B, F + 2048), np.uint8)
         body_lens = np.zeros(B, np.int32)
         rc = host_lib.host_encode_best(f8.ctypes.data, F, lens.ctypes.data, cands.ctypes.data,
-                                       B, offset, loader, 32, bodies.ctypes.data, F + 2048,
-                                       body_lens.ctypes.data)
+                                       B, _offset_arg(offset), loader, 32, bodies.ctypes.data,
+                                       F + 2048, body_lens.ctypes.data)
         assert rc == 0
-        assert (body_lens == ref_l).all(), (offset, loader, body_lens, ref_l)
-        for i in range(B):
-            assert (bodies[i, : body_lens[i]] == ref_b[i, : ref_l[i]]).all(), (offset, loader, i)
+        _same_bodies(bodies, body_lens, ref_b, ref_l, (offset, loader))
+
+
+def test_host_best_walk_matches_jax(host_lib):
+    """The level="best" walk through each loader, the rows and their
+    candidates in buffers that end at a guard page, equal to the JAX kernel
+    in interpret mode."""
+    _hold_best_to_jax(host_lib, _loader_cases)
+
+
+def test_host_best_walk_on_unaligned_rows(host_lib):
+    """The level="best" walk with the rows 0-7 bytes past a 16-byte boundary
+    (the byte loader) and 0, 4, 8 and 12 past one (the word loader), under
+    the guard page, equal to the JAX kernel in interpret mode."""
+    _hold_best_to_jax(host_lib, _aligned_cases)
 
 
 def test_host_probe_walk_matches_jax(host_lib):
@@ -1140,15 +1234,17 @@ def test_host_pipe_walk_matches_plain(host_lib, case, nlanes):
             assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
 
 
-def _host_encode_variant(lib, frags, lens, mask, hash_bits, store_step, fixed=0):
+def _host_encode_variant(lib, frags, lens, mask, hash_bits, store_step, fixed=0,
+                         offset=AT_GUARD, loader=1):
     frags = np.ascontiguousarray(frags, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
     B, F = frags.shape
     bodies = np.zeros((B, F + 2048), np.uint8)
     body_lens = np.zeros(B, np.int32)
-    lib.host_encode_variant(mask, hash_bits, store_step, fixed, frags.ctypes.data, F,
-                            lens.ctypes.data, B, bodies.ctypes.data, F + 2048,
-                            body_lens.ctypes.data)
+    rc = lib.host_encode_variant(mask, hash_bits, store_step, fixed, frags.ctypes.data, F,
+                                 lens.ctypes.data, B, _offset_arg(offset), loader,
+                                 bodies.ctypes.data, F + 2048, body_lens.ctypes.data)
+    assert rc == 0
     return bodies, body_lens
 
 
@@ -1163,35 +1259,67 @@ def _encode_variant_cases():
     return cases
 
 
-@pytest.mark.parametrize("case", _encode_variant_cases(), ids=lambda c: c[0])
-def test_host_encode_variant_walk_matches_plain(host_lib, case):
-    """The encode-ablation walk of ``csrc/encode_variants.cuh`` under every
-    named mask, and under masks no name has, against its plain version, at
-    2 KiB and (one markup and one random row) at 64 KiB. The parts that only
-    reorder the work (the preloaded group, the detection-only probe, the two
-    nested loops) have no plain counterpart: they give the bytes of the walk
-    they restructure, which is what this holds them to."""
+@functools.lru_cache(maxsize=None)
+def _encode_variant_plain(case):
+    """The rows of the variant walk's tests, at 2 KiB and (one markup and one
+    random row) at 64 KiB, each with the plain version's bodies and lengths
+    under the case's mask."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import encode_variants as ev
 
-    name, mask, hash_bits, store_step = case
+    _, mask, hash_bits, store_step = case
+    out = []
     for F, rows in ((2048, slice(None)), (65536, slice(0, 3, 2))):
         frags, lens = encode_rows(F)
         frags, lens = frags[rows], lens[rows]
-        f8 = torch.from_numpy(frags.astype(np.uint8))
         want_b, want_l = (x.numpy() for x in ev.encode_walk_plain(
-            f8, torch.from_numpy(lens), mask, hash_bits, store_step))
-        for fixed in (0, 1):
-            got_b, got_l = _host_encode_variant(host_lib, frags, lens, mask, hash_bits, store_step,
-                                                fixed)
-            assert (got_l == want_l).all(), (name, got_l, want_l)
-            if mask & (ev.EMIT_COUNT | ev.EMIT_HITS | ev.DMA_ONLY | ev.NOSCAN):
-                continue
+            torch.from_numpy(frags.astype(np.uint8)), torch.from_numpy(lens), mask, hash_bits,
+            store_step))
+        out.append((frags, lens, want_b, want_l))
+    return out
+
+
+def _hold_variant_to_plain(host_lib, case, placements):
+    from snappier_tpu_torch.ops.cuda import encode_variants as ev
+
+    name, mask, hash_bits, store_step = case
+    no_bytes = mask & (ev.EMIT_COUNT | ev.EMIT_HITS | ev.DMA_ONLY | ev.NOSCAN)
+    for frags, lens, want_b, want_l in _encode_variant_plain(case):
+        for offset, loader in placements(frags.shape[1]):
+            for fixed in (0, 1):
+                what = (name, offset, loader, fixed)
+                got_b, got_l = _host_encode_variant(host_lib, frags, lens, mask, hash_bits,
+                                                    store_step, fixed, offset, loader)
+                assert (got_l == want_l).all(), (what, got_l, want_l)
+                if not no_bytes:
+                    _same_bodies(got_b, got_l, want_b, want_l, what)
+        if not no_bytes:
             for i in range(len(lens)):
-                assert (got_b[i, : got_l[i]] == want_b[i, : want_l[i]]).all(), (name, i)
                 comp = write_varint(int(lens[i])) + got_b[i, : got_l[i]].tobytes()
                 assert oracle.decompress(comp) == frags[i, : lens[i]].astype(np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("case", _encode_variant_cases(), ids=lambda c: c[0])
+def test_host_encode_variant_walk_matches_plain(host_lib, case):
+    """The encode-ablation walk of ``csrc/encode_variants.cuh`` under every
+    named mask, and under masks no name has, through each of the kernels'
+    loaders, the rows in a buffer that ends at the last row's end, against
+    its plain version, at 2 KiB and (one markup and one random row) at
+    64 KiB. The parts that only reorder the work (the preloaded group, the
+    detection-only probe, the two nested loops) have no plain counterpart:
+    they give the bytes of the walk they restructure, which is what this
+    holds them to."""
+    _hold_variant_to_plain(host_lib, case, _loader_cases)
+
+
+@pytest.mark.parametrize("case", _encode_variant_cases(), ids=lambda c: c[0])
+def test_host_encode_variant_walk_on_unaligned_rows(host_lib, case):
+    """The encode-ablation walk under every mask of the test above with the
+    rows 0-7 bytes past a 16-byte boundary (the byte loader) and 0, 4, 8 and
+    12 past one (the word loader), under the guard page, against its plain
+    version."""
+    _hold_variant_to_plain(host_lib, case, _aligned_cases)
 
 
 @pytest.mark.parametrize("nlanes", [1, 4, 32])

@@ -203,10 +203,11 @@ def test_build_names_every_source():
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
                                    "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
                                    "encode_layout", "decode_layout", "best_layout",
-                                   "crc32c_layout"}
+                                   "crc32c_layout", "encode_variant_layout", "encode_r4_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
     shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout",
-              "decode_layout", "best_layout", "crc32c_layout"}
+              "decode_layout", "best_layout", "crc32c_layout", "encode_variant_layout",
+              "encode_r4_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

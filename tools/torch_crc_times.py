@@ -60,24 +60,33 @@ def one(root: str) -> dict:
     }
 
 
-def main(argv) -> int:
+def in_turns(script: str, one_fn, argv) -> int:
+    """The command line of a tool that times checkouts in turns: with
+    ``--one ROOT`` it prints ``one_fn(ROOT)`` as JSON; with ROOT ... it
+    prints the card's name and power limit, then runs ``script --one ROOT``
+    in a fresh process for each ROOT in order and prints its JSON line."""
     if len(argv) >= 2 and argv[0] == "--one":
-        print(json.dumps(one(os.path.abspath(argv[1]))))
+        print(json.dumps(one_fn(os.path.abspath(argv[1]))))
         return 0
     import torch
 
+    name = os.path.basename(script)
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_crc_times.py ROOT [ROOT ...] (needs a CUDA card)", file=sys.stderr)
+        print(f"usage: {name} ROOT [ROOT ...] (needs a CUDA card)", file=sys.stderr)
         return 2
     print(smoke().card_line())
     for root in argv:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                           capture_output=True, text=True, timeout=600)
+        r = subprocess.run([sys.executable, os.path.abspath(script), "--one", root],
+                           capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)
             return 1
-        print(r.stdout.strip().splitlines()[-1])
+        print(r.stdout.strip().splitlines()[-1], flush=True)
     return 0
+
+
+def main(argv) -> int:
+    return in_turns(__file__, one, argv)
 
 
 if __name__ == "__main__":

@@ -20,17 +20,18 @@ Variants:
   e7    e6a + an eight-wide probe; e7n, e6n: e7, e6a without emission
   e9    e3 with 2 table stores per probe; e10: e3 at 13 hash bits;
   e11   e3 at 12 hash bits with 2 stores
-  edma  no walk: staging and launch alone
+  edma  no walk: one read of each fragment and the launch alone
 Any other name is read as a flag tuple joined by commas (merged,btail,st2).
 
 The blocks are the seeded word mix that ``chip_smoke.py`` drives. The first
 line is the card's name and power limit. Then one line per variant: ms per
 call, us per block, GB/s of input and the compression ratio, where a block's
 time is the call's time over the waves of blocks the card runs
-(``blocks_in_flight``: the variants keep the table and the fragment of a
-block in shared memory, so 14 hash bits let two blocks share an SM and 15
-leave one; e0 keeps the table alone there, and its count is the occupancy
-the launch reports, ``scalar_codec.encode_layout``).
+(``blocks_in_flight``: the SMs times the blocks an SM holds, the occupancy
+the launch reports, ``encode_variants.encode_variant_layout`` and, for e0,
+``scalar_codec.encode_layout``; every variant keeps the match table alone
+in shared memory, as e0 does, so 14 hash bits let six blocks share an SM
+and 15 three).
 """
 
 from __future__ import annotations
@@ -58,22 +59,16 @@ def build_blocks(B: int = 128):
     return frags.copy(), np.full(B, BLOCK_SIZE, np.int32)
 
 
-def encode_smem_bytes(hash_bits: int) -> int:
-    """Dynamic shared memory of one block of the encode variants: the match
-    table and the staged fragment."""
-    return (2 << hash_bits) + BLOCK_SIZE + 16
-
-
 def variant_fn(name: str, frags_d, lens_d):
-    """(the call to time, its hash bits, whether it emits tags)."""
+    """(the call to time, its launch layout, whether it emits tags)."""
     from snappier_tpu_torch.ops.cuda import encode_variants as ev
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 
     if name == "e0":
-        return (lambda: sc.encode_blocks_bytes(frags_d, lens_d)), sc.HASH_BITS, True
+        return (lambda: sc.encode_blocks_bytes(frags_d, lens_d)), sc.encode_layout(frags_d), True
     flags = ev.VARIANT_FLAGS.get(name) or tuple(f for f in name.split(",") if f)
-    _, hash_bits, _ = ev.flags_mask(flags)
-    return (lambda: ev.encode_variant(frags_d, lens_d, flags)), hash_bits, "noemit" not in flags
+    return ((lambda: ev.encode_variant(frags_d, lens_d, flags)),
+            ev.encode_variant_layout(frags_d, flags), "noemit" not in flags)
 
 
 def main() -> int:
@@ -99,8 +94,9 @@ def main() -> int:
     gb = B * BLOCK_SIZE / 1e9
     pre = bytes([0x80, 0x80, 0x04])  # varint 65536
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for v in args.variants:
-        fn, hash_bits, emits = variant_fn(v, frags_d, lens_d)
+        fn, layout, emits = variant_fn(v, frags_d, lens_d)
         bodies, body_lens = fn()
         torch.cuda.synchronize()
         bl = body_lens.cpu().numpy()
@@ -111,13 +107,7 @@ def main() -> int:
                 ok = ok and oracle.decompress(np.frombuffer(pre + body, np.uint8)) == \
                     frags[b].tobytes()
         t = base.timeit(fn)
-        if v == "e0":
-            from snappier_tpu_torch.ops.cuda import scalar_codec as sc
-
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            in_flight = sms * sc.encode_layout(frags_d)["blocks_per_sm"]
-        else:
-            in_flight = base.blocks_in_flight(encode_smem_bytes(hash_bits))
+        in_flight = sms * layout["blocks_per_sm"]
         waves = -(-B // in_flight)
         print(
             f"{v}: {'OK ' if ok else 'BAD'} {t * 1e3:.3f} ms total, "

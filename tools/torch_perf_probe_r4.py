@@ -47,6 +47,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 BLOCK_SIZE = 65536
+# encode_stats' block: the 15-bit match table, the fragment and 16 zero bytes.
+STATS_SMEM_BYTES = (2 << 15) + BLOCK_SIZE + 16
 DECODE_VARIANTS = {
     "pipe2u1": dict(unroll=1), "pipe2u2": dict(unroll=2), "pipe2u3": dict(unroll=3),
     "pipe2u4": dict(unroll=4), "pipe2unc": dict(unroll=2, unc=1),
@@ -68,7 +70,6 @@ def main() -> int:
 
     import chip_smoke
     import torch_perf_probe as base
-    import torch_perf_probe_enc as enc
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
     from snappier_tpu_torch.ops.cuda import encode_variants as ev
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
@@ -103,10 +104,12 @@ def main() -> int:
     tags, _ = base.tag_mix(one)
     print(f"B={B}, row width {bd.shape[1]}, tags/block={tags}")
 
-    enc_in_flight = base.blocks_in_flight(enc.encode_smem_bytes(sc.HASH_BITS))
-    # K2 keeps the table alone in shared memory: the occupancy its launch reports.
-    k2_in_flight = (torch.cuda.get_device_properties(0).multi_processor_count
-                    * sc.encode_layout(fd)["blocks_per_sm"])
+    # encode_stats keeps the table and the staged fragment in shared memory;
+    # K2 and the named walks keep the table alone: the occupancy each launch
+    # reports.
+    stats_in_flight = base.blocks_in_flight(STATS_SMEM_BYTES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k2_in_flight = sms * sc.encode_layout(fd)["blocks_per_sm"]
     if "encstats" in variants:
         st = ev.encode_stats(fd, ld)
         want = ev.encode_stats_plain(fd[:1].cpu(), ld[:1].cpu())
@@ -117,7 +120,7 @@ def main() -> int:
               f"(ext iters/hit={tot[2] / max(tot[1], 1):.2f}, "
               f"match len avg={tot[3] / max(tot[1], 1):.1f})")
         t = base.timeit(lambda: ev.encode_stats(fd, ld))
-        print(f"encstats: {t * 1e3:.3f} ms/batch, {t / -(-B // enc_in_flight) * 1e6:.1f} "
+        print(f"encstats: {t * 1e3:.3f} ms/batch, {t / -(-B // stats_in_flight) * 1e6:.1f} "
               f"us/block", flush=True)
         variants = [x for x in variants if x != "encstats"]
     for v in [x for x in variants if x.startswith("enc")]:
@@ -129,7 +132,7 @@ def main() -> int:
         torch.cuda.synchronize()
         note = ""
         if v == "encdmaonly":
-            note = " (staging and launch alone, no walk)"
+            note = " (one read of each fragment and the launch alone, no walk)"
         elif v == "encnoemit":
             _, want = ev.encode_r4(fd, ld, "enccopywhen")
             assert bool((el == want).all()), f"{v} body_lens mismatch"
@@ -145,7 +148,8 @@ def main() -> int:
             assert bool((dout == fd).all()), f"{v} roundtrip mismatch"
             note = f", size {float(el.sum()) / float(blens.sum()) * 100:.2f}% of base"
         t = base.timeit(efn)
-        waves = -(-B // (k2_in_flight if v == "encbase" else enc_in_flight))
+        waves = -(-B // (k2_in_flight if v == "encbase"
+                         else sms * ev.encode_r4_layout(fd, v)["blocks_per_sm"]))
         print(f"{v}: {t * 1e3:.3f} ms/batch, {t / waves * 1e6:.1f} us/block, "
               f"{B * BLOCK_SIZE / t / 1e6:.1f} MB/s{note}", flush=True)
 
