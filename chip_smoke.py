@@ -102,12 +102,16 @@ failure:
    ``decode_v5_spec`` (on a pre-pass computed beforehand), ``decode_v6`` and
    ``decode_v7`` (with and without ``unroll2``), each against its plain
    version on phase 2's rows, edge and corrupt rows and 9 of the main path's
-   blocks of 65,536 bytes, their pre-passes on the card against the CPU's,
-   their verdicts against the production kernel's; then the 512 blocks
+   blocks of 65,536 bytes, their pre-passes on the card (``prepass_v7``, a
+   kernel) against the CPU's, their verdicts against the production
+   kernel's; ``prepass_v7`` and ``decode_v7`` also on rows that are no word
+   rows (3 bytes narrower, 1 byte into a buffer); then the 512 blocks
    through the production kernel and every form at the codec's row width
-   and the tight one, each row equal to the input; timings beside the
-   production kernel (ns per tag), the pre-passes alone, the kernel alone and
-   the peak device memory of one call;
+   and the tight one, each row equal to the input; ``decode_v7``'s layout
+   (three blocks an SM at out_cap 65,536) and ptxas figures (any stack or
+   spill fails); timings beside the production kernel (ns per tag), the
+   pre-passes alone, each walk alone and the peak device memory of one
+   call;
 10. the micro-probes: ``encode_stats`` (the encoder's budget) against its
    plain walk on rows of 4 KiB and 9 of the main path's fragments, and
    ``chain`` / ``chainrec``, ``vcopy`` (2d, 3d) and ``coissue`` (nvec 0, 1,
@@ -123,10 +127,12 @@ failure:
    block 0: ``iso`` in its six modes (the records 20 times), ``bprobe`` at
    nwhen 0, 1, 3 and 8, ``cliff`` in its five modes at 200 walks and
    ``bitonic`` on the tool's keys and on keys with many ties, each against
-   its plain version, exact, the image, scratch and indices included; then
-   the path, the same calls once each with exact launch counts; timings of
-   each kernel alone, every built nwhen of ``bprobe``, and ``torch.sort``
-   of the same keys beside ``bitonic``.
+   its plain version, exact, the image, scratch and indices included, and
+   the chase (``cliff``'s walk with no body, the latency floor) against
+   ``chain``'s plain version; then the path, the same calls once each with
+   exact launch counts; timings of each kernel alone, every built nwhen of
+   ``bprobe``, the chase's ns a step beside each ``cliff`` mode's, and
+   ``torch.sort`` of the same keys beside ``bitonic``.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
 sharded_scan, encode_ablation, hybrid, micro_probes, isolation) runs with the launch
@@ -1705,7 +1711,8 @@ def hybrid_call(dh, form: str):
 def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     """Phase 9, the hybrid path. Returns (max_abs_err per wrapper, launches
     on the path, ms per wrapper at the codec's row width, plain ms per
-    wrapper on one row)."""
+    wrapper on one row, decode_v7's row extras: its pre-pass kernel, walk
+    and layout)."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "tests"))
     sys.path.insert(0, os.path.join(root, "tools"))
@@ -1765,9 +1772,29 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
         check(not want[1][want[2] != 0].any(), "out_len must be 0 on any error")
         n_main = int((want[1] == BLOCK).sum())
     check(n_main >= 9, f"only {n_main} rows of {BLOCK} B")
+    # prepass_v7 and decode_v7 on rows that are no word rows (the byte
+    # loaders): 3 bytes narrower, and 1 byte into a buffer.
+    buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=dev)
+    buf[1:].copy_(c_d.reshape(-1))
+    odd = {"narrow": (c_d[:, :-3].contiguous(), c_h[:, :-3].contiguous()),
+           "offset": (buf[1:].view(c_d.shape), c_h)}
+    prepass_err = 0
+    for what, (rows_d, rows_h) in odd.items():
+        check(rows_d.data_ptr() % 4 != 0 or rows_d.shape[1] % 4 != 0, f"{what}: word rows")
+        got_pre = [x.cpu() for x in dh.prepass_v7(rows_d)]
+        want_pre = dh.prepass_v7(rows_h)
+        prepass_err = max(prepass_err, max_abs_err(zip(got_pre, want_pre)))
+        want = [x.numpy() for x in dh.walk_plain(rows_h, *want_pre, l_h, BLOCK, "v7")]
+        for form in ("v7", "v7u"):
+            got = [x.cpu().numpy() for x in hybrid_call(dh, form)(rows_d, l_d, BLOCK)]
+            err = max_abs_err([(got[1], want[1]), (got[2], want[2])]
+                              + [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])])
+            check(err == 0, f"{form} on {what} rows differs from its plain version")
+    check(prepass_err == 0, "prepass_v7 on rows that are no word rows: card != CPU")
     print(f"decode_v5, decode_v5_spec, decode_v6, decode_v7 (and unroll2) == plain on "
-          f"{len(streams)} rows ({n_main} of {BLOCK} B), pre-passes card == CPU, verdicts == K1's, "
-          f"max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+          f"{len(streams)} rows ({n_main} of {BLOCK} B) and, v7, on narrow and offset rows; "
+          f"pre-passes card == CPU, verdicts == K1's, max_abs_err 0 "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # 2. the path: the encode kernel's 512 blocks through the production
     # decode kernel and each form, at the codec's row width and the tight one.
@@ -1791,13 +1818,26 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     print(f"hybrid path launches: {launches}")
     for k in PATHS["hybrid"]:
         check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the hybrid path")
-    check(launches.get("decode_v7") == 4 and launches.get("decode_v5_parts") == 2,
-          f"launch counts {launches}")
+    check(launches.get("decode_v7") == 4 and launches.get("decode_v5_parts") == 2
+          and launches.get("prepass_v7") == 4, f"launch counts {launches}")
     print(f"hybrid: {B} x {BLOCK} B decoded exactly by K1, decode_v5, decode_v5_spec, decode_v6 "
           "and decode_v7 (with and without unroll2) at both row widths")
 
-    # 3. timings beside K1 at both widths; the pre-passes alone; T15's
-    # kernel alone; the peak device memory of one call of each form.
+    # 3. decode_v7's layout and ptxas figures; timings beside K1 at both
+    # widths; the pre-passes alone; each walk alone; the peak device memory
+    # of one call of each form.
+    v7_layout = dh.decode_v7_layout(comp_u8, BLOCK)
+    log = _build.BUILD_LOG.get("decode_hybrid", "")
+    v7_ptxas = {k: ptxas_figures(log, k) for k in ("decode_v7_kernel", "prepass_v7_kernel")}
+    print(json.dumps({"card": card, "decode_v7_layout": v7_layout, "decode_v7_ptxas": v7_ptxas}))
+    check(v7_layout["blocks_per_sm"] >= 3 and v7_layout["loader"] == "words",
+          f"decode_v7: {v7_layout} at out_cap {BLOCK}")
+    for k, count in (("decode_v7_kernel", 4), ("prepass_v7_kernel", 2)):
+        figs = v7_ptxas[k]
+        check(len(figs) == count, f"ptxas figures for the {count} {k}s: {figs}")
+        for fig in figs:
+            check(all(fig.get(x) == 0 for x in ("stack", "spill_stores", "spill_loads")),
+                  f"{k} stack frame or spills: {fig}")
     ntags, _ = tag_mix(comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes())
     times = {}
     for width, rows_d in widths:
@@ -1805,12 +1845,17 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
         smem = dh.smem_bytes(cc, BLOCK)
         in_flight = 132 * max(1, 233472 // (smem + 1024))
         waves = -(-B // in_flight)
+        layout = dh.decode_v7_layout(rows_d, BLOCK)
+        v7_in_flight = 132 * layout["blocks_per_sm"]
+        v7_waves = -(-B // v7_in_flight)
         words, spec = dh.pack_words(rows_d), dh.spec_from_comp(rows_d)
         t = {"row_bytes": cc, "smem": smem, "blocks_in_flight": in_flight,
+             "v7_smem": layout["smem_bytes"], "v7_blocks_in_flight": v7_in_flight,
              "k1": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK)),
              "prepass_v5": cuda_ms(lambda: (dh.spec_from_comp(rows_d), dh.pack_words(rows_d))),
              "prepass_v6": cuda_ms(lambda: dh.spec_from_words(dh.pack_words(rows_d), cc)),
-             "prepass_v7": cuda_ms(lambda: dh.spec2_from_words(dh.pack_words(rows_d), cc)),
+             "prepass_v7": cuda_ms(lambda: dh.prepass_v7(rows_d)),
+             "prepass_v7_tensor": cuda_ms(lambda: dh.spec2_from_words(dh.pack_words(rows_d), cc)),
              "v5parts_kernel": cuda_ms(lambda: dh.decode_v5_spec(words, spec, block_lens,
                                                                  BLOCK))}
         t["v5parts_kernel_ns_per_tag"] = t["v5parts_kernel"] * 1e6 / waves / ntags
@@ -1820,7 +1865,8 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
             t[form + "_walk"] = cuda_ms(lambda: dh._launch(
                 form[:2], form == "v7u", rows_d, pre[0], pre[1], block_lens, BLOCK,
                 dh.FORMS[form[:2]][1]))
-            t[form + "_walk_ns_per_tag"] = t[form + "_walk"] * 1e6 / waves / ntags
+            w = v7_waves if form != "v6" else waves
+            t[form + "_walk_ns_per_tag"] = t[form + "_walk"] * 1e6 / w / ntags
             del pre
         k1_in_flight = 132 * max(1, 233472 // (((BLOCK + 15) & ~15) + 1024))  # csrc/decode.cu
         t["k1_ns_per_tag"] = t["k1"] * 1e6 / -(-B // k1_in_flight) / ntags
@@ -1829,7 +1875,8 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
         for form in HYBRID_FORMS:
             fn = hybrid_call(dh, form)
             t[form] = cuda_ms(lambda: fn(rows_d, block_lens, BLOCK))
-            t[form + "_ns_per_tag"] = t[form] * 1e6 / waves / ntags
+            w = v7_waves if form[:2] == "v7" else waves
+            t[form + "_ns_per_tag"] = t[form] * 1e6 / w / ntags
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fn(rows_d, block_lens, BLOCK)
@@ -1845,7 +1892,18 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     plain = {dh.FORMS[f][1]: host_ms(lambda: dh.decode_hybrid_plain(c1, cl1, BLOCK, f))
              for f in ("v5", "v6", "v7")}
     plain["decode_v5_parts"] = host_ms(lambda: dh.decode_v5_spec(w1, s1, cl1, BLOCK))
-    return errs, launches, ms, plain
+    v7_extra = {
+        "layout": {**v7_layout, "ptxas": v7_ptxas},
+        "walk_ms": cw["v7_walk"], "unroll2_ms": cw["v7u"], "unroll2_walk_ms": cw["v7u_walk"],
+        "prepass_v7": {"route": "cuda", "source": "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                       "replaces": "tools/perf_probe_hybrid.py:1271",
+                       "launches": launches.get("prepass_v7", 0), "max_abs_err": prepass_err,
+                       "ms": cw["prepass_v7"], "tensor_ms": cw["prepass_v7_tensor"],
+                       "plain_ms": host_ms(lambda: dh.prepass_v7(c1)),
+                       "bound_ms": 9 * B * comp_u8.shape[1] / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes"},
+    }
+    return errs, launches, ms, plain, v7_extra
 
 
 def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
@@ -1988,7 +2046,8 @@ ISOLATION_NWHEN = (0, 1, 3, 8)  # compared and on the path; every built nwhen is
 def phase_isolation(torch, card, comp_u8, block_lens):
     """Phase 11, the isolation path. Returns (max_abs_err per wrapper,
     launches on the path, ms per wrapper, plain ms per wrapper, (bytes,
-    operations) per wrapper at the timed call, torch.sort's ms)."""
+    operations) per wrapper at the timed call, torch.sort's ms, cliff's row
+    extras: the chase and every mode's ns a step)."""
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
@@ -2006,6 +2065,7 @@ def phase_isolation(torch, card, comp_u8, block_lens):
         ties=ties).items()}
     d = {k: v.to(dev) for k, v in h.items()}
     R = hp.CHAIN_R
+    staged = hp.cliff_staged_words(h["adv"], n, 3)
     calls = {  # name -> (wrapper, kernel alone, plain version)
         **{("iso", m): (lambda m=m: hp.iso(d["irec"], d["img"], m),
                         lambda m=m: hp.launch_iso(d["irec"], d["img"], m),
@@ -2014,11 +2074,15 @@ def phase_isolation(torch, card, comp_u8, block_lens):
                            lambda w=w: hp.launch_bprobe(w, 3, dev),
                            lambda w=w: hp.bprobe_plain(w, 3)) for w in hp.BPROBE_NWHEN},
         **{("cliff", m): (lambda m=m: hp.cliff(d["adv"], n, m, 3, R),
-                          lambda m=m: hp.launch_cliff(d["adv"], n, m, 3, R),
+                          lambda m=m: hp.launch_cliff(d["adv"], n, m, 3, R, staged),
                           lambda m=m: hp.cliff_plain(h["adv"], n, m, 3, R))
            for m in hp.CLIFF_MODES},
         **{("bitonic", k): (lambda k=k: hp.bitonic(d[k]), lambda k=k: hp.launch_bitonic(d[k]),
                             lambda k=k: hp.bitonic_plain(h[k])) for k in ("keys", "ties")},
+        # The chase: cliff's walk with no body, chain's function.
+        ("chase", "floor"): (lambda: (hp.chase(d["adv"], n, 3, R),),
+                             lambda: hp.launch_chase(d["adv"], n, 3, R, staged),
+                             lambda: (hp.chain_plain(h["adv"], n, 3, R)[0],)),
     }
     compared = [c for c in calls if c[0] != "bprobe" or c[1] in ISOLATION_NWHEN]
 
@@ -2036,9 +2100,9 @@ def phase_isolation(torch, card, comp_u8, block_lens):
         plain[c] = plain_ms
         results[c] = want
     print(f"iso ({', '.join(hp.ISO_MODES)}; {hp.ISO_PASSES} x {count} records), bprobe (nwhen "
-          f"{ISOLATION_NWHEN}), cliff ({', '.join(hp.CLIFF_MODES)}; {R} walks) and bitonic "
-          f"(the tool's keys, keys with ties) == plain on block 0 ({ntags} tags), max_abs_err 0 "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"{ISOLATION_NWHEN}), cliff ({', '.join(hp.CLIFF_MODES)}; {R} walks), the chase and "
+          f"bitonic (the tool's keys, keys with ties) == plain on block 0 ({ntags} tags), "
+          f"max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
     # What the checksums do not see, seen here: four iso modes give one sum
     # and four images; bprobe 0 and 3 are one function; cliff's img[0].
     iso_sums = {m: int(results[("iso", m)][0][0]) for m in hp.ISO_MODES}
@@ -2063,7 +2127,8 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     for k in PATHS["isolation"]:
         check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the isolation path")
     check(launches == {"iso": len(hp.ISO_MODES), "bprobe": len(ISOLATION_NWHEN),
-                       "cliff": len(hp.CLIFF_MODES), "bitonic": 2}, f"launch counts {launches}")
+                       "cliff": len(hp.CLIFF_MODES), "bitonic": 2, "chase": 1},
+          f"launch counts {launches}")
     for c, out in path.items():
         check(all((a.cpu().numpy() == b).all() for a, b in zip(out, results[c])),
               f"{c} on the path differs from its plain version")
@@ -2083,7 +2148,10 @@ def phase_isolation(torch, card, comp_u8, block_lens):
            "bprobe_ns_per_iter": {w: t[f"bprobe:{w}"] * 1e6 / hp.BPROBE_ITERS
                                   for w in hp.BPROBE_NWHEN},
            "cliff_ns_per_tag": {m: t[f"cliff:{m}"] * 1e6 / R / ntags for m in hp.CLIFF_MODES},
-           "cliff_ns_per_step": {m: t[f"cliff:{m}"] * 1e6 / steps for m in hp.CLIFF_MODES}}
+           "cliff_ns_per_step": {m: t[f"cliff:{m}"] * 1e6 / steps for m in hp.CLIFF_MODES},
+           "chase_ns_per_step": t["chase:floor"] * 1e6 / steps}
+    per["cliff_over_chase"] = {m: per["cliff_ns_per_step"][m] / per["chase_ns_per_step"]
+                               for m in hp.CLIFF_MODES}
     print(json.dumps({"card": card, "tags_block0": ntags, "iso_records": count,
                       "cliff_steps": steps, "iso_checksums": iso_sums,
                       "cliff_img0": cliff_img0, "isolation_ms": t, "torch_sort_ms": sort_ms,
@@ -2102,7 +2170,12 @@ def phase_isolation(torch, card, comp_u8, block_lens):
             "bprobe": (4 + 4 * hp.SCRATCH_WORDS, hp.BPROBE_ITERS * (13 + 2 * 8)),
             "cliff": (4 * len(adv) + 4 + 4 * hp.IMAGE_WORDS, steps * 5),
             "bitonic": (4 * hp.SORT_N + 8 * hp.SORT_N, (hp.BITONIC_K + 1) * hp.SORT_N)}
-    return errs, launches, ms, plain_ms, work, sort_ms
+    cliff_extra = {"ns_per_step": per["cliff_ns_per_step"], "staged_words": staged,
+                   "ms_by_mode": {m: t[f"cliff:{m}"] for m in hp.CLIFF_MODES},
+                   "chase": {"launches": launches["chase"], "max_abs_err": errs["chase"],
+                             "ms": t["chase:floor"], "ns_per_step": per["chase_ns_per_step"],
+                             "steps": steps}}
+    return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra
 
 
 def main() -> int:
@@ -2301,7 +2374,7 @@ def main() -> int:
     ms.update(ms_enc)
 
     # --- 9. the descriptor-driven decode ----------------------------------------
-    errs_hy, hybrid_launches, ms_hy, plain_hy = phase_hybrid(
+    errs_hy, hybrid_launches, ms_hy, plain_hy, v7_extra = phase_hybrid(
         torch, card, decode_streams, frags, comp_u8, block_lens)
     errs.update(errs_hy)
     ms.update(ms_hy)
@@ -2313,7 +2386,7 @@ def main() -> int:
     ms.update(ms_mp)
 
     # --- 11. the isolation, branch, cliff and sort probes --------------------------
-    errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms = phase_isolation(
+    errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms, cliff_extra = phase_isolation(
         torch, card, comp_u8, block_lens)
     errs.update(errs_iso)
     ms.update(ms_iso)
@@ -2407,6 +2480,10 @@ def main() -> int:
         if k == "encode_best":
             rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
             rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}
+        if k == "decode_v7":
+            rows[-1].update(v7_extra)
+        if k == "cliff":
+            rows[-1].update(cliff_extra)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
           "the kernels' build included")
     print(card)

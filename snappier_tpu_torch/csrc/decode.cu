@@ -24,8 +24,9 @@
 // four rounds a step whose tag look-ups are independent, one __syncwarp a
 // round. Two warps a block: warp 0 parses and hands each batch (its tags'
 // offsets and sources, 264 bytes) to warp 1 through a queue of four slots
-// in shared memory, and warp 1 writes it, so a batch's parse overlaps the
-// previous batch's output; 10% faster on the word mix than one warp doing
+// in shared memory, and warp 1 writes it (the block of
+// csrc/batched_decode.cuh), so a batch's parse overlaps the previous
+// batch's output; 10% faster on the word mix than one warp doing
 // both (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W). The output leaves shared
 // memory in one coalesced pass.
 //
@@ -40,48 +41,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "batched_decode.cuh"
 #include "scalar_codec.cuh"
 #include "smem_config.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kRingWords = 256;  // the input ring: 1 KiB
-constexpr int kQueue = 4;        // batches in flight between the two warps
-constexpr int kThreads = 2 * kWarp;
+constexpr int kThreads = bd::kThreads;
 
 // The input forms: word rows through the ring, any row a byte at a time.
 enum Input { kRing, kBytes };
 
-// A block's walk reads no further than about six times out_cap into its
-// row (ip passes only tags that were checked against the output left), so
-// a row wider than 2^31 - 1 bytes is read as its first 2^31 - 1.
-__device__ int32_t row_width(int64_t cc) { return cc < 0x7FFFFFFF ? (int32_t)cc : 0x7FFFFFFF; }
-
-// The output row leaves shared memory: whole 16-byte groups when rows start
-// 16-byte aligned (the tail past out_len is garbage by contract and may be
-// written), else bytes.
-__device__ void store_row(const uint8_t* ow, int32_t nb, uint8_t* dst, int32_t out_cap, int t,
-                          int nthreads) {
-  if ((out_cap & 15) == 0) {
-    const int32_t groups = (nb + 15) >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(ow);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int32_t g = t; g < groups; g += nthreads) d4[g] = s4[g];
-  } else {
-    for (int32_t i = t; i < nb; i += nthreads) dst[i] = ow[i];
-  }
-}
-
-// A queue slot: one parsed batch, or the end of the walk.
-struct Slot {
-  int32_t delta[kWarp];
-  uint32_t start[kWarp];
-  sc::Batch bt;
-  int32_t op;
-  int32_t end;
-};
-
+// The block (csrc/batched_decode.cuh): warp 0 parses the row's tags
+// (sc::ParsedTags over the ring or the bytes, the table in static shared
+// memory), warp 1 writes each batch, its literal bytes read through the
+// read-only path.
 template <int kInput>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const uint8_t* __restrict__ comp, int64_t cc,
@@ -91,82 +66,38 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) uint8_t ow[];
   __shared__ uint32_t lut[256];
   __shared__ uint32_t ring[kRingWords];
-  __shared__ Slot q[kQueue];
-  __shared__ int32_t head, tail;  // slots published by warp 0, freed by warp 1
-  __shared__ sc::DecodeResult res;
+  __shared__ bd::Queue qs;
   const int64_t b = blockIdx.x;
-  const int lane = threadIdx.x & (kWarp - 1);
   for (int t = threadIdx.x; t < 256; t += kThreads) lut[t] = sc::tag_entry((uint32_t)t);
-  if (threadIdx.x == 0) head = tail = 0;
+  bd::init(qs);
   __syncthreads();
-  volatile int32_t* vhead = &head;
-  volatile int32_t* vtail = &tail;
   const uint8_t* row = comp + b * cc;
-  const int32_t width = row_width(cc), n = comp_lens[b];
+  const int32_t width = bd::row_width(cc), n = comp_lens[b];
   const sc::CudaWarp w{};
   const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
   const sc::RowBytes bytes{row, width};
-  if (threadIdx.x < kWarp) {
-    // Warp 0 parses and hands each batch on.
-    int32_t h = 0;
-    auto publish = [&](const sc::Batch& bt, int32_t op, int32_t end, int32_t delta,
-                       uint32_t start) {
-      while (h - *vtail >= kQueue) {
-      }
-      Slot& s = q[h % kQueue];
-      s.delta[lane] = delta;
-      s.start[lane] = start;
-      if (lane == 0) {
-        s.bt = bt;
-        s.op = op;
-        s.end = end;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        __threadfence_block();
-        *vhead = h + 1;
-      }
-      h++;
-    };
-    auto step = [&](const auto&, const sc::Batch& bt, int32_t op, const auto& delta,
-                    const auto& start) { publish(bt, op, 0, delta.v, start.v); };
-    sc::DecodeResult r;
-    if constexpr (kInput == kRing) {
-      r = sc::decode_block_batched(w, sc::RingWords<kRingWords>(words, ring), n, out_cap, lut,
-                                   step);
-      asm volatile("cp.async.wait_all;\n" ::);  // no fill outlives the walk
-    } else {
-      r = sc::decode_block_batched(w, bytes, n, out_cap, lut, step);
-    }
-    publish(sc::Batch{}, 0, 1, 0, 0u);
-    if (lane == 0) res = r;
-  } else {
-    // Warp 1 writes each batch as it arrives, its slot first in registers
-    // (the output's stores could alias it).
-    for (int32_t t = 0;; t++) {
-      while (*vhead == t) {
-      }
-      __threadfence_block();
-      const Slot& s = q[t % kQueue];
-      if (s.end) break;
-      const sc::Batch bt = s.bt;
-      const int32_t op = s.op;
-      const sc::LanesOf<sc::CudaWarp, int32_t> delta{s.delta[lane]};
-      const sc::LanesOf<sc::CudaWarp, uint32_t> start{s.start[lane]};
-      if constexpr (kInput == kRing) {
-        sc::emit_batch(w, words, bt, op, ow, delta, start);
-      } else {
-        sc::emit_batch(w, bytes, bt, op, ow, delta, start);
-      }
-      __syncwarp();
-      if (lane == 0) {
-        __threadfence_block();
-        *vtail = t + 1;
-      }
-    }
-  }
-  __syncthreads();
-  store_row(ow, res.out_len, out + b * (int64_t)out_cap, out_cap, threadIdx.x, kThreads);
+  const sc::DecodeResult res = bd::run(
+      qs,
+      [&](auto step) {
+        if constexpr (kInput == kRing) {
+          using Ring = sc::RingWords<kRingWords>;
+          const sc::DecodeResult r = sc::decode_block_batched(
+              w, sc::ParsedTags<Ring>(Ring(words, ring), lut), n, out_cap, step);
+          asm volatile("cp.async.wait_all;\n" ::);  // no fill outlives the walk
+          return r;
+        } else {
+          return sc::decode_block_batched(w, sc::ParsedTags<sc::RowBytes>(bytes, lut), n,
+                                          out_cap, step);
+        }
+      },
+      [&](const sc::Batch& bt, int32_t op, const auto& delta, const auto& start) {
+        if constexpr (kInput == kRing) {
+          sc::emit_batch(w, words, bt, op, ow, delta, start);
+        } else {
+          sc::emit_batch(w, bytes, bt, op, ow, delta, start);
+        }
+      });
+  bd::store_row(ow, res.out_len, out + b * (int64_t)out_cap, out_cap);
   if (threadIdx.x == 0) {
     out_lens[b] = res.out_len;
     errs[b] = res.err;

@@ -6,9 +6,9 @@
 //
 // They compute what the decode kernels of tools/perf_probe_hybrid.py compute
 // (_decode_kernel_v5, _v6, _v7): the (out[:out_len], out_len, err) triple of
-// one Snappy block, out_len 0 on any error. A tensor pre-pass
-// (ops/cuda/decode_hybrid.py) has decoded the tag that would start at every
-// byte position, so a tag costs one descriptor load (two for v7) instead of a
+// one Snappy block, out_len 0 on any error. A pre-pass (ops/cuda/
+// decode_hybrid.py) has decoded the tag that would start at every byte
+// position, so a tag costs one descriptor load (two for v7) instead of a
 // parse:
 //
 //   kForm 5 (decode_v5, decode_v5_spec)  spec0 = a literal's adv:18 | hdr:3
@@ -24,14 +24,16 @@
 //       skipping it, to save a branch; its output is discarded all the same,
 //       so this walk stops at the first bad tag as v5 does. The two words
 //       after an append's frontier word are always stored, as on the TPU.
-//   kForm 7 (decode_v7)  spec0 = adv:18 | F:7 << 18 | small << 30 | is_copy
-//       << 31, spec1 = the source relative to ip (a literal) or op (a copy);
-//       one validity test per tag, error 4 for any bad tag. kUnroll2 takes
-//       two tags per loop iteration (the tool's v7u).
 //
-// Every form: 8 for a bad preamble (a claim above out_cap among them, where
-// the TPU walks take up to owc * 4 - 1024 bytes and cut the row), 4 for a
-// clean walk that ends short of the claim.
+// Both: 8 for a bad preamble (a claim above out_cap among them, where the
+// TPU walks take up to owc * 4 - 1024 bytes and cut the row), 4 for a clean
+// walk that ends short of the claim.
+//
+// Form 7 (decode_v7) is not a walk of its own: its descriptors (spec0 =
+// adv:18 | F:7 << 18 | small << 30 | is_copy << 31, spec1 = the source
+// relative to ip (a literal) or op (a copy); spec2_at computes both) feed
+// the decode kernel's batched walk (sc::decode_block_batched) as a tag
+// source, DescribedTags: one test per tag, error 4 for any bad tag.
 #pragma once
 
 #include "decode_variants.cuh"
@@ -62,25 +64,11 @@ struct Step {
 
 // The tag at ip from its descriptors, checked against the walk's state.
 template <int kForm>
-SC_HD Step read_tag(const int32_t* spec0, const int32_t* spec1, int32_t ip, int32_t op,
-                    int32_t n, int32_t expected) {
+SC_HD Step read_tag(const int32_t* spec0, int32_t ip, int32_t op, int32_t n, int32_t expected) {
   Step s;
   const int32_t d = load_spec(spec0, ip);
   const uint32_t u = (uint32_t)d;
   s.is_copy = d < 0;
-  if (kForm == 7) {
-    const int32_t d1 = load_spec(spec1, ip);
-    const int32_t f = (int32_t)((u >> 18) & 0x7Fu);
-    s.adv = d & 0x3FFFF;
-    s.length = s.is_copy ? f : s.adv - f;
-    s.off = -d1;
-    s.src = ip + d1;
-    const int32_t offm1 = -d1 - 1;
-    bool bad = ip + s.adv > n || op + s.length > expected ||
-               (s.is_copy && (offm1 >= op || offm1 < 0));
-    s.err = bad ? ERR_LEN : 0;
-    return s;
-  }
   const int32_t hdr = (int32_t)((u >> 18) & 7u);
   s.off = d & 0xFFFF;
   s.adv = s.is_copy ? (int32_t)((u >> 23) & 3u) + 2 : d & 0x3FFFF;
@@ -100,13 +88,12 @@ SC_HD Step read_tag(const int32_t* spec0, const int32_t* spec1, int32_t ip, int3
 //
 // img, wc, owc, lane, nlanes and sync as for sc::decode_block_words with
 // separate images: words [0, wc) hold the compressed row staged up to byte
-// n + 8, words [wc, wc + owc) receive the output. spec0 (and for kForm 7
-// spec1) hold the block's descriptors, one per byte position below n.
-template <int kForm, bool kUnroll2, class Sync>
+// n + 8, words [wc, wc + owc) receive the output. spec0 holds the block's
+// descriptors, one per byte position below n.
+template <int kForm, class Sync>
 SC_HD sc::DecodeResult decode_block_hybrid(uint32_t* img, int32_t wc, int32_t owc,
-                                           const int32_t* spec0, const int32_t* spec1,
-                                           int32_t n, int32_t out_cap, int lane, int nlanes,
-                                           Sync sync) {
+                                           const int32_t* spec0, int32_t n, int32_t out_cap,
+                                           int lane, int nlanes, Sync sync) {
   constexpr int kUncond = kForm == 6 ? 2 : 0;
   uint32_t* ow = img + wc;
   int32_t pre_len, expected;
@@ -116,7 +103,7 @@ SC_HD sc::DecodeResult decode_block_hybrid(uint32_t* img, int32_t wc, int32_t ow
 
   // One tag: false once the walk has stopped (a bad tag, or the end).
   auto step = [&]() -> bool {
-    Step s = read_tag<kForm>(spec0, spec1, ip, op, n, expected);
+    Step s = read_tag<kForm>(spec0, ip, op, n, expected);
     if (s.err != 0) {
       err = s.err;
       return false;
@@ -148,13 +135,7 @@ SC_HD sc::DecodeResult decode_block_hybrid(uint32_t* img, int32_t wc, int32_t ow
   };
 
   if (err == 0) {
-    if (kUnroll2) {
-      while (ip < n) {
-        if (!step() || !step()) break;
-      }
-    } else {
-      while (ip < n && step()) {
-      }
+    while (ip < n && step()) {
     }
   }
   if (err == 0 && op != expected) err = ERR_LEN;
@@ -163,5 +144,76 @@ SC_HD sc::DecodeResult decode_block_hybrid(uint32_t* img, int32_t wc, int32_t ow
   r.out_len = err == 0 ? expected : 0;
   return r;
 }
+
+// --- form 7 --------------------------------------------------------------
+
+// Form 7's descriptors of the tag that would start at a byte, from its
+// bytes p .. p + 4 in the low 40 bits of v (bytes at or past the row's end
+// zero): what tools/perf_probe_hybrid.py::_spec2_from_words computes there,
+// in int32 arithmetic that wraps where XLA's does (the 4-byte literal
+// length and the advance it gives). A literal whose advance leaves (0,
+// 2^18) is poisoned: a copy of offset 0 and length 4 that advances 1.
+SC_HD void spec2_at(uint64_t v, int32_t& spec0, int32_t& spec1) {
+  const uint32_t b0 = (uint32_t)v & 0xFFu, b1 = (uint32_t)(v >> 8) & 0xFFu;
+  const uint32_t b2 = (uint32_t)(v >> 16) & 0xFFu;
+  const uint32_t tt = b0 & 3u, l6 = b0 >> 2;
+  const uint32_t ext = l6 < 60u ? 0u : l6 - 59u, hdr = 1u + ext;
+  const uint32_t field = (uint32_t)(v >> 8);  // bytes p + 1 .. p + 4
+  const uint32_t litlen = ext == 0u ? l6 + 1u : sc::low_bytes(field, ext) + 1u;
+  const int32_t adv_l = (int32_t)(hdr + litlen);
+  const bool is_lit = tt == 0u && adv_l > 0 && adv_l < (1 << 18);
+  const int32_t off4 = (int32_t)field;
+  uint32_t off = tt == 1u ? ((b0 >> 5) << 8) | b1 : tt == 2u ? b1 | (b2 << 8) : field & 0xFFFFu;
+  if ((tt == 3u && (off4 > 0xFFFF || off4 < 0)) || tt == 0u) off = 0u;  // poisoned
+  const uint32_t adv_c = tt == 1u ? 2u : tt == 2u ? 3u : 5u;
+  const uint32_t adv = is_lit ? (uint32_t)adv_l : tt == 0u ? 1u : adv_c;
+  const uint32_t f = is_lit ? hdr : tt == 0u ? 4u : tt == 1u ? (l6 & 7u) + 4u : l6 + 1u;
+  const bool small = !is_lit && off < 8u;
+  spec0 = (int32_t)(adv | f << 18 | (uint32_t)small << 30 | (is_lit ? 0u : 0x80000000u));
+  spec1 = is_lit ? (int32_t)hdr : -(int32_t)off;
+}
+
+// Form 7's tag source for sc::decode_block_batched: lane l takes the tag at
+// ip + l from its two descriptors, each a word read through a loader (Spec:
+// sc::RingWords over sc::RowWords of the descriptor row, word p at position
+// p), in place of the decode kernel's 5-byte gather and table; the
+// preamble's bytes come from the compressed row (Row). A position at or
+// past the row's `width` descriptors reads nothing (it ends the window), so
+// the last row may end where its buffer ends. The TPU walk's one test per
+// tag (ip + adv > n, op + length > expected, a copy whose off - 1 is >= op
+// or < 0) is parse_batch's past and bad(), error 4 for any; a literal whose
+// length wraps to -4..-1 is taken as empty and its ip still advances
+// (kEmptyTags: the batch leaves it out of the tags it hands on).
+template <class Row, class Spec>
+struct DescribedTags {
+  static constexpr bool kEmptyTags = true;
+  Row row;
+  Spec s0, s1;
+  int32_t width;
+  SC_HD DescribedTags(const Row& r, const Spec& a, const Spec& b, int32_t w)
+      : row(r), s0(a), s1(b), width(w) {}
+  template <class W>
+  SC_HD void advance(const W& w, int32_t ip) {
+    s0.advance(w, 4 * ip);  // the loaders count bytes: 4 a descriptor
+    s1.advance(w, 4 * ip);
+  }
+  SC_HD uint32_t byte(int32_t i) const { return row.byte(i); }
+  SC_HD sc::LaneTag tag(int32_t p) const {
+    if (p >= width) return sc::LaneTag{(int64_t)p + 1, 0, 0, 0u, true};
+    const int32_t d0 = (int32_t)s0.word(p), d1 = (int32_t)s1.word(p);
+    const int32_t adv = d0 & 0x3FFFF, f = (int32_t)(((uint32_t)d0 >> 18) & 0x7Fu);
+    const int32_t length = d0 < 0 ? f : adv - f;
+    return sc::LaneTag{(int64_t)p + adv, p + d1, -d1, length > 0 ? (uint32_t)length : 0u,
+                       d0 >= 0};
+  }
+  SC_HD static bool bad(const sc::LaneTag& t, uint32_t opl, int32_t expected) {
+    return t.len > (uint32_t)expected - opl || (!t.lit && (t.off <= 0 || t.off > (int32_t)opl));
+  }
+  SC_HD static sc::DecodeResult result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
+                                       int32_t expected) {
+    if (err == 0 && (bad || ip != n || op != expected)) err = ERR_LEN;
+    return sc::DecodeResult{err == 0 ? expected : 0, err};
+  }
+};
 
 }  // namespace hy

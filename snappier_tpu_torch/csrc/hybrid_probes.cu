@@ -65,12 +65,29 @@
 //
 // cliff_kernel<kMode>: _cliff_kernel (wrapper cliff; modes when1, when2,
 // fori, store4, load4). The TPU looks for the body size at which chain's
-// 20 ns walk falls off a cliff. Here one thread walks, as chain_kernel,
-// with the advance array and the 16,384-word image both in shared memory
-// (the image persists across the trials, from 0x80000000 as interpret mode
-// leaves it); a conditional body is an if, the inner loop a loop. Bound: the
-// advance array in and the image out, well under a microsecond; the floor
-// is R x steps dependent shared-memory loads, plus the body's stores.
+// 20 ns walk falls off a cliff. Here one thread walks, the advance array
+// and the 16,384-word image both in shared memory (the image persists
+// across the trials, from 0x80000000 as interpret mode leaves it). Bound:
+// the advance array in and the image out, well under a microsecond; the
+// floor is R x steps dependent shared-memory loads, and the design puts
+// nothing else on that chain (hp::cliff_walk): the advances staged as byte
+// offsets (a step is a load and an add); the next step's load issued
+// before the current step's body; the body branch-free (a store it does
+// not make aimed at a dummy word past the image, fori's stores
+// predicated) with the op kept as a byte offset into the image; the loop's
+// exit tested every 4 steps on a position known ahead of the loads in
+// flight; the advance array and the image passed as disjoint
+// (__restrict__) arrays, so that nvcc may move the next load above the
+// body's stores. The staged copy is 0 at and past n and reaches past n by
+// the largest advance below n (the wrapper computes it), so a step past
+// the end keeps ip and its load stays inside. The trials run one after
+// another, each store in the TPU's order. A body of more instructions than
+// the load's latency holds (fori's 7 stores) is bound by the one thread's
+// issue instead (PERF.md).
+//
+// cliff_kernel<kChase> (wrapper chase): the same walk with no body, the
+// floor measured: T10 chain's function (the sum of the final ip) on the
+// same staged advances and trials. A yardstick, not a TPU kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -240,18 +257,31 @@ __global__ void bprobe_kernel(int32_t seed, int32_t* __restrict__ out,
 }
 
 template <int kMode>
-__global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t words, int32_t n,
+__global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t n, int32_t staged,
                              int32_t start, int32_t R, int32_t* __restrict__ out,
                              int32_t* __restrict__ img_out) {
   extern __shared__ __align__(16) int32_t smem[];
   int32_t* adv_s = smem;
-  uint32_t* img = reinterpret_cast<uint32_t*>(smem + ((words + 3) & ~3));
-  for (int32_t i = threadIdx.x; i < words; i += blockDim.x) adv_s[i] = adv[i];
-  for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) img[i] = hp::kFill;
+  uint32_t* img = reinterpret_cast<uint32_t*>(smem + staged);
+  for (int32_t i = threadIdx.x; i < staged; i += blockDim.x) {
+    adv_s[i] = hp::cliff_staged(adv, n, i);
+  }
+  if (kMode != hp::kChase) {
+    for (int32_t i = threadIdx.x; i < hp::kCliffImageWords; i += blockDim.x) {
+      img[i] = hp::kFill;
+    }
+  }
   __syncthreads();
-  if (threadIdx.x == 0) out[0] = hp::cliff_walk<kMode>(adv_s, n, start, R, img);
-  __syncthreads();
-  for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) img_out[i] = (int32_t)img[i];
+  if (threadIdx.x == 0) {
+    const uint32_t sum = (uint32_t)hp::cliff_walk<kMode>(adv_s, n, start, R, img);
+    out[0] = (int32_t)(kMode == hp::kChase ? sum : sum + img[0]);
+  }
+  if (kMode != hp::kChase) {
+    __syncthreads();
+    for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) {
+      img_out[i] = (int32_t)img[i];
+    }
+  }
 }
 
 template <class Kernel>
@@ -369,18 +399,19 @@ extern "C" int probe_bprobe_launch(int32_t nwhen, int32_t seed, void* out, void*
   return (int)cudaGetLastError();
 }
 
-// adv: int32[words] (the walk reads adv[start:n]); out: int32[1]; img_out:
-// int32[16384]; mode: hp::CliffMode.
-extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int64_t words, int32_t n,
+// adv: int32[n] and more (the walk reads adv[start:n]); staged: the words
+// of its staged copy (hybrid_probes.py::cliff_staged_words); out: int32[1]; img_out:
+// int32[16384]; mode: hp::CliffMode, kChase excluded.
+extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int32_t staged,
                                   int32_t start, int32_t R, void* out, void* img_out,
                                   void* stream) {
-  const size_t smem = ((size_t)((words + 3) & ~3) + hp::kImageWords) * 4;
+  const size_t smem = ((size_t)staged + hp::kCliffImageWords) * 4;
 #define PROBE_CASE(M)                                                                        \
   case M: {                                                                                  \
     int e = set_smem(cliff_kernel<M>, smem);                                                 \
     if (e != 0) return e;                                                                    \
     cliff_kernel<M><<<1, 256, smem, (cudaStream_t)stream>>>(                                 \
-        (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)img_out); \
+        (const int32_t*)adv, n, staged, start, R, (int32_t*)out, (int32_t*)img_out);         \
     break;                                                                                   \
   }
   switch (mode) {
@@ -393,5 +424,17 @@ extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int64_t words, 
       return (int)cudaErrorInvalidValue;
   }
 #undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+// The chase: cliff's walk with no body over the same staged copy; out:
+// int32[1], the sum of the trials' final ip.
+extern "C" int probe_chase_launch(const void* adv, int32_t n, int32_t staged, int32_t start,
+                                  int32_t R, void* out, void* stream) {
+  const size_t smem = (size_t)staged * 4;
+  int e = set_smem(cliff_kernel<hp::kChase>, smem);
+  if (e != 0) return e;
+  cliff_kernel<hp::kChase><<<1, 256, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)adv, n, staged, start, R, (int32_t*)out, nullptr);
   return (int)cudaGetLastError();
 }

@@ -214,64 +214,119 @@ SC_HD uint32_t bprobe_step(uint32_t* scratch, uint32_t t) {
   return (uint32_t)x;
 }
 
-// --- cliff (_cliff_kernel) ---------------------------------------------------
+// --- cliff (_cliff_kernel) and the chase ------------------------------------
 
 // chain's walk with a body per tag that writes a 16,384-word image, which
-// persists across the trials.
-enum CliffMode { kCliffWhen1 = 0, kCliffWhen2, kCliffFori, kCliffStore4, kCliffLoad4 };
+// persists across the trials; kChase is the same walk with no body (chain's
+// function, the latency floor the cliff modes are held to).
+enum CliffMode { kCliffWhen1 = 0, kCliffWhen2, kCliffFori, kCliffStore4, kCliffLoad4, kChase };
 constexpr uint32_t kCliffMask = kImageWords - 1;
+constexpr uint32_t kCliffBytes = 4u * kCliffMask;  // a word's byte offset in the image, masked
+constexpr int32_t kCliffImageWords = kImageWords + 4;  // the image, the dummy, 16-byte groups
+constexpr int kCliffUnroll = 4;  // steps between two exit tests
 
+// The advance array as the walk stages it: word i holds 4 * adv[i] below n
+// (a byte offset, so that a step is a load and an add) and 0 at and past n
+// (a step there keeps ip where it is). The staged copy holds the advance
+// array's own words and room past n for the largest advance below n, so
+// that the load a walk issues at its final ip lies inside
+// (ops/cuda/hybrid_probes.py::cliff_staged_words).
+SC_HD int32_t cliff_staged(const int32_t* adv, int32_t n, int32_t i) {
+  return i < n ? 4 * adv[i] : 0;
+}
+
+// The image word at byte offset x (masked to the image) where `on`, else
+// the dummy word past the image: a select, no branch.
+SC_HD uint32_t& cliff_word(uint32_t* img, uint32_t x, bool on = true) {
+  const uint32_t at = on ? x & kCliffBytes : 4u * kImageWords;
+  return *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(img) + at);
+}
+
+// One step's body at ip, op (as the byte offset o4 = 4 * op) and advance a
+// (unscaled; a4 = 4 * a); `live` is false for a step past the end (a is 0
+// there). No branch: a store the body does not make goes to the dummy word
+// (when1, when2, store4 past the end), except fori's, whose 7 stores,
+// unrolled over a & 7 with the TPU's carry, are each predicated on its
+// index. load4 past the end stores back the two words it loaded.
 template <int kMode>
-SC_HD void cliff_body(uint32_t* img, int32_t ip, int32_t op, int32_t a) {
-  const uint32_t o = (uint32_t)op, ua = (uint32_t)a, ui = (uint32_t)ip;
+SC_HD void cliff_body(uint32_t* __restrict__ img, uint32_t ui, uint32_t o4, uint32_t ua,
+                      uint32_t a4, bool live) {
   if (kMode == kCliffWhen1) {
-    if (a > 3) img[o & kCliffMask] = ua;
+    cliff_word(img, o4, ua > 3u) = ua;
   } else if (kMode == kCliffWhen2) {
-    if (a > 2) {
-      img[o & kCliffMask] = ua;
-      img[(o + 1) & kCliffMask] = ua ^ ui;
-      if (a > 13) {
-        img[(o + 2) & kCliffMask] = ua + ui;
-        img[(o + 3) & kCliffMask] = ua - ui;
-      }
-    }
+    const bool s2 = ua > 2u, s4 = ua > 13u;
+    cliff_word(img, o4, s2) = ua;
+    cliff_word(img, o4 + 4u, s2) = ua ^ ui;
+    cliff_word(img, o4 + 8u, s4) = ua + ui;
+    cliff_word(img, o4 + 12u, s4) = ua - ui;
   } else if (kMode == kCliffFori) {
-    if (a > 2) {
-      uint32_t carry = ua;
-      for (uint32_t k = 0; k < (ua & 7); k++) {
-        img[(o + k) & kCliffMask] = carry + k;
-        carry ^= k;
-      }
+    const uint32_t cnt = ua > 2u ? ua & 7u : 0u;
+    uint32_t carry = ua;
+#pragma unroll
+    for (uint32_t k = 0; k < 7u; k++) {
+      if (k < cnt) cliff_word(img, o4 + 4u * k) = carry + k;
+      carry ^= k;
     }
   } else if (kMode == kCliffStore4) {
-    img[o & kCliffMask] = ua;
-    img[(o + 1) & kCliffMask] = ua ^ ui;
-    img[(o + 2) & kCliffMask] = ua + ui;
-    img[(o + 3) & kCliffMask] = ua - ui;
-  } else {  // load4: both loads before both stores
-    const uint32_t s0 = img[(o - ua) & kCliffMask], s1 = img[(o - ua + 1) & kCliffMask];
-    img[o & kCliffMask] = s0;
-    img[(o + 1) & kCliffMask] = s1;
+    cliff_word(img, o4, live) = ua;
+    cliff_word(img, o4 + 4u, live) = ua ^ ui;
+    cliff_word(img, o4 + 8u, live) = ua + ui;
+    cliff_word(img, o4 + 12u, live) = ua - ui;
+  } else if (kMode == kCliffLoad4) {  // both loads before both stores
+    const uint32_t s0 = cliff_word(img, o4 - a4), s1 = cliff_word(img, o4 - a4 + 4u);
+    cliff_word(img, o4) = s0;
+    cliff_word(img, o4 + 4u) = s1;
   }
 }
 
-// R trials from start + (r & 1); the sum of each trial's final ip and step
-// count, plus img[0] after the last.
+// R trials from start + (r & 1), one after another, over the staged
+// advances adv4 (cliff_staged); returns the sum of each trial's final ip
+// and, but for kChase, its step count. The image (disjoint from adv4) takes
+// the bodies' stores in the TPU's order.
+//
+// The chain of a step is one shared-memory load and an add: the next step's
+// advance is loaded (at the byte offset p + a4) before this step's body
+// runs, so the body's compares, stores and loads issue in that load's
+// shadow. The loop tests for the end once every kCliffUnroll steps, on the
+// position before the group's last step (known before the loads in flight
+// return; at the end a group past it is steps that keep ip); steps past the
+// end load the staged 0 at the final ip, keep it, count nothing and store
+// nothing.
 template <int kMode>
-SC_HD int32_t cliff_walk(const int32_t* adv, int32_t n, int32_t start, int32_t R, uint32_t* img) {
+SC_HD int32_t cliff_walk(const int32_t* __restrict__ adv4, int32_t n, int32_t start, int32_t R,
+                         uint32_t* __restrict__ img) {
+  const char* base = reinterpret_cast<const char*>(adv4);
+  const int32_t end4 = 4 * n;
   uint32_t acc = 0;
   for (int32_t r = 0; r < R; r++) {
-    int32_t ip = start + (r & 1), op = 0, t = 0;
-    while (ip < n) {
-      const int32_t a = adv[ip];
-      cliff_body<kMode>(img, ip, op, a);
-      ip += a;
-      op += a;
-      t++;
+    const int32_t ip0 = start + (r & 1);
+    if (ip0 >= n) {
+      acc += (uint32_t)ip0;
+      continue;
     }
-    acc += (uint32_t)ip + (uint32_t)t;
+    int32_t p = 4 * ip0;
+    int32_t a4 = *reinterpret_cast<const int32_t*>(base + p);
+    uint32_t o4 = 0, t = 0;
+    bool done = false;
+    while (!done) {
+#pragma unroll
+      for (int j = 0; j < kCliffUnroll; j++) {
+        const int32_t q = p + a4;
+        const int32_t a4n = *reinterpret_cast<const int32_t*>(base + q);
+        if (kMode != kChase) {
+          const bool live = p < end4;
+          cliff_body<kMode>(img, (uint32_t)p >> 2, o4, (uint32_t)a4 >> 2, (uint32_t)a4, live);
+          o4 += (uint32_t)a4;
+          t += live ? 1u : 0u;
+        }
+        if (j == kCliffUnroll - 2) done = q >= end4;
+        p = q;
+        a4 = a4n;
+      }
+    }
+    acc += ((uint32_t)p >> 2) + t;
   }
-  return (int32_t)(acc + img[0]);
+  return (int32_t)acc;
 }
 
 // --- bitonic (_bitonic_kernel) -----------------------------------------------

@@ -401,29 +401,92 @@ struct Batch {
   bool bad;        // a tag failed its checks: the block is malformed
 };
 
+// The walk's verdict once it stopped at ip after op output bytes.
+SC_HD DecodeResult walk_result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
+                               int32_t expected) {
+  if (err == 0 && (bad || ip != n)) err = ERR_MALFORMED;
+  if (err == 0 && op != expected) err = ERR_LENGTH_MISMATCH;
+  DecodeResult r;
+  r.err = err;
+  r.out_len = err == 0 ? expected : 0;
+  return r;
+}
+
+// The tag that would start at byte p, as the batched walk sees it.
+struct LaneTag {
+  int64_t next;  // where the tag after it starts
+  int32_t at;    // a literal's first payload byte
+  int32_t off;   // a copy's offset
+  uint32_t len;  // its output bytes
+  bool lit;
+};
+
+// The decode kernel's tag source: the tag at each byte parsed from the row
+// through a loader (RowBytes, RingWords; in.advance(w, ip) readies the input
+// ahead of each batch, byte(i) reads the preamble) and the 256-entry table
+// lut of tag_entry(t). A tag is checked as one tag at a time would be
+// (scalar_codec.py:409-424): one unsigned compare rejects lengths past the
+// remaining output, negative lengths and the length-0 wrap; a copy's offset
+// must lie in (0, op]. Every mid-stream failure is ERR_MALFORMED.
+template <class Ld>
+struct ParsedTags {
+  static constexpr bool kEmptyTags = false;  // a tag of no output fails its check
+  Ld in;
+  const uint32_t* lut;
+  SC_HD ParsedTags(const Ld& in_, const uint32_t* lut_) : in(in_), lut(lut_) {}
+  template <class W>
+  SC_HD void advance(const W& w, int32_t ip) { in.advance(w, ip); }
+  SC_HD uint32_t byte(int32_t i) const { return in.byte(i); }
+  // Its 5 header bytes from two words of the row, then lut. A 4-byte length
+  // field keeps all 32 bits and wraps exactly as the int32 reference does;
+  // a 4th offset byte >= 0x80 is negative: bad.
+  SC_HD LaneTag tag(int32_t p) const {
+    const uint64_t v = bytes_at(in, p);
+    const uint32_t rest = (uint32_t)(v >> 8);
+    const uint32_t e = lut[(uint32_t)v & 0xFFu];
+    const int32_t hdr = (int32_t)(e & 7u);
+    LaneTag t;
+    t.lit = (e >> 27) & 1u;
+    t.len = ((e >> 3) & 127u) + low_bytes(rest, (e >> 10) & 7u);
+    t.next = (int64_t)p + hdr + (t.lit ? (int64_t)(int32_t)t.len : 0);
+    t.off = (int32_t)(((e >> 16) & 0x7FFu) + low_bytes(rest, (e >> 13) & 7u));
+    t.at = p + hdr;
+    return t;
+  }
+  // A tag that starts after opl output bytes of the claimed `expected`.
+  SC_HD static bool bad(const LaneTag& t, uint32_t opl, int32_t expected) {
+    return t.len - 1u >= (uint32_t)expected - opl ||
+           (!t.lit && (t.off <= 0 || t.off > (int32_t)opl));
+  }
+  SC_HD static DecodeResult result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
+                                   int32_t expected) {
+    return walk_result(err, bad, ip, n, op, expected);
+  }
+};
+
 // Parse the batch of tags that start in the window of kLanes bytes at ip
-// (ip < n, op bytes written so far of the claimed `expected`).
+// (ip < n, op bytes written so far of the claimed `expected`) from the tag
+// source src (ParsedTags; decode_hybrid.cuh's DescribedTags).
 //
-// Lane l decodes the tag that would start at ip + l (its 5 header bytes
-// from two words of `in`, then lut). The chain of real tag starts from lane
-// 0 is resolved by pointer doubling over the lanes' successors: a tag
-// advances at least 2 bytes, so a window holds at most kLanes / 2 tags and
-// log2 of that many rounds of three gathers suffice; the same rounds give
-// each tag the output length from it to the end of the chain, and so its
-// output offset. The batch ends at the first tag whose successor leaves the
-// window (a long literal, the end of the block). Each tag is checked against
-// its own op as one tag at a time would be (scalar_codec.py:409-424): one
-// unsigned compare rejects lengths past the remaining output, negative
-// lengths and the length-0 wrap; a copy's offset must lie in (0, op]; a tag
-// may not end past n. The first bad tag fails the block.
+// Lane l takes the tag that would start at ip + l (src.tag). The chain of
+// real tag starts from lane 0 is resolved by pointer doubling over the
+// lanes' successors: a tag advances at least 2 bytes, so a window holds at
+// most kLanes / 2 tags and log2 of that many rounds of three gathers
+// suffice; the same rounds give each tag the output length from it to the
+// end of the chain, and so its output offset. The batch ends at the first
+// tag whose successor leaves the window (a long literal, the end of the
+// block). Each tag is checked against its own op (src.bad) and may not end
+// past n. The first bad tag fails the block.
 //
 // On return lane k < ntags holds tag k's output offset in the batch (start)
 // and the source of its bytes (delta): output byte x of the batch (0 at the
 // batch's first byte) is compressed byte x + delta of a literal, and output
 // byte x + delta of a copy (x - off: what a forward byte-serial copy reads).
-template <class W, class Ld>
-SC_HD Batch parse_batch(const W& w, const Ld& in, const uint32_t* lut, int32_t ip, int32_t op,
-                        int32_t n, int32_t expected, LanesOf<W, int32_t>& delta,
+// A source whose tags may have no output (Src::kEmptyTags) leaves them out
+// of the ntags tags handed on.
+template <class W, class Src>
+SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int32_t n,
+                        int32_t expected, LanesOf<W, int32_t>& delta,
                         LanesOf<W, uint32_t>& start) {
   constexpr int N = W::kLanes;
   LanesOf<W, int32_t> succ, nxt, off, at, from;
@@ -431,25 +494,17 @@ SC_HD Batch parse_batch(const W& w, const Ld& in, const uint32_t* lut, int32_t i
   LanesOf<W, bool> lit, past, flag;
   w.each([&](int l) {
     const int32_t p = ip + l;
-    const uint64_t v = bytes_at(in, p);
-    const uint32_t rest = (uint32_t)(v >> 8);
-    const uint32_t e = lut[(uint32_t)v & 0xFFu];
-    const int32_t hdr = (int32_t)(e & 7u);
-    const bool is_lit = (e >> 27) & 1u;
-    const uint32_t ln = ((e >> 3) & 127u) + low_bytes(rest, (e >> 10) & 7u);
-    // A 4-byte length field keeps all 32 bits and wraps exactly as the
-    // int32 reference does; a 4th offset byte >= 0x80 is negative: bad.
-    const int64_t next = (int64_t)p + hdr + (is_lit ? (int64_t)(int32_t)ln : 0);
-    const int64_t d = next - ip;
-    succ[l] = (next > p && next < n && d < N) ? (int32_t)d : N;
-    nxt[l] = (int32_t)next;  // read only where next <= n
-    off[l] = (int32_t)(((e >> 16) & 0x7FFu) + low_bytes(rest, (e >> 13) & 7u));
-    at[l] = p + hdr;
-    len[l] = ln;
-    lit[l] = is_lit;
-    past[l] = next > n;
+    const LaneTag t = src.tag(p);
+    const int64_t d = t.next - ip;
+    succ[l] = (t.next > p && t.next < n && d < N) ? (int32_t)d : N;
+    nxt[l] = (int32_t)t.next;  // read only where next <= n
+    off[l] = t.off;
+    at[l] = t.at;
+    len[l] = t.len;
+    lit[l] = t.lit;
+    past[l] = t.next > n;
     reach[l] = 1u << l;
-    sum[l] = ln;
+    sum[l] = t.len;
   });
   // The chain: reach[l] gathers the tag starts of 2^k hops from l, sum[l]
   // their output lengths, succ[l] the lane 2^k hops on.
@@ -468,20 +523,25 @@ SC_HD Batch parse_batch(const W& w, const Ld& in, const uint32_t* lut, int32_t i
   const uint32_t chain = w.read(reach, 0);
   Batch bt;
   bt.total = w.read(sum, 0);
-  bt.ntags = popc(chain);
   w.each([&](int l) {
     const uint32_t o = bt.total - sum[l];  // output before this tag, mod 2^32
     const uint32_t opl = (uint32_t)op + o;
-    const bool b = past[l] || len[l] - 1u >= (uint32_t)expected - opl ||
-                   (!lit[l] && (off[l] <= 0 || off[l] > (int32_t)opl));
+    const LaneTag t{0, 0, off[l], len[l], lit[l]};
+    const bool b = past[l] || Src::bad(t, opl, expected);
     sum[l] = o;
     at[l] = lit[l] ? at[l] - (int32_t)o : (int32_t)((uint32_t)op - (uint32_t)off[l]);
     flag[l] = ((chain >> l) & 1u) && b;
   });
   bt.bad = w.ballot(flag) != 0;
   bt.next = w.read(nxt, top_bit(chain));
+  uint32_t kept = chain;
+  if (Src::kEmptyTags) {
+    w.each([&](int l) { flag[l] = len[l] != 0u; });
+    kept &= w.ballot(flag);
+  }
+  bt.ntags = popc(kept);
   // Tag k's fields move to lane k.
-  w.each([&](int l) { from[l] = nth_bit(chain, l < bt.ntags ? l : bt.ntags - 1); });
+  w.each([&](int l) { from[l] = nth_bit(kept, l < bt.ntags ? l : bt.ntags - 1); });
   delta = w.gather(at, from);
   start = w.gather(sum, from);
   const LanesOf<W, bool> tl = w.gather_bool(lit, from);
@@ -589,56 +649,53 @@ SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uin
   }
 }
 
-// The walk's verdict once it stopped at ip after op output bytes.
-SC_HD DecodeResult walk_result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
-                               int32_t expected) {
-  if (err == 0 && (bad || ip != n)) err = ERR_MALFORMED;
-  if (err == 0 && op != expected) err = ERR_LENGTH_MISMATCH;
-  DecodeResult r;
-  r.err = err;
-  r.out_len = err == 0 ? expected : 0;
-  return r;
-}
-
 // Decode one Snappy block: varint preamble, then the tags, a batch of them
-// per warp step: parse_batch, then step(in, bt, op, delta, start) with the
-// batch that passed its checks, the output offset where it starts and
-// parse_batch's per-lane results. A warp that writes its own batches passes
-// a step that calls emit_batch; the decode kernel's parsing warp passes one
-// that hands the batch to its writing warp.
+// per warp step: parse_batch over the tag source src, then step(bt, op,
+// delta, start) with the batch that passed its checks, the output offset
+// where it starts and parse_batch's per-lane results (a batch with no
+// output is not handed on). A warp that writes its own batches passes a
+// step that calls emit_batch; the decode kernels' parsing warp passes one
+// that hands the batch to its writing warp. kUnits batches are parsed a
+// loop iteration (decode_hybrid.cu's unroll2 takes 2), to the same result.
 //
-// in is a row loader (RowBytes, RingWords) over the block's row of cc
-// bytes, its n the row's width: bytes at or past it read as zero (the JAX
-// key image pads the same way) and are never read; in.advance(w, ip)
-// readies the input ahead of each batch. n here is the block's compressed
-// length, out_cap the caller's capacity: a preamble claiming more is
-// ERR_BAD_PREAMBLE. Bytes of the output past out_len are unspecified (a
-// failed walk may have written some). lut holds tag_entry(t) for t in
-// [0, 256). Every mid-stream failure is ERR_MALFORMED, as the JAX scalar
-// kernel reports it.
-template <class W, class Ld, class Step>
-SC_HD DecodeResult decode_block_batched(const W& w, Ld in, int32_t n, int32_t out_cap,
-                                        const uint32_t* lut, Step step) {
+// src reads the block's row of cc bytes, bytes at or past its width read as
+// zero (the JAX key image pads the same way) and never read; src.advance(w,
+// ip) readies the input ahead of each batch. n here is the block's
+// compressed length, out_cap the caller's capacity: a preamble claiming
+// more is ERR_BAD_PREAMBLE. Bytes of the output past out_len are
+// unspecified (a failed walk may have written some). src.result gives the
+// verdict (ParsedTags: every mid-stream failure is ERR_MALFORMED, as the JAX
+// scalar kernel reports it).
+template <int kUnits = 1, class W, class Src, class Step>
+SC_HD DecodeResult decode_block_batched(const W& w, Src src, int32_t n, int32_t out_cap,
+                                        Step step) {
   int32_t pre_len, expected, op = 0, ip = 0;
-  const int32_t err = read_preamble(in, n, out_cap, &pre_len, &expected);
+  const int32_t err = read_preamble(src, n, out_cap, &pre_len, &expected);
   bool bad = false;
   if (err == 0) {
     LanesOf<W, int32_t> delta;
     LanesOf<W, uint32_t> start;
-    for (ip = pre_len; ip < n;) {
-      in.advance(w, ip);
-      const Batch bt = parse_batch(w, in, lut, ip, op, n, expected, delta, start);
+    // One batch; false once the walk stops (a bad tag, the end).
+    auto unit = [&]() -> bool {
+      src.advance(w, ip);
+      const Batch bt = parse_batch(w, src, ip, op, n, expected, delta, start);
       if (bt.bad) {
         bad = true;
-        break;
+        return false;
       }
       w.batch(bt.ntags);
-      step(in, bt, op, delta, start);
+      if (!Src::kEmptyTags || bt.total != 0u) step(bt, op, delta, start);
       op += (int32_t)bt.total;
       ip = bt.next;
+      return ip < n;
+    };
+    for (ip = pre_len; ip < n;) {
+      bool go = unit();
+      for (int u = 1; u < kUnits && go; u++) go = unit();
+      if (!go) break;
     }
   }
-  return walk_result(err, bad, ip, n, op, expected);
+  return src.result(err, bad, ip, n, op, expected);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The descriptor-driven block decode (port of the decode kernels of
-``tools/perf_probe_hybrid.py``): a tensor pre-pass computes, for every byte
+``tools/perf_probe_hybrid.py``): a pre-pass computes, for every byte
 position of a compressed row, the descriptor of the tag that would start
 there, and a walk reads one descriptor per tag.
 
@@ -17,7 +17,10 @@ leaves them to XLA; each bit-equal to its JAX function):
   ``spec0 = adv:18 | F:7 << 18 | small << 30 | is_copy << 31`` (``F`` the
   header length of a literal, the length of a copy) and ``spec1``, the
   source relative to ``ip`` (a literal) or ``op`` (a copy, ``-off``); a
-  poisoned position is a copy of offset 0.
+  poisoned position is a copy of offset 0. It is the plain version of
+  :func:`prepass_v7`, the same descriptors from a kernel
+  (``csrc/decode_hybrid.cu``: a thread a word of a row, int32 arithmetic,
+  ``hy::spec2_at``), which ``decode_v7`` runs on the card.
 
 The pre-passes compute in int64 and wrap to int32 where the JAX functions
 wrap (``b4 << 24``, sums of a 4-byte literal length), so that no shift is
@@ -37,9 +40,14 @@ Walks (``csrc/decode_hybrid.cu`` over ``csrc/decode_hybrid.cuh``):
   :func:`spec_from_words`. The TPU clamps a bad tag's append instead of
   skipping it, to save a branch; its output is discarded all the same, so
   the port stops at the first bad tag;
-- :func:`decode_v7` (``_decode_kernel_v7``, ``unroll2`` its two-tags-a-loop
-  form, ``v7u`` in the tool): over :func:`spec2_from_words`, one validity
-  flag per tag, error 4 for any bad tag, 8 for the preamble.
+- :func:`decode_v7` (``_decode_kernel_v7``, ``unroll2`` its two-units-a-loop
+  form, ``v7u`` in the tool): over :func:`prepass_v7`, one validity test
+  per tag, error 4 for any bad tag, 8 for the preamble. Its walk is the
+  decode kernel's (``csrc/decode.cu``): a batch of tags a warp step, lane
+  ``l`` taking its tag from the descriptors at ``ip + l``, two warps a
+  block and only the output image in shared memory
+  (:func:`decode_v7_layout`); ``unroll2`` parses two batches a loop
+  iteration.
 
 Each wrapper takes ``(comp [B, CC] uint8 or int32, comp_lens [B], out_cap)``
 and returns ``(out uint8 [B, out_cap], out_lens int32 [B], errs int32
@@ -61,8 +69,9 @@ Divergences from the TPU functions, by design:
   would take the position below 0, the TPU walk writes into its input image.
   ``decode_v5`` gives error 4 for such a tag instead.
 - The JAX wrappers assert ``CC % 1024 == 0`` and ``out_cap % 1024 == 0``
-  (their DMA tiling). The port takes any shape whose image fits one
-  block's shared memory and raises on one that does not. Lengths outside
+  (their DMA tiling). The port takes any shape whose shared memory fits a
+  block (``v5`` and ``v6`` stage the row beside the image; ``v7`` holds
+  the image alone) and raises on one that does not. Lengths outside
   ``[0, CC]`` are taken as 0 or ``CC``.
 """
 
@@ -76,7 +85,7 @@ from snappier_tpu_torch.constants import BLOCK_SIZE
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda._tensors import byte_rows, lengths_vector, on_cuda
 from snappier_tpu_torch.ops.cuda.decode_variants import read_preamble
-from snappier_tpu_torch.ops.cuda.scalar_codec import MAX_OUT_CAP
+from snappier_tpu_torch.ops.cuda.scalar_codec import MAX_OUT_CAP, _layout
 
 ERR_TRUNC = 2  # the tag overruns the input
 ERR_OFF = 3  # copy offset 0, beyond the output, or poisoned
@@ -86,6 +95,10 @@ ERR_LEN = 4  # the tag overruns the claim, a poisoned literal, a short walk
 FORMS = {"v5": (5, "decode_v5"), "v6": (6, "decode_v6"), "v7": (7, "decode_v7")}
 
 _LIT_POISON = 1 | (7 << 18)
+#: Static shared memory of a ``decode_v7`` block (``csrc/decode_hybrid.cu``):
+#: two descriptor rings of 1 KiB and the queue of ``csrc/batched_decode.cuh``
+#: (four slots of 284 bytes, two counters, the result).
+V7_STATIC_SMEM = 2 * 1024 + 4 * 284 + 8 + 8
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -291,29 +304,66 @@ def decode_hybrid_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
 
 
 def smem_bytes(row_bytes: int, out_cap: int) -> int:
-    """Dynamic shared memory of one block: the staged row and the output
-    image; mirrors ``smem_bytes`` in ``csrc/decode_hybrid.cu``."""
+    """Dynamic shared memory of one block of ``v5`` and ``v6``: the staged
+    row and the output image; mirrors ``smem_bytes`` in
+    ``csrc/decode_hybrid.cu``."""
     comp_words = ((row_bytes + 3) // 4 + 2 + 3) & ~3
     out_words = ((out_cap + 3) // 4 + 4 + 3) & ~3
     return 4 * (comp_words + out_words)
+
+
+def v7_smem_bytes(out_cap: int) -> int:
+    """Shared memory of one ``decode_v7`` block, dynamic and static: the
+    output image alone, whatever the row's width."""
+    return ((out_cap + 15) & ~15) + V7_STATIC_SMEM
+
+
+def prepass_v7(comp):
+    """``decode_v7``'s descriptors ``(spec0, spec1)``, int32 [B, CC] each, of
+    byte rows [B, CC] (uint8 or int32 byte values). A CUDA tensor launches
+    the pre-pass kernel (counted as ``prepass_v7``); a CPU tensor runs its
+    plain version, :func:`spec2_from_words` of :func:`pack_words`."""
+    comp = byte_rows(comp, "comp")
+    B, cc = comp.shape
+    if not on_cuda(comp):
+        return spec2_from_words(pack_words(comp), cc)
+    spec0 = torch.empty((B, cc), dtype=torch.int32, device=comp.device)
+    spec1 = torch.empty((B, cc), dtype=torch.int32, device=comp.device)
+    _build.launch("prepass_v7", comp.device, comp.data_ptr(), cc, B, spec0.data_ptr(),
+                  spec1.data_ptr())
+    return spec0, spec1
+
+
+def decode_v7_layout(comp, out_cap: int = BLOCK_SIZE) -> dict:
+    """``decode_v7``'s launch layout for these rows: ``blocks_per_sm`` (the
+    CUDA occupancy calculator's count under the attributes the launch sets),
+    ``smem_bytes`` per block (dynamic and static), ``threads`` and the
+    compressed row's ``loader`` (``"words"`` for a base and width that are
+    multiples of 4, else ``"bytes"``), in the manner of
+    ``scalar_codec.decode_layout``."""
+    comp = byte_rows(comp, "comp")
+    _check_fit("v7", comp.shape[1], int(out_cap))
+    return _layout("decode_v7_layout", comp, int(out_cap), loaders=("words", "bytes"))
 
 
 def _prepass(comp: torch.Tensor, form: str):
     """The form's descriptors of uint8 rows: (spec0, spec1 or None)."""
     if form == "v5":
         return spec_from_comp(comp), None
-    words = pack_words(comp)
     if form == "v6":
-        return spec_from_words(words, comp.shape[1]), None
-    return spec2_from_words(words, comp.shape[1])
+        return spec_from_words(pack_words(comp), comp.shape[1]), None
+    return prepass_v7(comp)
 
 
-def _check_fit(row_bytes: int, out_cap: int) -> None:
-    if out_cap <= 0 or smem_bytes(row_bytes, out_cap) > MAX_OUT_CAP:
-        raise ValueError(
-            f"a row of {row_bytes} bytes and out_cap {out_cap} do not fit one block's shared "
-            f"memory ({smem_bytes(row_bytes, out_cap)} of {MAX_OUT_CAP} bytes)"
-        )
+def _check_fit(form: str, row_bytes: int, out_cap: int) -> None:
+    if form == "v7":
+        need, what = v7_smem_bytes(out_cap), f"out_cap {out_cap} does"
+    else:
+        need = smem_bytes(row_bytes, out_cap)
+        what = f"a row of {row_bytes} bytes and out_cap {out_cap} do"
+    if out_cap <= 0 or need > MAX_OUT_CAP:
+        raise ValueError(f"{what} not fit one block's shared memory ({need} of {MAX_OUT_CAP} "
+                         "bytes)")
 
 
 def _launch(form: str, unroll2: bool, rows: torch.Tensor, spec0: torch.Tensor, spec1,
@@ -336,7 +386,7 @@ def _decode(comp, comp_lens, out_cap: int, form: str, unroll2: bool = False):
     B, cc = comp.shape
     lens = lengths_vector(comp_lens, B, "comp_lens")
     out_cap = int(out_cap)
-    _check_fit(cc, out_cap)
+    _check_fit(form, cc, out_cap)
     if not on_cuda(comp, lens):
         return decode_hybrid_plain(comp, lens, out_cap, form)
     spec0, spec1 = _prepass(comp, form)
@@ -356,9 +406,10 @@ def decode_v6(comp, comp_lens, out_cap: int = BLOCK_SIZE):
 
 
 def decode_v7(comp, comp_lens, out_cap: int = BLOCK_SIZE, unroll2: bool = False):
-    """Block decode over the two arrays of :func:`spec2_from_words`, one
-    validity flag per tag, error 4 for any bad tag; ``unroll2`` takes two
-    tags per loop iteration (``tools/perf_probe_hybrid.py::decode_v7``)."""
+    """Block decode over the two arrays of :func:`prepass_v7`, one validity
+    test per tag, error 4 for any bad tag; ``unroll2`` takes two units of
+    the walk per loop iteration, two batches on the card
+    (``tools/perf_probe_hybrid.py::decode_v7``)."""
     return _decode(comp, comp_lens, out_cap, "v7", bool(unroll2))
 
 
@@ -379,7 +430,7 @@ def decode_v5_spec(words, spec, comp_lens, out_cap: int = BLOCK_SIZE):
     out_cap = int(out_cap)
     rows = words.contiguous().view(torch.uint8)
     spec = spec.contiguous()
-    _check_fit(rows.shape[1], out_cap)
+    _check_fit("v5", rows.shape[1], out_cap)
     if not on_cuda(rows, spec, lens):
         return walk_plain(rows, spec, None, lens, out_cap, "v5")
     return _launch("v5", False, rows, spec, None, lens, out_cap, "decode_v5_parts")

@@ -54,6 +54,10 @@ Probes (``csrc/hybrid_probes.cu`` and ``csrc/bitonic_probe.cu`` over
   ``R`` trials; returns ``(checksum int32 [1], image int32 [16384])``, the
   checksum the sum of each trial's final ``ip`` and step count plus
   ``image[0]``;
+- :func:`chase`: ``cliff``'s walk with no body, ``chain``'s function (the
+  sum of the final ``ip``, int32 [1]) on the same kernel layout: the latency
+  floor the ``cliff`` modes are held to, a yardstick and not a TPU kernel
+  (counted as ``chase``);
 - :func:`bitonic` (``_bitonic_kernel``): one merge pass (16 stages, ``j =
   32768 ... 1``, ``k = 15``) of a bitonic network over 65,536 int32 keys and
   their indices; returns ``(keys, vals)``, both int32 [512, 128].
@@ -100,8 +104,10 @@ Divergences from the TPU functions, by design:
   every word but ``scratch[0] = seed``. The kernel is built for ``nwhen`` in
   :data:`BPROBE_NWHEN` and refuses any other on the card; the plain version
   takes 0-31 (a shift by 32 or more is not defined on the TPU).
-- ``cliff`` refuses what ``chain`` refuses, and an advance array that with
-  the image does not fit one block's shared memory.
+- ``cliff`` and ``chase`` refuse what ``chain`` refuses, and an advance
+  array whose staged copy (its own words, and past ``n`` room for the
+  largest advance below ``n``: :func:`cliff_staged_words`) with the image
+  does not fit one block's shared memory.
 - ``bitonic`` returns the indices beside the keys; the TPU computes and
   drops them.
 """
@@ -661,10 +667,34 @@ def launch_bprobe(nwhen: int, seed: int, device):
     return out, scratch
 
 
-def cliff_smem_bytes(adv_words: int) -> int:
-    """Dynamic shared memory of :func:`cliff`'s block; mirrors
-    ``csrc/hybrid_probes.cu``."""
-    return 4 * (((adv_words + 3) & ~3) + IMAGE_WORDS)
+def cliff_staged_words(adv: torch.Tensor, n: int, start: int) -> int:
+    """Words of :func:`cliff`'s and :func:`chase`'s staged copy of ``adv``
+    (``hp::cliff_staged``): ``adv``'s own and, past ``n``, the largest
+    advance below ``n`` (a walk's last load lies below ``n`` plus it), in
+    16-byte groups. Reads ``adv``: a sync on the card."""
+    below = adv[min(start, n) : n]
+    max_adv = int(below.max()) if below.numel() else 0
+    return (max(adv.numel(), n + max_adv) + 3) & ~3
+
+
+def cliff_smem_bytes(staged_words: int, image: bool = True) -> int:
+    """Dynamic shared memory of :func:`cliff`'s block (with ``image``) or
+    :func:`chase`'s; mirrors ``csrc/hybrid_probes.cu``."""
+    return 4 * (staged_words + (IMAGE_WORDS + 4 if image else 0))
+
+
+def _cliff_staging(adv, n: int, start: int, R: int, image: bool):
+    """The checked advance array, n, start, R and the staged words of a
+    cliff or chase call."""
+    adv = _int32_vector(adv, "adv")
+    n, start, R = int(n), int(start), int(R)
+    _check_walk(adv, n, start, R)
+    staged = cliff_staged_words(adv, n, start)
+    if cliff_smem_bytes(staged, image) > SMEM_LIMIT:
+        raise ValueError(f"an advance array of {adv.numel()} words, staged as {staged}"
+                         f"{' with the image' if image else ''}, does not fit one block's "
+                         "shared memory")
+    return adv, n, start, R, staged
 
 
 def cliff(adv, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
@@ -673,25 +703,39 @@ def cliff(adv, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
     ``(checksum int32 [1], image int32 [16384])``."""
     if mode not in CLIFF_MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {CLIFF_MODES}")
-    adv = _int32_vector(adv, "adv")
-    n, start, R = int(n), int(start), int(R)
-    _check_walk(adv, n, start, R)
-    if cliff_smem_bytes(adv.numel()) > SMEM_LIMIT:
-        raise ValueError(f"an advance array of {adv.numel()} words and the image do not fit one "
-                         f"block's shared memory")
+    adv, n, start, R, staged = _cliff_staging(adv, n, start, R, True)
     if not on_cuda(adv):
         return cliff_plain(adv, n, mode, start, R)
-    return launch_cliff(adv, n, mode, start, R)
+    return launch_cliff(adv, n, mode, start, R, staged)
 
 
-def launch_cliff(adv: torch.Tensor, n: int, mode: str, start: int, R: int):
+def launch_cliff(adv: torch.Tensor, n: int, mode: str, start: int, R: int, staged: int):
     """:func:`cliff`'s kernel on a contiguous CUDA int32 ``adv`` that
-    :func:`cliff` accepts, without its checks."""
+    :func:`cliff` accepts, staged as ``staged`` words
+    (:func:`cliff_staged_words`), without its checks."""
     out = torch.empty(1, dtype=torch.int32, device=adv.device)
     img = torch.empty(IMAGE_WORDS, dtype=torch.int32, device=adv.device)
-    _build.launch("cliff", adv.device, CLIFF_MODES.index(mode), adv.data_ptr(), adv.numel(), n,
+    _build.launch("cliff", adv.device, CLIFF_MODES.index(mode), adv.data_ptr(), n, staged,
                   start, R, out.data_ptr(), img.data_ptr())
     return out, img
+
+
+def chase(adv, n: int, start: int = 3, R: int = CHAIN_R):
+    """``R`` trials of ``cliff``'s walk over ``adv`` with no body: the sum of
+    the final ``ip`` (int32 [1]), :func:`chain`'s checksum, whose plain
+    version it shares."""
+    adv, n, start, R, staged = _cliff_staging(adv, n, start, R, False)
+    if not on_cuda(adv):
+        return chain_plain(adv, n, start, R)[0]
+    return launch_chase(adv, n, start, R, staged)
+
+
+def launch_chase(adv: torch.Tensor, n: int, start: int, R: int, staged: int):
+    """:func:`chase`'s kernel on a contiguous CUDA int32 ``adv`` that
+    :func:`chase` accepts, staged as ``staged`` words, without its checks."""
+    out = torch.empty(1, dtype=torch.int32, device=adv.device)
+    _build.launch("chase", adv.device, adv.data_ptr(), n, staged, start, R, out.data_ptr())
+    return out
 
 
 def bitonic(x):

@@ -855,7 +855,9 @@ def test_cuda_decode_hybrid_matches_plain(cuda_device, form, cc, out_cap, big):
     fn = {"v5": dh.decode_v5, "v6": dh.decode_v6, "v7": dh.decode_v7}[base]
     got = fn(c_d, l_d, out_cap, unroll2=True) if form == "v7u" else fn(c_d, l_d, out_cap)
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {dh.FORMS[base][1]: 1}
+    # decode_v7 makes its descriptors with the pre-pass kernel.
+    assert dict(_build.LAUNCHES) == {dh.FORMS[base][1]: 1, **({"prepass_v7": 1} if base == "v7"
+                                                              else {})}
     want = dh.decode_hybrid_plain(c_h, l_h, out_cap, base)
     assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
     assert (got[1].cpu() == want[1]).all()
@@ -880,9 +882,87 @@ def test_cuda_decode_v5_spec_matches_decode_v5(cuda_device):
 
 
 def test_cuda_decode_hybrid_rejects_what_does_not_fit(cuda_device):
+    """v5 and v6 stage the row beside the image and refuse a row of 200,000
+    bytes; v7 holds the image alone, takes that row (its verdict the plain
+    version's) and refuses an image that does not fit."""
     comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError):
-        dh.decode_v7(comp, torch.tensor([5], device=cuda_device), 65536)
+    lens = torch.tensor([5], device=cuda_device)
+    for fn in (dh.decode_v5, dh.decode_v6):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(comp, lens, 65536)
+    got = dh.decode_v7(comp, lens, 65536)
+    want = dh.decode_hybrid_plain(comp.cpu(), lens.cpu(), 65536, "v7")
+    assert got[2].tolist() == want[2].tolist() == [4] and got[1].tolist() == [0]
+    with pytest.raises(ValueError, match="shared memory"):
+        dh.decode_v7(comp[:, :64], lens, 232000)
+
+
+def _v7_rows():
+    """decode_v7's main-path rows: 9 blocks of 65,536 bytes of the word mix
+    and a shorter one, the batch edges and corrupt streams."""
+    import chip_smoke
+
+    mix = chip_smoke.word_mix() * 12
+    blocks = [oracle.compress(np.frombuffer(mix[i * 65536: (i + 1) * 65536], np.uint8))
+              for i in range(9)]
+    blocks.append(oracle.compress(np.frombuffer(mix[:40000], np.uint8)))
+    return blocks + batch_streams() + corrupt_streams()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tight", [False, True], ids=["codec_width", "tight_width"])
+@pytest.mark.parametrize("unroll2", [False, True], ids=["v7", "v7u"])
+def test_cuda_decode_v7_matches_plain(cuda_device, unroll2, tight, offset):
+    """decode_v7, with and without unroll2, at the codec's row width (68,608
+    B) and the tight one (the longest block rounded up to 1 KiB), on word
+    rows and on rows 1 byte into a buffer (the byte loader), against its
+    plain version: error words, lengths and bytes; the plaintext too."""
+    streams = _v7_rows()
+    cc = -(-(max(map(len, streams)) + 8) // 1024) * 1024 if tight else 68608
+    comp, lens = pack_streams(streams, cc)
+    c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    c_d = _offset_rows(comp.astype(np.uint8), offset, cuda_device)
+    _build.reset_launches()
+    got = dh.decode_v7(c_d, l_h.to(cuda_device), 65536, unroll2=unroll2)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decode_v7": 1, "prepass_v7": 1}
+    want = dh.decode_hybrid_plain(c_h, l_h, 65536, "v7")
+    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1].cpu() == want[1]).all() and set(want[2].tolist()) == {0, 4, 8}
+    _rows_equal(got[0], want[0], want[1])
+    for i in range(10):
+        assert got[0][i, : int(got[1][i])].cpu().numpy().tobytes() == oracle.decompress(streams[i])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("cc", [68608, 68605, 4])
+def test_cuda_prepass_v7_matches_cpu(cuda_device, cc, offset):
+    """The pre-pass kernel against its plain version (the CPU's tensor code,
+    bit-equal to the TPU's _spec2_from_words): word rows (16-byte stores),
+    rows 3 bytes narrower and rows 1 and 3 bytes into a buffer (the byte
+    loader); random bytes and streams with garbage tails."""
+    rng = np.random.default_rng(cc + offset)
+    comp, _ = pack_streams(_v7_rows()[:12], 68608)
+    rows = np.concatenate([comp, rng.integers(0, 256, (3, 68608))])[:, :cc].astype(np.uint8)
+    _build.reset_launches()
+    got = dh.prepass_v7(_offset_rows(rows, offset, cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"prepass_v7": 1}
+    want = dh.spec2_from_words(dh.pack_words(_t(rows)), cc)
+    assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+def test_cuda_decode_v7_layout(cuda_device):
+    """decode_v7 holds the output image alone: three blocks an SM at out_cap
+    65,536 whatever the row's width (K1's layout), its shared bytes those
+    ``decode_hybrid.v7_smem_bytes`` counts; word rows read as words."""
+    for cc in (68608, 17408, 200000):
+        rows = torch.zeros((2, cc), dtype=torch.uint8, device=cuda_device)
+        lay = dh.decode_v7_layout(rows, 65536)
+        assert lay == {"blocks_per_sm": 3, "smem_bytes": dh.v7_smem_bytes(65536), "threads": 64,
+                       "loader": "words"}, lay
+    odd = torch.zeros(2 * 4096 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(2, 4096)
+    assert dh.decode_v7_layout(odd, 65536)["loader"] == "bytes"
 
 
 @pytest.mark.parametrize("F", [4096, 65536])
@@ -972,18 +1052,45 @@ def test_cuda_bprobe_matches_plain(cuda_device, nwhen):
         hp.bprobe(5, device=cuda_device)
 
 
-@pytest.mark.parametrize("mode", hp.CLIFF_MODES)
-def test_cuda_cliff_matches_plain(cuda_device, mode):
-    """T19 on both probe blocks at R = 1, 5 and 200: checksum and image."""
+def _cliff_cases():
+    """(adv, n, start, R): both probe blocks at R = 1, 5 and 200 from 3; a
+    walk that ends exactly at n; one whose last advance jumps past the
+    advance array's end; starts at and past n."""
+    cases = []
     for b in probe_blocks().values():
         adv, n, _ = hp.chain_inputs(b)
-        for R in (1, 5, 200):
-            _build.reset_launches()
-            got = hp.cliff(_t(adv).to(cuda_device), n, mode, 3, R)
-            torch.cuda.synchronize()
-            assert dict(_build.LAUNCHES) == {"cliff": 1}
-            want = hp.cliff_plain(_t(adv), n, mode, 3, R)
-            assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+        cases += [(adv, n, 3, R) for R in (1, 5, 200)]
+    ones = np.ones(64, np.int32)
+    jump = ones.copy()
+    jump[60] = 40
+    return cases + [(ones, 64, 3, 3), (jump, 64, 3, 5), (jump, 64, 64, 2), (jump, 62, 61, 3)]
+
+
+@pytest.mark.parametrize("mode", hp.CLIFF_MODES)
+def test_cuda_cliff_matches_plain(cuda_device, mode):
+    """T19 on both probe blocks at R = 1, 5 and 200 and on the walk's edges:
+    checksum and image."""
+    for adv, n, start, R in _cliff_cases():
+        _build.reset_launches()
+        got = hp.cliff(_t(adv).to(cuda_device), n, mode, start, R)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"cliff": 1}
+        want = hp.cliff_plain(_t(adv), n, mode, start, R)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+def test_cuda_chase_matches_plain(cuda_device):
+    """The chase (cliff's walk with no body) against chain's plain version,
+    and against chain on the card, on cliff's cases."""
+    for adv, n, start, R in _cliff_cases():
+        _build.reset_launches()
+        got = hp.chase(_t(adv).to(cuda_device), n, start, R)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"chase": 1}
+        want = hp.chain_plain(_t(adv), n, start, R)[0]
+        assert got.cpu().tolist() == want.tolist()
+        chain = hp.chain(_t(adv).to(cuda_device), n, start, R)[0]
+        assert got.cpu().tolist() == chain.cpu().tolist()
 
 
 def test_cuda_bitonic_matches_plain(cuda_device):

@@ -191,40 +191,45 @@ struct GuardedRows {
   }
 };
 
-template <int N, class Ld>
-static sc::DecodeResult batched(const Ld& ld, int32_t n, int32_t out_cap, uint8_t* out,
-                                int64_t* counts) {
-  static uint32_t lut[256];
-  for (int t = 0; t < 256; t++) lut[t] = sc::tag_entry((uint32_t)t);
+template <int N, class Src, class Ld>
+static sc::DecodeResult batched(const Src& src, const Ld& row, int32_t n, int32_t out_cap,
+                                uint8_t* out, int64_t* counts, int unroll2 = 0) {
   ArrayWarp<N> w;
-  auto emit = [&](const auto& in, const sc::Batch& bt, int32_t op, const auto& delta,
-                  const auto& start) { sc::emit_batch(w, in, bt, op, out, delta, start); };
-  sc::DecodeResult r = sc::decode_block_batched(w, ld, n, out_cap, lut, emit);
+  auto emit = [&](const sc::Batch& bt, int32_t op, const auto& delta, const auto& start) {
+    sc::emit_batch(w, row, bt, op, out, delta, start);
+  };
+  sc::DecodeResult r = unroll2 ? sc::decode_block_batched<2>(w, src, n, out_cap, emit)
+                               : sc::decode_block_batched(w, src, n, out_cap, emit);
   counts[0] += w.batches;
   counts[1] += w.tags_seen;
   return r;
 }
 
-template <class Ld>
-static sc::DecodeResult batched_lanes(int nlanes, const Ld& ld, int32_t n, int32_t out_cap,
-                                      uint8_t* out, int64_t* counts) {
-  if (nlanes == 1) return batched<1>(ld, n, out_cap, out, counts);
-  if (nlanes == 4) return batched<4>(ld, n, out_cap, out, counts);
-  return batched<32>(ld, n, out_cap, out, counts);
+template <class Src, class Ld>
+static sc::DecodeResult batched_lanes(int nlanes, const Src& src, const Ld& row, int32_t n,
+                                      int32_t out_cap, uint8_t* out, int64_t* counts,
+                                      int unroll2 = 0) {
+  if (nlanes == 1) return batched<1>(src, row, n, out_cap, out, counts, unroll2);
+  if (nlanes == 4) return batched<4>(src, row, n, out_cap, out, counts, unroll2);
+  return batched<32>(src, row, n, out_cap, out, counts, unroll2);
 }
 
 // The batched decode walk on each row as the decode kernel reads it, the
 // rows guarded at `offset` (GuardedRows), a warp of `nlanes` (1, 4 or 32)
 // lanes, loader 0 sc::RingWords over sc::RowWords (rows at a multiple of 4
-// and cc one; the ring poisoned), 1 sc::RowBytes; the output starts
-// poisoned. counts[0] gets the batches that passed their checks and
-// counts[1] their tags. Returns 0, or -1 if the buffer was refused.
+// and cc one; the ring poisoned), 1 sc::RowBytes; the batches written from
+// the row's loader (RowWords, RowBytes), as the kernel's writing warp does;
+// the output starts poisoned. counts[0] gets the batches that passed their
+// checks and counts[1] their tags. Returns 0, or -1 if the buffer was
+// refused.
 extern "C" int host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
                            int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
                            uint8_t* out, int32_t* out_lens, int32_t* errs, int64_t* counts) {
   counts[0] = counts[1] = 0;
   GuardedRows g(comp, batch, cc, offset);
   if (g.mem == nullptr) return -1;
+  static uint32_t lut[256];
+  for (int t = 0; t < 256; t++) lut[t] = sc::tag_entry((uint32_t)t);
   std::vector<uint32_t> ring(256);
   for (int64_t b = 0; b < batch; b++) {
     const uint8_t* row = g.rows + b * cc;
@@ -232,13 +237,86 @@ extern "C" int host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens,
     memset(dst, 0xDB, (size_t)out_cap);
     for (auto& v : ring) v = 0xDEADBEEFu;
     const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
+    const sc::RowBytes bytes{row, (int32_t)cc};
+    using Ring = sc::RingWords<256>;
     const sc::DecodeResult r =
-        loader == 0 ? batched_lanes(nlanes, sc::RingWords<256>(words, ring.data()), lens[b],
-                                    out_cap, dst, counts)
-                    : batched_lanes(nlanes, sc::RowBytes{row, (int32_t)cc}, lens[b], out_cap,
-                                    dst, counts);
+        loader == 0
+            ? batched_lanes(nlanes, sc::ParsedTags<Ring>(Ring(words, ring.data()), lut), words,
+                            lens[b], out_cap, dst, counts)
+            : batched_lanes(nlanes, sc::ParsedTags<sc::RowBytes>(bytes, lut), bytes, lens[b],
+                            out_cap, dst, counts);
     out_lens[b] = r.out_len;
     errs[b] = r.err;
+  }
+  return 0;
+}
+
+// decode_v7's walk (decode_v7_kernel's two warps in one) on each row: the
+// compressed rows guarded at `offset` and read by loader 0 (sc::RowWords,
+// rows at a multiple of 4 and cc one) or 1 (sc::RowBytes); the descriptor
+// rows (int32[batch, spec_cc] each) in buffers that end at a page the
+// process may not read, read through two rings (poisoned first) as
+// hy::DescribedTags takes them; `unroll2` two batches a loop iteration; the
+// output starts poisoned. counts as host_decode's. Returns 0, or -1 if a
+// buffer was refused.
+extern "C" int host_v7(const uint8_t* comp, int64_t cc, const int32_t* spec0,
+                       const int32_t* spec1, int64_t spec_cc, const int32_t* lens, int64_t batch,
+                       int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
+                       int32_t unroll2, uint8_t* out, int32_t* out_lens, int32_t* errs,
+                       int64_t* counts) {
+  counts[0] = counts[1] = 0;
+  GuardedRows g(comp, batch, cc, offset);
+  GuardedRows g0(reinterpret_cast<const uint8_t*>(spec0), batch, spec_cc * 4, kAtGuard);
+  GuardedRows g1(reinterpret_cast<const uint8_t*>(spec1), batch, spec_cc * 4, kAtGuard);
+  if (g.mem == nullptr || g0.mem == nullptr || g1.mem == nullptr) return -1;
+  std::vector<uint32_t> ring0(256), ring1(256);
+  const int32_t sw = (int32_t)spec_cc;
+  using Ring = sc::RingWords<256>;
+  for (int64_t b = 0; b < batch; b++) {
+    const uint8_t* row = g.rows + b * cc;
+    uint8_t* dst = out + b * out_cap;
+    memset(dst, 0xDB, (size_t)out_cap);
+    for (auto& v : ring0) v = 0xDEADBEEFu;
+    for (auto& v : ring1) v = 0xDEADBEEFu;
+    const int32_t n = lens[b] < 0 ? 0 : (lens[b] > sw ? sw : lens[b]);
+    const uint8_t* r0 = g0.rows + b * spec_cc * 4;
+    const uint8_t* r1 = g1.rows + b * spec_cc * 4;
+    const Ring d0(sc::RowWords{reinterpret_cast<const uint32_t*>(r0), 4 * sw}, ring0.data());
+    const Ring d1(sc::RowWords{reinterpret_cast<const uint32_t*>(r1), 4 * sw}, ring1.data());
+    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
+    const sc::RowBytes bytes{row, (int32_t)cc};
+    const sc::DecodeResult r =
+        loader == 0
+            ? batched_lanes(nlanes, hy::DescribedTags<sc::RowWords, Ring>(words, d0, d1, sw),
+                            words, n, out_cap, dst, counts, unroll2)
+            : batched_lanes(nlanes, hy::DescribedTags<sc::RowBytes, Ring>(bytes, d0, d1, sw),
+                            bytes, n, out_cap, dst, counts, unroll2);
+    out_lens[b] = r.out_len;
+    errs[b] = r.err;
+  }
+  return 0;
+}
+
+// decode_hybrid.cu's prepass_v7_kernel on the host: each word g of each row
+// (positions 4g .. 4g + 3) from words g and g + 1 of the row's loader (0
+// sc::RowWords, 1 sc::RowBytes), the rows guarded at `offset`. Returns 0,
+// or -1 if the buffer was refused.
+extern "C" int host_prepass_v7(const uint8_t* comp, int64_t cc, int64_t batch, int32_t offset,
+                               int32_t loader, int32_t* spec0, int32_t* spec1) {
+  GuardedRows g(comp, batch, cc, offset);
+  if (g.mem == nullptr) return -1;
+  const int32_t width = (int32_t)cc;
+  for (int64_t b = 0; b < batch; b++) {
+    const uint8_t* row = g.rows + b * cc;
+    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
+    const sc::RowBytes bytes{row, width};
+    for (int32_t k = 0; 4 * k < width; k++) {
+      const uint64_t v = loader == 0 ? (uint64_t)words.word(k + 1) << 32 | words.word(k)
+                                     : (uint64_t)bytes.word(k + 1) << 32 | bytes.word(k);
+      for (int j = 0; j < 4 && 4 * k + j < width; j++) {
+        hy::spec2_at(v >> (8 * j), spec0[b * cc + 4 * k + j], spec1[b * cc + 4 * k + j]);
+      }
+    }
   }
   return 0;
 }
@@ -387,30 +465,21 @@ extern "C" void host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emi
   }
 }
 
-// One block through a descriptor-driven walk on `nlanes` threads, staged as
-// decode_hybrid.cu does it, the image poisoned first.
+// One block through a descriptor-driven walk (form 5 or 6) on `nlanes`
+// threads, staged as decode_hybrid.cu does it, the image poisoned first.
 template <class Sync>
-static sc::DecodeResult run_hybrid(int form, int unroll2, uint32_t* img, int32_t wc, int32_t owc,
-                                   const int32_t* s0, const int32_t* s1, int32_t n,
-                                   int32_t out_cap, int lane, int nlanes, Sync sync) {
+static sc::DecodeResult run_hybrid(int form, uint32_t* img, int32_t wc, int32_t owc,
+                                   const int32_t* s0, int32_t n, int32_t out_cap, int lane,
+                                   int nlanes, Sync sync) {
   if (form == 5) {
-    return hy::decode_block_hybrid<5, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes,
-                                             sync);
+    return hy::decode_block_hybrid<5>(img, wc, owc, s0, n, out_cap, lane, nlanes, sync);
   }
-  if (form == 6) {
-    return hy::decode_block_hybrid<6, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes,
-                                             sync);
-  }
-  if (unroll2) {
-    return hy::decode_block_hybrid<7, true>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes, sync);
-  }
-  return hy::decode_block_hybrid<7, false>(img, wc, owc, s0, s1, n, out_cap, lane, nlanes, sync);
+  return hy::decode_block_hybrid<6>(img, wc, owc, s0, n, out_cap, lane, nlanes, sync);
 }
 
-extern "C" void host_hybrid(int32_t form, int32_t unroll2, const uint8_t* comp, int64_t cc,
-                            const int32_t* spec0, const int32_t* spec1, int64_t spec_cc,
-                            const int32_t* lens, int64_t batch, int32_t out_cap, int32_t nlanes,
-                            uint8_t* out, int32_t* out_lens, int32_t* errs) {
+extern "C" void host_hybrid(int32_t form, const uint8_t* comp, int64_t cc, const int32_t* spec0,
+                            int64_t spec_cc, const int32_t* lens, int64_t batch, int32_t out_cap,
+                            int32_t nlanes, uint8_t* out, int32_t* out_lens, int32_t* errs) {
   int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
   int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
   std::vector<uint32_t> img(wc + owc);
@@ -426,18 +495,16 @@ extern "C" void host_hybrid(int32_t form, int32_t unroll2, const uint8_t* comp, 
       img[w] = v;
     }
     const int32_t* s0 = spec0 + b * spec_cc;
-    const int32_t* s1 = spec1 + b * spec_cc;
     std::vector<sc::DecodeResult> res(nlanes);
     if (nlanes == 1) {
-      res[0] = run_hybrid(form, unroll2, img.data(), wc, owc, s0, s1, n, out_cap, 0, 1,
-                          NoSync());
+      res[0] = run_hybrid(form, img.data(), wc, owc, s0, n, out_cap, 0, 1, NoSync());
     } else {
       Barrier bar(nlanes);
       std::vector<std::thread> lanes;
       for (int lane = 0; lane < nlanes; lane++) {
         lanes.emplace_back([&, lane] {
-          res[lane] = run_hybrid(form, unroll2, img.data(), wc, owc, s0, s1, n, out_cap, lane,
-                                 nlanes, BarrierSync{&bar});
+          res[lane] = run_hybrid(form, img.data(), wc, owc, s0, n, out_cap, lane, nlanes,
+                                 BarrierSync{&bar});
         });
       }
       for (auto& t : lanes) t.join();
@@ -624,17 +691,36 @@ extern "C" int32_t host_bprobe(int32_t nwhen, int32_t seed, int32_t* scratch) {
   }
 }
 
-extern "C" int32_t host_cliff(int32_t mode, const int32_t* adv, int32_t n, int32_t start,
-                              int32_t R, int32_t* img) {
-  uint32_t* im = reinterpret_cast<uint32_t*>(img);
-  for (int i = 0; i < hp::kImageWords; i++) im[i] = hp::kFill;
+// cliff_kernel<mode> (hp::kChase: the chase) as it runs: adv staged over
+// `staged` words (hp::cliff_staged), the image and its dummy word from
+// interpret mode's fill; img gets the image (the chase leaves it as it is).
+template <int kMode>
+static int32_t host_cliff_mode(const int32_t* adv_s, int32_t n, int32_t start, int32_t R,
+                               uint32_t* im) {
+  const uint32_t sum = (uint32_t)hp::cliff_walk<kMode>(adv_s, n, start, R, im);
+  return (int32_t)(kMode == hp::kChase ? sum : sum + im[0]);
+}
+
+extern "C" int32_t host_cliff(int32_t mode, const int32_t* adv, int32_t n, int32_t staged,
+                              int32_t start, int32_t R, int32_t* img) {
+  std::vector<int32_t> adv_s(staged);
+  for (int32_t i = 0; i < staged; i++) adv_s[i] = hp::cliff_staged(adv, n, i);
+  std::vector<uint32_t> im(hp::kCliffImageWords, hp::kFill);
+  const int32_t* a = adv_s.data();
+  uint32_t* m = im.data();
+  int32_t sum;
   switch (mode) {
-    case hp::kCliffWhen1: return hp::cliff_walk<hp::kCliffWhen1>(adv, n, start, R, im);
-    case hp::kCliffWhen2: return hp::cliff_walk<hp::kCliffWhen2>(adv, n, start, R, im);
-    case hp::kCliffFori: return hp::cliff_walk<hp::kCliffFori>(adv, n, start, R, im);
-    case hp::kCliffStore4: return hp::cliff_walk<hp::kCliffStore4>(adv, n, start, R, im);
-    default: return hp::cliff_walk<hp::kCliffLoad4>(adv, n, start, R, im);
+    case hp::kCliffWhen1: sum = host_cliff_mode<hp::kCliffWhen1>(a, n, start, R, m); break;
+    case hp::kCliffWhen2: sum = host_cliff_mode<hp::kCliffWhen2>(a, n, start, R, m); break;
+    case hp::kCliffFori: sum = host_cliff_mode<hp::kCliffFori>(a, n, start, R, m); break;
+    case hp::kCliffStore4: sum = host_cliff_mode<hp::kCliffStore4>(a, n, start, R, m); break;
+    case hp::kCliffLoad4: sum = host_cliff_mode<hp::kCliffLoad4>(a, n, start, R, m); break;
+    default: sum = host_cliff_mode<hp::kChase>(a, n, start, R, m);
   }
+  if (mode != hp::kChase) {
+    for (int i = 0; i < hp::kImageWords; i++) img[i] = (int32_t)im[i];
+  }
+  return sum;
 }
 
 // bitonic_probe.cu's stages in its order: j >= 4096 over the whole arrays,
@@ -800,8 +886,12 @@ def host_lib(tmp_path_factory):
     so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, I32, I32,
                                        P, I64, P]
     so.host_encode_variant.restype = I32
-    so.host_hybrid.argtypes = [I32, I32, P, I64, P, P, I64, P, I64, I32, I32, P, P, P]
+    so.host_hybrid.argtypes = [I32, P, I64, P, I64, P, I64, I32, I32, P, P, P]
     so.host_hybrid.restype = None
+    so.host_v7.argtypes = [P, I64, P, P, I64, P, I64, I32, I32, I32, I32, I32, P, P, P, P]
+    so.host_v7.restype = I32
+    so.host_prepass_v7.argtypes = [P, I64, I64, I32, I32, P, P]
+    so.host_prepass_v7.restype = I32
     so.host_encode_stats.argtypes = [P, I64, P, I64, P]
     so.host_encode_stats.restype = None
     so.host_chain.argtypes = [I32, P, I32, I32, I32, P]
@@ -814,7 +904,7 @@ def host_lib(tmp_path_factory):
     so.host_iso.restype = I32
     so.host_bprobe.argtypes = [I32, I32, P]
     so.host_bprobe.restype = I32
-    so.host_cliff.argtypes = [I32, P, I32, I32, I32, P]
+    so.host_cliff.argtypes = [I32, P, I32, I32, I32, I32, P]
     so.host_cliff.restype = I32
     so.host_bitonic.argtypes = [P, P, P]
     so.host_bitonic.restype = None
@@ -1322,6 +1412,38 @@ def test_host_encode_variant_walk_on_unaligned_rows(host_lib, case):
     _hold_variant_to_plain(host_lib, case, _aligned_cases)
 
 
+def _host_v7(lib, comp, lens, spec0, spec1, out_cap, nlanes, unroll2=False, offset=AT_GUARD,
+             loader=None):
+    """decode_v7's batched walk on a warp of ``nlanes`` lanes, the rows at
+    ``offset`` in a guarded buffer read through loader 0 (words; the default
+    where the width is a multiple of 4) or 1 (bytes), the descriptors at a
+    guard page: ``(out, out_lens, errs, (batches, tags))``."""
+    comp = np.ascontiguousarray(comp, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    s0 = np.ascontiguousarray(spec0, np.int32)
+    s1 = np.ascontiguousarray(spec1, np.int32)
+    B, cc = comp.shape
+    if loader is None:
+        loader = 0 if cc % 4 == 0 else 1
+    out = np.zeros((B, out_cap), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    errs = np.zeros(B, np.int32)
+    counts = np.zeros(2, np.int64)
+    rc = lib.host_v7(comp.ctypes.data, cc, s0.ctypes.data, s1.ctypes.data, s0.shape[1],
+                     lens.ctypes.data, B, out_cap, nlanes, int(unroll2), _offset_arg(offset),
+                     loader, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data,
+                     counts.ctypes.data)
+    assert rc == 0
+    return out, out_lens, errs, tuple(counts.tolist())
+
+
+def _same_triples(got, want, what):
+    assert (got[2] == want[2]).all(), (what, got[2].tolist(), want[2].tolist())
+    assert (got[1] == want[1]).all(), what
+    for i in range(len(want[1])):
+        assert (got[0][i, : got[1][i]] == want[0][i, : want[1][i]]).all(), (what, i)
+
+
 @pytest.mark.parametrize("nlanes", [1, 4, 32])
 @pytest.mark.parametrize("form", ["v5", "v6", "v7", "v7u"])
 def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
@@ -1329,7 +1451,9 @@ def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
     pre-pass, against their plain version: valid blocks with every short
     offset, 64 KiB blocks, corrupt blocks, a sample of the tag sweep,
     garbage past each length; rows and capacities that are no multiple of
-    4."""
+    4. v5 and v6 walk a tag at a time on as many threads; v7 (v7u: two
+    batches a loop iteration) is the decode kernel's batched walk on a warp
+    of as many lanes, its rows and descriptors ending at a guard page."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
@@ -1342,21 +1466,132 @@ def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
     comp8 = np.ascontiguousarray(comp, np.uint8)
     c8 = torch.from_numpy(comp8)
     spec0, spec1 = dh._prepass(c8, base)
-    s0 = np.ascontiguousarray(spec0.numpy())
-    s1 = np.ascontiguousarray((spec1 if spec1 is not None else spec0).numpy())
-    B = len(streams)
-    out = np.zeros((B, out_cap), np.uint8)
-    out_lens = np.zeros(B, np.int32)
-    errs = np.zeros(B, np.int32)
-    host_lib.host_hybrid(dh.FORMS[base][0], int(form == "v7u"), comp8.ctypes.data, cc,
-                         s0.ctypes.data, s1.ctypes.data, cc, lens.ctypes.data, B, out_cap,
-                         nlanes, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data)
     want = [x.numpy() for x in dh.decode_hybrid_plain(c8, torch.from_numpy(lens), out_cap, base)]
-    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
-    assert (out_lens == want[1]).all()
-    assert ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}) <= set(errs.tolist())
-    for i in range(B):
-        assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+    B = len(streams)
+    if base == "v7":
+        got = _host_v7(host_lib, comp8, lens, spec0.numpy(), spec1.numpy(), out_cap, nlanes,
+                       unroll2=form == "v7u")[:3]
+    else:
+        s0 = np.ascontiguousarray(spec0.numpy())
+        got = (np.zeros((B, out_cap), np.uint8), np.zeros(B, np.int32), np.zeros(B, np.int32))
+        host_lib.host_hybrid(dh.FORMS[base][0], comp8.ctypes.data, cc, s0.ctypes.data, cc,
+                             lens.ctypes.data, B, out_cap, nlanes, got[0].ctypes.data,
+                             got[1].ctypes.data, got[2].ctypes.data)
+    _same_triples(got, want, form)
+    assert ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}) <= set(got[2].tolist())
+
+
+_V7_CC, _V7_OUT_CAP = 4096, 3072  # OUT_CAP + 1024 a multiple of 4096: the TPU walk agrees
+
+
+def _negative_literal_streams():
+    """A 4-byte literal length of 0xFFFFFFFE (a literal of -1 bytes that
+    advances 4, its next tag a copy-4 tag at its top length byte), after
+    output and at the start; one of -4 bytes; and runs of literals whose
+    length wraps to 0, whole batches of tags with no output."""
+    lit16 = bytes([15 << 2]) + b"abcdefghijklmnop"
+    neg = bytes([0xFC, 0xFE, 0xFF, 0xFF, 0xFF, 8, 0, 0, 0])  # then 64 bytes at offset 8
+    empty = bytes([0xFC, 0xFB, 0xFF, 0xFF, 0xFF])  # -4 bytes: advances 1, to the next 0xFB ...
+    wrap = bytes([0xFC, 0xFF, 0xFF, 0xFF, 0xFF])  # a literal of 0 bytes that advances 5
+    runs = [write_varint(16) + lit16 + wrap * k for k in (1, 7, 40)]
+    return [write_varint(79) + lit16 + neg, bytes([64]) + neg, write_varint(16) + lit16 + empty,
+            *runs]
+
+
+@pytest.fixture(scope="module")
+def v7_refs():
+    """decode_v7's cases: the edge, corrupt, tag-sweep, negative-literal and
+    batch-edge streams at width 4,096, with the TPU's decode_v7 triple in
+    interpret mode (``tools/perf_probe_hybrid.py``) and the port's pre-pass."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+    from tests.torch_cases import interpreted_tool
+
+    streams = (walk_streams() + corrupt_streams() + tag_sweep_sample(61)
+               + _negative_literal_streams() + batch_streams())
+    comp, lens = pack_streams(streams, _V7_CC)
+    with interpreted_tool("perf_probe_hybrid") as tool:
+        ref = [np.asarray(x) for x in tool.decode_v7(jnp.asarray(comp), jnp.asarray(lens),
+                                                     _V7_OUT_CAP, False)]
+    comp8 = comp.astype(np.uint8)
+    spec0, spec1 = (x.numpy() for x in dh.prepass_v7(torch.from_numpy(comp8)))
+    return comp8, lens, spec0, spec1, ref
+
+
+@pytest.mark.parametrize("unroll2", [False, True], ids=["v7", "v7u"])
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_v7_walk_matches_jax(host_lib, v7_refs, nlanes, unroll2):
+    """decode_v7's batched walk on a warp of 1, 4 and 32 lanes, through both
+    row loaders, the rows and descriptors ending at a guard page, equal to
+    the TPU's decode_v7 in interpret mode and to the plain version on the
+    edge, corrupt, tag-sweep, negative-literal and batch-edge streams: the
+    error words (4 for any bad tag, 8 for the preamble), lengths and bytes.
+    On 4 and 32 lanes the batches hold more tags than steps."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+
+    comp8, lens, spec0, spec1, ref = v7_refs
+    plain = [x.numpy() for x in dh.decode_hybrid_plain(torch.from_numpy(comp8),
+                                                       torch.from_numpy(lens), _V7_OUT_CAP, "v7")]
+    _same_triples(plain, ref, "plain")
+    assert set(ref[2].tolist()) == {0, 4, 8}
+    for offset, loader in _loader_cases(_V7_CC):
+        out, out_lens, errs, (batches, tags) = _host_v7(
+            host_lib, comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, unroll2, offset, loader)
+        _same_triples((out, out_lens, errs), ref, f"loader {loader}")
+        assert tags <= nlanes * batches and (nlanes == 1 or tags > batches)
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+def test_host_v7_walk_on_unaligned_rows(host_lib, v7_refs, nlanes):
+    """decode_v7's batched walk with the rows 0-7 bytes past a 16-byte
+    boundary (the byte loader) and 0, 4, 8 and 12 past one (the word loader),
+    under the guard page; and on rows 3 bytes narrower (the byte loader,
+    descriptors of that width), against the plain version there."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+
+    comp8, lens, spec0, spec1, ref = v7_refs
+    for offset, loader in _aligned_cases(_V7_CC):
+        got = _host_v7(host_lib, comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, False, offset,
+                       loader)[:3]
+        _same_triples(got, ref, f"loader {loader} at offset {offset}")
+    narrow = np.ascontiguousarray(comp8[:, : _V7_CC - 3])
+    s0, s1 = (x.numpy() for x in dh.prepass_v7(torch.from_numpy(narrow)))
+    want = [x.numpy() for x in dh.decode_hybrid_plain(
+        torch.from_numpy(narrow), torch.from_numpy(lens), _V7_OUT_CAP, "v7")]
+    for offset in (AT_GUARD, 5):
+        got = _host_v7(host_lib, narrow, lens, s0, s1, _V7_OUT_CAP, nlanes, False, offset, 1)[:3]
+        _same_triples(got, want, f"width {_V7_CC - 3} at offset {offset}")
+
+
+def test_host_prepass_v7_matches_plain(host_lib):
+    """The pre-pass kernel's per-word work (hy::spec2_at over words g and
+    g + 1 of each row) through both loaders, the rows at a guard page and
+    0-7 bytes past a 16-byte boundary, bit-equal to the plain pre-pass
+    (spec2_from_words of pack_words, held to the TPU's by
+    tests/test_torch_hybrid_decode.py) on rows of uneven widths: random
+    bytes, literal lengths and copy offsets at every wrap and poison edge,
+    packed streams with garbage tails."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+    from tests.test_torch_hybrid_decode import _prepass_rows
+
+    rows = _prepass_rows().astype(np.uint8)
+    for cc in (4096, 1001, 1002, 1003, 5):
+        part = np.ascontiguousarray(rows[:, :cc])
+        want = [x.numpy() for x in dh.spec2_from_words(dh.pack_words(torch.from_numpy(part)), cc)]
+        cases = [(AT_GUARD, 1)] + [(o, 1) for o in range(8)]
+        cases += [(AT_GUARD, 0)] + [(o, 0) for o in (0, 4, 8, 12)] if cc % 4 == 0 else []
+        for offset, loader in cases:
+            got = [np.zeros_like(want[0]), np.zeros_like(want[1])]
+            assert host_lib.host_prepass_v7(part.ctypes.data, cc, len(part), _offset_arg(offset),
+                                            loader, got[0].ctypes.data, got[1].ctypes.data) == 0
+            assert (got[0] == want[0]).all() and (got[1] == want[1]).all(), (cc, offset, loader)
 
 
 def test_host_encode_stats_walk_matches_plain(host_lib):
@@ -1485,24 +1720,50 @@ def test_host_bprobe_matches_plain(host_lib, nwhen):
     assert (scratch == want_scratch.numpy()).all()
 
 
-@pytest.mark.parametrize("mode", ["when1", "when2", "fori", "store4", "load4"])
+def _cliff_cases():
+    """(adv, n, start, R) of the cliff and chase walks: both probe blocks at
+    R = 1, 4 and 5 from starts 3, 3 and 0; a walk that ends exactly at n;
+    one whose last advance jumps past the advance array's end (the staged
+    copy's pad); a start at and past n."""
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    cases = []
+    for b in _probe_inputs().values():
+        adv, n, _ = hp.chain_inputs(b)
+        cases += [(adv, n, start, R) for R, start in ((1, 3), (4, 3), (5, 0))]
+    ones = np.ones(64, np.int32)
+    jump = ones.copy()
+    jump[60] = 40  # from 3: ..., 60, then 100, past the 64 words
+    cases += [(ones, 64, 3, 3), (ones, 57, 0, 2), (jump, 64, 3, 3), (jump, 64, 64, 2),
+              (jump, 62, 61, 3)]
+    return cases
+
+
+@pytest.mark.parametrize("mode", ["when1", "when2", "fori", "store4", "load4", "chase"])
 def test_host_cliff_matches_plain(host_lib, mode):
-    """cliff's walk and bodies on both probe blocks at R = 1, 4 and 5, from
-    start 3 and 0: checksum and image."""
+    """cliff's walk and bodies as the kernel runs them (the advances staged
+    as byte offsets, 0 at and past n, padded past n by the largest advance;
+    the next load before the body; predicated stores; the exit every 4
+    steps) and the chase
+    (the walk with no body, chain's function) on _cliff_cases: checksum and
+    image against cliff_plain, the chase's sum against chain_plain."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
-    for b in _probe_inputs().values():
-        adv, n, _ = hp.chain_inputs(b)
+    code = 5 if mode == "chase" else hp.CLIFF_MODES.index(mode)
+    for adv, n, start, R in _cliff_cases():
         adv = np.ascontiguousarray(adv, np.int32)
-        for R, start in ((1, 3), (4, 3), (5, 0)):
-            img = np.zeros(hp.IMAGE_WORDS, np.int32)
-            got = host_lib.host_cliff(hp.CLIFF_MODES.index(mode), adv.ctypes.data, n, start, R,
-                                      img.ctypes.data)
-            want, want_img = hp.cliff_plain(torch.from_numpy(adv), n, mode, start, R)
-            assert got == int(want[0]), (n, R, start)
-            assert (img == want_img.numpy()).all()
+        t = torch.from_numpy(adv)
+        staged = hp.cliff_staged_words(t, n, start)
+        img = np.zeros(hp.IMAGE_WORDS, np.int32)
+        got = host_lib.host_cliff(code, adv.ctypes.data, n, staged, start, R, img.ctypes.data)
+        if mode == "chase":
+            assert got == int(hp.chain_plain(t, n, start, R)[0][0]), (n, R, start)
+            continue
+        want, want_img = hp.cliff_plain(t, n, mode, start, R)
+        assert got == int(want[0]), (n, R, start)
+        assert (img == want_img.numpy()).all(), (n, R, start)
 
 
 @pytest.mark.parametrize("seed", [5, 9])

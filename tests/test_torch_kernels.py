@@ -201,13 +201,14 @@ def test_build_names_every_source():
     assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
                                    "decode_variants", "decode_pipe", "encode_variants",
                                    "encode_r4", "decode_hybrid", "encode_stats", "chain",
-                                   "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic",
-                                   "encode_layout", "decode_layout", "best_layout",
-                                   "crc32c_layout", "encode_variant_layout", "encode_r4_layout"}
+                                   "vcopy", "coissue", "iso", "bprobe", "cliff", "chase",
+                                   "bitonic", "encode_layout", "decode_layout", "best_layout",
+                                   "crc32c_layout", "encode_variant_layout", "encode_r4_layout",
+                                   "prepass_v7", "decode_v7_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
-    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "bitonic", "encode_layout",
-              "decode_layout", "best_layout", "crc32c_layout", "encode_variant_layout",
-              "encode_r4_layout"}
+    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "chase", "bitonic",
+              "encode_layout", "decode_layout", "best_layout", "crc32c_layout",
+              "encode_variant_layout", "encode_r4_layout", "prepass_v7", "decode_v7_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time the descriptor-driven decode (T14-T16, T18 ``decode_v7``) and the
+chain probes (T10 ``chain``, T19 ``cliff``, the chase) of one or more
+checkouts on one GPU, beside the production kernels K1-K4.
+
+    python3 tools/torch_hybrid_times.py ROOT [ROOT ...]
+    python3 tools/torch_hybrid_times.py --sass ROOT OUT
+
+Each ROOT is a directory that holds a ``snappier_tpu_torch`` package (this
+repository's root, or an unpacked ``git archive`` of another commit). For
+each ROOT in the order given (list a pair as ``A B B A`` to take turns on
+one card), a fresh process imports that package, builds the kernels it
+times into ``ROOT/build`` and times them with ``chip_smoke.cuda_ms`` of
+this repository (CUDA events, warm-up, best of 3 passes of 5 calls) on the
+main path's 512 blocks (64 KiB of bench.py's word mix each, compressed by
+K2): K1-K4; ``decode_v5``, ``decode_v5_spec``, ``decode_v6``, ``decode_v7``
+and ``decode_v7(unroll2=True)`` with their pre-pass, each walk alone on its
+descriptors, the pre-passes alone and each form's peak device memory, at
+the codec's row width (68,608 B) and the tight one; ``chain`` and ``cliff``
+in its five modes at 200 walks on block 0 and, where the package has it,
+the chase, in ms and ns a walk step. Every call is first held to its plain
+version (the walks' rows to the input). It prints the card's name and
+power limit, then one JSON line per run. It needs a CUDA card and exits 2
+without one.
+
+With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and writes
+``cuobjdump -sass`` of its ``cliff_kernel`` instantiations to OUT, then
+prints, for each, the loop's shared-memory loads and stores and its
+branches in order, the step order a reader checks there.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+
+from torch_crc_times import in_turns, smoke
+
+SOURCES = ("decode", "encode", "crc32c", "encode_best", "decode_hybrid", "hybrid_probes")
+
+
+def build_some(_build, names) -> None:
+    """Build only the sources of the launchers ``names`` (all nvcc runs at
+    once) and bind them."""
+    with _build._lock:
+        srcs = sorted({_build.source_of(n) for n in names})
+        started = [(s, *_build._start_build(s)) for s in srcs]
+        for src, st, path in started:
+            _build._finish_build(src, st, path)
+        paths = {s: path for s, _, path in started}
+        for n in names:
+            _build._launchers[n] = _build.bind(paths[_build.source_of(n)], *_build.SOURCES[n])
+
+
+def one(root: str) -> dict:
+    """The figures of the package at ``root``, timed in this process."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from snappier_tpu_torch.ops.best_match import exact_candidates
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import crc32c as crc
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    cs = smoke()
+    check_root = os.path.abspath(os.path.join(os.path.dirname(dh.__file__), *[".."] * 3))
+    cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
+    build_some(_build, [n for n in _build.SOURCES if _build.source_of(n) in SOURCES])
+    B, BLOCK, ms = cs.B, cs.BLOCK, cs.cuda_ms
+    html = cs.word_mix()
+    reps = -(-B * BLOCK // len(html))
+    data = np.frombuffer((html * reps)[: B * BLOCK], np.uint8).reshape(B, BLOCK)
+    frags = torch.from_numpy(data.copy()).cuda()
+    lengths = torch.full((B,), BLOCK, dtype=torch.int32, device="cuda")
+    bodies, body_lens = sc.encode_blocks_bytes(frags, lengths)
+    pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device="cuda").expand(B, 3)
+    blocks = torch.cat([pre, bodies.to(torch.uint8)], dim=1)
+    comp = torch.nn.functional.pad(blocks, (0, (-blocks.shape[1]) % 1024)).contiguous()
+    lens = body_lens + 3
+    tight = comp[:, : -(-(int(lens.max()) + 8) // 1024) * 1024].contiguous()
+    cands = exact_candidates(frags, lengths)
+    t = {"k1": ms(lambda: sc.decode_blocks_bytes(comp, lens, BLOCK)),
+         "k2": ms(lambda: sc.encode_blocks_bytes(frags, lengths), iters=3),
+         "k3": ms(lambda: crc.crc32c_blocks(frags, lengths)),
+         "k4": ms(lambda: sc._encode_best(frags, lengths, cands), iters=3)}
+    forms = {"v5": dh.decode_v5, "v6": dh.decode_v6, "v7": dh.decode_v7,
+             "v7u": lambda c, n, o: dh.decode_v7(c, n, o, unroll2=True)}
+    for width, rows in (("codec", comp), ("tight", tight)):
+        for form, fn in forms.items():
+            out, out_lens, errs = fn(rows, lens, BLOCK)
+            cs.check(bool((errs == 0).all()) and bool((out == frags).all()),
+                     f"{form} at the {width} width: rows differ from the input")
+            t[f"{form}_{width}"] = ms(lambda: fn(rows, lens, BLOCK))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(rows, lens, BLOCK)
+            torch.cuda.synchronize()
+            t[f"{form}_{width}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        for form in ("v5", "v6", "v7", "v7u"):
+            p = dh._prepass(rows, form[:2])
+            t[f"{form}_{width}_walk"] = ms(lambda: dh._launch(
+                form[:2], form == "v7u", rows, p[0], p[1], lens, BLOCK, dh.FORMS[form[:2]][1]))
+            if form != "v7u":
+                t[f"prepass_{form}_{width}"] = ms(lambda: dh._prepass(rows, form[:2]))
+            del p
+        t[f"v5parts_{width}"] = ms(lambda: dh.decode_v5_spec(
+            dh.pack_words(rows), dh.spec_from_comp(rows), lens, BLOCK))
+    block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
+    adv, n, ntags = hp.chain_inputs(block)
+    adv_h = torch.from_numpy(adv)
+    adv_d = adv_h.cuda()
+    R = hp.CHAIN_R
+    walk = {s: hp._chain_trial(adv.tolist(), n, s, None)[1] for s in (3, 4)}
+    steps = sum(walk[3 + (r & 1)] for r in range(R))
+    want_chain = hp.chain_plain(adv_h, n, 3, R)[0]
+    cs.check(bool((hp.chain(adv_d, n, 3, R)[0].cpu() == want_chain).all()),
+             "chain differs from its plain version")
+    t["chain"] = ms(lambda: hp.launch_chain(adv_d, n, 3, R, False))
+    staged = hp.cliff_staged_words(adv_h, n, 3) if hasattr(hp, "cliff_staged_words") else None
+    for m in hp.CLIFF_MODES:
+        got, want = hp.cliff(adv_d, n, m, 3, R), hp.cliff_plain(adv_h, n, m, 3, R)
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
+                 f"cliff {m} differs from its plain version")
+        args = (adv_d, n, m, 3, R) + ((staged,) if staged is not None else ())
+        t[f"cliff_{m}"] = ms(lambda: hp.launch_cliff(*args))
+    if hasattr(hp, "chase"):
+        cs.check(hp.chase(adv_d, n, 3, R).cpu().tolist() == want_chain.tolist(),
+                 "the chase differs from chain's plain version")
+        t["chase"] = ms(lambda: hp.launch_chase(adv_d, n, 3, R, staged))
+    walks = ("chain", "chase", *(f"cliff_{m}" for m in hp.CLIFF_MODES))
+    ns = {k: t[k] * 1e6 / steps for k in walks if k in t}
+    layout = dh.decode_v7_layout(comp, BLOCK) if hasattr(dh, "decode_v7_layout") else None
+    return {"root": root, "ms": t, "ns_per_step": ns, "steps": steps, "tags_block0": ntags,
+            "staged_words": staged, "v7_layout": layout,
+            "v7_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""), "v7"),
+            "cliff_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""),
+                                            "cliff_kernel")}
+
+
+def sass(root: str, out: str) -> int:
+    """cuobjdump -sass of ROOT's cliff kernels into OUT, and each kernel's
+    shared-memory loads, stores and branches in order."""
+    sys.path.insert(0, root)
+    from snappier_tpu_torch.ops.cuda import _build
+
+    build_some(_build, ["cliff"])
+    lib = _build._lib_path("hybrid_probes")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    keep = [f for f in funcs if f.startswith("_Z") and "cliff_kernel" in f.split("\n", 1)[0]]
+    with open(out, "w") as fh:
+        fh.write("\n".join("Function : " + f for f in keep))
+    for f in keep:
+        name = f.split("\n", 1)[0].strip()
+        ops = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", f)
+        seq = [f"{addr}:{(pred or '').strip()}{op}" for addr, pred, op in ops
+               if op.split(".")[0] in ("LDS", "STS", "BRA", "BSYNC", "BSSY", "EXIT")]
+        print(name, " ".join(seq), flush=True)
+    return 0
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[0] == "--sass":
+        return sass(os.path.abspath(argv[1]), argv[2])
+    return in_turns(__file__, one, argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

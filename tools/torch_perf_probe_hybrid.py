@@ -14,8 +14,9 @@ Probes:
   v5       spec_from_comp (one int32 descriptor per byte) + the walk
   v5parts  the same, the pre-pass and the walk (decode_v5_spec) timed apart
   v6       spec_from_words (the descriptor from the word image) + v5's walk
-  v7       spec2_from_words (two arrays, one validity test per tag) + its walk
-  v7u      v7 with two tags per loop iteration
+  v7       prepass_v7 (two arrays, one validity test per tag; a kernel) + its
+           walk, the decode kernel's batched walk over the descriptors
+  v7u      v7 with two batches per loop iteration
 Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
 ``csrc/bitonic_probe.cu``) on block 0:
   chain       200 walks ip += adv[ip] over the block's advance array
@@ -29,6 +30,7 @@ Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
               2, 3, 4, 8; 0 is three select-stores)
   cliff:MODE  chain's 200 walks with a body per tag into an image (MODE:
               when1, when2, fori, store4, load4)
+  chase       cliff's walk with no body: the latency floor of a walk step
   bitonic     one merge pass (16 stages) of a bitonic network over 65,536
               keys and their indices, beside torch.sort (a full stable sort:
               not the same function)
@@ -39,9 +41,10 @@ is the card's name and power limit. For the decode probes, the next gives
 the batch, the row width, the tag count of block 0 and its tag mix; then one
 line per probe: ms per call, us per block, GB/s of output and ns per tag,
 where a block's time is the call's time over the waves of blocks the card
-runs at once. Each micro-probe is held to its plain version (checksum and
-records, image, tile, scratch or indices), then its kernel alone is timed
-and the JAX tool's line printed.
+runs at once (``v7``, ``v7u``: as ``decode_v7_layout`` gives it). Each
+micro-probe is held to its plain version (checksum and records, image,
+tile, scratch or indices), then its kernel alone is timed and the JAX
+tool's line printed.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ DECODE_PROBES = ("v5", "v5parts", "v6", "v7", "v7u")
 MICRO_PROBES = ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue1", "coissue2",
                 "coissue8", *(f"iso:{m}" for m in hp.ISO_MODES),
                 *(f"bprobe{n}" for n in hp.BPROBE_NWHEN), *(f"cliff:{m}" for m in hp.CLIFF_MODES),
-                "bitonic")
+                "chase", "bitonic")
 PROBES = DECODE_PROBES + MICRO_PROBES
 DEFAULT = DECODE_PROBES + ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue8")
 
@@ -107,6 +110,7 @@ def run_micro(names) -> bool:
     fill = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
     dev = torch.device("cuda")
     R = hp.CHAIN_R
+    staged = hp.cliff_staged_words(host["adv"], n, 3)
     ok = True
     for p in names:
         if p.startswith("chain"):
@@ -150,8 +154,13 @@ def run_micro(names) -> bool:
             mode = p[len("cliff:"):]
             got = hp.cliff(d["adv"], n, mode, 3, R)
             want = hp.cliff_plain(host["adv"], n, mode, 3, R)
-            fn = lambda mode=mode: hp.launch_cliff(d["adv"], n, mode, 3, R)  # noqa: E731
+            fn = lambda mode=mode: hp.launch_cliff(d["adv"], n, mode, 3, R, staged)  # noqa: E731
             line = lambda t: f"cliff[{mode}]: {t / R / ntags * 1e9:.1f} ns/tag"  # noqa: E731
+        elif p == "chase":
+            got = (hp.chase(d["adv"], n, 3, R),)
+            want = (hp.chain_plain(host["adv"], n, 3, R)[0],)
+            fn = lambda: hp.launch_chase(d["adv"], n, 3, R, staged)  # noqa: E731
+            line = lambda t: f"chase: {t / R / ntags * 1e9:.1f} ns/tag"  # noqa: E731
         else:  # bitonic, beside the library's full sort of the same keys
             got = hp.bitonic(d["keys"])
             want = hp.bitonic_plain(host["keys"])
@@ -206,13 +215,15 @@ def main() -> int:
     lens_d = torch.from_numpy(lens).cuda()
     cc = comp.shape[1]
     in_flight = blocks_in_flight(dh.smem_bytes(cc, BLOCK_SIZE))
-    waves = -(-B // in_flight)
+    v7_in_flight = 132 * dh.decode_v7_layout(comp_d, BLOCK_SIZE)["blocks_per_sm"]
+    waves = {f: -(-B // (v7_in_flight if f.startswith("v7") else in_flight))
+             for f in DECODE_PROBES}
     gb = B * BLOCK_SIZE / 1e9
     print(f"B={B} blocks, row width {cc}, {ntags} tags/block, mix={hist}, "
-          f"blocks_in_flight {in_flight}, waves {waves}")
+          f"blocks_in_flight {in_flight} (v7: {v7_in_flight}), waves {waves}")
 
     def report(label: str, t: float, ok: bool | None = None) -> None:
-        per_block = t / waves
+        per_block = t / waves[label.split()[0]]
         verdict = "" if ok is None else ("OK  " if ok else "BAD ")
         print(f"{label}: {verdict}{t * 1e3:.3f} ms, {per_block * 1e6:.0f} us/block, "
               f"{gb / t:.3f} GB/s, {per_block / ntags * 1e9:.0f} ns/tag", flush=True)
