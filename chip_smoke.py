@@ -101,16 +101,17 @@ failure:
 9. the descriptor-driven decode at full size: ``decode_v5``,
    ``decode_v5_spec`` (on a pre-pass computed beforehand), ``decode_v6`` and
    ``decode_v7`` (with and without ``unroll2``), each against its plain
-   version on phase 2's rows, edge and corrupt rows and 9 of the main path's
-   blocks of 65,536 bytes, their pre-passes on the card (``prepass_v7``, a
-   kernel) against the CPU's, their verdicts against the production
-   kernel's; ``prepass_v7`` and ``decode_v7`` also on rows that are no word
-   rows (3 bytes narrower, 1 byte into a buffer); then the 512 blocks
-   through the production kernel and every form at the codec's row width
-   and the tight one, each row equal to the input; ``decode_v7``'s layout
-   (three blocks an SM at out_cap 65,536) and ptxas figures (any stack or
-   spill fails); timings beside the production kernel (ns per tag), the
-   pre-passes alone, each walk alone and the peak device memory of one
+   version on phase 2's rows, edge, corrupt and step-back rows and 9 of the
+   main path's blocks of 65,536 bytes, their pre-passes on the card
+   (``prepass_v5``, ``prepass_v6``, ``prepass_v7``: kernels) against the
+   CPU's tensor code, their verdicts against the production kernel's; the
+   pre-passes and the walks also on rows that are no word rows (3 bytes
+   narrower, 1 byte into a buffer); then the 512 blocks through the
+   production kernel and every form at the codec's row width and the tight
+   one, each row equal to the input; each form's layout (three blocks an SM
+   at out_cap 65,536) and ptxas figures (any stack or spill fails); timings
+   beside the production kernel (ns per tag), the pre-passes alone (kernel
+   and tensor code), each walk alone and the peak device memory of one
    call;
 10. the micro-probes: ``encode_stats`` (the encoder's budget) against its
    plain walk on rows of 4 KiB and 9 of the main path's fragments, and
@@ -226,7 +227,8 @@ PATHS = {  # path -> the kernels it must launch
     "sharded_scan": (),
     "encode_ablation": ("encode", "decode", "encode_variant", "encode_r4", "decode_pipe",
                         "decode_pipe2"),
-    "hybrid": ("decode", "decode_v5", "decode_v5_parts", "decode_v6", "decode_v7"),
+    "hybrid": ("decode", "decode_v5", "decode_v5_parts", "decode_v6", "decode_v7", "prepass_v5",
+               "prepass_v6", "prepass_v7"),
     "micro_probes": ("encode_stats", "chain", "vcopy", "coissue"),
     "isolation": ("iso", "bprobe", "cliff", "bitonic"),
 }
@@ -1711,13 +1713,13 @@ def hybrid_call(dh, form: str):
 def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     """Phase 9, the hybrid path. Returns (max_abs_err per wrapper, launches
     on the path, ms per wrapper at the codec's row width, plain ms per
-    wrapper on one row, decode_v7's row extras: its pre-pass kernel, walk
-    and layout)."""
+    wrapper on one row, extra fields of the T14, T16 and T18 rows of the
+    kernels line: layouts, the pre-pass kernels, walks and variants)."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "tests"))
     sys.path.insert(0, os.path.join(root, "tools"))
     from torch_cases import corrupt_streams as more_corrupt
-    from torch_cases import pack_streams, walk_streams
+    from torch_cases import pack_streams, step_back_streams, walk_streams
     from torch_perf_probe import tag_mix
 
     from snappier_tpu_torch.ops.cuda import _build
@@ -1726,73 +1728,84 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
 
     dev = torch.device("cuda")
     errs = {}
+    pre_errs = {}
     # 1. each form against its plain version, the pre-passes on the card
     # against the CPU's: phase 2's rows (corrupt blocks and encoded rows of
     # up to 64 KiB), short offsets, overlapping copies, long literals, three
-    # 64 KiB oracle blocks, more malformed blocks, and 9 of the main path's
-    # blocks of 65,536 bytes.
+    # 64 KiB oracle blocks, more malformed blocks, the step-back blocks
+    # (decode_v5 steps its output back inside a batch), and 9 of the main
+    # path's blocks of 65,536 bytes.
     t0 = time.perf_counter()
     picks = torch.from_numpy(np.linspace(0, B - 1, 9).astype(np.int64)).to(dev)
     main_rows = comp_u8[picks].cpu().numpy()
     main_streams = [main_rows[i, :n].tobytes() for i, n in enumerate(block_lens[picks].tolist())]
-    streams = decode_streams + walk_streams(big=BLOCK) + more_corrupt() + main_streams
+    streams = (decode_streams + walk_streams(big=BLOCK) + more_corrupt() + step_back_streams()
+               + main_streams)
     comp, clens = pack_streams(streams, 68608)
     c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
     c_d, l_d = c_h.to(dev), l_h.to(dev)
     k1 = [x.cpu().numpy() for x in sc.decode_blocks_bytes(c_d, l_d, BLOCK)]
+    back_rows = [streams.index(x) for x in step_back_streams()]
     n_main = 0
+
+    def differs(got, want):
+        pairs = [(got[1], want[1]), (got[2], want[2])]
+        return max_abs_err(pairs + [(got[0][i, :n], want[0][i, :n])
+                                    for i, n in enumerate(want[1])])
+
     for base in ("v5", "v6", "v7"):
         pre_h = dh._prepass(c_h, base)
         pre_d = dh._prepass(c_d, base)
-        for a, b in zip(pre_d, pre_h):
-            check(b is None or bool((a.cpu() == b).all()), f"pre-pass of {base}: card != CPU")
+        pre_errs[base] = max_abs_err((a.cpu(), b) for a, b in zip(pre_d, pre_h) if b is not None)
+        check(pre_errs[base] == 0, f"pre-pass of {base}: card != CPU")
         want = [x.numpy() for x in dh.walk_plain(c_h, pre_h[0], pre_h[1], l_h, BLOCK, base)]
         forms = [f for f in HYBRID_FORMS if f[:2] == base]
         for form in forms:
             got = [x.cpu().numpy() for x in hybrid_call(dh, form)(c_d, l_d, BLOCK)]
-            pairs = [(got[1], want[1]), (got[2], want[2])]
-            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
-            err = max_abs_err(pairs)
+            err = differs(got, want)
             check(err == 0, f"{form} differs from its plain version")
-            check(bool(((got[2] == 0) == (k1[2] == 0)).all()), f"{form}: verdicts differ from K1's")
+            # K1 refuses v5's step back; elsewhere the verdicts and rows agree.
+            same = np.ones(len(streams), bool)
+            same[back_rows] = base != "v5"
+            check(bool(((got[2] == 0) == (k1[2] == 0))[same].all()),
+                  f"{form}: verdicts differ from K1's")
             check(all((got[0][i, :n] == k1[0][i, :n]).all() for i, n in enumerate(k1[1])),
                   f"{form}: rows differ from K1's")
             errs[dh.FORMS[base][1]] = max(errs.get(dh.FORMS[base][1], 0), err)
         if base == "v5":
-            spec_d = dh.spec_from_comp(c_d)
-            got = [x.cpu().numpy() for x in dh.decode_v5_spec(dh.pack_words(c_d), spec_d, l_d,
+            got = [x.cpu().numpy() for x in dh.decode_v5_spec(dh.pack_words(c_d), pre_d[0], l_d,
                                                                BLOCK)]
-            pairs = [(got[1], want[1]), (got[2], want[2])]
-            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
-            errs["decode_v5_parts"] = max_abs_err(pairs)
+            errs["decode_v5_parts"] = differs(got, want)
             check(errs["decode_v5_parts"] == 0, "decode_v5_spec differs from decode_v5's plain")
         seen = set(want[2].tolist())
         check(seen == ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}),
               f"{base}: corrupt rows give error words {sorted(seen)}")
         check(not want[1][want[2] != 0].any(), "out_len must be 0 on any error")
+        back = want[2][back_rows].tolist()
+        check(back == ([0, 0, 0] if base == "v5" else [4, 4, 4]),
+              f"{base}: the step-back rows give {back}")
         n_main = int((want[1] == BLOCK).sum())
     check(n_main >= 9, f"only {n_main} rows of {BLOCK} B")
-    # prepass_v7 and decode_v7 on rows that are no word rows (the byte
+    # The pre-passes and the walks on rows that are no word rows (the byte
     # loaders): 3 bytes narrower, and 1 byte into a buffer.
     buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=dev)
     buf[1:].copy_(c_d.reshape(-1))
     odd = {"narrow": (c_d[:, :-3].contiguous(), c_h[:, :-3].contiguous()),
            "offset": (buf[1:].view(c_d.shape), c_h)}
-    prepass_err = 0
     for what, (rows_d, rows_h) in odd.items():
         check(rows_d.data_ptr() % 4 != 0 or rows_d.shape[1] % 4 != 0, f"{what}: word rows")
-        got_pre = [x.cpu() for x in dh.prepass_v7(rows_d)]
-        want_pre = dh.prepass_v7(rows_h)
-        prepass_err = max(prepass_err, max_abs_err(zip(got_pre, want_pre)))
-        want = [x.numpy() for x in dh.walk_plain(rows_h, *want_pre, l_h, BLOCK, "v7")]
-        for form in ("v7", "v7u"):
-            got = [x.cpu().numpy() for x in hybrid_call(dh, form)(rows_d, l_d, BLOCK)]
-            err = max_abs_err([(got[1], want[1]), (got[2], want[2])]
-                              + [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])])
-            check(err == 0, f"{form} on {what} rows differs from its plain version")
-    check(prepass_err == 0, "prepass_v7 on rows that are no word rows: card != CPU")
+        for base in ("v5", "v6", "v7"):
+            got_pre = [x.cpu() for x in dh._prepass(rows_d, base) if x is not None]
+            want_pre = dh._prepass(rows_h, base)
+            err = max_abs_err(zip(got_pre, want_pre))
+            pre_errs[base] = max(pre_errs[base], err)
+            check(err == 0, f"prepass_{base} on {what} rows: card != CPU")
+            want = [x.numpy() for x in dh.walk_plain(rows_h, *want_pre, l_h, BLOCK, base)]
+            for form in [f for f in HYBRID_FORMS if f[:2] == base]:
+                got = [x.cpu().numpy() for x in hybrid_call(dh, form)(rows_d, l_d, BLOCK)]
+                check(differs(got, want) == 0, f"{form} on {what} rows differs from its plain")
     print(f"decode_v5, decode_v5_spec, decode_v6, decode_v7 (and unroll2) == plain on "
-          f"{len(streams)} rows ({n_main} of {BLOCK} B) and, v7, on narrow and offset rows; "
+          f"{len(streams)} rows ({n_main} of {BLOCK} B) and on narrow and offset rows; "
           f"pre-passes card == CPU, verdicts == K1's, max_abs_err 0 "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1806,7 +1819,7 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
         k1_out, k1_lens, k1_errs = sc.decode_blocks_bytes(rows_d, block_lens, BLOCK)
         check(bool((k1_errs == 0).all()) and bool((k1_out == frags).all()), "production decode")
         results = {f: hybrid_call(dh, f)(rows_d, block_lens, BLOCK) for f in HYBRID_FORMS}
-        results["v5parts"] = dh.decode_v5_spec(dh.pack_words(rows_d), dh.spec_from_comp(rows_d),
+        results["v5parts"] = dh.decode_v5_spec(dh.pack_words(rows_d), dh.prepass_v5(rows_d),
                                                block_lens, BLOCK)
         for form, (out, out_lens, ferrs) in results.items():
             check(bool((ferrs == 0).all()), f"{form}: errors on the main path ({width})")
@@ -1818,22 +1831,28 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     print(f"hybrid path launches: {launches}")
     for k in PATHS["hybrid"]:
         check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the hybrid path")
-    check(launches.get("decode_v7") == 4 and launches.get("decode_v5_parts") == 2
-          and launches.get("prepass_v7") == 4, f"launch counts {launches}")
+    want_launches = {"decode": 2, "decode_v5": 2, "decode_v5_parts": 2, "decode_v6": 2,
+                     "decode_v7": 4, "prepass_v5": 4, "prepass_v6": 2, "prepass_v7": 4}
+    check(launches == want_launches, f"launch counts {launches}")
     print(f"hybrid: {B} x {BLOCK} B decoded exactly by K1, decode_v5, decode_v5_spec, decode_v6 "
           "and decode_v7 (with and without unroll2) at both row widths")
 
-    # 3. decode_v7's layout and ptxas figures; timings beside K1 at both
+    # 3. each form's layout and ptxas figures; timings beside K1 at both
     # widths; the pre-passes alone; each walk alone; the peak device memory
     # of one call of each form.
-    v7_layout = dh.decode_v7_layout(comp_u8, BLOCK)
+    layouts = {f: dh.decode_hybrid_layout(comp_u8, BLOCK, f) for f in ("v5", "v6", "v7")}
     log = _build.BUILD_LOG.get("decode_hybrid", "")
-    v7_ptxas = {k: ptxas_figures(log, k) for k in ("decode_v7_kernel", "prepass_v7_kernel")}
-    print(json.dumps({"card": card, "decode_v7_layout": v7_layout, "decode_v7_ptxas": v7_ptxas}))
-    check(v7_layout["blocks_per_sm"] >= 3 and v7_layout["loader"] == "words",
-          f"decode_v7: {v7_layout} at out_cap {BLOCK}")
-    for k, count in (("decode_v7_kernel", 4), ("prepass_v7_kernel", 2)):
-        figs = v7_ptxas[k]
+    ptxas = {k: ptxas_figures(log, k) for k in ("decode_desc_kernel", "prepass_kernel")}
+    print(json.dumps({"card": card, "decode_hybrid_layouts": layouts,
+                      "decode_hybrid_ptxas": ptxas}))
+    for form, lay in layouts.items():
+        check(lay["blocks_per_sm"] >= 3 and lay["loader"] == "words" and lay["threads"] == 64,
+              f"{form}: {lay} at out_cap {BLOCK}")
+    # Forms 5 and 6 on both loaders, form 7 on both with and without
+    # unroll2; the pre-pass of one array and of two, each on words or bytes
+    # in, 16-byte or 4-byte stores.
+    for k, count in (("decode_desc_kernel", 8), ("prepass_kernel", 8)):
+        figs = ptxas[k]
         check(len(figs) == count, f"ptxas figures for the {count} {k}s: {figs}")
         for fig in figs:
             check(all(fig.get(x) == 0 for x in ("stack", "spill_stores", "spill_loads")),
@@ -1842,31 +1861,36 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     times = {}
     for width, rows_d in widths:
         cc = rows_d.shape[1]
-        smem = dh.smem_bytes(cc, BLOCK)
-        in_flight = 132 * max(1, 233472 // (smem + 1024))
-        waves = -(-B // in_flight)
-        layout = dh.decode_v7_layout(rows_d, BLOCK)
-        v7_in_flight = 132 * layout["blocks_per_sm"]
-        v7_waves = -(-B // v7_in_flight)
-        words, spec = dh.pack_words(rows_d), dh.spec_from_comp(rows_d)
-        t = {"row_bytes": cc, "smem": smem, "blocks_in_flight": in_flight,
-             "v7_smem": layout["smem_bytes"], "v7_blocks_in_flight": v7_in_flight,
+        in_flight = {f: 132 * dh.decode_hybrid_layout(rows_d, BLOCK, f)["blocks_per_sm"]
+                     for f in ("v5", "v6", "v7")}
+        waves = {f: -(-B // n) for f, n in in_flight.items()}
+        t = {"row_bytes": cc, **{f"{f}_blocks_in_flight": n for f, n in in_flight.items()},
              "k1": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK)),
-             "prepass_v5": cuda_ms(lambda: (dh.spec_from_comp(rows_d), dh.pack_words(rows_d))),
-             "prepass_v6": cuda_ms(lambda: dh.spec_from_words(dh.pack_words(rows_d), cc)),
+             "prepass_v5": cuda_ms(lambda: dh.prepass_v5(rows_d)),
+             "prepass_v5_tensor": cuda_ms(lambda: (dh.spec_from_comp(rows_d),
+                                                   dh.pack_words(rows_d))),
+             "prepass_v6": cuda_ms(lambda: dh.prepass_v6(rows_d)),
+             "prepass_v6_tensor": cuda_ms(lambda: dh.spec_from_words(dh.pack_words(rows_d), cc)),
              "prepass_v7": cuda_ms(lambda: dh.prepass_v7(rows_d)),
-             "prepass_v7_tensor": cuda_ms(lambda: dh.spec2_from_words(dh.pack_words(rows_d), cc)),
-             "v5parts_kernel": cuda_ms(lambda: dh.decode_v5_spec(words, spec, block_lens,
-                                                                 BLOCK))}
-        t["v5parts_kernel_ns_per_tag"] = t["v5parts_kernel"] * 1e6 / waves / ntags
-        # The other walks alone, each on its own pre-pass made beforehand.
-        for form in ("v6", "v7", "v7u"):
+             "prepass_v7_tensor": cuda_ms(lambda: dh.spec2_from_words(dh.pack_words(rows_d), cc))}
+        words, spec = dh.pack_words(rows_d), dh.prepass_v5(rows_d)
+        t["v5parts_kernel"] = cuda_ms(lambda: dh.decode_v5_spec(words, spec, block_lens, BLOCK))
+        t["v5parts_kernel_ns_per_tag"] = t["v5parts_kernel"] * 1e6 / waves["v5"] / ntags
+        t["v5parts_with_prepass"] = cuda_ms(lambda: dh.decode_v5_spec(
+            dh.pack_words(rows_d), dh.prepass_v5(rows_d), block_lens, BLOCK))
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dh.decode_v5_spec(dh.pack_words(rows_d), dh.prepass_v5(rows_d), block_lens, BLOCK)
+        torch.cuda.synchronize()
+        t["v5parts_peak_bytes"] = torch.cuda.max_memory_allocated() - base_mem
+        # The walks alone, each on its own pre-pass made beforehand.
+        for form in HYBRID_FORMS:
             pre = dh._prepass(rows_d, form[:2])
             t[form + "_walk"] = cuda_ms(lambda: dh._launch(
                 form[:2], form == "v7u", rows_d, pre[0], pre[1], block_lens, BLOCK,
                 dh.FORMS[form[:2]][1]))
-            w = v7_waves if form != "v6" else waves
-            t[form + "_walk_ns_per_tag"] = t[form + "_walk"] * 1e6 / w / ntags
+            t[form + "_walk_ns_per_tag"] = t[form + "_walk"] * 1e6 / waves[form[:2]] / ntags
             del pre
         k1_in_flight = 132 * max(1, 233472 // (((BLOCK + 15) & ~15) + 1024))  # csrc/decode.cu
         t["k1_ns_per_tag"] = t["k1"] * 1e6 / -(-B // k1_in_flight) / ntags
@@ -1875,8 +1899,7 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
         for form in HYBRID_FORMS:
             fn = hybrid_call(dh, form)
             t[form] = cuda_ms(lambda: fn(rows_d, block_lens, BLOCK))
-            w = v7_waves if form[:2] == "v7" else waves
-            t[form + "_ns_per_tag"] = t[form] * 1e6 / w / ntags
+            t[form + "_ns_per_tag"] = t[form] * 1e6 / waves[form[:2]] / ntags
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fn(rows_d, block_lens, BLOCK)
@@ -1892,18 +1915,35 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
     plain = {dh.FORMS[f][1]: host_ms(lambda: dh.decode_hybrid_plain(c1, cl1, BLOCK, f))
              for f in ("v5", "v6", "v7")}
     plain["decode_v5_parts"] = host_ms(lambda: dh.decode_v5_spec(w1, s1, cl1, BLOCK))
-    v7_extra = {
-        "layout": {**v7_layout, "ptxas": v7_ptxas},
-        "walk_ms": cw["v7_walk"], "unroll2_ms": cw["v7u"], "unroll2_walk_ms": cw["v7u_walk"],
-        "prepass_v7": {"route": "cuda", "source": "snappier_tpu_torch/csrc/decode_hybrid.cu",
-                       "replaces": "tools/perf_probe_hybrid.py:1271",
-                       "launches": launches.get("prepass_v7", 0), "max_abs_err": prepass_err,
-                       "ms": cw["prepass_v7"], "tensor_ms": cw["prepass_v7_tensor"],
-                       "plain_ms": host_ms(lambda: dh.prepass_v7(c1)),
-                       "bound_ms": 9 * B * comp_u8.shape[1] / HBM_BYTES_PER_S * 1e3,
-                       "bound_by": "bytes"},
+    tpu_prepass = {"v5": "tools/perf_probe_hybrid.py:533", "v6": "tools/perf_probe_hybrid.py:905",
+                   "v7": "tools/perf_probe_hybrid.py:1271"}
+
+    def prepass_row(form):
+        """A pre-pass kernel's entry, riding in its form's row: it reads a
+        byte and writes 4 (8 for v7) a position."""
+        return {"route": "cuda", "source": "snappier_tpu_torch/csrc/decode_hybrid.cu",
+                "replaces": tpu_prepass[form], "launches": launches.get(f"prepass_{form}", 0),
+                "max_abs_err": pre_errs[form], "ms": cw[f"prepass_{form}"],
+                "tensor_ms": cw[f"prepass_{form}_tensor"],
+                "plain_ms": host_ms(lambda: dh._prepass(c1, form)),
+                "bound_ms": (9 if form == "v7" else 5) * B * comp_u8.shape[1]
+                / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+    ptx = {"decode_desc_kernel": ptxas["decode_desc_kernel"]}
+    extra = {
+        "decode_v5": {"layout": {**layouts["v5"], "ptxas": ptx}, "walk_ms": cw["v5_walk"],
+                      "prepass_v5": prepass_row("v5")},
+        "decode_v5_parts": {"layout": {**layouts["v5"], "ptxas": ptx},
+                            "with_prepass_ms": cw["v5parts_with_prepass"]},
+        "decode_v6": {"layout": {**layouts["v6"], "ptxas": ptx}, "walk_ms": cw["v6_walk"],
+                      "prepass_v6": prepass_row("v6")},
+        "decode_v7": {"layout": {**layouts["v7"], "ptxas": ptx}, "walk_ms": cw["v7_walk"],
+                      "unroll2_ms": cw["v7u"], "unroll2_walk_ms": cw["v7u_walk"],
+                      "prepass_v7": prepass_row("v7")},
     }
-    return errs, launches, ms, plain, v7_extra
+    for row in extra.values():
+        row["layout"]["prepass_ptxas"] = ptxas["prepass_kernel"]
+    return errs, launches, ms, plain, extra
 
 
 def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
@@ -2374,7 +2414,7 @@ def main() -> int:
     ms.update(ms_enc)
 
     # --- 9. the descriptor-driven decode ----------------------------------------
-    errs_hy, hybrid_launches, ms_hy, plain_hy, v7_extra = phase_hybrid(
+    errs_hy, hybrid_launches, ms_hy, plain_hy, hybrid_extra = phase_hybrid(
         torch, card, decode_streams, frags, comp_u8, block_lens)
     errs.update(errs_hy)
     ms.update(ms_hy)
@@ -2480,8 +2520,8 @@ def main() -> int:
         if k == "encode_best":
             rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
             rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}
-        if k == "decode_v7":
-            rows[-1].update(v7_extra)
+        if k in hybrid_extra:
+            rows[-1].update(hybrid_extra[k])
         if k == "cliff":
             rows[-1].update(cliff_extra)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "

@@ -32,6 +32,7 @@
 
 #include "decode_stage.cuh"
 #include "decode_variants.cuh"
+#include "smem_config.cuh"
 
 namespace {
 
@@ -96,18 +97,19 @@ __global__ void decode_pipe_kernel(const uint8_t* __restrict__ comp, int64_t cc,
   }
 }
 
+// Sets the kernel's attributes for its dynamic bytes and launches it under
+// one lock (smem_config.cuh); set_for is the kernel's own record.
 template <class Kernel>
-int launch(Kernel kernel, const void* comp, int64_t cc, const void* comp_lens, int64_t batch,
-           int32_t out_cap, int32_t unroll, int32_t emit, int32_t bulk, void* out,
-           void* out_lens, void* errs, void* stream) {
-  size_t smem = ((size_t)PIPE_LUT_WORDS + comp_words(cc) + out_words(out_cap)) * 4;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)batch, 32, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, unroll, emit, bulk,
-      (uint8_t*)out, (int32_t*)out_lens, (int32_t*)errs);
-  return (int)cudaGetLastError();
+int launch(Kernel kernel, attrs::SetFor& set_for, const void* comp, int64_t cc,
+           const void* comp_lens, int64_t batch, int32_t out_cap, int32_t unroll, int32_t emit,
+           int32_t bulk, void* out, void* out_lens, void* errs, void* stream) {
+  const size_t smem = ((size_t)PIPE_LUT_WORDS + comp_words(cc) + out_words(out_cap)) * 4;
+  return (int)attrs::configure_and_launch(kernel, smem, set_for, [&] {
+    kernel<<<(unsigned)batch, 32, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, unroll, emit, bulk,
+        (uint8_t*)out, (int32_t*)out_lens, (int32_t*)errs);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -123,8 +125,11 @@ extern "C" int snappy_decode_pipe_launch(int32_t fold, int32_t unroll, int32_t u
   if (batch == 0) return 0;
   if (unroll < 1 || unroll > 4 || unc < 0 || unc > 2) return (int)cudaErrorInvalidValue;
 #define SNAPPY_LAUNCH(k)                                                                     \
-  return launch(k, comp, cc, comp_lens, batch, out_cap, unroll, emit, dma_pipe, out, out_lens, \
-                errs, stream)
+  {                                                                                          \
+    static attrs::SetFor set_for; /* one record an instantiation */                          \
+    return launch(k, set_for, comp, cc, comp_lens, batch, out_cap, unroll, emit, dma_pipe, out, \
+                  out_lens, errs, stream);                                                   \
+  }
   if (!fold) {
     if (unroll != 1 || unc != 0) return (int)cudaErrorInvalidValue;
     SNAPPY_LAUNCH((decode_pipe_kernel<false, 0>));

@@ -33,6 +33,7 @@
 
 #include "decode_stage.cuh"
 #include "decode_variants.cuh"
+#include "smem_config.cuh"
 
 namespace {
 
@@ -101,17 +102,18 @@ size_t smem_bytes(int32_t variant, int64_t cc, int32_t out_cap) {
   return words * 4;
 }
 
+// Sets the kernel's attributes for smem dynamic bytes and launches it
+// under one lock (smem_config.cuh); set_for is the kernel's own record.
 template <class Kernel>
-int launch(Kernel kernel, size_t smem, const void* comp, int64_t cc, const void* comp_lens,
-           int64_t batch, int32_t out_cap, void* out, void* out_lens, void* errs,
-           void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)batch, 32, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, (uint8_t*)out,
-      (int32_t*)out_lens, (int32_t*)errs);
-  return (int)cudaGetLastError();
+int launch(Kernel kernel, attrs::SetFor& set_for, size_t smem, const void* comp, int64_t cc,
+           const void* comp_lens, int64_t batch, int32_t out_cap, void* out, void* out_lens,
+           void* errs, void* stream) {
+  return (int)attrs::configure_and_launch(kernel, smem, set_for, [&] {
+    kernel<<<(unsigned)batch, 32, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)comp, cc, (const int32_t*)comp_lens, out_cap, (uint8_t*)out,
+        (int32_t*)out_lens, (int32_t*)errs);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -125,8 +127,12 @@ extern "C" int snappy_decode_variant_launch(int32_t variant, const void* comp, i
                                             void* errs, void* stream) {
   if (batch == 0) return 0;
   size_t smem = smem_bytes(variant, cc, out_cap);
-#define SNAPPY_LAUNCH(k) \
-  return launch(k, smem, comp, cc, comp_lens, batch, out_cap, out, out_lens, errs, stream)
+#define SNAPPY_LAUNCH(k)                                                                   \
+  {                                                                                        \
+    static attrs::SetFor set_for; /* one record an instantiation */                        \
+    return launch(k, set_for, smem, comp, cc, comp_lens, batch, out_cap, out, out_lens, errs, \
+                  stream);                                                                 \
+  }
   switch (variant) {
     case 0: SNAPPY_LAUNCH((decode_words_kernel<false, false, false>));
     case 1: SNAPPY_LAUNCH((decode_words_kernel<false, true, true>));

@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "hybrid_probes.cuh"
+#include "smem_config.cuh"
 
 namespace {
 
@@ -284,9 +285,15 @@ __global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t n, int32_t
   }
 }
 
-template <class Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Sets the kernel's attributes for smem dynamic bytes and runs launch() (the
+// launch, then cudaGetLastError) under one lock (smem_config.cuh); each
+// call site keeps the kernel's own record in a static.
+template <class Kernel, class Launch>
+int with_smem(Kernel kernel, attrs::SetFor& set_for, size_t smem, Launch launch) {
+  return (int)attrs::configure_and_launch(kernel, smem, set_for, [&] {
+    launch();
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -299,18 +306,15 @@ extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int64_t wor
   const size_t smem = ((size_t)((words + 3) & ~3) + (with_rec ? hp::kRecWords : 0)) * 4;
 #define PROBE_LAUNCH(REC)                                                                   \
   do {                                                                                      \
-    int e = set_smem(chain_kernel<REC>, smem);                                              \
-    if (e != 0) return e;                                                                   \
-    chain_kernel<REC><<<1, 256, smem, (cudaStream_t)stream>>>(                              \
-        (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)recs);   \
+    static attrs::SetFor set_for;                                                           \
+    return with_smem(chain_kernel<REC>, set_for, smem, [&] {                                \
+      chain_kernel<REC><<<1, 256, smem, (cudaStream_t)stream>>>(                            \
+          (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)recs); \
+    });                                                                                     \
   } while (0)
-  if (with_rec) {
-    PROBE_LAUNCH(true);
-  } else {
-    PROBE_LAUNCH(false);
-  }
+  if (with_rec) PROBE_LAUNCH(true);
+  PROBE_LAUNCH(false);
 #undef PROBE_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 // rec: int32[32768] (dst, src, len at 0, 8192, 16384; the count at 24576);
@@ -318,16 +322,17 @@ extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int64_t wor
 extern "C" int probe_vcopy_launch(int32_t mode3d, const void* rec, const void* img, void* out,
                                   void* img_out, void* stream) {
   const size_t smem = hp::kImageWords * 4;
-  int e = mode3d ? set_smem(vcopy_kernel<true>, smem) : set_smem(vcopy_kernel<false>, smem);
-  if (e != 0) return e;
-  if (mode3d) {
-    vcopy_kernel<true><<<1, 32, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);
-  } else {
-    vcopy_kernel<false><<<1, 32, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);
-  }
-  return (int)cudaGetLastError();
+#define PROBE_LAUNCH(M3)                                                                    \
+  do {                                                                                      \
+    static attrs::SetFor set_for;                                                           \
+    return with_smem(vcopy_kernel<M3>, set_for, smem, [&] {                                 \
+      vcopy_kernel<M3><<<1, 32, smem, (cudaStream_t)stream>>>(                              \
+          (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);      \
+    });                                                                                     \
+  } while (0)
+  if (mode3d) PROBE_LAUNCH(true);
+  PROBE_LAUNCH(false);
+#undef PROBE_LAUNCH
 }
 
 // tile, tile_out: int32[8, 128]; out: int32[1].
@@ -357,11 +362,11 @@ extern "C" int probe_iso_launch(int32_t mode, const void* rec, const void* img, 
   const size_t smem = hp::kImageWords * 4;
 #define PROBE_CASE(M)                                                                        \
   case M: {                                                                                  \
-    int e = set_smem(iso_kernel<M>, smem);                                                   \
-    if (e != 0) return e;                                                                    \
-    iso_kernel<M><<<1, 32, smem, (cudaStream_t)stream>>>(                                    \
-        (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);         \
-    break;                                                                                   \
+    static attrs::SetFor set_for;                                                            \
+    return with_smem(iso_kernel<M>, set_for, smem, [&] {                                     \
+      iso_kernel<M><<<1, 32, smem, (cudaStream_t)stream>>>(                                  \
+          (const int32_t*)rec, (const int32_t*)img, (int32_t*)out, (int32_t*)img_out);       \
+    });                                                                                      \
   }
   switch (mode) {
     PROBE_CASE(hp::kIsoScalar)
@@ -374,7 +379,6 @@ extern "C" int probe_iso_launch(int32_t mode, const void* rec, const void* img, 
       return (int)cudaErrorInvalidValue;
   }
 #undef PROBE_CASE
-  return (int)cudaGetLastError();
 }
 
 // out: int32[1]; scratch_out: int32[64].
@@ -408,11 +412,11 @@ extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int3
   const size_t smem = ((size_t)staged + hp::kCliffImageWords) * 4;
 #define PROBE_CASE(M)                                                                        \
   case M: {                                                                                  \
-    int e = set_smem(cliff_kernel<M>, smem);                                                 \
-    if (e != 0) return e;                                                                    \
-    cliff_kernel<M><<<1, 256, smem, (cudaStream_t)stream>>>(                                 \
-        (const int32_t*)adv, n, staged, start, R, (int32_t*)out, (int32_t*)img_out);         \
-    break;                                                                                   \
+    static attrs::SetFor set_for;                                                            \
+    return with_smem(cliff_kernel<M>, set_for, smem, [&] {                                   \
+      cliff_kernel<M><<<1, 256, smem, (cudaStream_t)stream>>>(                               \
+          (const int32_t*)adv, n, staged, start, R, (int32_t*)out, (int32_t*)img_out);       \
+    });                                                                                      \
   }
   switch (mode) {
     PROBE_CASE(hp::kCliffWhen1)
@@ -424,7 +428,6 @@ extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int3
       return (int)cudaErrorInvalidValue;
   }
 #undef PROBE_CASE
-  return (int)cudaGetLastError();
 }
 
 // The chase: cliff's walk with no body over the same staged copy; out:
@@ -432,9 +435,9 @@ extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int3
 extern "C" int probe_chase_launch(const void* adv, int32_t n, int32_t staged, int32_t start,
                                   int32_t R, void* out, void* stream) {
   const size_t smem = (size_t)staged * 4;
-  int e = set_smem(cliff_kernel<hp::kChase>, smem);
-  if (e != 0) return e;
-  cliff_kernel<hp::kChase><<<1, 256, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)adv, n, staged, start, R, (int32_t*)out, nullptr);
-  return (int)cudaGetLastError();
+  static attrs::SetFor set_for;
+  return with_smem(cliff_kernel<hp::kChase>, set_for, smem, [&] {
+    cliff_kernel<hp::kChase><<<1, 256, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)adv, n, staged, start, R, (int32_t*)out, nullptr);
+  });
 }

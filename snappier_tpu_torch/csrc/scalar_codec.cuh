@@ -272,6 +272,15 @@ SC_HD int top_bit(uint32_t m) {
 #endif
 }
 
+// The lowest set bit of m != 0.
+SC_HD int low_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
 // The position of the k-th (from 0) set bit of m, k < popc(m): a binary
 // search on the halves' counts, in registers.
 SC_HD int nth_bit(uint32_t m, int k) {
@@ -393,8 +402,10 @@ SC_HD int32_t read_preamble(const Ld& in, int32_t n, int32_t out_cap, int32_t* p
 
 // One parsed batch of tags, the same on every lane; its tags' fields are
 // the caller's per-lane arrays, tag k on lane k (see parse_batch).
+// A batch that failed (bad) keeps in next where the first bad tag of its
+// chain starts and in total the output before that tag.
 struct Batch {
-  uint32_t total;  // output bytes
+  uint32_t total;  // output bytes (a stepping source's: their signed sum)
   uint32_t lits;   // bit k: tag k is a literal
   int32_t ntags;
   int32_t next;    // ip after the batch
@@ -431,6 +442,7 @@ struct LaneTag {
 template <class Ld>
 struct ParsedTags {
   static constexpr bool kEmptyTags = false;  // a tag of no output fails its check
+  static constexpr bool kStepBack = false;   // no tag has a negative length
   Ld in;
   const uint32_t* lut;
   SC_HD ParsedTags(const Ld& in_, const uint32_t* lut_) : in(in_), lut(lut_) {}
@@ -458,9 +470,11 @@ struct ParsedTags {
     return t.len - 1u >= (uint32_t)expected - opl ||
            (!t.lit && (t.off <= 0 || t.off > (int32_t)opl));
   }
-  SC_HD static DecodeResult result(int32_t err, bool bad, int32_t ip, int32_t n, int32_t op,
+  // The error word of the first bad tag: one for every check.
+  SC_HD int32_t error_word(int32_t, int32_t, int32_t, int32_t) const { return ERR_MALFORMED; }
+  SC_HD static DecodeResult result(int32_t err, int32_t bad, int32_t ip, int32_t n, int32_t op,
                                    int32_t expected) {
-    return walk_result(err, bad, ip, n, op, expected);
+    return walk_result(err, bad != 0, ip, n, op, expected);
   }
 };
 
@@ -476,14 +490,19 @@ struct ParsedTags {
 // end of the chain, and so its output offset. The batch ends at the first
 // tag whose successor leaves the window (a long literal, the end of the
 // block). Each tag is checked against its own op (src.bad) and may not end
-// past n. The first bad tag fails the block.
+// past n. The first bad tag fails the block: the batch then says where it
+// starts and the output before it (Batch), for the source's error word.
+// A source whose tags may step the output back (Src::kStepBack: a negative
+// length) ends the batch at such a tag, and the batch's total is the signed
+// sum of its lengths: a later tag of the batch would write bytes an earlier
+// one writes.
 //
 // On return lane k < ntags holds tag k's output offset in the batch (start)
 // and the source of its bytes (delta): output byte x of the batch (0 at the
 // batch's first byte) is compressed byte x + delta of a literal, and output
 // byte x + delta of a copy (x - off: what a forward byte-serial copy reads).
 // A source whose tags may have no output (Src::kEmptyTags) leaves them out
-// of the ntags tags handed on.
+// of the ntags tags handed on, and those of a negative length too.
 template <class W, class Src>
 SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int32_t n,
                         int32_t expected, LanesOf<W, int32_t>& delta,
@@ -496,7 +515,8 @@ SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int3
     const int32_t p = ip + l;
     const LaneTag t = src.tag(p);
     const int64_t d = t.next - ip;
-    succ[l] = (t.next > p && t.next < n && d < N) ? (int32_t)d : N;
+    const bool back = Src::kStepBack && (int32_t)t.len < 0;
+    succ[l] = (t.next > p && t.next < n && d < N && !back) ? (int32_t)d : N;
     nxt[l] = (int32_t)t.next;  // read only where next <= n
     off[l] = t.off;
     at[l] = t.at;
@@ -532,11 +552,18 @@ SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int3
     at[l] = lit[l] ? at[l] - (int32_t)o : (int32_t)((uint32_t)op - (uint32_t)off[l]);
     flag[l] = ((chain >> l) & 1u) && b;
   });
-  bt.bad = w.ballot(flag) != 0;
+  const uint32_t failed = w.ballot(flag);
+  bt.bad = failed != 0;
+  if (bt.bad) {
+    const int f = low_bit(failed);
+    bt.next = ip + f;
+    bt.total = (uint32_t)op + w.read(sum, f);
+    return bt;
+  }
   bt.next = w.read(nxt, top_bit(chain));
   uint32_t kept = chain;
   if (Src::kEmptyTags) {
-    w.each([&](int l) { flag[l] = len[l] != 0u; });
+    w.each([&](int l) { flag[l] = (int32_t)len[l] > 0; });
     kept &= w.ballot(flag);
   }
   bt.ntags = popc(kept);
@@ -653,10 +680,11 @@ SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uin
 // per warp step: parse_batch over the tag source src, then step(bt, op,
 // delta, start) with the batch that passed its checks, the output offset
 // where it starts and parse_batch's per-lane results (a batch with no
-// output is not handed on). A warp that writes its own batches passes a
-// step that calls emit_batch; the decode kernels' parsing warp passes one
-// that hands the batch to its writing warp. kUnits batches are parsed a
-// loop iteration (decode_hybrid.cu's unroll2 takes 2), to the same result.
+// output, or a negative total, is not handed on). A warp that writes its
+// own batches passes a step that calls emit_batch; the decode kernels'
+// parsing warp passes one that hands the batch to its writing warp. kUnits
+// batches are parsed a loop iteration (decode_hybrid.cu's unroll2 takes 2),
+// to the same result.
 //
 // src reads the block's row of cc bytes, bytes at or past its width read as
 // zero (the JAX key image pads the same way) and never read; src.advance(w,
@@ -664,14 +692,15 @@ SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uin
 // compressed length, out_cap the caller's capacity: a preamble claiming
 // more is ERR_BAD_PREAMBLE. Bytes of the output past out_len are
 // unspecified (a failed walk may have written some). src.result gives the
-// verdict (ParsedTags: every mid-stream failure is ERR_MALFORMED, as the JAX
-// scalar kernel reports it).
+// verdict from src.error_word of the first bad tag, read again only then
+// (ParsedTags: every mid-stream failure is ERR_MALFORMED, as the JAX scalar
+// kernel reports it).
 template <int kUnits = 1, class W, class Src, class Step>
 SC_HD DecodeResult decode_block_batched(const W& w, Src src, int32_t n, int32_t out_cap,
                                         Step step) {
   int32_t pre_len, expected, op = 0, ip = 0;
   const int32_t err = read_preamble(src, n, out_cap, &pre_len, &expected);
-  bool bad = false;
+  int32_t bad = 0;  // the first bad tag's error word
   if (err == 0) {
     LanesOf<W, int32_t> delta;
     LanesOf<W, uint32_t> start;
@@ -680,11 +709,11 @@ SC_HD DecodeResult decode_block_batched(const W& w, Src src, int32_t n, int32_t 
       src.advance(w, ip);
       const Batch bt = parse_batch(w, src, ip, op, n, expected, delta, start);
       if (bt.bad) {
-        bad = true;
+        bad = src.error_word(bt.next, (int32_t)bt.total, n, expected);
         return false;
       }
       w.batch(bt.ntags);
-      if (!Src::kEmptyTags || bt.total != 0u) step(bt, op, delta, start);
+      if (!Src::kEmptyTags || (int32_t)bt.total > 0) step(bt, op, delta, start);
       op += (int32_t)bt.total;
       ip = bt.next;
       return ip < n;

@@ -78,8 +78,8 @@ SOURCES = {
         "snappy_decode_hybrid_launch",
         [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
     ),
-    "prepass_v7": ("snappy_prepass_v7_launch", [_P, _I64, _I64, _P, _P]),
-    "decode_v7_layout": ("snappy_decode_v7_layout", [_P, _I64, _I32, _P]),
+    "prepass": ("snappy_prepass_launch", [_I32, _P, _I64, _I64, _P, _P, _P]),
+    "decode_hybrid_layout": ("snappy_decode_hybrid_layout", [_P, _I64, _I32, _I32, _P]),
     "encode_stats": ("snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
     "chain": ("probe_chain_launch", [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P]),
     "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
@@ -93,7 +93,7 @@ SOURCES = {
 #: The source of each launcher that is not ``csrc/<launcher>.cu``.
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
                                                  "cliff", "chase")},
-                 **{k: "decode_hybrid" for k in ("prepass_v7", "decode_v7_layout")},
+                 **{k: "decode_hybrid" for k in ("prepass", "decode_hybrid_layout")},
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
                  "best_layout": "encode_best", "crc32c_layout": "crc32c",
                  "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4"}

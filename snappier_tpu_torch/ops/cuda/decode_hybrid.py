@@ -3,31 +3,37 @@
 position of a compressed row, the descriptor of the tag that would start
 there, and a walk reads one descriptor per tag.
 
-Pre-passes (tensor code, the same on the CPU and the card, as the JAX tool
-leaves them to XLA; each bit-equal to its JAX function):
+Pre-passes, each bit-equal to its JAX function. The tensor code is the
+plain version and the CPU path; on a CUDA tensor each form's pre-pass is
+one kernel (``csrc/decode_hybrid.cu``'s ``prepass_kernel``: a thread a word
+of a row, int32 arithmetic, ``hy::spec_at`` / ``hy::spec2_at``):
 
 - :func:`spec_from_comp` (``_spec_from_comp``): one int32 per byte from the
   byte rows. A literal is ``adv:18 | hdr:3 << 18`` (``hdr`` 7 poisons it),
   a copy ``off:16 | len:7 << 16 | (adv - 2):2 << 23 | poison << 25 | 1 << 31``;
+  its kernel, :func:`prepass_v5`, reads the rows a byte at a time;
 - :func:`pack_words` (``decode_v5``'s word packing): the rows as
   little-endian int32 words;
 - :func:`spec_from_words` (``_spec_from_words``): the same descriptor from
-  the words, with a shift per byte phase;
+  the words, with a shift per byte phase; its kernel, :func:`prepass_v6`,
+  reads word rows as words (two words and a shift a byte phase), other rows
+  a byte at a time;
 - :func:`spec2_from_words` (``_spec2_from_words``): two arrays,
   ``spec0 = adv:18 | F:7 << 18 | small << 30 | is_copy << 31`` (``F`` the
   header length of a literal, the length of a copy) and ``spec1``, the
   source relative to ``ip`` (a literal) or ``op`` (a copy, ``-off``); a
-  poisoned position is a copy of offset 0. It is the plain version of
-  :func:`prepass_v7`, the same descriptors from a kernel
-  (``csrc/decode_hybrid.cu``: a thread a word of a row, int32 arithmetic,
-  ``hy::spec2_at``), which ``decode_v7`` runs on the card.
+  poisoned position is a copy of offset 0. Its kernel is :func:`prepass_v7`.
 
-The pre-passes compute in int64 and wrap to int32 where the JAX functions
-wrap (``b4 << 24``, sums of a 4-byte literal length), so that no shift is
-arithmetic where the TPU's is logical and no overflow is left to the
-compiler.
+The tensor pre-passes compute in int64 and wrap to int32 where the JAX
+functions wrap (``b4 << 24``, sums of a 4-byte literal length), so that no
+shift is arithmetic where the TPU's is logical and no overflow is left to
+the compiler.
 
-Walks (``csrc/decode_hybrid.cu`` over ``csrc/decode_hybrid.cuh``):
+Walks: one kernel for every form (``csrc/decode_hybrid.cu`` over
+``csrc/decode_hybrid.cuh``), the decode kernel's (``csrc/decode.cu``): a
+batch of tags a warp step, lane ``l`` taking its tag from the descriptors
+at ``ip + l``, two warps a block and only the output image in shared memory
+(:func:`decode_hybrid_layout`).
 
 - :func:`decode_v5` (``_decode_kernel_v5``): error words 2 (the tag
   overruns the input), overwritten by 3 (copy offset 0 or beyond the
@@ -42,19 +48,15 @@ Walks (``csrc/decode_hybrid.cu`` over ``csrc/decode_hybrid.cuh``):
   the port stops at the first bad tag;
 - :func:`decode_v7` (``_decode_kernel_v7``, ``unroll2`` its two-units-a-loop
   form, ``v7u`` in the tool): over :func:`prepass_v7`, one validity test
-  per tag, error 4 for any bad tag, 8 for the preamble. Its walk is the
-  decode kernel's (``csrc/decode.cu``): a batch of tags a warp step, lane
-  ``l`` taking its tag from the descriptors at ``ip + l``, two warps a
-  block and only the output image in shared memory
-  (:func:`decode_v7_layout`); ``unroll2`` parses two batches a loop
-  iteration.
+  per tag, error 4 for any bad tag, 8 for the preamble; ``unroll2`` parses
+  two batches a loop iteration.
 
 Each wrapper takes ``(comp [B, CC] uint8 or int32, comp_lens [B], out_cap)``
 and returns ``(out uint8 [B, out_cap], out_lens int32 [B], errs int32
 [B])``; ``out_lens`` is 0 on any error and bytes past it are unspecified. A
-CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version, a Python walk over the same descriptors. Each wrapper counts its
-launches.
+CUDA tensor launches the kernels or raises; a CPU tensor runs the plain
+version: the tensor pre-pass, then a Python walk over the same descriptors,
+a tag at a time. Each wrapper counts its launches.
 
 Divergences from the TPU functions, by design:
 
@@ -69,10 +71,9 @@ Divergences from the TPU functions, by design:
   would take the position below 0, the TPU walk writes into its input image.
   ``decode_v5`` gives error 4 for such a tag instead.
 - The JAX wrappers assert ``CC % 1024 == 0`` and ``out_cap % 1024 == 0``
-  (their DMA tiling). The port takes any shape whose shared memory fits a
-  block (``v5`` and ``v6`` stage the row beside the image; ``v7`` holds
-  the image alone) and raises on one that does not. Lengths outside
-  ``[0, CC]`` are taken as 0 or ``CC``.
+  (their DMA tiling). The port takes any shape whose output image fits a
+  block's shared memory (the row is never staged) and raises on one that
+  does not. Lengths outside ``[0, CC]`` are taken as 0 or ``CC``.
 """
 
 from __future__ import annotations
@@ -95,10 +96,12 @@ ERR_LEN = 4  # the tag overruns the claim, a poisoned literal, a short walk
 FORMS = {"v5": (5, "decode_v5"), "v6": (6, "decode_v6"), "v7": (7, "decode_v7")}
 
 _LIT_POISON = 1 | (7 << 18)
-#: Static shared memory of a ``decode_v7`` block (``csrc/decode_hybrid.cu``):
-#: two descriptor rings of 1 KiB and the queue of ``csrc/batched_decode.cuh``
-#: (four slots of 284 bytes, two counters, the result).
-V7_STATIC_SMEM = 2 * 1024 + 4 * 284 + 8 + 8
+#: Static shared memory of a block of each form (``csrc/decode_hybrid.cu``):
+#: a descriptor ring of 1 KiB a descriptor row (two for ``v7``) and the
+#: queue of ``csrc/batched_decode.cuh`` (four slots of 284 bytes, two
+#: counters, the result).
+STATIC_SMEM = {form: rings * 1024 + 4 * 284 + 8 + 8
+               for form, rings in (("v5", 1), ("v6", 1), ("v7", 2))}
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +212,8 @@ def spec2_from_words(words: torch.Tensor, cc: int):
 
 def _tag(form: int, d0: int, d1: int, ip: int, op: int, n: int, expected: int):
     """One tag from its descriptor: (error word, advance, length, is_copy,
-    offset, literal source); mirrors ``hy::read_tag``."""
+    offset, literal source); the error word mirrors ``hy::tag_error`` (forms
+    5 and 6) and ``hy::DescribedTags::bad`` (form 7)."""
     is_copy = d0 < 0
     d = d0 & 0xFFFFFFFF
     if form == 7:
@@ -239,8 +243,8 @@ def _tag(form: int, d0: int, d1: int, ip: int, op: int, n: int, expected: int):
 
 
 def _walk_row(form: int, row: bytes, n: int, out_cap: int, spec0, spec1, out: bytearray):
-    """One block's walk over its descriptors; returns (out_len, err) and
-    writes the output into ``out``. Mirrors ``hy::decode_block_hybrid``."""
+    """One block's walk over its descriptors, a tag at a time, as the TPU
+    walks go; returns (out_len, err) and writes the output into ``out``."""
     pre_len, expected, err = read_preamble(row, n, out_cap)
     ip, op = pre_len, 0
     while ip < n and err == 0:
@@ -303,67 +307,86 @@ def decode_hybrid_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: in
 # ---------------------------------------------------------------------------
 
 
-def smem_bytes(row_bytes: int, out_cap: int) -> int:
-    """Dynamic shared memory of one block of ``v5`` and ``v6``: the staged
-    row and the output image; mirrors ``smem_bytes`` in
-    ``csrc/decode_hybrid.cu``."""
-    comp_words = ((row_bytes + 3) // 4 + 2 + 3) & ~3
-    out_words = ((out_cap + 3) // 4 + 4 + 3) & ~3
-    return 4 * (comp_words + out_words)
+def block_smem_bytes(form: str, out_cap: int) -> int:
+    """Shared memory of one block of ``form`` (``"v5"``, ``"v6"``, ``"v7"``),
+    dynamic and static: the output image and the descriptor rings, whatever
+    the row's width."""
+    return ((out_cap + 15) & ~15) + STATIC_SMEM[form]
 
 
-def v7_smem_bytes(out_cap: int) -> int:
-    """Shared memory of one ``decode_v7`` block, dynamic and static: the
-    output image alone, whatever the row's width."""
-    return ((out_cap + 15) & ~15) + V7_STATIC_SMEM
+def _prepass_kernel(comp, form: str):
+    """Launch the pre-pass kernel of ``form`` on CUDA byte rows; counted as
+    ``prepass_<form>``. Returns spec0, and spec1 for ``"v7"``."""
+    B, cc = comp.shape
+    specs = [torch.empty((B, cc), dtype=torch.int32, device=comp.device)
+             for _ in range(2 if form == "v7" else 1)]
+    _build.launch("prepass", comp.device, FORMS[form][0], comp.data_ptr(), cc, B,
+                  specs[0].data_ptr(), specs[-1].data_ptr(), count_as=f"prepass_{form}")
+    return specs
+
+
+def prepass_v5(comp) -> torch.Tensor:
+    """``decode_v5``'s descriptors, int32 [B, CC], of byte rows [B, CC] (uint8
+    or int32 byte values). A CUDA tensor launches the pre-pass kernel (the
+    rows read a byte at a time; counted as ``prepass_v5``); a CPU tensor runs
+    its plain version, :func:`spec_from_comp`."""
+    comp = byte_rows(comp, "comp")
+    if not on_cuda(comp):
+        return spec_from_comp(comp)
+    return _prepass_kernel(comp, "v5")[0]
+
+
+def prepass_v6(comp) -> torch.Tensor:
+    """``decode_v6``'s descriptors, int32 [B, CC], of byte rows [B, CC]. A
+    CUDA tensor launches the pre-pass kernel (word rows read as words; counted
+    as ``prepass_v6``); a CPU tensor runs its plain version,
+    :func:`spec_from_words` of :func:`pack_words`."""
+    comp = byte_rows(comp, "comp")
+    if not on_cuda(comp):
+        return spec_from_words(pack_words(comp), comp.shape[1])
+    return _prepass_kernel(comp, "v6")[0]
 
 
 def prepass_v7(comp):
     """``decode_v7``'s descriptors ``(spec0, spec1)``, int32 [B, CC] each, of
-    byte rows [B, CC] (uint8 or int32 byte values). A CUDA tensor launches
-    the pre-pass kernel (counted as ``prepass_v7``); a CPU tensor runs its
-    plain version, :func:`spec2_from_words` of :func:`pack_words`."""
+    byte rows [B, CC]. A CUDA tensor launches the pre-pass kernel (counted as
+    ``prepass_v7``); a CPU tensor runs its plain version,
+    :func:`spec2_from_words` of :func:`pack_words`."""
     comp = byte_rows(comp, "comp")
-    B, cc = comp.shape
     if not on_cuda(comp):
-        return spec2_from_words(pack_words(comp), cc)
-    spec0 = torch.empty((B, cc), dtype=torch.int32, device=comp.device)
-    spec1 = torch.empty((B, cc), dtype=torch.int32, device=comp.device)
-    _build.launch("prepass_v7", comp.device, comp.data_ptr(), cc, B, spec0.data_ptr(),
-                  spec1.data_ptr())
-    return spec0, spec1
+        return spec2_from_words(pack_words(comp), comp.shape[1])
+    return tuple(_prepass_kernel(comp, "v7"))
 
 
-def decode_v7_layout(comp, out_cap: int = BLOCK_SIZE) -> dict:
-    """``decode_v7``'s launch layout for these rows: ``blocks_per_sm`` (the
+def decode_hybrid_layout(comp, out_cap: int = BLOCK_SIZE, form: str = "v7") -> dict:
+    """The launch layout of ``form`` for these rows: ``blocks_per_sm`` (the
     CUDA occupancy calculator's count under the attributes the launch sets),
     ``smem_bytes`` per block (dynamic and static), ``threads`` and the
     compressed row's ``loader`` (``"words"`` for a base and width that are
     multiples of 4, else ``"bytes"``), in the manner of
     ``scalar_codec.decode_layout``."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}: one of {sorted(FORMS)}")
     comp = byte_rows(comp, "comp")
-    _check_fit("v7", comp.shape[1], int(out_cap))
-    return _layout("decode_v7_layout", comp, int(out_cap), loaders=("words", "bytes"))
+    _check_fit(form, int(out_cap))
+    return _layout("decode_hybrid_layout", comp, int(out_cap), FORMS[form][0],
+                   loaders=("words", "bytes"))
 
 
 def _prepass(comp: torch.Tensor, form: str):
-    """The form's descriptors of uint8 rows: (spec0, spec1 or None)."""
+    """The form's descriptors of byte rows: (spec0, spec1 or None)."""
     if form == "v5":
-        return spec_from_comp(comp), None
+        return prepass_v5(comp), None
     if form == "v6":
-        return spec_from_words(pack_words(comp), comp.shape[1]), None
+        return prepass_v6(comp), None
     return prepass_v7(comp)
 
 
-def _check_fit(form: str, row_bytes: int, out_cap: int) -> None:
-    if form == "v7":
-        need, what = v7_smem_bytes(out_cap), f"out_cap {out_cap} does"
-    else:
-        need = smem_bytes(row_bytes, out_cap)
-        what = f"a row of {row_bytes} bytes and out_cap {out_cap} do"
+def _check_fit(form: str, out_cap: int) -> None:
+    need = block_smem_bytes(form, out_cap)
     if out_cap <= 0 or need > MAX_OUT_CAP:
-        raise ValueError(f"{what} not fit one block's shared memory ({need} of {MAX_OUT_CAP} "
-                         "bytes)")
+        raise ValueError(f"out_cap {out_cap} does not fit one block's shared memory ({need} of "
+                         f"{MAX_OUT_CAP} bytes)")
 
 
 def _launch(form: str, unroll2: bool, rows: torch.Tensor, spec0: torch.Tensor, spec1,
@@ -386,7 +409,7 @@ def _decode(comp, comp_lens, out_cap: int, form: str, unroll2: bool = False):
     B, cc = comp.shape
     lens = lengths_vector(comp_lens, B, "comp_lens")
     out_cap = int(out_cap)
-    _check_fit(form, cc, out_cap)
+    _check_fit(form, out_cap)
     if not on_cuda(comp, lens):
         return decode_hybrid_plain(comp, lens, out_cap, form)
     spec0, spec1 = _prepass(comp, form)
@@ -415,7 +438,8 @@ def decode_v7(comp, comp_lens, out_cap: int = BLOCK_SIZE, unroll2: bool = False)
 
 def decode_v5_spec(words, spec, comp_lens, out_cap: int = BLOCK_SIZE):
     """``decode_v5``'s kernel alone, on the word image :func:`pack_words`
-    and the descriptors :func:`spec_from_comp` computed beforehand
+    (viewed as byte rows and read as words) and the descriptors
+    :func:`spec_from_comp` computed beforehand
     (``tools/perf_probe_hybrid.py::v5parts``). ``words`` int32 [B, WC],
     ``spec`` int32 [B, CC] with ``CC <= 4 * WC``; counted as
     ``decode_v5_parts``."""
@@ -430,7 +454,7 @@ def decode_v5_spec(words, spec, comp_lens, out_cap: int = BLOCK_SIZE):
     out_cap = int(out_cap)
     rows = words.contiguous().view(torch.uint8)
     spec = spec.contiguous()
-    _check_fit("v5", rows.shape[1], out_cap)
+    _check_fit("v5", out_cap)
     if not on_cuda(rows, spec, lens):
         return walk_plain(rows, spec, None, lens, out_cap, "v5")
     return _launch("v5", False, rows, spec, None, lens, out_cap, "decode_v5_parts")

@@ -57,6 +57,7 @@ from torch_cases import (
     pack_streams,
     planted_matches,
     probe_blocks,
+    step_back_streams,
     vcopy_edges,
     walk_streams,
 )
@@ -855,9 +856,8 @@ def test_cuda_decode_hybrid_matches_plain(cuda_device, form, cc, out_cap, big):
     fn = {"v5": dh.decode_v5, "v6": dh.decode_v6, "v7": dh.decode_v7}[base]
     got = fn(c_d, l_d, out_cap, unroll2=True) if form == "v7u" else fn(c_d, l_d, out_cap)
     torch.cuda.synchronize()
-    # decode_v7 makes its descriptors with the pre-pass kernel.
-    assert dict(_build.LAUNCHES) == {dh.FORMS[base][1]: 1, **({"prepass_v7": 1} if base == "v7"
-                                                              else {})}
+    # Every form makes its descriptors with its pre-pass kernel.
+    assert dict(_build.LAUNCHES) == {dh.FORMS[base][1]: 1, f"prepass_{base}": 1}
     want = dh.decode_hybrid_plain(c_h, l_h, out_cap, base)
     assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
     assert (got[1].cpu() == want[1]).all()
@@ -882,19 +882,18 @@ def test_cuda_decode_v5_spec_matches_decode_v5(cuda_device):
 
 
 def test_cuda_decode_hybrid_rejects_what_does_not_fit(cuda_device):
-    """v5 and v6 stage the row beside the image and refuse a row of 200,000
-    bytes; v7 holds the image alone, takes that row (its verdict the plain
-    version's) and refuses an image that does not fit."""
+    """Every form holds the output image alone in shared memory: each takes a
+    row of 200,000 bytes (its verdict the plain version's) and refuses an
+    image that does not fit."""
     comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
     lens = torch.tensor([5], device=cuda_device)
-    for fn in (dh.decode_v5, dh.decode_v6):
+    for form in ("v5", "v6", "v7"):
+        fn = getattr(dh, f"decode_{form}")
+        got = fn(comp, lens, 65536)
+        want = dh.decode_hybrid_plain(comp.cpu(), lens.cpu(), 65536, form)
+        assert got[2].tolist() == want[2].tolist() == [4] and got[1].tolist() == [0]
         with pytest.raises(ValueError, match="shared memory"):
-            fn(comp, lens, 65536)
-    got = dh.decode_v7(comp, lens, 65536)
-    want = dh.decode_hybrid_plain(comp.cpu(), lens.cpu(), 65536, "v7")
-    assert got[2].tolist() == want[2].tolist() == [4] and got[1].tolist() == [0]
-    with pytest.raises(ValueError, match="shared memory"):
-        dh.decode_v7(comp[:, :64], lens, 232000)
+            fn(comp[:, :64], lens, 232000)
 
 
 def _v7_rows():
@@ -955,14 +954,131 @@ def test_cuda_prepass_v7_matches_cpu(cuda_device, cc, offset):
 def test_cuda_decode_v7_layout(cuda_device):
     """decode_v7 holds the output image alone: three blocks an SM at out_cap
     65,536 whatever the row's width (K1's layout), its shared bytes those
-    ``decode_hybrid.v7_smem_bytes`` counts; word rows read as words."""
+    ``decode_hybrid.block_smem_bytes`` counts; word rows read as words."""
     for cc in (68608, 17408, 200000):
         rows = torch.zeros((2, cc), dtype=torch.uint8, device=cuda_device)
-        lay = dh.decode_v7_layout(rows, 65536)
-        assert lay == {"blocks_per_sm": 3, "smem_bytes": dh.v7_smem_bytes(65536), "threads": 64,
-                       "loader": "words"}, lay
+        lay = dh.decode_hybrid_layout(rows, 65536, "v7")
+        assert lay == {"blocks_per_sm": 3, "smem_bytes": dh.block_smem_bytes("v7", 65536),
+                       "threads": 64, "loader": "words"}, lay
     odd = torch.zeros(2 * 4096 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(2, 4096)
-    assert dh.decode_v7_layout(odd, 65536)["loader"] == "bytes"
+    assert dh.decode_hybrid_layout(odd, 65536, "v7")["loader"] == "bytes"
+
+
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_cuda_decode_v5_v6_layout(cuda_device, form):
+    """decode_v5 and decode_v6 hold the output image alone, beside one
+    descriptor ring: three blocks of two warps an SM at out_cap 65,536
+    whatever the row's width, their shared bytes those
+    ``decode_hybrid.block_smem_bytes`` counts; word rows read as words."""
+    for cc in (68608, 17408, 200000):
+        rows = torch.zeros((2, cc), dtype=torch.uint8, device=cuda_device)
+        lay = dh.decode_hybrid_layout(rows, 65536, form)
+        assert lay == {"blocks_per_sm": 3, "smem_bytes": dh.block_smem_bytes(form, 65536),
+                       "threads": 64, "loader": "words"}, lay
+    odd = torch.zeros(2 * 4096 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(2, 4096)
+    assert dh.decode_hybrid_layout(odd, 65536, form)["loader"] == "bytes"
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tight", [False, True], ids=["codec_width", "tight_width"])
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_cuda_decode_v5_v6_matches_plain(cuda_device, form, tight, offset):
+    """decode_v5 and decode_v6 at the codec's row width (68,608 B) and the
+    tight one, on word rows and on rows 1 byte into a buffer (the byte
+    loaders), against their plain version on decode_v7's main-path rows
+    (9 blocks of 65,536 bytes of the word mix), the batch edges, the
+    corrupt streams and the step-back streams (v5 steps its output back
+    inside a batch): error words, lengths and bytes; the plaintext too. Then
+    decode_v5_spec on the same rows."""
+    streams = _v7_rows() + step_back_streams()
+    cc = -(-(max(map(len, streams)) + 8) // 1024) * 1024 if tight else 68608
+    comp, lens = pack_streams(streams, cc)
+    c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    c_d, l_d = _offset_rows(comp.astype(np.uint8), offset, cuda_device), l_h.to(cuda_device)
+    _build.reset_launches()
+    got = getattr(dh, f"decode_{form}")(c_d, l_d, 65536)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {f"decode_{form}": 1, f"prepass_{form}": 1}
+    want = dh.decode_hybrid_plain(c_h, l_h, 65536, form)
+    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+    assert (got[1].cpu() == want[1]).all() and set(want[2].tolist()) >= {0, 4, 8}
+    _rows_equal(got[0], want[0], want[1])
+    for i in range(10):
+        assert got[0][i, : int(got[1][i])].cpu().numpy().tobytes() == oracle.decompress(streams[i])
+    assert want[2][-3:].tolist() == ([0, 0, 0] if form == "v5" else [4, 4, 4])
+    if form == "v5":
+        spec = dh.prepass_v5(c_d)
+        got = dh.decode_v5_spec(dh.pack_words(c_d), spec, l_d, 65536)
+        assert (got[2].cpu() == want[2]).all() and (got[1].cpu() == want[1]).all()
+        _rows_equal(got[0], want[0], want[1])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("cc", [68608, 68605, 4])
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_cuda_prepass_v5_v6_matches_cpu(cuda_device, form, cc, offset):
+    """prepass_v5 (the rows read a byte at a time) and prepass_v6 (word rows
+    read as words) against their plain versions, the CPU's tensor code
+    (bit-equal to the TPU's _spec_from_comp and _spec_from_words): word rows
+    (16-byte stores), rows 3 bytes narrower and rows 1 and 3 bytes into a
+    buffer (the byte loader, a store a position where the width is no
+    multiple of 4); random bytes and streams with garbage tails."""
+    rng = np.random.default_rng(cc + offset)
+    comp, _ = pack_streams(_v7_rows()[:12], 68608)
+    rows = np.concatenate([comp, rng.integers(0, 256, (3, 68608))])[:, :cc].astype(np.uint8)
+    _build.reset_launches()
+    got = getattr(dh, f"prepass_{form}")(_offset_rows(rows, offset, cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {f"prepass_{form}": 1}
+    want = (dh.spec_from_comp(_t(rows)) if form == "v5"
+            else dh.spec_from_words(dh.pack_words(_t(rows)), cc))
+    assert got.dtype == torch.int32 and (got.cpu() == want).all()
+
+
+def test_cuda_ablation_launches_under_one_lock(cuda_device):
+    """Four host threads at once, 20 calls each: T1 (decode_v2) and T7
+    (decode_pipe2) at two shared sizes each (rows of 2,048 and 68,608
+    bytes) and T10 (chain) at two (an advance row of 20,480 and of 40,960
+    words), every launch's result against the plain versions: each
+    kernel's attributes are set and its launch enqueued under one lock, so
+    no launch runs under a size another thread set."""
+    import concurrent.futures
+
+    rows = {}
+    for cc in (2048, 68608):
+        comp, lens = pack_streams(walk_streams(65536 if cc > 2048 else 0) + corrupt_streams(), cc)
+        rows[cc] = (_t(comp.astype(np.uint8)), _t(lens))
+    out_cap = {2048: 1024, 68608: 65536}
+    want_v2 = {cc: dv.decode_variant_plain(c, n, out_cap[cc], "v2") for cc, (c, n) in rows.items()}
+    want_p2 = {cc: dv.decode_pipe_plain(c, n, out_cap[cc], True, True)
+               for cc, (c, n) in rows.items()}
+    chains = {w: np.ones(w, np.int32) for w in (20480, 40960)}
+    want_chain = {w: hp.chain_plain(_t(a), w - 480, 3, 5) for w, a in chains.items()}
+
+    def decode(fn, want, cc):
+        c, n = (x.to(cuda_device) for x in rows[cc])
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got = fn(c, n, out_cap[cc])
+                torch.cuda.current_stream().synchronize()
+                assert (got[2].cpu() == want[cc][2]).all() and (got[1].cpu() == want[cc][1]).all()
+                _rows_equal(got[0], want[cc][0], want[cc][1])
+
+    def chain(w):
+        adv = _t(chains[w]).to(cuda_device)
+        with torch.cuda.device(cuda_device):
+            for _ in range(20):
+                got = hp.chain(adv, w - 480, 3, 5)
+                torch.cuda.current_stream().synchronize()
+                assert all((a.cpu() == b).all() for a, b in zip(got, want_chain[w]))
+
+    pipe2 = lambda c, n, o: dv.decode_pipe2(c, n, o, unroll=2)  # noqa: E731
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(decode, dv.decode_v2, want_v2, cc) for cc in rows]
+        jobs += [pool.submit(decode, pipe2, want_p2, cc) for cc in rows]
+        jobs += [pool.submit(chain, w) for w in chains]
+        for f in jobs:
+            f.result()
 
 
 @pytest.mark.parametrize("F", [4096, 65536])

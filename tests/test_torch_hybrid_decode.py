@@ -27,6 +27,7 @@ from tests.torch_cases import (
     corrupt_streams,
     interpreted_tool,
     pack_streams,
+    step_back_streams,
     tag_sweep_sample,
     walk_streams,
 )
@@ -143,6 +144,22 @@ def test_prepass_of_uneven_rows():
     assert (dh.spec_from_words(words, 1001) == dh.spec_from_comp(rows)).all()
 
 
+def test_prepass_wrappers_on_the_cpu():
+    """On CPU rows the pre-pass wrappers run their plain versions, the tensor
+    code: prepass_v5 is spec_from_comp, prepass_v6 spec_from_words of
+    pack_words, prepass_v7 spec2_from_words of pack_words; no kernel is
+    launched."""
+    from snappier_tpu_torch.ops.cuda import _build
+
+    rows = torch.from_numpy(_prepass_rows()[:, :1003])
+    _build.reset_launches()
+    assert (dh.prepass_v5(rows) == dh.spec_from_comp(rows)).all()
+    assert (dh.prepass_v6(rows) == dh.spec_from_words(dh.pack_words(rows), 1003)).all()
+    for a, b in zip(dh.prepass_v7(rows), dh.spec2_from_words(dh.pack_words(rows), 1003)):
+        assert (a == b).all()
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
 def test_decode_v5_spec_equals_decode_v5():
     """T15's entry point on the pre-pass computed beforehand gives
     ``decode_v5``'s triple."""
@@ -208,11 +225,44 @@ def test_negative_literal_step_back(hybrid):
         assert _port(form, comp, lens, OUT_CAP)[2].tolist() == [4, 3 if form == "v6" else 4]
 
 
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_step_back_inside_one_batch(hybrid, form):
+    """``torch_cases.step_back_streams``: the step back after four tags of one
+    32-byte window (twice in the second block) and in a batch of its own.
+    ``v5`` decodes them as the TPU function does, the output stepped back a
+    byte each time; ``v6`` takes the literal as empty and overruns the
+    claim (4), as the TPU function does."""
+    streams = step_back_streams()
+    comp, lens = pack_streams(streams, CC)
+    got = _port(form, comp, lens, OUT_CAP)
+    _assert_same(got, _reference(hybrid, form, comp, lens, OUT_CAP))
+    if form == "v6":
+        assert got[2].tolist() == [4, 4, 4]
+        return
+    assert got[2].tolist() == [0, 0, 0]
+    head = bytearray(b"ab" + b"abab" + b"cde" + b"cdecd")
+    out = head[:-1]
+    for _ in range(64):
+        out.append(out[-8])
+    assert got[0][0, : got[1][0]].tobytes() == bytes(out + b"xyz")
+    twice = out + head[:-1]
+    for _ in range(64):
+        twice.append(twice[-5])
+    assert got[0][1, : got[1][1]].tobytes() == bytes(twice)
+
+
 def test_wrapper_argument_checks():
     comp = torch.zeros((2, 64), dtype=torch.uint8)
     lens = torch.tensor([3, 3], dtype=torch.int32)
+    # Every form holds the output image alone in shared memory: an out_cap
+    # whose image does not fit is refused, a wide row is taken.
+    for fn in (dh.decode_v5, dh.decode_v6, dh.decode_v7):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(comp, lens, 232000)
+    wide = dh.decode_v5(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+    assert wide[2].tolist() == [4] and wide[1].tolist() == [0]
     with pytest.raises(ValueError, match="shared memory"):
-        dh.decode_v5(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+        dh.decode_v5_spec(dh.pack_words(comp), dh.spec_from_comp(comp), lens, 232000)
     with pytest.raises(ValueError):
         dh.decode_v6(comp, lens[:1], 64)
     with pytest.raises(ValueError):

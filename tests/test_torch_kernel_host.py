@@ -54,6 +54,7 @@ from tests.torch_cases import (
     html_like,
     pack_streams,
     planted_matches,
+    step_back_streams,
     tag_sweep_sample,
     walk_streams,
 )
@@ -251,15 +252,16 @@ extern "C" int host_decode(const uint8_t* comp, int64_t cc, const int32_t* lens,
   return 0;
 }
 
-// decode_v7's walk (decode_v7_kernel's two warps in one) on each row: the
-// compressed rows guarded at `offset` and read by loader 0 (sc::RowWords,
-// rows at a multiple of 4 and cc one) or 1 (sc::RowBytes); the descriptor
-// rows (int32[batch, spec_cc] each) in buffers that end at a page the
-// process may not read, read through two rings (poisoned first) as
-// hy::DescribedTags takes them; `unroll2` two batches a loop iteration; the
-// output starts poisoned. counts as host_decode's. Returns 0, or -1 if a
-// buffer was refused.
-extern "C" int host_v7(const uint8_t* comp, int64_t cc, const int32_t* spec0,
+// The descriptor-driven walk of form 5, 6 or 7 (decode_desc_kernel's two
+// warps in one) on each row: the compressed rows guarded at `offset` and
+// read by loader 0 (sc::RowWords, rows at a multiple of 4 and cc one) or 1
+// (sc::RowBytes); the descriptor rows (int32[batch, spec_cc]: spec0, and
+// spec1 for form 7) in buffers that end at a page the process may not read,
+// read through rings (poisoned first) as hy::DescribedTags takes them;
+// `unroll2` two batches a loop iteration; the output starts poisoned.
+// counts as host_decode's. Returns 0, or -1 if a buffer was refused.
+template <int kForm>
+static int hybrid_rows(const uint8_t* comp, int64_t cc, const int32_t* spec0,
                        const int32_t* spec1, int64_t spec_cc, const int32_t* lens, int64_t batch,
                        int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
                        int32_t unroll2, uint8_t* out, int32_t* out_lens, int32_t* errs,
@@ -267,7 +269,8 @@ extern "C" int host_v7(const uint8_t* comp, int64_t cc, const int32_t* spec0,
   counts[0] = counts[1] = 0;
   GuardedRows g(comp, batch, cc, offset);
   GuardedRows g0(reinterpret_cast<const uint8_t*>(spec0), batch, spec_cc * 4, kAtGuard);
-  GuardedRows g1(reinterpret_cast<const uint8_t*>(spec1), batch, spec_cc * 4, kAtGuard);
+  GuardedRows g1(reinterpret_cast<const uint8_t*>(kForm == 7 ? spec1 : spec0), batch,
+                 spec_cc * 4, kAtGuard);
   if (g.mem == nullptr || g0.mem == nullptr || g1.mem == nullptr) return -1;
   std::vector<uint32_t> ring0(256), ring1(256);
   const int32_t sw = (int32_t)spec_cc;
@@ -283,42 +286,71 @@ extern "C" int host_v7(const uint8_t* comp, int64_t cc, const int32_t* spec0,
     const uint8_t* r1 = g1.rows + b * spec_cc * 4;
     const Ring d0(sc::RowWords{reinterpret_cast<const uint32_t*>(r0), 4 * sw}, ring0.data());
     const Ring d1(sc::RowWords{reinterpret_cast<const uint32_t*>(r1), 4 * sw}, ring1.data());
-    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
-    const sc::RowBytes bytes{row, (int32_t)cc};
+    auto run = [&](const auto& in) {
+      using Src = hy::DescribedTags<kForm, std::decay_t<decltype(in)>, Ring>;
+      if constexpr (kForm == 7) {
+        return batched_lanes(nlanes, Src(in, d0, d1, sw), in, n, out_cap, dst, counts, unroll2);
+      } else {
+        return batched_lanes(nlanes, Src(in, d0, hy::NoSpec{}, sw), in, n, out_cap, dst, counts,
+                             unroll2);
+      }
+    };
     const sc::DecodeResult r =
-        loader == 0
-            ? batched_lanes(nlanes, hy::DescribedTags<sc::RowWords, Ring>(words, d0, d1, sw),
-                            words, n, out_cap, dst, counts, unroll2)
-            : batched_lanes(nlanes, hy::DescribedTags<sc::RowBytes, Ring>(bytes, d0, d1, sw),
-                            bytes, n, out_cap, dst, counts, unroll2);
+        loader == 0 ? run(sc::RowWords{reinterpret_cast<const uint32_t*>(row), (int32_t)cc})
+                    : run(sc::RowBytes{row, (int32_t)cc});
     out_lens[b] = r.out_len;
     errs[b] = r.err;
   }
   return 0;
 }
 
-// decode_hybrid.cu's prepass_v7_kernel on the host: each word g of each row
+extern "C" int host_hybrid(int32_t form, const uint8_t* comp, int64_t cc, const int32_t* spec0,
+                           const int32_t* spec1, int64_t spec_cc, const int32_t* lens,
+                           int64_t batch, int32_t out_cap, int32_t nlanes, int32_t offset,
+                           int32_t loader, int32_t unroll2, uint8_t* out, int32_t* out_lens,
+                           int32_t* errs, int64_t* counts) {
+  auto call = [&](auto walk) {
+    return walk(comp, cc, spec0, spec1, spec_cc, lens, batch, out_cap, nlanes, offset, loader,
+                unroll2, out, out_lens, errs, counts);
+  };
+  if (form == 5) return call(hybrid_rows<5>);
+  if (form == 6) return call(hybrid_rows<6>);
+  return call(hybrid_rows<7>);
+}
+
+// decode_hybrid.cu's prepass_kernel on the host: each word g of each row
 // (positions 4g .. 4g + 3) from words g and g + 1 of the row's loader (0
-// sc::RowWords, 1 sc::RowBytes), the rows guarded at `offset`. Returns 0,
-// or -1 if the buffer was refused.
-extern "C" int host_prepass_v7(const uint8_t* comp, int64_t cc, int64_t batch, int32_t offset,
-                               int32_t loader, int32_t* spec0, int32_t* spec1) {
+// sc::RowWords, 1 sc::RowBytes) through hy::describe_word, into spec0 (and
+// spec1 for form 7), the rows guarded at `offset`. Returns 0, or -1 if the
+// buffer was refused.
+template <class Desc>
+static int prepass_rows(const uint8_t* comp, int64_t cc, int64_t batch, int32_t offset,
+                        int32_t loader, int32_t* spec0, int32_t* spec1) {
   GuardedRows g(comp, batch, cc, offset);
   if (g.mem == nullptr) return -1;
   const int32_t width = (int32_t)cc;
+  int32_t* outs[2] = {spec0, spec1};
   for (int64_t b = 0; b < batch; b++) {
     const uint8_t* row = g.rows + b * cc;
-    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
-    const sc::RowBytes bytes{row, width};
     for (int32_t k = 0; 4 * k < width; k++) {
-      const uint64_t v = loader == 0 ? (uint64_t)words.word(k + 1) << 32 | words.word(k)
-                                     : (uint64_t)bytes.word(k + 1) << 32 | bytes.word(k);
-      for (int j = 0; j < 4 && 4 * k + j < width; j++) {
-        hy::spec2_at(v >> (8 * j), spec0[b * cc + 4 * k + j], spec1[b * cc + 4 * k + j]);
+      int32_t d[Desc::kArrays][4];
+      if (loader == 0) {
+        hy::describe_word<Desc>(sc::RowWords{reinterpret_cast<const uint32_t*>(row), width}, k, d);
+      } else {
+        hy::describe_word<Desc>(sc::RowBytes{row, width}, k, d);
+      }
+      for (int a = 0; a < Desc::kArrays; a++) {
+        for (int j = 0; j < 4 && 4 * k + j < width; j++) outs[a][b * cc + 4 * k + j] = d[a][j];
       }
     }
   }
   return 0;
+}
+
+extern "C" int host_prepass(int32_t form, const uint8_t* comp, int64_t cc, int64_t batch,
+                            int32_t offset, int32_t loader, int32_t* spec0, int32_t* spec1) {
+  return form == 7 ? prepass_rows<hy::SpecTwo>(comp, cc, batch, offset, loader, spec0, spec1)
+                   : prepass_rows<hy::SpecOne>(comp, cc, batch, offset, loader, spec0, spec1);
 }
 
 // One block through an ablation variant's walk on `nlanes` threads: 0 v2,
@@ -460,60 +492,6 @@ extern "C" void host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emi
     }
     const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
     for (int32_t i = 0; emit && i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
-    out_lens[b] = res[0].out_len;
-    errs[b] = res[0].err;
-  }
-}
-
-// One block through a descriptor-driven walk (form 5 or 6) on `nlanes`
-// threads, staged as decode_hybrid.cu does it, the image poisoned first.
-template <class Sync>
-static sc::DecodeResult run_hybrid(int form, uint32_t* img, int32_t wc, int32_t owc,
-                                   const int32_t* s0, int32_t n, int32_t out_cap, int lane,
-                                   int nlanes, Sync sync) {
-  if (form == 5) {
-    return hy::decode_block_hybrid<5>(img, wc, owc, s0, n, out_cap, lane, nlanes, sync);
-  }
-  return hy::decode_block_hybrid<6>(img, wc, owc, s0, n, out_cap, lane, nlanes, sync);
-}
-
-extern "C" void host_hybrid(int32_t form, const uint8_t* comp, int64_t cc, const int32_t* spec0,
-                            int64_t spec_cc, const int32_t* lens, int64_t batch, int32_t out_cap,
-                            int32_t nlanes, uint8_t* out, int32_t* out_lens, int32_t* errs) {
-  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
-  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
-  std::vector<uint32_t> img(wc + owc);
-  for (int64_t b = 0; b < batch; b++) {
-    int32_t n = lens[b] < 0 ? 0 : (lens[b] > spec_cc ? (int32_t)spec_cc : lens[b]);
-    for (auto& w : img) w = 0xDEADBEEFu;
-    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
-      uint32_t v = 0;
-      for (int j = 0; j < 4; j++) {
-        int64_t i = (int64_t)w * 4 + j;
-        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
-      }
-      img[w] = v;
-    }
-    const int32_t* s0 = spec0 + b * spec_cc;
-    std::vector<sc::DecodeResult> res(nlanes);
-    if (nlanes == 1) {
-      res[0] = run_hybrid(form, img.data(), wc, owc, s0, n, out_cap, 0, 1, NoSync());
-    } else {
-      Barrier bar(nlanes);
-      std::vector<std::thread> lanes;
-      for (int lane = 0; lane < nlanes; lane++) {
-        lanes.emplace_back([&, lane] {
-          res[lane] = run_hybrid(form, img.data(), wc, owc, s0, n, out_cap, lane, nlanes,
-                                 BarrierSync{&bar});
-        });
-      }
-      for (auto& t : lanes) t.join();
-      for (int lane = 1; lane < nlanes; lane++) {
-        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
-      }
-    }
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
-    for (int32_t i = 0; i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
     out_lens[b] = res[0].out_len;
     errs[b] = res[0].err;
   }
@@ -886,12 +864,11 @@ def host_lib(tmp_path_factory):
     so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, I32, I32,
                                        P, I64, P]
     so.host_encode_variant.restype = I32
-    so.host_hybrid.argtypes = [I32, P, I64, P, I64, P, I64, I32, I32, P, P, P]
-    so.host_hybrid.restype = None
-    so.host_v7.argtypes = [P, I64, P, P, I64, P, I64, I32, I32, I32, I32, I32, P, P, P, P]
-    so.host_v7.restype = I32
-    so.host_prepass_v7.argtypes = [P, I64, I64, I32, I32, P, P]
-    so.host_prepass_v7.restype = I32
+    so.host_hybrid.argtypes = [I32, P, I64, P, P, I64, P, I64, I32, I32, I32, I32, I32, P, P, P,
+                               P]
+    so.host_hybrid.restype = I32
+    so.host_prepass.argtypes = [I32, P, I64, I64, I32, I32, P, P]
+    so.host_prepass.restype = I32
     so.host_encode_stats.argtypes = [P, I64, P, I64, P]
     so.host_encode_stats.restype = None
     so.host_chain.argtypes = [I32, P, I32, I32, I32, P]
@@ -1412,16 +1389,17 @@ def test_host_encode_variant_walk_on_unaligned_rows(host_lib, case):
     _hold_variant_to_plain(host_lib, case, _aligned_cases)
 
 
-def _host_v7(lib, comp, lens, spec0, spec1, out_cap, nlanes, unroll2=False, offset=AT_GUARD,
-             loader=None):
-    """decode_v7's batched walk on a warp of ``nlanes`` lanes, the rows at
-    ``offset`` in a guarded buffer read through loader 0 (words; the default
-    where the width is a multiple of 4) or 1 (bytes), the descriptors at a
-    guard page: ``(out, out_lens, errs, (batches, tags))``."""
+def _host_hybrid(lib, form, comp, lens, spec0, spec1, out_cap, nlanes, unroll2=False,
+                 offset=AT_GUARD, loader=None):
+    """The batched walk of ``form`` (``"v5"``, ``"v6"``, ``"v7"``) on a warp
+    of ``nlanes`` lanes, the rows at ``offset`` in a guarded buffer read
+    through loader 0 (words; the default where the width is a multiple of 4)
+    or 1 (bytes), the descriptors (``spec1`` only for ``"v7"``) at a guard
+    page: ``(out, out_lens, errs, (batches, tags))``."""
     comp = np.ascontiguousarray(comp, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
     s0 = np.ascontiguousarray(spec0, np.int32)
-    s1 = np.ascontiguousarray(spec1, np.int32)
+    s1 = s0 if spec1 is None else np.ascontiguousarray(spec1, np.int32)
     B, cc = comp.shape
     if loader is None:
         loader = 0 if cc % 4 == 0 else 1
@@ -1429,10 +1407,10 @@ def _host_v7(lib, comp, lens, spec0, spec1, out_cap, nlanes, unroll2=False, offs
     out_lens = np.zeros(B, np.int32)
     errs = np.zeros(B, np.int32)
     counts = np.zeros(2, np.int64)
-    rc = lib.host_v7(comp.ctypes.data, cc, s0.ctypes.data, s1.ctypes.data, s0.shape[1],
-                     lens.ctypes.data, B, out_cap, nlanes, int(unroll2), _offset_arg(offset),
-                     loader, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data,
-                     counts.ctypes.data)
+    rc = lib.host_hybrid(int(form[1]), comp.ctypes.data, cc, s0.ctypes.data, s1.ctypes.data,
+                         s0.shape[1], lens.ctypes.data, B, out_cap, nlanes, int(unroll2),
+                         _offset_arg(offset), loader, out.ctypes.data, out_lens.ctypes.data,
+                         errs.ctypes.data, counts.ctypes.data)
     assert rc == 0
     return out, out_lens, errs, tuple(counts.tolist())
 
@@ -1447,13 +1425,13 @@ def _same_triples(got, want, what):
 @pytest.mark.parametrize("nlanes", [1, 4, 32])
 @pytest.mark.parametrize("form", ["v5", "v6", "v7", "v7u"])
 def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
-    """The descriptor-driven walks on 1, 4 and 32 lanes over the port's
-    pre-pass, against their plain version: valid blocks with every short
-    offset, 64 KiB blocks, corrupt blocks, a sample of the tag sweep,
-    garbage past each length; rows and capacities that are no multiple of
-    4. v5 and v6 walk a tag at a time on as many threads; v7 (v7u: two
-    batches a loop iteration) is the decode kernel's batched walk on a warp
-    of as many lanes, its rows and descriptors ending at a guard page."""
+    """The descriptor-driven kernels' batched walk on a warp of 1, 4 and 32
+    lanes over the port's pre-pass, against their plain version (a tag at a
+    time): valid blocks with every short offset, 64 KiB blocks, corrupt
+    blocks, a sample of the tag sweep, garbage past each length; rows and
+    capacities that are no multiple of 4 (the byte loader), rows and
+    descriptors ending at a guard page; v7u parses two batches a loop
+    iteration."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
@@ -1467,16 +1445,9 @@ def test_host_hybrid_walk_matches_plain(host_lib, form, nlanes):
     c8 = torch.from_numpy(comp8)
     spec0, spec1 = dh._prepass(c8, base)
     want = [x.numpy() for x in dh.decode_hybrid_plain(c8, torch.from_numpy(lens), out_cap, base)]
-    B = len(streams)
-    if base == "v7":
-        got = _host_v7(host_lib, comp8, lens, spec0.numpy(), spec1.numpy(), out_cap, nlanes,
+    got = _host_hybrid(host_lib, base, comp8, lens, spec0.numpy(),
+                       None if spec1 is None else spec1.numpy(), out_cap, nlanes,
                        unroll2=form == "v7u")[:3]
-    else:
-        s0 = np.ascontiguousarray(spec0.numpy())
-        got = (np.zeros((B, out_cap), np.uint8), np.zeros(B, np.int32), np.zeros(B, np.int32))
-        host_lib.host_hybrid(dh.FORMS[base][0], comp8.ctypes.data, cc, s0.ctypes.data, cc,
-                             lens.ctypes.data, B, out_cap, nlanes, got[0].ctypes.data,
-                             got[1].ctypes.data, got[2].ctypes.data)
     _same_triples(got, want, form)
     assert ({0, 4, 8} if base == "v7" else {0, 2, 3, 4, 8}) <= set(got[2].tolist())
 
@@ -1487,35 +1458,69 @@ _V7_CC, _V7_OUT_CAP = 4096, 3072  # OUT_CAP + 1024 a multiple of 4096: the TPU w
 def _negative_literal_streams():
     """A 4-byte literal length of 0xFFFFFFFE (a literal of -1 bytes that
     advances 4, its next tag a copy-4 tag at its top length byte), after
-    output and at the start; one of -4 bytes; and runs of literals whose
-    length wraps to 0, whole batches of tags with no output."""
+    output and at the start; one of -4 bytes; runs of literals whose length
+    wraps to 0, whole batches of tags with no output; and
+    ``torch_cases.step_back_streams``, where the step comes after several
+    tags of one batch or makes a batch of its own."""
     lit16 = bytes([15 << 2]) + b"abcdefghijklmnop"
     neg = bytes([0xFC, 0xFE, 0xFF, 0xFF, 0xFF, 8, 0, 0, 0])  # then 64 bytes at offset 8
     empty = bytes([0xFC, 0xFB, 0xFF, 0xFF, 0xFF])  # -4 bytes: advances 1, to the next 0xFB ...
     wrap = bytes([0xFC, 0xFF, 0xFF, 0xFF, 0xFF])  # a literal of 0 bytes that advances 5
     runs = [write_varint(16) + lit16 + wrap * k for k in (1, 7, 40)]
     return [write_varint(79) + lit16 + neg, bytes([64]) + neg, write_varint(16) + lit16 + empty,
-            *runs]
+            *runs, *step_back_streams()]
 
 
-@pytest.fixture(scope="module")
-def v7_refs():
-    """decode_v7's cases: the edge, corrupt, tag-sweep, negative-literal and
-    batch-edge streams at width 4,096, with the TPU's decode_v7 triple in
-    interpret mode (``tools/perf_probe_hybrid.py``) and the port's pre-pass."""
+#: The one stream of _hybrid_refs where decode_v5 diverges from the TPU by
+#: design: its step back would take the output below 0 (4 here, 3 there).
+_BELOW_ZERO = bytes([64, 0xFC, 0xFE, 0xFF, 0xFF, 0xFF, 8, 0, 0, 0])
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_streams():
+    """The edge, corrupt, tag-sweep, negative-literal, step-back and
+    batch-edge streams."""
+    return (walk_streams() + corrupt_streams() + tag_sweep_sample(61)
+            + _negative_literal_streams() + batch_streams())
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_refs(form: str):
+    """The descriptor-driven forms' cases: the edge, corrupt, tag-sweep,
+    negative-literal, step-back and batch-edge streams at width 4,096, the
+    port's pre-pass of ``form`` (``"v5"``, ``"v6"``, ``"v7"``), the TPU's
+    triple in interpret mode (``tools/perf_probe_hybrid.py``), the plain
+    version's triple, and the rows where the two are held equal (all but
+    :data:`_BELOW_ZERO` for ``"v5"``, where the plain version's 4 and the
+    TPU's 3 are checked)."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
     from tests.torch_cases import interpreted_tool
 
-    streams = (walk_streams() + corrupt_streams() + tag_sweep_sample(61)
-               + _negative_literal_streams() + batch_streams())
+    streams = _hybrid_streams()
     comp, lens = pack_streams(streams, _V7_CC)
     with interpreted_tool("perf_probe_hybrid") as tool:
-        ref = [np.asarray(x) for x in tool.decode_v7(jnp.asarray(comp), jnp.asarray(lens),
-                                                     _V7_OUT_CAP, False)]
+        c, n = jnp.asarray(comp), jnp.asarray(lens)
+        res = (tool.decode_v7(c, n, _V7_OUT_CAP, False) if form == "v7"
+               else getattr(tool, f"decode_{form}")(c, n, _V7_OUT_CAP))
+        ref = [np.asarray(x) for x in res]
     comp8 = comp.astype(np.uint8)
-    spec0, spec1 = (x.numpy() for x in dh.prepass_v7(torch.from_numpy(comp8)))
+    c8 = torch.from_numpy(comp8)
+    spec0, spec1 = (None if x is None else x.numpy() for x in dh._prepass(c8, form))
+    plain = [x.numpy() for x in dh.decode_hybrid_plain(c8, torch.from_numpy(lens), _V7_OUT_CAP,
+                                                       form)]
+    keep = np.array([not (form == "v5" and s == _BELOW_ZERO) for s in streams])
+    if form == "v5":
+        assert plain[2][~keep].tolist() == [4] and ref[2][~keep].tolist() == [3]
+    return comp8, lens, spec0, spec1, ref, plain, keep
+
+
+@pytest.fixture(scope="module")
+def v7_refs():
+    """decode_v7's cases (:func:`_hybrid_refs`): rows, lengths, the port's
+    pre-pass and the TPU's decode_v7 triple."""
+    comp8, lens, spec0, spec1, ref, _, _ = _hybrid_refs("v7")
     return comp8, lens, spec0, spec1, ref
 
 
@@ -1538,8 +1543,9 @@ def test_host_v7_walk_matches_jax(host_lib, v7_refs, nlanes, unroll2):
     _same_triples(plain, ref, "plain")
     assert set(ref[2].tolist()) == {0, 4, 8}
     for offset, loader in _loader_cases(_V7_CC):
-        out, out_lens, errs, (batches, tags) = _host_v7(
-            host_lib, comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, unroll2, offset, loader)
+        out, out_lens, errs, (batches, tags) = _host_hybrid(
+            host_lib, "v7", comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, unroll2, offset,
+            loader)
         _same_triples((out, out_lens, errs), ref, f"loader {loader}")
         assert tags <= nlanes * batches and (nlanes == 1 or tags > batches)
 
@@ -1556,26 +1562,82 @@ def test_host_v7_walk_on_unaligned_rows(host_lib, v7_refs, nlanes):
 
     comp8, lens, spec0, spec1, ref = v7_refs
     for offset, loader in _aligned_cases(_V7_CC):
-        got = _host_v7(host_lib, comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, False, offset,
-                       loader)[:3]
+        got = _host_hybrid(host_lib, "v7", comp8, lens, spec0, spec1, _V7_OUT_CAP, nlanes, False,
+                           offset, loader)[:3]
         _same_triples(got, ref, f"loader {loader} at offset {offset}")
     narrow = np.ascontiguousarray(comp8[:, : _V7_CC - 3])
     s0, s1 = (x.numpy() for x in dh.prepass_v7(torch.from_numpy(narrow)))
     want = [x.numpy() for x in dh.decode_hybrid_plain(
         torch.from_numpy(narrow), torch.from_numpy(lens), _V7_OUT_CAP, "v7")]
     for offset in (AT_GUARD, 5):
-        got = _host_v7(host_lib, narrow, lens, s0, s1, _V7_OUT_CAP, nlanes, False, offset, 1)[:3]
+        got = _host_hybrid(host_lib, "v7", narrow, lens, s0, s1, _V7_OUT_CAP, nlanes, False,
+                           offset, 1)[:3]
         _same_triples(got, want, f"width {_V7_CC - 3} at offset {offset}")
 
 
-def test_host_prepass_v7_matches_plain(host_lib):
-    """The pre-pass kernel's per-word work (hy::spec2_at over words g and
-    g + 1 of each row) through both loaders, the rows at a guard page and
-    0-7 bytes past a 16-byte boundary, bit-equal to the plain pre-pass
-    (spec2_from_words of pack_words, held to the TPU's by
-    tests/test_torch_hybrid_decode.py) on rows of uneven widths: random
-    bytes, literal lengths and copy offsets at every wrap and poison edge,
-    packed streams with garbage tails."""
+def _kept(triple, keep):
+    return [x[keep] for x in triple]
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_host_v5_v6_walk_matches_jax(host_lib, form, nlanes):
+    """decode_v5's and decode_v6's batched walk (K1's loop, one descriptor
+    a lane) on a warp of 1, 4 and 32 lanes, through both row loaders, the
+    rows and descriptors ending at a guard page, equal to the plain version
+    and to the TPU's decode_v5 / decode_v6 in interpret mode on the edge,
+    corrupt, tag-sweep, negative-literal, step-back and batch-edge streams:
+    every error word of {0, 2, 3, 4, 8}, lengths and bytes. v5 steps back
+    inside a batch (and in a batch of its own); the one row where it
+    diverges from the TPU by design is held to the plain version. On 4 and
+    32 lanes the batches hold more tags than steps."""
+    comp8, lens, spec0, spec1, ref, plain, keep = _hybrid_refs(form)
+    _same_triples(_kept(plain, keep), _kept(ref, keep), "plain")
+    assert set(plain[2].tolist()) == {0, 2, 3, 4, 8}
+    back = np.isin(np.arange(len(lens)), [_hybrid_streams().index(s) for s in step_back_streams()])
+    assert plain[2][back].tolist() == ([0, 0, 0] if form == "v5" else [4, 4, 4])
+    for offset, loader in _loader_cases(_V7_CC):
+        out, out_lens, errs, (batches, tags) = _host_hybrid(
+            host_lib, form, comp8, lens, spec0, None, _V7_OUT_CAP, nlanes, False, offset, loader)
+        _same_triples((out, out_lens, errs), plain, f"loader {loader}")
+        _same_triples(_kept((out, out_lens, errs), keep), _kept(ref, keep), f"loader {loader}")
+        assert tags <= nlanes * batches and (nlanes == 1 or tags > batches)
+
+
+@pytest.mark.parametrize("nlanes", [1, 4, 32])
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_host_v5_v6_walk_on_unaligned_rows(host_lib, form, nlanes):
+    """decode_v5's and decode_v6's batched walk with the rows 0-7 bytes past
+    a 16-byte boundary (the byte loader) and 0, 4, 8 and 12 past one (the
+    word loader), under the guard page; and on rows 3 bytes narrower (the
+    byte loader, descriptors of that width), against the plain version."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+
+    comp8, lens, spec0, _, _, plain, _ = _hybrid_refs(form)
+    for offset, loader in _aligned_cases(_V7_CC):
+        got = _host_hybrid(host_lib, form, comp8, lens, spec0, None, _V7_OUT_CAP, nlanes, False,
+                           offset, loader)[:3]
+        _same_triples(got, plain, f"loader {loader} at offset {offset}")
+    narrow = np.ascontiguousarray(comp8[:, : _V7_CC - 3])
+    s0 = dh._prepass(torch.from_numpy(narrow), form)[0].numpy()
+    want = [x.numpy() for x in dh.decode_hybrid_plain(
+        torch.from_numpy(narrow), torch.from_numpy(lens), _V7_OUT_CAP, form)]
+    for offset in (AT_GUARD, 5):
+        got = _host_hybrid(host_lib, form, narrow, lens, s0, None, _V7_OUT_CAP, nlanes, False,
+                           offset, 1)[:3]
+        _same_triples(got, want, f"width {_V7_CC - 3} at offset {offset}")
+
+
+def _hold_prepass_to_plain(host_lib, form):
+    """The pre-pass kernel's per-word work (hy::describe_word over words g
+    and g + 1 of each row) for ``form`` through both loaders, the rows at a
+    guard page and 0-7 bytes past a 16-byte boundary (the byte loader) and
+    0, 4, 8 and 12 past one (the word loader), bit-equal to the plain
+    pre-passes (held to the TPU's by tests/test_torch_hybrid_decode.py) on
+    rows of uneven widths: random bytes, literal lengths and copy offsets at
+    every wrap and poison edge, packed streams with garbage tails."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
@@ -1584,14 +1646,35 @@ def test_host_prepass_v7_matches_plain(host_lib):
     rows = _prepass_rows().astype(np.uint8)
     for cc in (4096, 1001, 1002, 1003, 5):
         part = np.ascontiguousarray(rows[:, :cc])
-        want = [x.numpy() for x in dh.spec2_from_words(dh.pack_words(torch.from_numpy(part)), cc)]
+        t = torch.from_numpy(part)
+        words = dh.pack_words(t)
+        if form == "v7":
+            want = [x.numpy() for x in dh.spec2_from_words(words, cc)]
+        else:
+            want = [dh.spec_from_comp(t).numpy()]
+            assert (dh.spec_from_words(words, cc).numpy() == want[0]).all()
         cases = [(AT_GUARD, 1)] + [(o, 1) for o in range(8)]
         cases += [(AT_GUARD, 0)] + [(o, 0) for o in (0, 4, 8, 12)] if cc % 4 == 0 else []
         for offset, loader in cases:
-            got = [np.zeros_like(want[0]), np.zeros_like(want[1])]
-            assert host_lib.host_prepass_v7(part.ctypes.data, cc, len(part), _offset_arg(offset),
-                                            loader, got[0].ctypes.data, got[1].ctypes.data) == 0
-            assert (got[0] == want[0]).all() and (got[1] == want[1]).all(), (cc, offset, loader)
+            got = [np.zeros_like(want[0]) for _ in range(2)]
+            assert host_lib.host_prepass(int(form[1]), part.ctypes.data, cc, len(part),
+                                         _offset_arg(offset), loader, got[0].ctypes.data,
+                                         got[1].ctypes.data) == 0
+            for g, w in zip(got, want):
+                assert (g == w).all(), (form, cc, offset, loader)
+
+
+def test_host_prepass_v7_matches_plain(host_lib):
+    """Form 7's pre-pass (hy::spec2_at), against spec2_from_words of
+    pack_words: :func:`_hold_prepass_to_plain`."""
+    _hold_prepass_to_plain(host_lib, "v7")
+
+
+@pytest.mark.parametrize("form", ["v5", "v6"])
+def test_host_prepass_matches_plain(host_lib, form):
+    """Forms 5 and 6's pre-pass (hy::spec_at), against spec_from_comp and
+    spec_from_words of pack_words: :func:`_hold_prepass_to_plain`."""
+    _hold_prepass_to_plain(host_lib, form)
 
 
 def test_host_encode_stats_walk_matches_plain(host_lib):

@@ -197,6 +197,20 @@ def test_cpu_path_launches_no_kernel():
     assert sum(_build.LAUNCHES.values()) == 0
 
 
+def test_build_types_every_argument():
+    """Each launcher's argument types name every parameter of its C function
+    (the stream among them): an untyped pointer would be passed as a C int,
+    on the stack from the seventh argument on."""
+    import re
+
+    sigs = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', src.read_text(), re.S):
+            sigs[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    for name, (symbol, argtypes) in _build.SOURCES.items():
+        assert sigs.get(symbol) == len(argtypes), (name, symbol, sigs.get(symbol), len(argtypes))
+
+
 def test_build_names_every_source():
     assert set(_build.SOURCES) == {"decode", "encode", "crc32c", "encode_best", "probe",
                                    "decode_variants", "decode_pipe", "encode_variants",
@@ -204,11 +218,11 @@ def test_build_names_every_source():
                                    "vcopy", "coissue", "iso", "bprobe", "cliff", "chase",
                                    "bitonic", "encode_layout", "decode_layout", "best_layout",
                                    "crc32c_layout", "encode_variant_layout", "encode_r4_layout",
-                                   "prepass_v7", "decode_v7_layout"}
+                                   "prepass", "decode_hybrid_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
     shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "chase", "bitonic",
               "encode_layout", "decode_layout", "best_layout", "crc32c_layout",
-              "encode_variant_layout", "encode_r4_layout", "prepass_v7", "decode_v7_layout"}
+              "encode_variant_layout", "encode_r4_layout", "prepass", "decode_hybrid_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

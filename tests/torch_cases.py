@@ -274,6 +274,27 @@ def vcopy_edges(mode: str) -> np.ndarray:
     return rec
 
 
+def step_back_streams() -> list[bytes]:
+    """Blocks with a 4-byte literal length of 0xFFFFFFFE: a literal of -1
+    bytes that advances 4, whose next tag is a copy-4 tag at its top length
+    byte (64 bytes at the offset in the 4 bytes after it). ``decode_v5``
+    steps its output back by one byte there; ``v6`` and ``v7`` take the
+    literal as empty (and so overrun the claim). In the first two the step
+    comes after four tags of the same 32-byte window, so a batch of the
+    batched walk holds them all (the second steps back twice); in the third
+    a literal of 40 bytes ends the batch before it, so the step is a batch
+    of its own."""
+
+    def back(off: int) -> bytes:
+        return bytes([0xFC, 0xFE, 0xFF, 0xFF, 0xFF]) + off.to_bytes(4, "little")
+
+    head = _literal(b"ab") + _copy(2, 4, 1) + _literal(b"cde") + _copy(3, 5, 1)  # 14 bytes
+    long = bytes(range(40, 80))
+    return [write_varint(14 - 1 + 64 + 3) + head + back(8) + _literal(b"xyz"),
+            write_varint(2 * (14 - 1 + 64)) + head + back(8) + head + back(5),
+            write_varint(40 - 1 + 64) + _literal(long) + back(8)]
+
+
 def tag_sweep_sample(step: int = 23) -> list[bytes]:
     """Every ``step``-th stream of the exhaustive tag-byte sweep
     (tests/test_tag_sweep.py): all tag classes, extra-field patterns and

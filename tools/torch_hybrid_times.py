@@ -13,10 +13,11 @@ one card), a fresh process imports that package, builds the kernels it
 times into ``ROOT/build`` and times them with ``chip_smoke.cuda_ms`` of
 this repository (CUDA events, warm-up, best of 3 passes of 5 calls) on the
 main path's 512 blocks (64 KiB of bench.py's word mix each, compressed by
-K2): K1-K4; ``decode_v5``, ``decode_v5_spec``, ``decode_v6``, ``decode_v7``
-and ``decode_v7(unroll2=True)`` with their pre-pass, each walk alone on its
-descriptors, the pre-passes alone and each form's peak device memory, at
-the codec's row width (68,608 B) and the tight one; ``chain`` and ``cliff``
+K2): K1-K4; ``decode_v5``, ``decode_v6``, ``decode_v7`` and
+``decode_v7(unroll2=True)`` with their pre-pass, each walk alone on its
+descriptors, ``decode_v5_spec`` on a pre-pass made beforehand and within
+the call, the pre-passes alone and each form's peak device memory, at the
+codec's row width (68,608 B) and the tight one; each form's layout; ``chain`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
 the chase, in ms and ns a walk step. Every call is first held to its plain
 version (the walks' rows to the input). It prints the card's name and
@@ -109,8 +110,14 @@ def one(root: str) -> dict:
             if form != "v7u":
                 t[f"prepass_{form}_{width}"] = ms(lambda: dh._prepass(rows, form[:2]))
             del p
-        t[f"v5parts_{width}"] = ms(lambda: dh.decode_v5_spec(
-            dh.pack_words(rows), dh.spec_from_comp(rows), lens, BLOCK))
+        # decode_v5_spec on its pre-pass (the kernel where the package has
+        # one), made beforehand and within the call.
+        spec_of = getattr(dh, "prepass_v5", dh.spec_from_comp)
+        words, spec = dh.pack_words(rows), spec_of(rows)
+        t[f"v5parts_{width}"] = ms(lambda: dh.decode_v5_spec(words, spec, lens, BLOCK))
+        t[f"v5parts_{width}_with_prepass"] = ms(lambda: dh.decode_v5_spec(
+            dh.pack_words(rows), spec_of(rows), lens, BLOCK))
+        del words, spec
     block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
     adv, n, ntags = hp.chain_inputs(block)
     adv_h = torch.from_numpy(adv)
@@ -135,10 +142,14 @@ def one(root: str) -> dict:
         t["chase"] = ms(lambda: hp.launch_chase(adv_d, n, 3, R, staged))
     walks = ("chain", "chase", *(f"cliff_{m}" for m in hp.CLIFF_MODES))
     ns = {k: t[k] * 1e6 / steps for k in walks if k in t}
-    layout = dh.decode_v7_layout(comp, BLOCK) if hasattr(dh, "decode_v7_layout") else None
+    if hasattr(dh, "decode_hybrid_layout"):
+        layout = {f: dh.decode_hybrid_layout(comp, BLOCK, f) for f in ("v5", "v6", "v7")}
+    else:  # an older package: form 7's query alone
+        layout = {"v7": dh.decode_v7_layout(comp, BLOCK)}
     return {"root": root, "ms": t, "ns_per_step": ns, "steps": steps, "tags_block0": ntags,
-            "staged_words": staged, "v7_layout": layout,
-            "v7_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""), "v7"),
+            "staged_words": staged, "hybrid_layout": layout,
+            "hybrid_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""),
+                                             "_kernel"),
             "cliff_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""),
                                             "cliff_kernel")}
 

@@ -2,8 +2,8 @@
 """Descriptor-driven decode probe and hybrid micro-probes for the
 PyTorch/CUDA port (run on an NVIDIA GPU; port of ``tools/perf_probe_hybrid.py``).
 
-A tensor pre-pass decodes the tag at every byte position into a descriptor;
-the walk reads one descriptor per tag (``ops/cuda/decode_hybrid.py``,
+A pre-pass kernel decodes the tag at every byte position into a
+descriptor; the walk reads one descriptor per tag (``ops/cuda/decode_hybrid.py``,
 ``csrc/decode_hybrid.cu``). Each form is checked first (error words all
 zero, blocks 0, 1, B/2 and B-1 equal to the input), then timed with CUDA
 events (warm-up, best of 3 passes of 5 calls), pre-pass included.
@@ -11,11 +11,11 @@ events (warm-up, best of 3 passes of 5 calls), pre-pass included.
 Usage, from the repository root:
     python3 tools/torch_perf_probe_hybrid.py [-B N] [probe ...]
 Probes:
-  v5       spec_from_comp (one int32 descriptor per byte) + the walk
+  v5       prepass_v5 (one int32 descriptor per byte, the rows read a byte at
+           a time) + the decode kernel's batched walk over the descriptors
   v5parts  the same, the pre-pass and the walk (decode_v5_spec) timed apart
-  v6       spec_from_words (the descriptor from the word image) + v5's walk
-  v7       prepass_v7 (two arrays, one validity test per tag; a kernel) + its
-           walk, the decode kernel's batched walk over the descriptors
+  v6       prepass_v6 (the same descriptor, word rows read as words) + v5's walk
+  v7       prepass_v7 (two arrays, one validity test per tag) + the same walk
   v7u      v7 with two batches per loop iteration
 Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
 ``csrc/bitonic_probe.cu``) on block 0:
@@ -41,7 +41,7 @@ is the card's name and power limit. For the decode probes, the next gives
 the batch, the row width, the tag count of block 0 and its tag mix; then one
 line per probe: ms per call, us per block, GB/s of output and ns per tag,
 where a block's time is the call's time over the waves of blocks the card
-runs at once (``v7``, ``v7u``: as ``decode_v7_layout`` gives it). Each
+runs at once (as ``decode_hybrid_layout`` gives it). Each
 micro-probe is held to its plain version (checksum and records, image,
 tile, scratch or indices), then its kernel alone is timed and the JAX
 tool's line printed.
@@ -200,7 +200,7 @@ def main() -> int:
         return 2
 
     import chip_smoke
-    from torch_perf_probe import blocks_in_flight, build_blocks, timeit
+    from torch_perf_probe import build_blocks, timeit
 
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
 
@@ -214,13 +214,12 @@ def main() -> int:
     comp_d = torch.from_numpy(comp).cuda()
     lens_d = torch.from_numpy(lens).cuda()
     cc = comp.shape[1]
-    in_flight = blocks_in_flight(dh.smem_bytes(cc, BLOCK_SIZE))
-    v7_in_flight = 132 * dh.decode_v7_layout(comp_d, BLOCK_SIZE)["blocks_per_sm"]
-    waves = {f: -(-B // (v7_in_flight if f.startswith("v7") else in_flight))
-             for f in DECODE_PROBES}
+    in_flight = {f: 132 * dh.decode_hybrid_layout(comp_d, BLOCK_SIZE, f[:2])["blocks_per_sm"]
+                 for f in DECODE_PROBES}
+    waves = {f: -(-B // n) for f, n in in_flight.items()}
     gb = B * BLOCK_SIZE / 1e9
     print(f"B={B} blocks, row width {cc}, {ntags} tags/block, mix={hist}, "
-          f"blocks_in_flight {in_flight} (v7: {v7_in_flight}), waves {waves}")
+          f"blocks_in_flight {in_flight}, waves {waves}")
 
     def report(label: str, t: float, ok: bool | None = None) -> None:
         per_block = t / waves[label.split()[0]]
@@ -241,10 +240,10 @@ def main() -> int:
             continue
         # The pre-pass alone (descriptors and the word image, as the JAX
         # tool's `pre`), then the kernel alone on its result.
-        t_pre = timeit(lambda: (dh.spec_from_comp(comp_d), dh.pack_words(comp_d)))
+        t_pre = timeit(lambda: (dh.prepass_v5(comp_d), dh.pack_words(comp_d)))
         print(f"v5 pre-pass alone: {t_pre * 1e3:.3f} ms ({t_pre / B * 1e6:.1f} us/block)",
               flush=True)
-        words, spec = dh.pack_words(comp_d), dh.spec_from_comp(comp_d)
+        words, spec = dh.pack_words(comp_d), dh.prepass_v5(comp_d)
         k_out, k_lens, k_errs = dh.decode_v5_spec(words, spec, lens_d, BLOCK_SIZE)
         torch.cuda.synchronize()
         k_ok = int(k_errs.max()) == 0 and bool((k_out == outs).all())
