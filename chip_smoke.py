@@ -91,9 +91,12 @@ failure:
    assembly. Encode ablation: ``encode_variant`` under every named flag
    tuple, ``encode_r4`` under every name, ``decode_pipe`` and
    ``decode_pipe2`` in every form, each against its plain version on edge
-   rows (the encoders' also 1 byte into a buffer: the byte loader) and on
-   rows of the full 65,536 bytes; the encoders' layouts (K2's: at least 3
-   blocks an SM at 15 hash bits, 4 at 14) and ptxas figures (any stack or
+   rows (also 1 byte into a buffer: the byte loader; the decoders' rows hold
+   literals of no bytes, which ``decode_pipe2`` takes) and on rows of the
+   full 65,536 bytes, ``decode_pipe``'s verdicts equal to the production
+   decoder's; the layouts (the encoders' K2's: at least 3 blocks an SM at
+   15 hash bits, 4 at 14; the pipelined decoders' K1's: 3 blocks of 64
+   threads at out_cap 65,536 in every form) and ptxas figures (any stack or
    spill fails); then on the 512 blocks: a variant that gives the production
    encoder's bytes held to them, any other decoded by the decode kernel to
    the input, the decoders' rows equal to the production kernel's; timings
@@ -1485,6 +1488,7 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
     sys.path.insert(0, os.path.join(root, "tests"))
     sys.path.insert(0, os.path.join(root, "tools"))
     from torch_cases import corrupt_streams as more_corrupt
+    from torch_cases import empty_literal_streams
     from torch_cases import encode_rows as small_rows
     from torch_cases import PIPE_CASES as pipe_cases
     from torch_cases import pack_streams, walk_streams
@@ -1582,13 +1586,20 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
             check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
                   f"{what} kernel stack frame or spills: {fig}")
     # Decoders: phase 2's rows (corrupt blocks and encoded 64 KiB rows), short
-    # offsets, overlapping copies, long literals and more malformed blocks.
-    streams = decode_streams + walk_streams() + more_corrupt()
+    # offsets, overlapping copies, long literals, more malformed blocks and
+    # blocks with literals of no bytes (decode_pipe2 takes them), as word rows
+    # through the ring and 1 byte into a buffer through the byte loader.
+    empty = empty_literal_streams()
+    streams = decode_streams + walk_streams() + more_corrupt() + empty
     comp, clens = pack_streams(streams, 68608)
     c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
     c_d, l_d = c_h.to(dev), l_h.to(dev)
+    c_buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=dev)
+    c_buf[1:].copy_(c_d.reshape(-1))
+    c_odd = c_buf[1:].view(c_d.shape)
     plain_rows = {fold: [x.numpy() for x in dv.decode_pipe_plain(c_h, l_h, BLOCK, fold)]
                   for fold in (False, True)}
+    k1_rows = [x.cpu().numpy() for x in sc.decode_blocks_bytes(c_d, l_d, BLOCK)]
 
     def pipe_call(name, rows, lens):
         if name == "pipe":
@@ -1596,20 +1607,51 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
         return dv.decode_pipe2(rows, lens, BLOCK, **PIPE_CASES[name])
 
     for name, kw in PIPE_CASES.items():
-        got = [x.cpu().numpy() for x in pipe_call(name, c_d, l_d)]
-        torch.cuda.synchronize()
         want = plain_rows[name != "pipe"]
-        pairs = [(got[1], want[1]), (got[2], want[2])]
-        if kw.get("emit", True):
-            pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
-        err = max_abs_err(pairs)
-        check(err == 0, f"{name} differs from its plain version")
-        counter = "decode_pipe" if name == "pipe" else "decode_pipe2"
-        errs[counter] = max(errs.get(counter, 0), err)
+        for rows_d in (c_d, c_odd):
+            got = [x.cpu().numpy() for x in pipe_call(name, rows_d, l_d)]
+            torch.cuda.synchronize()
+            pairs = [(got[1], want[1]), (got[2], want[2])]
+            if kw.get("emit", True):
+                pairs += [(got[0][i, :n], want[0][i, :n]) for i, n in enumerate(want[1])]
+            err = max_abs_err(pairs)
+            check(err == 0, f"{name} differs from its plain version "
+                            f"({'1 byte into a buffer' if rows_d is c_odd else 'word rows'})")
+            counter = "decode_pipe" if name == "pipe" else "decode_pipe2"
+            errs[counter] = max(errs.get(counter, 0), err)
     seen = set(plain_rows[True][2].tolist())
     check(seen == {0, 4, 7, 8}, f"corrupt rows give error words {sorted(seen)}")
+    check(all((plain_rows[False][k] == k1_rows[k]).all() for k in (1, 2)),
+          "decode_pipe's verdicts differ from the decode kernel's")
+    check(plain_rows[False][2][-len(empty):].tolist() == [7] * len(empty)
+          and not plain_rows[True][2][-len(empty):].any(), "the literals of no bytes")
     print(f"decode_pipe and decode_pipe2 ({len(PIPE_CASES) - 1} forms) == plain on "
-          f"{len(streams)} rows, max_abs_err 0")
+          f"{len(streams)} rows ({len(empty)} with literals of no bytes), word rows and 1 byte "
+          "into a buffer; decode_pipe's verdicts == the decode kernel's; max_abs_err 0")
+    # Their layout (K1's): only the output image in shared memory, three
+    # blocks of two warps an SM at out_cap 65,536 in every form, the ring on
+    # word rows; every instantiation's walk in registers.
+    pipe_forms = {name: dict(fold=name != "pipe", **kw) for name, kw in PIPE_CASES.items()}
+    pipe_layouts = {name: dv.decode_pipe_layout(comp_u8, BLOCK, **kw)
+                    for name, kw in pipe_forms.items()}
+    pipe_layouts["pipe2unc2_unaligned"] = dv.decode_pipe_layout(c_odd, BLOCK,
+                                                                **pipe_forms["pipe2unc2"])
+    pipe_ptxas = ptxas_figures(_build.BUILD_LOG.get("decode_pipe", ""), "decode_pipe_kernel")
+    print(json.dumps({"card": card, "decode_pipe_layouts": pipe_layouts,
+                      "decode_pipe_ptxas": pipe_ptxas}))
+    for name, lay in pipe_layouts.items():
+        unc = pipe_forms[name.split("_")[0]].get("unc", 0)
+        # The byte loader's kernel keeps no input ring: 1 KiB less.
+        smem = dv._pipe_smem_bytes(BLOCK, unc) - (1024 if "unaligned" in name else 0)
+        check(lay == {"blocks_per_sm": 3, "smem_bytes": smem, "threads": 64,
+                      "loader": "bytes" if "unaligned" in name else "ring"},
+              f"{name}: {lay} at out_cap {BLOCK}")
+    # decode_pipe and twelve decode_pipe2 forms (unroll 1-4 x unc 0-2), each
+    # with both loaders.
+    check(len(pipe_ptxas) == 26, f"ptxas figures for the 26 decode_pipe kernels: {pipe_ptxas}")
+    for fig in pipe_ptxas:
+        check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
+              f"decode_pipe kernel stack frame or spills: {fig}")
 
     # 2. the path: the 512 fragments through the encode kernel and every
     # named encode variant, the encode kernel's 512 blocks through the decode
@@ -1674,13 +1716,15 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
     tight = comp_u8[:, : -(-(int(block_lens.max()) + 8) // 1024) * 1024].contiguous()
     t_dec = {}
     for width, rows_d in (("codec_width", comp_u8), ("tight_width", tight)):
-        smem = dv._pipe_smem_bytes(rows_d.shape[1], BLOCK)
-        in_flight = 132 * max(1, 233472 // (smem + 1024))
-        t = {"row_bytes": rows_d.shape[1], "smem": smem, "blocks_in_flight": in_flight,
+        in_flight = {name: 132 * dv.decode_pipe_layout(rows_d, BLOCK, **kw)["blocks_per_sm"]
+                     for name, kw in pipe_forms.items()}
+        k1_in_flight = 132 * sc.decode_layout(rows_d, BLOCK)["blocks_per_sm"]
+        t = {"row_bytes": rows_d.shape[1], "blocks_in_flight": in_flight,
              "k1": cuda_ms(lambda: sc.decode_blocks_bytes(rows_d, block_lens, BLOCK))}
+        t["k1_ns_per_tag"] = t["k1"] * 1e6 / -(-B // k1_in_flight) / ntags
         for name in PIPE_CASES:
             t[name] = cuda_ms(lambda: pipe_call(name, rows_d, block_lens))
-            t[name + "_ns_per_tag"] = t[name] * 1e6 / -(-B // in_flight) / ntags
+            t[name + "_ns_per_tag"] = t[name] * 1e6 / -(-B // in_flight[name]) / ntags
         t_dec[width] = t
     print(json.dumps({"card": card, "tags_per_block": ntags,
                       "encode_ablation_per_512_blocks": t_enc,
@@ -1697,7 +1741,12 @@ def phase_encode_ablation(torch, card, decode_streams, frags, lengths, k2_lens, 
         "decode_pipe2": host_ms(lambda: dv.decode_pipe_plain(c1, cl1, BLOCK, True)),
     }
     sizes = {"encode_variant": sizes["e3"], "encode_r4": sizes["encpre"]}
-    return errs, launches, ms, plain, sizes, {k: {**layouts[k], "ptxas": ptxas[k]} for k in ptxas}
+    extra = {k: {"layout": {**layouts[k], "ptxas": ptxas[k]}} for k in ptxas}
+    for k, names in (("decode_pipe", ("pipe",)),
+                     ("decode_pipe2", [n for n in PIPE_CASES if n != "pipe"])):
+        extra[k] = {"layout": {**{n: pipe_layouts[n] for n in names}, "ptxas": pipe_ptxas},
+                    "ms_by_form": {w: {n: t_dec[w][n] for n in names} for w in t_dec}}
+    return errs, launches, ms, plain, sizes, extra
 
 
 HYBRID_FORMS = ("v5", "v6", "v7", "v7u")  # v7u: decode_v7(unroll2=True)
@@ -2407,7 +2456,7 @@ def main() -> int:
     # --- 8. block-axis sharding, the encode-walk and pipelined-decode ablation ---
     sharded_launches, sharded_scan_launches = phase_sharded(
         torch, card, data, frags, lengths, bodies, body_lens, scan_bodies, scan_lens)
-    errs_enc, enc_launches, ms_enc, plain_enc, enc_body_bytes, enc_layouts = (
+    errs_enc, enc_launches, ms_enc, plain_enc, enc_body_bytes, enc_extra = (
         phase_encode_ablation(torch, card, decode_streams, frags, lengths, body_lens, comp_u8,
                               block_lens))
     errs.update(errs_enc)
@@ -2515,8 +2564,8 @@ def main() -> int:
         if k == "crc32c":
             rows[-1]["ms_by_method"] = k3_by_method
             rows[-1]["layout"] = {**k3_layout, "ptxas": crc_ptxas}
-        if k in enc_layouts:
-            rows[-1]["layout"] = enc_layouts[k]
+        if k in enc_extra:
+            rows[-1].update(enc_extra[k])
         if k == "encode_best":
             rows[-1]["layout"] = {**k4_layout, "ptxas": best_ptxas}
             rows[-1]["ms_in_turns"] = {"encode_best": turns["encode_best"]}

@@ -1,10 +1,11 @@
 // The block of the batched decode kernels (decode.cu's K1, decode_hybrid.cu's
-// form 7): two warps over one Snappy block whose output is built in shared
-// memory. Warp 0 runs the walk (sc::decode_block_batched over a tag source)
-// and hands each parsed batch (its tags' offsets and sources, 264 bytes) to
-// warp 1 through a queue of four slots in shared memory; warp 1 writes it
-// (sc::emit_batch), so a batch's parse overlaps the previous batch's output.
-// The output leaves shared memory in one coalesced pass.
+// forms, decode_pipe.cu's pipelined walks): two warps over one Snappy block
+// whose output is built in shared memory. Warp 0 runs the walk
+// (sc::decode_block_batched over a tag source) and hands each parsed batch
+// (its tags' offsets and sources, 264 bytes) to warp 1 through a queue of
+// four slots in shared memory; warp 1 writes it (sc::emit_batch), so a
+// batch's parse overlaps the previous batch's output. The output leaves
+// shared memory in one coalesced pass.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,9 +66,10 @@ __device__ inline void store_row(const uint8_t* ow, int32_t nb, uint8_t* dst, in
 // with the step given), handing each batch on; warp 1 calls emit(bt, op,
 // delta, start) for each, its slot first in registers (the output's stores
 // could alias it). Returns the walk's result on every thread, the output
-// complete.
+// complete. Without hand_on (the same on every thread) warp 0 walks alone
+// and hands nothing on, and no output is written.
 template <class Walk, class Emit>
-__device__ sc::DecodeResult run(Queue& qs, Walk walk, Emit emit) {
+__device__ sc::DecodeResult run(Queue& qs, Walk walk, Emit emit, bool hand_on = true) {
   const int lane = threadIdx.x & (kWarp - 1);
   volatile int32_t* vhead = &qs.head;
   volatile int32_t* vtail = &qs.tail;
@@ -93,12 +95,12 @@ __device__ sc::DecodeResult run(Queue& qs, Walk walk, Emit emit) {
       h++;
     };
     auto step = [&](const sc::Batch& bt, int32_t op, const auto& delta, const auto& start) {
-      publish(bt, op, 0, delta.v, start.v);
+      if (hand_on) publish(bt, op, 0, delta.v, start.v);
     };
     const sc::DecodeResult r = walk(step);
-    publish(sc::Batch{}, 0, 1, 0, 0u);
+    if (hand_on) publish(sc::Batch{}, 0, 1, 0, 0u);
     if (lane == 0) qs.res = r;
-  } else {
+  } else if (hand_on) {
     for (int32_t t = 0;; t++) {
       while (*vhead == t) {
       }

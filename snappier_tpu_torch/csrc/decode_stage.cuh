@@ -1,7 +1,9 @@
-// Staging shared by the decode-walk ablation kernels (decode_variants.cu,
-// decode_pipe.cu): the shared-memory geometry of a block's images, the
-// coalesced load of a compressed row into a word image, the store of a
-// decoded image to its row, and the warp barrier the walks are given.
+// Staging of the decode-walk ablation kernels (decode_variants.cu): the
+// shared-memory geometry of a block's images, the coalesced load of a
+// compressed row into a word image, the store of a decoded image to its row,
+// and the warp barrier the walks are given; and the row length every decode
+// ablation kernel clamps to its row (row_length: decode_hybrid.cu and
+// decode_pipe.cu too).
 #pragma once
 
 #include <cuda_runtime.h>

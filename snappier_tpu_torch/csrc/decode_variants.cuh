@@ -28,10 +28,6 @@
 //       image, compressed bytes and output in one buffer; every tag moves a
 //       fixed 16 bytes whatever its length, a loop runs only past 16 bytes
 //       and a pattern loop only for offsets below 8.
-//
-// The pipelined walks of decode_pipe.cu (decode_block_pipe, at the end of
-// this file) are apart: they port tools/perf_probe_r4.py's _decode_kernel_pipe
-// and _decode_kernel_pipe2 and report errors as the production kernel does.
 #pragma once
 
 #include "scalar_codec.cuh"
@@ -372,175 +368,6 @@ SC_HD DecodeResult decode_block_bytes16(uint8_t* buf, int32_t ccp, int32_t total
     ip += t.advance;
     if (ok) op += kChecks ? t.length : length;
     err = e;
-  }
-  if (err == 0 && op != expected) err = ERR_LENGTH_MISMATCH;
-  DecodeResult r;
-  r.err = err;
-  r.out_len = err == 0 ? expected : 0;
-  return r;
-}
-
-// ---------------------------------------------------------------------------
-// Pipelined walks (decode_pipe.cu)
-// ---------------------------------------------------------------------------
-
-// One entry of the three 256-entry tables of the pipelined walks: the
-// descriptor d (bits 0-2 header length, bits 4-10 the inline length or 1,
-// bits 14-24 copy-1 offset high bits), the mask lm of the length bytes that
-// follow a long literal's tag and the mask om of a copy's offset bytes, so
-// that length = (rest & lm) + ((d >> 4) & 0x7F) and off = (rest & om) |
-// ((d >> 14) & 0x7FF) with no branch on the tag type. Without `fold`
-// (decode_pipe) bit 3 of d says literal, bit 31 a 4-byte length field, whose
-// mask keeps 3 bytes; with `fold` (decode_pipe2) bit 31 says literal and a
-// 4-byte length field keeps all 32 bits.
-SC_HD void pipe_lut_entry(uint32_t t, bool fold, int32_t& d, int32_t& lm, int32_t& om) {
-  uint32_t tt = t & 3u;
-  uint32_t l6 = t >> 2;
-  uint32_t hdr, base, is_lit = 0, offhi = 0, wide = 0;
-  uint32_t lmask = 0, omask = 0;
-  if (tt == 0) {
-    is_lit = 1;
-    if (l6 < 60) {
-      hdr = 1;
-      base = l6 + 1;
-    } else {
-      uint32_t extra = l6 - 59;
-      hdr = 1 + extra;
-      base = 1;
-      lmask = extra < 4 ? (1u << (8 * extra)) - 1u : (fold ? 0xFFFFFFFFu : 0xFFFFFFu);
-      wide = extra == 4;
-    }
-  } else if (tt == 1) {
-    hdr = 2;
-    base = ((t >> 2) & 7u) + 4;
-    offhi = (t >> 5) << 8;
-    omask = 0xFFu;
-  } else if (tt == 2) {
-    hdr = 3;
-    base = l6 + 1;
-    omask = 0xFFFFu;
-  } else {
-    hdr = 5;
-    base = l6 + 1;
-    omask = 0xFFFFFFFFu;
-  }
-  uint32_t v = hdr | (base << 4) | (offhi << 14);
-  v |= fold ? (is_lit << 31) : ((is_lit << 3) | (wide << 31));
-  d = (int32_t)v;
-  lm = (int32_t)lmask;
-  om = (int32_t)omask;
-}
-
-constexpr int64_t PIPE_SENTINEL = 0x40000000;  // a bad tag's ip: above any n
-
-// Decode one block with the next tag loaded ahead (decode_pipe, decode_pipe2).
-//
-// img, wc, owc, n, out_cap, lane, nlanes and sync as for decode_block_words
-// (separate images). luts holds the d, lm and om tables one after the other,
-// made by pipe_lut_entry with the same `kFold`. The loop carries the next
-// tag's table entries and the 4 bytes after its tag byte, loaded as soon as
-// this tag's advance is known and before this tag's payload is stored.
-// Without kFold the error word is carried through the loop; with it a bad
-// tag sets ip to a sentinel above n, the loop tests ip alone, `unroll` tags
-// are taken per iteration (a slot that finds ip at or past n does nothing)
-// and the error word is worked out after the loop. kUncond as for
-// append_stream; without `emit` no payload is stored and only out_len and
-// err mean anything. Errors as decode_block reports them: ERR_BAD_PREAMBLE,
-// the combined ERR_MALFORMED for a bad tag, ERR_LENGTH_MISMATCH for a clean
-// walk that ends short of the claim. One difference, the TPU kernel's: with
-// kFold a 4-byte literal length field of 0xFFFFFFFF wraps to a literal of no
-// bytes, which is taken and not refused.
-template <bool kFold, int kUncond, class Sync>
-SC_HD DecodeResult decode_block_pipe(uint32_t* img, int32_t wc, int32_t owc, const int32_t* luts,
-                                     int32_t n, int32_t out_cap, int unroll, bool emit, int lane,
-                                     int nlanes, Sync sync) {
-  uint32_t* ow = img + wc;
-  int32_t pre_len, expected;
-  const int32_t err0 = read_preamble(img, n, out_cap, pre_len, expected);
-  const int64_t guard = (int64_t)wc * 4 - 8;  // the window of a speculative load stays inside
-
-  struct Next {
-    int32_t d, lm, om;
-    uint32_t rest;
-  };
-  auto load_tag = [&](int64_t ip) {
-    int32_t i = (int32_t)(ip < 0 ? 0 : (ip > guard ? guard : ip));
-    uint32_t v32, b4;
-    window5(img, i, v32, b4);
-    uint32_t tag = v32 & 0xFFu;
-    Next t;
-    t.d = luts[tag];
-    t.lm = luts[256 + tag];
-    t.om = luts[512 + tag];
-    t.rest = (v32 >> 8) | (b4 << 24);
-    return t;
-  };
-  auto append = [&](bool is_lit, int32_t src, int32_t off, int32_t op, int32_t length) {
-    if (length <= 0) return;
-    if (is_lit) {
-      append_stream<kUncond>(img, wc - 1, src, ow, op, length, false, lane, nlanes, sync);
-    } else if (off >= 8) {
-      append_stream<kUncond>(ow, owc - 1, op - off, ow, op, length, true, lane, nlanes, sync);
-    } else {
-      append_bytes(ow, op - off, op, length < 14 ? length : 14, lane);
-      if (length > 14) {
-        sync();
-        int32_t off2 = off * (14 / off);
-        append_stream<kUncond>(ow, owc - 1, op + 14 - off2, ow, op + 14, length - 14, true, lane,
-                               nlanes, sync);
-      }
-    }
-    sync();
-  };
-
-  int32_t op = 0;
-  int32_t err;
-  if (!kFold) {
-    int64_t ip = pre_len;
-    err = err0;
-    Next t = load_tag(ip);
-    while (ip < n && err == 0) {
-      int32_t hdr = t.d & 7;
-      bool is_lit = (t.d & 8) != 0;
-      int32_t length = (int32_t)(t.rest & (uint32_t)t.lm) + ((t.d >> 4) & 0x7F);
-      int32_t off = (int32_t)((t.rest & (uint32_t)t.om) | (uint32_t)((t.d >> 14) & 0x7FF));
-      if (t.d < 0 && (t.rest >> 24) != 0) length = POISON;
-      int64_t ip2 = ip + hdr + (is_lit ? length : 0);
-      Next nx = load_tag(ip2);  // before this tag's stores
-      bool bad = ip2 > n || op + length > expected || (!is_lit && (off <= 0 || off > op));
-      if (bad) {
-        err = ERR_MALFORMED;
-      } else {
-        if (emit) append(is_lit, (int32_t)ip + hdr, off, op, length);
-        op += length;
-      }
-      ip = ip2;
-      t = nx;
-    }
-  } else {
-    int64_t ip = err0 == 0 ? (int64_t)pre_len : PIPE_SENTINEL;
-    Next t = load_tag(ip);
-    while (ip < n) {
-      for (int u = 0; u < unroll; u++) {
-        int32_t hdr = t.d & 7;
-        bool is_lit = t.d < 0;
-        int32_t length = (int32_t)((t.rest & (uint32_t)t.lm) + (uint32_t)((t.d >> 4) & 0x7F));
-        int32_t off = (int32_t)((t.rest & (uint32_t)t.om) | (uint32_t)((t.d >> 14) & 0x7FF));
-        int64_t ip2 = ip + hdr + (is_lit ? (int64_t)length : 0);
-        Next nx = load_tag(ip2);  // before this tag's stores
-        bool bad = ip2 > n || length < 0 || (int64_t)op + length > expected ||
-                   (!is_lit && (off <= 0 || off > op));
-        bool ok = !bad && ip < n;
-        if (ok) {
-          if (emit) append(is_lit, (int32_t)ip + hdr, off, op, length);
-          op += length;
-        }
-        if (ip < n) ip = bad ? PIPE_SENTINEL : ip2;  // a slot past the end changes nothing
-        t = nx;
-      }
-    }
-    err = ip != n ? ERR_MALFORMED : 0;
-    if (err0 != 0) err = err0;
   }
   if (err == 0 && op != expected) err = ERR_LENGTH_MISMATCH;
   DecodeResult r;

@@ -439,10 +439,16 @@ struct LaneTag {
 // (scalar_codec.py:409-424): one unsigned compare rejects lengths past the
 // remaining output, negative lengths and the length-0 wrap; a copy's offset
 // must lie in (0, op]. Every mid-stream failure is ERR_MALFORMED.
-template <class Ld>
+//
+// kEmptyLiteral takes the length-0 wrap (a 4-byte literal length field of
+// 0xFFFFFFFF) as a literal of no bytes, as decode_pipe2 does
+// (tools/perf_probe_r4.py): only a literal can have length 0, so the compare
+// becomes len > room for every tag, and such tags are left out of the
+// batches handed on (kEmptyTags).
+template <class Ld, bool kEmptyLiteral = false>
 struct ParsedTags {
-  static constexpr bool kEmptyTags = false;  // a tag of no output fails its check
-  static constexpr bool kStepBack = false;   // no tag has a negative length
+  static constexpr bool kEmptyTags = kEmptyLiteral;  // else a tag of no output fails its check
+  static constexpr bool kStepBack = false;           // no tag has a negative length
   Ld in;
   const uint32_t* lut;
   SC_HD ParsedTags(const Ld& in_, const uint32_t* lut_) : in(in_), lut(lut_) {}
@@ -467,7 +473,8 @@ struct ParsedTags {
   }
   // A tag that starts after opl output bytes of the claimed `expected`.
   SC_HD static bool bad(const LaneTag& t, uint32_t opl, int32_t expected) {
-    return t.len - 1u >= (uint32_t)expected - opl ||
+    const uint32_t room = (uint32_t)expected - opl;
+    return (kEmptyLiteral ? t.len > room : t.len - 1u >= room) ||
            (!t.lit && (t.off <= 0 || t.off > (int32_t)opl));
   }
   // The error word of the first bad tag: one for every check.
@@ -577,6 +584,14 @@ SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int3
   return bt;
 }
 
+constexpr int kEmitRounds = 4;  // emit_batch's rounds a step
+
+// The bytes past the output's end that emit_batch<unc> on `lanes` lanes may
+// store.
+SC_HD constexpr int32_t emit_slack(int unc, int lanes) {
+  return unc == 0 ? 0 : (unc == 1 ? lanes : kEmitRounds * lanes);
+}
+
 // Write a parsed batch's bt.total output bytes at op: kSub rounds of kLanes
 // bytes a step, one byte a lane a round, across tag boundaries. Round j of a
 // step writes bytes xr + j * kLanes + l: a byte's tag is its rank among the
@@ -587,11 +602,19 @@ SC_HD Batch parse_batch(const W& w, const Src& src, int32_t ip, int32_t op, int3
 // before the next round's reads. The rest of a long literal that ends a
 // batch moves four bytes a lane. delta and start are parse_batch's: tag k's
 // on lane k.
-template <class W, class Ld>
+//
+// kUnc (decode_pipe2's `unc`) stores whole rounds past the batch's end: 1
+// every lane of its last round, up to kLanes - 1 bytes past op + bt.total;
+// 2 also the rounds left in that step, up to kSub * kLanes - 1 bytes past
+// it. Those bytes are garbage until a later batch writes them, and out must
+// hold them (emit_slack). A lane past the end takes the batch's last tag: a
+// literal's lane reads the loader, which returns zero at or past the row's
+// width without reading there; a copy's reads the output below its own byte.
+template <int kUnc = 0, class W, class Ld>
 SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uint8_t* out,
                       const LanesOf<W, int32_t>& delta, const LanesOf<W, uint32_t>& start) {
   constexpr int N = W::kLanes;
-  constexpr int kSub = 4;
+  constexpr int kSub = kEmitRounds;
   const int ntags = bt.ntags;
   const bool last_lit = (bt.lits >> (ntags - 1)) & 1u;
   const int32_t last_delta = w.read(delta, ntags - 1);
@@ -650,9 +673,9 @@ SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uin
 #pragma unroll
     for (int j = 0; j < kSub; j++) {
       const uint32_t xj = xr + (uint32_t)(j * N);
-      if (xj >= bt.total) break;
+      if (kUnc < 2 && xj >= bt.total) break;
       const int32_t base = op + (int32_t)xj;
-      w.each([&](int l) { flag[l] = xj + l < bt.total && desc[j][l] >= base; });
+      w.each([&](int l) { flag[l] = (kUnc > 0 || xj + l < bt.total) && desc[j][l] >= base; });
       while (w.ballot(flag)) {
         w.each([&](int l) { from[l] = flag[l] ? desc[j][l] - base : l; });
         const LanesOf<W, int32_t> d2 = w.gather(desc[j], from);
@@ -664,7 +687,7 @@ SC_HD void emit_batch(const W& w, const Ld& in, const Batch& bt, int32_t op, uin
         });
       }
       w.each([&](int l) {
-        if (xj + l < bt.total) {
+        if (kUnc > 0 || xj + l < bt.total) {
           const int32_t d = desc[j][l];
           out[base + l] = d < 0 ? (uint8_t)in.byte(-1 - d) : out[d];
         }

@@ -64,6 +64,7 @@ SOURCES = {
         "snappy_decode_pipe_launch",
         [_I32, _I32, _I32, _I32, _I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
     ),
+    "decode_pipe_layout": ("snappy_decode_pipe_layout", [_P, _I64, _I32, _I32, _I32, _I32, _P]),
     "encode_variants": (
         "snappy_encode_variant_launch",
         [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
@@ -96,7 +97,8 @@ SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "i
                  **{k: "decode_hybrid" for k in ("prepass", "decode_hybrid_layout")},
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
                  "best_layout": "encode_best", "crc32c_layout": "crc32c",
-                 "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4"}
+                 "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4",
+                 "decode_pipe_layout": "decode_pipe"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

@@ -34,14 +34,20 @@ a CPU tensor runs the plain Python walk, which the four share because they
 compute one function. Each wrapper counts its own launches.
 
 ``decode_pipe`` and ``decode_pipe2`` (port of the pipelined walks of
-``tools/perf_probe_r4.py``; kernel in ``csrc/decode_pipe.cu``) take the same
-arguments and return the same triple, with the production kernel's error
-words: 8 for the preamble, the combined 7 for any bad tag, 4 for a clean
-walk that ends short of the claim. What they vary is the walk: the next
-tag's loads started before this tag's stores, and for ``decode_pipe2`` the
-error folded into the input position, ``unroll`` tags per loop iteration,
-unconditional first stores (``unc``), the drain of the finished row by the
-copy engine (``dma_pipe``) and a walk that stores nothing (``emit=False``).
+``tools/perf_probe_r4.py``; one kernel in ``csrc/decode_pipe.cu`` on the
+production kernel's block and batched walk) take the same arguments and
+return the same triple, with the production kernel's error words: 8 for the
+preamble, the combined 7 for any bad tag, 4 for a clean walk that ends short
+of the claim. ``decode_pipe`` computes the production kernel's function.
+``decode_pipe2`` differs in one case, as its TPU kernel does: a 4-byte
+literal length field of ``0xFFFFFFFF`` is a literal of no bytes, taken where
+the production kernel refuses it. Its knobs are the TPU's, each as its
+nearest counterpart on the batched walk: ``unroll`` batches parsed a loop
+iteration, ``unc`` the writing warp's rounds stored whole past a batch's end
+(1: its last round, 2: every round left in that step), ``dma_pipe`` the
+finished row drained by the copy engine where the rows allow it, and
+``emit=False`` a walk that hands nothing on (only ``out_lens`` and ``errs``
+mean anything). :func:`decode_pipe_layout` gives a form's launch layout.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ import torch
 from snappier_tpu_torch.constants import BLOCK_SIZE
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda._tensors import byte_rows, lengths_vector, on_cuda
-from snappier_tpu_torch.ops.cuda.scalar_codec import MAX_OUT_CAP
+from snappier_tpu_torch.ops.cuda.scalar_codec import MAX_OUT_CAP, _layout
 from snappier_tpu_torch.ops.decode import (
     ERR_BAD_OFFSET,
     ERR_BAD_PREAMBLE,
@@ -257,8 +263,8 @@ def _int32(v: int) -> int:
 
 
 def _pipe_row(comp: bytes, n: int, out_cap: int, out: bytearray, fold: bool, emit: bool):
-    """One block's walk; mirrors ``sc::decode_block_pipe`` (what it computes:
-    the order of its loads has no plain counterpart). Returns ``(out_len,
+    """One block's walk, a tag at a time, as the TPU kernels walk it;
+    computes what ``csrc/decode_pipe.cu`` computes. Returns ``(out_len,
     err)`` and, with ``emit``, writes the output into ``out``. With ``fold``
     a 4-byte literal length keeps all 32 bits and wraps, so ``0xFFFFFFFF``
     is a literal of no bytes; without it a set 4th byte poisons the length."""
@@ -331,10 +337,51 @@ def decode_pipe_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int,
     return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
 
 
-def _pipe_smem_bytes(cc: int, out_cap: int) -> int:
-    """Dynamic shared memory of one block of ``csrc/decode_pipe.cu``: three
-    tag tables and the two word images."""
-    return _smem_bytes(0, cc, out_cap) + 4 * 512
+#: Static shared memory of a block of ``csrc/decode_pipe.cu``, the
+#: production kernel's: the tag table and the input ring (1 KiB each) and the
+#: queue of ``csrc/batched_decode.cuh`` (four slots of 284 bytes, two
+#: counters, the result).
+PIPE_STATIC_SMEM = 1024 + 1024 + 4 * 284 + 8 + 8
+#: Bytes past the output image that ``unc`` 0, 1 and 2 may store
+#: (``sc::emit_slack``: none, a round of 32 lanes, four rounds).
+PIPE_SLACK = (0, 32, 128)
+
+
+def _pipe_smem_bytes(out_cap: int, unc: int = 0) -> int:
+    """Shared memory of one block of ``csrc/decode_pipe.cu``, dynamic and
+    static: the output image with its slack for ``unc``, whatever the row's
+    width."""
+    return ((out_cap + 15) & ~15) + PIPE_SLACK[unc] + PIPE_STATIC_SMEM
+
+
+def _check_pipe_form(out_cap: int, fold: bool, unroll: int, unc: int) -> None:
+    if not 1 <= unroll <= 4:
+        raise ValueError(f"unroll must be 1, 2, 3 or 4, got {unroll}")
+    if unc not in (0, 1, 2):
+        raise ValueError(f"unc must be 0, 1 or 2, got {unc}")
+    if not fold and (unroll, unc) != (1, 0):
+        raise ValueError("decode_pipe takes unroll 1 and unc 0 only")
+    if out_cap <= 0 or _pipe_smem_bytes(out_cap, unc) > MAX_OUT_CAP:
+        raise ValueError(
+            f"out_cap {out_cap} does not fit one block's shared memory "
+            f"({_pipe_smem_bytes(out_cap, unc)} of {MAX_OUT_CAP} bytes)"
+        )
+
+
+def decode_pipe_layout(comp, out_cap: int = BLOCK_SIZE, fold: bool = True, unroll: int = 1,
+                       unc: int = 0, emit: bool = True, dma_pipe: bool = False) -> dict:
+    """The launch layout of a pipelined form for these rows, as
+    :func:`decode_pipe` (``fold=False``) or :func:`decode_pipe2` with these
+    arguments launches it: ``blocks_per_sm``, ``smem_bytes`` per block
+    (dynamic and static), ``threads`` and ``loader`` (``"ring"`` for a base
+    and width that are multiples of 4, else ``"bytes"``), in the manner of
+    ``scalar_codec.decode_layout``. ``emit`` and ``dma_pipe`` do not change
+    it."""
+    comp = byte_rows(comp, "comp")
+    out_cap, unroll, unc = int(out_cap), int(unroll), int(unc)
+    _check_pipe_form(out_cap, fold, unroll, unc)
+    return _layout("decode_pipe_layout", comp, out_cap, int(bool(fold)), unroll, unc,
+                   loaders=("ring", "bytes"))
 
 
 def _decode_pipe(comp, comp_lens, out_cap: int, counter: str, fold: bool, unroll: int,
@@ -343,15 +390,7 @@ def _decode_pipe(comp, comp_lens, out_cap: int, counter: str, fold: bool, unroll
     B, cc = comp.shape
     comp_lens = lengths_vector(comp_lens, B, "comp_lens")
     out_cap, unroll, unc = int(out_cap), int(unroll), int(unc)
-    if not 1 <= unroll <= 4:
-        raise ValueError(f"unroll must be 1, 2, 3 or 4, got {unroll}")
-    if unc not in (0, 1, 2):
-        raise ValueError(f"unc must be 0, 1 or 2, got {unc}")
-    if out_cap <= 0 or _pipe_smem_bytes(cc, out_cap) > MAX_OUT_CAP:
-        raise ValueError(
-            f"a row of {cc} bytes and out_cap {out_cap} do not fit one block's shared memory "
-            f"({_pipe_smem_bytes(cc, out_cap)} of {MAX_OUT_CAP} bytes)"
-        )
+    _check_pipe_form(out_cap, fold, unroll, unc)
     if not on_cuda(comp, comp_lens):
         return decode_pipe_plain(comp, comp_lens, out_cap, fold, bool(emit))
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
@@ -366,18 +405,21 @@ def _decode_pipe(comp, comp_lens, out_cap: int, counter: str, fold: bool, unroll
 
 
 def decode_pipe(comp, comp_lens, out_cap: int = BLOCK_SIZE):
-    """The walk with the next tag's loads started before this tag's stores
-    (``tools/perf_probe_r4.py::decode_pipe``)."""
+    """The pipelined walk of ``tools/perf_probe_r4.py::decode_pipe``: on the
+    card the production kernel's walk, its function and its tag source."""
     return _decode_pipe(comp, comp_lens, out_cap, "decode_pipe", False, 1, True, 0, False)
 
 
 def decode_pipe2(comp, comp_lens, out_cap: int = BLOCK_SIZE, unroll: int = 1, emit: bool = True,
                  unc: int = 0, dma_pipe: bool = False):
-    """``decode_pipe`` with the error folded into the input position and
-    ``unroll`` tags per loop iteration (``tools/perf_probe_r4.py::decode_pipe2``).
-    ``unc`` 1 stores the two words after an append's frontier word whatever
-    its length, 2 the four; ``dma_pipe`` drains the finished row by a bulk
-    asynchronous copy; without ``emit`` the walk stores nothing and only
-    ``out_lens`` and ``errs`` mean anything."""
+    """``tools/perf_probe_r4.py::decode_pipe2``: ``decode_pipe`` that takes a
+    4-byte literal length field of ``0xFFFFFFFF`` as a literal of no bytes.
+    ``unroll`` batches are parsed a loop iteration; ``unc`` 1 stores the
+    whole last round of each batch's output, 2 every round left in that step
+    (garbage past the batch that the next one overwrites); ``dma_pipe``
+    drains the finished row by one bulk asynchronous copy where ``out_cap``
+    is a multiple of 16 and the output 16-byte aligned (the form's rule: other
+    rows take the coalesced pass); without ``emit`` the walk hands nothing on
+    and only ``out_lens`` and ``errs`` mean anything."""
     return _decode_pipe(comp, comp_lens, out_cap, "decode_pipe2", True, unroll, emit, unc,
                         dma_pipe)

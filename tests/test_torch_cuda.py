@@ -52,6 +52,7 @@ from torch_cases import (
     block_stream,
     corrupt_streams,
     crc_rows,
+    empty_literal_streams,
     encode_rows,
     html_like,
     pack_streams,
@@ -673,31 +674,74 @@ def test_cuda_scan_codec_matches_cpu(cuda_device):
     assert (d2[2] == 0).all() and (d2[0].cpu() == db[0][ok]).all()  # both zero past the length
 
 
+def _pipe_call(name, kw):
+    """A pipelined form of PIPE_CASES as (comp, lens, out_cap) -> triple."""
+    if name == "pipe":
+        return dv.decode_pipe
+    return lambda c, n, o: dv.decode_pipe2(c, n, o, **kw)
+
+
 @pytest.mark.parametrize("case", PIPE_CASES, ids=[c[0] for c in PIPE_CASES])
 @pytest.mark.parametrize("cc,out_cap,big", [(2048, 1024, 0), (2051, 1022, 0), (68608, 65536, 65536)])
 def test_cuda_decode_pipe_matches_plain(cuda_device, case, cc, out_cap, big):
     """The pipelined kernels against their plain version on valid and corrupt
-    blocks with garbage past each length, at capacities that are and are not
-    a multiple of 16 (the bulk drain needs one that is)."""
+    blocks, blocks with literals of no bytes and batch-edge blocks, with
+    garbage past each length, at capacities that are and are not a multiple
+    of 16 (the bulk drain needs one that is); word rows through the ring, and
+    the same rows 1 byte into a buffer through the byte loader. decode_pipe
+    gives the decode kernel's triple on every row, decode_pipe2 its rows on
+    the valid blocks."""
     name, kw = case
     valid = walk_streams(big)
-    streams = valid + corrupt_streams()
+    more = empty_literal_streams(tags=60 if cc < 4096 else 200) + batch_streams(programs=4)
+    streams = valid + corrupt_streams() + [s for s in more if len(s) <= cc]
     comp, lens = pack_streams(streams, cc)
     c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
     c_d, l_d = c_h.to(cuda_device), l_h.to(cuda_device)
-    _build.reset_launches()
-    got = dv.decode_pipe(c_d, l_d, out_cap) if name == "pipe" else dv.decode_pipe2(
-        c_d, l_d, out_cap, **kw)
-    torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {"decode_pipe" if name == "pipe" else "decode_pipe2": 1}
+    buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    buf[1:].copy_(c_d.reshape(-1))
+    fn = _pipe_call(name, kw)
     want = dv.decode_pipe_plain(c_h, l_h, out_cap, name != "pipe", kw.get("emit", True))
-    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
-    assert (got[1].cpu() == want[1]).all()
     assert not want[2][: len(valid)].any()
+    for rows in (c_d, buf[1:].view(c_d.shape)):
+        _build.reset_launches()
+        got = fn(rows, l_d, out_cap)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"decode_pipe" if name == "pipe" else "decode_pipe2": 1}
+        assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+        assert (got[1].cpu() == want[1]).all()
+        if kw.get("emit", True):
+            _rows_equal(got[0], want[0], want[1])
+    k1 = decode_blocks_bytes(c_d, l_d, out_cap)
+    if name == "pipe":
+        assert (got[2].cpu() == k1[2].cpu()).all() and (got[1].cpu() == k1[1].cpu()).all()
     if kw.get("emit", True):
-        _rows_equal(got[0], want[0], want[1])
-        k1 = decode_blocks_bytes(c_d, l_d, out_cap)
         _rows_equal(got[0][: len(valid)], k1[0][: len(valid)], want[1][: len(valid)])
+
+
+def test_cuda_decode_pipe_layout(cuda_device):
+    """The pipelined kernel holds K1's layout: three blocks of two warps an SM
+    at out_cap 65,536 in every form whatever the row's width, its shared
+    bytes those ``_pipe_smem_bytes`` counts (the slack of ``unc`` included);
+    word rows through the ring, others the byte loader; every instantiation
+    (26: decode_pipe and twelve decode_pipe2 forms, each loader) without a
+    stack frame or spills."""
+    import chip_smoke
+
+    forms = [dict(fold=False)] + [dict(kw) for name, kw in PIPE_CASES if name != "pipe"]
+    for cc in (68608, 17408, 200000):
+        rows = torch.zeros((2, cc), dtype=torch.uint8, device=cuda_device)
+        for kw in forms:
+            lay = dv.decode_pipe_layout(rows, 65536, **kw)
+            want = dv._pipe_smem_bytes(65536, kw.get("unc", 0))
+            assert lay == {"blocks_per_sm": 3, "smem_bytes": want, "threads": 64,
+                           "loader": "ring"}, (kw, lay)
+    odd = torch.zeros(2 * 4096 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(2, 4096)
+    assert dv.decode_pipe_layout(odd, 65536, unroll=3, unc=2)["loader"] == "bytes"
+    figs = chip_smoke.ptxas_figures(_build.BUILD_LOG["decode_pipe"], "decode_pipe_kernel")
+    assert len(figs) == 26, figs
+    for fig in figs:
+        assert all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")), fig
 
 
 def _encode_cases():

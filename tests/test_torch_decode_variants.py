@@ -24,10 +24,11 @@ import torch
 
 from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
-from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_plain
+from snappier_tpu_torch.ops.cuda.scalar_codec import decode_blocks_bytes, decode_blocks_plain
 from tests.torch_cases import (
     PIPE_CASES,
     corrupt_streams,
+    empty_literal_streams,
     interpreted_tool,
     pack_streams,
     tag_sweep_sample,
@@ -167,7 +168,8 @@ def test_pipe_plain_matches_interpreted_tpu_kernel(probe_r4, case, garbage):
     below each length (none compared without emission)."""
     name, kw = case
     valid = walk_streams()
-    streams = valid + corrupt_streams() + tag_sweep_sample(97)
+    empty = empty_literal_streams()
+    streams = valid + corrupt_streams() + tag_sweep_sample(97) + empty
     comp, lens = pack_streams(streams, CC, garbage_seed=garbage)
     fn = probe_r4.decode_pipe if name == "pipe" else probe_r4.decode_pipe2
     want = [np.asarray(x) for x in fn(jnp.asarray(comp), jnp.asarray(lens), OUT_CAP, **kw)]
@@ -178,6 +180,8 @@ def test_pipe_plain_matches_interpreted_tpu_kernel(probe_r4, case, garbage):
     assert not got[2][: len(valid)].any()
     assert set(got[2].tolist()) == {0, 4, 7, 8}  # the production kernel's words
     assert not got[1][got[2] != 0].any()  # out_len is 0 on any error
+    # decode_pipe refuses a literal of no bytes, decode_pipe2 takes it.
+    assert got[2][-len(empty):].tolist() == [7 if name == "pipe" else 0] * len(empty)
     if kw.get("emit", True):
         for i in range(len(streams)):
             assert (got[0][i, : got[1][i]] == want[0][i, : want[1][i]]).all(), i
@@ -209,6 +213,52 @@ def test_pipe_matches_production_decode(fold):
     assert got[1][-1] == (4 if fold else 0)
 
 
+def _holds_empty_literal(stream: bytes) -> bool:
+    """Whether the tag chain of a block (its preamble skipped, the tags
+    followed by their lengths, unchecked) holds a literal whose 4-byte
+    length field is 0xFFFFFFFF."""
+    ip = 1 + next((i for i, b in enumerate(stream[:5]) if b < 0x80), 4)
+    while ip < len(stream):
+        tag = stream[ip]
+        if tag & 3:
+            ip += (0, 2, 3, 5)[tag & 3]
+            continue
+        extra = max((tag >> 2) - 59, 0)
+        field = int.from_bytes(stream[ip + 1 : ip + 1 + extra], "little")
+        if extra == 4 and field == 0xFFFFFFFF:
+            return True
+        ip += 1 + extra + (field + 1 if extra else (tag >> 2) + 1)
+    return False
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["pipe", "pipe2"])
+def test_pipe_triple_matches_decode_blocks_bytes(fold):
+    """``decode_pipe`` computes the production decoder's function: its
+    triple equals ``decode_blocks_bytes``' on valid, edge and corrupt blocks
+    and blocks holding a literal of no bytes, error words included;
+    ``decode_pipe2``'s equals it on every row whose tags hold no such
+    literal, and it decodes the blocks built around one, which the
+    production decoder refuses (error 7)."""
+    built = empty_literal_streams()
+    streams = walk_streams() + corrupt_streams() + built
+    comp, lens = pack_streams(streams, CC)
+    c8, n = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(lens)
+    fn = dv.decode_pipe2 if fold else dv.decode_pipe
+    got = [x.numpy() for x in fn(c8, n, OUT_CAP)]
+    k1 = [x.numpy() for x in decode_blocks_bytes(c8, n, OUT_CAP)]
+    holds = np.array([_holds_empty_literal(s) for s in streams])
+    assert holds[-len(built):].all() and holds.sum() > len(built)  # corrupt rows hold some
+    empty = holds & fold
+    assert (got[2][~empty] == k1[2][~empty]).all(), (got[2].tolist(), k1[2].tolist())
+    assert (got[1][~empty] == k1[1][~empty]).all()
+    for i in np.flatnonzero(~empty):
+        assert (got[0][i, : got[1][i]] == k1[0][i, : k1[1][i]]).all(), i
+    assert set(k1[2].tolist()) == {0, 4, 7, 8}
+    assert (k1[2][holds] == 7).all()
+    if fold:
+        assert not got[2][-len(built):].any()
+
+
 def test_pipe_wrapper_argument_checks():
     comp = torch.zeros((2, 64), dtype=torch.uint8)
     lens = torch.tensor([3, 3], dtype=torch.int32)
@@ -217,7 +267,10 @@ def test_pipe_wrapper_argument_checks():
     with pytest.raises(ValueError, match="unc"):
         dv.decode_pipe2(comp, lens, 64, unc=3)
     with pytest.raises(ValueError, match="shared memory"):
-        dv.decode_pipe(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+        dv.decode_pipe(comp, lens, 240000)
+    # The row is never staged: a wide row fits, only the output image counts.
+    wide = dv.decode_pipe(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+    assert wide[2].tolist() == [7]
     # Lengths outside the row are taken as 0 or the row's width.
     out = dv.decode_pipe(comp, torch.tensor([-4, 1000], dtype=torch.int32), 64)
     assert out[2].tolist() == [8, 7] and out[1].tolist() == [0, 0]

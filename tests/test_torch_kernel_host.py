@@ -50,6 +50,7 @@ from tests.torch_cases import (
     best_rows,
     corrupt_streams,
     crc_rows,
+    empty_literal_streams,
     encode_rows,
     html_like,
     pack_streams,
@@ -427,74 +428,114 @@ extern "C" void host_variant(int32_t variant, const uint8_t* comp, int64_t cc,
   }
 }
 
-// One block through a pipelined walk on `nlanes` threads, staged as
-// decode_pipe.cu does it, the image poisoned first.
-template <class Sync>
-static sc::DecodeResult run_pipe(int fold, int unc, uint32_t* img, int32_t wc, int32_t owc,
-                                 const int32_t* luts, int32_t n, int32_t out_cap, int unroll,
-                                 bool emit, int lane, int nlanes, Sync sync) {
-  if (!fold) {
-    return sc::decode_block_pipe<false, 0>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
-                                           nlanes, sync);
+// The pipelined walks of decode_pipe.cu (decode_pipe_kernel's two warps in
+// one) on each row: sc::decode_block_batched<kUnits> over
+// sc::ParsedTags<Ld, kEmpty> on a warp of N lanes, every batch written by
+// sc::emit_batch<kUnc> from the row's loader into an image of out_cap bytes,
+// the slack of kUnc's over-stores and a guard, all poisoned first (without
+// `emit` no batch is handed on). Returns false if a clean walk stored a
+// byte at or past its output's end and its slack; counts[2] gets the rows
+// where one stored a byte past its output's end.
+constexpr int32_t kPipeGuard = 64;
+
+template <int N, bool kEmpty, int kUnits, int kUnc, class Tags, class Ld>
+static bool pipe_walk(const Tags& tags, const Ld& row, int32_t n, int32_t out_cap, bool emit,
+                      uint8_t* dst, sc::DecodeResult& r, int64_t* counts) {
+  ArrayWarp<N> w;
+  const int32_t slack = sc::emit_slack(kUnc, N);
+  std::vector<uint8_t> img((size_t)(out_cap + slack + kPipeGuard), 0xDB);
+  auto step = [&](const sc::Batch& bt, int32_t op, const auto& delta, const auto& start) {
+    if (emit) sc::emit_batch<kUnc>(w, row, bt, op, img.data(), delta, start);
+  };
+  r = sc::decode_block_batched<kUnits>(w, tags, n, out_cap, step);
+  counts[0] += w.batches;
+  counts[1] += w.tags_seen;
+  memcpy(dst, img.data(), (size_t)out_cap);
+  if (r.err != 0) return true;
+  bool past = false;
+  for (int32_t i = r.out_len; i < (int32_t)img.size(); i++) {
+    if (img[i] == 0xDB) continue;
+    if (i >= r.out_len + slack) return false;
+    past = true;
   }
-  switch (unc) {
-    case 0:
-      return sc::decode_block_pipe<true, 0>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
-                                            nlanes, sync);
-    case 1:
-      return sc::decode_block_pipe<true, 2>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
-                                            nlanes, sync);
-    default:
-      return sc::decode_block_pipe<true, 4>(img, wc, owc, luts, n, out_cap, unroll, emit, lane,
-                                            nlanes, sync);
-  }
+  counts[2] += past;
+  return true;
 }
 
-extern "C" void host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emit,
-                          const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
-                          int32_t out_cap, int32_t nlanes, uint8_t* out, int32_t* out_lens,
-                          int32_t* errs) {
-  int32_t luts[768];
-  for (int t = 0; t < 256; t++) {
-    sc::pipe_lut_entry(t, fold != 0, luts[t], luts[256 + t], luts[512 + t]);
-  }
-  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
-  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
-  std::vector<uint32_t> img(wc + owc);
+template <int N, bool kEmpty, int kUnits, int kUnc>
+static int pipe_rows(const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
+                     int32_t out_cap, int32_t offset, int32_t loader, int32_t emit, uint8_t* out,
+                     int32_t* out_lens, int32_t* errs, int64_t* counts) {
+  counts[0] = counts[1] = counts[2] = 0;
+  GuardedRows g(comp, batch, cc, offset);
+  if (g.mem == nullptr) return -1;
+  static uint32_t lut[256];
+  for (int t = 0; t < 256; t++) lut[t] = sc::tag_entry((uint32_t)t);
+  std::vector<uint32_t> ring(256);
+  using Ring = sc::RingWords<256>;
   for (int64_t b = 0; b < batch; b++) {
-    int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
-    for (auto& w : img) w = 0xDEADBEEFu;
-    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
-      uint32_t v = 0;
-      for (int j = 0; j < 4; j++) {
-        int64_t i = (int64_t)w * 4 + j;
-        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
-      }
-      img[w] = v;
-    }
-    std::vector<sc::DecodeResult> res(nlanes);
-    if (nlanes == 1) {
-      res[0] = run_pipe(fold, unc, img.data(), wc, owc, luts, n, out_cap, unroll, emit != 0, 0,
-                        1, NoSync());
-    } else {
-      Barrier bar(nlanes);
-      std::vector<std::thread> lanes;
-      for (int lane = 0; lane < nlanes; lane++) {
-        lanes.emplace_back([&, lane] {
-          res[lane] = run_pipe(fold, unc, img.data(), wc, owc, luts, n, out_cap, unroll,
-                               emit != 0, lane, nlanes, BarrierSync{&bar});
-        });
-      }
-      for (auto& t : lanes) t.join();
-      for (int lane = 1; lane < nlanes; lane++) {
-        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
-      }
-    }
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
-    for (int32_t i = 0; emit && i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
-    out_lens[b] = res[0].out_len;
-    errs[b] = res[0].err;
+    const uint8_t* row = g.rows + b * cc;
+    for (auto& v : ring) v = 0xDEADBEEFu;
+    const int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
+    const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
+    const sc::RowBytes bytes{row, (int32_t)cc};
+    sc::DecodeResult r;
+    const bool kept =
+        loader == 0
+            ? pipe_walk<N, kEmpty, kUnits, kUnc>(
+                  sc::ParsedTags<Ring, kEmpty>(Ring(words, ring.data()), lut), words, n, out_cap,
+                  emit != 0, out + b * out_cap, r, counts)
+            : pipe_walk<N, kEmpty, kUnits, kUnc>(sc::ParsedTags<sc::RowBytes, kEmpty>(bytes, lut),
+                                                 bytes, n, out_cap, emit != 0,
+                                                 out + b * out_cap, r, counts);
+    if (!kept) return -2;
+    out_lens[b] = r.out_len;
+    errs[b] = r.err;
   }
+  return 0;
+}
+
+// A pipelined form (fold 0: decode_pipe, 1: decode_pipe2 with unroll, unc)
+// through pipe_rows on a warp of `nlanes` (1, 4 or 32) lanes, the rows
+// guarded at `offset` and read through loader 0 (the ring over word rows)
+// or 1 (bytes). The forms are decode_pipe, decode_pipe2 at unroll 1-4 and
+// at unroll 2 with unc 1 and 2: each unroll and each unc. counts[0] and
+// [1] as host_decode's, [2] pipe_walk's. Returns 0, -1 if the buffer was
+// refused, -2 if an over-store passed its slack, -3 for another form.
+template <int N>
+static int pipe_form(int32_t fold, int32_t unroll, int32_t unc, const uint8_t* comp, int64_t cc,
+                     const int32_t* lens, int64_t batch, int32_t out_cap, int32_t offset,
+                     int32_t loader, int32_t emit, uint8_t* out, int32_t* out_lens,
+                     int32_t* errs, int64_t* counts) {
+  auto call = [&](auto walk) {
+    return walk(comp, cc, lens, batch, out_cap, offset, loader, emit, out, out_lens, errs,
+                counts);
+  };
+  if (fold == 0) return unroll == 1 && unc == 0 ? call(pipe_rows<N, false, 1, 0>) : -3;
+  if (unc == 0) {
+    switch (unroll) {
+      case 1: return call(pipe_rows<N, true, 1, 0>);
+      case 2: return call(pipe_rows<N, true, 2, 0>);
+      case 3: return call(pipe_rows<N, true, 3, 0>);
+      case 4: return call(pipe_rows<N, true, 4, 0>);
+    }
+  }
+  if (unroll == 2 && unc == 1) return call(pipe_rows<N, true, 2, 1>);
+  if (unroll == 2 && unc == 2) return call(pipe_rows<N, true, 2, 2>);
+  return -3;
+}
+
+extern "C" int host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emit,
+                         const uint8_t* comp, int64_t cc, const int32_t* lens, int64_t batch,
+                         int32_t out_cap, int32_t nlanes, int32_t offset, int32_t loader,
+                         uint8_t* out, int32_t* out_lens, int32_t* errs, int64_t* counts) {
+  auto call = [&](auto form) {
+    return form(fold, unroll, unc, comp, cc, lens, batch, out_cap, offset, loader, emit, out,
+                out_lens, errs, counts);
+  };
+  if (nlanes == 1) return call(pipe_form<1>);
+  if (nlanes == 4) return call(pipe_form<4>);
+  return call(pipe_form<32>);
 }
 
 // The encode-ablation walk of one row under a mask; `fixed` takes the walk
@@ -859,8 +900,9 @@ def host_lib(tmp_path_factory):
     so.host_probe.restype = None
     so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, P, P, P]
     so.host_variant.restype = None
-    so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, P, P, P]
-    so.host_pipe.restype = None
+    so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, I32, I32, P, P, P,
+                             P]
+    so.host_pipe.restype = I32
     so.host_encode_variant.argtypes = [ctypes.c_uint32, I32, I32, I32, P, I64, P, I64, I32, I32,
                                        P, I64, P]
     so.host_encode_variant.restype = I32
@@ -1271,34 +1313,50 @@ PIPE_CASES = [
 @pytest.mark.parametrize("nlanes", [1, 4, 32])
 @pytest.mark.parametrize("case", PIPE_CASES, ids=[c[0] for c in PIPE_CASES])
 def test_host_pipe_walk_matches_plain(host_lib, case, nlanes):
-    """The pipelined walks on 1, 4 and 32 lanes against their plain version:
-    valid blocks with every short offset, a 64 KiB block, corrupt blocks,
-    garbage past each length; capacities that are no multiple of 4 or 16."""
+    """The pipelined walks (the decode kernel's batched walk over its tag
+    source, ``decode_pipe2`` taking a literal of no bytes) on a warp of 1, 4
+    and 32 lanes against their plain version: valid blocks with every short
+    offset, a 64 KiB block, corrupt blocks, blocks with literals of no bytes
+    at every place in a batch, batch-edge blocks, garbage past each length;
+    rows ending at a guard page read by the byte loader at a width that is no
+    multiple of 4 and by the ring at one that is; capacities that are no
+    multiple of 4 or 16; ``unc``'s over-stores within their slack."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
 
     kw = dict(dict(unroll=1, unc=0, emit=1), **case[1])
-    streams = walk_streams(big=0 if nlanes == 32 else 65536) + corrupt_streams()
-    cc, out_cap = (68611, 65536) if nlanes != 32 else (2051, 1022)
-    comp, lens = pack_streams(streams, cc)
-    comp8 = np.ascontiguousarray(comp, np.uint8)
-    B = len(streams)
-    out = np.zeros((B, out_cap), np.uint8)
-    out_lens = np.zeros(B, np.int32)
-    errs = np.zeros(B, np.int32)
-    host_lib.host_pipe(kw["fold"], kw["unroll"], kw["unc"], kw["emit"], comp8.ctypes.data, cc,
-                       lens.ctypes.data, B, out_cap, nlanes, out.ctypes.data,
-                       out_lens.ctypes.data, errs.ctypes.data)
-    want = [x.numpy() for x in dv.decode_pipe_plain(
-        torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, bool(kw["fold"]),
-        bool(kw["emit"]))]
-    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
-    assert (out_lens == want[1]).all()
-    assert {0, 4, 7, 8} <= set(errs.tolist())
-    if kw["emit"]:
-        for i in range(B):
-            assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+    streams = (walk_streams(big=0 if nlanes == 32 else 65536) + corrupt_streams()
+               + empty_literal_streams() + batch_streams(programs=4))
+    widths, out_cap = ((68611, 68612), 65536) if nlanes != 32 else ((4095, 4096), 3070)
+    for cc, loader in zip(widths, (1, 0)):
+        comp, lens = pack_streams(streams, cc)
+        comp8 = np.ascontiguousarray(comp, np.uint8)
+        B = len(streams)
+        out = np.zeros((B, out_cap), np.uint8)
+        out_lens = np.zeros(B, np.int32)
+        errs = np.zeros(B, np.int32)
+        counts = np.zeros(3, np.int64)
+        rc = host_lib.host_pipe(kw["fold"], kw["unroll"], kw["unc"], kw["emit"], comp8.ctypes.data,
+                                cc, lens.ctypes.data, B, out_cap, nlanes, _offset_arg(AT_GUARD),
+                                loader, out.ctypes.data, out_lens.ctypes.data, errs.ctypes.data,
+                                counts.ctypes.data)
+        assert rc == 0, rc
+        want = [x.numpy() for x in dv.decode_pipe_plain(
+            torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, bool(kw["fold"]),
+            bool(kw["emit"]))]
+        assert (errs == want[2]).all(), (loader, errs.tolist(), want[2].tolist())
+        assert (out_lens == want[1]).all(), loader
+        assert {0, 4, 7, 8} <= set(errs.tolist())
+        if kw["emit"]:
+            for i in range(B):
+                assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), (loader, i)
+        if nlanes == 32:  # a batch resolves several tags a warp step
+            assert counts[1] > 2 * counts[0], counts
+        # unc stores past a batch's end, within its slack (rc -2 past it): a
+        # round of one lane has no lane past the end.
+        over = kw["unc"] == 2 or (kw["unc"] == 1 and nlanes > 1)
+        assert (counts[2] > 0) == (over and kw["emit"] == 1), counts
 
 
 def _host_encode_variant(lib, frags, lens, mask, hash_bits, store_step, fixed=0,

@@ -243,6 +243,56 @@ def batch_streams(programs: int = 24, seed: int = 31) -> list[bytes]:
     return streams
 
 
+#: A literal whose 4-byte length field is 0xFFFFFFFF: its length wraps to 0.
+#: decode_pipe2 takes it as a literal of no bytes; K1 and decode_pipe refuse
+#: it (error 7).
+EMPTY_LITERAL = bytes([0xFC, 0xFF, 0xFF, 0xFF, 0xFF])
+
+
+def empty_literal_streams(programs: int = 4, tags: int = 200, seed: int = 37) -> list[bytes]:
+    """Blocks that hold :data:`EMPTY_LITERAL`, valid for decode_pipe2 (each
+    claims the output of its other tags): first in a batch (the block's first
+    tag; after a literal longer than the batched walk's 32-byte window),
+    mid-batch, last in a block, a block of nothing else, whole batches of
+    them (7 and 20 in a row), just before a long literal, and ``programs``
+    random tag programs of ``tags`` tags, one in eight an empty literal
+    (about 11 compressed and 11 output bytes a tag)."""
+    E = EMPTY_LITERAL
+    lit4, lit40 = _literal(b"abcd"), _literal(bytes(range(65, 105)))
+    long = _literal(bytes(range(100, 200)), 1)
+    cases = [
+        (E + lit4, 4),
+        (lit40 + E + lit4 + _copy(4, 8, 1), 52),
+        (lit4 + _copy(4, 4, 1) + E + lit4 + _copy(4, 8, 1), 20),
+        (lit4 + _copy(4, 8, 1) + E, 12),
+        (E * 3, 0),
+        (lit40 + E * 7 + lit4, 44),
+        (lit4 + E * 20 + _copy(4, 9, 1) + E * 20, 13),
+        (lit4 + E + long + _copy(100, 30, 2), 134),
+    ]
+    streams = [write_varint(n) + body for body, n in cases]
+    rng = np.random.default_rng(seed)
+    for _ in range(programs):
+        out = bytearray(rng.integers(0, 256, 3, dtype=np.uint8).tobytes())
+        body = bytearray(_literal(bytes(out)))
+        for _ in range(tags):
+            r = rng.random()
+            if r < 0.125:
+                body += E
+            elif r < 0.4:
+                data = rng.integers(0, 256, int(rng.integers(1, 50)), dtype=np.uint8).tobytes()
+                body += _literal(data, int(rng.integers(0, 5)))
+                out += data
+            else:
+                off = int(rng.integers(1, min(len(out), 40) + 1))
+                n = int(rng.integers(4, 12))
+                body += _copy(off, n, 1)
+                for _ in range(n):
+                    out.append(out[-off])
+        streams.append(write_varint(len(out)) + bytes(body))
+    return streams
+
+
 def probe_blocks() -> dict[str, bytes]:
     """Compressed blocks for the hybrid micro-probes: 12,000 bytes of markup
     and the first 65,536 bytes of bench.py's word mix (``chip_smoke.py``'s

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the descriptor-driven decode (T14-T16, T18 ``decode_v7``) and the
-chain probes (T10 ``chain``, T19 ``cliff``, the chase) of one or more
-checkouts on one GPU, beside the production kernels K1-K4.
+"""Time the descriptor-driven decode (T14-T16, T18 ``decode_v7``), the
+pipelined decode (T6 ``decode_pipe``, T7 ``decode_pipe2``) and the chain
+probes (T10 ``chain``, T19 ``cliff``, the chase) of one or more checkouts on
+one GPU, beside the production kernels K1-K4.
 
     python3 tools/torch_hybrid_times.py ROOT [ROOT ...]
     python3 tools/torch_hybrid_times.py --sass ROOT OUT
@@ -17,7 +18,11 @@ K2): K1-K4; ``decode_v5``, ``decode_v6``, ``decode_v7`` and
 ``decode_v7(unroll2=True)`` with their pre-pass, each walk alone on its
 descriptors, ``decode_v5_spec`` on a pre-pass made beforehand and within
 the call, the pre-passes alone and each form's peak device memory, at the
-codec's row width (68,608 B) and the tight one; each form's layout; ``chain`` and ``cliff``
+codec's row width (68,608 B) and the tight one; ``decode_pipe`` and
+``decode_pipe2`` in the eleven forms of ``tests/torch_cases.py``'s
+``PIPE_CASES`` (unroll 1-4, ``unc``, ``dma_pipe``, ``emit=False``) at both
+widths; each form's layout (the pipelined ones' where the package has
+``decode_pipe_layout``); ``chain`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
 the chase, in ms and ns a walk step. Every call is first held to its plain
 version (the walks' rows to the input). It prints the card's name and
@@ -32,14 +37,26 @@ branches in order, the step order a reader checks there.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import re
 import subprocess
 import sys
 
-from torch_crc_times import in_turns, smoke
+from torch_crc_times import HERE, in_turns, smoke
 
-SOURCES = ("decode", "encode", "crc32c", "encode_best", "decode_hybrid", "hybrid_probes")
+SOURCES = ("decode", "encode", "crc32c", "encode_best", "decode_hybrid", "decode_pipe",
+           "hybrid_probes")
+
+
+def pipe_cases() -> dict:
+    """``PIPE_CASES`` of this repository's ``tests/torch_cases.py``: form
+    name -> ``decode_pipe2``'s arguments (``"pipe"``: ``decode_pipe``)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_cases", os.path.join(HERE, "tests", "torch_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return dict(mod.PIPE_CASES)
 
 
 def build_some(_build, names) -> None:
@@ -65,6 +82,7 @@ def one(root: str) -> dict:
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import crc32c as crc
     from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
+    from snappier_tpu_torch.ops.cuda import decode_variants as dv
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 
@@ -91,6 +109,7 @@ def one(root: str) -> dict:
          "k4": ms(lambda: sc._encode_best(frags, lengths, cands), iters=3)}
     forms = {"v5": dh.decode_v5, "v6": dh.decode_v6, "v7": dh.decode_v7,
              "v7u": lambda c, n, o: dh.decode_v7(c, n, o, unroll2=True)}
+    pipes = pipe_cases()
     for width, rows in (("codec", comp), ("tight", tight)):
         for form, fn in forms.items():
             out, out_lens, errs = fn(rows, lens, BLOCK)
@@ -118,6 +137,15 @@ def one(root: str) -> dict:
         t[f"v5parts_{width}_with_prepass"] = ms(lambda: dh.decode_v5_spec(
             dh.pack_words(rows), spec_of(rows), lens, BLOCK))
         del words, spec
+        for name, kw in pipes.items():
+            fn = (lambda c, n, o: dv.decode_pipe(c, n, o)) if name == "pipe" else (
+                lambda c, n, o, kw=kw: dv.decode_pipe2(c, n, o, **kw))
+            out, out_lens, errs = fn(rows, lens, BLOCK)
+            cs.check(bool((errs == 0).all()) and bool((out_lens == BLOCK).all()),
+                     f"{name} at the {width} width: verdicts")
+            if kw.get("emit", True):
+                cs.check(bool((out == frags).all()), f"{name} at the {width} width: rows")
+            t[f"{name}_{width}"] = ms(lambda: fn(rows, lens, BLOCK))
     block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
     adv, n, ntags = hp.chain_inputs(block)
     adv_h = torch.from_numpy(adv)
@@ -146,8 +174,12 @@ def one(root: str) -> dict:
         layout = {f: dh.decode_hybrid_layout(comp, BLOCK, f) for f in ("v5", "v6", "v7")}
     else:  # an older package: form 7's query alone
         layout = {"v7": dh.decode_v7_layout(comp, BLOCK)}
+    pipe_layout = ({n: dv.decode_pipe_layout(comp, BLOCK, fold=n != "pipe", **kw)
+                    for n, kw in pipes.items()} if hasattr(dv, "decode_pipe_layout") else None)
     return {"root": root, "ms": t, "ns_per_step": ns, "steps": steps, "tags_block0": ntags,
-            "staged_words": staged, "hybrid_layout": layout,
+            "staged_words": staged, "hybrid_layout": layout, "pipe_layout": pipe_layout,
+            "pipe_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_pipe", ""),
+                                           "decode_pipe_kernel"),
             "hybrid_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""),
                                              "_kernel"),
             "cliff_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""),

@@ -2,10 +2,10 @@
 """Pipelined-decode and encode-restructuring probe for the PyTorch/CUDA port
 (run on an NVIDIA GPU; port of ``tools/perf_probe_r4.py``).
 
-Decode: the production walk parses a tag, then stores its payload, then
-parses the next. ``pipe`` starts the next tag's loads before this tag's
-stores; ``pipe2`` also folds the error into the input position and takes
-several tags per loop iteration. Encode: the production walk in named
+Decode: the TPU tool's pipelined walks, each on the production kernel's
+batched walk (``csrc/decode_pipe.cu``): ``pipe`` is the production
+function, ``pipe2`` takes a literal of no bytes and carries the tool's
+knobs as their counterparts there. Encode: the production walk in named
 restructurings. Each variant is checked against the production kernels
 every run, then timed with CUDA events (warm-up, best of 3 passes of 5
 calls).
@@ -13,12 +13,12 @@ calls).
 Usage, from the repository root: python3 tools/torch_perf_probe_r4.py [B] [variant ...]
 Decode variants (default: base pipe):
   base       the production kernel (csrc/decode.cu)
-  pipe       the next tag loaded before this tag's stores
-  pipe2u1..pipe2u4   pipe with the error folded into ip, 1 to 4 tags per iteration
-  pipe2unc   pipe2u2 with the two words after an append's frontier word always stored
-  pipe2unc2  pipe2u2 with the four words always stored
+  pipe       decode_pipe: the production walk and function in csrc/decode_pipe.cu
+  pipe2u1..pipe2u4   decode_pipe2, 1 to 4 batches parsed a loop iteration
+  pipe2unc   pipe2u2 with each batch's last round of output stored whole
+  pipe2unc2  pipe2u2 with every round left in that step stored whole too
   pipe2dma   pipe2unc with the finished row drained by a bulk asynchronous copy
-  denoemit   pipe2u2 without payload stores (the walk's floor; only errors are checked)
+  denoemit   pipe2u2 handing no batch on (the walk's floor; only errors are checked)
 Encode variants: encbase (csrc/encode.cu) and the names of
 ``snappier_tpu_torch.ops.cuda.encode_variants.R4_VARIANTS``. A variant that
 gives the production encoder's bytes is held to them on every block; one
@@ -156,14 +156,15 @@ def main() -> int:
     ref_out = None
     for v in [x for x in variants if not x.startswith("enc")]:
         if v == "base":
-            fn, smem = (lambda: sc.decode_blocks_bytes(bd, bl, BLOCK_SIZE)), BLOCK_SIZE
+            fn = lambda: sc.decode_blocks_bytes(bd, bl, BLOCK_SIZE)  # noqa: E731
+            layout = sc.decode_layout(bd, BLOCK_SIZE)
+        elif v == "pipe":
+            fn = lambda: dv.decode_pipe(bd, bl, BLOCK_SIZE)  # noqa: E731
+            layout = dv.decode_pipe_layout(bd, BLOCK_SIZE, fold=False)
         else:
-            smem = dv._pipe_smem_bytes(bd.shape[1], BLOCK_SIZE)
-            if v == "pipe":
-                fn = lambda: dv.decode_pipe(bd, bl, BLOCK_SIZE)  # noqa: E731
-            else:
-                kw = DECODE_VARIANTS[v]
-                fn = lambda kw=kw: dv.decode_pipe2(bd, bl, BLOCK_SIZE, **kw)  # noqa: E731
+            kw = DECODE_VARIANTS[v]
+            fn = lambda kw=kw: dv.decode_pipe2(bd, bl, BLOCK_SIZE, **kw)  # noqa: E731
+            layout = dv.decode_pipe_layout(bd, BLOCK_SIZE, **kw)
         out, olens, errs = fn()
         torch.cuda.synchronize()
         assert int(errs.max()) == 0, v
@@ -174,7 +175,7 @@ def main() -> int:
             else:
                 assert bool((out == ref_out).all()), f"{v} output mismatch"
         t = base.timeit(fn)
-        in_flight = base.blocks_in_flight(smem)
+        in_flight = sms * layout["blocks_per_sm"]
         per_block = t / -(-B // in_flight)
         print(f"{v}: {t * 1e3:.3f} ms/batch, {per_block * 1e6:.1f} us/block, "
               f"{per_block / tags * 1e9:.1f} ns/tag, {B * BLOCK_SIZE / t / 1e6:.1f} MB/s "
