@@ -2201,6 +2201,15 @@ def phase_isolation(torch, card, comp_u8, block_lens):
           "iso's six images should differ")
     b0, b3 = results[("bprobe", 0)], results[("bprobe", 3)]
     check(int(b0[0][0]) == int(b3[0][0]) and (b0[1] == b3[1]).all(), "bprobe 0 and 3 differ")
+    # The copy probes' record loops (iso and vcopy, one source): no stack,
+    # no spill; their shared bytes are the image and the plan ring.
+    copy_ptxas = [f for k in ("iso_kernel", "vcopy_kernel")
+                  for f in ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""), k)]
+    print(json.dumps({"copy_probe_ptxas": copy_ptxas,
+                      "copy_probe_smem_bytes": hp.COPY_SMEM_BYTES}))
+    check(len(copy_ptxas) == len(hp.ISO_MODES) + len(hp.MODES)
+          and all(f["stack"] == f["spill_stores"] == f["spill_loads"] == 0 for f in copy_ptxas),
+          f"iso and vcopy kernels: {copy_ptxas}")
     for k, x in (("keys", keys), ("ties", ties)):
         kv, vv = (a.reshape(-1) for a in results[("bitonic", k)])
         check((kv == x.reshape(-1)[vv]).all() and len(np.unique(vv)) == hp.SORT_N,

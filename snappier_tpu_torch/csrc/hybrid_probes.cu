@@ -16,13 +16,18 @@
 // vcopy_kernel<k3d>: _vcopy_kernel (wrapper vcopy, modes 2d and 3d). The TPU
 // copies a record with VPU row operations on a VMEM image (a dynamic row
 // load, lane rotates, a funnel shift, masked row stores); here one warp
-// holds the 128 lanes, 4 words a lane, over the image in shared memory, and
-// reads the three record words from device memory (uniform loads through
-// L1). Each lane loads its two source words, the warp meets (a record's
-// destination may overlap its source), then stores under the masks and
-// meets again: records form a chain through the image. Bound: 192 KiB in
-// and 64 KiB out, about 0.08 us; the floor is the records times one round
-// of shared loads, barrier, stores and barrier.
+// holds the 128 lanes, 4 words a lane, over the image in shared memory.
+// Records form a chain through the image (a record's destination may
+// overlap the next one's source), so the design keeps everything else off
+// that chain (hp::record_loop, hp::vcopy_body): the lanes load 32 records
+// at once, two batches ahead, and write each record's plan (its window and
+// run as flat word addresses, the funnel's shift, the run's length) into a
+// ring in shared memory a batch ahead; a record's plan is one broadcast
+// 128-bit load, two records ahead. A record is then its shared loads (2d:
+// w[q] is img[sw + q], no row select), the warp's meeting, its stores
+// (predicated on the run's length, no branch) and another meeting. Bound:
+// 192 KiB in and 64 KiB out, about 0.08 us; the floor is the records times
+// the round trip of a shared store and the next record's dependent load.
 //
 // coissue_kernel<kNvec>: _coissue_kernel (wrapper coissue; nvec 0, 1, 2,
 // 8; iters 8,192 as on the TPU, fewer for the tests). The TPU asks whether
@@ -49,12 +54,17 @@
 // a dynamic row load is a shared-memory load at a run-time address, which
 // costs what a static one does; of a roll, a lane's load at (p - s) & 127 of
 // the same row, so a static and a dynamic roll are the same instructions.
-// One warp, 4 words a lane (32 in dynload8), the image in shared memory, the
-// record words through __ldg, as vcopy_kernel; scalar runs the 8-step chain
-// on every lane and touches no image. 20 passes over the records (pass r
-// from record r & 1); the image persists across them. Bound: the record
-// array and image in, the image out, about 0.08 us; the floor is 20 x the
-// records, each a round of shared loads, barrier, stores and barrier.
+// One warp, the image in shared memory, 20 passes over the records (pass r
+// from record r & 1), the image persisting across them. The row modes and
+// full run vcopy's record loop (hp::iso_run): dynload and dynload8 move
+// whole rows by 128-bit accesses (a row is one a lane), the rolls 4 words
+// a lane, full is vcopy's 2d body. scalar touches no image and its records
+// are independent: the lanes take records (hp::iso_scalar_lane), their
+// loads running four groups of 256 records ahead of the chains, and the
+// warp sums the lanes at the end. Bound: the record array and image in,
+// the image out, about 0.08 us; the floor is 20 x the records, each a
+// round trip of shared stores and the next record's loads (dynload8: 8 KiB
+// through shared memory a record; scalar: issuing its chains).
 //
 // bprobe_kernel<kNwhen>: _bprobe_kernel (wrapper bprobe; nwhen 0, 1, 2, 3,
 // 4, 8). The TPU asks what a pl.when costs on the scalar core. Here one
@@ -117,33 +127,39 @@ __global__ void chain_kernel(const int32_t* __restrict__ adv, int32_t words, int
   }
 }
 
+// The image from device memory into shared memory (16 loads a lane in
+// flight); the plan ring after it is the record loop's.
+__device__ void stage_image(uint32_t* img, const int32_t* __restrict__ img_in, int lane) {
+  constexpr int kUnroll = 16;
+  for (int32_t i = lane; i < hp::kImageWords; i += 32 * kUnroll) {
+    int32_t v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; u++) v[u] = __ldg(img_in + i + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kUnroll; u++) img[i + 32 * u] = (uint32_t)v[u];
+  }
+  __syncwarp();
+}
+
+// The warp's sum of acc, into out[0], and the image back to device memory.
+__device__ void finish(uint32_t acc, const uint32_t* img, int lane, int32_t* __restrict__ out,
+                       int32_t* __restrict__ img_out) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+  if (lane == 0) out[0] = (int32_t)acc;
+  for (int32_t i = lane; i < hp::kImageWords; i += 32) img_out[i] = (int32_t)img[i];
+}
+
 template <bool k3d>
 __global__ void vcopy_kernel(const int32_t* __restrict__ rec, const int32_t* __restrict__ img_in,
                              int32_t* __restrict__ out, int32_t* __restrict__ img_out) {
   extern __shared__ __align__(16) uint32_t img[];
   const int lane = threadIdx.x;
-  for (int32_t i = lane; i < hp::kImageWords; i += 32) img[i] = (uint32_t)img_in[i];
-  __syncwarp();
-  const int32_t count = rec[hp::kCountAt];
-  uint32_t acc = 0;
-  for (int32_t t = 0; t < count; t++) {
-    const hp::VcopyRecord r = hp::vcopy_record<k3d>(
-        __ldg(rec + t), __ldg(rec + t + hp::kRecHalf), __ldg(rec + t + 2 * hp::kRecHalf));
-    uint32_t v[4];
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      v[k] = hp::vcopy_lane(img, r, lane + 32 * k);
-      acc += v[k] & 1u;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 4; k++) hp::vcopy_store(img, r, lane + 32 * k, v[k]);
-    __syncwarp();
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-  if (lane == 0) out[0] = (int32_t)acc;
-  for (int32_t i = lane; i < hp::kImageWords; i += 32) img_out[i] = (int32_t)img[i];
+  stage_image(img, img_in, lane);
+  const sc::CudaWarp w;
+  sc::LanesOf<sc::CudaWarp, uint32_t> acc{0u};
+  hp::vcopy_run<k3d>(w, rec, img, acc);
+  finish(acc.v, img, lane, out, img_out);
 }
 
 template <int kNvec>
@@ -202,48 +218,15 @@ __global__ void coissue_kernel(int32_t seed, int32_t iters, const int32_t* __res
 template <int kMode>
 __global__ void iso_kernel(const int32_t* __restrict__ rec, const int32_t* __restrict__ img_in,
                            int32_t* __restrict__ out, int32_t* __restrict__ img_out) {
-  constexpr int kWords = kMode == hp::kIsoDynload8 ? 32 : 4;  // words a lane stores
   extern __shared__ __align__(16) uint32_t img[];
   const int lane = threadIdx.x;
-  for (int32_t i = lane; i < hp::kImageWords; i += 32) img[i] = (uint32_t)img_in[i];
-  __syncwarp();
-  const int32_t count = rec[hp::kCountAt];
-  uint32_t acc = 0;
-  for (int32_t pass = 0; pass < hp::kIsoPasses; pass++) {
-    for (int32_t t = pass & 1; t < count; t++) {
-      const int32_t dst = __ldg(rec + t), src = __ldg(rec + t + hp::kRecHalf);
-      if (kMode == hp::kIsoScalar) {
-        acc += hp::iso_scalar(dst, src, __ldg(rec + t + 2 * hp::kRecHalf));
-        continue;
-      }
-      acc += (uint32_t)dst;
-      uint32_t v[kWords];
-      if (kMode == hp::kIsoFull) {
-        const hp::VcopyRecord r =
-            hp::vcopy_record<false>(dst, src, __ldg(rec + t + 2 * hp::kRecHalf));
+  stage_image(img, img_in, lane);
+  const sc::CudaWarp w;
+  sc::LanesOf<sc::CudaWarp, uint32_t> acc{0u};
+  hp::iso_run<kMode>(w, rec, img, acc);
 #pragma unroll
-        for (int k = 0; k < kWords; k++) v[k] = hp::vcopy_lane(img, r, lane + 32 * k);
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < kWords; k++) hp::vcopy_store(img, r, lane + 32 * k, v[k]);
-      } else {
-        const hp::IsoRecord r = hp::iso_record<kMode>(dst, src);
-#pragma unroll
-        for (int k = 0; k < kWords; k++) v[k] = hp::iso_word(img, r, lane + 32 * k);
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < kWords; k++) hp::iso_store(img, r, lane + 32 * k, v[k]);
-      }
-      __syncwarp();
-    }
-  }
-  uint32_t par = 0;  // row 0's odd words
-#pragma unroll
-  for (int k = 0; k < 4; k++) par += img[lane + 32 * k] & 1u;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) par += __shfl_xor_sync(kFull, par, o);
-  if (lane == 0) out[0] = (int32_t)(acc + par);
-  for (int32_t i = lane; i < hp::kImageWords; i += 32) img_out[i] = (int32_t)img[i];
+  for (int k = 0; k < 4; k++) acc.v += img[lane + 32 * k] & 1u;  // row 0's odd words
+  finish(acc.v, img, lane, out, img_out);
 }
 
 template <int kNwhen>
@@ -321,7 +304,7 @@ extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int64_t wor
 // img, img_out: int32[16384]; out: int32[1].
 extern "C" int probe_vcopy_launch(int32_t mode3d, const void* rec, const void* img, void* out,
                                   void* img_out, void* stream) {
-  const size_t smem = hp::kImageWords * 4;
+  const size_t smem = hp::kRecordSmemWords * 4;
 #define PROBE_LAUNCH(M3)                                                                    \
   do {                                                                                      \
     static attrs::SetFor set_for;                                                           \
@@ -359,7 +342,7 @@ extern "C" int probe_coissue_launch(int32_t nvec, int32_t seed, int32_t iters, c
 // img, img_out: int32[16384]; out: int32[1]; mode: hp::IsoMode.
 extern "C" int probe_iso_launch(int32_t mode, const void* rec, const void* img, void* out,
                                 void* img_out, void* stream) {
-  const size_t smem = hp::kImageWords * 4;
+  const size_t smem = hp::kRecordSmemWords * 4;
 #define PROBE_CASE(M)                                                                        \
   case M: {                                                                                  \
     static attrs::SetFor set_for;                                                            \

@@ -90,26 +90,205 @@ SC_HD VcopyRecord vcopy_record(int32_t dst, int32_t src, int32_t ln) {
   return r;
 }
 
-// Word q of w.
-SC_HD uint32_t vcopy_word(const uint32_t* img, const VcopyRecord& r, int32_t q) {
-  return q < kLanes - r.sl ? img[r.r0 * kLanes + q + r.sl] : img[r.r1 * kLanes + q + r.sl - kLanes];
+// The same record as flat word addresses, all of it known before the image
+// is read. Word q of w lies at sw + q, and at sw + q + delta for q >= cut
+// (the 3d body's srow 7: delta moves row r0 + 1 to r1; 0 otherwise). The
+// stores are one flat run too: lane i of row dr holds rolled[i] =
+// f[(i - dl) & 127], where f is the funnel-shifted w, and row dr + 1 goes
+// on where row dr ends, so word m of the run (m < lim) is f[m & 127] at
+// dw + m. lim is nw, cut to the end of row dr + 1 (or of row dr where the
+// 3d body drops the spill); m reaches 128 only when nw does.
+struct VcopyPlan {
+  int32_t sw, cut, delta, a8, dw, lim;
+};
+
+template <bool k3d>
+SC_HD VcopyPlan vcopy_plan(int32_t dst, int32_t src, int32_t ln) {
+  const VcopyRecord r = vcopy_record<k3d>(dst, src, ln);
+  const int32_t room = (r.spill ? 2 * kLanes : kLanes) - r.dl;
+  return {src >> 2, kLanes - r.sl, (r.r1 - r.r0 - 1) * kLanes, r.a8, dst >> 2,
+          r.nw < room ? r.nw : room};
 }
 
-// rolled[i]: the funnel-shifted w (the next word from w[(j + 1) & 127]: lane
-// 127 takes lane 0, as the TPU's roll does), rotated to start at lane dl. No
-// shift by 32: phase 0 takes w itself.
-SC_HD uint32_t vcopy_lane(const uint32_t* img, const VcopyRecord& r, int32_t i) {
-  const int32_t j = (i - r.dl) & 127;
-  const uint32_t w = vcopy_word(img, r, j);
-  if (r.a8 == 0) return w;
-  return (w >> r.a8) | (vcopy_word(img, r, (j + 1) & 127) << (32 - r.a8));
+// Bits s .. s + 31 of hi:lo (s < 32): the funnel from the next word. With
+// s = 0 it is lo, so phase 0 needs no branch.
+SC_HD uint32_t funnel(uint32_t lo, uint32_t hi, int32_t s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, (uint32_t)s);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
+#endif
 }
 
-// Lane i's stores: row dr under lanes [dl, dl + nw), row dr + 1 under lanes
-// below dl + nw - 128 (unless the 3d body drops the spill).
-SC_HD void vcopy_store(uint32_t* img, const VcopyRecord& r, int32_t i, uint32_t v) {
-  if (i >= r.dl && i < r.dl + r.nw) img[r.dr * kLanes + i] = v;
-  if (r.spill && i < r.dl + r.nw - kLanes) img[(r.dr + 1) * kLanes + i] = v;
+// --- the record loop of vcopy and iso ------------------------------------
+
+// Word i of the record array, through the read-only path on the card.
+SC_HD int32_t rec_at(const int32_t* rec, int32_t i) {
+#ifdef __CUDA_ARCH__
+  return __ldg(rec + i);
+#else
+  return rec[i];
+#endif
+}
+
+// Four consecutive words, 16-byte aligned: one 128-bit shared access a lane.
+struct alignas(16) Words4 {
+  uint32_t w[4];
+};
+
+SC_HD Words4 load4(const uint32_t* img, int32_t at) {
+#ifdef __CUDA_ARCH__
+  const uint4 v = *reinterpret_cast<const uint4*>(img + at);
+  return {{v.x, v.y, v.z, v.w}};
+#else
+  Words4 v;
+  for (int k = 0; k < 4; k++) v.w[k] = img[at + k];
+  return v;
+#endif
+}
+
+SC_HD void store4(uint32_t* img, int32_t at, const Words4& v) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(img + at) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+#else
+  for (int k = 0; k < 4; k++) img[at + k] = v.w[k];
+#endif
+}
+
+constexpr int32_t kBatch = 32;  // records a batch: one a lane
+constexpr int32_t kPlanSlots = 2 * kBatch;  // the plan ring: two batches
+// The image, then the plan ring (16 bytes a record), in shared memory.
+constexpr int32_t kRecordSmemWords = kImageWords + 4 * kPlanSlots;
+
+// A batch of records: lane l holds the words of record base + l (record
+// 0's past the count, which no body sees), loaded by one coalesced access
+// an array.
+template <class W>
+struct RecordBatch {
+  sc::LanesOf<W, int32_t> dst, src, len;
+  sc::LanesOf<W, bool> live;
+
+  SC_HD void load(const W& w, const int32_t* rec, int32_t base, int32_t count) {
+    w.each([&](int l) {
+      const int32_t t = base + l;
+      live[l] = t < count;
+      const int32_t at = t < count ? t : 0;
+      dst[l] = rec_at(rec, at);
+      src[l] = rec_at(rec, at + kRecHalf);
+      len[l] = rec_at(rec, at + 2 * kRecHalf);
+    });
+  }
+};
+
+// The records t in [first, count), in order, through body(plan of t). Lane
+// l loads record base + l of a batch two batches ahead and writes its plan
+// (Plans::make, 16 bytes) into the ring of plans a batch ahead (seen(batch)
+// sees each batch once, then); each record's plan is one broadcast 128-bit
+// shared load (Plans::at), two records before its body, and the loop runs
+// two records an iteration (both measured best, PERF.md). So nothing of a
+// record waits on the image but its own shared loads, and nothing of the
+// record array lies on the chain that runs through the image. A batch's
+// slots are written after the bodies that read them and read after a
+// body's warp sync.
+template <class Plans, class W, class Seen, class Body>
+SC_HD void record_loop(const W& w, const int32_t* rec, int32_t first, int32_t count,
+                       Words4* ring, Seen seen, Body body) {
+  if (first >= count) return;
+  RecordBatch<W> next;
+  next.load(w, rec, first, count);
+  Plans::make(w, next, ring);
+  seen(next);
+  next.load(w, rec, first + kBatch, count);
+  Plans::make(w, next, ring + kBatch);
+  if (first + kBatch < count) seen(next);
+  next.load(w, rec, first + 2 * kBatch, count);
+  w.sync();
+  int32_t i = 1;  // t - first + 1
+  auto p = Plans::at(ring[0]);
+  auto pn = Plans::at(ring[1]);
+  for (int32_t base = first; base < count; base += kBatch) {
+    const int32_t n = count - base < kBatch ? count - base : kBatch;
+#pragma unroll 2
+    for (int32_t j = 0; j < n; j++) {
+      i++;
+      const auto pnn = Plans::at(ring[i & (kPlanSlots - 1)]);
+      body(p);
+      p = pn;
+      pn = pnn;
+    }
+    Plans::make(w, next, ring + ((((i - 1) >> 5) - 1) & 1) * kBatch);
+    if (base + 2 * kBatch < count) seen(next);
+    next.load(w, rec, base + 3 * kBatch, count);
+  }
+}
+
+// vcopy's plans: sw, dw, lim and a8 | cut << 8 | delta << 16 (a8 below
+// 32, so the funnel's shift is the word itself; delta is 0, 768 or -256).
+template <bool k3d, class W>
+struct VcopyPlans {
+  SC_HD static void make(const W& w, const RecordBatch<W>& b, Words4* slots) {
+    w.each([&](int l) {
+      const VcopyPlan p = vcopy_plan<k3d>(b.dst[l], b.src[l], b.len[l]);
+      slots[l] = {{(uint32_t)p.sw, (uint32_t)p.dw, (uint32_t)p.lim,
+                   (uint32_t)p.a8 | (uint32_t)p.cut << 8 | (uint32_t)p.delta << 16}};
+    });
+  }
+  SC_HD static VcopyPlan at(const Words4& x) {
+    const int32_t a = (int32_t)x.w[3];
+    return {(int32_t)x.w[0], k3d ? (a >> 8) & 0xFF : kLanes, k3d ? a >> 16 : 0, a,
+            (int32_t)x.w[1], (int32_t)x.w[2]};
+  }
+};
+
+// One record of vcopy's body (iso full: kParity false): lane l takes words q
+// = l + 32 k of w from s = img + sw, w[q] and w[(q + 1) & 127] (lane 127
+// takes lane 0, as the TPU's roll does; consecutive words across the lanes,
+// no bank conflict; in 3d from s3 = s + delta past cut, a select of the
+// base), funnels them, the warp meets (a destination may overlap its own
+// source), then stores word q at d = img + dw, d[q], and where the run goes
+// past 128 words at d[128 + q], each store predicated on its word lying below
+// lim: no branch (a store aimed at a dummy word instead measured slower,
+// PERF.md). The stored words are distinct, so their order within a record
+// does not show; the warp meets again before the next record's loads.
+template <bool k3d, bool kParity, class W>
+SC_HD void vcopy_body(const W& w, uint32_t* img, const VcopyPlan& p,
+                      sc::LanesOf<W, uint32_t>& acc) {
+  sc::LanesOf<W, Words4> v;
+  const uint32_t* s = img + p.sw;
+  const uint32_t* s3 = s + p.delta;  // 3d: the words past cut
+  w.each([&](int l) {
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      const int32_t q = l + 32 * k, q1 = k < 3 ? q + 1 : (q + 1) & (kLanes - 1);
+      const uint32_t lo = (k3d && q >= p.cut ? s3 : s)[q];
+      const uint32_t hi = (k3d && q1 >= p.cut ? s3 : s)[q1];
+      const uint32_t x = funnel(lo, hi, p.a8);
+      v[l].w[k] = x;
+      if (kParity) acc[l] += x & 1u;
+    }
+  });
+  w.sync();
+  uint32_t* d = img + p.dw;
+  w.each([&](int l) {
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      const int32_t q = l + 32 * k;
+      if (q < p.lim) d[q] = v[l].w[k];
+      if (q + kLanes < p.lim) d[q + kLanes] = v[l].w[k];
+    }
+  });
+  w.sync();
+}
+
+// vcopy_kernel's work: every record in order; acc gets the low bits of the
+// rolled words.
+template <bool k3d, class W>
+SC_HD void vcopy_run(const W& w, const int32_t* rec, uint32_t* img,
+                     sc::LanesOf<W, uint32_t>& acc) {
+  record_loop<VcopyPlans<k3d, W>>(
+      w, rec, 0, rec_at(rec, kCountAt), reinterpret_cast<Words4*>(img + kImageWords),
+      [](const RecordBatch<W>&) {},
+      [&](const VcopyPlan& p) { vcopy_body<k3d, true>(w, img, p, acc); });
 }
 
 // --- coissue (_coissue_kernel) ---------------------------------------------
@@ -142,7 +321,7 @@ SC_HD uint32_t coissue_update(uint32_t v, uint32_t rolled) { return v * 3u + rol
 
 // One part of vcopy's body alone per mode, over the records 20 times (pass r
 // from record r & 1). Every mode but scalar adds dst to the sum; full is
-// vcopy's 2d body (vcopy_record<false>, vcopy_lane, vcopy_store).
+// vcopy's 2d body.
 enum IsoMode { kIsoScalar = 0, kIsoDynload, kIsoDynload8, kIsoStatroll, kIsoDynroll, kIsoFull };
 constexpr int32_t kIsoPasses = 20;
 
@@ -154,35 +333,132 @@ SC_HD uint32_t iso_scalar(int32_t dst, int32_t src, int32_t ln) {
   return x;
 }
 
+// scalar's records are independent and its sum wraps, so the lanes take
+// records: lane `lane` sums iso_scalar over t = first + lane + 32 i below
+// count. Its loads run kIsoScalarSlots groups of kIsoScalarGroup records
+// ahead of the chains (a ring of slots in registers: a slot's group is
+// summed, then the slot loads the group kIsoScalarSlots groups on), and a
+// group's chains are independent.
+constexpr int kIsoScalarGroup = 8;
+constexpr int kIsoScalarSlots = 4;
+
+SC_HD uint32_t iso_scalar_lane(const int32_t* rec, int32_t first, int32_t count, int lane) {
+  constexpr int G = kIsoScalarGroup, S = kIsoScalarSlots;
+  constexpr int32_t kStep = 32 * G;  // records a group
+  int32_t d[S][G], s[S][G], n[S][G];
+  auto load = [&](int slot, int32_t base) {
+#pragma unroll
+    for (int g = 0; g < G; g++) {
+      const int32_t t = base + lane + 32 * g, at = t < count ? t : 0;
+      d[slot][g] = rec_at(rec, at);
+      s[slot][g] = rec_at(rec, at + kRecHalf);
+      n[slot][g] = rec_at(rec, at + 2 * kRecHalf);
+    }
+  };
+  uint32_t acc = 0;
+#pragma unroll
+  for (int slot = 0; slot < S; slot++) load(slot, first + slot * kStep);
+  for (int32_t base = first; base < count; base += S * kStep) {
+#pragma unroll
+    for (int slot = 0; slot < S; slot++) {
+      const int32_t at = base + slot * kStep;
+#pragma unroll
+      for (int g = 0; g < G; g++) {
+        const uint32_t x = iso_scalar(d[slot][g], s[slot][g], n[slot][g]);
+        acc += at + lane + 32 * g < count ? x : 0u;
+      }
+      load(slot, at + S * kStep);
+    }
+  }
+  return acc;
+}
+
 // The row modes: rows [sr, sr + rows) stored at [dr, dr + rows), each row
 // rolled by shift lanes (pltpu.roll: roll(v, s)[p] = v[(p - s) & 127]).
 // dynload8 moves the 8 rows of the aligned group; statroll rolls by 5,
-// dynroll by (128 - sl) & 127, which brings lane sl to lane 0.
-struct IsoRecord {
-  int32_t sr, dr, rows, shift;
+// dynroll by (128 - sl) & 127, which brings lane sl to lane 0. A record's
+// plan: its first source and destination words, and the roll.
+struct IsoPlan {
+  int32_t sbase, dbase, shift;
 };
 
 template <int kMode>
-SC_HD IsoRecord iso_record(int32_t dst, int32_t src) {
-  const int32_t sw = src >> 2, dw = dst >> 2;
-  IsoRecord r{sw >> 7, dw >> 7, 1, 0};
-  if (kMode == kIsoDynload8) {
-    r.sr &= 120;
-    r.dr &= 120;
-    r.rows = 8;
+SC_HD IsoPlan iso_plan(int32_t dst, int32_t src) {
+  const int32_t sw = src >> 2, rows = kMode == kIsoDynload8 ? 120 : 127;
+  return {((sw >> 7) & rows) * kLanes, ((dst >> 9) & rows) * kLanes,
+          kMode == kIsoStatroll ? 5 : (kMode == kIsoDynroll ? (128 - (sw & 127)) & 127 : 0)};
+}
+
+template <int kMode, class W>
+struct IsoPlans {
+  SC_HD static void make(const W& w, const RecordBatch<W>& b, Words4* slots) {
+    w.each([&](int l) {
+      const IsoPlan p = iso_plan<kMode>(b.dst[l], b.src[l]);
+      slots[l] = {{(uint32_t)p.sbase, (uint32_t)p.dbase, (uint32_t)p.shift, 0u}};
+    });
   }
-  if (kMode == kIsoStatroll) r.shift = 5;
-  if (kMode == kIsoDynroll) r.shift = (128 - (sw & 127)) & 127;
-  return r;
+  SC_HD static IsoPlan at(const Words4& x) {  // statroll's shift is static
+    return {(int32_t)x.w[0], (int32_t)x.w[1],
+            kMode == kIsoDynroll ? (int32_t)x.w[2] : (kMode == kIsoStatroll ? 5 : 0)};
+  }
+};
+
+// One record of a row mode: the loads, the warp meets, the stores, the
+// warp meets. dynload and dynload8 move whole rows, lane l words 4 l .. 4 l
+// + 3 of each, one 128-bit load and store a row; the rolls take word
+// (p - shift) & 127 of the row for word p = l + 32 k (consecutive words
+// across the lanes, no bank conflict).
+template <int kMode, class W>
+SC_HD void iso_body(const W& w, uint32_t* img, const IsoPlan& p) {
+  if (kMode == kIsoDynload || kMode == kIsoDynload8) {
+    constexpr int kRows = kMode == kIsoDynload8 ? 8 : 1;
+    sc::LanesOf<W, Words4> v[kRows];
+    w.each([&](int l) {
+#pragma unroll
+      for (int r = 0; r < kRows; r++) v[r][l] = load4(img, p.sbase + r * kLanes + 4 * l);
+    });
+    w.sync();
+    w.each([&](int l) {
+#pragma unroll
+      for (int r = 0; r < kRows; r++) store4(img, p.dbase + r * kLanes + 4 * l, v[r][l]);
+    });
+  } else {
+    sc::LanesOf<W, Words4> v;
+    w.each([&](int l) {
+#pragma unroll
+      for (int k = 0; k < 4; k++) v[l].w[k] = img[p.sbase + ((l + 32 * k - p.shift) & 127)];
+    });
+    w.sync();
+    w.each([&](int l) {
+#pragma unroll
+      for (int k = 0; k < 4; k++) img[p.dbase + l + 32 * k] = v[l].w[k];
+    });
+  }
+  w.sync();
 }
 
-// Word i (0 <= i < 128 * rows) of what the record stores at row dr.
-SC_HD uint32_t iso_word(const uint32_t* img, const IsoRecord& r, int32_t i) {
-  return img[(r.sr + (i >> 7)) * kLanes + (((i & 127) - r.shift) & 127)];
-}
-
-SC_HD void iso_store(uint32_t* img, const IsoRecord& r, int32_t i, uint32_t v) {
-  img[r.dr * kLanes + i] = v;
+// iso_kernel's work: the 20 passes; acc gets each mode's sum (the caller
+// adds row 0's odd words).
+template <int kMode, class W>
+SC_HD void iso_run(const W& w, const int32_t* rec, uint32_t* img, sc::LanesOf<W, uint32_t>& acc) {
+  const int32_t count = rec_at(rec, kCountAt);
+  Words4* ring = reinterpret_cast<Words4*>(img + kImageWords);
+  auto seen = [&](const RecordBatch<W>& b) {
+    w.each([&](int l) { acc[l] += b.live[l] ? (uint32_t)b.dst[l] : 0u; });
+  };
+  for (int32_t pass = 0; pass < kIsoPasses; pass++) {
+    const int32_t first = pass & 1;
+    if (kMode == kIsoScalar) {
+      w.each([&](int l) { acc[l] += iso_scalar_lane(rec, first, count, l); });
+    } else if (kMode == kIsoFull) {
+      record_loop<VcopyPlans<false, W>>(w, rec, first, count, ring, seen, [&](const VcopyPlan& p) {
+        vcopy_body<false, false>(w, img, p, acc);
+      });
+    } else {
+      record_loop<IsoPlans<kMode, W>>(w, rec, first, count, ring, seen,
+                                      [&](const IsoPlan& p) { iso_body<kMode>(w, img, p); });
+    }
+  }
 }
 
 // --- bprobe (_bprobe_kernel) -------------------------------------------------

@@ -125,6 +125,9 @@ CHAIN_R = 200  # chain's trials per call, as the TPU tool
 REC_HALF = 8192  # chainrec: records at t & 8191, op at + 8192; vcopy: region stride
 REC_WORDS = 2 * REC_HALF
 IMAGE_WORDS = 16384  # vcopy's image: 128 rows of 128 lanes (2d), 16 tiles of 8 (3d)
+# vcopy's and iso's block: the image and a ring of 64 16-byte record plans
+# (hp::kRecordSmemWords in csrc/hybrid_probes.cuh).
+COPY_SMEM_BYTES = 4 * IMAGE_WORDS + 16 * 64
 LANES = 128
 VCOPY_WORDS = 4 * REC_HALF
 COUNT_AT = 3 * REC_HALF  # vcopy's loop count

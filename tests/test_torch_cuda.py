@@ -45,12 +45,14 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
 # package named ``tests`` elsewhere on the path may shadow ``tests.``.
 from test_match_length import VECTORS, _layout
 from torch_cases import (
+    BATCH_EDGE_COUNTS,
     CRC_LENGTHS,
     PIPE_CASES,
     batch_streams,
     best_rows,
     block_stream,
     corrupt_streams,
+    count_records,
     crc_rows,
     empty_literal_streams,
     encode_rows,
@@ -1157,11 +1159,12 @@ def test_cuda_chain_matches_plain(cuda_device, with_rec):
 
 @pytest.mark.parametrize("mode", ["2d", "3d"])
 def test_cuda_vcopy_matches_plain(cuda_device, mode):
-    """T11 over both probe blocks' records and the edge records: checksum
-    and final image."""
+    """T11 over both probe blocks' records, the edge records and the edge
+    records at loop counts around a batch of 32: checksum and final image."""
     img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
     recs = [hp.vcopy_records(hp.tags_from_block(b)[1]) for b in probe_blocks().values()]
-    for rec in recs + [vcopy_edges(mode)]:
+    edges = [count_records(vcopy_edges(mode), n) for n in BATCH_EDGE_COUNTS]
+    for rec in recs + [vcopy_edges(mode)] + edges:
         _build.reset_launches()
         got = hp.vcopy(_t(rec).to(cuda_device), _t(img).to(cuda_device), mode)
         torch.cuda.synchronize()
@@ -1185,13 +1188,13 @@ def test_cuda_coissue_matches_plain(cuda_device, nvec):
 
 @pytest.mark.parametrize("mode", hp.ISO_MODES)
 def test_cuda_iso_matches_plain(cuda_device, mode):
-    """T13 over both probe blocks' records and vcopy's 2d edge records:
-    checksum and the image after the 20 passes."""
+    """T13 over both probe blocks' records and vcopy's 2d edge records, at
+    their count and at counts around a batch of 32 (a count of 1 leaves the
+    odd passes empty): checksum and the image after the 20 passes."""
     img = np.arange(hp.IMAGE_WORDS, dtype=np.int32) * 40503
-    edges = vcopy_edges("2d")
-    edges[hp.COUNT_AT] = 200
+    edges = [count_records(vcopy_edges("2d"), n) for n in (200, *BATCH_EDGE_COUNTS)]
     recs = [hp.iso_records(hp.tags_from_block(b)[1]) for b in probe_blocks().values()]
-    for rec in recs + [edges]:
+    for rec in recs + edges:
         _build.reset_launches()
         got = hp.iso(_t(rec).to(cuda_device), _t(img).to(cuda_device), mode)
         torch.cuda.synchronize()

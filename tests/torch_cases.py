@@ -308,13 +308,20 @@ def vcopy_edges(mode: str) -> np.ndarray:
     rows that end a 3d tile (srow 7; in 3d the image's last row, whose next
     tile the 3d body clamps to 15), destinations at row 7 of a tile that
     spill into the next row, more than 128 words (``nw`` above 128 wraps the
-    copy), every byte phase, a negative length; every row inside the image
-    for the mode."""
+    copy), every byte phase, a negative length, destinations at lane 127
+    (one word in row dr, the rest in dr + 1; with ``nw`` above 128 too),
+    sources that overlap their destination from either side, a source
+    window that crosses rows at srow 7 into a destination at drow 7, lane
+    127; every row inside the image for the mode."""
     rng = np.random.default_rng(12)
     last = 15 if mode == "3d" else 14
-    srcs = [7 * 512 + 4 * 100 + 1, last * 4096 + 7 * 512 + 13, 3 * 512 + 2, 64000, 0]
-    dsts = [7 * 512 + 4 * 120 + 3, 31 * 512 + 4 * 127, 5, 63000, 2 * 4096 + 7 * 512 + 4 * 64]
-    lens = [64, 40, 1000, -7, 64]
+    srcs = [7 * 512 + 4 * 100 + 1, last * 4096 + 7 * 512 + 13, 3 * 512 + 2, 64000, 0,
+            4 * (20 * 128 + 50) + 3, 4 * (60 * 128 + 3) + 1, 4 * (40 * 128 + 100) + 2,
+            4 * (70 * 128 + 93) + 3, 4 * (15 * 128 + 100) + 3]
+    dsts = [7 * 512 + 4 * 120 + 3, 31 * 512 + 4 * 127, 5, 63000, 2 * 4096 + 7 * 512 + 4 * 64,
+            4 * (10 * 128 + 127) + 1, 4 * (50 * 128 + 127), 4 * (40 * 128 + 102) + 2,
+            4 * (70 * 128 + 90), 4 * (23 * 128 + 127) + 2]
+    lens = [64, 40, 1000, -7, 64, 300, 1000, 200, 64, 90]
     n, half = 200, 8192
     rec = np.zeros(4 * half, np.int32)
     rec[:n] = np.concatenate([dsts, rng.integers(0, 63 * 1024, n - len(dsts))])
@@ -322,6 +329,90 @@ def vcopy_edges(mode: str) -> np.ndarray:
     rec[2 * half : 2 * half + n] = np.concatenate([lens, rng.integers(1, 600, n - len(lens))])
     rec[3 * half] = n
     return rec
+
+
+#: Loop counts of a record array at the edges of the record loops' batches
+#: of 32: none, one record (iso's odd passes then have none), a batch less
+#: one, a batch, a batch and one, two batches less one.
+BATCH_EDGE_COUNTS = (0, 1, 2, 31, 32, 33, 63)
+
+
+def count_records(rec: np.ndarray, count: int) -> np.ndarray:
+    """``rec`` with the loop count set to ``count``."""
+    rec = rec.copy()
+    rec[3 * 8192] = count
+    return rec
+
+
+#: ``ArrayWarp<N>``: the host twin of ``sc::CudaWarp`` (csrc/scalar_codec.cuh)
+#: that the g++ builds of tests/test_torch_kernel_host*.py run the warp walks
+#: on.
+ARRAY_WARP = r"""
+// A warp for the batched decode walk whose N lanes are arrays, run in lock
+// step: each() runs a lane body on every lane (highest lane first, so a
+// body that read another lane's result of the same step would differ from
+// the card), gather/read/ballot/or_all are __shfl_sync, __ballot_sync and
+// __reduce_or_sync over the arrays, sync() has nothing to order, and
+// batch() counts the walk's batches and their tags.
+template <int N>
+struct ArrayWarp {
+  static constexpr int kLanes = N;
+  template <class T>
+  struct Lanes {
+    T v[N];
+    T& operator[](int l) { return v[l]; }
+    const T& operator[](int l) const { return v[l]; }
+  };
+  template <class F>
+  void each(F f) const {
+    for (int l = N - 1; l >= 0; l--) f(l);
+  }
+  template <class T>
+  Lanes<T> gather(const Lanes<T>& x, const Lanes<int32_t>& src) const {
+    Lanes<T> r;
+    for (int l = 0; l < N; l++) r.v[l] = x.v[((src.v[l] % N) + N) % N];
+    return r;
+  }
+  Lanes<bool> gather_bool(const Lanes<bool>& x, const Lanes<int32_t>& src) const {
+    return gather(x, src);
+  }
+  template <class T>
+  T read(const Lanes<T>& x, int lane) const { return x.v[lane]; }
+  uint32_t ballot(const Lanes<bool>& p) const {
+    uint32_t m = 0;
+    for (int l = 0; l < N; l++) m |= p.v[l] ? 1u << l : 0u;
+    return m;
+  }
+  uint32_t or_all(const Lanes<uint32_t>& x) const {
+    uint32_t m = 0;
+    for (int l = 0; l < N; l++) m |= x.v[l];
+    return m;
+  }
+  void sync() const {}
+  void batch(int tags) const {
+    batches++;
+    tags_seen += tags;
+  }
+  mutable int64_t batches = 0, tags_seen = 0;
+};
+"""
+
+
+def gxx_library(shim: str, directory: pathlib.Path):
+    """``shim`` built by g++ over ``snappier_tpu_torch/csrc`` into a shared
+    library in ``directory``, loaded by ctypes."""
+    import ctypes
+    import shutil
+
+    csrc = pathlib.Path(__file__).resolve().parents[1] / "snappier_tpu_torch" / "csrc"
+    (directory / "shim.cpp").write_text(shim)
+    lib = directory / "libwalk.so"
+    subprocess.run(
+        [shutil.which("g++"), "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread", "-I",
+         str(csrc), "-o", str(lib), str(directory / "shim.cpp")],
+        check=True, capture_output=True, timeout=300,
+    )
+    return ctypes.CDLL(str(lib))
 
 
 def step_back_streams() -> list[bytes]:

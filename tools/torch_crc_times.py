@@ -60,11 +60,12 @@ def one(root: str) -> dict:
     }
 
 
-def in_turns(script: str, one_fn, argv) -> int:
+def in_turns(script: str, one_fn, argv, flags=()) -> int:
     """The command line of a tool that times checkouts in turns: with
     ``--one ROOT`` it prints ``one_fn(ROOT)`` as JSON; with ROOT ... it
-    prints the card's name and power limit, then runs ``script --one ROOT``
-    in a fresh process for each ROOT in order and prints its JSON line."""
+    prints the card's name and power limit, then runs ``script *flags --one
+    ROOT`` in a fresh process for each ROOT in order and prints its JSON
+    line."""
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one_fn(os.path.abspath(argv[1]))))
         return 0
@@ -76,7 +77,7 @@ def in_turns(script: str, one_fn, argv) -> int:
         return 2
     print(smoke().card_line())
     for root in argv:
-        r = subprocess.run([sys.executable, os.path.abspath(script), "--one", root],
+        r = subprocess.run([sys.executable, os.path.abspath(script), *flags, "--one", root],
                            capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the descriptor-driven decode (T14-T16, T18 ``decode_v7``), the
-pipelined decode (T6 ``decode_pipe``, T7 ``decode_pipe2``) and the chain
-probes (T10 ``chain``, T19 ``cliff``, the chase) of one or more checkouts on
-one GPU, beside the production kernels K1-K4.
+pipelined decode (T6 ``decode_pipe``, T7 ``decode_pipe2``), the chain
+probes (T10 ``chain``, T19 ``cliff``, the chase) and the copy probes (T11
+``vcopy``, T13 ``iso``) of one or more checkouts on one GPU, beside the
+production kernels K1-K4.
 
     python3 tools/torch_hybrid_times.py ROOT [ROOT ...]
+    python3 tools/torch_hybrid_times.py --copy ROOT [ROOT ...]
     python3 tools/torch_hybrid_times.py --sass ROOT OUT
 
 Each ROOT is a directory that holds a ``snappier_tpu_torch`` package (this
@@ -24,15 +26,21 @@ codec's row width (68,608 B) and the tight one; ``decode_pipe`` and
 widths; each form's layout (the pipelined ones' where the package has
 ``decode_pipe_layout``); ``chain`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
-the chase, in ms and ns a walk step. Every call is first held to its plain
-version (the walks' rows to the input). It prints the card's name and
+the chase, in ms and ns a walk step; ``vcopy`` 2d and 3d and ``iso`` in its
+six modes on block 0's records, in ms and ns a record; ``coissue`` at nvec 0
+and 8 and ``bprobe`` at nwhen 0 and 8; the probes' ptxas figures. Every call is first held to its plain version (the walks' rows to
+the input; the probes' checksum and image). It prints the card's name and
 power limit, then one JSON line per run. It needs a CUDA card and exits 2
 without one.
 
-With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and writes
-``cuobjdump -sass`` of its ``cliff_kernel`` instantiations to OUT, then
-prints, for each, the loop's shared-memory loads and stores and its
-branches in order, the step order a reader checks there.
+With ``--copy`` it builds ``csrc/hybrid_probes.cu`` alone and times only
+``vcopy`` and ``iso`` (the loop of design trials). With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and writes
+``cuobjdump -sass`` of its ``cliff_kernel``, ``vcopy_kernel`` and
+``iso_kernel`` instantiations to OUT, then prints, for each, its
+shared-memory loads and stores, global loads, shuffles, warp syncs and
+branches in order: the step order a reader checks there (a cliff step's
+next load before its body; a record's plan shuffled in, and the next
+batch loaded, before the previous record's shared loads).
 """
 
 from __future__ import annotations
@@ -169,6 +177,18 @@ def one(root: str) -> dict:
                  "the chase differs from chain's plain version")
         t["chase"] = ms(lambda: hp.launch_chase(adv_d, n, 3, R, staged))
     walks = ("chain", "chase", *(f"cliff_{m}" for m in hp.CLIFF_MODES))
+    per_record = copy_probe_times(cs, hp, block, t)
+    for nvec in (0, 8):  # the other probes of the same source, held to their plain versions
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
+            hp.coissue(3, nvec, device="cuda"), hp.coissue_plain(3, nvec))),
+            f"coissue {nvec} differs from its plain version")
+        tile = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
+        t[f"coissue_{nvec}"] = ms(lambda: hp.launch_coissue(3, nvec, tile))
+    for nwhen in (0, 8):
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
+            hp.bprobe(nwhen, device="cuda"), hp.bprobe_plain(nwhen))),
+            f"bprobe {nwhen} differs from its plain version")
+        t[f"bprobe_{nwhen}"] = ms(lambda: hp.launch_bprobe(nwhen, 3, torch.device("cuda")))
     ns = {k: t[k] * 1e6 / steps for k in walks if k in t}
     if hasattr(dh, "decode_hybrid_layout"):
         layout = {f: dh.decode_hybrid_layout(comp, BLOCK, f) for f in ("v5", "v6", "v7")}
@@ -183,12 +203,74 @@ def one(root: str) -> dict:
             "hybrid_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""),
                                              "_kernel"),
             "cliff_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""),
-                                            "cliff_kernel")}
+                                            "cliff_kernel"),
+            "ns_per_record": per_record,
+            "copy_ptxas": [f for k in ("vcopy_kernel", "iso_kernel") for f in cs.ptxas_figures(
+                _build.BUILD_LOG.get("hybrid_probes", ""), k)]}
+
+
+def copy_probe_times(cs, hp, block: bytes, t: dict) -> dict:
+    """``vcopy`` 2d/3d and ``iso``'s six modes on ``block``'s records, each
+    held to its plain version, then timed: ms into ``t``; returns ns a
+    record."""
+    import numpy as np
+    import torch
+
+    ms = cs.cuda_ms
+    img_h = torch.from_numpy((np.arange(hp.IMAGE_WORDS, dtype=np.int64) * 40503).astype(np.int32))
+    img_d = img_h.cuda()
+    recs = hp.tags_from_block(block)[1]
+    per_record = {}
+    for probe, rec, modes in (("vcopy", hp.vcopy_records(recs), hp.MODES),
+                              ("iso", hp.iso_records(recs), hp.ISO_MODES)):
+        rec_h = torch.from_numpy(rec)
+        rec_d = rec_h.cuda()
+        nrec = int(rec[hp.COUNT_AT])
+        count = nrec if probe == "vcopy" else hp.ISO_PASSES * nrec - hp.ISO_PASSES // 2
+        call, launch, plain = ((hp.vcopy, hp.launch_vcopy, hp.vcopy_plain) if probe == "vcopy"
+                               else (hp.iso, hp.launch_iso, hp.iso_plain))
+        for m in modes:
+            got, want = call(rec_d, img_d, m), plain(rec_h, img_h, m)
+            cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
+                     f"{probe} {m} differs from its plain version")
+            t[f"{probe}_{m}"] = ms(lambda: launch(rec_d, img_d, m))
+            per_record[f"{probe}_{m}"] = t[f"{probe}_{m}"] * 1e6 / count
+        per_record[f"{probe}_records"] = count
+    return per_record
+
+
+def one_copy(root: str) -> dict:
+    """The copy probes of the package at ``root`` alone, on the main path's
+    block 0 (the same as :func:`one`'s)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    cs = smoke()
+    check_root = os.path.abspath(os.path.join(os.path.dirname(hp.__file__), *[".."] * 3))
+    cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
+    build_some(_build, ["encode", "vcopy", "iso"])
+    html = cs.word_mix()
+    data = np.frombuffer((html * (cs.BLOCK // len(html) + 1))[: cs.BLOCK], np.uint8)
+    frags = torch.from_numpy(data.copy()).reshape(1, -1).cuda()
+    bodies, body_lens = sc.encode_blocks_bytes(
+        frags, torch.full((1,), cs.BLOCK, dtype=torch.int32, device="cuda"))
+    block = bytes([0x80, 0x80, 0x04]) + bodies[0, : int(body_lens[0])].cpu().numpy().tobytes()
+    t = {}
+    per_record = copy_probe_times(cs, hp, block, t)
+    return {"root": root, "ms": t, "ns_per_record": per_record,
+            "copy_ptxas": [f for k in ("vcopy_kernel", "iso_kernel") for f in cs.ptxas_figures(
+                _build.BUILD_LOG.get("hybrid_probes", ""), k)]}
 
 
 def sass(root: str, out: str) -> int:
-    """cuobjdump -sass of ROOT's cliff kernels into OUT, and each kernel's
-    shared-memory loads, stores and branches in order."""
+    """cuobjdump -sass of ROOT's cliff, vcopy and iso kernels into OUT, and
+    each kernel's shared-memory loads and stores, global loads, shuffles,
+    warp syncs and branches in order."""
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
 
@@ -198,14 +280,16 @@ def sass(root: str, out: str) -> int:
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     funcs = re.split(r"\n\s*Function : ", text)
-    keep = [f for f in funcs if f.startswith("_Z") and "cliff_kernel" in f.split("\n", 1)[0]]
+    keep = [f for f in funcs if f.startswith("_Z") and any(
+        k in f.split("\n", 1)[0] for k in ("cliff_kernel", "vcopy_kernel", "iso_kernel"))]
     with open(out, "w") as fh:
         fh.write("\n".join("Function : " + f for f in keep))
     for f in keep:
         name = f.split("\n", 1)[0].strip()
         ops = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", f)
         seq = [f"{addr}:{(pred or '').strip()}{op}" for addr, pred, op in ops
-               if op.split(".")[0] in ("LDS", "STS", "BRA", "BSYNC", "BSSY", "EXIT")]
+               if op.split(".")[0] in ("LDS", "STS", "LDG", "SHFL", "WARPSYNC", "BRA", "BSYNC",
+                                       "BSSY", "EXIT")]
         print(name, " ".join(seq), flush=True)
     return 0
 
@@ -213,6 +297,8 @@ def sass(root: str, out: str) -> int:
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--sass":
         return sass(os.path.abspath(argv[1]), argv[2])
+    if argv and argv[0] == "--copy":
+        return in_turns(__file__, one_copy, argv[1:], flags=("--copy",))
     return in_turns(__file__, one, argv)
 
 
