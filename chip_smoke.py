@@ -45,9 +45,10 @@ failure:
    larger than fast, the best stream decoded independently by the native
    engine; ``*_into``, ``*_to_memory`` and a corrupt input on 1 MiB; then
    host wall-clock per facade call and CUDA-event times of the candidate
-   search and the new kernels; the decode kernel, T4 ``v1`` (a tag a warp
-   step) and the best encode kernel on the 512 blocks in turns (each twice,
-   the second time in reverse order), with the best encode kernel's layout;
+   search and the new kernels; the decode kernel, T4 ``v1`` (the decode
+   kernel's batched walk, every round of a step stored whole) and the best
+   encode kernel on the 512 blocks in turns (each twice, the second time in
+   reverse order), with the best encode kernel's layout;
 6. the framing format and the stream layers at full size: 128 MiB (2,048
    chunks, every eighth of random bytes, so both chunk types occur)
    through ``stream_compress`` and ``stream_decompress`` on the card in 8
@@ -65,11 +66,14 @@ failure:
 7. the decode-walk ablation and the scan engine at full size. Ablation: each
    of the six variants (``decode_v2``, ``decode_v4``, ``decode_v3``,
    ``decode_variant`` as v1, v1nock, v1nocp) against its plain version on
-   phase 2's rows and on more edge and corrupt rows, then the 512 blocks
-   that the encode kernel made in phase 3 through the production decode
-   kernel and every variant, each full variant's rows equal to the input and
-   to the production kernel's; timings of each beside the production
-   kernel, at the codec's row width and at the tight one. Scan:
+   phase 2's rows and on more edge and corrupt rows, word rows and the same
+   rows 1 byte into a buffer (the byte loader), then the 512 blocks that the
+   encode kernel made in phase 3 through the production decode kernel and
+   every variant, each full variant's rows equal to the input and to the
+   production kernel's; each form's layout (three blocks of two warps an SM
+   at out_cap 65,536) and ptxas figures (any stack or spill fails); timings
+   of each beside the production kernel, at the codec's row width and at the
+   tight one. Scan:
    ``SnappyCodec(kernel="scan", with_crc=True)`` on the same 512 blocks,
    round trip exact, with none of the CUDA kernels launched; its bodies
    decoded by the decode kernel and the oracle, the encode kernel's bodies
@@ -1017,9 +1021,10 @@ def phase_streams(torch, card: str):
 
 
 def redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8, block_lens):
-    """K1 and K4 on the main path's 512 blocks beside T4 v1 (a walk of a
-    tag a step), in turns (each timed twice, the second time in the reverse
-    order); returns K4's layout and the times."""
+    """K1 and K4 on the main path's 512 blocks beside T4 v1 (K1's batched
+    walk, every round of a step stored whole), in turns (each timed twice,
+    the second time in the reverse order); returns K4's layout and the
+    times."""
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
 
     layout = sc.best_layout(frags)
@@ -1049,10 +1054,10 @@ def variant_call(dv, name: str):
 def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
     """Phase 7, the ablation path. Returns (max_abs_err per wrapper, launches
     on the path, ms per wrapper at the codec's row width, plain ms per
-    wrapper on one row)."""
+    wrapper on one row, each wrapper's layouts, ptxas figures and ms per
+    form for the kernels line)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from torch_cases import corrupt_streams as more_corrupt
-    from torch_cases import PIPE_CASES as pipe_cases
     from torch_cases import pack_streams, walk_streams
 
     from snappier_tpu_torch.ops.cuda import _build
@@ -1062,31 +1067,60 @@ def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
     dev = torch.device("cuda")
     # 1. each variant against its plain version: phase 2's rows (corrupt
     # blocks and encoded 64 KiB rows) and short offsets, overlapping copies,
-    # a 4-byte offset, long literals and more malformed blocks.
+    # a 4-byte offset, long literals and more malformed blocks; word rows
+    # (the ring) and the same rows 1 byte into a buffer (the byte loader).
     streams = decode_streams + walk_streams() + more_corrupt()
     comp, clens = pack_streams(streams, 68608)
     c_h, l_h = torch.from_numpy(comp.astype(np.uint8)), torch.from_numpy(clens)
     c_d, l_d = c_h.to(dev), l_h.to(dev)
+    c_buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=dev)
+    c_buf[1:].copy_(c_d.reshape(-1))
+    c_odd = c_buf[1:].view(c_d.shape)
     errs = {}
+    checked = dv.decode_variant_plain(c_h, l_h, BLOCK, "v1")[2].numpy() == 0
     for name in VARIANTS:
-        got = [x.cpu().numpy() for x in variant_call(dv, name)(c_d, l_d, BLOCK)]
-        torch.cuda.synchronize()
         want = [x.numpy() for x in dv.decode_variant_plain(c_h, l_h, BLOCK, name)]
         rows = np.arange(len(streams))
         if name == "v1nock":  # trusted input only: the rows the checked walk accepts
-            rows = rows[dv.decode_variant_plain(c_h, l_h, BLOCK, "v1")[2].numpy() == 0]
-        pairs = [(got[1][rows], want[1][rows]), (got[2][rows], want[2][rows])]
-        if name != "v1nocp":
-            pairs += [(got[0][i, : want[1][i]], want[0][i, : want[1][i]]) for i in rows]
-        err = max_abs_err(pairs)
-        check(err == 0, f"variant {name} differs from its plain version")
-        counter = dv.VARIANTS[name][1]
-        errs[counter] = max(errs.get(counter, 0), err)
+            rows = rows[checked]
+        for rows_d in (c_d, c_odd):
+            got = [x.cpu().numpy() for x in variant_call(dv, name)(rows_d, l_d, BLOCK)]
+            torch.cuda.synchronize()
+            pairs = [(got[1][rows], want[1][rows]), (got[2][rows], want[2][rows])]
+            if name != "v1nocp":
+                pairs += [(got[0][i, : want[1][i]], want[0][i, : want[1][i]]) for i in rows]
+            err = max_abs_err(pairs)
+            check(err == 0, f"variant {name} differs from its plain version "
+                            f"({'1 byte into a buffer' if rows_d is c_odd else 'word rows'})")
+            counter = dv.VARIANTS[name][1]
+            errs[counter] = max(errs.get(counter, 0), err)
         if name == "v2":
             seen = set(want[2].tolist())
             check({0, 1, 2, 4, 8} <= seen, f"corrupt rows give error words {sorted(seen)}")
             check(not want[1][want[2] != 0].any(), "out_len must be 0 on any error")
-        print(f"variant {name} == plain on {len(rows)} rows, max_abs_err {err}")
+        print(f"variant {name} == plain on {len(rows)} rows, word rows and 1 byte into a "
+              f"buffer, max_abs_err {errs[dv.VARIANTS[name][1]]}")
+    # Their layout (K1's): only the output image in shared memory, three
+    # blocks of two warps an SM at out_cap 65,536 in every form, the ring on
+    # word rows; every instantiation's walk in registers.
+    layouts = {name: dv.decode_variant_layout(comp_u8, BLOCK, name) for name in VARIANTS}
+    layouts["v1_unaligned"] = dv.decode_variant_layout(c_odd, BLOCK, "v1")
+    ptxas = ptxas_figures(_build.BUILD_LOG.get("decode_variants", ""), "decode_variant_kernel")
+    print(json.dumps({"card": card, "decode_variant_layouts": layouts,
+                      "decode_variant_ptxas": ptxas}))
+    for name, lay in layouts.items():
+        form = name.split("_")[0]
+        # The byte loader's kernel keeps no input ring: 1 KiB less.
+        smem = dv._smem_bytes(dv.VARIANTS[form][0], BLOCK) - (1024 if "unaligned" in name else 0)
+        check(lay == {"blocks_per_sm": 3, "smem_bytes": smem, "threads": 64,
+                      "loader": "bytes" if "unaligned" in name else "ring"},
+              f"{name}: {lay} at out_cap {BLOCK}")
+    # Four forms of the walk (checks and unc 0, 1, 2; unc 2 without checks),
+    # each with both loaders.
+    check(len(ptxas) == 8, f"ptxas figures for the 8 decode_variant kernels: {ptxas}")
+    for fig in ptxas:
+        check(all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")),
+              f"decode_variant kernel stack frame or spills: {fig}")
 
     # 2. the path: the encode kernel's 512 blocks through the production
     # decode kernel and every variant.
@@ -1111,7 +1145,7 @@ def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
           "variants; the walk-only variant agrees on lengths and errors")
 
     # 3. timings at the codec's row width and at the tight one (the longest
-    # block rounded up to 1 KiB, which lets two blocks share an SM).
+    # block rounded up to 1 KiB).
     tight = comp_u8[:, : -(-(int(block_lens.max()) + 8) // 1024) * 1024].contiguous()
     times = {}
     for width, rows_d in (("codec_width", comp_u8), ("tight_width", tight)):
@@ -1120,7 +1154,7 @@ def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
         for name in VARIANTS:
             fn = variant_call(dv, name)
             t[name] = cuda_ms(lambda: fn(rows_d, block_lens, BLOCK))
-            t[name + "_smem"] = dv._smem_bytes(dv.VARIANTS[name][0], rows_d.shape[1], BLOCK)
+            t[name + "_layout"] = dv.decode_variant_layout(rows_d, BLOCK, name)
         times[width] = t
     print(json.dumps({"card": card, "ablation_ms_per_512_blocks": times}))
     ms = {"decode_v2": times["codec_width"]["v2"], "decode_v4": times["codec_width"]["v4"],
@@ -1128,7 +1162,13 @@ def phase_ablation(torch, card, decode_streams, frags, comp_u8, block_lens):
     c1, cl1 = comp_u8[:1].cpu(), block_lens[:1].cpu()
     plain = {dv.VARIANTS[name][1]: host_ms(lambda: dv.decode_variant_plain(c1, cl1, BLOCK, name))
              for name in ("v2", "v4", "v3", "v1")}
-    return errs, launches, ms, plain
+    extra = {}
+    for name in VARIANTS:
+        counter = dv.VARIANTS[name][1]
+        row = extra.setdefault(counter, {"layout": {"ptxas": ptxas}, "ms_by_form": {}})
+        row["layout"][name] = layouts[name]
+        row["ms_by_form"][name] = {w: times[w][name] for w in times}
+    return errs, launches, ms, plain, extra
 
 
 SCAN_FACADE = """
@@ -2455,7 +2495,7 @@ def main() -> int:
     ms["watch"] = watch_t["a_add_salt"]
 
     # --- 7. the decode-walk ablation and the scan engine at full size ------------
-    errs_abl, ablation_launches, ms_abl, plain_abl = phase_ablation(
+    errs_abl, ablation_launches, ms_abl, plain_abl, abl_extra = phase_ablation(
         torch, card, decode_streams, frags, comp_u8, block_lens)
     errs.update(errs_abl)
     ms.update(ms_abl)
@@ -2573,6 +2613,8 @@ def main() -> int:
         if k == "crc32c":
             rows[-1]["ms_by_method"] = k3_by_method
             rows[-1]["layout"] = {**k3_layout, "ptxas": crc_ptxas}
+        if k in abl_extra:
+            rows[-1].update(abl_extra[k])
         if k in enc_extra:
             rows[-1].update(enc_extra[k])
         if k == "encode_best":

@@ -1,11 +1,11 @@
 // The block of the batched decode kernels (decode.cu's K1, decode_hybrid.cu's
-// forms, decode_pipe.cu's pipelined walks): two warps over one Snappy block
-// whose output is built in shared memory. Warp 0 runs the walk
-// (sc::decode_block_batched over a tag source) and hands each parsed batch
-// (its tags' offsets and sources, 264 bytes) to warp 1 through a queue of
-// four slots in shared memory; warp 1 writes it (sc::emit_batch), so a
-// batch's parse overlaps the previous batch's output. The output leaves
-// shared memory in one coalesced pass.
+// forms, decode_pipe.cu's pipelined walks, decode_variants.cu's ablation):
+// two warps over one Snappy block whose output is built in shared memory.
+// Warp 0 runs the walk (sc::decode_block_batched over a tag source) and
+// hands each parsed batch (its tags' offsets and sources, 264 bytes) to warp
+// 1 through a queue of four slots in shared memory; warp 1 writes it
+// (sc::emit_batch), so a batch's parse overlaps the previous batch's output.
+// The output leaves shared memory in one coalesced pass.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +45,15 @@ __device__ inline void init(Queue& qs) {
 // a row wider than 2^31 - 1 bytes is read as its first 2^31 - 1.
 __device__ inline int32_t row_width(int64_t cc) {
   return cc < 0x7FFFFFFF ? (int32_t)cc : 0x7FFFFFFF;
+}
+
+// Block b's compressed length, taken as 0 below 0 and as the row's width
+// past it.
+__device__ inline int32_t row_length(const int32_t* comp_lens, int64_t b, int64_t cc) {
+  int32_t n = comp_lens[b];
+  if (n < 0) n = 0;
+  if (n > cc) n = (int32_t)cc;
+  return n;
 }
 
 // The output row leaves shared memory: whole 16-byte groups when rows start

@@ -45,7 +45,6 @@
 
 #include "batched_decode.cuh"
 #include "decode_hybrid.cuh"
-#include "decode_stage.cuh"
 #include "smem_config.cuh"
 
 namespace {
@@ -80,7 +79,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = blockIdx.x;
   const uint8_t* row = comp + b * cc;
   const int32_t width = bd::row_width(cc), sw = spec_width(spec_cc);
-  const int32_t n = stage::row_length(comp_lens, b, sw);
+  const int32_t n = bd::row_length(comp_lens, b, sw);
   const sc::CudaWarp w{};
   using Ring = sc::RingWords<kRingWords>;
   using Row = typename std::conditional<kInput == kWords, sc::RowWords, sc::RowBytes>::type;

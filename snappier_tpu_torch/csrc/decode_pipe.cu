@@ -40,7 +40,6 @@
 #include <type_traits>
 
 #include "batched_decode.cuh"
-#include "decode_stage.cuh"
 #include "scalar_codec.cuh"
 #include "smem_config.cuh"
 
@@ -92,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const uint8_t* row = comp + b * cc;
   const int32_t width = bd::row_width(cc);
-  const int32_t n = stage::row_length(comp_lens, b, width);
+  const int32_t n = bd::row_length(comp_lens, b, width);
   const sc::CudaWarp w{};
   const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), width};
   const sc::RowBytes bytes{row, width};

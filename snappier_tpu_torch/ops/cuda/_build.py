@@ -65,6 +65,7 @@ SOURCES = {
         [_I32, _I32, _I32, _I32, _I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
     ),
     "decode_pipe_layout": ("snappy_decode_pipe_layout", [_P, _I64, _I32, _I32, _I32, _I32, _P]),
+    "decode_variant_layout": ("snappy_decode_variant_layout", [_P, _I64, _I32, _I32, _P]),
     "encode_variants": (
         "snappy_encode_variant_launch",
         [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
@@ -98,7 +99,7 @@ SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "i
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
                  "best_layout": "encode_best", "crc32c_layout": "crc32c",
                  "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4",
-                 "decode_pipe_layout": "decode_pipe"}
+                 "decode_pipe_layout": "decode_pipe", "decode_variant_layout": "decode_variants"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,11 +1,15 @@
-"""The decode-walk ablation: six variants of the batched Snappy block
-decode (port of the kernels of ``tools/perf_probe.py``).
+"""The decode-walk ablation: six forms of the batched Snappy block decode
+(port of the kernels of ``tools/perf_probe.py``).
 
 ``decode_v2``, ``decode_v4``, ``decode_v3`` and ``decode_variant`` (``"v1"``,
 ``"v1nock"``, ``"v1nocp"``) compute one function, the decode of a batch of
-blocks, and differ in how the kernel keeps its output image and appends a
-tag's payload (``csrc/decode_variants.cuh`` says how); the ablation
-(``tools/torch_perf_probe.py``) times them against the production kernel,
+blocks; on the TPU they differed in how the walk keeps its output image and
+appends a tag's payload. On the card they are one kernel
+(``csrc/decode_variants.cu``) on the production kernel's block and batched
+walk, over a tag source with the TPU kernels' error words
+(``csrc/decode_variants.cuh``), each TPU knob as its nearest counterpart there
+(that file says which); the ablation (``tools/torch_perf_probe.py``) times
+them against the production kernel,
 :func:`snappier_tpu_torch.ops.cuda.scalar_codec.decode_blocks_bytes`.
 
 Each wrapper takes ``(comp [B, CC] uint8 or int32, comp_lens [B], out_cap)``
@@ -19,19 +23,20 @@ the claimed length); 8 for a bad preamble, which includes a claim above
 outside ``[0, CC]`` are taken as 0 or ``CC``, and bytes at or past ``CC``
 read as zero.
 
-The wrappers accept what ``decode_blocks_bytes`` accepts: any ``CC`` and
-``out_cap`` whose images fit one block's shared memory. The TPU kernels'
-``% 1024`` shapes were their DMA tiling and are not carried over, with one
-consequence: the TPU word variants round their output image up to 1024
-words, so their capacity is ``owc * 4 - 1024`` bytes, which exceeds
-``out_cap`` unless ``out_cap + 1024`` is a multiple of 4096 (68,608 at
-``out_cap`` 65,536), and they accept a preamble up to that and cut the row.
-Here every variant gives ``ERR_BAD_PREAMBLE`` for a claim above ``out_cap``,
-as ``v1`` and the production kernel do on either machine.
+The wrappers accept what ``decode_pipe`` accepts: rows of any width, and an
+``out_cap`` whose image (with its slack) fits one block's shared memory.
+The TPU kernels' ``% 1024`` shapes were their DMA tiling and are not carried
+over, with one consequence: the TPU word variants round their output image
+up to 1024 words, so their capacity is ``owc * 4 - 1024`` bytes, which
+exceeds ``out_cap`` unless ``out_cap + 1024`` is a multiple of 4096 (68,608
+at ``out_cap`` 65,536), and they accept a preamble up to that and cut the
+row. Here every variant gives ``ERR_BAD_PREAMBLE`` for a claim above
+``out_cap``, as ``v1`` and the production kernel do on either machine.
+:func:`decode_variant_layout` gives a variant's launch layout.
 
-A CUDA tensor launches the kernel (``csrc/decode_variants.cu``) or raises;
-a CPU tensor runs the plain Python walk, which the four share because they
-compute one function. Each wrapper counts its own launches.
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+Python walk, which the four share because they compute one function. Each
+wrapper counts its own launches.
 
 ``decode_pipe`` and ``decode_pipe2`` (port of the pipelined walks of
 ``tools/perf_probe_r4.py``; one kernel in ``csrc/decode_pipe.cu`` on the
@@ -81,9 +86,9 @@ VARIANTS = {
 
 
 def _parse_tag(rd, ip: int):
-    """The tag at ``ip``: (hdr, is_lit, length, off, advance); mirrors
-    ``sc::parse_tag`` (a 4-byte length or offset field whose top byte is set
-    is poisoned)."""
+    """The tag at ``ip``: (hdr, is_lit, length, off, advance), as the TPU
+    kernels read it: a 4-byte length or offset field whose top byte is set
+    is poisoned (``dv::variant_error`` reads it the same way)."""
     tag = rd(ip)
     tt, l6 = tag & 3, tag >> 2
     rest = rd(ip + 1) | rd(ip + 2) << 8 | rd(ip + 3) << 16
@@ -126,11 +131,11 @@ def read_preamble(comp: bytes, n: int, out_cap: int):
 
 
 def _walk_row(comp: bytes, n: int, out_cap: int, out: bytearray, checks: bool, copies: bool):
-    """One block's walk; mirrors ``sc::decode_block_words`` and
-    ``sc::decode_block_bytes16``, which compute one function. Returns
-    ``(out_len, err)`` and, with ``copies``, writes the output into ``out``.
-    Without ``checks`` no tag is tested: the result is defined for valid
-    blocks only, and a payload is cut to the room that is left."""
+    """One block's walk, a tag at a time, as the TPU kernels walk it;
+    computes what ``csrc/decode_variants.cu`` computes. Returns ``(out_len,
+    err)`` and, with ``copies``, writes the output into ``out``. Without
+    ``checks`` no tag is tested: the result is defined for valid blocks only,
+    and a payload is cut to the room that is left."""
     cc = len(comp)
     n = min(max(n, 0), cc)
 
@@ -188,27 +193,52 @@ def decode_variant_plain(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: i
     return torch.from_numpy(out), torch.from_numpy(out_lens), torch.from_numpy(errs)
 
 
-def _smem_bytes(variant: int, cc: int, out_cap: int) -> int:
-    """Dynamic shared memory of one block; mirrors ``smem_bytes`` in
-    ``csrc/decode_variants.cu``."""
-    comp_words = ((cc + 3) // 4 + 2 + 3) & ~3
-    out_words = ((out_cap + 3) // 4 + 4 + 3) & ~3
-    return 4 * (256 + comp_words + out_words + (16 if variant >= 3 else 0))
+#: The rounds each variant's writing warp stores whole past a batch's end
+#: (``unc`` of ``decode_pipe2``), by the launcher's variant number
+#: (``dv::with_variant``): v2 0, v4 1, v3 0, v1 / v1nock / v1nocp 2.
+_VARIANT_UNC = (0, 1, 0, 2, 2, 2)
+
+
+def _smem_bytes(variant: int, out_cap: int) -> int:
+    """Shared memory of one block of variant number ``variant``, dynamic and
+    static: the output image with its slack, whatever the row's width (the
+    block of ``csrc/decode_pipe.cu``)."""
+    return _pipe_smem_bytes(out_cap, _VARIANT_UNC[variant])
+
+
+def _check_variant(variant: str, out_cap: int) -> int:
+    """The launcher's number of ``variant``, after checking that ``out_cap``
+    fits one block's shared memory."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
+    number = VARIANTS[variant][0]
+    if out_cap <= 0 or _smem_bytes(number, out_cap) > MAX_OUT_CAP:
+        raise ValueError(
+            f"out_cap {out_cap} does not fit one block's shared memory "
+            f"({_smem_bytes(number, out_cap)} of {MAX_OUT_CAP} bytes)"
+        )
+    return number
+
+
+def decode_variant_layout(comp, out_cap: int = BLOCK_SIZE, variant: str = "v1") -> dict:
+    """The launch layout of ``variant`` for these rows, as its wrapper
+    launches it: ``blocks_per_sm``, ``smem_bytes`` per block (dynamic and
+    static), ``threads`` and ``loader`` (``"ring"`` for a base and width that
+    are multiples of 4, else ``"bytes"``), in the manner of
+    ``scalar_codec.decode_layout``."""
+    comp = byte_rows(comp, "comp")
+    number = _check_variant(variant, int(out_cap))
+    return _layout("decode_variant_layout", comp, int(out_cap), number,
+                   loaders=("ring", "bytes"))
 
 
 def _decode(comp, comp_lens, out_cap: int, variant: str):
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
-    number, counter = VARIANTS[variant]
+    out_cap = int(out_cap)
+    number = _check_variant(variant, out_cap)
+    counter = VARIANTS[variant][1]
     comp = byte_rows(comp, "comp")
     B, cc = comp.shape
     comp_lens = lengths_vector(comp_lens, B, "comp_lens")
-    out_cap = int(out_cap)
-    if out_cap <= 0 or _smem_bytes(number, cc, out_cap) > MAX_OUT_CAP:
-        raise ValueError(
-            f"a row of {cc} bytes and out_cap {out_cap} do not fit one block's shared memory "
-            f"({_smem_bytes(number, cc, out_cap)} of {MAX_OUT_CAP} bytes)"
-        )
     if not on_cuda(comp, comp_lens):
         return decode_variant_plain(comp, comp_lens, out_cap, variant)
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
@@ -223,30 +253,35 @@ def _decode(comp, comp_lens, out_cap: int, variant: str):
 
 
 def decode_v2(comp, comp_lens, out_cap: int = BLOCK_SIZE):
-    """Word-packed output image, funnel-shift appends, the error word
-    carried through the walk (``tools/perf_probe.py::decode_v2``)."""
+    """``tools/perf_probe.py::decode_v2`` (on the TPU a word-packed output
+    image and the error word carried through the walk); on the card the
+    batched walk, each batch's bytes written up to its end."""
     return _decode(comp, comp_lens, out_cap, "v2")
 
 
 def decode_v4(comp, comp_lens, out_cap: int = BLOCK_SIZE):
-    """``decode_v2`` with the words after the frontier word always stored
-    and the error word worked out once, after the walk
-    (``tools/perf_probe.py::decode_v4``)."""
+    """``tools/perf_probe.py::decode_v4`` (on the TPU ``decode_v2`` with the
+    words after the frontier always stored and the error word worked out
+    after the walk); on the card each batch's last round stored whole."""
     return _decode(comp, comp_lens, out_cap, "v4")
 
 
 def decode_v3(comp, comp_lens, out_cap: int = BLOCK_SIZE):
-    """One image for the compressed and the output words, one append path
-    for literals and copies (``tools/perf_probe.py::decode_v3``)."""
+    """``tools/perf_probe.py::decode_v3`` (on the TPU one image for the
+    compressed and the output words, one append path); on the card
+    ``decode_v2``'s kernel, whose writing warp already reads literals and
+    copies through one source word."""
     return _decode(comp, comp_lens, out_cap, "v3")
 
 
 def decode_variant(comp, comp_lens, out_cap: int = BLOCK_SIZE, variant: str = "v1"):
-    """Byte image with a fixed 16-byte move per tag
-    (``tools/perf_probe.py::decode_variant``). ``variant`` is ``"v1"``,
-    ``"v1nock"`` (no per-tag checks: trusted input only, the result is
-    defined for valid blocks) or ``"v1nocp"`` (the walk alone: ``out`` is
-    not written, only ``out_lens`` and ``errs`` mean anything)."""
+    """``tools/perf_probe.py::decode_variant`` (on the TPU a byte image with a
+    fixed 16-byte move per tag; on the card every round left in a batch's
+    step stored whole). ``variant`` is ``"v1"``, ``"v1nock"`` (no per-tag
+    checks but those that keep every access inside the image and the row:
+    trusted input only, the result is defined for valid blocks) or
+    ``"v1nocp"`` (the walk alone: ``out`` is not written, only ``out_lens``
+    and ``errs`` mean anything)."""
     if variant not in ("v1", "v1nock", "v1nocp"):
         raise ValueError(f"unknown variant {variant!r}: 'v1', 'v1nock' or 'v1nocp'")
     return _decode(comp, comp_lens, out_cap, variant)

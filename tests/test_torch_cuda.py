@@ -606,37 +606,104 @@ def test_cuda_stream_adapters(cuda_device):
 @pytest.mark.parametrize("variant", sorted(dv.VARIANTS))
 @pytest.mark.parametrize("cc,out_cap,big", [(2048, 1024, 0), (2051, 1022, 0), (68608, 65536, 65536)])
 def test_cuda_decode_variants_match_plain(cuda_device, variant, cc, out_cap, big):
-    """Each ablation kernel against the plain walk, on valid blocks (short
-    offsets, overlapping copies, long literals, a 4-byte offset) and corrupt
-    ones, with garbage past each length; the unchecked variant on the valid
-    blocks only, the walk-only variant on lengths and error words only."""
-    valid = walk_streams(big)
-    streams = valid + ([] if variant == "v1nock" else corrupt_streams())
+    """Each ablation form against the plain walk, on valid blocks (short
+    offsets, overlapping copies, long literals, a 4-byte offset, batch-edge
+    blocks) and corrupt ones (blocks holding a literal of no bytes among
+    them), with garbage past each length; word rows through the ring, and the
+    same rows 1 byte into a buffer through the byte loader; the unchecked
+    form on the valid blocks only, the walk-only form on lengths and error
+    words only."""
+    valid = walk_streams(big) + [s for s in batch_streams(programs=4) if len(s) <= cc]
+    more = corrupt_streams() + [s for s in empty_literal_streams(tags=60 if cc < 4096 else 200)
+                                if len(s) <= cc]
+    streams = valid + ([] if variant == "v1nock" else more)
     comp, lens = pack_streams(streams, cc)
     c_h, l_h = _t(comp.astype(np.uint8)), _t(lens)
+    c_d, l_d = c_h.to(cuda_device), l_h.to(cuda_device)
+    buf = torch.zeros(c_d.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    buf[1:].copy_(c_d.reshape(-1))
     wrapper = {"v2": dv.decode_v2, "v4": dv.decode_v4, "v3": dv.decode_v3}.get(variant)
-    _build.reset_launches()
-    if wrapper:
-        got = wrapper(c_h.to(cuda_device), l_h.to(cuda_device), out_cap)
-    else:
-        got = dv.decode_variant(c_h.to(cuda_device), l_h.to(cuda_device), out_cap, variant)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES[dv.VARIANTS[variant][1]] == 1
     want = dv.decode_variant_plain(c_h, l_h, out_cap, variant)
-    assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
-    assert (got[1].cpu() == want[1]).all()
-    assert int((want[2][: len(valid)] != 0).sum()) == 0
+    assert int((want[2][: len(walk_streams(big))] != 0).sum()) == 0
+    for rows in (c_d, buf[1:].view(c_d.shape)):
+        _build.reset_launches()
+        if wrapper:
+            got = wrapper(rows, l_d, out_cap)
+        else:
+            got = dv.decode_variant(rows, l_d, out_cap, variant)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {dv.VARIANTS[variant][1]: 1}
+        assert (got[2].cpu() == want[2]).all(), (got[2].tolist(), want[2].tolist())
+        assert (got[1].cpu() == want[1]).all()
+        if variant != "v1nocp":
+            _rows_equal(got[0], want[0], want[1])
     if variant != "v1nocp":
-        _rows_equal(got[0], want[0], want[1])
-        k1 = decode_blocks_bytes(c_h.to(cuda_device), l_h.to(cuda_device), out_cap)
+        k1 = decode_blocks_bytes(c_d, l_d, out_cap)
         _rows_equal(got[0], k1[0], want[1])
         assert ((k1[2] == 0) == (got[2] == 0)).all()
 
 
 def test_cuda_decode_variants_reject_what_does_not_fit(cuda_device):
+    """Only an out_cap whose image and slack pass a block's shared memory is
+    refused; a row of any width decodes (the row is not staged)."""
     comp = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError):
-        dv.decode_v2(comp, torch.tensor([5], device=cuda_device), 65536)
+    comp[0, :7] = torch.tensor(list(bytes([5, 4 << 2]) + b"hello"), dtype=torch.uint8)
+    lens = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        dv.decode_v2(comp, lens, 240000)
+    for name in sorted(dv.VARIANTS):
+        got = (dv.decode_variant(comp, lens, 65536, name) if name.startswith("v1")
+               else getattr(dv, f"decode_{name}")(comp, lens, 65536))
+        want = dv.decode_variant_plain(comp.cpu(), lens.cpu(), 65536, name)
+        assert got[1].tolist() == want[1].tolist() == [5] and got[2].tolist() == [0], name
+        if name != "v1nocp":
+            assert bytes(got[0][0, :5].tolist()) == b"hello", name
+
+
+def test_cuda_decode_variant_nock_on_corrupt_rows(cuda_device):
+    """``v1nock`` keeps the checks that keep its accesses inside the image and
+    the row: on corrupt blocks (claims past out_cap, overrunning literals and
+    copies, offsets of 0 and past the output, literals of no bytes) beside
+    valid ones, in one launch, it finishes without a fault, and the valid
+    rows are the checked form's."""
+    valid = walk_streams(65536)
+    bad = corrupt_streams() + empty_literal_streams()
+    streams = [s for pair in zip(valid, bad) for s in pair] + valid[len(bad):] + bad[len(valid):]
+    comp, lens = pack_streams(streams, 68608)
+    c_d, l_d = _t(comp.astype(np.uint8)).to(cuda_device), _t(lens).to(cuda_device)
+    got = dv.decode_variant(c_d, l_d, 65536, "v1nock")
+    torch.cuda.synchronize()
+    checked = dv.decode_variant(c_d, l_d, 65536, "v1")
+    ok = (checked[2] == 0).cpu()
+    assert int(ok.sum()) >= len(valid)
+    assert (got[2].cpu()[ok] == 0).all() and (got[1].cpu()[ok] == checked[1].cpu()[ok]).all()
+    _rows_equal(got[0][ok.to(cuda_device)], checked[0][ok.to(cuda_device)], checked[1].cpu()[ok])
+    # A stopped walk gives 4, a bad preamble 8; out_len is 0 on any error.
+    assert set(got[2].tolist()) <= {0, 4, 8} and not got[1][got[2] != 0].any()
+
+
+def test_cuda_decode_variant_layout(cuda_device):
+    """The ablation kernel holds K1's layout: three blocks of two warps an SM
+    at out_cap 65,536 in every form whatever the row's width, its shared
+    bytes those ``_smem_bytes`` counts (the slack of each form included);
+    word rows through the ring, others the byte loader; every instantiation
+    (8: four forms of the walk, each loader) without a stack frame or
+    spills."""
+    import chip_smoke
+
+    for cc in (68608, 17408, 200000):
+        rows = torch.zeros((2, cc), dtype=torch.uint8, device=cuda_device)
+        for name, (number, _) in dv.VARIANTS.items():
+            lay = dv.decode_variant_layout(rows, 65536, name)
+            assert lay == {"blocks_per_sm": 3, "smem_bytes": dv._smem_bytes(number, 65536),
+                           "threads": 64, "loader": "ring"}, (name, lay)
+    odd = torch.zeros(2 * 68611 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(2, 68611)
+    lay = dv.decode_variant_layout(odd, 65536, "v1")
+    assert lay["loader"] == "bytes" and lay["blocks_per_sm"] == 3, lay
+    figs = chip_smoke.ptxas_figures(_build.BUILD_LOG["decode_variants"], "decode_variant_kernel")
+    assert len(figs) == 8, figs
+    for fig in figs:
+        assert all(fig.get(k) == 0 for k in ("stack", "spill_stores", "spill_loads")), fig
 
 
 def test_cuda_scan_codec_matches_cpu(cuda_device):

@@ -143,7 +143,18 @@ def test_wrapper_argument_checks():
     with pytest.raises(ValueError, match="unknown variant"):
         dv.decode_variant(comp, lens, 64, "v2")  # has a wrapper of its own
     with pytest.raises(ValueError, match="shared memory"):
-        dv.decode_v2(torch.zeros((1, 200000), dtype=torch.uint8), lens[:1], 65536)
+        dv.decode_v2(comp, lens, 240000)  # the image alone passes MAX_OUT_CAP
+    cap = 229248  # the image and the static 3,200 bytes fit; with v1's 128 of slack not
+    assert dv.decode_v2(comp, lens, cap)[2].tolist() == [4, 4]
+    with pytest.raises(ValueError, match="shared memory"):
+        dv.decode_variant(comp, lens, cap, "v1")
+    # A row of any width decodes: the row is not staged in shared memory.
+    wide = torch.zeros((1, 200000), dtype=torch.uint8)
+    wide[0, :7] = torch.tensor(list(bytes([5, 4 << 2]) + b"hello"), dtype=torch.uint8)
+    got = dv.decode_v2(wide, torch.tensor([7], dtype=torch.int32), 65536)
+    want = dv.decode_variant_plain(wide, torch.tensor([7], dtype=torch.int32), 65536, "v2")
+    assert got[1].tolist() == want[1].tolist() == [5] and got[2].tolist() == [0]
+    assert bytes(got[0][0, :5].tolist()) == bytes(want[0][0, :5].tolist()) == b"hello"
     with pytest.raises(ValueError):
         dv.decode_v3(comp, lens[:1], 64)
     with pytest.raises(ValueError):

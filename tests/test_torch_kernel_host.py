@@ -76,10 +76,6 @@ SHIM = (r"""
 #include "scalar_codec.cuh"
 
 namespace {
-struct NoSync {
-  void operator()() const {}
-};
-
 // Reusable barrier for the lanes of one block (a host stand-in for
 // __syncwarp).
 struct Barrier {
@@ -305,88 +301,15 @@ extern "C" int host_prepass(int32_t form, const uint8_t* comp, int64_t cc, int64
                    : prepass_rows<hy::SpecOne>(comp, cc, batch, offset, loader, spec0, spec1);
 }
 
-// One block through an ablation variant's walk on `nlanes` threads: 0 v2,
-// 1 v4, 2 v3 (word images), 3 v1, 4 v1nock, 5 v1nocp (byte image). The image
-// is laid out and staged as decode_variants.cu does it, and starts poisoned.
-template <class Sync>
-static sc::DecodeResult run_variant(int variant, uint32_t* img, int32_t wc, int32_t owc,
-                                    const int32_t* lut, int32_t n, int32_t out_cap, int lane,
-                                    int nlanes, Sync sync) {
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(img);
-  int32_t total = (wc + owc + 16) * 4;
-  switch (variant) {
-    case 0:
-      return sc::decode_block_words<false, false, false>(img, wc, owc, lut, n, out_cap, lane,
-                                                          nlanes, sync);
-    case 1:
-      return sc::decode_block_words<false, true, true>(img, wc, owc, lut, n, out_cap, lane,
-                                                        nlanes, sync);
-    case 2:
-      return sc::decode_block_words<true, false, true>(img, wc, owc, lut, n, out_cap, lane,
-                                                        nlanes, sync);
-    case 3:
-      return sc::decode_block_bytes16<true, true>(bytes, wc * 4, total, lut, n, out_cap, lane,
-                                                   nlanes, sync);
-    case 4:
-      return sc::decode_block_bytes16<false, true>(bytes, wc * 4, total, lut, n, out_cap, lane,
-                                                    nlanes, sync);
-    default:
-      return sc::decode_block_bytes16<true, false>(bytes, wc * 4, total, lut, n, out_cap, lane,
-                                                    nlanes, sync);
-  }
-}
-
-extern "C" void host_variant(int32_t variant, const uint8_t* comp, int64_t cc,
-                             const int32_t* lens, int64_t batch, int32_t out_cap,
-                             int32_t nlanes, uint8_t* out, int32_t* out_lens, int32_t* errs) {
-  int32_t lut[256];
-  for (int t = 0; t < 256; t++) lut[t] = sc::tag_descriptor(t);
-  int32_t wc = (int32_t)((((cc + 3) >> 2) + 2 + 3) & ~(int64_t)3);
-  int32_t owc = (((out_cap + 3) >> 2) + 4 + 3) & ~3;
-  std::vector<uint32_t> img(wc + owc + 16);
-  for (int64_t b = 0; b < batch; b++) {
-    int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
-    for (auto& w : img) w = 0xDEADBEEFu;
-    for (int32_t w = 0; w < wc && w < ((n + 8 + 3) >> 2); w++) {
-      uint32_t v = 0;
-      for (int j = 0; j < 4; j++) {
-        int64_t i = (int64_t)w * 4 + j;
-        if (i < cc) v |= (uint32_t)comp[b * cc + i] << (8 * j);
-      }
-      img[w] = v;
-    }
-    std::vector<sc::DecodeResult> res(nlanes);
-    if (nlanes == 1) {
-      res[0] = run_variant(variant, img.data(), wc, owc, lut, n, out_cap, 0, 1, NoSync());
-    } else {
-      Barrier bar(nlanes);
-      std::vector<std::thread> lanes;
-      for (int lane = 0; lane < nlanes; lane++) {
-        lanes.emplace_back([&, lane] {
-          res[lane] = run_variant(variant, img.data(), wc, owc, lut, n, out_cap, lane, nlanes,
-                                  BarrierSync{&bar});
-        });
-      }
-      for (auto& t : lanes) t.join();
-      for (int lane = 1; lane < nlanes; lane++) {
-        if (res[lane].out_len != res[0].out_len || res[lane].err != res[0].err) res[0].err = -1;
-      }
-    }
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(img.data() + wc);
-    for (int32_t i = 0; i < res[0].out_len; i++) out[b * out_cap + i] = src[i];
-    out_lens[b] = res[0].out_len;
-    errs[b] = res[0].err;
-  }
-}
-
 // The pipelined walks of decode_pipe.cu (decode_pipe_kernel's two warps in
 // one) on each row: sc::decode_block_batched<kUnits> over
 // sc::ParsedTags<Ld, kEmpty> on a warp of N lanes, every batch written by
 // sc::emit_batch<kUnc> from the row's loader into an image of out_cap bytes,
 // the slack of kUnc's over-stores and a guard, all poisoned first (without
 // `emit` no batch is handed on). Returns false if a clean walk stored a
-// byte at or past its output's end and its slack; counts[2] gets the rows
-// where one stored a byte past its output's end.
+// byte at or past its output's end and its slack, or any walk one in the
+// guard past out_cap and the slack; counts[2] gets the rows where a clean
+// walk stored a byte past its output's end.
 constexpr int32_t kPipeGuard = 64;
 
 template <int N, bool kEmpty, int kUnits, int kUnc, class Tags, class Ld>
@@ -402,7 +325,12 @@ static bool pipe_walk(const Tags& tags, const Ld& row, int32_t n, int32_t out_ca
   counts[0] += w.batches;
   counts[1] += w.tags_seen;
   memcpy(dst, img.data(), (size_t)out_cap);
-  if (r.err != 0) return true;
+  if (r.err != 0) {
+    for (size_t i = (size_t)(out_cap + slack); i < img.size(); i++) {
+      if (img[i] != 0xDB) return false;
+    }
+    return true;
+  }
   bool past = false;
   for (int32_t i = r.out_len; i < (int32_t)img.size(); i++) {
     if (img[i] == 0xDB) continue;
@@ -487,6 +415,64 @@ extern "C" int host_pipe(int32_t fold, int32_t unroll, int32_t unc, int32_t emit
   if (nlanes == 1) return call(pipe_form<1>);
   if (nlanes == 4) return call(pipe_form<4>);
   return call(pipe_form<32>);
+}
+
+// The ablation kernels of decode_variants.cu (decode_variant_kernel's two
+// warps in one) on each row: variant 0 v2, 1 v4, 2 v3, 3 v1, 4 v1nock, 5
+// v1nocp as dv::with_variant maps it, sc::decode_block_batched over
+// dv::VariantTags on a warp of `nlanes` (1, 4 or 32) lanes through
+// pipe_walk (its image, slack and guard poisoned first), the rows guarded at
+// `offset` and read through loader 0 (the ring over word rows) or 1
+// (bytes). counts as host_pipe's. Returns 0, -1 if the buffer was refused,
+// -2 if an over-store passed its slack, -3 for another variant.
+template <int N>
+static int variant_rows(int32_t variant, const uint8_t* comp, int64_t cc, const int32_t* lens,
+                        int64_t batch, int32_t out_cap, int32_t offset, int32_t loader,
+                        uint8_t* out, int32_t* out_lens, int32_t* errs, int64_t* counts) {
+  counts[0] = counts[1] = counts[2] = 0;
+  GuardedRows g(comp, batch, cc, offset);
+  if (g.mem == nullptr) return -1;
+  static uint32_t lut[256];
+  for (int t = 0; t < 256; t++) lut[t] = sc::tag_entry((uint32_t)t);
+  std::vector<uint32_t> ring(256);
+  using Ring = sc::RingWords<256>;
+  const int rc = dv::with_variant(variant, [&](auto checks, auto unc, bool emit) {
+    constexpr bool K = decltype(checks)::value;
+    constexpr int U = decltype(unc)::value;
+    for (int64_t b = 0; b < batch; b++) {
+      const uint8_t* row = g.rows + b * cc;
+      for (auto& v : ring) v = 0xDEADBEEFu;
+      const int32_t n = lens[b] < 0 ? 0 : (lens[b] > cc ? (int32_t)cc : lens[b]);
+      const sc::RowWords words{reinterpret_cast<const uint32_t*>(row), (int32_t)cc};
+      const sc::RowBytes bytes{row, (int32_t)cc};
+      sc::DecodeResult r;
+      const bool kept =
+          loader == 0
+              ? pipe_walk<N, false, 1, U>(
+                    dv::VariantTags<Ring, K>(Ring(words, ring.data()), lut, n), words, n,
+                    out_cap, emit, out + b * out_cap, r, counts)
+              : pipe_walk<N, false, 1, U>(dv::VariantTags<sc::RowBytes, K>(bytes, lut, n),
+                                          bytes, n, out_cap, emit, out + b * out_cap, r, counts);
+      if (!kept) return -2;
+      out_lens[b] = r.out_len;
+      errs[b] = r.err;
+    }
+    return 0;
+  });
+  return rc == -1 ? -3 : rc;
+}
+
+extern "C" int host_variant(int32_t variant, const uint8_t* comp, int64_t cc,
+                            const int32_t* lens, int64_t batch, int32_t out_cap, int32_t nlanes,
+                            int32_t offset, int32_t loader, uint8_t* out, int32_t* out_lens,
+                            int32_t* errs, int64_t* counts) {
+  auto call = [&](auto walk) {
+    return walk(variant, comp, cc, lens, batch, out_cap, offset, loader, out, out_lens, errs,
+                counts);
+  };
+  if (nlanes == 1) return call(variant_rows<1>);
+  if (nlanes == 4) return call(variant_rows<4>);
+  return call(variant_rows<32>);
 }
 
 // The encode-ablation walk of one row under a mask; `fixed` takes the walk
@@ -679,8 +665,8 @@ def host_lib(tmp_path_factory):
     so.host_encode_best.restype = I32
     so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
     so.host_probe.restype = None
-    so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, P, P, P]
-    so.host_variant.restype = None
+    so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, I32, I32, P, P, P, P]
+    so.host_variant.restype = I32
     so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, I32, I32, P, P, P,
                              P]
     so.host_pipe.restype = I32
@@ -1035,34 +1021,67 @@ def test_host_probe_walk_matches_jax(host_lib):
 @pytest.mark.parametrize("nlanes", [1, 4, 32])
 @pytest.mark.parametrize("variant", ["v2", "v4", "v3", "v1", "v1nock", "v1nocp"])
 def test_host_variant_walk_matches_plain(host_lib, variant, nlanes):
-    """Each ablation walk on one lane, on 4 and on 32 threads that meet at a
-    barrier wherever the lanes of a warp meet at ``__syncwarp`` (32 is the
-    warp: it reaches the rounds of an append whose source overlaps its
-    destination), against the plain version: valid blocks with every short
-    offset, a 64 KiB block, corrupt blocks, garbage past each length."""
+    """Each ablation form (the decode kernel's batched walk over
+    ``dv::VariantTags``, its knobs as ``dv::with_variant`` maps them) on a
+    warp of 1, 4 and 32 lanes against the plain version: valid blocks with
+    every short offset, a 64 KiB block, batch-edge blocks; but for the
+    unchecked form (defined for valid blocks only) corrupt blocks, blocks
+    holding a literal of no bytes (T1-T4 give it their error word) and a
+    sample of the tag-byte sweep; garbage past each length; rows ending at a
+    guard page read by the byte loader at a width that is no multiple of 4
+    and by the ring at one that is; over-stores within their slack."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
 
-    valid = walk_streams(big=0 if nlanes == 32 else 65536)
-    streams = valid + ([] if variant == "v1nock" else corrupt_streams())
-    cc, out_cap = (68611, 65536) if nlanes != 32 else (2051, 1022)
-    comp, lens = pack_streams(streams, cc)
-    comp8 = np.ascontiguousarray(comp, np.uint8)
-    B = len(streams)
-    out = np.zeros((B, out_cap), np.uint8)
-    out_lens = np.zeros(B, np.int32)
-    errs = np.zeros(B, np.int32)
-    host_lib.host_variant(dv.VARIANTS[variant][0], comp8.ctypes.data, cc, lens.ctypes.data, B,
-                          out_cap, nlanes, out.ctypes.data, out_lens.ctypes.data,
-                          errs.ctypes.data)
-    want = [x.numpy() for x in dv.decode_variant_plain(
-        torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, variant)]
-    assert (errs == want[2]).all(), (errs.tolist(), want[2].tolist())
-    assert (out_lens == want[1]).all()
-    if variant != "v1nocp":
-        for i in range(B):
-            assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), i
+    number = dv.VARIANTS[variant][0]
+    walks = walk_streams(big=0 if nlanes == 32 else 65536)
+    valid = walks + batch_streams(programs=4)
+    more = [] if variant == "v1nock" else (corrupt_streams() + empty_literal_streams()
+                                           + tag_sweep_sample(97))
+    widths, out_cap = ((68611, 68612), 65536) if nlanes != 32 else ((4095, 4096), 3070)
+    for cc, loader in zip(widths, (1, 0)):
+        valid, more = ([s for s in x if len(s) <= cc] for x in (valid, more))
+        comp, lens = pack_streams(valid + more, cc)
+        comp8 = np.ascontiguousarray(comp, np.uint8)
+        B = len(comp8)
+        out = np.zeros((B, out_cap), np.uint8)
+        out_lens = np.zeros(B, np.int32)
+        errs = np.zeros(B, np.int32)
+        counts = np.zeros(3, np.int64)
+        rc = host_lib.host_variant(number, comp8.ctypes.data, cc, lens.ctypes.data, B, out_cap,
+                                   nlanes, _offset_arg(AT_GUARD), loader, out.ctypes.data,
+                                   out_lens.ctypes.data, errs.ctypes.data, counts.ctypes.data)
+        assert rc == 0, rc
+        want = [x.numpy() for x in dv.decode_variant_plain(
+            torch.from_numpy(comp8), torch.from_numpy(lens), out_cap, variant)]
+        assert (errs == want[2]).all(), (loader, errs.tolist(), want[2].tolist())
+        assert (out_lens == want[1]).all(), loader
+        assert not errs[: len(walks)].any()  # some batch-edge claims pass out_cap 3070: 8
+        if more:
+            assert {1, 2, 4, 8} <= set(errs.tolist())  # T1-T4's separate words
+        if variant != "v1nocp":
+            for i in range(B):
+                assert (out[i, : out_lens[i]] == want[0][i, : want[1][i]]).all(), (loader, i)
+        if nlanes == 32:  # a batch resolves several tags a warp step
+            assert counts[1] > 2 * counts[0], counts
+        unc = dv._VARIANT_UNC[number]
+        over = unc == 2 or (unc == 1 and nlanes > 1)
+        assert (counts[2] > 0) == (over and variant != "v1nocp"), counts
+    if variant == "v1nock":
+        # Corrupt blocks: the room and offset tests keep every store inside
+        # the image and its slack (rc -2 past it); a stopped walk gives 4.
+        bad = [s for s in corrupt_streams() + empty_literal_streams() if len(s) <= cc]
+        comp, lens = pack_streams(bad, cc)
+        comp8 = np.ascontiguousarray(comp, np.uint8)
+        B = len(bad)
+        out = np.zeros((B, out_cap), np.uint8)
+        out_lens, errs = np.zeros(B, np.int32), np.zeros(B, np.int32)
+        rc = host_lib.host_variant(number, comp8.ctypes.data, cc, lens.ctypes.data, B, out_cap,
+                                   nlanes, _offset_arg(AT_GUARD), 0, out.ctypes.data,
+                                   out_lens.ctypes.data, errs.ctypes.data, counts.ctypes.data)
+        assert rc == 0, rc
+        assert set(errs.tolist()) == {0, 4, 8} and not out_lens[errs != 0].any()
 
 
 PIPE_CASES = [

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the descriptor-driven decode (T14-T16, T18 ``decode_v7``), the
-pipelined decode (T6 ``decode_pipe``, T7 ``decode_pipe2``), the chain
+"""Time the decode-walk ablation (T1-T4), the descriptor-driven decode
+(T14-T16, T18 ``decode_v7``), the pipelined decode (T6 ``decode_pipe``, T7
+``decode_pipe2``), the chain
 probes (T10 ``chain``, T19 ``cliff``, the chase) and the copy probes (T11
 ``vcopy``, T13 ``iso``) of one or more checkouts on one GPU, beside the
 production kernels K1-K4.
@@ -23,8 +24,11 @@ the call, the pre-passes alone and each form's peak device memory, at the
 codec's row width (68,608 B) and the tight one; ``decode_pipe`` and
 ``decode_pipe2`` in the eleven forms of ``tests/torch_cases.py``'s
 ``PIPE_CASES`` (unroll 1-4, ``unc``, ``dma_pipe``, ``emit=False``) at both
-widths; each form's layout (the pipelined ones' where the package has
-``decode_pipe_layout``); ``chain`` and ``cliff``
+widths; ``decode_v2``, ``decode_v4``, ``decode_v3`` and ``decode_variant``
+as v1, v1nock and v1nocp at both widths; each form's layout (the pipelined
+ones' where the package has ``decode_pipe_layout``, the ablation's where it
+has ``decode_variant_layout``) and the ablation kernels' ptxas figures;
+``chain`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
 the chase, in ms and ns a walk step; ``vcopy`` 2d and 3d and ``iso`` in its
 six modes on block 0's records, in ms and ns a record; ``coissue`` at nvec 0
@@ -54,7 +58,7 @@ import sys
 from torch_crc_times import HERE, in_turns, smoke
 
 SOURCES = ("decode", "encode", "crc32c", "encode_best", "decode_hybrid", "decode_pipe",
-           "hybrid_probes")
+           "decode_variants", "hybrid_probes")
 
 
 def pipe_cases() -> dict:
@@ -154,6 +158,14 @@ def one(root: str) -> dict:
             if kw.get("emit", True):
                 cs.check(bool((out == frags).all()), f"{name} at the {width} width: rows")
             t[f"{name}_{width}"] = ms(lambda: fn(rows, lens, BLOCK))
+        for name in cs.VARIANTS:
+            fn = cs.variant_call(dv, name)
+            out, out_lens, errs = fn(rows, lens, BLOCK)
+            cs.check(bool((errs == 0).all()) and bool((out_lens == BLOCK).all()),
+                     f"{name} at the {width} width: verdicts")
+            if name != "v1nocp":
+                cs.check(bool((out == frags).all()), f"{name} at the {width} width: rows")
+            t[f"{name}_{width}"] = ms(lambda: fn(rows, lens, BLOCK))
     block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
     adv, n, ntags = hp.chain_inputs(block)
     adv_h = torch.from_numpy(adv)
@@ -196,8 +208,14 @@ def one(root: str) -> dict:
         layout = {"v7": dh.decode_v7_layout(comp, BLOCK)}
     pipe_layout = ({n: dv.decode_pipe_layout(comp, BLOCK, fold=n != "pipe", **kw)
                     for n, kw in pipes.items()} if hasattr(dv, "decode_pipe_layout") else None)
+    variant_layout = ({w: {n: dv.decode_variant_layout(r, BLOCK, n) for n in cs.VARIANTS}
+                       for w, r in (("codec", comp), ("tight", tight))}
+                      if hasattr(dv, "decode_variant_layout") else None)
     return {"root": root, "ms": t, "ns_per_step": ns, "steps": steps, "tags_block0": ntags,
             "staged_words": staged, "hybrid_layout": layout, "pipe_layout": pipe_layout,
+            "variant_layout": variant_layout,
+            "variant_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_variants", ""),
+                                              "_kernel"),
             "pipe_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_pipe", ""),
                                            "decode_pipe_kernel"),
             "hybrid_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""),

@@ -8,17 +8,20 @@ words all zero and, for the variants that move payload, the first and last
 block equal to the input.
 
 Usage, from the repository root: python3 tools/torch_perf_probe.py [-B N] [variant ...]
-Variants:
+Variants (the TPU probe's names; on the card each is the production
+kernel's batched walk over the ablation's tag source, with the knob that
+stands for the TPU one: csrc/decode_variants.cu):
   v0      the production kernel (csrc/decode.cu), the baseline
-  v1      byte image, compressed bytes and output in one buffer; a fixed
-          16-byte move per tag, a loop only past 16 bytes, a pattern loop
-          only for offsets below 8
-  v1nock  v1 without per-tag error checks (what the checks cost)
-  v1nocp  v1 without any copies (the walk's floor)
-  v2      word-packed output image, funnel-shift appends
-  v4      v2 with the words after the frontier always stored and the error
-          word worked out after the walk
-  v3      one image for compressed and output words, one append path
+  v1      every round of a batch's step stored whole (the TPU's fixed
+          16-byte move a tag)
+  v1nock  v1 without the checks that do not guard an access (what the
+          checks cost)
+  v1nocp  v1's parsing warp alone, nothing written (the walk's floor)
+  v2      each batch's bytes written up to its end
+  v4      each batch's last round stored whole (the TPU's words stored past
+          the frontier)
+  v3      v2's kernel (the TPU's one image and one source address: the
+          writing warp reads every byte through one source word already)
   scan    the parallel-scan engine's decoder (tensor code, no walk)
 
 The blocks are the seeded word mix that ``chip_smoke.py`` drives
@@ -30,8 +33,9 @@ and copies of at most 16 bytes take a variant's short path, the others its
 loop, and copies with an offset below 8 the pattern path. Then one line per
 variant: ms per call, us per block, GB/s of output and ns per tag, where a
 block's time is the call's time over the waves of blocks the card runs
-(``blocks_in_flight`` says how many fit at once; the scan engine has no
-waves and gets the call's time over B).
+(``blocks_in_flight``: the SMs times the blocks an SM holds, from the
+kernel's layout query; the scan engine has no waves and gets the call's
+time over B).
 """
 
 from __future__ import annotations
@@ -140,15 +144,14 @@ def blocks_in_flight(smem_bytes: int) -> int:
 
 
 def variant_fn(name: str, comp_d, lens_d):
-    """(the call to time, the dynamic shared memory of one of its blocks or
-    None for tensor code)."""
+    """(the call to time, its kernel's layout or None for tensor code)."""
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
     from snappier_tpu_torch.ops.cuda import scalar_codec as sc
     from snappier_tpu_torch.ops.decode import decode_blocks_scan
 
-    cc = comp_d.shape[1]
     if name == "v0":
-        return (lambda: sc.decode_blocks_bytes(comp_d, lens_d, BLOCK_SIZE)), BLOCK_SIZE
+        return (lambda: sc.decode_blocks_bytes(comp_d, lens_d, BLOCK_SIZE)), sc.decode_layout(
+            comp_d, BLOCK_SIZE)
     if name == "scan":
         return (lambda: decode_blocks_scan(comp_d, lens_d, BLOCK_SIZE)), None
     if name in ("v2", "v3", "v4"):
@@ -156,7 +159,7 @@ def variant_fn(name: str, comp_d, lens_d):
         call = lambda: fn(comp_d, lens_d, BLOCK_SIZE)  # noqa: E731
     else:
         call = lambda: dv.decode_variant(comp_d, lens_d, BLOCK_SIZE, name)  # noqa: E731
-    return call, dv._smem_bytes(dv.VARIANTS[name][0], cc, BLOCK_SIZE)
+    return call, dv.decode_variant_layout(comp_d, BLOCK_SIZE, name)
 
 
 def main() -> int:
@@ -182,10 +185,11 @@ def main() -> int:
     comp_d = torch.from_numpy(comp).cuda()
     lens_d = torch.from_numpy(lens).cuda()
     gb = B * BLOCK_SIZE / 1e9
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"B={B} blocks, row width {comp.shape[1]}, {ntags} tags/block, mix={hist}")
 
     for v in args.variants:
-        fn, smem = variant_fn(v, comp_d, lens_d)
+        fn, layout = variant_fn(v, comp_d, lens_d)
         outs, out_lens, errs = fn()
         torch.cuda.synchronize()
         ok = int(errs.max()) == 0
@@ -193,11 +197,11 @@ def main() -> int:
             for b in (0, B - 1):
                 ok = ok and bool((outs[b].cpu().numpy().astype(np.uint8) == frags[b]).all())
         t = timeit(fn)
-        if smem is None:
+        if layout is None:
             waves, in_flight = 1, B
             per_block = t / B
         else:
-            in_flight = blocks_in_flight(smem)
+            in_flight = sms * layout["blocks_per_sm"]
             waves = -(-B // in_flight)
             per_block = t / waves
         print(
