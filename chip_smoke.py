@@ -129,18 +129,22 @@ failure:
    included; then the path: ``encode_stats`` on the 512 fragments (the 9
    held to the plain walk), ``chain`` and ``chainrec`` at 200 walks,
    ``vcopy`` in both modes at twice the block's tags, ``coissue`` at nvec 0
-   and 8; timings of each kernel alone, ``encode_stats`` beside the encode
-   kernel;
+   and 8; timings of each kernel alone (``chain`` and ``chainrec`` in ns a
+   walk step), ``encode_stats`` beside the encode kernel; the ptxas figures
+   of both ``chain`` forms (any stack or spill fails);
 11. the isolation, branch, cliff and sort probes on the encode kernel's
    block 0: ``iso`` in its six modes (the records 20 times), ``bprobe`` at
    nwhen 0, 1, 3 and 8, ``cliff`` in its five modes at 200 walks and
    ``bitonic`` on the tool's keys and on keys with many ties, each against
    its plain version, exact, the image, scratch and indices included, and
    the chase (``cliff``'s walk with no body, the latency floor) against
-   ``chain``'s plain version; then the path, the same calls once each with
-   exact launch counts; timings of each kernel alone, every built nwhen of
-   ``bprobe``, the chase's ns a step beside each ``cliff`` mode's, and
-   ``torch.sort`` of the same keys beside ``bitonic``.
+   ``chain``'s plain version, and ``bprobe``'s floor (its mix alone) against
+   its own; then the path, the same calls once each with exact launch
+   counts; timings of each kernel alone, every built nwhen of ``bprobe``
+   beside the floor (ns an iteration; ptxas figures of every ``bprobe``
+   kernel and the floor, any stack or spill fails), the chase's ns a step
+   beside each ``cliff`` mode's, and ``torch.sort`` of the same keys beside
+   ``bitonic``.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
 sharded_scan, encode_ablation, hybrid, micro_probes, isolation) runs with the launch
@@ -2038,7 +2042,8 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
 def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     """Phase 10, the micro_probes path. Returns (max_abs_err per wrapper,
     launches on the path, ms per wrapper, plain ms per wrapper on one input,
-    (bytes, operations) per wrapper at the timed call)."""
+    (bytes, operations) per wrapper at the timed call, chain's row extras:
+    both forms' ms, ns a step and ptxas figures)."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "tests"))
     from torch_cases import encode_rows as small_rows
@@ -2138,8 +2143,9 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     # host), encode_stats beside the encode kernel.
     t = {"k2": cuda_ms(lambda: sc.encode_blocks_bytes(frags, lengths), iters=3),
          "encode_stats": cuda_ms(lambda: ev.encode_stats(frags, lengths), iters=3)}
+    staged = hp.cliff_staged_words(adv_h, n, 3)
     for wr, name in ((False, "chain"), (True, "chainrec")):
-        t[name] = cuda_ms(lambda: hp.launch_chain(adv_d, n, 3, hp.CHAIN_R, wr))
+        t[name] = cuda_ms(lambda: hp.launch_chain(adv_d, n, 3, hp.CHAIN_R, wr, staged))
         t[name + "_ns_per_step"] = t[name] * 1e6 / steps
         t[name + "_ns_per_tag"] = t[name] * 1e6 / hp.CHAIN_R / ntags
     for mode in hp.MODES:
@@ -2148,9 +2154,16 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     for nvec in hp.COISSUE_NVEC:
         t[f"coissue{nvec}"] = cuda_ms(lambda: hp.launch_coissue(3, nvec, fill_d))
         t[f"coissue{nvec}_ns_per_iter"] = t[f"coissue{nvec}"] * 1e6 / hp.COISSUE_ITERS
+    # chain and chainrec run cliff's walk (cliff_kernel<kChase>, <kChainRec>).
+    log = _build.BUILD_LOG.get("hybrid_probes", "")
+    chain_ptxas = {name: ptxas_figures(log, f"cliff_kernelILi{mode}E")
+                   for name, mode in (("chain", 5), ("chainrec", 6))}
     print(json.dumps({"card": card, "tags_block0": ntags, "chain_walks": hp.CHAIN_R,
                       "chain_steps": steps, "vcopy_records": count,
-                      "encode_stats_per_block_avg": avg.tolist(), "micro_probe_ms": t}))
+                      "encode_stats_per_block_avg": avg.tolist(), "micro_probe_ms": t,
+                      "chain_ptxas": chain_ptxas}))
+    check(all(len(f) == 1 and f[0]["stack"] == f[0]["spill_stores"] == f[0]["spill_loads"] == 0
+              for f in chain_ptxas.values()), f"chain kernels: {chain_ptxas}")
     ms = {"encode_stats": t["encode_stats"], "chain": t["chain"], "vcopy": t["vcopy2d"],
           "coissue": t["coissue8"]}
     f1, l1 = frags[:1].cpu(), lengths[:1].cpu()
@@ -2166,7 +2179,11 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
             "vcopy": (4 * (hp.VCOPY_WORDS + 2 * hp.IMAGE_WORDS) + 4, count * hp.LANES),
             "coissue": (2 * 4 * hp.TILE[0] * hp.TILE[1] + 4,
                         hp.COISSUE_ITERS * (24 + 8 * hp.TILE[0] * hp.TILE[1]))}
-    return errs, launches, ms, plain, work
+    chain_extra = {"ms_by_form": {k: t[k] for k in ("chain", "chainrec")},
+                   "ns_per_step": {k: t[k + "_ns_per_step"] for k in ("chain", "chainrec")},
+                   "steps": steps, "staged_words": staged,
+                   "ptxas": {k: f[0] for k, f in chain_ptxas.items()}}
+    return errs, launches, ms, plain, work, chain_extra
 
 
 ISOLATION_NWHEN = (0, 1, 3, 8)  # compared and on the path; every built nwhen is timed
@@ -2176,7 +2193,8 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     """Phase 11, the isolation path. Returns (max_abs_err per wrapper,
     launches on the path, ms per wrapper, plain ms per wrapper, (bytes,
     operations) per wrapper at the timed call, torch.sort's ms, cliff's row
-    extras: the chase and every mode's ns a step)."""
+    extras: the chase and every mode's ns a step, bprobe's row extras: every
+    nwhen's ms and ns an iteration, the floor, ptxas figures)."""
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
@@ -2212,6 +2230,10 @@ def phase_isolation(torch, card, comp_u8, block_lens):
         ("chase", "floor"): (lambda: (hp.chase(d["adv"], n, 3, R),),
                              lambda: hp.launch_chase(d["adv"], n, 3, R, staged),
                              lambda: (hp.chain_plain(h["adv"], n, 3, R)[0],)),
+        # bprobe's floor: its mix alone, no scratch.
+        ("bprobe_floor", "floor"): (lambda: (hp.bprobe_floor(3, dev),),
+                                    lambda: hp.launch_bprobe_floor(3, dev),
+                                    lambda: (hp.bprobe_floor_plain(3),)),
     }
     compared = [c for c in calls if c[0] != "bprobe" or c[1] in ISOLATION_NWHEN]
 
@@ -2229,8 +2251,8 @@ def phase_isolation(torch, card, comp_u8, block_lens):
         plain[c] = plain_ms
         results[c] = want
     print(f"iso ({', '.join(hp.ISO_MODES)}; {hp.ISO_PASSES} x {count} records), bprobe (nwhen "
-          f"{ISOLATION_NWHEN}), cliff ({', '.join(hp.CLIFF_MODES)}; {R} walks), the chase and "
-          f"bitonic (the tool's keys, keys with ties) == plain on block 0 ({ntags} tags), "
+          f"{ISOLATION_NWHEN}) and its floor, cliff ({', '.join(hp.CLIFF_MODES)}; {R} walks), the "
+          f"chase and bitonic (the tool's keys, keys with ties) == plain on block 0 ({ntags} tags), "
           f"max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
     # What the checksums do not see, seen here: four iso modes give one sum
     # and four images; bprobe 0 and 3 are one function; cliff's img[0].
@@ -2250,6 +2272,15 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     check(len(copy_ptxas) == len(hp.ISO_MODES) + len(hp.MODES)
           and all(f["stack"] == f["spill_stores"] == f["spill_loads"] == 0 for f in copy_ptxas),
           f"iso and vcopy kernels: {copy_ptxas}")
+    # bprobe's scratch lives in registers: no stack, no spill in any nwhen's
+    # kernel or the floor's.
+    log = _build.BUILD_LOG.get("hybrid_probes", "")
+    bprobe_ptxas = {w: ptxas_figures(log, f"bprobe_kernelILi{w}E") for w in hp.BPROBE_NWHEN}
+    bprobe_ptxas["floor"] = ptxas_figures(log, "bprobe_floor_kernel")
+    print(json.dumps({"bprobe_ptxas": bprobe_ptxas}))
+    check(all(len(f) == 1 and f[0]["stack"] == f[0]["spill_stores"] == f[0]["spill_loads"] == 0
+              for f in bprobe_ptxas.values()), f"bprobe kernels: {bprobe_ptxas}")
+    bprobe_ptxas = {w: f[0] for w, f in bprobe_ptxas.items()}
     for k, x in (("keys", keys), ("ties", ties)):
         kv, vv = (a.reshape(-1) for a in results[("bitonic", k)])
         check((kv == x.reshape(-1)[vv]).all() and len(np.unique(vv)) == hp.SORT_N,
@@ -2265,8 +2296,8 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     for k in PATHS["isolation"]:
         check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the isolation path")
     check(launches == {"iso": len(hp.ISO_MODES), "bprobe": len(ISOLATION_NWHEN),
-                       "cliff": len(hp.CLIFF_MODES), "bitonic": 2, "chase": 1},
-          f"launch counts {launches}")
+                       "cliff": len(hp.CLIFF_MODES), "bitonic": 2, "chase": 1,
+                       "bprobe_floor": 1}, f"launch counts {launches}")
     for c, out in path.items():
         check(all((a.cpu().numpy() == b).all() for a, b in zip(out, results[c])),
               f"{c} on the path differs from its plain version")
@@ -2285,11 +2316,14 @@ def phase_isolation(torch, card, comp_u8, block_lens):
                                  for m in hp.ISO_MODES},
            "bprobe_ns_per_iter": {w: t[f"bprobe:{w}"] * 1e6 / hp.BPROBE_ITERS
                                   for w in hp.BPROBE_NWHEN},
+           "bprobe_floor_ns_per_iter": t["bprobe_floor:floor"] * 1e6 / hp.BPROBE_ITERS,
            "cliff_ns_per_tag": {m: t[f"cliff:{m}"] * 1e6 / R / ntags for m in hp.CLIFF_MODES},
            "cliff_ns_per_step": {m: t[f"cliff:{m}"] * 1e6 / steps for m in hp.CLIFF_MODES},
            "chase_ns_per_step": t["chase:floor"] * 1e6 / steps}
     per["cliff_over_chase"] = {m: per["cliff_ns_per_step"][m] / per["chase_ns_per_step"]
                                for m in hp.CLIFF_MODES}
+    per["bprobe_over_floor"] = {w: t[f"bprobe:{w}"] / t["bprobe_floor:floor"]
+                                for w in hp.BPROBE_NWHEN}
     print(json.dumps({"card": card, "tags_block0": ntags, "iso_records": count,
                       "cliff_steps": steps, "iso_checksums": iso_sums,
                       "cliff_img0": cliff_img0, "isolation_ms": t, "torch_sort_ms": sort_ms,
@@ -2313,7 +2347,13 @@ def phase_isolation(torch, card, comp_u8, block_lens):
                    "chase": {"launches": launches["chase"], "max_abs_err": errs["chase"],
                              "ms": t["chase:floor"], "ns_per_step": per["chase_ns_per_step"],
                              "steps": steps}}
-    return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra
+    bprobe_extra = {"ms_by_nwhen": {w: t[f"bprobe:{w}"] for w in hp.BPROBE_NWHEN},
+                    "ns_per_iter": per["bprobe_ns_per_iter"],
+                    "over_floor": per["bprobe_over_floor"], "ptxas": bprobe_ptxas,
+                    "floor": {"launches": launches["bprobe_floor"],
+                              "max_abs_err": errs["bprobe_floor"], "ms": t["bprobe_floor:floor"],
+                              "ns_per_iter": per["bprobe_floor_ns_per_iter"]}}
+    return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra, bprobe_extra
 
 
 def main() -> int:
@@ -2518,14 +2558,14 @@ def main() -> int:
     ms.update(ms_hy)
 
     # --- 10. the micro-probes ----------------------------------------------------
-    errs_mp, micro_launches, ms_mp, plain_mp, work_mp = phase_micro_probes(
+    errs_mp, micro_launches, ms_mp, plain_mp, work_mp, chain_extra = phase_micro_probes(
         torch, card, frags, lengths, comp_u8, block_lens)
     errs.update(errs_mp)
     ms.update(ms_mp)
 
     # --- 11. the isolation, branch, cliff and sort probes --------------------------
-    errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms, cliff_extra = phase_isolation(
-        torch, card, comp_u8, block_lens)
+    (errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms, cliff_extra,
+     bprobe_extra) = phase_isolation(torch, card, comp_u8, block_lens)
     errs.update(errs_iso)
     ms.update(ms_iso)
     work_mp.update(work_iso)
@@ -2624,6 +2664,10 @@ def main() -> int:
             rows[-1].update(hybrid_extra[k])
         if k == "cliff":
             rows[-1].update(cliff_extra)
+        if k == "chain":
+            rows[-1].update(chain_extra)
+        if k == "bprobe":
+            rows[-1].update(bprobe_extra)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
           "the kernels' build included")
     print(card)

@@ -4,14 +4,18 @@
 // steps, and no design of the same work beats that chain's latency. None is
 // a kernel to make fast.
 //
-// chain_kernel<kRec>: tools/perf_probe_hybrid.py::_chain_kernel (wrapper
-// chain; with_rec is chainrec). The TPU walks ip += adv[ip] on the scalar
-// core over SMEM; here one thread over the advance array in shared memory.
+// chain: tools/perf_probe_hybrid.py::_chain_kernel (wrapper chain; with_rec
+// is chainrec). The TPU walks ip += adv[ip] on the scalar core over SMEM;
+// here one thread runs cliff's walk (hp::cliff_walk, below) over the
+// advances staged in shared memory: chain is cliff_kernel<kChase>, the
+// chase's own kernel, and chainrec cliff_kernel<kChainRec>, whose body
+// stores each step's record and op, predicated on the step being live, to
+// a shared buffer that the block copies out at the end (so that the stores
+// are not dead code); they issue in the next load's shadow, beside the
+// chain. The trials run one after another, the records in the TPU's order.
 // Bound: the bytes (the advance array in, one word out, the record buffer
 // out) take well under a microsecond; the latency floor is R x steps
-// dependent shared-memory loads, which is what the probe times. The record
-// stores go to a shared buffer that the block copies out at the end, so
-// that they are not dead code; they sit beside the chain, not on it.
+// dependent shared-memory loads, which is what the probe times.
 //
 // vcopy_kernel<k3d>: _vcopy_kernel (wrapper vcopy, modes 2d and 3d). The TPU
 // copies a record with VPU row operations on a VMEM image (a dynamic row
@@ -67,11 +71,21 @@
 // through shared memory a record; scalar: issuing its chains).
 //
 // bprobe_kernel<kNwhen>: _bprobe_kernel (wrapper bprobe; nwhen 0, 1, 2, 3,
-// 4, 8). The TPU asks what a pl.when costs on the scalar core. Here one
-// thread over a 64-word scratch in shared memory, pl.when an if; whether
-// nvcc makes a branch or a predicated store of each is its choice (PERF.md
-// records what cuobjdump shows). Bound: 260 bytes; the floor is 524,288
-// iterations of a dependent chain (a shared load, 4 x shift-add-mask).
+// 4, 8). The TPU asks what a pl.when costs on the scalar core, over a
+// 64-word scratch in SMEM. Here one thread, the scratch in 64 registers:
+// every index is (t + k) & 63 and the 524,288 iterations are 8,192 blocks
+// of 64, so a block unrolled (hp::bprobe_block) knows each index when it
+// is compiled, and each pl.when is a select of a register (PERF.md records
+// what cuobjdump shows). No memory access is left on any chain. At nwhen 0
+// and 2 or more, iteration t's store at k = 1 is the word t + 1 mixes, so
+// the chain is the mix and a select an iteration; at nwhen 1 nothing links
+// the 64 iterations of a block, and the one thread's issue bounds it.
+// Bound: 260 bytes; the floor is the chain of dependent integer operations.
+//
+// bprobe_floor_kernel (wrapper bprobe_floor; the bprobe launcher's nwhen
+// -1): bprobe's arithmetic alone, x_t = mix(x_{t-1} ^ t), no scratch, in
+// the same blocks of 64 (hp::bprobe_floor): the floor measured. A
+// yardstick, not a TPU kernel.
 //
 // cliff_kernel<kMode>: _cliff_kernel (wrapper cliff; modes when1, when2,
 // fori, store4, load4). The TPU looks for the body size at which chain's
@@ -95,9 +109,9 @@
 // the load's latency holds (fori's 7 stores) is bound by the one thread's
 // issue instead (PERF.md).
 //
-// cliff_kernel<kChase> (wrapper chase): the same walk with no body, the
-// floor measured: T10 chain's function (the sum of the final ip) on the
-// same staged advances and trials. A yardstick, not a TPU kernel.
+// cliff_kernel<kChase> (wrappers chase and chain): the same walk with no
+// body, the floor measured: T10 chain's function (the sum of the final ip)
+// on the same staged advances and trials.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,25 +121,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-template <bool kRec>
-__global__ void chain_kernel(const int32_t* __restrict__ adv, int32_t words, int32_t n,
-                             int32_t start, int32_t R, int32_t* __restrict__ out,
-                             int32_t* __restrict__ recs) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* adv_s = smem;
-  int32_t* rec_s = smem + ((words + 3) & ~3);
-  for (int32_t i = threadIdx.x; i < words; i += blockDim.x) adv_s[i] = adv[i];
-  if (kRec) {
-    for (int32_t i = threadIdx.x; i < hp::kRecWords; i += blockDim.x) rec_s[i] = 0;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) out[0] = hp::chain_walk<kRec>(adv_s, n, start, R, rec_s);
-  if (kRec) {
-    __syncthreads();
-    for (int32_t i = threadIdx.x; i < hp::kRecWords; i += blockDim.x) recs[i] = rec_s[i];
-  }
-}
 
 // The image from device memory into shared memory (16 loads a lane in
 // flight); the plan ring after it is the record loop's.
@@ -232,13 +227,21 @@ __global__ void iso_kernel(const int32_t* __restrict__ rec, const int32_t* __res
 template <int kNwhen>
 __global__ void bprobe_kernel(int32_t seed, int32_t* __restrict__ out,
                               int32_t* __restrict__ scratch_out) {
-  __shared__ uint32_t scratch[64];
-  hp::scratch_init(scratch, seed);
-  uint32_t acc = 0;
-  for (int32_t t = 0; t < hp::kBprobeIters; t++) acc += hp::bprobe_step<kNwhen>(scratch, t);
-  out[0] = (int32_t)acc;
-  for (int i = 0; i < 64; i++) scratch_out[i] = (int32_t)scratch[i];
+  uint32_t s[hp::kBprobeBlock];
+  out[0] = (int32_t)hp::bprobe_run<kNwhen>(s, seed);
+#pragma unroll
+  for (int i = 0; i < hp::kBprobeBlock; i++) scratch_out[i] = (int32_t)s[i];
 }
+
+__global__ void bprobe_floor_kernel(int32_t seed, int32_t* __restrict__ out) {
+  out[0] = (int32_t)hp::bprobe_floor(seed);
+}
+
+// The words after the staged advances: cliff's image and dummy, chainrec's
+// record buffer, none for the chase.
+template <int kMode>
+constexpr int32_t kWalkTail =
+    kMode == hp::kChase ? 0 : (kMode == hp::kChainRec ? hp::kRecWords : hp::kCliffImageWords);
 
 template <int kMode>
 __global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t n, int32_t staged,
@@ -250,16 +253,16 @@ __global__ void cliff_kernel(const int32_t* __restrict__ adv, int32_t n, int32_t
   for (int32_t i = threadIdx.x; i < staged; i += blockDim.x) {
     adv_s[i] = hp::cliff_staged(adv, n, i);
   }
-  if (kMode != hp::kChase) {
-    for (int32_t i = threadIdx.x; i < hp::kCliffImageWords; i += blockDim.x) {
-      img[i] = hp::kFill;
-    }
+  // cliff's image from interpret mode's fill; chainrec's buffer from 0.
+  for (int32_t i = threadIdx.x; i < kWalkTail<kMode>; i += blockDim.x) {
+    img[i] = kMode == hp::kChainRec ? 0u : hp::kFill;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     const uint32_t sum = (uint32_t)hp::cliff_walk<kMode>(adv_s, n, start, R, img);
-    out[0] = (int32_t)(kMode == hp::kChase ? sum : sum + img[0]);
+    out[0] = (int32_t)(kMode >= hp::kChase ? sum : sum + img[0]);
   }
+  static_assert(hp::kRecWords == hp::kImageWords, "chainrec's buffer is copied out as an image");
   if (kMode != hp::kChase) {
     __syncthreads();
     for (int32_t i = threadIdx.x; i < hp::kImageWords; i += blockDim.x) {
@@ -279,25 +282,30 @@ int with_smem(Kernel kernel, attrs::SetFor& set_for, size_t smem, Launch launch)
   });
 }
 
+// cliff_kernel<kMode> over `staged` words of staged advances; one record
+// of its attributes a mode, whichever launcher calls it (chain and the
+// chase share cliff_kernel<kChase>).
+template <int kMode>
+int launch_walk(const void* adv, int32_t n, int32_t staged, int32_t start, int32_t R, void* out,
+                void* img_out, void* stream) {
+  static attrs::SetFor set_for;
+  const size_t smem = ((size_t)staged + kWalkTail<kMode>) * 4;
+  return with_smem(cliff_kernel<kMode>, set_for, smem, [&] {
+    cliff_kernel<kMode><<<1, 256, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)adv, n, staged, start, R, (int32_t*)out, (int32_t*)img_out);
+  });
+}
+
 }  // namespace
 
-// adv: int32[words] (the walk reads adv[start:n]); out: int32[1]; recs:
-// int32[16384] with with_rec, else unused.
-extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int64_t words, int32_t n,
+// adv: int32[n] and more (the walk reads adv[start:n]); staged: the words
+// of its staged copy (hybrid_probes.py::cliff_staged_words); out: int32[1];
+// recs: int32[16384] with with_rec, else unused.
+extern "C" int probe_chain_launch(int32_t with_rec, const void* adv, int32_t n, int32_t staged,
                                   int32_t start, int32_t R, void* out, void* recs,
                                   void* stream) {
-  const size_t smem = ((size_t)((words + 3) & ~3) + (with_rec ? hp::kRecWords : 0)) * 4;
-#define PROBE_LAUNCH(REC)                                                                   \
-  do {                                                                                      \
-    static attrs::SetFor set_for;                                                           \
-    return with_smem(chain_kernel<REC>, set_for, smem, [&] {                                \
-      chain_kernel<REC><<<1, 256, smem, (cudaStream_t)stream>>>(                            \
-          (const int32_t*)adv, (int32_t)words, n, start, R, (int32_t*)out, (int32_t*)recs); \
-    });                                                                                     \
-  } while (0)
-  if (with_rec) PROBE_LAUNCH(true);
-  PROBE_LAUNCH(false);
-#undef PROBE_LAUNCH
+  if (with_rec) return launch_walk<hp::kChainRec>(adv, n, staged, start, R, out, recs, stream);
+  return launch_walk<hp::kChase>(adv, n, staged, start, R, out, nullptr, stream);
 }
 
 // rec: int32[32768] (dst, src, len at 0, 8192, 16384; the count at 24576);
@@ -364,7 +372,7 @@ extern "C" int probe_iso_launch(int32_t mode, const void* rec, const void* img, 
 #undef PROBE_CASE
 }
 
-// out: int32[1]; scratch_out: int32[64].
+// out: int32[1]; scratch_out: int32[64] (unused by the floor, nwhen -1).
 extern "C" int probe_bprobe_launch(int32_t nwhen, int32_t seed, void* out, void* scratch_out,
                                    void* stream) {
 #define PROBE_CASE(N)                                                                        \
@@ -373,6 +381,9 @@ extern "C" int probe_bprobe_launch(int32_t nwhen, int32_t seed, void* out, void*
                                                         (int32_t*)scratch_out);              \
     break;
   switch (nwhen) {
+    case hp::kBprobeFloor:
+      bprobe_floor_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(seed, (int32_t*)out);
+      break;
     PROBE_CASE(0)
     PROBE_CASE(1)
     PROBE_CASE(2)
@@ -388,19 +399,13 @@ extern "C" int probe_bprobe_launch(int32_t nwhen, int32_t seed, void* out, void*
 
 // adv: int32[n] and more (the walk reads adv[start:n]); staged: the words
 // of its staged copy (hybrid_probes.py::cliff_staged_words); out: int32[1]; img_out:
-// int32[16384]; mode: hp::CliffMode, kChase excluded.
+// int32[16384]; mode: hp::CliffMode, kChase and kChainRec excluded.
 extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int32_t staged,
                                   int32_t start, int32_t R, void* out, void* img_out,
                                   void* stream) {
-  const size_t smem = ((size_t)staged + hp::kCliffImageWords) * 4;
-#define PROBE_CASE(M)                                                                        \
-  case M: {                                                                                  \
-    static attrs::SetFor set_for;                                                            \
-    return with_smem(cliff_kernel<M>, set_for, smem, [&] {                                   \
-      cliff_kernel<M><<<1, 256, smem, (cudaStream_t)stream>>>(                               \
-          (const int32_t*)adv, n, staged, start, R, (int32_t*)out, (int32_t*)img_out);       \
-    });                                                                                      \
-  }
+#define PROBE_CASE(M) \
+  case M:             \
+    return launch_walk<M>(adv, n, staged, start, R, out, img_out, stream);
   switch (mode) {
     PROBE_CASE(hp::kCliffWhen1)
     PROBE_CASE(hp::kCliffWhen2)
@@ -413,14 +418,9 @@ extern "C" int probe_cliff_launch(int32_t mode, const void* adv, int32_t n, int3
 #undef PROBE_CASE
 }
 
-// The chase: cliff's walk with no body over the same staged copy; out:
-// int32[1], the sum of the trials' final ip.
+// The chase: cliff's walk with no body over the same staged copy (chain's
+// kernel); out: int32[1], the sum of the trials' final ip.
 extern "C" int probe_chase_launch(const void* adv, int32_t n, int32_t staged, int32_t start,
                                   int32_t R, void* out, void* stream) {
-  const size_t smem = (size_t)staged * 4;
-  static attrs::SetFor set_for;
-  return with_smem(cliff_kernel<hp::kChase>, set_for, smem, [&] {
-    cliff_kernel<hp::kChase><<<1, 256, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)adv, n, staged, start, R, (int32_t*)out, nullptr);
-  });
+  return launch_walk<hp::kChase>(adv, n, staged, start, R, out, nullptr, stream);
 }

@@ -18,46 +18,6 @@ constexpr int32_t kLanes = 128;
 constexpr int32_t kCountAt = 3 * kRecHalf;  // vcopy's loop count in its record array
 constexpr uint32_t kFill = 0x80000000u;  // interpret mode's unwritten scratch word
 
-// --- chain / chainrec (_chain_kernel) -------------------------------------
-
-// One walk ip += adv[ip] from ip while ip < n; returns the final ip and sets
-// steps. With kRec it stores (ip << 8) | (a & 0xFF) and the running sum of
-// advances per step. The TPU stores record t at t and t + 8192 of a
-// 16,384-word buffer, past its end after 8,192 steps; here at t & 8191, so
-// a longer walk overwrites its first records. Nothing reads the buffer, so
-// the checksum is the TPU's either way.
-template <bool kRec>
-SC_HD int32_t chain_trial(const int32_t* adv, int32_t n, int32_t ip, int32_t* rec,
-                          int32_t& steps) {
-  int32_t op = 0, t = 0;
-  while (ip < n) {
-    const int32_t a = adv[ip];
-    if (kRec) {
-      const int32_t slot = t & (kRecHalf - 1);
-      rec[slot] = (int32_t)(((uint32_t)ip << 8) | (uint32_t)(a & 0xFF));
-      rec[slot + kRecHalf] = op;
-      op += a;
-    }
-    t++;
-    ip += a;
-  }
-  steps = t;
-  return ip;
-}
-
-// R trials from start + (r & 1): the sum of the final ip, plus the steps
-// with kRec (the TPU's t stays 0 without records).
-template <bool kRec>
-SC_HD int32_t chain_walk(const int32_t* adv, int32_t n, int32_t start, int32_t R, int32_t* rec) {
-  uint32_t acc = 0;
-  for (int32_t r = 0; r < R; r++) {
-    int32_t steps;
-    const int32_t ip = chain_trial<kRec>(adv, n, start + (r & 1), rec, steps);
-    acc += (uint32_t)ip + (kRec ? (uint32_t)steps : 0u);
-  }
-  return (int32_t)acc;
-}
-
 // --- vcopy (_vcopy_kernel) -------------------------------------------------
 
 // One record: where it reads and writes. w[i] is word i of the 128 words
@@ -461,41 +421,91 @@ SC_HD void iso_run(const W& w, const int32_t* rec, uint32_t* img, sc::LanesOf<W,
   }
 }
 
-// --- bprobe (_bprobe_kernel) -------------------------------------------------
+// --- bprobe (_bprobe_kernel) and its floor ----------------------------------
 
 constexpr int32_t kBprobeIters = 524288;
+constexpr int kBprobeBlock = 64;  // iterations a block: the scratch's words
+constexpr int kBprobeFloor = -1;  // the launcher's nwhen for the floor
 
-// Iteration t: a 4-step mix of the scratch word at t & 63, then kNwhen
-// stores under a data-dependent condition (pl.when), or with kNwhen 0 three
-// select-stores that write the old word back where the bit is clear.
-// Shifts are arithmetic on int32 (a word never written reads 0x80000000, so
-// x may start negative); adds wrap. Returns x, which the TPU adds to its sum.
-template <int kNwhen>
-SC_HD uint32_t bprobe_step(uint32_t* scratch, uint32_t t) {
-  int32_t x = (int32_t)(scratch[t & 63] ^ t);
+// The 4-step mix of one iteration. Shifts are arithmetic on int32 (a word
+// never written reads 0x80000000, so x may start negative); adds wrap.
+SC_HD int32_t bprobe_mix(int32_t x) {
 #pragma unroll
   for (int i = 0; i < 4; i++) x = (int32_t)(((uint32_t)x + (uint32_t)(x >> 3)) & 0x7FFFFFFFu);
-  if (kNwhen) {
-#pragma unroll
-    for (int k = 0; k < kNwhen; k++) {
-      if ((x >> k) & 1) scratch[(t + k) & 63] = (uint32_t)x + k;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < 3; k++) {
-      const uint32_t old = scratch[(t + k) & 63];
-      scratch[(t + k) & 63] = ((x >> k) & 1) ? (uint32_t)x + k : old;
-    }
-  }
-  return (uint32_t)x;
+  return x;
 }
 
-// --- cliff (_cliff_kernel) and the chase ------------------------------------
+// Iterations t0 .. t0 + 63 over the scratch s (t0 a multiple of 64), each
+// unrolled, so that every index (t + k) & 63 is known when the body is
+// compiled and s lives in 64 registers. Iteration t mixes s[t & 63] ^ t,
+// then makes kNwhen stores under a data-dependent condition (pl.when) or,
+// with kNwhen 0, three select-stores that write the old word back where the
+// bit is clear: either way a select of a register, no branch and no memory.
+// Returns the sum of the x, which the TPU adds to its sum, in four partial
+// sums (at kNwhen 1 the 64 iterations are independent, so nothing chains
+// them but a sum).
+template <int kNwhen>
+SC_HD uint32_t bprobe_block(uint32_t (&s)[kBprobeBlock], uint32_t t0) {
+  constexpr int kStores = kNwhen ? kNwhen : 3;
+  uint32_t part[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kBprobeBlock; j++) {
+    const int32_t x = bprobe_mix((int32_t)(s[j] ^ (t0 + (uint32_t)j)));
+#pragma unroll
+    for (int k = 0; k < kStores; k++) {
+      uint32_t& w = s[(j + k) & (kBprobeBlock - 1)];
+      w = ((x >> k) & 1) ? (uint32_t)x + (uint32_t)k : w;
+    }
+    part[j & 3] += (uint32_t)x;
+  }
+  return (part[0] + part[1]) + (part[2] + part[3]);
+}
 
-// chain's walk with a body per tag that writes a 16,384-word image, which
-// persists across the trials; kChase is the same walk with no body (chain's
-// function, the latency floor the cliff modes are held to).
-enum CliffMode { kCliffWhen1 = 0, kCliffWhen2, kCliffFori, kCliffStore4, kCliffLoad4, kChase };
+// bprobe_kernel's work: the scratch as interpret mode leaves it
+// (0x80000000, seed at word 0), then 8,192 blocks; returns the sum and
+// leaves the scratch in s.
+template <int kNwhen>
+SC_HD uint32_t bprobe_run(uint32_t (&s)[kBprobeBlock], int32_t seed) {
+#pragma unroll
+  for (int i = 0; i < kBprobeBlock; i++) s[i] = i ? kFill : (uint32_t)seed;
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (uint32_t t0 = 0; t0 < (uint32_t)kBprobeIters; t0 += kBprobeBlock) {
+    acc += bprobe_block<kNwhen>(s, t0);
+  }
+  return acc;
+}
+
+// The floor of bprobe's chain: its arithmetic with no scratch, x_t =
+// mix(x_{t-1} ^ t) from x_{-1} = seed over the same 524,288 iterations and
+// blocks of 64; returns the sum of the x. A yardstick, not a TPU kernel.
+SC_HD uint32_t bprobe_floor(int32_t seed) {
+  int32_t x = seed;
+  uint32_t part[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 1
+  for (uint32_t t0 = 0; t0 < (uint32_t)kBprobeIters; t0 += kBprobeBlock) {
+#pragma unroll
+    for (int j = 0; j < kBprobeBlock; j++) {
+      x = bprobe_mix((int32_t)((uint32_t)x ^ (t0 + (uint32_t)j)));
+      part[j & 3] += (uint32_t)x;
+    }
+  }
+  return (part[0] + part[1]) + (part[2] + part[3]);
+}
+
+// --- the walk: cliff (_cliff_kernel), chain and chainrec (_chain_kernel) ------
+
+// The tag-boundary walk ip += adv[ip], R trials, with a body per step.
+// cliff's modes write a 16,384-word image, which persists across the
+// trials; kChase is the walk with no body: chain's function, and the
+// latency floor the cliff modes are held to (the chase); kChainRec is
+// chainrec's body, which stores (ip << 8) | (a & 0xFF) at record t & 8191
+// and the running op at (t & 8191) + 8192 of a 16,384-word buffer (the TPU
+// stores record t at t and t + 8192, past its buffer after 8,192 steps;
+// nothing reads the buffer, so the checksum is the TPU's either way).
+enum CliffMode {
+  kCliffWhen1 = 0, kCliffWhen2, kCliffFori, kCliffStore4, kCliffLoad4, kChase, kChainRec
+};
 constexpr uint32_t kCliffMask = kImageWords - 1;
 constexpr uint32_t kCliffBytes = 4u * kCliffMask;  // a word's byte offset in the image, masked
 constexpr int32_t kCliffImageWords = kImageWords + 4;  // the image, the dummy, 16-byte groups
@@ -511,6 +521,20 @@ SC_HD int32_t cliff_staged(const int32_t* adv, int32_t n, int32_t i) {
   return i < n ? 4 * adv[i] : 0;
 }
 
+// *p = v where `on`, p in shared memory: on the card one predicated
+// st.shared, which ptxas keeps predicated (from C++ it put a branch around
+// chainrec's two stores, and the next step's load waited for the branch).
+SC_HD void store_if(uint32_t* p, uint32_t v, bool on) {
+#ifdef __CUDA_ARCH__
+  const uint32_t at = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q st.shared.u32 [%0], %1;\n\t}"
+               ::"r"(at), "r"(v), "r"((uint32_t)on)
+               : "memory");
+#else
+  if (on) *p = v;
+#endif
+}
+
 // The image word at byte offset x (masked to the image) where `on`, else
 // the dummy word past the image: a select, no branch.
 SC_HD uint32_t& cliff_word(uint32_t* img, uint32_t x, bool on = true) {
@@ -518,15 +542,16 @@ SC_HD uint32_t& cliff_word(uint32_t* img, uint32_t x, bool on = true) {
   return *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(img) + at);
 }
 
-// One step's body at ip, op (as the byte offset o4 = 4 * op) and advance a
-// (unscaled; a4 = 4 * a); `live` is false for a step past the end (a is 0
-// there). No branch: a store the body does not make goes to the dummy word
-// (when1, when2, store4 past the end), except fori's, whose 7 stores,
-// unrolled over a & 7 with the TPU's carry, are each predicated on its
-// index. load4 past the end stores back the two words it loaded.
+// One step's body at step t, ip, op (as the byte offset o4 = 4 * op) and
+// advance a (unscaled; a4 = 4 * a); `live` is false for a step past the end
+// (a is 0 there). No branch: a store the body does not make goes to the
+// dummy word (when1, when2, store4 past the end), except fori's, whose 7
+// stores, unrolled over a & 7 with the TPU's carry, are each predicated on
+// its index, and chainrec's two, predicated on `live`. load4 past the end
+// stores back the two words it loaded.
 template <int kMode>
-SC_HD void cliff_body(uint32_t* __restrict__ img, uint32_t ui, uint32_t o4, uint32_t ua,
-                      uint32_t a4, bool live) {
+SC_HD void cliff_body(uint32_t* __restrict__ img, uint32_t t, uint32_t ui, uint32_t o4,
+                      uint32_t ua, uint32_t a4, bool live) {
   if (kMode == kCliffWhen1) {
     cliff_word(img, o4, ua > 3u) = ua;
   } else if (kMode == kCliffWhen2) {
@@ -552,13 +577,17 @@ SC_HD void cliff_body(uint32_t* __restrict__ img, uint32_t ui, uint32_t o4, uint
     const uint32_t s0 = cliff_word(img, o4 - a4), s1 = cliff_word(img, o4 - a4 + 4u);
     cliff_word(img, o4) = s0;
     cliff_word(img, o4 + 4u) = s1;
+  } else if (kMode == kChainRec) {
+    uint32_t* rec = img + (t & (uint32_t)(kRecHalf - 1));
+    store_if(rec, ui << 8 | (ua & 0xFFu), live);
+    store_if(rec + kRecHalf, o4 >> 2, live);
   }
 }
 
 // R trials from start + (r & 1), one after another, over the staged
 // advances adv4 (cliff_staged); returns the sum of each trial's final ip
-// and, but for kChase, its step count. The image (disjoint from adv4) takes
-// the bodies' stores in the TPU's order.
+// and, but for kChase, its step count. The image or record buffer
+// (disjoint from adv4) takes the bodies' stores in the TPU's order.
 //
 // The chain of a step is one shared-memory load and an add: the next step's
 // advance is loaded (at the byte offset p + a4) before this step's body
@@ -591,7 +620,7 @@ SC_HD int32_t cliff_walk(const int32_t* __restrict__ adv4, int32_t n, int32_t st
         const int32_t a4n = *reinterpret_cast<const int32_t*>(base + q);
         if (kMode != kChase) {
           const bool live = p < end4;
-          cliff_body<kMode>(img, (uint32_t)p >> 2, o4, (uint32_t)a4 >> 2, (uint32_t)a4, live);
+          cliff_body<kMode>(img, t, (uint32_t)p >> 2, o4, (uint32_t)a4 >> 2, (uint32_t)a4, live);
           o4 += (uint32_t)a4;
           t += live ? 1u : 0u;
         }

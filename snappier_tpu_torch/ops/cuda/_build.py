@@ -83,7 +83,7 @@ SOURCES = {
     "prepass": ("snappy_prepass_launch", [_I32, _P, _I64, _I64, _P, _P, _P]),
     "decode_hybrid_layout": ("snappy_decode_hybrid_layout", [_P, _I64, _I32, _I32, _P]),
     "encode_stats": ("snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
-    "chain": ("probe_chain_launch", [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P]),
+    "chain": ("probe_chain_launch", [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
     "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
     "coissue": ("probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
     "iso": ("probe_iso_launch", [_I32, _P, _P, _P, _P, _P]),

@@ -9,7 +9,7 @@ Inputs (plain numpy, shared by the tests, the tool and ``chip_smoke.py``):
   every byte, the tag's length at a tag's first byte) and one record
   ``(op, src, len, is_literal)`` per tag of a compressed block;
 - :func:`chain_inputs`: the advance array padded to a multiple of 1,024
-  words, as ``chain`` stages it;
+  words, as the TPU's ``chain`` stages it;
 - :func:`vcopy_records`: ``vcopy``'s record array (dst, src, len at 0, 8,192
   and 16,384, the loop count at 24,576), with its ``2 * nrec`` loop count:
   the records past ``nrec`` read the other regions, as on the TPU;
@@ -25,7 +25,8 @@ Probes (``csrc/hybrid_probes.cu`` and ``csrc/bitonic_probe.cu`` over
   checksum the sum of the final ``ip`` (plus the step count with
   ``with_rec``), the records the buffer after the last trial (empty without
   ``with_rec``): ``(ip << 8) | (adv & 0xFF)`` at ``t & 8191`` and the running
-  sum of advances at ``(t & 8191) + 8192``;
+  sum of advances at ``(t & 8191) + 8192``; on the card ``cliff``'s walk
+  with no body (the chase's kernel) or with the record stores;
 - :func:`vcopy` (``_vcopy_kernel``, modes ``"2d"`` and ``"3d"``): per record,
   the 128 words at word ``src >> 2`` of a 16,384-word image, funnel-shifted
   by the byte phase, rotated to lane ``dst & 127`` and merged under lane
@@ -49,6 +50,10 @@ Probes (``csrc/hybrid_probes.cu`` and ``csrc/bitonic_probe.cu`` over
   a 64-word scratch followed by ``nwhen`` conditional stores (or, at 0,
   three select-stores); returns ``(checksum int32 [1], scratch int32
   [64])``;
+- :func:`bprobe_floor`: ``bprobe``'s mix alone, ``x_t = mix(x_{t-1} ^ t)``
+  from the seed over the same iterations, no scratch; returns the sum of
+  the ``x`` (int32 [1]): the floor of ``bprobe``'s chain, a yardstick and
+  not a TPU kernel (counted as ``bprobe_floor``);
 - :func:`cliff` (``_cliff_kernel``, :data:`CLIFF_MODES`): ``chain``'s walk
   with a body per tag that stores into a 16,384-word image kept across the
   ``R`` trials; returns ``(checksum int32 [1], image int32 [16384])``, the
@@ -104,10 +109,10 @@ Divergences from the TPU functions, by design:
   every word but ``scratch[0] = seed``. The kernel is built for ``nwhen`` in
   :data:`BPROBE_NWHEN` and refuses any other on the card; the plain version
   takes 0-31 (a shift by 32 or more is not defined on the TPU).
-- ``cliff`` and ``chase`` refuse what ``chain`` refuses, and an advance
-  array whose staged copy (its own words, and past ``n`` room for the
-  largest advance below ``n``: :func:`cliff_staged_words`) with the image
-  does not fit one block's shared memory.
+- ``chain``, ``cliff`` and ``chase`` refuse an advance array whose staged
+  copy (its own words, and past ``n`` room for the largest advance below
+  ``n``: :func:`cliff_staged_words`) with the record buffer or image does
+  not fit one block's shared memory.
 - ``bitonic`` returns the indices beside the keys; the TPU computes and
   drops them.
 """
@@ -142,6 +147,7 @@ ISO_MODES = ("scalar", "dynload", "dynload8", "statroll", "dynroll", "full")  # 
 ISO_PASSES = 20
 BPROBE_ITERS = 524288
 BPROBE_NWHEN = (0, 1, 2, 3, 4, 8)  # the kernel's instantiations
+BPROBE_FLOOR = -1  # the bprobe launcher's nwhen for the floor (hp::kBprobeFloor)
 SCRATCH_WORDS = 64
 CLIFF_MODES = ("when1", "when2", "fori", "store4", "load4")  # hp::CliffMode
 SORT_SHAPE = (512, 128)
@@ -249,7 +255,8 @@ def iso_records(recs: np.ndarray) -> np.ndarray:
 
 def _chain_trial(adv: list, n: int, ip: int, rec: list | None):
     """One walk from ``ip``; stores its records into ``rec`` when given.
-    Returns ``(final ip, steps)``; mirrors ``hp::chain_trial``."""
+    Returns ``(final ip, steps)``; ``hp::cliff_walk<kChainRec>`` walks it
+    on staged advances."""
     op = t = 0
     while ip < n:
         a = adv[ip]
@@ -401,22 +408,37 @@ def iso_plain(rec: torch.Tensor, img: torch.Tensor, mode: str):
     return torch.tensor([_i32(acc)], dtype=torch.int32), torch.from_numpy(flat.view(np.int32))
 
 
+def _bprobe_mix(x: int) -> int:
+    """The 4-step mix of one iteration on a signed int32 ``x``."""
+    for _ in range(4):
+        x = (x + (x >> 3)) & 0x7FFFFFFF  # x >> 3 is arithmetic on the signed value
+    return x
+
+
 def bprobe_plain(nwhen: int, seed: int = 3):
-    """Plain version of :func:`bprobe` (``nwhen`` in 0-31); mirrors
-    ``hp::bprobe_step``."""
+    """Plain version of :func:`bprobe` (``nwhen`` in 0-31), an iteration at a
+    time over the scratch (``hp::bprobe_block`` runs 64 at once)."""
     scratch = [FILL & _M32] * SCRATCH_WORDS
     scratch[0] = seed & _M32
     acc = 0
     for t in range(BPROBE_ITERS):
-        x = _i32(scratch[t & 63] ^ t)
-        for _ in range(4):
-            x = (x + (x >> 3)) & 0x7FFFFFFF  # x >> 3 is arithmetic on the signed value
+        x = _bprobe_mix(_i32(scratch[t & 63] ^ t))
         for k in range(nwhen or 3):
             if (x >> k) & 1:
                 scratch[(t + k) & 63] = (x + k) & _M32
         acc += x
     return (torch.tensor([_i32(acc)], dtype=torch.int32),
             torch.tensor([_i32(v) for v in scratch], dtype=torch.int32))
+
+
+def bprobe_floor_plain(seed: int = 3, iters: int = BPROBE_ITERS):
+    """Plain version of :func:`bprobe_floor` over ``iters`` iterations (the
+    kernel's 524,288 by default)."""
+    x, acc = _i32(seed), 0
+    for t in range(iters):
+        x = _bprobe_mix(_i32(x ^ t))
+        acc += x
+    return torch.tensor([_i32(acc)], dtype=torch.int32)
 
 
 def cliff_plain(adv: torch.Tensor, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
@@ -494,12 +516,6 @@ def _int32_vector(x, name: str, size: int | None = None) -> torch.Tensor:
     return x
 
 
-def chain_smem_bytes(adv_words: int, with_rec: bool) -> int:
-    """Dynamic shared memory of :func:`chain`'s block; mirrors
-    ``csrc/hybrid_probes.cu``."""
-    return 4 * (((adv_words + 3) & ~3) + (REC_WORDS if with_rec else 0))
-
-
 def _check_walk(adv: torch.Tensor, n: int, start: int, R: int) -> None:
     """Refuse a walk that could leave ``adv`` or never end (``chain``,
     ``cliff``)."""
@@ -515,24 +531,21 @@ def chain(adv, n: int, start: int = 3, R: int = CHAIN_R, with_rec: bool = False)
     """``R`` trials of the tag-boundary walk over ``adv`` (int32 [len])
     (``tools/perf_probe_hybrid.py::chain``; ``with_rec`` is ``chainrec``).
     Returns ``(checksum int32 [1], records int32 [16384] or [0])``."""
-    adv = _int32_vector(adv, "adv")
-    n, start, R = int(n), int(start), int(R)
-    _check_walk(adv, n, start, R)
-    if chain_smem_bytes(adv.numel(), with_rec) > SMEM_LIMIT:
-        raise ValueError(f"an advance array of {adv.numel()} words does not fit one block's "
-                         f"shared memory")
+    adv, n, start, R, staged = _walk_staging(adv, n, start, R, REC_WORDS if with_rec else 0,
+                                             " with the records" if with_rec else "")
     if not on_cuda(adv):
         return chain_plain(adv, n, start, R, with_rec)
-    return launch_chain(adv, n, start, R, with_rec)
+    return launch_chain(adv, n, start, R, with_rec, staged)
 
 
-def launch_chain(adv: torch.Tensor, n: int, start: int, R: int, with_rec: bool):
+def launch_chain(adv: torch.Tensor, n: int, start: int, R: int, with_rec: bool, staged: int):
     """:func:`chain`'s kernel on a contiguous CUDA int32 ``adv`` that
-    :func:`chain` accepts, without its checks."""
+    :func:`chain` accepts, staged as ``staged`` words
+    (:func:`cliff_staged_words`), without its checks."""
     out = torch.empty(1, dtype=torch.int32, device=adv.device)
     recs = torch.empty(REC_WORDS if with_rec else 0, dtype=torch.int32, device=adv.device)
-    _build.launch("chain", adv.device, int(bool(with_rec)), adv.data_ptr(), adv.numel(), n, start,
-                  R, out.data_ptr(), recs.data_ptr())
+    _build.launch("chain", adv.device, int(bool(with_rec)), adv.data_ptr(), n, staged, start, R,
+                  out.data_ptr(), recs.data_ptr())
     return out, recs
 
 
@@ -670,6 +683,26 @@ def launch_bprobe(nwhen: int, seed: int, device):
     return out, scratch
 
 
+def bprobe_floor(seed: int = 3, device=None):
+    """``bprobe``'s mix alone over its 524,288 iterations on ``device`` (the
+    card unless given): the sum of the ``x`` (int32 [1])."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cpu":
+        return bprobe_floor_plain(seed)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return launch_bprobe_floor(seed, device)
+
+
+def launch_bprobe_floor(seed: int, device):
+    """:func:`bprobe_floor`'s kernel on a CUDA ``device`` (the ``bprobe``
+    launcher at ``nwhen`` -1, counted as ``bprobe_floor``)."""
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    _build.launch("bprobe", device, BPROBE_FLOOR, _i32(int(seed)), out.data_ptr(), None,
+                  count_as="bprobe_floor")
+    return out
+
+
 def cliff_staged_words(adv: torch.Tensor, n: int, start: int) -> int:
     """Words of :func:`cliff`'s and :func:`chase`'s staged copy of ``adv``
     (``hp::cliff_staged``): ``adv``'s own and, past ``n``, the largest
@@ -680,23 +713,18 @@ def cliff_staged_words(adv: torch.Tensor, n: int, start: int) -> int:
     return (max(adv.numel(), n + max_adv) + 3) & ~3
 
 
-def cliff_smem_bytes(staged_words: int, image: bool = True) -> int:
-    """Dynamic shared memory of :func:`cliff`'s block (with ``image``) or
-    :func:`chase`'s; mirrors ``csrc/hybrid_probes.cu``."""
-    return 4 * (staged_words + (IMAGE_WORDS + 4 if image else 0))
-
-
-def _cliff_staging(adv, n: int, start: int, R: int, image: bool):
+def _walk_staging(adv, n: int, start: int, R: int, tail: int, what: str):
     """The checked advance array, n, start, R and the staged words of a
-    cliff or chase call."""
+    walk (``chain``, ``cliff``, ``chase``) whose block holds ``tail`` words
+    after the staged advances (``csrc/hybrid_probes.cu``'s
+    ``kWalkTail``)."""
     adv = _int32_vector(adv, "adv")
     n, start, R = int(n), int(start), int(R)
     _check_walk(adv, n, start, R)
     staged = cliff_staged_words(adv, n, start)
-    if cliff_smem_bytes(staged, image) > SMEM_LIMIT:
-        raise ValueError(f"an advance array of {adv.numel()} words, staged as {staged}"
-                         f"{' with the image' if image else ''}, does not fit one block's "
-                         "shared memory")
+    if 4 * (staged + tail) > SMEM_LIMIT:
+        raise ValueError(f"an advance array of {adv.numel()} words, staged as {staged}{what}, "
+                         "does not fit one block's shared memory")
     return adv, n, start, R, staged
 
 
@@ -706,7 +734,8 @@ def cliff(adv, n: int, mode: str, start: int = 3, R: int = CHAIN_R):
     ``(checksum int32 [1], image int32 [16384])``."""
     if mode not in CLIFF_MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {CLIFF_MODES}")
-    adv, n, start, R, staged = _cliff_staging(adv, n, start, R, True)
+    # The image and its dummy word follow the staged advances.
+    adv, n, start, R, staged = _walk_staging(adv, n, start, R, IMAGE_WORDS + 4, " with the image")
     if not on_cuda(adv):
         return cliff_plain(adv, n, mode, start, R)
     return launch_cliff(adv, n, mode, start, R, staged)
@@ -727,7 +756,7 @@ def chase(adv, n: int, start: int = 3, R: int = CHAIN_R):
     """``R`` trials of ``cliff``'s walk over ``adv`` with no body: the sum of
     the final ``ip`` (int32 [1]), :func:`chain`'s checksum, whose plain
     version it shares."""
-    adv, n, start, R, staged = _cliff_staging(adv, n, start, R, False)
+    adv, n, start, R, staged = _walk_staging(adv, n, start, R, 0, "")
     if not on_cuda(adv):
         return chain_plain(adv, n, start, R)[0]
     return launch_chase(adv, n, start, R, staged)

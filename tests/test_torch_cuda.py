@@ -1210,18 +1210,19 @@ def test_cuda_encode_stats_matches_plain(cuda_device, F):
 
 @pytest.mark.parametrize("with_rec", [False, True], ids=["chain", "chainrec"])
 def test_cuda_chain_matches_plain(cuda_device, with_rec):
-    """T10 on both probe blocks and on a walk of 20,000 steps: checksum and
-    record buffer."""
+    """T10 (cliff's walk over the staged advances) on both probe blocks and
+    on a walk of 20,000 steps, at R = 1, 5 and 200, and on cliff's edge
+    walks: checksum and record buffer."""
     cases = [hp.chain_inputs(b)[:2] for b in probe_blocks().values()]
     cases.append((np.ones(20480, np.int32), 20000))
-    for adv, n in cases:
-        for R in (1, 5, 200):
-            _build.reset_launches()
-            got = hp.chain(_t(adv).to(cuda_device), n, 3, R, with_rec)
-            torch.cuda.synchronize()
-            assert dict(_build.LAUNCHES) == {"chain": 1}
-            want = hp.chain_plain(_t(adv), n, 3, R, with_rec)
-            assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+    walks = [(adv, n, 3, R) for adv, n in cases for R in (1, 5, 200)] + _cliff_cases()[-4:]
+    for adv, n, start, R in walks:
+        _build.reset_launches()
+        got = hp.chain(_t(adv).to(cuda_device), n, start, R, with_rec)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"chain": 1}
+        want = hp.chain_plain(_t(adv), n, start, R, with_rec)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
 
 
 @pytest.mark.parametrize("mode", ["2d", "3d"])
@@ -1280,6 +1281,17 @@ def test_cuda_bprobe_matches_plain(cuda_device, nwhen):
         assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
     with pytest.raises(ValueError, match="built for nwhen"):
         hp.bprobe(5, device=cuda_device)
+
+
+def test_cuda_bprobe_floor_matches_plain(cuda_device):
+    """The floor yardstick (bprobe's mix alone) at seeds 3 and -5 and the
+    fill word: one launch a call, counted as bprobe_floor."""
+    for seed in (3, -5, hp.FILL):
+        _build.reset_launches()
+        got = hp.bprobe_floor(seed, device=cuda_device)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"bprobe_floor": 1}
+        assert got.cpu().tolist() == hp.bprobe_floor_plain(seed).tolist()
 
 
 def _cliff_cases():

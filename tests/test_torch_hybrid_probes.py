@@ -396,6 +396,32 @@ def test_bprobe_matches_interpreted_tpu_kernel(hybrid, monkeypatch, nwhen):
     assert want_sum.tolist() == [want] and (scratch.numpy() == want_scratch).all()
 
 
+def test_bprobe_floor_is_the_mix_chain():
+    """The floor yardstick's plain version against the recurrence written
+    in numpy int32 arithmetic (an arithmetic shift, wrapping adds) over
+    2,048 iterations from 64 seeds at once; the CPU wrapper runs it over
+    bprobe's 524,288 iterations and launches nothing."""
+    from snappier_tpu_torch.ops.cuda import _build
+
+    seeds = np.random.default_rng(17).integers(-(1 << 31), 1 << 31, 64).astype(np.int32)
+    seeds[:3] = (3, -5, hp.FILL)
+    x, acc = seeds.copy(), np.zeros(64, np.int32)
+    with np.errstate(over="ignore"):
+        for t in range(2048):
+            x = x ^ np.int32(t)
+            for _ in range(4):
+                x = (x + (x >> 3)) & np.int32(0x7FFFFFFF)
+            acc += x
+    got = [int(hp.bprobe_floor_plain(int(s), 2048)[0]) for s in seeds]
+    assert got == acc.tolist()
+    _build.reset_launches()
+    full = hp.bprobe_floor(3, device="cpu")
+    assert full.dtype == torch.int32 and full.shape == (1,) and not _build.LAUNCHES
+    assert full.tolist() == hp.bprobe_floor_plain(3).tolist() != hp.bprobe_plain(1)[0].tolist()
+    with pytest.raises(ValueError, match="unsupported device"):
+        hp.bprobe_floor(3, device="meta")
+
+
 def test_bprobe_select_stores_equal_three_whens():
     """Three select-stores (nwhen 0) and three conditional stores compute
     the same thing: checksum and scratch."""

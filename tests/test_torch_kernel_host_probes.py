@@ -40,10 +40,24 @@ SHIM = (r"""
 """
     + ARRAY_WARP
     + r"""
-extern "C" int32_t host_chain(int32_t with_rec, const int32_t* adv, int32_t n, int32_t start,
-                              int32_t R, int32_t* recs) {
-  return with_rec ? hp::chain_walk<true>(adv, n, start, R, recs)
-                  : hp::chain_walk<false>(adv, n, start, R, recs);
+// The advances as the walk's kernel stages them: `staged` words of
+// hp::cliff_staged.
+static std::vector<int32_t> staged_advances(const int32_t* adv, int32_t n, int32_t staged) {
+  std::vector<int32_t> adv_s(staged);
+  for (int32_t i = 0; i < staged; i++) adv_s[i] = hp::cliff_staged(adv, n, i);
+  return adv_s;
+}
+
+// chain's kernel as it runs: cliff_kernel<kChase>, or <kChainRec> over a
+// record buffer from 0 that recs gets.
+extern "C" int32_t host_chain(int32_t with_rec, const int32_t* adv, int32_t n, int32_t staged,
+                              int32_t start, int32_t R, int32_t* recs) {
+  const std::vector<int32_t> adv_s = staged_advances(adv, n, staged);
+  if (!with_rec) return hp::cliff_walk<hp::kChase>(adv_s.data(), n, start, R, nullptr);
+  std::vector<uint32_t> buf(hp::kRecWords, 0u);
+  const int32_t sum = hp::cliff_walk<hp::kChainRec>(adv_s.data(), n, start, R, buf.data());
+  for (int i = 0; i < hp::kRecWords; i++) recs[i] = (int32_t)buf[i];
+  return sum;
 }
 
 // vcopy_kernel's and iso_kernel's work (hp::vcopy_run, hp::iso_run) as
@@ -125,12 +139,13 @@ extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32
   return (int32_t)acc;
 }
 
+// bprobe_kernel's work: the scratch in an array of 64 (registers on the
+// card), 8,192 blocks of 64 iterations.
 template <int kNwhen>
 int32_t host_bprobe_n(int32_t seed, int32_t* scratch) {
-  uint32_t* s = reinterpret_cast<uint32_t*>(scratch);
-  hp::scratch_init(s, seed);
-  uint32_t acc = 0;
-  for (int32_t t = 0; t < hp::kBprobeIters; t++) acc += hp::bprobe_step<kNwhen>(s, t);
+  uint32_t s[hp::kBprobeBlock];
+  const uint32_t acc = hp::bprobe_run<kNwhen>(s, seed);
+  for (int i = 0; i < hp::kBprobeBlock; i++) scratch[i] = (int32_t)s[i];
   return (int32_t)acc;
 }
 
@@ -145,6 +160,8 @@ extern "C" int32_t host_bprobe(int32_t nwhen, int32_t seed, int32_t* scratch) {
   }
 }
 
+extern "C" int32_t host_bprobe_floor(int32_t seed) { return (int32_t)hp::bprobe_floor(seed); }
+
 // cliff_kernel<mode> (hp::kChase: the chase) as it runs: adv staged over
 // `staged` words (hp::cliff_staged), the image and its dummy word from
 // interpret mode's fill; img gets the image (the chase leaves it as it is).
@@ -157,8 +174,7 @@ static int32_t host_cliff_mode(const int32_t* adv_s, int32_t n, int32_t start, i
 
 extern "C" int32_t host_cliff(int32_t mode, const int32_t* adv, int32_t n, int32_t staged,
                               int32_t start, int32_t R, int32_t* img) {
-  std::vector<int32_t> adv_s(staged);
-  for (int32_t i = 0; i < staged; i++) adv_s[i] = hp::cliff_staged(adv, n, i);
+  const std::vector<int32_t> adv_s = staged_advances(adv, n, staged);
   std::vector<uint32_t> im(hp::kCliffImageWords, hp::kFill);
   const int32_t* a = adv_s.data();
   uint32_t* m = im.data();
@@ -211,7 +227,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ is not installed")
     so = gxx_library(SHIM, tmp_path_factory.mktemp("probe_host"))
     P, I32 = ctypes.c_void_p, ctypes.c_int32
-    so.host_chain.argtypes = [I32, P, I32, I32, I32, P]
+    so.host_chain.argtypes = [I32, P, I32, I32, I32, I32, P]
     so.host_chain.restype = I32
     so.host_vcopy.argtypes = [I32, P, P]
     so.host_vcopy.restype = I32
@@ -223,6 +239,8 @@ def host_lib(tmp_path_factory):
     so.host_copy_smem_bytes.restype = I32
     so.host_bprobe.argtypes = [I32, I32, P]
     so.host_bprobe.restype = I32
+    so.host_bprobe_floor.argtypes = [I32]
+    so.host_bprobe_floor.restype = I32
     so.host_cliff.argtypes = [I32, P, I32, I32, I32, I32, P]
     so.host_cliff.restype = I32
     so.host_bitonic.argtypes = [P, P, P]
@@ -232,24 +250,27 @@ def host_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("with_rec", [False, True], ids=["chain", "chainrec"])
 def test_host_chain_walk_matches_plain(host_lib, with_rec):
-    """The boundary walk on both probe blocks at R = 1, 4 and 5, and on a
-    walk of 20,000 steps (its record index wraps at 8,192): checksum and
-    record buffer."""
+    """chain's kernel as it runs (cliff's walk over the staged advances,
+    with no body or with chainrec's record stores) on _cliff_cases (both
+    probe blocks, the walk's edges) and on walks of 20,000 steps from 0 and
+    3 (the record index wraps at 8,192): checksum and all 16,384 words of
+    the record buffer against chain_plain."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
-    cases = [hp.chain_inputs(b)[:2] for b in probe_blocks().values()]
-    cases.append((np.ones(20480, np.int32), 20000))
-    for adv, n in cases:
+    long = np.ones(20480, np.int32)
+    for adv, n, start, R in _cliff_cases() + [(long, 20000, 0, 1), (long, 20000, 3, 3)]:
         adv = np.ascontiguousarray(adv, np.int32)
-        for R in (1, 4, 5):
-            recs = np.zeros(hp.REC_WORDS, np.int32)
-            got = host_lib.host_chain(int(with_rec), adv.ctypes.data, n, 3, R, recs.ctypes.data)
-            want, want_recs = hp.chain_plain(torch.from_numpy(adv), n, 3, R, with_rec)
-            assert got == int(want[0]), (n, R)
-            if with_rec:
-                assert (recs == want_recs.numpy()).all(), (n, R)
+        t = torch.from_numpy(adv)
+        staged = hp.cliff_staged_words(t, n, start)
+        recs = np.zeros(hp.REC_WORDS, np.int32)
+        got = host_lib.host_chain(int(with_rec), adv.ctypes.data, n, staged, start, R,
+                                  recs.ctypes.data)
+        want, want_recs = hp.chain_plain(t, n, start, R, with_rec)
+        assert got == int(want[0]), (n, R, start)
+        if with_rec:
+            assert (recs == want_recs.numpy()).all(), (n, R, start)
 
 
 def _image() -> np.ndarray:
@@ -349,16 +370,28 @@ def test_host_coissue_matches_plain(host_lib, nvec):
 
 @pytest.mark.parametrize("nwhen", [0, 1, 2, 3, 4, 8])
 def test_host_bprobe_matches_plain(host_lib, nwhen):
-    """bprobe's 524,288 iterations at each built nwhen, at seed 3 or -5:
-    checksum and scratch."""
+    """bprobe's 524,288 iterations as the kernel runs them, 8,192 blocks of
+    64 over the scratch held in an array, at each built nwhen and at seeds 3
+    and -5: checksum and scratch against the plain version's iteration at a
+    time."""
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
-    seed = (3, -5)[nwhen & 1]
-    scratch = np.zeros(hp.SCRATCH_WORDS, np.int32)
-    got = host_lib.host_bprobe(nwhen, seed, scratch.ctypes.data)
-    want, want_scratch = hp.bprobe_plain(nwhen, seed)
-    assert got == int(want[0])
-    assert (scratch == want_scratch.numpy()).all()
+    for seed in (3, -5):
+        scratch = np.zeros(hp.SCRATCH_WORDS, np.int32)
+        got = host_lib.host_bprobe(nwhen, seed, scratch.ctypes.data)
+        want, want_scratch = hp.bprobe_plain(nwhen, seed)
+        assert got == int(want[0]), seed
+        assert (scratch == want_scratch.numpy()).all(), seed
+
+
+@pytest.mark.parametrize("seed", [3, -5, -(1 << 31)])
+def test_host_bprobe_floor_matches_plain(host_lib, seed):
+    """The floor yardstick (bprobe's mix alone, x_t = mix(x_{t-1} ^ t)) in
+    the kernel's blocks of 64 against its plain version, from the tool's
+    seed, a negative one and the fill word."""
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    assert host_lib.host_bprobe_floor(seed) == int(hp.bprobe_floor_plain(seed)[0])
 
 
 def _cliff_cases():

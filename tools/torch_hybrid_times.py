@@ -2,12 +2,14 @@
 """Time the decode-walk ablation (T1-T4), the descriptor-driven decode
 (T14-T16, T18 ``decode_v7``), the pipelined decode (T6 ``decode_pipe``, T7
 ``decode_pipe2``), the chain
-probes (T10 ``chain``, T19 ``cliff``, the chase) and the copy probes (T11
+probes (T10 ``chain`` and ``chainrec``, T19 ``cliff``, the chase), the
+branch probe (T17 ``bprobe`` and its floor) and the copy probes (T11
 ``vcopy``, T13 ``iso``) of one or more checkouts on one GPU, beside the
 production kernels K1-K4.
 
     python3 tools/torch_hybrid_times.py ROOT [ROOT ...]
     python3 tools/torch_hybrid_times.py --copy ROOT [ROOT ...]
+    python3 tools/torch_hybrid_times.py --probes ROOT [ROOT ...]
     python3 tools/torch_hybrid_times.py --sass ROOT OUT
 
 Each ROOT is a directory that holds a ``snappier_tpu_torch`` package (this
@@ -28,28 +30,35 @@ widths; ``decode_v2``, ``decode_v4``, ``decode_v3`` and ``decode_variant``
 as v1, v1nock and v1nocp at both widths; each form's layout (the pipelined
 ones' where the package has ``decode_pipe_layout``, the ablation's where it
 has ``decode_variant_layout``) and the ablation kernels' ptxas figures;
-``chain`` and ``cliff``
+``chain``, ``chainrec`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
 the chase, in ms and ns a walk step; ``vcopy`` 2d and 3d and ``iso`` in its
 six modes on block 0's records, in ms and ns a record; ``coissue`` at nvec 0
-and 8 and ``bprobe`` at nwhen 0 and 8; the probes' ptxas figures. Every call is first held to its plain version (the walks' rows to
-the input; the probes' checksum and image). It prints the card's name and
-power limit, then one JSON line per run. It needs a CUDA card and exits 2
-without one.
+and 8, ``bprobe`` at every built nwhen and, where the package has it, its
+floor (``bprobe_floor``), in ms and ns an iteration; the probes' ptxas
+figures. Every call is first held to its plain version (the walks' rows to
+the input; the probes' checksum, records, image or scratch). It prints the
+card's name and power limit, then one JSON line per run. It needs a CUDA
+card and exits 2 without one.
 
 With ``--copy`` it builds ``csrc/hybrid_probes.cu`` alone and times only
-``vcopy`` and ``iso`` (the loop of design trials). With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and writes
-``cuobjdump -sass`` of its ``cliff_kernel``, ``vcopy_kernel`` and
-``iso_kernel`` instantiations to OUT, then prints, for each, its
-shared-memory loads and stores, global loads, shuffles, warp syncs and
-branches in order: the step order a reader checks there (a cliff step's
-next load before its body; a record's plan shuffled in, and the next
-batch loaded, before the previous record's shared loads).
+``vcopy`` and ``iso`` (the loop of design trials); with ``--probes``, only
+the chain probes and ``bprobe`` with its floor. With ``--sass`` it builds
+ROOT's ``csrc/hybrid_probes.cu`` and writes ``cuobjdump -sass`` of its
+``cliff_kernel`` (chain's too), ``vcopy_kernel``, ``iso_kernel``,
+``bprobe_kernel`` and ``bprobe_floor_kernel`` instantiations to OUT, then
+prints, for each, its shared- and local-memory loads and stores, global
+loads, shuffles, warp syncs and branches in order: the step order a reader
+checks there (a cliff step's next load before its body; a record's plan
+shuffled in, and the next batch loaded, before the previous record's
+shared loads; no memory access in bprobe's loop), and the instructions of
+its longest loop body (bprobe's: one block of 64 iterations).
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import os
 import re
 import subprocess
@@ -167,41 +176,14 @@ def one(root: str) -> dict:
                 cs.check(bool((out == frags).all()), f"{name} at the {width} width: rows")
             t[f"{name}_{width}"] = ms(lambda: fn(rows, lens, BLOCK))
     block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
-    adv, n, ntags = hp.chain_inputs(block)
-    adv_h = torch.from_numpy(adv)
-    adv_d = adv_h.cuda()
-    R = hp.CHAIN_R
-    walk = {s: hp._chain_trial(adv.tolist(), n, s, None)[1] for s in (3, 4)}
-    steps = sum(walk[3 + (r & 1)] for r in range(R))
-    want_chain = hp.chain_plain(adv_h, n, 3, R)[0]
-    cs.check(bool((hp.chain(adv_d, n, 3, R)[0].cpu() == want_chain).all()),
-             "chain differs from its plain version")
-    t["chain"] = ms(lambda: hp.launch_chain(adv_d, n, 3, R, False))
-    staged = hp.cliff_staged_words(adv_h, n, 3) if hasattr(hp, "cliff_staged_words") else None
-    for m in hp.CLIFF_MODES:
-        got, want = hp.cliff(adv_d, n, m, 3, R), hp.cliff_plain(adv_h, n, m, 3, R)
-        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
-                 f"cliff {m} differs from its plain version")
-        args = (adv_d, n, m, 3, R) + ((staged,) if staged is not None else ())
-        t[f"cliff_{m}"] = ms(lambda: hp.launch_cliff(*args))
-    if hasattr(hp, "chase"):
-        cs.check(hp.chase(adv_d, n, 3, R).cpu().tolist() == want_chain.tolist(),
-                 "the chase differs from chain's plain version")
-        t["chase"] = ms(lambda: hp.launch_chase(adv_d, n, 3, R, staged))
-    walks = ("chain", "chase", *(f"cliff_{m}" for m in hp.CLIFF_MODES))
+    per = chain_probe_times(cs, hp, block, t)
     per_record = copy_probe_times(cs, hp, block, t)
-    for nvec in (0, 8):  # the other probes of the same source, held to their plain versions
+    for nvec in (0, 8):  # the other probe of the same source, held to its plain version
         cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
             hp.coissue(3, nvec, device="cuda"), hp.coissue_plain(3, nvec))),
             f"coissue {nvec} differs from its plain version")
         tile = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
         t[f"coissue_{nvec}"] = ms(lambda: hp.launch_coissue(3, nvec, tile))
-    for nwhen in (0, 8):
-        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
-            hp.bprobe(nwhen, device="cuda"), hp.bprobe_plain(nwhen))),
-            f"bprobe {nwhen} differs from its plain version")
-        t[f"bprobe_{nwhen}"] = ms(lambda: hp.launch_bprobe(nwhen, 3, torch.device("cuda")))
-    ns = {k: t[k] * 1e6 / steps for k in walks if k in t}
     if hasattr(dh, "decode_hybrid_layout"):
         layout = {f: dh.decode_hybrid_layout(comp, BLOCK, f) for f in ("v5", "v6", "v7")}
     else:  # an older package: form 7's query alone
@@ -211,8 +193,7 @@ def one(root: str) -> dict:
     variant_layout = ({w: {n: dv.decode_variant_layout(r, BLOCK, n) for n in cs.VARIANTS}
                        for w, r in (("codec", comp), ("tight", tight))}
                       if hasattr(dv, "decode_variant_layout") else None)
-    return {"root": root, "ms": t, "ns_per_step": ns, "steps": steps, "tags_block0": ntags,
-            "staged_words": staged, "hybrid_layout": layout, "pipe_layout": pipe_layout,
+    return {"root": root, "ms": t, **per, "hybrid_layout": layout, "pipe_layout": pipe_layout,
             "variant_layout": variant_layout,
             "variant_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_variants", ""),
                                               "_kernel"),
@@ -220,11 +201,68 @@ def one(root: str) -> dict:
                                            "decode_pipe_kernel"),
             "hybrid_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_hybrid", ""),
                                              "_kernel"),
-            "cliff_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("hybrid_probes", ""),
-                                            "cliff_kernel"),
+            **probe_ptxas(cs, _build),
             "ns_per_record": per_record,
             "copy_ptxas": [f for k in ("vcopy_kernel", "iso_kernel") for f in cs.ptxas_figures(
                 _build.BUILD_LOG.get("hybrid_probes", ""), k)]}
+
+
+def chain_probe_times(cs, hp, block: bytes, t: dict) -> dict:
+    """``chain``, ``chainrec``, the chase and ``cliff``'s five modes at 200
+    walks on ``block``'s advances, ``bprobe`` at every built nwhen and its
+    floor, each held to its plain version, then timed: ms into ``t``;
+    returns ns a walk step and an iteration, the steps and the staged words.
+    A package without the chase or the floor is timed without them; one
+    whose ``launch_chain`` takes no staged words stages in its kernel."""
+    import torch
+
+    ms = cs.cuda_ms
+    dev = torch.device("cuda")
+    adv, n, ntags = hp.chain_inputs(block)
+    adv_h = torch.from_numpy(adv)
+    adv_d = adv_h.cuda()
+    R = hp.CHAIN_R
+    walk = {s: hp._chain_trial(adv.tolist(), n, s, None)[1] for s in (3, 4)}
+    steps = sum(walk[3 + (r & 1)] for r in range(R))
+    staged = hp.cliff_staged_words(adv_h, n, 3) if hasattr(hp, "cliff_staged_words") else None
+    chain_staged = (staged,) if "staged" in inspect.signature(hp.launch_chain).parameters else ()
+    for wr, name in ((False, "chain"), (True, "chainrec")):
+        got, want = hp.chain(adv_d, n, 3, R, wr), hp.chain_plain(adv_h, n, 3, R, wr)
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
+                 f"{name} differs from its plain version")
+        t[name] = ms(lambda: hp.launch_chain(adv_d, n, 3, R, wr, *chain_staged))
+    for m in hp.CLIFF_MODES:
+        got, want = hp.cliff(adv_d, n, m, 3, R), hp.cliff_plain(adv_h, n, m, 3, R)
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
+                 f"cliff {m} differs from its plain version")
+        args = (adv_d, n, m, 3, R) + ((staged,) if staged is not None else ())
+        t[f"cliff_{m}"] = ms(lambda: hp.launch_cliff(*args))
+    if hasattr(hp, "chase"):
+        cs.check(hp.chase(adv_d, n, 3, R).cpu().tolist() == hp.chain_plain(adv_h, n, 3, R)[0]
+                 .tolist(), "the chase differs from chain's plain version")
+        t["chase"] = ms(lambda: hp.launch_chase(adv_d, n, 3, R, staged))
+    walks = ("chain", "chainrec", "chase", *(f"cliff_{m}" for m in hp.CLIFF_MODES))
+    for nwhen in hp.BPROBE_NWHEN:
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
+            hp.bprobe(nwhen, device="cuda"), hp.bprobe_plain(nwhen))),
+            f"bprobe {nwhen} differs from its plain version")
+        t[f"bprobe_{nwhen}"] = ms(lambda: hp.launch_bprobe(nwhen, 3, dev))
+    if hasattr(hp, "bprobe_floor"):
+        cs.check(hp.bprobe_floor(3, dev).cpu().tolist() == hp.bprobe_floor_plain(3).tolist(),
+                 "bprobe's floor differs from its plain version")
+        t["bprobe_floor"] = ms(lambda: hp.launch_bprobe_floor(3, dev))
+    iters = [f"bprobe_{w}" for w in hp.BPROBE_NWHEN] + ["bprobe_floor"]
+    return {"ns_per_step": {k: t[k] * 1e6 / steps for k in walks if k in t},
+            "ns_per_iter": {k: t[k] * 1e6 / hp.BPROBE_ITERS for k in iters if k in t},
+            "steps": steps, "tags_block0": ntags, "staged_words": staged}
+
+
+def probe_ptxas(cs, _build) -> dict:
+    """ptxas's figures of the walks' and bprobe's kernels."""
+    log = _build.BUILD_LOG.get("hybrid_probes", "")
+    return {"cliff_ptxas": cs.ptxas_figures(log, "cliff_kernel"),
+            "chain_ptxas": cs.ptxas_figures(log, "chain_kernel"),
+            "bprobe_ptxas": cs.ptxas_figures(log, "bprobe_")}
 
 
 def copy_probe_times(cs, hp, block: bytes, t: dict) -> dict:
@@ -261,23 +299,10 @@ def one_copy(root: str) -> dict:
     """The copy probes of the package at ``root`` alone, on the main path's
     block 0 (the same as :func:`one`'s)."""
     sys.path.insert(0, root)
-    import numpy as np
-    import torch
-
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
-    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 
-    cs = smoke()
-    check_root = os.path.abspath(os.path.join(os.path.dirname(hp.__file__), *[".."] * 3))
-    cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
-    build_some(_build, ["encode", "vcopy", "iso"])
-    html = cs.word_mix()
-    data = np.frombuffer((html * (cs.BLOCK // len(html) + 1))[: cs.BLOCK], np.uint8)
-    frags = torch.from_numpy(data.copy()).reshape(1, -1).cuda()
-    bodies, body_lens = sc.encode_blocks_bytes(
-        frags, torch.full((1,), cs.BLOCK, dtype=torch.int32, device="cuda"))
-    block = bytes([0x80, 0x80, 0x04]) + bodies[0, : int(body_lens[0])].cpu().numpy().tobytes()
+    cs, block = block0(root, ["vcopy", "iso"])
     t = {}
     per_record = copy_probe_times(cs, hp, block, t)
     return {"root": root, "ms": t, "ns_per_record": per_record,
@@ -285,10 +310,51 @@ def one_copy(root: str) -> dict:
                 _build.BUILD_LOG.get("hybrid_probes", ""), k)]}
 
 
+def one_probes(root: str) -> dict:
+    """The chain probes and bprobe with its floor of the package at
+    ``root`` alone, on the main path's block 0 (the same as :func:`one`'s)."""
+    sys.path.insert(0, root)
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    cs, block = block0(root, ["chain", "cliff", "chase", "bprobe"])
+    t = {}
+    per = chain_probe_times(cs, hp, block, t)
+    return {"root": root, "ms": t, **per, **probe_ptxas(cs, _build)}
+
+
+def block0(root: str, launchers) -> tuple:
+    """This repository's ``chip_smoke`` module and the main path's block 0
+    (K2's block of the word mix's first 64 KiB), the package at ``root``
+    checked as the one imported and ``launchers`` built with the encoder."""
+    import numpy as np
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
+
+    cs = smoke()
+    check_root = os.path.abspath(os.path.join(os.path.dirname(sc.__file__), *[".."] * 3))
+    cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
+    build_some(_build, ["encode", *(n for n in launchers if n in _build.SOURCES)])
+    html = cs.word_mix()
+    data = np.frombuffer((html * (cs.BLOCK // len(html) + 1))[: cs.BLOCK], np.uint8)
+    frags = torch.from_numpy(data.copy()).reshape(1, -1).cuda()
+    bodies, body_lens = sc.encode_blocks_bytes(
+        frags, torch.full((1,), cs.BLOCK, dtype=torch.int32, device="cuda"))
+    return cs, bytes([0x80, 0x80, 0x04]) + bodies[0, : int(body_lens[0])].cpu().numpy().tobytes()
+
+
+SASS_KERNELS = ("cliff_kernel", "vcopy_kernel", "iso_kernel", "bprobe_kernel",
+                "bprobe_floor_kernel")
+
+
 def sass(root: str, out: str) -> int:
-    """cuobjdump -sass of ROOT's cliff, vcopy and iso kernels into OUT, and
-    each kernel's shared-memory loads and stores, global loads, shuffles,
-    warp syncs and branches in order."""
+    """cuobjdump -sass of ROOT's cliff (chain's too), vcopy, iso and bprobe
+    kernels into OUT, and each kernel's shared- and local-memory loads and
+    stores, global loads, shuffles, warp syncs and branches in order, and
+    the instructions of its longest loop body (from a backward branch's
+    target to the branch)."""
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
 
@@ -299,16 +365,21 @@ def sass(root: str, out: str) -> int:
                           check=True, timeout=300).stdout
     funcs = re.split(r"\n\s*Function : ", text)
     keep = [f for f in funcs if f.startswith("_Z") and any(
-        k in f.split("\n", 1)[0] for k in ("cliff_kernel", "vcopy_kernel", "iso_kernel"))]
+        k in f.split("\n", 1)[0] for k in SASS_KERNELS)]
     with open(out, "w") as fh:
         fh.write("\n".join("Function : " + f for f in keep))
     for f in keep:
         name = f.split("\n", 1)[0].strip()
-        ops = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", f)
-        seq = [f"{addr}:{(pred or '').strip()}{op}" for addr, pred, op in ops
-               if op.split(".")[0] in ("LDS", "STS", "LDG", "SHFL", "WARPSYNC", "BRA", "BSYNC",
-                                       "BSSY", "EXIT")]
-        print(name, " ".join(seq), flush=True)
+        ops = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)"
+                         r"([^;]*);", f)
+        seq = [f"{addr}:{(pred or '').strip()}{op}" for addr, pred, op, _ in ops
+               if op.split(".")[0] in ("LDS", "STS", "LDL", "STL", "LDG", "SHFL", "WARPSYNC",
+                                       "BRA", "BSYNC", "BSSY", "EXIT")]
+        loops = [(int(addr, 16) - int(m.group(1), 16)) // 16 + 1 for addr, _, op, rest in ops
+                 if op.startswith("BRA") and (m := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(m.group(1), 16) < int(addr, 16)]
+        print(name, " ".join(seq), f"| {len(ops)} instructions; longest loop body "
+              f"{max(loops, default=0)} instructions", flush=True)
     return 0
 
 
@@ -317,6 +388,8 @@ def main(argv) -> int:
         return sass(os.path.abspath(argv[1]), argv[2])
     if argv and argv[0] == "--copy":
         return in_turns(__file__, one_copy, argv[1:], flags=("--copy",))
+    if argv and argv[0] == "--probes":
+        return in_turns(__file__, one_probes, argv[1:], flags=("--probes",))
     return in_turns(__file__, one, argv)
 
 

@@ -28,6 +28,8 @@ Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
               (MODE: scalar, dynload, dynload8, statroll, dynroll, full)
   bprobeN     524,288 iterations of a mix and N conditional stores (N: 0, 1,
               2, 3, 4, 8; 0 is three select-stores)
+  bfloor      bprobe's mix alone over the same iterations: the floor of its
+              chain
   cliff:MODE  chain's 200 walks with a body per tag into an image (MODE:
               when1, when2, fori, store4, load4)
   chase       cliff's walk with no body: the latency floor of a walk step
@@ -64,7 +66,8 @@ BLOCK_SIZE = 65536
 DECODE_PROBES = ("v5", "v5parts", "v6", "v7", "v7u")
 MICRO_PROBES = ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue1", "coissue2",
                 "coissue8", *(f"iso:{m}" for m in hp.ISO_MODES),
-                *(f"bprobe{n}" for n in hp.BPROBE_NWHEN), *(f"cliff:{m}" for m in hp.CLIFF_MODES),
+                *(f"bprobe{n}" for n in hp.BPROBE_NWHEN), "bfloor",
+                *(f"cliff:{m}" for m in hp.CLIFF_MODES),
                 "chase", "bitonic")
 PROBES = DECODE_PROBES + MICRO_PROBES
 DEFAULT = DECODE_PROBES + ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue8")
@@ -117,7 +120,7 @@ def run_micro(names) -> bool:
             wr = p == "chainrec"
             got = hp.chain(d["adv"], n, 3, R, wr)
             want = hp.chain_plain(host["adv"], n, 3, R, wr)
-            fn = lambda wr=wr: hp.launch_chain(d["adv"], n, 3, R, wr)  # noqa: E731
+            fn = lambda wr=wr: hp.launch_chain(d["adv"], n, 3, R, wr, staged)  # noqa: E731
             line = lambda t: (f"{p}: {t * 1e3:.3f} ms for {R} walks of {ntags} tags "  # noqa: E731
                               f"-> {t / R / ntags * 1e9:.1f} ns/tag")
         elif p.startswith("vcopy"):
@@ -150,6 +153,11 @@ def run_micro(names) -> bool:
             fn = lambda nwhen=nwhen: hp.launch_bprobe(nwhen, 3, dev)  # noqa: E731
             line = lambda t: (f"bprobe[nwhen={nwhen}]: "  # noqa: E731
                               f"{t / hp.BPROBE_ITERS * 1e9:.1f} ns/iter")
+        elif p == "bfloor":
+            got = (hp.bprobe_floor(3, dev),)
+            want = (hp.bprobe_floor_plain(3),)
+            fn = lambda: hp.launch_bprobe_floor(3, dev)  # noqa: E731
+            line = lambda t: f"bprobe floor: {t / hp.BPROBE_ITERS * 1e9:.1f} ns/iter"  # noqa: E731
         elif p.startswith("cliff:"):
             mode = p[len("cliff:"):]
             got = hp.cliff(d["adv"], n, mode, 3, R)
