@@ -121,17 +121,21 @@ failure:
    and tensor code), each walk alone and the peak device memory of one
    call;
 10. the micro-probes: ``encode_stats`` (the encoder's budget) against its
-   plain walk on rows of 4 KiB and 9 of the main path's fragments, and
-   ``chain`` / ``chainrec``, ``vcopy`` (2d, 3d) and ``coissue`` (nvec 0, 1,
-   2, 8; from interpret mode's fill and from a random tile, at 8,192
-   iterations and at 5) against theirs on the advance array and records of
-   the encode kernel's block 0, exact, the record buffer, image and tile
-   included; then the path: ``encode_stats`` on the 512 fragments (the 9
-   held to the plain walk), ``chain`` and ``chainrec`` at 200 walks,
-   ``vcopy`` in both modes at twice the block's tags, ``coissue`` at nvec 0
-   and 8; timings of each kernel alone (``chain`` and ``chainrec`` in ns a
-   walk step), ``encode_stats`` beside the encode kernel; the ptxas figures
-   of both ``chain`` forms (any stack or spill fails);
+   plain walk on rows of 4 KiB and 9 of the main path's fragments, its
+   layout (K2's: three blocks of one warp an SM at 65,536 B, two waves of
+   the 512 fragments), and ``chain`` / ``chainrec``, ``vcopy`` (2d, 3d),
+   ``coissue`` (nvec 0, 1, 2, 8) and its vector stream alone
+   (``coissue_vec``; from interpret mode's fill and from a random tile, at
+   8,192 iterations and at 5 and 37) against theirs on the advance array
+   and records of the encode kernel's block 0, exact, the record buffer,
+   image and tile included; then the path: ``encode_stats`` on the 512
+   fragments (the 9 held to the plain walk), ``chain`` and ``chainrec`` at
+   200 walks, ``vcopy`` in both modes at twice the block's tags,
+   ``coissue`` at nvec 0 and 8; timings of each kernel alone (``chain`` and
+   ``chainrec`` in ns a walk step, ``coissue`` at every nvec and the vector
+   stream alone in ns an iteration), ``encode_stats`` beside the encode
+   kernel; the ptxas figures of ``encode_stats``, both ``chain`` forms and
+   every ``coissue`` form (any stack or spill fails);
 11. the isolation, branch, cliff and sort probes on the encode kernel's
    block 0: ``iso`` in its six modes (the records 20 times), ``bprobe`` at
    nwhen 0, 1, 3 and 8, ``cliff`` in its five modes at 200 walks and
@@ -2042,8 +2046,11 @@ def phase_hybrid(torch, card, decode_streams, frags, comp_u8, block_lens):
 def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     """Phase 10, the micro_probes path. Returns (max_abs_err per wrapper,
     launches on the path, ms per wrapper, plain ms per wrapper on one input,
-    (bytes, operations) per wrapper at the timed call, chain's row extras:
-    both forms' ms, ns a step and ptxas figures)."""
+    (bytes, operations) per wrapper at the timed call, row extras by
+    wrapper: T9's layout and ptxas figures; chain's forms' ms, ns a step and
+    ptxas figures; coissue's ms and ns an iteration at every nvec, its two
+    floors (nvec 0, the chain alone, and the vector stream alone) and ptxas
+    figures)."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "tests"))
     from torch_cases import encode_rows as small_rows
@@ -2073,6 +2080,19 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
         check(err == 0, f"encode_stats differs from its plain walk on rows of {f_h.shape[1]} B")
         errs["encode_stats"] = max(errs["encode_stats"], err)
     stats_picks = want
+    # T9 runs in K2's layout: one warp a fragment, the 15-bit table alone in
+    # shared memory, three blocks an SM, so the 512 fragments take two waves.
+    stats_layout = ev.encode_stats_layout(frags)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-B // (n_sm * max(stats_layout["blocks_per_sm"], 1)))
+    check(stats_layout == {"blocks_per_sm": 3, "smem_bytes": 65536, "threads": 32,
+                           "loader": "words"}, f"encode_stats layout {stats_layout}")
+    stats_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode_stats", ""), "_kernel")
+    print(f"encode_stats layout: {stats_layout}, {waves} waves of {B} fragments on {n_sm} SMs; "
+          f"ptxas {stats_ptxas}")
+    check(len(stats_ptxas) == 2 and all(
+        f["stack"] == f["spill_stores"] == f["spill_loads"] == 0 for f in stats_ptxas),
+        f"encode_stats kernels: {stats_ptxas}")
     # T10-T12 on the encode kernel's block 0: its advance array, its records.
     block = comp_u8[0, : int(block_lens[0])].cpu().numpy().tobytes()
     adv, n, ntags = hp.chain_inputs(block)
@@ -2098,16 +2118,21 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
         plain_chk[wr] = int(want[0])
     for mode in hp.MODES:
         compare("vcopy", hp.vcopy(rec_d, img_d, mode), hp.vcopy_plain(rec_h, img_h, mode), mode)
+    co_cases = ((fill, 8192), (rand, 8192), (rand, 5), (rand, 37))
     for nvec in hp.COISSUE_NVEC:
-        for tile, iters in ((fill, 8192), (rand, 8192), (rand, 5)):
+        for tile, iters in co_cases:
             compare("coissue", hp.coissue(3, nvec, tile.to(dev), iters),
                     hp.coissue_plain(3, nvec, tile, iters), f"nvec {nvec}, {iters} iterations")
+    for tile, iters in co_cases:
+        compare("coissue_vec", hp.coissue_vec(tile.to(dev), iters),
+                hp.coissue_vec_plain(tile, iters), f"the vector stream alone, {iters} iterations")
     steps = plain_chk[True] - plain_chk[False]  # chainrec adds each trial's steps
     check(steps > 0, "chainrec's checksum must exceed chain's")
     print(f"encode_stats == plain on {len(cases[0][1])} rows of 4096 B and 9 of {BLOCK} B; "
           f"chain, chainrec ({hp.CHAIN_R} walks, {steps} steps), vcopy 2d and 3d "
-          f"({count} records), coissue (nvec {hp.COISSUE_NVEC}) == plain on block 0 "
-          f"({ntags} tags), max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
+          f"({count} records), coissue (nvec {hp.COISSUE_NVEC}) and its vector stream alone "
+          f"== plain on block 0 ({ntags} tags), max_abs_err 0 "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # 2. the path: the encoder's budget of the 512 fragments; the probes at
     # the tool's sizes.
@@ -2151,19 +2176,27 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
     for mode in hp.MODES:
         t["vcopy" + mode] = cuda_ms(lambda: hp.launch_vcopy(rec_d, img_d, mode))
         t["vcopy" + mode + "_ns_per_record"] = t["vcopy" + mode] * 1e6 / count
+    # coissue at every nvec and, off the path, its vector stream alone.
+    co_forms = [f"coissue{nvec}" for nvec in hp.COISSUE_NVEC] + ["coissue_vec"]
     for nvec in hp.COISSUE_NVEC:
         t[f"coissue{nvec}"] = cuda_ms(lambda: hp.launch_coissue(3, nvec, fill_d))
-        t[f"coissue{nvec}_ns_per_iter"] = t[f"coissue{nvec}"] * 1e6 / hp.COISSUE_ITERS
+    t["coissue_vec"] = cuda_ms(lambda: hp.launch_coissue_vec(fill_d))
+    for k in co_forms:
+        t[k + "_ns_per_iter"] = t[k] * 1e6 / hp.COISSUE_ITERS
     # chain and chainrec run cliff's walk (cliff_kernel<kChase>, <kChainRec>).
     log = _build.BUILD_LOG.get("hybrid_probes", "")
     chain_ptxas = {name: ptxas_figures(log, f"cliff_kernelILi{mode}E")
                    for name, mode in (("chain", 5), ("chainrec", 6))}
+    co_ptxas = ptxas_figures(log, "coissue_kernel")
     print(json.dumps({"card": card, "tags_block0": ntags, "chain_walks": hp.CHAIN_R,
                       "chain_steps": steps, "vcopy_records": count,
                       "encode_stats_per_block_avg": avg.tolist(), "micro_probe_ms": t,
-                      "chain_ptxas": chain_ptxas}))
+                      "chain_ptxas": chain_ptxas, "coissue_ptxas": co_ptxas}))
     check(all(len(f) == 1 and f[0]["stack"] == f[0]["spill_stores"] == f[0]["spill_loads"] == 0
               for f in chain_ptxas.values()), f"chain kernels: {chain_ptxas}")
+    check(len(co_ptxas) == len(co_forms) and all(
+        f["stack"] == f["spill_stores"] == f["spill_loads"] == 0 for f in co_ptxas),
+        f"coissue kernels: {co_ptxas}")
     ms = {"encode_stats": t["encode_stats"], "chain": t["chain"], "vcopy": t["vcopy2d"],
           "coissue": t["coissue8"]}
     f1, l1 = frags[:1].cpu(), lengths[:1].cpu()
@@ -2179,11 +2212,20 @@ def phase_micro_probes(torch, card, frags, lengths, comp_u8, block_lens):
             "vcopy": (4 * (hp.VCOPY_WORDS + 2 * hp.IMAGE_WORDS) + 4, count * hp.LANES),
             "coissue": (2 * 4 * hp.TILE[0] * hp.TILE[1] + 4,
                         hp.COISSUE_ITERS * (24 + 8 * hp.TILE[0] * hp.TILE[1]))}
-    chain_extra = {"ms_by_form": {k: t[k] for k in ("chain", "chainrec")},
-                   "ns_per_step": {k: t[k + "_ns_per_step"] for k in ("chain", "chainrec")},
-                   "steps": steps, "staged_words": staged,
-                   "ptxas": {k: f[0] for k, f in chain_ptxas.items()}}
-    return errs, launches, ms, plain, work, chain_extra
+    extra = {
+        "encode_stats": {"layout": {**stats_layout, "waves": waves, "ptxas": stats_ptxas},
+                         "ms_beside": {"k2": t["k2"]}},
+        "chain": {"ms_by_form": {k: t[k] for k in ("chain", "chainrec")},
+                  "ns_per_step": {k: t[k + "_ns_per_step"] for k in ("chain", "chainrec")},
+                  "steps": steps, "staged_words": staged,
+                  "ptxas": {k: f[0] for k, f in chain_ptxas.items()}},
+        "coissue": {"ms_by_nvec": {k: t[k] for k in co_forms},
+                    "ns_per_iter": {k: t[k + "_ns_per_iter"] for k in co_forms},
+                    "floors": {"chain_alone": {"nvec": 0, "ms": t["coissue0"]},
+                               "vector_alone": {"ms": t["coissue_vec"],
+                                                "max_abs_err": errs["coissue_vec"]}},
+                    "ptxas": co_ptxas}}
+    return errs, launches, ms, plain, work, extra
 
 
 ISOLATION_NWHEN = (0, 1, 3, 8)  # compared and on the path; every built nwhen is timed
@@ -2558,7 +2600,7 @@ def main() -> int:
     ms.update(ms_hy)
 
     # --- 10. the micro-probes ----------------------------------------------------
-    errs_mp, micro_launches, ms_mp, plain_mp, work_mp, chain_extra = phase_micro_probes(
+    errs_mp, micro_launches, ms_mp, plain_mp, work_mp, micro_extra = phase_micro_probes(
         torch, card, frags, lengths, comp_u8, block_lens)
     errs.update(errs_mp)
     ms.update(ms_mp)
@@ -2664,8 +2706,8 @@ def main() -> int:
             rows[-1].update(hybrid_extra[k])
         if k == "cliff":
             rows[-1].update(cliff_extra)
-        if k == "chain":
-            rows[-1].update(chain_extra)
+        if k in micro_extra:
+            rows[-1].update(micro_extra[k])
         if k == "bprobe":
             rows[-1].update(bprobe_extra)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "

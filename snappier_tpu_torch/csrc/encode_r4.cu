@@ -71,7 +71,8 @@ extern "C" int snappy_encode_r4_launch(uint32_t mask, int32_t hash_bits, int32_t
                                        int64_t batch, void* bodies, int64_t body_w,
                                        void* body_lens, void* stream) {
   return with_walk(mask, hash_bits, store_step, [&](auto cfg) {
-    return ev::launch(cfg, frags, frag_w, lengths, batch, bodies, body_w, body_lens, stream);
+    return ev::launch(cfg, frags, frag_w, lengths, batch,
+                      ev::BodyRows{(uint8_t*)bodies, body_w, (int32_t*)body_lens}, stream);
   });
 }
 
@@ -79,6 +80,7 @@ extern "C" int snappy_encode_r4_launch(uint32_t mask, int32_t hash_bits, int32_t
 // (ev::layout: blocks per SM, shared bytes, threads, loader).
 extern "C" int snappy_encode_r4_layout(const void* frags, int64_t frag_w, uint32_t mask,
                                        int32_t hash_bits, int32_t store_step, int32_t* out) {
-  return with_walk(mask, hash_bits, store_step,
-                   [&](auto cfg) { return ev::layout(cfg, frags, frag_w, out); });
+  return with_walk(mask, hash_bits, store_step, [&](auto cfg) {
+    return ev::layout<ev::BodyRows>(cfg, frags, frag_w, out);
+  });
 }

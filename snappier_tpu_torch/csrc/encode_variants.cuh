@@ -197,11 +197,10 @@ struct WalkStats {
 constexpr uint32_t EV_STATS_WALK = EV_EXT_4 | EV_XOR_TAIL | EV_EMIT_HITS;
 
 // Greedy LZ77 over one fragment of n bytes under a mask, read through a
-// loader (sc::RowWords, sc::RowBytes on the card; Staged below for
-// encode_stats.cu); returns the tag stream's length and counts the walk into
-// `stats`. Bytes at or past n read as zero. table holds 1 << cfg.hash_bits
-// slots, all EMPTY on entry; out holds the bound of greedy emission plus 3
-// bytes (nothing without emission).
+// loader (sc::RowWords, sc::RowBytes); returns the tag stream's length and
+// counts the walk into `stats`. Bytes at or past n read as zero. table holds
+// 1 << cfg.hash_bits slots, all EMPTY on entry; out holds the bound of
+// greedy emission plus 3 bytes (nothing without emission).
 template <class Ld, class Cfg, class Stats>
 SC_HD int32_t encode_fragment_variant(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg,
                                       uint8_t* out, Stats& stats) {
@@ -420,29 +419,73 @@ SC_HD int32_t encode_fragment_variant(const Ld& ld, int32_t n, uint16_t* table, 
 
 namespace ev {
 
-// A fragment staged where the walk may read past it: n bytes followed by 16
-// zero bytes (encode_stats.cu's copy in shared memory, the host tests'
-// vectors). Not a row loader: it reads the bytes past n, which hold zero.
-struct Staged {
-  const uint8_t* s;
-  int32_t n;
-  SC_HD uint32_t window(int32_t i) const { return sc::load32(s, i); }
-  SC_HD uint32_t word(int32_t k) const { return sc::load32(s, 4 * k); }
-  SC_HD uint32_t byte(int32_t i) const { return s[i]; }
+// Where one fragment's walk goes (encode_variant_row's sink). BodyOut: the
+// tag stream into the body's row and its length (encode_variants.cu,
+// encode_r4.cu); a fragment that is not walked (EV_DMA_ONLY, EV_NOSCAN)
+// gives its length and the XOR of its words, stored in the 4 bytes after
+// the length, which a body leaves unspecified. StatsOut: the walk's budget
+// (encode_stats.cu), miss iterations, hits, extension iterations and
+// matched bytes; a fragment that is not walked counts nothing.
+struct BodyOut {
+  uint8_t* row;
+  int32_t* len;
+  template <class Ld, class Cfg>
+  SC_HD void walk(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg) const {
+    *len = sc::encode_fragment_variant(ld, n, table, cfg, row);
+  }
+  SC_HD void no_walk(int32_t length, uint32_t acc) const {
+    for (int j = 0; j < 4; j++) row[length + j] = (uint8_t)(acc >> (8 * j));
+    *len = length;
+  }
 };
+
+struct StatsOut {
+  int32_t* counts;
+  template <class Ld, class Cfg>
+  SC_HD void walk(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg) const {
+    sc::WalkStats st;
+    sc::encode_fragment_variant(ld, n, table, cfg, nullptr, st);
+    counts[0] = st.miss_iters;
+    counts[1] = st.hits;
+    counts[2] = st.ext_iters;
+    counts[3] = st.match_bytes;
+  }
+  SC_HD void no_walk(int32_t, uint32_t) const {
+    for (int j = 0; j < 4; j++) counts[j] = 0;
+  }
+};
+
+// A batch's sinks: row b's body and length, or its four counts.
+struct BodyRows {
+  uint8_t* bodies;
+  int64_t body_w;
+  int32_t* lens;
+  SC_HD BodyOut at(int64_t b) const { return {bodies + b * body_w, lens + b}; }
+};
+
+struct StatsRows {
+  int32_t* stats;  // int32[B, 4]
+  SC_HD StatsOut at(int64_t b) const { return {stats + 4 * b}; }
+};
+
+// encode_stats.cu's walk: EV_STATS_WALK at the production 15 hash bits,
+// every probe position stored.
+constexpr sc::StaticWalk<sc::EV_STATS_WALK> kStatsWalk{15, 1};
 
 }  // namespace ev
 
 #ifdef __CUDACC__
 #include "smem_config.cuh"
 
-// The kernel, its launch and its layout query, shared by encode_variants.cu
-// and encode_r4.cu: encode.cu's layout. One block of one warp per fragment;
-// only the match table (1 << hash_bits 16-bit slots) lives in dynamic shared
-// memory, so 3 blocks fit an SM at 15 hash bits and 6 at 14. The warp clears
-// the table, then lane 0 walks, reading the fragment through the read-only
-// path (sc::RowWords where base and width are multiples of 16, else
-// sc::RowBytes), and stores the tags straight into the body's row.
+// The kernel, its launch and its layout query, shared by encode_variants.cu,
+// encode_r4.cu and encode_stats.cu: encode.cu's layout. One block of one
+// warp per fragment; only the match table (1 << hash_bits 16-bit slots)
+// lives in dynamic shared memory, so 3 blocks fit an SM at 15 hash bits and
+// 6 at 14. The warp clears the table, then lane 0 walks, reading the
+// fragment through the read-only path (sc::RowWords where base and width
+// are multiples of 16, else sc::RowBytes), and hands the result to the
+// row's sink (BodyOut stores the tags straight into the body's row,
+// StatsOut the four counts).
 namespace ev {
 
 constexpr int kThreads = 32;
@@ -452,22 +495,17 @@ SC_HD size_t table_bytes(int hash_bits) { return sizeof(uint16_t) << hash_bits; 
 // One fragment on one warp. The variants without a walk (EV_DMA_ONLY: length
 // n, EV_NOSCAN: length 0) time what their TPU kernels time, the fragment
 // brought on chip: the warp reads the fragment's words once through the
-// loader, and their XOR is stored in the 4 bytes after the returned length,
-// which a body leaves unspecified; the store has no condition, so the
-// compiler keeps the loads, and the lengths stay n and 0.
-template <class Cfg, class Ld>
+// loader and the sink gets their XOR; BodyOut stores it with no condition,
+// so the compiler keeps the loads.
+template <class Cfg, class Ld, class Out>
 __device__ void encode_variant_row(const Ld& ld, int32_t n, uint16_t* table, Cfg cfg,
-                                   uint8_t* out, int32_t* out_len) {
+                                   const Out& out) {
   const uint32_t mk = cfg.mask();
   if (mk & (sc::EV_DMA_ONLY | sc::EV_NOSCAN)) {
     uint32_t acc = 0;
     for (int32_t k = threadIdx.x; 4 * k < n; k += kThreads) acc ^= ld.word(k);
     for (int o = 16; o > 0; o >>= 1) acc ^= __shfl_xor_sync(0xFFFFFFFFu, acc, o);
-    if (threadIdx.x == 0) {
-      const int32_t len = (mk & sc::EV_DMA_ONLY) ? n : 0;
-      for (int j = 0; j < 4; j++) out[len + j] = (uint8_t)(acc >> (8 * j));
-      *out_len = len;
-    }
+    if (threadIdx.x == 0) out.no_walk((mk & sc::EV_DMA_ONLY) ? n : 0, acc);
     return;
   }
   uint4* t4 = reinterpret_cast<uint4*>(table);
@@ -475,32 +513,29 @@ __device__ void encode_variant_row(const Ld& ld, int32_t n, uint16_t* table, Cfg
   const uint4 empty = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
   for (int w = threadIdx.x; w < words; w += kThreads) t4[w] = empty;
   __syncwarp();
-  if (threadIdx.x == 0) *out_len = sc::encode_fragment_variant(ld, n, table, cfg, out);
+  if (threadIdx.x == 0) out.walk(ld, n, table, cfg);
 }
 
-template <class Cfg, bool kWords>
+template <class Cfg, bool kWords, class Rows>
 __global__ void __launch_bounds__(kThreads)
     encode_variant_kernel(const uint8_t* __restrict__ frags, int64_t frag_w,
-                          const int32_t* __restrict__ lengths, Cfg cfg,
-                          uint8_t* __restrict__ bodies, int64_t body_w,
-                          int32_t* __restrict__ body_lens) {
+                          const int32_t* __restrict__ lengths, Cfg cfg, Rows rows) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* table = reinterpret_cast<uint16_t*>(smem);
   const int64_t b = blockIdx.x;
   int32_t n = lengths[b];
   n = n < 0 ? 0 : (n > frag_w ? (int32_t)frag_w : n);
   const uint8_t* row = frags + b * frag_w;
-  uint8_t* out = bodies + b * body_w;
   if (kWords) {
     encode_variant_row(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n, table, cfg,
-                       out, body_lens + b);
+                       rows.at(b));
   } else {
-    encode_variant_row(sc::RowBytes{row, n}, n, table, cfg, out, body_lens + b);
+    encode_variant_row(sc::RowBytes{row, n}, n, table, cfg, rows.at(b));
   }
 }
 
 // Each instantiation's attributes, set per device (smem_config.cuh).
-template <class Cfg, bool kWords>
+template <class Cfg, bool kWords, class Rows>
 attrs::SetFor& set_for() {
   static attrs::SetFor s;
   return s;
@@ -509,45 +544,45 @@ attrs::SetFor& set_for() {
 // Runs fn with the kernel's shared-memory attributes set on the current
 // device for a table of cfg.hash_bits, under the lock that orders them with
 // every other launch of the kernel.
-template <class Cfg, bool kWords, class Fn>
+template <class Cfg, bool kWords, class Rows, class Fn>
 cudaError_t configured(Cfg cfg, Fn fn) {
-  return attrs::configure_and_launch(encode_variant_kernel<Cfg, kWords>,
-                                     table_bytes(cfg.hash_bits), set_for<Cfg, kWords>(), fn);
+  return attrs::configure_and_launch(encode_variant_kernel<Cfg, kWords, Rows>,
+                                     table_bytes(cfg.hash_bits), set_for<Cfg, kWords, Rows>(),
+                                     fn);
 }
 
-template <class Cfg, bool kWords>
+template <class Cfg, bool kWords, class Rows>
 int launch_rows(Cfg cfg, const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
-                void* bodies, int64_t body_w, void* body_lens, void* stream) {
+                Rows rows, void* stream) {
   const size_t smem = table_bytes(cfg.hash_bits);
-  return (int)configured<Cfg, kWords>(cfg, [&] {
-    encode_variant_kernel<Cfg, kWords><<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)frags, frag_w, (const int32_t*)lengths, cfg, (uint8_t*)bodies, body_w,
-        (int32_t*)body_lens);
+  return (int)configured<Cfg, kWords, Rows>(cfg, [&] {
+    encode_variant_kernel<Cfg, kWords, Rows>
+        <<<(unsigned)batch, kThreads, smem, (cudaStream_t)stream>>>(
+            (const uint8_t*)frags, frag_w, (const int32_t*)lengths, cfg, rows);
     return cudaGetLastError();
   });
 }
 
-// frags: uint8[B, frag_w], any address and width; lengths, body_lens:
-// int32[B]; bodies: uint8[B, body_w], body_w at least frag_w + 4 and the
-// bound of greedy emission plus 3 bytes.
-template <class Cfg>
+// frags: uint8[B, frag_w], any address and width; lengths: int32[B]; rows:
+// the B sinks (BodyRows: bodies uint8[B, body_w], body_w at least frag_w + 4
+// and the bound of greedy emission plus 3 bytes, and int32[B] lengths;
+// StatsRows: int32[B, 4]).
+template <class Cfg, class Rows>
 int launch(Cfg cfg, const void* frags, int64_t frag_w, const void* lengths, int64_t batch,
-           void* bodies, int64_t body_w, void* body_lens, void* stream) {
+           Rows rows, void* stream) {
   if (batch == 0) return 0;
   return sc::word_rows(frags, frag_w)
-             ? launch_rows<Cfg, true>(cfg, frags, frag_w, lengths, batch, bodies, body_w,
-                                      body_lens, stream)
-             : launch_rows<Cfg, false>(cfg, frags, frag_w, lengths, batch, bodies, body_w,
-                                       body_lens, stream);
+             ? launch_rows<Cfg, true>(cfg, frags, frag_w, lengths, batch, rows, stream)
+             : launch_rows<Cfg, false>(cfg, frags, frag_w, lengths, batch, rows, stream);
 }
 
-template <class Cfg, bool kWords>
+template <class Cfg, bool kWords, class Rows>
 int layout_rows(Cfg cfg, int32_t* out) {
   const size_t smem = table_bytes(cfg.hash_bits);
   int nb = 0;
-  cudaError_t e = configured<Cfg, kWords>(cfg, [&] {
+  cudaError_t e = configured<Cfg, kWords, Rows>(cfg, [&] {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, encode_variant_kernel<Cfg, kWords>, kThreads, smem);
+        &nb, encode_variant_kernel<Cfg, kWords, Rows>, kThreads, smem);
   });
   out[0] = nb;
   out[1] = (int32_t)smem;
@@ -556,14 +591,15 @@ int layout_rows(Cfg cfg, int32_t* out) {
   return (int)e;
 }
 
-// The launch's layout for rows at frags of width frag_w: out[0] blocks per
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor under the attributes the
-// launch sets), out[1] dynamic shared bytes per block, out[2] threads per
-// block, out[3] 1 for the word loader and 0 for the byte loader.
-template <class Cfg>
+// The layout of launch() with sinks of type Rows for rows at frags of width
+// frag_w: out[0] blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// under the attributes the launch sets), out[1] dynamic shared bytes per
+// block, out[2] threads per block, out[3] 1 for the word loader and 0 for
+// the byte loader.
+template <class Rows, class Cfg>
 int layout(Cfg cfg, const void* frags, int64_t frag_w, int32_t* out) {
-  return sc::word_rows(frags, frag_w) ? layout_rows<Cfg, true>(cfg, out)
-                                      : layout_rows<Cfg, false>(cfg, out);
+  return sc::word_rows(frags, frag_w) ? layout_rows<Cfg, true, Rows>(cfg, out)
+                                      : layout_rows<Cfg, false, Rows>(cfg, out);
 }
 
 }  // namespace ev

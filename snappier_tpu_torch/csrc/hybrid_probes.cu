@@ -37,19 +37,27 @@
 // 8; iters 8,192 as on the TPU, fewer for the tests). The TPU asks whether
 // Mosaic issues the scalar unit's chain and the VPU's tile updates in the
 // same bundles. The SIMT counterpart: warp 0 (one thread) runs the
-// 24-operation scalar chain through a 64-word scratch in shared memory,
-// warps 1-8 (one tile row each, 4 words a lane, the lane rotation by
-// shuffles) run the nvec updates a step, and the SM's schedulers interleave
-// the warps. Nothing syncs them inside the loop, so
-// the time is the longer of the two streams if they overlap and their sum
-// if they do not. Bound: 8 KiB of bytes; the floor is 8,192 x 24 dependent
-// steps of the scalar chain. The scratch starts as interpret mode leaves it
-// (0x80000000, the seed at word 0) and the tile comes from device memory
-// (by default 0x80000000 everywhere): on the TPU both hold whatever SMEM
-// and VMEM held, and a tile that the compiler could see would fold away.
-// (The TPU's result never depends on the vector work: 4,096 updates take
-// any tile to 0 modulo 2^32, ops/cuda/hybrid_probes.py says why. The work
-// is done all the same: nvcc cannot know it.)
+// 24-operation scalar chain through a 64-word scratch in shared memory (it
+// is indexed by data), the tile's 8 rows run the nvec updates a step on
+// warps of their own, and the SM's schedulers interleave the warps. Nothing
+// syncs them inside the loop, so the time is the longer of the two streams
+// if they overlap and their sum if they do not. The design keeps the two
+// apart: no tile warp shares warp 0's scheduler (the tile's warps are
+// 1-3, 5-7, 9 and 10); a row lies 4 consecutive elements a lane, so that an
+// update takes its rolled words from the lane's own registers and from
+// lanes l - 1 and l - 2 by at most 4 shuffles and no select
+// (hp::coissue_row); and a round of the chain issues its load before its
+// store, on an AND of x * 5 + 1 (the scratch's words 8 bytes apart), with
+// the store's aliasing folded into one LOP3 (hp::coissue_step). Bound: 8
+// KiB of bytes; the floors are measured: nvec 0 is the chain alone, and
+// coissue_kernel<hp::kCoissueVec> (wrapper coissue_vec, the launcher's
+// nvec -1) the tile's warps at nvec 8 with no chain. The scratch starts as
+// interpret mode leaves it (0x80000000, the seed at word 0) and the tile
+// comes from device memory (by default 0x80000000 everywhere): on the TPU
+// both hold whatever SMEM and VMEM held, and a tile that the compiler could
+// see would fold away. (The TPU's result never depends on the vector work:
+// 4,096 updates take any tile to 0 modulo 2^32, ops/cuda/hybrid_probes.py
+// says why. The work is done all the same: nvcc cannot know it.)
 //
 // iso_kernel<kMode>: _iso_kernel (wrapper iso; modes scalar, dynload,
 // dynload8, statroll, dynroll, full). The TPU times each part of vcopy's
@@ -157,55 +165,43 @@ __global__ void vcopy_kernel(const int32_t* __restrict__ rec, const int32_t* __r
   finish(acc.v, img, lane, out, img_out);
 }
 
+// The tile's warps: 1-3, 5-7, 9 and 10, so that none shares warp 0's
+// scheduler (warp w issues from sub-partition w % 4); warps 4 and 8 only
+// meet the others at the end. Warp w holds row tile_row(w).
+constexpr int kCoissueWarps = 11;
+__device__ constexpr int tile_row(int warp) { return warp % 4 ? warp - 1 - warp / 4 : -1; }
+
+// kNvec 0, 1, 2, 8: coissue; hp::kCoissueVec: the tile's warps at nvec 8
+// and no chain (the vector stream alone, its sum the tile's parity).
 template <int kNvec>
-__global__ void coissue_kernel(int32_t seed, int32_t iters, const int32_t* __restrict__ tile,
-                               int32_t* __restrict__ out, int32_t* __restrict__ tile_out) {
-  __shared__ uint32_t scratch[64];
-  __shared__ uint32_t sums[9];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kCoissueWarps * 32)
+    coissue_kernel(int32_t seed, int32_t iters, const int32_t* __restrict__ tile,
+                   int32_t* __restrict__ out, int32_t* __restrict__ tile_out) {
+  __shared__ uint32_t scratch[hp::kScratchSlots];
+  __shared__ uint32_t sums[hp::kTileRows + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, row = tile_row(warp);
   if (warp == 0) {
     if (lane == 0) {
-      hp::scratch_init(scratch, seed);
       uint32_t acc = 0;
-      for (uint32_t t = 0; t < (uint32_t)iters; t++) {
-        acc += hp::coissue_step(scratch, t);
+      if (kNvec != hp::kCoissueVec) {
+        hp::scratch_init(scratch, seed);
+        for (uint32_t t = 0; t < (uint32_t)iters; t++) acc += hp::coissue_step(scratch, t);
       }
-      sums[0] = acc;
+      sums[hp::kTileRows] = acc;
     }
-  } else {
-    // Row warp - 1 of the tile; element lane + 32 k in v[k]. roll(v, s)[p]
-    // is v[(p - s) & 127]: lane (lane - s) & 31 holds it, in slot k or,
-    // for lanes below s, in slot k - 1.
-    const int32_t* row = tile + (warp - 1) * hp::kLanes;
-    uint32_t v[4];
-#pragma unroll
-    for (int k = 0; k < 4; k++) v[k] = (uint32_t)row[lane + 32 * k];
-    for (int32_t t = 0; t < (kNvec ? iters : 0); t++) {
-#pragma unroll
-      for (int s = 1; s <= kNvec; s++) {
-        uint32_t a[4];
-#pragma unroll
-        for (int k = 0; k < 4; k++) a[k] = __shfl_sync(kFull, v[k], (lane - s) & 31);
-#pragma unroll
-        for (int k = 0; k < 4; k++) {
-          v[k] = hp::coissue_update(v[k], lane >= s ? a[k] : a[(k + 3) & 3]);
-        }
-      }
-    }
-    uint32_t par = 0;
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      tile_out[(warp - 1) * hp::kLanes + lane + 32 * k] = (int32_t)v[k];
-      par += v[k] & 1u;
-    }
+  } else if (row >= 0) {
+    constexpr int kUpdates = kNvec == hp::kCoissueVec ? hp::kVecUpdates : kNvec;
+    const sc::CudaWarp w;
+    uint32_t par = hp::coissue_row<kUpdates>(w, tile + row * hp::kLanes, iters,
+                                             tile_out + row * hp::kLanes).v;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) par += __shfl_xor_sync(kFull, par, o);
-    if (lane == 0) sums[warp] = par;
+    if (lane == 0) sums[row] = par;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t total = 0;
-    for (int w = 0; w < 9; w++) total += sums[w];
+    for (int r = 0; r <= hp::kTileRows; r++) total += sums[r];
     out[0] = (int32_t)total;
   }
 }
@@ -326,15 +322,17 @@ extern "C" int probe_vcopy_launch(int32_t mode3d, const void* rec, const void* i
 #undef PROBE_LAUNCH
 }
 
-// tile, tile_out: int32[8, 128]; out: int32[1].
+// tile, tile_out: int32[8, 128]; out: int32[1]; nvec 0, 1, 2, 8, or -1
+// (hp::kCoissueVec) for the vector stream alone (seed unused).
 extern "C" int probe_coissue_launch(int32_t nvec, int32_t seed, int32_t iters, const void* tile,
                                     void* out, void* tile_out, void* stream) {
 #define PROBE_CASE(N)                                                                      \
   case N:                                                                                  \
-    coissue_kernel<N><<<1, 9 * 32, 0, (cudaStream_t)stream>>>(                             \
+    coissue_kernel<N><<<1, kCoissueWarps * 32, 0, (cudaStream_t)stream>>>(                 \
         seed, iters, (const int32_t*)tile, (int32_t*)out, (int32_t*)tile_out);             \
     break
   switch (nvec) {
+    PROBE_CASE(hp::kCoissueVec);
     PROBE_CASE(0);
     PROBE_CASE(1);
     PROBE_CASE(2);

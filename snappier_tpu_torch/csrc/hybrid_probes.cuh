@@ -253,29 +253,131 @@ SC_HD void vcopy_run(const W& w, const int32_t* rec, uint32_t* img,
 
 // --- coissue (_coissue_kernel) ---------------------------------------------
 
-// A 64-word scratch as interpret mode leaves it: 0x80000000, seed at word 0
-// (coissue and bprobe).
+// The scalar chain's 64-word scratch in shared memory, word i at byte 8 * i
+// (element 2 * i of kScratchSlots words): a load's byte offset (x >> 3 & 63)
+// * 8 is then x & 0x1F8, one AND, where word i at byte 4 * i takes a shift
+// too.
+constexpr int kScratchWords = 64;
+constexpr int kScratchSlots = 2 * kScratchWords;
+constexpr uint32_t kScratchBytes = 8u * (kScratchWords - 1);  // 0x1F8: a word's offset, masked
+
+SC_HD uint32_t& scratch_word(uint32_t* scratch, uint32_t at) {
+  return *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(scratch) + at);
+}
+
+// The scratch as interpret mode leaves it: 0x80000000, seed at word 0.
 SC_HD void scratch_init(uint32_t* scratch, int32_t seed) {
-  for (int i = 0; i < 64; i++) scratch[i] = kFill;
+  for (int i = 0; i < kScratchWords; i++) scratch[2 * i] = kFill;
   scratch[0] = (uint32_t)seed;
 }
 
-// Iteration t of the scalar chain (24 dependent operations through the
-// 64-word scratch); returns x, which the TPU adds to its sum.
+// (a ^ b) & keep: on the card one LOP3, written in PTX so that it stays one
+// instruction on the chain.
+SC_HD uint32_t xor_and(uint32_t a, uint32_t b, uint32_t keep) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x28;" : "=r"(r) : "r"(a), "r"(b), "r"(keep));
+  return r;
+#else
+  return (a ^ b) & keep;
+#endif
+}
+
+// Iteration t of the scalar chain, the TPU's six rounds of x = (x * 5 + 1) &
+// 0x7FFFFFFF, scratch[(t + x) & 63] = x, x ^= scratch[(x >> 3) & 63] (24
+// dependent operations); returns x, which the TPU adds to its sum.
+//
+// A round loads before it stores, so that the load waits on nothing but y =
+// x * 5 + 1 (the mask leaves bits 3-8 alone, and the store's address and
+// value are made in the load's shadow): where the two name one word, the
+// load would have read the stored x, and x ^ x = 0 takes its place. The
+// chain of a round is then a multiply-add, an AND, the load and one LOP3.
+// Each round's store precedes the next round's load, and the last round's
+// the next iteration's first load.
 SC_HD uint32_t coissue_step(uint32_t* scratch, uint32_t t) {
-  uint32_t x = scratch[t & 63];
+  uint32_t x = scratch_word(scratch, (t << 3) & kScratchBytes);
 #pragma unroll
   for (int j = 0; j < 6; j++) {
-    x = (x * 5u + 1u) & 0x7FFFFFFFu;
-    scratch[(t + x) & 63] = x;
-    x ^= scratch[(x >> 3) & 63];
+    const uint32_t y = x * 5u + 1u;
+    const uint32_t from = y & kScratchBytes, to = ((t + y) << 3) & kScratchBytes;
+    const uint32_t z = scratch_word(scratch, from);
+    x = y & 0x7FFFFFFFu;
+    scratch_word(scratch, to) = x;
+    x = xor_and(x, z, from == to ? 0u : 0xFFFFFFFFu);
   }
   return x;
 }
 
 // One vector update of a tile element: v * 3 + roll(v, s)[i], the rolled
-// value taken by the caller from lane (i - s) & 127 of the same row.
+// value taken by the caller from element (i - s) & 127 of the same row.
 SC_HD uint32_t coissue_update(uint32_t v, uint32_t rolled) { return v * 3u + rolled; }
+
+// The tile's row on one warp, kQuad elements a lane: lane l holds elements
+// 4l .. 4l + 3. roll(v, s)[p] = v[(p - s) & 127] takes, for s <= 4, element
+// j >= s from the lane's own word j - s and j < s from word j - s + 4 of
+// lane l - 1; for 4 < s <= 8 (q = s - 4), j >= q from word j - q of lane
+// l - 1 and j < q from word j - q + 4 of lane l - 2 (lanes wrap mod 32).
+// An update of shift s is min(s, 4) shuffles from fixed lanes and no
+// select: 26 an iteration at nvec 8 (elements 32 apart a lane took 4
+// shuffles and 4 selects an update).
+constexpr int kQuad = 4;
+constexpr int kTileRows = 8;
+constexpr int kCoissueVec = -1;  // the coissue launcher's nvec for the vector stream alone
+constexpr int kVecUpdates = 8;   // its updates an iteration
+
+// One iteration of a row: v <- v * 3 + roll(v, s) for s = 1 .. kNvec; left1
+// and left2 hold each lane's lanes l - 1 and l - 2.
+template <int kNvec, class W>
+SC_HD void coissue_row_iteration(const W& w, sc::LanesOf<W, uint32_t> (&v)[kQuad],
+                                 const sc::LanesOf<W, int32_t>& left1,
+                                 const sc::LanesOf<W, int32_t>& left2) {
+  static_assert(kNvec <= 2 * kQuad, "a shift reaches at most two lanes back");
+#pragma unroll
+  for (int s = 1; s <= kNvec; s++) {
+    const int q = s > kQuad ? s - kQuad : s;
+    sc::LanesOf<W, uint32_t> r[kQuad];
+#pragma unroll
+    for (int j = 0; j < kQuad; j++) {
+      if (s <= kQuad) {
+        r[j] = j >= s ? v[j - s] : w.gather(v[j - s + kQuad], left1);
+      } else {
+        r[j] = j >= q ? w.gather(v[j - q], left1) : w.gather(v[j - q + kQuad], left2);
+      }
+    }
+    w.each([&](int l) {
+#pragma unroll
+      for (int j = 0; j < kQuad; j++) v[j][l] = coissue_update(v[j][l], r[j][l]);
+    });
+  }
+}
+
+// A row's iters iterations of kNvec updates from the row's 128 words and
+// back; returns each lane's count of odd words.
+template <int kNvec, class W>
+SC_HD sc::LanesOf<W, uint32_t> coissue_row(const W& w, const int32_t* row, int32_t iters,
+                                           int32_t* row_out) {
+  static_assert(W::kLanes * kQuad == kLanes, "a row is 32 lanes of kQuad words");
+  sc::LanesOf<W, uint32_t> v[kQuad], par;
+  sc::LanesOf<W, int32_t> left1, left2;
+  w.each([&](int l) {
+#pragma unroll
+    for (int j = 0; j < kQuad; j++) v[j][l] = (uint32_t)row[kQuad * l + j];
+    left1[l] = (l - 1) & (W::kLanes - 1);
+    left2[l] = (l - 2) & (W::kLanes - 1);
+  });
+  for (int32_t t = 0; t < (kNvec ? iters : 0); t++) {
+    coissue_row_iteration<kNvec>(w, v, left1, left2);
+  }
+  w.each([&](int l) {
+    par[l] = 0;
+#pragma unroll
+    for (int j = 0; j < kQuad; j++) {
+      row_out[kQuad * l + j] = (int32_t)v[j][l];
+      par[l] += v[j][l] & 1u;
+    }
+  });
+  return par;
+}
 
 // --- iso (_iso_kernel) -------------------------------------------------------
 

@@ -83,6 +83,7 @@ SOURCES = {
     "prepass": ("snappy_prepass_launch", [_I32, _P, _I64, _I64, _P, _P, _P]),
     "decode_hybrid_layout": ("snappy_decode_hybrid_layout", [_P, _I64, _I32, _I32, _P]),
     "encode_stats": ("snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
+    "encode_stats_layout": ("snappy_encode_stats_layout", [_P, _I64, _P]),
     "chain": ("probe_chain_launch", [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
     "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
     "coissue": ("probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
@@ -99,6 +100,7 @@ SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "i
                  "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
                  "best_layout": "encode_best", "crc32c_layout": "crc32c",
                  "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4",
+                 "encode_stats_layout": "encode_stats",
                  "decode_pipe_layout": "decode_pipe", "decode_variant_layout": "decode_variants"}
 
 #: Kernel launches per wrapper since the last reset.

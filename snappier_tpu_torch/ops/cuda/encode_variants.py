@@ -32,12 +32,13 @@ A CUDA tensor launches the kernel (``csrc/encode_variants.cu``,
 ``csrc/encode_r4.cu``, ``csrc/encode_stats.cu``) or raises; a CPU tensor
 runs the plain Python walk, which computes each variant's function (the
 parts that only reorder work have no plain counterpart). Each wrapper counts
-its own launches. ``encode_variant`` and ``encode_r4`` run in the encode
-kernel's layout (the match table alone in shared memory, the fragment read
-through the read-only path, one warp a fragment);
-:func:`encode_variant_layout` and :func:`encode_r4_layout` give it for
-their rows, as :func:`snappier_tpu_torch.ops.cuda.scalar_codec.encode_layout`
-does for the encode kernel.
+its own launches. ``encode_variant``, ``encode_r4`` and ``encode_stats`` run
+in the encode kernel's layout (the match table alone in shared memory, the
+fragment read through the read-only path, one warp a fragment);
+:func:`encode_variant_layout`, :func:`encode_r4_layout` and
+:func:`encode_stats_layout` give it for their rows, as
+:func:`snappier_tpu_torch.ops.cuda.scalar_codec.encode_layout` does for the
+encode kernel.
 """
 
 from __future__ import annotations
@@ -415,3 +416,9 @@ def encode_stats(frags, lengths) -> torch.Tensor:
     _build.launch("encode_stats", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
                   stats.data_ptr())
     return stats
+
+
+def encode_stats_layout(frags) -> dict:
+    """The launch layout of :func:`encode_stats` for these rows, as
+    :func:`encode_variant_layout` gives it."""
+    return _layout("encode_stats_layout", byte_rows(frags, "frags"))

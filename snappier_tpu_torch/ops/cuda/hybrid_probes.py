@@ -37,6 +37,10 @@ Probes (``csrc/hybrid_probes.cu`` and ``csrc/bitonic_probe.cu`` over
   24-operation scalar chain through a 64-word scratch beside ``nvec``
   updates ``v = v * 3 + roll(v, 1 + k)`` of an int32 [8, 128] tile; returns
   ``(checksum int32 [1], tile int32 [8, 128])``;
+- :func:`coissue_vec`: ``coissue``'s tile warps at nvec 8 with no scalar
+  chain (the vector stream alone); returns ``(count of odd words int32 [1],
+  tile int32 [8, 128])``: the floor of nvec 8's tile work, a yardstick and
+  not a TPU kernel (counted as ``coissue_vec``);
 - :func:`iso` (``_iso_kernel``, :data:`ISO_MODES`): 20 passes over the
   records (pass ``r`` from record ``r & 1``), each doing one part of
   ``vcopy``'s 2d body alone to the image (``scalar``: an 8-step chain of the
@@ -138,6 +142,8 @@ VCOPY_WORDS = 4 * REC_HALF
 COUNT_AT = 3 * REC_HALF  # vcopy's loop count
 COISSUE_ITERS = 8192
 COISSUE_NVEC = (0, 1, 2, 8)  # the kernel's instantiations
+COISSUE_VEC = -1  # the coissue launcher's nvec for the vector stream alone (hp::kCoissueVec)
+COISSUE_VEC_NVEC = 8  # its updates an iteration
 TILE = (8, 128)
 FILL = -(1 << 31)  # 0x80000000: what interpret mode reads from unwritten scratch
 MAX_ADV = 1 << 24
@@ -363,15 +369,29 @@ def _coissue_scalar(seed: int, iters: int) -> int:
     return acc
 
 
-def coissue_plain(seed: int, nvec: int, tile: torch.Tensor | None = None,
-                  iters: int = COISSUE_ITERS):
-    """Plain version of :func:`coissue` (any ``nvec``)."""
+def _coissue_tile(tile, nvec: int, iters: int) -> np.ndarray:
+    """The tile (uint32) after ``iters`` iterations of ``nvec`` updates."""
     v = _tile_or_fill(tile, torch.device("cpu")).numpy().view(np.uint32).copy()
     for _ in range(iters if nvec else 0):
         for k in range(nvec):
             v = v * np.uint32(3) + np.roll(v, 1 + k, axis=1)
+    return v
+
+
+def coissue_plain(seed: int, nvec: int, tile: torch.Tensor | None = None,
+                  iters: int = COISSUE_ITERS):
+    """Plain version of :func:`coissue` (any ``nvec``)."""
+    v = _coissue_tile(tile, nvec, iters)
     acc = _coissue_scalar(seed, iters) + int((v & 1).sum())
     return torch.tensor([_i32(acc)], dtype=torch.int32), torch.from_numpy(v.view(np.int32))
+
+
+def coissue_vec_plain(tile: torch.Tensor | None = None, iters: int = COISSUE_ITERS):
+    """Plain version of :func:`coissue_vec`: ``coissue_plain``'s tile at
+    nvec 8 and its count of odd words."""
+    v = _coissue_tile(tile, COISSUE_VEC_NVEC, iters)
+    return (torch.tensor([_i32(int((v & 1).sum()))], dtype=torch.int32),
+            torch.from_numpy(v.view(np.int32)))
 
 
 def iso_plain(rec: torch.Tensor, img: torch.Tensor, mode: str):
@@ -627,6 +647,32 @@ def launch_coissue(seed: int, nvec: int, tile: torch.Tensor, iters: int = COISSU
     tile_out = torch.empty(TILE, dtype=torch.int32, device=tile.device)
     _build.launch("coissue", tile.device, nvec, _i32(int(seed)), iters, tile.data_ptr(),
                   out.data_ptr(), tile_out.data_ptr())
+    return out, tile_out
+
+
+def coissue_vec(tile=None, iters: int = COISSUE_ITERS, device=None):
+    """:func:`coissue`'s tile warps at nvec 8 with no scalar chain: the
+    vector stream alone, the floor of nvec 8's tile work (a yardstick, not a
+    TPU kernel). ``tile`` and ``device`` as for :func:`coissue`. Returns
+    ``(count of odd words int32 [1], tile int32 [8, 128])``."""
+    iters = int(iters)
+    if not 0 <= iters < (1 << 31):
+        raise ValueError(f"need 0 <= iters < 2**31, got {iters}")
+    if tile is None:
+        device = torch.device(device if device is not None else "cuda")
+    tile = _tile_or_fill(tile, device)
+    if not on_cuda(tile):
+        return coissue_vec_plain(tile, iters)
+    return launch_coissue_vec(tile, iters)
+
+
+def launch_coissue_vec(tile: torch.Tensor, iters: int = COISSUE_ITERS):
+    """:func:`coissue_vec`'s kernel on a contiguous CUDA int32 [8, 128] tile
+    (the ``coissue`` launcher at ``nvec`` -1, counted as ``coissue_vec``)."""
+    out = torch.empty(1, dtype=torch.int32, device=tile.device)
+    tile_out = torch.empty(TILE, dtype=torch.int32, device=tile.device)
+    _build.launch("coissue", tile.device, COISSUE_VEC, 0, iters, tile.data_ptr(),
+                  out.data_ptr(), tile_out.data_ptr(), count_as="coissue_vec")
     return out, tile_out
 
 

@@ -1208,6 +1208,24 @@ def test_cuda_encode_stats_matches_plain(cuda_device, F):
     assert (got.cpu() == ev.encode_stats_plain(f_h, l_h)).all()
 
 
+def test_cuda_encode_stats_layout(cuda_device):
+    """T9 runs in K2's layout: one warp a fragment, only the 15-bit match
+    table in shared memory, three blocks an SM (512 fragments in two waves
+    on 132 SMs); the word loader on aligned 64 KiB rows, the byte loader on
+    an unaligned view of an odd width, whose counts equal the plain walk's."""
+    rows = torch.zeros((4, 65536), dtype=torch.uint8, device=cuda_device)
+    assert ev.encode_stats_layout(rows) == {"blocks_per_sm": 3, "smem_bytes": 65536,
+                                            "threads": 32, "loader": "words"}
+    frags, lens = encode_rows(4096)
+    f_h, l_h = _t(frags[:, :4095].astype(np.uint8)), _t(np.minimum(lens, 4095))
+    buf = torch.zeros(f_h.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    odd = buf[1:].view(f_h.shape)
+    odd.copy_(f_h)
+    assert ev.encode_stats_layout(odd)["loader"] == "bytes"
+    got = ev.encode_stats(odd, l_h.to(cuda_device))
+    assert (got.cpu() == ev.encode_stats_plain(f_h, l_h)).all()
+
+
 @pytest.mark.parametrize("with_rec", [False, True], ids=["chain", "chainrec"])
 def test_cuda_chain_matches_plain(cuda_device, with_rec):
     """T10 (cliff's walk over the staged advances) on both probe blocks and
@@ -1251,6 +1269,24 @@ def test_cuda_coissue_matches_plain(cuda_device, nvec):
         got = hp.coissue(seed, nvec, None if tile is None else tile.to(cuda_device), iters,
                          device=cuda_device)
         want = hp.coissue_plain(seed, nvec, tile, iters)
+        assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
+
+
+def test_cuda_coissue_vec_matches_plain(cuda_device):
+    """The vector stream alone (the coissue launcher at nvec -1) from the
+    fill and a random tile at 5, 37 and 8,192 iterations: coissue_plain's
+    tile at nvec 8 and its count of odd words; one launch a call, counted as
+    coissue_vec."""
+    rand = _t(np.random.default_rng(16).integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
+              .astype(np.int32))
+    for tile, iters in ((None, 8192), (rand, 8192), (rand, 5), (rand, 37)):
+        _build.reset_launches()
+        got = hp.coissue_vec(None if tile is None else tile.to(cuda_device), iters,
+                             device=cuda_device)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"coissue_vec": 1}
+        want = hp.coissue_vec_plain(tile, iters)
+        assert (want[1] == hp.coissue_plain(3, 8, tile, iters)[1]).all()
         assert (got[0].cpu() == want[0]).all() and (got[1].cpu() == want[1]).all()
 
 

@@ -188,6 +188,24 @@ def test_coissue_result_never_sees_the_tile_updates():
     assert (short[1][1].numpy().view(np.uint32) == v).all()
 
 
+def test_coissue_vec_is_the_tile_of_nvec_8():
+    """The vector stream alone (``coissue_vec``, a yardstick with no TPU
+    counterpart) on the CPU: ``coissue``'s tile at nvec 8, which never
+    depends on the chain, and the tile's count of odd words, at 5 and 37
+    iterations from a random tile, at the TPU's 8,192 from the fill (the
+    tile 0); it refuses a negative iteration count."""
+    rng = np.random.default_rng(6)
+    tile = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
+                            .astype(np.int32))
+    for given, iters in ((tile, 5), (tile, 37), (None, hp.COISSUE_ITERS)):
+        odd, got = hp.coissue_vec(given, iters, device="cpu")
+        want = hp.coissue(3, hp.COISSUE_VEC_NVEC, given, iters, device="cpu")[1]
+        assert (got == want).all() and odd.tolist() == [int((want & 1).sum())]
+    assert not got.any()
+    with pytest.raises(ValueError, match="iters"):
+        hp.coissue_vec(tile, iters=-1)
+
+
 def test_chainrec_records_are_the_last_trials():
     """The record buffer holds the last trial's steps over the one before
     it; a walk of more than 8,192 steps wraps its record index."""

@@ -521,26 +521,29 @@ extern "C" int host_encode_variant(uint32_t mask, int32_t hash_bits, int32_t sto
   return 0;
 }
 
-// encode_stats.cu's walk over a staged copy (ev::Staged: the fragment and 16
-// zero bytes): (miss iterations, hits, extension iterations, matched bytes)
-// per fragment.
-extern "C" void host_encode_stats(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
-                                  int64_t batch, int32_t* stats) {
-  std::vector<uint16_t> table((size_t)1 << 15);
-  std::vector<uint8_t> s(frag_w + 16);
+// The rows, guarded at `offset` (GuardedRows), each through encode_stats.cu's
+// row sink (ev::StatsOut under ev::kStatsWalk) as the kernel reads it: loader
+// 0 sc::RowWords, 1 sc::RowBytes; (miss iterations, hits, extension
+// iterations, matched bytes) per fragment. Returns 0, or -1 if the buffer
+// was refused.
+extern "C" int host_encode_stats(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
+                                 int64_t batch, int32_t offset, int32_t loader, int32_t* stats) {
+  GuardedRows g(frags, batch, frag_w, offset);
+  if (g.mem == nullptr) return -1;
+  std::vector<uint16_t> table((size_t)1 << ev::kStatsWalk.hash_bits);
+  const ev::StatsRows sinks{stats};
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
     for (auto& e : table) e = sc::EMPTY;
-    for (int64_t i = 0; i < frag_w + 16; i++) s[i] = i < n ? frags[b * frag_w + i] : 0;
-    sc::WalkStats st;
-    sc::encode_fragment_variant(ev::Staged{s.data(), n}, n, table.data(),
-                                sc::StaticWalk<sc::EV_STATS_WALK>{15, 1}, nullptr, st);
-    int32_t* row = stats + b * 4;
-    row[0] = st.miss_iters;
-    row[1] = st.hits;
-    row[2] = st.ext_iters;
-    row[3] = st.match_bytes;
+    const uint8_t* row = g.rows + b * frag_w;
+    if (loader == 0) {
+      sinks.at(b).walk(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n}, n, table.data(),
+                       ev::kStatsWalk);
+    } else {
+      sinks.at(b).walk(sc::RowBytes{row, n}, n, table.data(), ev::kStatsWalk);
+    }
   }
+  return 0;
 }
 
 // The rows, guarded at `offset` (GuardedRows), each through the greedy walk
@@ -678,8 +681,8 @@ def host_lib(tmp_path_factory):
     so.host_hybrid.restype = I32
     so.host_prepass.argtypes = [I32, P, I64, I64, I32, I32, P, P]
     so.host_prepass.restype = I32
-    so.host_encode_stats.argtypes = [P, I64, P, I64, P]
-    so.host_encode_stats.restype = None
+    so.host_encode_stats.argtypes = [P, I64, P, I64, I32, I32, P]
+    so.host_encode_stats.restype = I32
     so.host_crc32c.argtypes = [P, I64, P, I64, I32, I32, I32, P, P]
     so.host_crc32c.restype = I32
     so.host_crc_spread.argtypes = [P, I32, I32, ctypes.c_uint32]
@@ -1531,24 +1534,43 @@ def test_host_prepass_matches_plain(host_lib, form):
     _hold_prepass_to_plain(host_lib, form)
 
 
-def test_host_encode_stats_walk_matches_plain(host_lib):
-    """``encode_stats.cu``'s walk (the stats sink of ``csrc/encode_variants.cuh``)
-    against its plain version at 2 KiB and, on a markup and a random row, at
-    64 KiB."""
+def _hold_stats_to_plain(host_lib, widths, placements):
+    """``encode_stats.cu``'s row sink (``ev::StatsOut`` over the stats walk of
+    ``csrc/encode_variants.cuh``) through the loaders and placements that
+    ``placements(width)`` names, on ``encode_rows`` (garbage past each
+    length) at each width in ``widths``, against :func:`encode_stats_plain`;
+    at 64 KiB only a markup and a random row."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import encode_variants as ev
 
-    for F, rows in ((2048, slice(None)), (65536, slice(0, 3, 2))):
-        frags, lens = encode_rows(F)
-        frags = np.ascontiguousarray(frags[rows], np.uint8)
-        lens = np.ascontiguousarray(lens[rows], np.int32)
-        got = np.zeros((len(lens), 4), np.int32)
-        host_lib.host_encode_stats(frags.ctypes.data, F, lens.ctypes.data, len(lens),
-                                   got.ctypes.data)
+    for F in widths:
+        frags, lens = encode_rows(max(F, 2048))
+        rows = slice(None) if F < 65536 else slice(0, 3, 2)
+        frags = np.ascontiguousarray(frags[rows, :F], np.uint8)
+        lens = np.ascontiguousarray(np.minimum(lens[rows], F), np.int32)
         want = ev.encode_stats_plain(torch.from_numpy(frags), torch.from_numpy(lens)).numpy()
-        assert (got == want).all(), (got.tolist(), want.tolist())
-        assert got[:, 1].any() and got[:, 2].any()
+        assert want[:, 1].any() and want[:, 2].any()
+        for offset, loader in placements(F):
+            got = np.zeros((len(lens), 4), np.int32)
+            assert host_lib.host_encode_stats(frags.ctypes.data, F, lens.ctypes.data, len(lens),
+                                              _offset_arg(offset), loader, got.ctypes.data) == 0
+            assert (got == want).all(), (F, offset, loader, got.tolist(), want.tolist())
+
+
+def test_host_encode_stats_walk_matches_plain(host_lib):
+    """``encode_stats.cu``'s row (:func:`_hold_stats_to_plain`) through each
+    loader, the rows in a buffer that ends at the last row's end, at 2 KiB
+    and 64 KiB."""
+    _hold_stats_to_plain(host_lib, (2048, 65536), _loader_cases)
+
+
+def test_host_encode_stats_walk_on_unaligned_rows(host_lib):
+    """``encode_stats.cu``'s row with the rows 0-7 bytes past a 16-byte
+    boundary (the byte loader) and 0, 4, 8 and 12 past one (the word loader),
+    under the guard page, at 2 KiB and 64 KiB, and on rows of an odd width
+    (2,047 B: the byte loader alone)."""
+    _hold_stats_to_plain(host_lib, (2048, 65536, 2047), _aligned_cases)
 
 
 def _host_crc(lib, rows, lens, offset=0, guard=False, nblocks=3):

@@ -118,25 +118,38 @@ extern "C" int32_t host_iso(int32_t mode, const int32_t* rec, int32_t* img) {
 // The copy probes' shared bytes: the image and the plan ring.
 extern "C" int32_t host_copy_smem_bytes() { return 4 * hp::kRecordSmemWords; }
 
-// coissue with the tile's rolls done on whole rows.
-extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32_t* tile) {
-  uint32_t scratch[64];
-  hp::scratch_init(scratch, seed);
-  uint32_t acc = 0;
-  uint32_t* v = reinterpret_cast<uint32_t*>(tile);
-  std::vector<uint32_t> nv(8 * hp::kLanes);
-  for (uint32_t t = 0; t < (uint32_t)iters; t++) {
-    acc += hp::coissue_step(scratch, t);
-    for (int s = 1; s <= nvec; s++) {
-      for (int e = 0; e < 8 * hp::kLanes; e++) {
-        const int row = e & ~(hp::kLanes - 1), i = e & (hp::kLanes - 1);
-        nv[e] = hp::coissue_update(v[e], v[row + ((i - s) & (hp::kLanes - 1))]);
-      }
-      for (int e = 0; e < 8 * hp::kLanes; e++) v[e] = nv[e];
-    }
+// coissue's rows as the kernel runs them: each row on a warp of 32 array
+// lanes, 4 words a lane (hp::coissue_row), kNvec updates an iteration; the
+// tile updated in place. Returns the count of odd words.
+template <int kNvec>
+static uint32_t host_coissue_rows(int32_t iters, int32_t* tile) {
+  ArrayWarp<32> w;
+  std::vector<int32_t> row(hp::kLanes);
+  uint32_t odd = 0;
+  for (int r = 0; r < hp::kTileRows; r++) {
+    const auto par = hp::coissue_row<kNvec>(w, tile + r * hp::kLanes, iters, row.data());
+    for (int l = 0; l < 32; l++) odd += par[l];
+    memcpy(tile + r * hp::kLanes, row.data(), sizeof(int32_t) * hp::kLanes);
   }
-  for (int e = 0; e < 8 * hp::kLanes; e++) acc += v[e] & 1u;
-  return (int32_t)acc;
+  return odd;
+}
+
+// coissue as the kernel runs it: the scalar chain (hp::coissue_step over
+// the scratch at 8-byte strides) and the rows; nvec hp::kCoissueVec the
+// rows at 8 updates and no chain (coissue_vec).
+extern "C" int32_t host_coissue(int32_t seed, int32_t nvec, int32_t iters, int32_t* tile) {
+  uint32_t acc = 0;
+  if (nvec != hp::kCoissueVec) {
+    uint32_t scratch[hp::kScratchSlots];
+    hp::scratch_init(scratch, seed);
+    for (uint32_t t = 0; t < (uint32_t)iters; t++) acc += hp::coissue_step(scratch, t);
+  }
+  switch (nvec) {
+    case 0: return (int32_t)(acc + host_coissue_rows<0>(iters, tile));
+    case 1: return (int32_t)(acc + host_coissue_rows<1>(iters, tile));
+    case 2: return (int32_t)(acc + host_coissue_rows<2>(iters, tile));
+    default: return (int32_t)(acc + host_coissue_rows<hp::kVecUpdates>(iters, tile));
+  }
 }
 
 // bprobe_kernel's work: the scratch in an array of 64 (registers on the
@@ -347,25 +360,61 @@ def test_copy_smem_bytes_mirror_the_kernels(host_lib):
     assert host_lib.host_copy_smem_bytes() == hp.COPY_SMEM_BYTES
 
 
+def _coissue_cases(key: int):
+    """(seed, tile or None for interpret mode's fill, iters): the TPU's
+    8,192 iterations from the fill and from a random tile, and 5 and 37
+    (where the tile is not yet 0)."""
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    rand = np.random.default_rng(key).integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
+    rand = rand.astype(np.int32)
+    return ((3, None, 8192), (-5, rand, 8192), (7, rand, 5), (9, rand, 37))
+
+
+def _host_coissue(host_lib, seed, nvec, tile, iters):
+    """host_coissue on a copy of ``tile`` (the fill where None): (sum,
+    tile after)."""
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    t = np.full(hp.TILE, hp.FILL, np.int32) if tile is None else tile.copy()
+    return host_lib.host_coissue(seed, nvec, iters, t.ctypes.data), t
+
+
 @pytest.mark.parametrize("nvec", [0, 1, 2, 8])
 def test_host_coissue_matches_plain(host_lib, nvec):
-    """The scalar chain and the tile updates, from interpret mode's fill and
-    from a random tile, at two seeds, over the TPU's 8,192 iterations and
-    over 5 (where the tile is not yet 0)."""
+    """The scalar chain (its load before its store, the aliasing folded in)
+    and the tile updates on a warp of 32 array lanes, 4 words a lane, from
+    interpret mode's fill and from a random tile, over the TPU's 8,192
+    iterations and over 5 and 37 (where the tile is not yet 0)."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
-    rand = np.random.default_rng(nvec).integers(-(1 << 31), 1 << 31, hp.TILE, dtype=np.int64)
-    for seed, tile, iters in ((3, None, 8192), (-5, rand.astype(np.int32), 8192),
-                              (7, rand.astype(np.int32), 5)):
-        t = np.full(hp.TILE, hp.FILL, np.int32) if tile is None else tile.copy()
-        given = None if tile is None else torch.from_numpy(t)
-        want, want_tile = hp.coissue_plain(seed, nvec, given, iters)
-        got = host_lib.host_coissue(seed, nvec, iters, t.ctypes.data)
-        assert got == int(want[0]), (seed, nvec)
+    for seed, tile, iters in _coissue_cases(nvec):
+        want, want_tile = hp.coissue_plain(seed, nvec, None if tile is None
+                                           else torch.from_numpy(tile), iters)
+        got, t = _host_coissue(host_lib, seed, nvec, tile, iters)
+        assert got == int(want[0]), (seed, nvec, iters)
         assert (t == want_tile.numpy()).all()
         assert (iters == 8192 and nvec > 0) == (not t.any())
+
+
+def test_host_coissue_vec_matches_plain(host_lib):
+    """The vector stream alone (the kernel's nvec -1: the rows at 8 updates,
+    no chain) at 5, 37 and 8,192 iterations from the fill and a random tile:
+    its tile is coissue_plain's at nvec 8 (the tile never depends on the
+    chain) and its sum the tile's count of odd words."""
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+
+    for seed, tile, iters in _coissue_cases(16):
+        given = None if tile is None else torch.from_numpy(tile)
+        want, want_tile = hp.coissue_vec_plain(given, iters)
+        assert (want_tile == hp.coissue_plain(seed, hp.COISSUE_VEC_NVEC, given, iters)[1]).all()
+        got, t = _host_coissue(host_lib, seed, hp.COISSUE_VEC, tile, iters)
+        assert got == int(want[0]) == int((want_tile & 1).sum()), iters
+        assert (t == want_tile.numpy()).all()
 
 
 @pytest.mark.parametrize("nwhen", [0, 1, 2, 3, 4, 8])

@@ -14,11 +14,12 @@ K2, every call of ``chip_smoke.py`` phase 8 (``chip_smoke.encode_cases``:
 the 16 named tuples, the empty one, a run-time mask and the 16 names) and
 T9, each with ``chip_smoke.cuda_ms`` of this repository (CUDA events,
 warm-up, best of 3 passes of 3 calls). Before it is timed, each variant that
-gives the encode kernel's bytes is held to them, and every other emitting
-variant's bodies are decoded by the decode kernel back to the input. It
-prints the card's name and power limit, then one JSON line per run with the
-times in ms, the layouts where the package has the layout queries, and
-ptxas's figures for the ablation kernels. It needs a CUDA card and exits 2
+gives the encode kernel's bytes is held to them, every other emitting
+variant's bodies are decoded by the decode kernel back to the input, and
+T9's counts of 8 fragments are held to its plain walk. It prints the card's
+name and power limit, then one JSON line per run with the times in ms, the
+layouts where the package has the layout queries, and ptxas's figures for
+the ablation kernels and T9's. It needs a CUDA card and exits 2
 without one.
 """
 
@@ -67,14 +68,20 @@ def one(root: str) -> dict:
             cs.check(bool((errs == 0).all()) and bool((out == frags).all()),
                      f"{name}: does not decode to the input")
         ms[name] = cs.cuda_ms(lambda: fn(frags, lengths, arg), iters=3)
+    picks = torch.arange(0, cs.B, cs.B // 8, device="cuda")
+    stats = ev.encode_stats(frags, lengths)
+    want = ev.encode_stats_plain(frags[picks].cpu(), lengths[picks].cpu())
+    cs.check(bool((stats[picks].cpu() == want).all()), "encode_stats differs from its plain walk")
     ms["encode_stats"] = cs.cuda_ms(lambda: ev.encode_stats(frags, lengths), iters=3)
     layouts = None
     if hasattr(ev, "encode_r4_layout"):
         layouts = {"e3": ev.encode_variant_layout(frags, ev.VARIANT_FLAGS["e3"]),
                    "encpre": ev.encode_r4_layout(frags, "encpre")}
-    ptxas = {src: cs.ptxas_figures(_build.BUILD_LOG.get(src, ""), "encode_variant_kernel")
-             for src in ("encode_variants", "encode_r4")}
-    return {"root": root, "ms": ms, "layouts": layouts,
+    if hasattr(ev, "encode_stats_layout"):
+        layouts = {**(layouts or {}), "encode_stats": ev.encode_stats_layout(frags)}
+    ptxas = {src: cs.ptxas_figures(_build.BUILD_LOG.get(src, ""), "_kernel")
+             for src in ("encode_variants", "encode_r4", "encode_stats")}
+    return {"root": root, "ms": ms, "layouts": layouts, "encode_stats_ptxas": ptxas["encode_stats"],
             "ptxas_max_registers": {k: max((f.get("registers", 0) for f in v), default=None)
                                     for k, v in ptxas.items()},
             "ptxas_stack_or_spill": sum(f.get(k, 0) for v in ptxas.values() for f in v

@@ -3,9 +3,10 @@
 (T14-T16, T18 ``decode_v7``), the pipelined decode (T6 ``decode_pipe``, T7
 ``decode_pipe2``), the chain
 probes (T10 ``chain`` and ``chainrec``, T19 ``cliff``, the chase), the
-branch probe (T17 ``bprobe`` and its floor) and the copy probes (T11
-``vcopy``, T13 ``iso``) of one or more checkouts on one GPU, beside the
-production kernels K1-K4.
+branch probe (T17 ``bprobe`` and its floor), the co-issue probe (T12
+``coissue`` and its vector stream alone) and the copy probes (T11 ``vcopy``,
+T13 ``iso``) of one or more checkouts on one GPU, beside the production
+kernels K1-K4.
 
     python3 tools/torch_hybrid_times.py ROOT [ROOT ...]
     python3 tools/torch_hybrid_times.py --copy ROOT [ROOT ...]
@@ -33,9 +34,10 @@ has ``decode_variant_layout``) and the ablation kernels' ptxas figures;
 ``chain``, ``chainrec`` and ``cliff``
 in its five modes at 200 walks on block 0 and, where the package has it,
 the chase, in ms and ns a walk step; ``vcopy`` 2d and 3d and ``iso`` in its
-six modes on block 0's records, in ms and ns a record; ``coissue`` at nvec 0
-and 8, ``bprobe`` at every built nwhen and, where the package has it, its
-floor (``bprobe_floor``), in ms and ns an iteration; the probes' ptxas
+six modes on block 0's records, in ms and ns a record; ``coissue`` at every
+built nvec and, where the package has it, the vector stream alone
+(``coissue_vec``), ``bprobe`` at every built nwhen and, where the package has
+it, its floor (``bprobe_floor``), in ms and ns an iteration; the probes' ptxas
 figures. Every call is first held to its plain version (the walks' rows to
 the input; the probes' checksum, records, image or scratch). It prints the
 card's name and power limit, then one JSON line per run. It needs a CUDA
@@ -43,10 +45,11 @@ card and exits 2 without one.
 
 With ``--copy`` it builds ``csrc/hybrid_probes.cu`` alone and times only
 ``vcopy`` and ``iso`` (the loop of design trials); with ``--probes``, only
-the chain probes and ``bprobe`` with its floor. With ``--sass`` it builds
-ROOT's ``csrc/hybrid_probes.cu`` and writes ``cuobjdump -sass`` of its
-``cliff_kernel`` (chain's too), ``vcopy_kernel``, ``iso_kernel``,
-``bprobe_kernel`` and ``bprobe_floor_kernel`` instantiations to OUT, then
+the chain probes, ``bprobe`` with its floor and ``coissue`` with the vector
+stream alone. With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and
+writes ``cuobjdump -sass`` of its ``cliff_kernel`` (chain's too),
+``vcopy_kernel``, ``iso_kernel``, ``bprobe_kernel``, ``bprobe_floor_kernel``
+and ``coissue_kernel`` instantiations to OUT, then
 prints, for each, its shared- and local-memory loads and stores, global
 loads, shuffles, warp syncs and branches in order: the step order a reader
 checks there (a cliff step's next load before its body; a record's plan
@@ -178,12 +181,7 @@ def one(root: str) -> dict:
     block = comp[0, : int(lens[0])].cpu().numpy().tobytes()
     per = chain_probe_times(cs, hp, block, t)
     per_record = copy_probe_times(cs, hp, block, t)
-    for nvec in (0, 8):  # the other probe of the same source, held to its plain version
-        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(
-            hp.coissue(3, nvec, device="cuda"), hp.coissue_plain(3, nvec))),
-            f"coissue {nvec} differs from its plain version")
-        tile = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
-        t[f"coissue_{nvec}"] = ms(lambda: hp.launch_coissue(3, nvec, tile))
+    per_iter = coissue_times(cs, hp, t)
     if hasattr(dh, "decode_hybrid_layout"):
         layout = {f: dh.decode_hybrid_layout(comp, BLOCK, f) for f in ("v5", "v6", "v7")}
     else:  # an older package: form 7's query alone
@@ -193,7 +191,8 @@ def one(root: str) -> dict:
     variant_layout = ({w: {n: dv.decode_variant_layout(r, BLOCK, n) for n in cs.VARIANTS}
                        for w, r in (("codec", comp), ("tight", tight))}
                       if hasattr(dv, "decode_variant_layout") else None)
-    return {"root": root, "ms": t, **per, "hybrid_layout": layout, "pipe_layout": pipe_layout,
+    return {"root": root, "ms": t, **per, "coissue_ns_per_iter": per_iter,
+            "hybrid_layout": layout, "pipe_layout": pipe_layout,
             "variant_layout": variant_layout,
             "variant_ptxas": cs.ptxas_figures(_build.BUILD_LOG.get("decode_variants", ""),
                                               "_kernel"),
@@ -257,12 +256,46 @@ def chain_probe_times(cs, hp, block: bytes, t: dict) -> dict:
             "steps": steps, "tags_block0": ntags, "staged_words": staged}
 
 
+def coissue_times(cs, hp, t: dict) -> dict:
+    """``coissue`` at every built nvec and, where the package has it, the
+    vector stream alone (``coissue_vec``), each held to its plain version
+    from the fill at 8,192 iterations and from a random tile at 37, then
+    timed from the fill: ms into ``t``; returns ns an iteration."""
+    import numpy as np
+    import torch
+
+    ms = cs.cuda_ms
+    fill = torch.full(hp.TILE, hp.FILL, dtype=torch.int32, device="cuda")
+    rand = torch.from_numpy(np.random.default_rng(29).integers(
+        -(1 << 31), 1 << 31, hp.TILE, dtype=np.int64).astype(np.int32))
+    cases = ((None, hp.COISSUE_ITERS), (rand, 37))
+
+    def same(got, want):
+        return all(bool((a.cpu() == b).all()) for a, b in zip(got, want))
+
+    for nvec in hp.COISSUE_NVEC:
+        for tile, iters in cases:
+            cs.check(same(hp.coissue(3, nvec, None if tile is None else tile.cuda(), iters,
+                                     device="cuda"), hp.coissue_plain(3, nvec, tile, iters)),
+                     f"coissue {nvec} differs from its plain version at {iters} iterations")
+        t[f"coissue_{nvec}"] = ms(lambda: hp.launch_coissue(3, nvec, fill))
+    if hasattr(hp, "coissue_vec"):
+        for tile, iters in cases:
+            cs.check(same(hp.coissue_vec(None if tile is None else tile.cuda(), iters,
+                                         device="cuda"), hp.coissue_vec_plain(tile, iters)),
+                     f"the vector stream alone differs from its plain version at {iters}")
+        t["coissue_vec"] = ms(lambda: hp.launch_coissue_vec(fill))
+    keys = [f"coissue_{n}" for n in hp.COISSUE_NVEC] + ["coissue_vec"]
+    return {k: t[k] * 1e6 / hp.COISSUE_ITERS for k in keys if k in t}
+
+
 def probe_ptxas(cs, _build) -> dict:
-    """ptxas's figures of the walks' and bprobe's kernels."""
+    """ptxas's figures of the walks', bprobe's and coissue's kernels."""
     log = _build.BUILD_LOG.get("hybrid_probes", "")
     return {"cliff_ptxas": cs.ptxas_figures(log, "cliff_kernel"),
             "chain_ptxas": cs.ptxas_figures(log, "chain_kernel"),
-            "bprobe_ptxas": cs.ptxas_figures(log, "bprobe_")}
+            "bprobe_ptxas": cs.ptxas_figures(log, "bprobe_"),
+            "coissue_ptxas": cs.ptxas_figures(log, "coissue_kernel")}
 
 
 def copy_probe_times(cs, hp, block: bytes, t: dict) -> dict:
@@ -311,16 +344,19 @@ def one_copy(root: str) -> dict:
 
 
 def one_probes(root: str) -> dict:
-    """The chain probes and bprobe with its floor of the package at
-    ``root`` alone, on the main path's block 0 (the same as :func:`one`'s)."""
+    """The chain probes, bprobe with its floor and coissue with the vector
+    stream alone of the package at ``root``, on the main path's block 0 (the
+    same as :func:`one`'s)."""
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
 
-    cs, block = block0(root, ["chain", "cliff", "chase", "bprobe"])
+    cs, block = block0(root, ["chain", "cliff", "chase", "bprobe", "coissue"])
     t = {}
     per = chain_probe_times(cs, hp, block, t)
-    return {"root": root, "ms": t, **per, **probe_ptxas(cs, _build)}
+    per_iter = coissue_times(cs, hp, t)
+    return {"root": root, "ms": t, **per, "coissue_ns_per_iter": per_iter,
+            **probe_ptxas(cs, _build)}
 
 
 def block0(root: str, launchers) -> tuple:
@@ -346,7 +382,7 @@ def block0(root: str, launchers) -> tuple:
 
 
 SASS_KERNELS = ("cliff_kernel", "vcopy_kernel", "iso_kernel", "bprobe_kernel",
-                "bprobe_floor_kernel")
+                "bprobe_floor_kernel", "coissue_kernel")
 
 
 def sass(root: str, out: str) -> int:

@@ -24,6 +24,7 @@ Micro-probes (``ops/cuda/hybrid_probes.py``, ``csrc/hybrid_probes.cu``,
   vcopy2d     the per-record vector copy body, 2 x the block's tags records
   vcopy3d     the same in the 3d body (tile-aligned rows)
   coissueN    the scalar chain beside N tile updates a step (N: 0, 1, 2, 8)
+  coissuevec  the tile warps at 8 updates a step and no chain (the vector stream alone)
   iso:MODE    one part of the copy body alone, 20 x the block's tags records
               (MODE: scalar, dynload, dynload8, statroll, dynroll, full)
   bprobeN     524,288 iterations of a mix and N conditional stores (N: 0, 1,
@@ -65,7 +66,7 @@ from snappier_tpu_torch.ops.cuda import hybrid_probes as hp  # noqa: E402
 BLOCK_SIZE = 65536
 DECODE_PROBES = ("v5", "v5parts", "v6", "v7", "v7u")
 MICRO_PROBES = ("chain", "chainrec", "vcopy2d", "vcopy3d", "coissue0", "coissue1", "coissue2",
-                "coissue8", *(f"iso:{m}" for m in hp.ISO_MODES),
+                "coissue8", "coissuevec", *(f"iso:{m}" for m in hp.ISO_MODES),
                 *(f"bprobe{n}" for n in hp.BPROBE_NWHEN), "bfloor",
                 *(f"cliff:{m}" for m in hp.CLIFF_MODES),
                 "chase", "bitonic")
@@ -130,6 +131,13 @@ def run_micro(names) -> bool:
             fn = lambda mode=mode: hp.launch_vcopy(d["rec"], d["img"], mode)  # noqa: E731
             line = lambda t: (f"vcopy[{mode}]: {t * 1e3:.3f} ms for {count} records "  # noqa: E731
                               f"-> {t / count * 1e9:.1f} ns/record")
+        elif p == "coissuevec":
+            got = hp.coissue_vec(fill)
+            want = hp.coissue_vec_plain()
+            fn = lambda: hp.launch_coissue_vec(fill)  # noqa: E731
+            line = lambda t: (f"coissue vector stream alone: {t * 1e3:.3f} ms for "  # noqa: E731
+                              f"{hp.COISSUE_ITERS} iters -> "
+                              f"{t / hp.COISSUE_ITERS * 1e9:.1f} ns/iter")
         elif p.startswith("coissue"):
             nvec = int(p[len("coissue"):])
             got = hp.coissue(3, nvec, fill)

@@ -47,8 +47,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 BLOCK_SIZE = 65536
-# encode_stats' block: the 15-bit match table, the fragment and 16 zero bytes.
-STATS_SMEM_BYTES = (2 << 15) + BLOCK_SIZE + 16
 DECODE_VARIANTS = {
     "pipe2u1": dict(unroll=1), "pipe2u2": dict(unroll=2), "pipe2u3": dict(unroll=3),
     "pipe2u4": dict(unroll=4), "pipe2unc": dict(unroll=2, unc=1),
@@ -104,11 +102,10 @@ def main() -> int:
     tags, _ = base.tag_mix(one)
     print(f"B={B}, row width {bd.shape[1]}, tags/block={tags}")
 
-    # encode_stats keeps the table and the staged fragment in shared memory;
-    # K2 and the named walks keep the table alone: the occupancy each launch
-    # reports.
-    stats_in_flight = base.blocks_in_flight(STATS_SMEM_BYTES)
+    # K2, encode_stats and the named walks keep the table alone in shared
+    # memory: the occupancy each launch reports.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stats_in_flight = sms * ev.encode_stats_layout(fd)["blocks_per_sm"]
     k2_in_flight = sms * sc.encode_layout(fd)["blocks_per_sm"]
     if "encstats" in variants:
         st = ev.encode_stats(fd, ld)
