@@ -25,7 +25,8 @@ failure:
    65,535 and 4,097 and as 2,048 rows;
    the probe path: the FindMatchLength golden
    vectors and 300 rows of 64 KiB with planted matches through
-   ``match_extension_probe``;
+   ``match_extension_probe`` (one launch, the clamps in the kernel), and
+   the kernel alone (``launch_probe``);
 3. the batched codec at full size: ``SnappyCodec(with_crc=True)`` compresses
    512 blocks of 64 KiB of markup-like text (bench.py's seeded word mix),
    ``decompress_batch`` decodes them back, and the result is held against
@@ -148,7 +149,11 @@ failure:
    beside the floor (ns an iteration; ptxas figures of every ``bprobe``
    kernel and the floor, any stack or spill fails), the chase's ns a step
    beside each ``cliff`` mode's, and ``torch.sort`` of the same keys beside
-   ``bitonic``.
+   ``bitonic`` (one launch of one thread-block cluster; its ptxas figures,
+   any stack or spill fails; both replayed from a CUDA graph). The probe
+   kernel's row in the kernels line
+   adds the bare launch's time beside the wrapper's and its floor: the
+   longest walk's stride-8 steps at this run's chase link.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
 sharded_scan, encode_ablation, hybrid, micro_probes, isolation) runs with the launch
@@ -296,6 +301,36 @@ def cuda_ms(fn, iters: int = 5, passes: int = 3) -> float:
     return best
 
 
+def graph_ms(fn, n: int = 20, passes: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph on a side stream (after a warm-up call there), replayed,
+    best of ``passes`` replays over ``n``; the host's time per call, which
+    ``cuda_ms`` counts when it exceeds the kernel's, is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(passes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
 def host_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -377,6 +412,21 @@ def probe_batch():
             np.concatenate([np.zeros(len(golden)), cands]).astype(np.int32),
             np.concatenate([[g[3] for g in golden], ns]).astype(np.int32),
             np.concatenate([[g[0] for g in golden], planted]).astype(np.int32))
+
+
+def probe_walk_steps(lengths, ats, ns) -> np.ndarray:
+    """Stride-8 steps of the extension walk (``sc::extend_match``: its
+    seed hook's calls) for matches of ``lengths`` at ``ats`` in rows of
+    ``ns`` bytes: the first step compares the windows at 4 and 8 when 12
+    bytes remain, each later one the next 8 bytes, and a step goes on only
+    past a step whose 8 bytes all matched."""
+    steps = []
+    for ln, at, n in zip(lengths.tolist(), ats.tolist(), ns.tolist()):
+        k, m, go = (1, 12, ln >= 12) if at + 12 <= n else (0, 4, True)
+        while go and at + m + 8 <= n:
+            k, go, m = k + 1, ln >= m + 8, m + 8
+        steps.append(k)
+    return np.array(steps, np.int64)
 
 
 def encode_rows(rng):
@@ -2350,6 +2400,9 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     t = {f"{c[0]}:{c[1]}": cuda_ms(calls[c][1]) for c in calls}
     flat = d["keys"].reshape(-1)
     sort_ms = cuda_ms(lambda: torch.sort(flat, stable=True))
+    # bitonic's device time (graph-replayed, no host time) beside torch.sort's.
+    sort_extra = {"ms_graph": graph_ms(lambda: hp.launch_bitonic(d["keys"])),
+                  "library_ms_graph": graph_ms(lambda: torch.sort(flat, stable=True))}
     # Walk steps of cliff's 200 trials (odd trials start one byte in).
     adv_l = adv.tolist()
     walk = {s: hp._chain_trial(adv_l, n, s, None)[1] for s in (3, 4)}
@@ -2395,7 +2448,7 @@ def phase_isolation(torch, card, comp_u8, block_lens):
                     "floor": {"launches": launches["bprobe_floor"],
                               "max_abs_err": errs["bprobe_floor"], "ms": t["bprobe_floor:floor"],
                               "ns_per_iter": per["bprobe_floor_ns_per_iter"]}}
-    return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra, bprobe_extra
+    return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra, bprobe_extra, sort_extra
 
 
 def main() -> int:
@@ -2433,6 +2486,13 @@ def main() -> int:
     _build.build_all()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
     encode_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode", ""), "encode_kernel")
+    # The probe's row walks and the sort's cluster: no stack, no spill.
+    probe_ptxas = ptxas_figures(_build.BUILD_LOG.get("probe", ""), "probe_kernel")
+    bitonic_ptxas = ptxas_figures(_build.BUILD_LOG.get("bitonic_probe", ""), "bitonic")
+    print(json.dumps({"probe_ptxas": probe_ptxas, "bitonic_ptxas": bitonic_ptxas}))
+    check(len(probe_ptxas) == 1 and len(bitonic_ptxas) == 1
+          and all(f["stack"] == f["spill_stores"] == f["spill_loads"] == 0
+                  for f in probe_ptxas + bitonic_ptxas), "probe or bitonic stack frame or spills")
     decode_ptxas = ptxas_figures(_build.BUILD_LOG.get("decode", ""), "_kernel")
     best_ptxas = ptxas_figures(_build.BUILD_LOG.get("encode_best", ""), "encode_best_kernel")
     crc_ptxas = ptxas_figures(_build.BUILD_LOG.get("crc32c", ""), "crc32c_kernel")
@@ -2545,6 +2605,11 @@ def main() -> int:
     _, best_lens = sc._encode_best(frags, lengths, cands)
     ms["encode_best"] = cuda_ms(lambda: sc._encode_best(frags, lengths, cands))
     ms["probe"] = cuda_ms(lambda: sc.match_extension_probe(*probe_args))
+    # The kernel alone, held to the expected lengths first.
+    check(sc.launch_probe(*probe_args).cpu().tolist() == probe_expected.tolist(),
+          "probe kernel differs from the golden and planted lengths")
+    probe_launch_ms = cuda_ms(lambda: sc.launch_probe(*probe_args))
+    probe_graph_ms = graph_ms(lambda: sc.match_extension_probe(*probe_args))
     t_cands = cuda_ms(lambda: exact_candidates(frags, lengths), iters=3)
     facade_ms = {  # host wall-clock per call, transfers and host work included
         "compress_fast_ms": best_host_ms(lambda: st.compress(raw)),
@@ -2607,7 +2672,7 @@ def main() -> int:
 
     # --- 11. the isolation, branch, cliff and sort probes --------------------------
     (errs_iso, iso_launches, ms_iso, plain_iso, work_iso, sort_ms, cliff_extra,
-     bprobe_extra) = phase_isolation(torch, card, comp_u8, block_lens)
+     bprobe_extra, sort_extra) = phase_isolation(torch, card, comp_u8, block_lens)
     errs.update(errs_iso)
     ms.update(ms_iso)
     work_mp.update(work_iso)
@@ -2710,6 +2775,17 @@ def main() -> int:
             rows[-1].update(micro_extra[k])
         if k == "bprobe":
             rows[-1].update(bprobe_extra)
+        if k == "probe":
+            # The floor: the longest walk's steps, each at least one
+            # dependent load, at this run's chase link (phase 11).
+            steps = probe_walk_steps(probe_expected, p_ats, p_ns)
+            link_ns = cliff_extra["chase"]["ns_per_step"]
+            rows[-1].update({"ms_launch": probe_launch_ms, "ms_graph": probe_graph_ms,
+                             "ptxas": probe_ptxas,
+                             "walk_steps_max": int(steps.max()), "chase_link_ns": link_ns,
+                             "walk_floor_ms": int(steps.max()) * link_ns * 1e-6})
+        if k == "bitonic":
+            rows[-1].update({"ptxas": bitonic_ptxas, **sort_extra})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first import, "
           "the kernels' build included")
     print(card)

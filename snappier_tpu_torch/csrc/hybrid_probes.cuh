@@ -749,19 +749,194 @@ SC_HD bool bitonic_keep(int32_t idx, int32_t j, int32_t key, int32_t partner) {
   return up == is_lo ? (key <= partner) : (key >= partner);
 }
 
-// The pair (lo, lo | j), lo with bit j clear, whose keys and indices sit at
-// ka, kb, va, vb: both sides by the TPU's rule.
-SC_HD void bitonic_exchange(int32_t lo, int32_t j, int32_t* ka, int32_t* kb, int32_t* va,
-                            int32_t* vb) {
+// One merge pass covers kSortN = 2^(kBitonicK + 1) elements, so every index
+// has its direction bit clear and runs up: of a pair (lo, lo | j), lo with
+// bit j clear, bitonic_keep(lo, j, k0, k1) is k0 <= k1 and the upper side's
+// bitonic_keep(lo | j, j, k1, k0) is k1 >= k0, the same. The pair's keys
+// become their minimum and maximum, and its indices swap when the lower key
+// is the larger (equal keys keep their own key and index).
+static_assert(kSortN == 1 << (kBitonicK + 1), "one merge pass: every index runs up");
+
+SC_HD void bitonic_exchange(int32_t* ka, int32_t* kb, int32_t* va, int32_t* vb) {
   const int32_t k0 = *ka, k1 = *kb, v0 = *va, v1 = *vb;
-  const bool keep0 = bitonic_keep(lo, j, k0, k1), keep1 = bitonic_keep(lo | j, j, k1, k0);
-  *ka = keep0 ? k0 : k1;
-  *va = keep0 ? v0 : v1;
-  *kb = keep1 ? k1 : k0;
-  *vb = keep1 ? v1 : v0;
+  const bool swap = k0 > k1;
+  *ka = swap ? k1 : k0;
+  *kb = swap ? k0 : k1;
+  *va = swap ? v1 : v0;
+  *vb = swap ? v0 : v1;
 }
 
-// Pair p's lower index at stride j: p with a 0 bit inserted at j.
-SC_HD int32_t bitonic_lo(int32_t p, int32_t j) { return ((p & ~(j - 1)) << 1) | (p & (j - 1)); }
+// The cluster kernel's layout (bitonic_probe.cu): kSortCtas CTAs of
+// kSortThreads threads, 8 elements a thread, so that the whole array and its
+// indices live on chip. Before the transpose CTA c holds the elements whose
+// bits 10-12 are c (8 runs of 1,024), so j = 32768, 16384 and 8192 are its
+// own; after it CTA c holds the contiguous tile c << 13, so j = 4096 ... 1
+// are.
+constexpr int32_t kSortCtas = 8;
+constexpr int32_t kSortTile = kSortN / kSortCtas;  // 8,192 elements a CTA
+constexpr int32_t kSortThreads = kSortTile / 8;    // 1,024
+constexpr int32_t kSortRun = 1024;                 // the runs before the transpose
+// The rounds of three stages on a tile in registers (bitonic_tile_regs) at
+// shifts kSortTopShift, - 3, - 6: j = 4096 ... 1024, 512 ... 128, 64 ... 16;
+// j = 8 is the warp's exchange.
+constexpr int32_t kSortTopShift = 10;
+
+// A thread's 8 keys and their indices.
+struct Sort8 {
+  int32_t k[8], v[8];
+};
+
+// The three stages between a thread's 8 elements, element r at global
+// index g + r * step (step a power of 2 above g's bits): j = 4 step, 2 step,
+// step, in registers.
+SC_HD void bitonic_regs(Sort8& s) {
+#pragma unroll
+  for (int rb = 4; rb >= 1; rb >>= 1) {
+#pragma unroll
+    for (int r = 0; r < 8; r++) {
+      if (!(r & rb)) bitonic_exchange(&s.k[r], &s.k[r | rb], &s.v[r], &s.v[r | rb]);
+    }
+  }
+}
+
+// n consecutive words at p (16-byte aligned, n a multiple of 4), as 16-byte
+// moves on the card.
+template <int n>
+SC_HD void load_words(const int32_t* p, int32_t* x) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < n; i += 4) {
+    const int4 a = reinterpret_cast<const int4*>(p)[i / 4];
+    x[i] = a.x, x[i + 1] = a.y, x[i + 2] = a.z, x[i + 3] = a.w;
+  }
+#else
+  memcpy(x, p, 4 * n);
+#endif
+}
+
+template <int n>
+SC_HD void store_words(int32_t* p, const int32_t* x) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < n; i += 4) {
+    reinterpret_cast<int4*>(p)[i / 4] = make_int4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+  }
+#else
+  memcpy(p, x, 4 * n);
+#endif
+}
+
+// Where thread t keeps element r in a round at shift sh: the elements
+// ((t >> sh) << (sh + 3)) | (r << sh) | (t & (2^sh - 1)), r = 0..7, so that
+// j = 4, 2, 1 times 2^sh are between its own elements; at sh = 10 and 7 a
+// warp's accesses are 32 consecutive words, at sh = 4 two runs of 16.
+SC_HD int32_t bitonic_slot(int32_t t, int32_t r, int32_t sh) {
+  return ((t >> sh) << (sh + 3)) | (r << sh) | (t & ((1 << sh) - 1));
+}
+
+// Before the transpose, warp wi of CTA c: thread t = 32 wi + l takes
+// element r = 0..7 of global index (r << 13) | (c << 10) | t from ks (the
+// CTA's runs, ks[(r << 10) | i] = x[(r << 13) | (c << 10) | i]) with that
+// index, runs j = 32768, 16384, 8192 in registers and puts the keys back
+// into ks and the indices into vs.
+template <class W>
+SC_HD void bitonic_top(const W& w, int32_t c, int32_t wi, int32_t* ks, int32_t* vs) {
+  w.each([&](int l) {
+    const int32_t t = 32 * wi + l, g = (c << 10) | t;
+    Sort8 s;
+#pragma unroll
+    for (int r = 0; r < 8; r++) {
+      s.k[r] = ks[bitonic_slot(t, r, 10)];
+      s.v[r] = (r << 13) | g;
+    }
+    bitonic_regs(s);
+#pragma unroll
+    for (int r = 0; r < 8; r++) {
+      ks[bitonic_slot(t, r, 10)] = s.k[r];
+      vs[bitonic_slot(t, r, 10)] = s.v[r];
+    }
+  });
+}
+
+// The transpose from CTA c's runs (ks, vs after bitonic_top): run r goes to
+// CTA r, at c << 10 of its tile, in 16-byte pieces, thread t moving pieces
+// t and t + 1,024 of the 2,048 a CTA sends of each; store4(cta, i, keys,
+// indices) stores 4 keys and 4 indices at i.
+template <class W, class Store4>
+SC_HD void bitonic_send(const W& w, int32_t c, int32_t wi, const int32_t* ks, const int32_t* vs,
+                        Store4 store4) {
+  w.each([&](int l) {
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      const int32_t piece = 32 * wi + l + h * kSortThreads, r = piece >> 8;
+      const int32_t at = 4 * (piece & 255);
+      int32_t k[4], v[4];
+      load_words<4>(ks + (r << 10) + at, k);
+      load_words<4>(vs + (r << 10) + at, v);
+      store4(r, (c << 10) + at, k, v);
+    }
+  });
+}
+
+// A round of three stages on CTA c's tile (ks, vs) in registers: thread t
+// takes its elements at shift sh (bitonic_slot) and runs j = 4, 2, 1 times
+// 2^sh.
+template <class W>
+SC_HD void bitonic_tile_regs(const W& w, int32_t c, int32_t wi, int32_t* ks, int32_t* vs,
+                             int32_t sh) {
+  w.each([&](int l) {
+    const int32_t t = 32 * wi + l;
+    Sort8 s;
+#pragma unroll
+    for (int r = 0; r < 8; r++) {
+      s.k[r] = ks[bitonic_slot(t, r, sh)];
+      s.v[r] = vs[bitonic_slot(t, r, sh)];
+    }
+    bitonic_regs(s);
+#pragma unroll
+    for (int r = 0; r < 8; r++) {
+      ks[bitonic_slot(t, r, sh)] = s.k[r];
+      vs[bitonic_slot(t, r, sh)] = s.v[r];
+    }
+  });
+}
+
+// The last four stages on CTA c's tile: thread t takes the 8 consecutive
+// elements from 8 t; j = 8 pairs it with lane l ^ 1 (the warp's exchange,
+// each lane keeping its side by the TPU's rule), j = 4, 2, 1 run in
+// registers; the keys and indices go out as 16-byte stores.
+template <class W>
+SC_HD void bitonic_tile_last(const W& w, int32_t c, int32_t wi, const int32_t* ks,
+                             const int32_t* vs, int32_t* keys, int32_t* vals) {
+  sc::LanesOf<W, Sort8> s;
+  sc::LanesOf<W, int32_t> src;
+  w.each([&](int l) {
+    const int32_t i = 8 * (32 * wi + l);
+    load_words<8>(ks + i, s[l].k);
+    load_words<8>(vs + i, s[l].v);
+    src[l] = l ^ 1;
+  });
+#pragma unroll
+  for (int r = 0; r < 8; r++) {
+    sc::LanesOf<W, int32_t> k, v;
+    w.each([&](int l) {
+      k[l] = s[l].k[r];
+      v[l] = s[l].v[r];
+    });
+    const sc::LanesOf<W, int32_t> pk = w.gather(k, src), pv = w.gather(v, src);
+    w.each([&](int l) {
+      const int32_t g = (c << 13) | (8 * (32 * wi + l) + r);
+      const bool keep = bitonic_keep(g, 8, k[l], pk[l]);
+      s[l].k[r] = keep ? k[l] : pk[l];
+      s[l].v[r] = keep ? v[l] : pv[l];
+    });
+  }
+  w.each([&](int l) {
+    const int32_t i = 8 * (32 * wi + l);
+    bitonic_regs(s[l]);
+    store_words<8>(keys + (c << 13) + i, s[l].k);
+    store_words<8>(vals + (c << 13) + i, s[l].v);
+  });
+}
 
 }  // namespace hp

@@ -5,9 +5,10 @@
 //
 // The walks run over one <= 64 KiB block and are written once as
 // __host__ __device__ functions: the CUDA kernels give them rows in device
-// memory through loaders (RowWords, RowBytes, RingWords), shared-memory
-// buffers and, for the decode walk, the warp (CudaWarp); a host build gives
-// them plain arrays and a warp whose lanes are arrays run in lock step.
+// memory through loaders (RowWords, RowBytes, RingWords; the probe's
+// RowSpan and SpanRings), shared-memory buffers and, for the decode and
+// probe walks, the warp (CudaWarp); a host build gives them plain arrays and
+// a warp whose lanes are arrays run in lock step.
 //
 // The bytes they produce are the contract of the JAX scalar kernels in
 // snappier_tpu/ops/pallas/scalar_codec.py (_decode_kernel, _encode_kernel in
@@ -154,6 +155,42 @@ struct RowBytes {
     warp.each([&](int l) {
       if (l == 0) prefetch(ip + 512);
     });
+  }
+};
+
+// A row of n bytes at any address and width (the probe's), read as the
+// aligned 32-bit words that hold it: word(k) holds bytes 4k - a .. 4k - a + 3
+// of the row (a the row's address mod 4), read whole through the read-only
+// path where all four lie in the row, else byte by byte with the bytes
+// outside the row zero. No byte outside the row is read.
+struct RowSpan {
+  const uint8_t* p;
+  const uint32_t* w;  // p rounded down to 4 bytes
+  int32_t a, n;
+  SC_HD RowSpan(const uint8_t* p_, int32_t n_)
+      : p(p_),
+        w(reinterpret_cast<const uint32_t*>(p_ - ((uintptr_t)p_ & 3u))),
+        a((int32_t)((uintptr_t)p_ & 3u)),
+        n(n_) {}
+  SC_HD uint32_t byte(int32_t i) const {
+#ifdef __CUDA_ARCH__
+    return i >= 0 && i < n ? (uint32_t)__ldg(p + i) : 0u;
+#else
+    return i >= 0 && i < n ? (uint32_t)p[i] : 0u;
+#endif
+  }
+  SC_HD uint32_t word(int32_t k) const {
+    const int32_t b = 4 * k - a;
+    if (b >= 0 && b + 4 <= n) {
+#ifdef __CUDA_ARCH__
+      return __ldg(w + k);
+#else
+      uint32_t v;
+      memcpy(&v, w + k, 4);
+      return v;
+#endif
+    }
+    return byte(b) | (byte(b + 1) << 8) | (byte(b + 2) << 16) | (byte(b + 3) << 24);
   }
 };
 
@@ -794,20 +831,143 @@ SC_HD int32_t extend_match(Key key, int32_t at, int32_t cand, int32_t n, Seed se
   return extend_match_from(key, at, cand, n, seed, 12, eq0w && eq1w, eq0w);
 }
 
-// The probe's walk over a row of cc bytes that need not be padded: bytes
-// outside [0, cc) read as zero, as the JAX key image's zero slack does
-// (scalar_codec.py:742). Never reads outside the row.
-SC_HD int32_t match_extension_row(const uint8_t* row, int64_t cc, int32_t at, int32_t cand,
-                                  int32_t n) {
-  auto byte = [&](int64_t i) -> uint32_t {
-    return (i >= 0 && i < cc) ? (uint32_t)row[i] : 0u;
-  };
-  return extend_match(
-      [&](int32_t i) {
-        return byte(i) | (byte((int64_t)i + 1) << 8) | (byte((int64_t)i + 2) << 16) |
-               (byte((int64_t)i + 3) << 24);
-      },
-      at, cand, n, [](int32_t) {});
+// The probe's arguments clamped as match_extension_probe's plain version
+// clamps them: n into [0, cc], at into [0, n], cand into [0, cc]. Every
+// walk is then bounded and reads only bytes of its row.
+struct ProbeArgs {
+  int32_t at, cand, n;
+};
+
+SC_HD ProbeArgs probe_args(int64_t cc, int32_t at, int32_t cand, int32_t n) {
+  const int32_t w = cc < INT32_MAX ? (int32_t)cc : INT32_MAX;
+  const int32_t nn = n < 0 ? 0 : (n > w ? w : n);
+  return {at < 0 ? 0 : (at > nn ? nn : at), cand < 0 ? 0 : (cand > w ? w : cand), nn};
+}
+
+// The probe walk's two spans ([at, ...) and [cand, ...) of a RowSpan row)
+// read through rings of kRing words each in shared memory that a warp fills
+// ahead of the walk: a warp of words a fill, a word a lane, by cp.async
+// where the row holds all four of its bytes and from the row's bytes (zero
+// outside the row) where not; start() fills [k0 & ~31, k0 + 96) before the
+// walk, advance() (the walk's seed hook, each stride-8 step) fills a span
+// once its word is within kAhead words of the filled end, waits for every
+// fill before this one and marks it readable. Every window the walk reads
+// (its words at most 6 past the last hook's) then lies in a ring's readable
+// words [lo, ready) and is two shared loads, with no test on the row, and
+// a funnel shift. Every lane runs the same walk, so the warp stays
+// converged for the fills and a shared load is a broadcast. A host build
+// fills the rings at once.
+template <int kRing>
+struct SpanRings {
+  static constexpr int32_t kAhead = 64, kFill = 32;
+  static_assert(kRing >= kAhead + 2 * kFill && (kRing & (kRing - 1)) == 0, "ring size");
+  RowSpan row;
+  uint32_t* ring;  // [2][kRing]
+  int32_t lo[2], ready[2], hi[2];
+#ifndef __CUDA_ARCH__
+  // A host build's fills in flight, in order: they land at the waits.
+  static constexpr int kGroups = 8;
+  uint32_t held[kGroups][kFill];
+  uint32_t* slots[kGroups][kFill];
+  int held_n = 0;
+#endif
+  SC_HD SpanRings(const RowSpan& r, uint32_t* ring_) : row(r), ring(ring_) {}
+  template <class W>
+  SC_HD void fill(const W& w, int s) {
+    static_assert(W::kLanes == kFill, "a word a lane");
+    const int32_t h = hi[s];
+    w.each([&](int l) {
+      const int32_t k = h + l;
+      uint32_t* slot = ring + s * kRing + (k & (kRing - 1));
+#ifdef __CUDA_ARCH__
+      const int32_t b = 4 * k - row.a;
+      if (b >= 0 && b + 4 <= row.n) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         (uint32_t)__cvta_generic_to_shared(slot)),
+                     "l"(row.w + k)
+                     : "memory");
+      } else {
+        *slot = row.word(k);
+      }
+#else
+      held[held_n][l] = row.word(k);
+      slots[held_n][l] = slot;
+#endif
+    });
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#else
+    held_n++;
+#endif
+    hi[s] = h + kFill;
+  }
+  // Every fill but the newest `newest` (0-2) has landed.
+  SC_HD void wait(int newest) {
+#ifdef __CUDA_ARCH__
+    if (newest == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (newest == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    if (newest == 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+#else
+    const int land = held_n - newest;
+    for (int g = 0; g < land; g++) {
+      for (int l = 0; l < kFill; l++) *slots[g][l] = held[g][l];
+    }
+    for (int g = land; g < held_n; g++) {
+      memcpy(held[g - land], held[g], sizeof(held[g]));
+      memcpy(slots[g - land], slots[g], sizeof(slots[g]));
+    }
+    held_n = newest;
+#endif
+  }
+  template <class W>
+  SC_HD void start(const W& w, int32_t k0, int32_t k1) {
+    for (int s = 0; s < 2; s++) {
+      const int32_t k = s ? k1 : k0;
+      lo[s] = hi[s] = k & ~(kFill - 1);
+      while (hi[s] < k + kAhead + kFill) fill(w, s);
+      ready[s] = hi[s];
+    }
+    wait(0);
+    w.sync();
+  }
+  template <class W>
+  SC_HD void advance(const W& w, int32_t k0, int32_t k1) {
+    const bool n0 = k0 + kAhead > hi[0], n1 = k1 + kAhead > hi[1];
+    if (!(n0 || n1)) return;
+    if (n0) fill(w, 0);
+    if (n1) fill(w, 1);
+    wait(n0 && n1 ? 2 : 1);
+    for (int s = 0; s < 2; s++) {
+      ready[s] = (s ? n1 : n0) ? hi[s] - kFill : hi[s];
+      lo[s] = hi[s] - kRing > lo[s] ? hi[s] - kRing : lo[s];
+    }
+    w.sync();
+  }
+  // The window at byte i: from ring 0 where both its words are readable
+  // there, else from ring 1.
+  SC_HD uint32_t window(int32_t i) const {
+    const int32_t q = i + row.a, k = q >> 2;
+    const bool in0 = (uint32_t)(k - lo[0]) < (uint32_t)(ready[0] - 1 - lo[0]);
+    const uint32_t* r = ring + (in0 ? 0 : kRing);
+    return funnel_r(r[k & (kRing - 1)], r[(k + 1) & (kRing - 1)], 8u * (uint32_t)(q & 3));
+  }
+};
+
+// The probe's walk on clamped arguments by warp w over a RowSpan row read
+// through SpanRings (the row's words in `ring`, 2 kRing words): extend_match
+// unchanged, its seed hook the rings' advance.
+template <int kRing, class W>
+SC_HD int32_t match_extension_ring(const W& w, const RowSpan& row, const ProbeArgs& g,
+                                   uint32_t* ring) {
+  SpanRings<kRing> rings(row, ring);
+  rings.start(w, (g.at + row.a) >> 2, (g.cand + row.a) >> 2);
+  const int32_t m = extend_match([&](int32_t i) { return rings.window(i); }, g.at, g.cand, g.n,
+                                 [&](int32_t pos) {
+                                   rings.advance(w, (pos + row.a) >> 2,
+                                                 (g.cand + (pos - g.at) + row.a) >> 2);
+                                 });
+  rings.wait(0);  // no fill lands after the walk
+  return m;
 }
 
 // Literal tag + payload (SnappyCompressor.cs:417-464); lit_len >= 1.

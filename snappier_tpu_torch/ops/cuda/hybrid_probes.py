@@ -828,8 +828,12 @@ def bitonic(x):
 
 
 def launch_bitonic(x: torch.Tensor):
-    """:func:`bitonic`'s kernels (five launches, counted as one call) on a
-    contiguous CUDA int32 ``x`` of 65,536 words."""
+    """:func:`bitonic`'s kernel (one launch of one thread-block cluster) on a
+    contiguous CUDA int32 ``x`` of 65,536 words; the kernel reads ``x`` by
+    TMA, which needs a 16-byte aligned address, so a view that starts
+    elsewhere is copied first."""
+    if x.data_ptr() % 16:
+        x = x.clone()
     keys = torch.empty(SORT_SHAPE, dtype=torch.int32, device=x.device)
     vals = torch.empty(SORT_SHAPE, dtype=torch.int32, device=x.device)
     _build.launch("bitonic", x.device, x.data_ptr(), keys.data_ptr(), vals.data_ptr())

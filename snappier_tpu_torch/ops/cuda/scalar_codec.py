@@ -552,6 +552,13 @@ def match_extension_probe_plain(bufs: torch.Tensor, ats: torch.Tensor, cands: to
     return torch.from_numpy(out)
 
 
+def probe_clamps(cc: int, ats: torch.Tensor, cands: torch.Tensor, ns: torch.Tensor):
+    """The probe's arguments as its kernel clamps them (``sc::probe_args``):
+    ``ns`` into [0, cc], ``ats`` into [0, n], ``cands`` into [0, cc]."""
+    ns = ns.clamp(0, cc)
+    return torch.minimum(ats.clamp(min=0), ns), cands.clamp(0, cc), ns
+
+
 def match_extension_probe(bufs, ats, cands, ns):
     """TEST HOOK: the encoders' extension walk, once per row.
 
@@ -561,21 +568,29 @@ def match_extension_probe(bufs, ats, cands, ns):
       ats, cands, ns: [B] match position, candidate position and buffer
         length per row. Precondition, as in the encoders: the 4 bytes at
         ``ats`` and ``cands`` are equal and ``cands < ats``. ``ns`` is
-        clamped to [0, CC], ``ats`` to [0, n] and ``cands`` to [0, CC].
+        clamped to [0, CC], ``ats`` to [0, n] and ``cands`` to [0, CC]
+        (:func:`probe_clamps`; on the card inside the kernel, so that a call
+        on uint8 rows and int32 arguments is one device operation).
 
     Returns int32[B] full match lengths (``match_extension_probe``
     contract), which the FindMatchLength golden vectors pin.
     """
     bufs = byte_rows(bufs, "bufs")
     B, cc = bufs.shape
-    ns = lengths_vector(ns, B, "ns").clamp(0, cc)
-    ats = torch.minimum(lengths_vector(ats, B, "ats").clamp(min=0), ns)
-    cands = lengths_vector(cands, B, "cands").clamp(0, cc)
+    ats, cands, ns = (lengths_vector(x, B, name)
+                      for x, name in ((ats, "ats"), (cands, "cands"), (ns, "ns")))
     if not on_cuda(bufs, ats, cands, ns):
-        return match_extension_probe_plain(bufs, ats, cands, ns)
-    out = torch.empty(B, dtype=torch.int32, device=bufs.device)
+        return match_extension_probe_plain(bufs, *probe_clamps(cc, ats, cands, ns))
+    return launch_probe(bufs, ats, cands, ns)
+
+
+def launch_probe(bufs: torch.Tensor, ats: torch.Tensor, cands: torch.Tensor,
+                 ns: torch.Tensor) -> torch.Tensor:
+    """:func:`match_extension_probe`'s kernel alone on contiguous CUDA uint8
+    rows and int32 arguments as given (the kernel clamps them)."""
+    out = torch.empty(bufs.shape[0], dtype=torch.int32, device=bufs.device)
     _build.launch(
-        "probe", bufs.device, bufs.data_ptr(), cc, ats.data_ptr(), cands.data_ptr(),
-        ns.data_ptr(), B, out.data_ptr(),
+        "probe", bufs.device, bufs.data_ptr(), bufs.shape[1], ats.data_ptr(), cands.data_ptr(),
+        ns.data_ptr(), bufs.shape[0], out.data_ptr(),
     )
     return out

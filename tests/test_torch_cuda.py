@@ -415,6 +415,50 @@ def test_cuda_probe_matches_plain(cuda_device):
     narrow = torch.zeros((3, 16), dtype=torch.uint8)
     assert match_extension_probe(narrow.to(cuda_device),
                                  *(c.to(cuda_device) for c in clamped)).tolist() == [12, 16, 4]
+    got = sc.launch_probe(*(a.to(cuda_device) for a in args))  # the kernel alone
+    assert got.cpu().tolist() == want.tolist()
+
+
+def test_cuda_probe_call_is_one_device_operation(cuda_device):
+    """On uint8 rows and int32 arguments a probe call is one kernel launch
+    and no other device operation (the clamps are the kernel's): the aten
+    operations it dispatches are the output's allocation alone. The kernel
+    alone (launch_probe) on arguments outside the clamps, rows 1-3 bytes
+    into a buffer (unaligned words) and widths that are no multiple of 4
+    gives the plain version's lengths on the clamped arguments."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(3)
+    for width in (65536, 1003, 1018, 16):
+        B = 64
+        buf = torch.from_numpy(rng.integers(0, 4, B * width + 3, dtype=np.uint8))
+        at = rng.integers(-50, width + 50, B).astype(np.int32)
+        cand = rng.integers(-50, width + 50, B).astype(np.int32)
+        n = rng.integers(-10, width + 100, B).astype(np.int32)
+        for off in (0, 1, 3):
+            rows = buf[off : off + B * width].view(B, width)
+            args = [_t(x) for x in (at, cand, n)]
+            want = match_extension_probe(rows, *args)
+            dev = [rows.to(cuda_device)[0:B]] + [a.to(cuda_device) for a in args]
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with Ops() as ops:
+                got = match_extension_probe(*dev)
+            torch.cuda.synchronize()
+            assert dict(_build.LAUNCHES) == {"probe": 1}
+            assert ops.seen == ["aten.empty.memory_format"], ops.seen
+            assert got.cpu().tolist() == want.tolist(), (width, off)
+            dev_off = buf.to(cuda_device)[off : off + B * width].view(B, width)
+            assert sc.launch_probe(dev_off, *dev[1:]).cpu().tolist() == want.tolist()
 
 
 def test_cuda_facade_matches_cpu(cuda_device):
@@ -1385,3 +1429,15 @@ def test_cuda_bitonic_matches_plain(cuda_device):
         assert dict(_build.LAUNCHES) == {"bitonic": 1}
         want = hp.bitonic_plain(_t(x))
         assert (keys.cpu() == want[0]).all() and (vals.cpu() == want[1]).all()
+
+
+def test_cuda_bitonic_on_an_unaligned_view(cuda_device):
+    """T20 reads its keys by TMA from a 16-byte aligned address: keys that
+    start 4 bytes into their buffer are copied first and give the plain
+    version's keys and indices."""
+    x = np.random.default_rng(11).integers(-1000, 1000, hp.SORT_N + 1).astype(np.int32)
+    view = _t(x).to(cuda_device)[1:]
+    assert view.data_ptr() % 16 == 4
+    keys, vals = hp.bitonic(view)
+    want = hp.bitonic_plain(_t(x[1:].copy()))
+    assert (keys.cpu() == want[0]).all() and (vals.cpu() == want[1]).all()

@@ -644,11 +644,42 @@ extern "C" uint32_t host_crc_spread(const uint32_t* tables, int32_t which, int32
   return which == 0 ? t.shift<crc::Tables::kStepAt>(x) : t.shift<crc::Tables::kFoldAt>(x);
 }
 
-extern "C" void host_probe(const uint8_t* bufs, int64_t cc, const int32_t* ats,
-                           const int32_t* cands, const int32_t* ns, int64_t batch,
-                           int32_t* out) {
+// The probe kernel's row (csrc/probe.cu): the walk over the spans' rings
+// (sc::SpanRings, filled by a warp of 32 array lanes; the rings start
+// poisoned and are kept from row to row, as a warp's are on the card), the
+// arguments as given, clamped by sc::probe_args, the rows guarded at
+// `offset` (GuardedRows). Returns 0, or -1 if the buffer was refused.
+extern "C" int host_probe(const uint8_t* bufs, int64_t cc, const int32_t* ats,
+                          const int32_t* cands, const int32_t* ns, int64_t batch, int32_t offset,
+                          int32_t* out) {
+  GuardedRows g(bufs, batch, cc, offset);
+  if (g.mem == nullptr) return -1;
+  std::vector<uint32_t> ring(2 * 128, 0xA5A5A5A5u);
   for (int64_t b = 0; b < batch; b++) {
-    out[b] = sc::match_extension_row(bufs + b * cc, cc, ats[b], cands[b], ns[b]);
+    const sc::RowSpan row(g.rows + b * cc, (int32_t)cc);
+    const sc::ProbeArgs a = sc::probe_args(cc, ats[b], cands[b], ns[b]);
+    out[b] = sc::match_extension_ring<128>(ArrayWarp<32>{}, row, a, ring.data());
+  }
+  return 0;
+}
+
+// sc::extend_match on each row over a key of the row's bytes (zero outside
+// the row), the arguments clamped by sc::probe_args: each walk's length
+// and its stride-8 steps (its seed hook's calls).
+extern "C" void host_probe_steps(const uint8_t* bufs, int64_t cc, const int32_t* ats,
+                                 const int32_t* cands, const int32_t* ns, int64_t batch,
+                                 int32_t* lens, int32_t* steps) {
+  for (int64_t b = 0; b < batch; b++) {
+    const uint8_t* row = bufs + b * cc;
+    auto byte = [&](int32_t i) -> uint32_t { return i >= 0 && i < cc ? row[i] : 0u; };
+    const sc::ProbeArgs a = sc::probe_args(cc, ats[b], cands[b], ns[b]);
+    int32_t k = 0;
+    lens[b] = sc::extend_match(
+        [&](int32_t i) {
+          return byte(i) | (byte(i + 1) << 8) | (byte(i + 2) << 16) | (byte(i + 3) << 24);
+        },
+        a.at, a.cand, a.n, [&](int32_t) { k++; });
+    steps[b] = k;
   }
 }
 """)
@@ -666,8 +697,10 @@ def host_lib(tmp_path_factory):
     so.host_encode_rows.restype = I32
     so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, I32, I32, P, I64, P]
     so.host_encode_best.restype = I32
-    so.host_probe.argtypes = [P, I64, P, P, P, I64, P]
-    so.host_probe.restype = None
+    so.host_probe.argtypes = [P, I64, P, P, P, I64, I32, P]
+    so.host_probe.restype = I32
+    so.host_probe_steps.argtypes = [P, I64, P, P, P, I64, P, P]
+    so.host_probe_steps.restype = None
     so.host_variant.argtypes = [I32, P, I64, P, I64, I32, I32, I32, I32, P, P, P, P]
     so.host_variant.restype = I32
     so.host_pipe.argtypes = [I32, I32, I32, I32, P, I64, P, I64, I32, I32, I32, I32, P, P, P,
@@ -1002,23 +1035,125 @@ def test_host_best_walk_on_unaligned_rows(host_lib):
     _hold_best_to_jax(host_lib, _aligned_cases)
 
 
+def _host_probe(host_lib, bufs, ats, cands, ns, offset) -> np.ndarray:
+    """The probe kernel's row function on each row, the rows guarded at
+    ``offset``."""
+    bufs = np.ascontiguousarray(bufs, np.uint8)
+    args = [np.ascontiguousarray(a, np.int32) for a in (ats, cands, ns)]
+    out = np.zeros(len(bufs), np.int32)
+    assert host_lib.host_probe(bufs.ctypes.data, bufs.shape[1], *(a.ctypes.data for a in args),
+                               len(bufs), _offset_arg(offset), out.ctypes.data) == 0
+    return out
+
+
+def _jax_probe(bufs, ats, cands, ns, width: int) -> np.ndarray:
+    """The interpreted TPU kernel on the rows zero-padded to ``width`` (a
+    multiple of 1,024 with room for the walk's zero slack), on the
+    arguments as the kernel clamps them."""
+    cc = bufs.shape[1]
+    padded = np.zeros((len(bufs), width), np.int32)
+    padded[:, :cc] = bufs
+    ns = np.clip(ns, 0, cc)
+    ats, cands = np.minimum(np.maximum(ats, 0), ns), np.clip(cands, 0, cc)
+    return np.asarray(match_extension_probe(jnp.asarray(padded), ats.astype(np.int32),
+                                            cands.astype(np.int32), ns.astype(np.int32),
+                                            interpret=True))
+
+
 def test_host_probe_walk_matches_jax(host_lib):
+    """The probe kernel's row (the walk over the spans' rings filled by a
+    warp) on the golden vectors and planted matches in rows of 8,192 bytes, at the guard page and 1-3 bytes
+    past a 16-byte boundary (unaligned words), equal to the JAX kernel in
+    interpret mode and to the golden and planted lengths."""
     golden = [(e, *_layout(s1, s2, ln)) for e, s1, s2, ln in VECTORS if e >= 4]
     g_bufs = np.zeros((len(golden), 8192), np.uint8)
     for i, (_, buf, _, _) in enumerate(golden):
         g_bufs[i, : len(buf)] = np.frombuffer(buf, np.uint8)
-    bufs, ats, cands, ns, _ = planted_matches(16, 8192, seed=12)
+    bufs, ats, cands, ns, planted = planted_matches(16, 8192, seed=12)
     bufs = np.ascontiguousarray(np.concatenate([g_bufs, bufs]))
     ats = np.concatenate([[g[2] for g in golden], ats]).astype(np.int32)
     cands = np.concatenate([np.zeros(len(golden)), cands]).astype(np.int32)
     ns = np.concatenate([[g[3] for g in golden], ns]).astype(np.int32)
-    ref = np.asarray(match_extension_probe(jnp.asarray(bufs.astype(np.int32)), ats, cands, ns,
-                                           interpret=True))
-    out = np.zeros(len(ats), np.int32)
-    host_lib.host_probe(bufs.ctypes.data, bufs.shape[1], ats.ctypes.data, cands.ctypes.data,
-                        ns.ctypes.data, len(ats), out.ctypes.data)
-    assert (out == ref).all(), (out, ref)
-    assert (out[: len(golden)] == [g[0] for g in golden]).all()
+    ref = _jax_probe(bufs, ats, cands, ns, 8192)
+    assert (ref == [g[0] for g in golden] + planted.tolist()).all()
+    for offset in (AT_GUARD, 1, 2, 3):
+        out = _host_probe(host_lib, bufs, ats, cands, ns, offset)
+        assert (out == ref).all(), (offset, out, ref)
+
+
+def _edge_rows(width: int, seed: int):
+    """Probe rows of ``width`` random bytes (each row's garbage past its
+    width is the next row's bytes, or the guard's poison) whose walks touch
+    the row's edges: matches planted anywhere; a match from byte 0 that runs
+    to byte width - 1; a candidate whose span runs past the row (zeros); at
+    equal to n; n at the width and past it; arguments outside the clamps."""
+    rng = np.random.default_rng(seed)
+    rows, args = [], []
+    if width >= 64:
+        bufs, ats, cands, ns, _ = planted_matches(6, width, seed=seed)
+        rows, args = [*bufs], [*zip(ats, cands, ns)]
+    for at in sorted({a for a in (width // 2, width - 9, width - 4, width - 13) if 0 < a < width}):
+        row = rng.integers(0, 256, width, dtype=np.uint8)
+        row[at:] = row[: width - at]  # the match from 0 runs to the row's end
+        rows.append(row)
+        args.append((at, 0, width))
+    if width >= 64:  # the candidate's span runs off the row's end into zeros
+        row = rng.integers(1, 256, width, dtype=np.uint8)
+        row[5:21] = row[width - 16 :]
+        row[21:29] = 0
+        rows.append(row)
+        args.append((5, width - 16, width))
+    row = rng.integers(0, 256, width, dtype=np.uint8)
+    rows += [row, row, row, row, np.zeros(width, np.uint8)]
+    args += [(width - 3, width - 4, width), (width // 3, width // 3, width // 3),
+             (-7, width + 40, 1 << 30), (width // 2, -5, width - 1), (width // 4, 0, width + 9)]
+    a = np.array(args, np.int64)
+    return np.stack(rows), a[:, 0], a[:, 1], a[:, 2]
+
+
+@pytest.mark.parametrize("width", [1001, 1002, 1003, 1018, 1020, 1024, 13, 7])
+def test_host_probe_guarded_edges_match_jax(host_lib, width):
+    """The probe kernel's row on rows whose width is no
+    multiple of 4 or of 16 (the row's first and last words read by bytes, no byte outside the
+    row read: the last row ends at the guard page), the spans touching byte
+    0 and byte width - 1, at equal to n, arguments clamped in the kernel;
+    equal to the JAX kernel in interpret mode on the rows zero-padded and
+    the arguments clamped by the plain version's rule."""
+    bufs, ats, cands, ns = _edge_rows(width, seed=width)
+    ref = _jax_probe(bufs, ats, cands, ns, 4096)
+    clip = np.iinfo(np.int32)
+    ats, cands, ns = (np.clip(x, clip.min, clip.max) for x in (ats, cands, ns))
+    for offset in (AT_GUARD, 0, 1, 2, 3):
+        out = _host_probe(host_lib, bufs, ats, cands, ns, offset)
+        assert (out == ref).all(), (width, offset, out, ref)
+
+
+def test_host_probe_walk_steps_match_chip_smoke(host_lib):
+    """``chip_smoke.probe_walk_steps``, from which the probe's walk floor is
+    computed, counts the stride-8 steps that ``sc::extend_match`` takes (its
+    seed hook's calls) on ``chip_smoke.py``'s own probe rows and on rows
+    whose walks touch the row's edges, at widths that are no multiple of 4;
+    and the walk's lengths there are the expected ones and the kernel row's."""
+    import chip_smoke
+
+    cases = [chip_smoke.probe_batch()]
+    for width in (1001, 1003, 13):
+        bufs, ats, cands, ns = _edge_rows(width, seed=width)
+        clip = np.iinfo(np.int32)
+        ats, cands, ns = (np.clip(x, clip.min, clip.max).astype(np.int32)
+                          for x in (ats, cands, ns))
+        cases.append((bufs, ats, cands, ns, _host_probe(host_lib, bufs, ats, cands, ns, 0)))
+    for bufs, ats, cands, ns, expected in cases:
+        bufs = np.ascontiguousarray(bufs, np.uint8)
+        lens, steps = np.zeros(len(bufs), np.int32), np.zeros(len(bufs), np.int32)
+        host_lib.host_probe_steps(bufs.ctypes.data, bufs.shape[1], ats.ctypes.data,
+                                  cands.ctypes.data, ns.ctypes.data, len(bufs), lens.ctypes.data,
+                                  steps.ctypes.data)
+        assert (lens == expected).all()
+        cc = bufs.shape[1]
+        n = np.clip(ns, 0, cc)
+        model = chip_smoke.probe_walk_steps(lens, np.minimum(np.maximum(ats, 0), n), n)
+        assert (model == steps).all(), (cc, model, steps)
 
 
 @pytest.mark.parametrize("nlanes", [1, 4, 32])

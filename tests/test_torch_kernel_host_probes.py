@@ -1,5 +1,5 @@
 """The micro-probes' bodies (``snappier_tpu_torch/csrc/hybrid_probes.cuh``,
-the sort's stages in ``csrc/bitonic_probe.cu``'s order too), compiled for
+the sort's cluster in ``csrc/bitonic_probe.cu``'s order too), compiled for
 the host with g++ and held against their plain versions in
 ``snappier_tpu_torch/ops/cuda/hybrid_probes.py`` (which
 tests/test_torch_hybrid_probes.py holds against the TPU kernels in
@@ -206,27 +206,45 @@ extern "C" int32_t host_cliff(int32_t mode, const int32_t* adv, int32_t n, int32
   return sum;
 }
 
-// bitonic_probe.cu's stages in its order: j >= 4096 over the whole arrays,
-// then each tile of 4,096 alone for j = 2048 ... 1.
+// bitonic_probe.cu's cluster as it runs: each of hp::kSortCtas CTAs takes
+// its runs (what its TMA copies: runs[(r << 10) | i] = x[(r << 13) | (c << 10)
+// | i]) and runs the top three stages in its threads' registers, a warp of 32
+// array lanes at a time; the transpose stores 16-byte pieces into each CTA's
+// tile (after every CTA runs: the first cluster barrier); then, a phase per
+// barrier, the tile's three rounds in registers and the last four stages,
+// j = 8 through the warp's exchange.
 extern "C" void host_bitonic(const int32_t* x, int32_t* keys, int32_t* vals) {
-  for (int32_t i = 0; i < hp::kSortN; i++) {
-    keys[i] = x[i];
-    vals[i] = i;
-  }
-  for (int32_t j = hp::kSortN / 2; j >= 4096; j >>= 1) {
-    for (int32_t p = 0; p < hp::kSortN / 2; p++) {
-      const int32_t lo = hp::bitonic_lo(p, j);
-      hp::bitonic_exchange(lo, j, &keys[lo], &keys[lo | j], &vals[lo], &vals[lo | j]);
+  const ArrayWarp<32> w;
+  const int32_t warps = hp::kSortThreads / 32;
+  std::vector<int32_t> rk(hp::kSortN), rv(hp::kSortN), ks(hp::kSortN), vs(hp::kSortN);
+  for (int32_t c = 0; c < hp::kSortCtas; c++) {
+    for (int32_t r = 0; r < 8; r++) {
+      memcpy(&rk[c * hp::kSortTile + r * hp::kSortRun], x + (r << 13) + (c << 10),
+             4 * hp::kSortRun);
+    }
+    for (int32_t wi = 0; wi < warps; wi++) {
+      hp::bitonic_top(w, c, wi, &rk[c * hp::kSortTile], &rv[c * hp::kSortTile]);
     }
   }
-  for (int32_t base = 0; base < hp::kSortN; base += 4096) {
-    int32_t* ks = keys + base;
-    int32_t* vs = vals + base;
-    for (int32_t j = 2048; j >= 1; j >>= 1) {
-      for (int32_t p = 0; p < 2048; p++) {
-        const int32_t lo = hp::bitonic_lo(p, j);
-        hp::bitonic_exchange(base + lo, j, &ks[lo], &ks[lo | j], &vs[lo], &vs[lo | j]);
+  for (int32_t c = 0; c < hp::kSortCtas; c++) {
+    for (int32_t wi = 0; wi < warps; wi++) {
+      hp::bitonic_send(w, c, wi, &rk[c * hp::kSortTile], &rv[c * hp::kSortTile],
+                       [&](int32_t cta, int32_t i, const int32_t* k, const int32_t* v) {
+                         memcpy(&ks[cta * hp::kSortTile + i], k, 16);
+                         memcpy(&vs[cta * hp::kSortTile + i], v, 16);
+                       });
+    }
+  }
+  for (int32_t c = 0; c < hp::kSortCtas; c++) {
+    int32_t* kt = &ks[c * hp::kSortTile];
+    int32_t* vt = &vs[c * hp::kSortTile];
+    for (int32_t q = 0; q < 3; q++) {
+      for (int32_t wi = 0; wi < warps; wi++) {
+        hp::bitonic_tile_regs(w, c, wi, kt, vt, hp::kSortTopShift - 3 * q);
       }
+    }
+    for (int32_t wi = 0; wi < warps; wi++) {
+      hp::bitonic_tile_last(w, c, wi, kt, vt, keys, vals);
     }
   }
 }
@@ -491,9 +509,11 @@ def test_host_cliff_matches_plain(host_lib, mode):
 
 @pytest.mark.parametrize("seed", [5, 9])
 def test_host_bitonic_matches_plain(host_lib, seed):
-    """The sort's stages in the kernels' order (device-memory stages, then
-    tiles of 4,096) against the plain version's whole-array stages: random
-    keys (seed 5 is the tool's) and keys with many ties."""
+    """The sort's stages in the cluster kernel's order (the top three in
+    registers on each CTA's runs, the transpose, three rounds of three in
+    registers on each tile, j = 8 by the warp's exchange, j = 4, 2, 1)
+    against the plain version's whole-array stages: random keys (seed 5 is
+    the tool's) and keys with many ties."""
     import torch
 
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
@@ -507,3 +527,4 @@ def test_host_bitonic_matches_plain(host_lib, seed):
     want_keys, want_vals = hp.bitonic_plain(torch.from_numpy(x))
     assert (keys == want_keys.reshape(-1).numpy()).all()
     assert (vals == want_vals.reshape(-1).numpy()).all()
+

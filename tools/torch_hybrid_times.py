@@ -45,21 +45,28 @@ card and exits 2 without one.
 
 With ``--copy`` it builds ``csrc/hybrid_probes.cu`` alone and times only
 ``vcopy`` and ``iso`` (the loop of design trials); with ``--probes``, only
-the chain probes, ``bprobe`` with its floor and ``coissue`` with the vector
-stream alone. With ``--sass`` it builds ROOT's ``csrc/hybrid_probes.cu`` and
-writes ``cuobjdump -sass`` of its ``cliff_kernel`` (chain's too),
-``vcopy_kernel``, ``iso_kernel``, ``bprobe_kernel``, ``bprobe_floor_kernel``
-and ``coissue_kernel`` instantiations to OUT, then
-prints, for each, its shared- and local-memory loads and stores, global
-loads, shuffles, warp syncs and branches in order: the step order a reader
-checks there (a cliff step's next load before its body; a record's plan
-shuffled in, and the next batch loaded, before the previous record's
-shared loads; no memory access in bprobe's loop), and the instructions of
-its longest loop body (bprobe's: one block of 64 iterations).
+the chain probes, ``bprobe`` with its floor, ``coissue`` with the vector
+stream alone, K5 ``match_extension_probe`` on ``chip_smoke.py``'s probe
+rows (the wrapper and, where the package has ``launch_probe``, the kernel
+alone) and T20 ``bitonic`` on the tool's keys and keys with
+ties beside ``torch.sort``. With ``--sass`` it builds ROOT's
+``csrc/hybrid_probes.cu``, ``csrc/probe.cu`` and ``csrc/bitonic_probe.cu``
+and writes ``cuobjdump -sass`` of their ``cliff_kernel`` (chain's too),
+``vcopy_kernel``, ``iso_kernel``, ``bprobe_kernel``, ``bprobe_floor_kernel``,
+``coissue_kernel``, ``probe_kernel`` and ``bitonic_cluster_kernel``
+instantiations to OUT, then prints, for each, its shared- and local-memory
+loads and stores, global loads, shuffles, warp syncs and branches in order:
+the step order a reader checks there (a cliff step's next load before its
+body; a record's plan shuffled in, and the next batch loaded, before the
+previous record's shared loads; no memory access in bprobe's loop; no
+branch around a probe walk's loads), its instruction count, the
+instructions of its longest loop body (bprobe's: one block of 64
+iterations) and its most used instructions.
 """
 
 from __future__ import annotations
 
+import collections
 import importlib.util
 import inspect
 import os
@@ -343,20 +350,66 @@ def one_copy(root: str) -> dict:
                 _build.BUILD_LOG.get("hybrid_probes", ""), k)]}
 
 
+def probe_sort_times(cs, sc, hp, t: dict) -> dict:
+    """K5 on ``chip_smoke``'s probe rows (the golden vectors and 300 planted
+    matches in rows of 64 KiB): the wrapper and, where the package has
+    ``launch_probe``, the kernel alone; T20 on the
+    tool's keys and on keys with ties, each beside ``torch.sort`` of the
+    same keys. Each held to the expected lengths or the plain version, then
+    timed by ``cuda_ms`` and replayed from a CUDA graph (``_graph``, the
+    device time without the host's): ms into ``t``; returns the kernels'
+    ptxas figures."""
+    import numpy as np
+    import torch
+
+    from snappier_tpu_torch.ops.cuda import _build
+
+    ms = cs.cuda_ms
+    bufs, ats, cands, ns, expected = cs.probe_batch()
+    dev = [torch.from_numpy(x).cuda() for x in (bufs, ats, cands, ns)]
+    cs.check(sc.match_extension_probe(*dev).cpu().tolist() == expected.tolist(),
+             "probe differs from the golden and planted lengths")
+    t["probe"] = ms(lambda: sc.match_extension_probe(*dev))
+    t["probe_graph"] = cs.graph_ms(lambda: sc.match_extension_probe(*dev))
+    if hasattr(sc, "launch_probe"):
+        cs.check(sc.launch_probe(*dev).cpu().tolist() == expected.tolist(),
+                 "probe's kernel differs from the expected lengths")
+        t["probe_launch"] = ms(lambda: sc.launch_probe(*dev))
+        t["probe_launch_graph"] = cs.graph_ms(lambda: sc.launch_probe(*dev))
+    sets = {"keys": np.random.default_rng(5).integers(-(2**31), 2**31 - 1, hp.SORT_N,
+                                                      np.int64).astype(np.int32),
+            "ties": np.random.default_rng(9).integers(-4, 4, hp.SORT_N).astype(np.int32)}
+    for name, x in sets.items():
+        xd = torch.from_numpy(x).cuda()
+        got, want = hp.bitonic(xd), hp.bitonic_plain(torch.from_numpy(x))
+        cs.check(all(bool((a.cpu() == b).all()) for a, b in zip(got, want)),
+                 f"bitonic differs from its plain version on the {name}")
+        t[f"bitonic_{name}"] = ms(lambda: hp.launch_bitonic(xd))
+        t[f"bitonic_{name}_graph"] = cs.graph_ms(lambda: hp.launch_bitonic(xd))
+        t[f"sort_{name}"] = ms(lambda: torch.sort(xd, stable=True))
+        t[f"sort_{name}_graph"] = cs.graph_ms(lambda: torch.sort(xd, stable=True))
+    log = _build.BUILD_LOG
+    return {"probe_ptxas": cs.ptxas_figures(log.get("probe", ""), "probe_kernel"),
+            "bitonic_ptxas": cs.ptxas_figures(log.get("bitonic_probe", ""), "bitonic")}
+
+
 def one_probes(root: str) -> dict:
-    """The chain probes, bprobe with its floor and coissue with the vector
-    stream alone of the package at ``root``, on the main path's block 0 (the
-    same as :func:`one`'s)."""
+    """The chain probes, bprobe with its floor, coissue with the vector
+    stream alone, K5 and T20 of the package at ``root``, on the main path's
+    block 0 (the same as :func:`one`'s) and the probe path's rows."""
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
     from snappier_tpu_torch.ops.cuda import hybrid_probes as hp
+    from snappier_tpu_torch.ops.cuda import scalar_codec as sc
 
-    cs, block = block0(root, ["chain", "cliff", "chase", "bprobe", "coissue"])
+    cs, block = block0(root, ["chain", "cliff", "chase", "bprobe", "coissue", "probe",
+                              "bitonic"])
     t = {}
     per = chain_probe_times(cs, hp, block, t)
     per_iter = coissue_times(cs, hp, t)
+    extra = probe_sort_times(cs, sc, hp, t)
     return {"root": root, "ms": t, **per, "coissue_ns_per_iter": per_iter,
-            **probe_ptxas(cs, _build)}
+            **probe_ptxas(cs, _build), **extra}
 
 
 def block0(root: str, launchers) -> tuple:
@@ -382,23 +435,24 @@ def block0(root: str, launchers) -> tuple:
 
 
 SASS_KERNELS = ("cliff_kernel", "vcopy_kernel", "iso_kernel", "bprobe_kernel",
-                "bprobe_floor_kernel", "coissue_kernel")
+                "bprobe_floor_kernel", "coissue_kernel", "probe_kernel", "bitonic_cluster_kernel")
 
 
 def sass(root: str, out: str) -> int:
-    """cuobjdump -sass of ROOT's cliff (chain's too), vcopy, iso and bprobe
-    kernels into OUT, and each kernel's shared- and local-memory loads and
-    stores, global loads, shuffles, warp syncs and branches in order, and
-    the instructions of its longest loop body (from a backward branch's
-    target to the branch)."""
+    """cuobjdump -sass of ROOT's cliff (chain's too), vcopy, iso, bprobe,
+    coissue, probe (K5) and bitonic (T20) kernels into OUT, and each
+    kernel's shared- and local-memory loads and stores, global loads,
+    shuffles, warp syncs and branches in order, its instruction count, the
+    instructions of its longest loop body (from a backward branch's target
+    to the branch) and its most used instructions."""
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
 
-    build_some(_build, ["cliff"])
-    lib = _build._lib_path("hybrid_probes")
+    build_some(_build, ["cliff", "probe", "bitonic"])
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
+    text = "".join(subprocess.run([cuobjdump, "-sass", str(_build._lib_path(stem))],
+                                  capture_output=True, text=True, check=True, timeout=300).stdout
+                   for stem in ("hybrid_probes", "probe", "bitonic_probe"))
     funcs = re.split(r"\n\s*Function : ", text)
     keep = [f for f in funcs if f.startswith("_Z") and any(
         k in f.split("\n", 1)[0] for k in SASS_KERNELS)]
@@ -414,8 +468,10 @@ def sass(root: str, out: str) -> int:
         loops = [(int(addr, 16) - int(m.group(1), 16)) // 16 + 1 for addr, _, op, rest in ops
                  if op.startswith("BRA") and (m := re.search(r"0x([0-9a-f]+)", rest))
                  and int(m.group(1), 16) < int(addr, 16)]
+        by_op = collections.Counter(op.split(".")[0] for _, _, op, _ in ops)
         print(name, " ".join(seq), f"| {len(ops)} instructions; longest loop body "
-              f"{max(loops, default=0)} instructions", flush=True)
+              f"{max(loops, default=0)} instructions; most used {by_op.most_common(6)}",
+              flush=True)
     return 0
 
 
