@@ -153,12 +153,24 @@ failure:
    any stack or spill fails; both replayed from a CUDA graph). The probe
    kernel's row in the kernels line
    adds the bare launch's time beside the wrapper's and its floor: the
-   longest walk's stride-8 steps at this run's chase link.
+   longest walk's stride-8 steps at this run's chase link;
+12. the fuzz campaigns of ``tools/torch_fuzz.py`` in process at its reduced
+   volumes (``QUICK``): round trips of five data kinds through the encode
+   and decode kernels, mutated blocks through the decode kernel beside
+   valid rows at both loaders' row widths, the fragment ladder through the
+   encode, best encode and decode kernels, the facade on both device
+   engines with mutants, framed writes and framed mutants on the device
+   engine (a flipped literal byte caught by the CRC32C kernel), the host
+   engines; each judged by the oracle and the native engine, exact; then
+   the codec at B=2,048 x 64 KiB (``bigbatch``): bodies through the native
+   engine, CRCs against the host's, the native engine's streams through
+   ``decompress_batch``. It prints rows, bytes, seconds and launches per
+   campaign.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
-sharded_scan, encode_ablation, hybrid, micro_probes, isolation) runs with the launch
-counts set to 0 just before it and read just after; every kernel of a path
-must have launched, and the scan paths must launch none.
+sharded_scan, encode_ablation, hybrid, micro_probes, isolation, fuzz) runs with
+the launch counts set to 0 just before it and read just after; every kernel of a
+path must have launched, and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
 launches on those paths, its time, its bound and its plain version's
 time; the last line is ``{"ok": true, "device": {...}}``.
@@ -251,6 +263,7 @@ PATHS = {  # path -> the kernels it must launch
                "prepass_v6", "prepass_v7"),
     "micro_probes": ("encode_stats", "chain", "vcopy", "coissue"),
     "isolation": ("iso", "bprobe", "cliff", "bitonic"),
+    "fuzz": ("encode", "encode_best", "decode", "crc32c"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
@@ -2451,6 +2464,40 @@ def phase_isolation(torch, card, comp_u8, block_lens):
     return errs, launches, ms, plain_ms, work, sort_ms, cliff_extra, bprobe_extra, sort_extra
 
 
+def phase_fuzz(torch, card):
+    """Phase 12, the fuzz path: every campaign of ``tools/torch_fuzz.py`` at
+    its reduced volumes, then the B=2,048 codec check. A mismatch writes its
+    input under ``build/fuzz/`` and fails. Returns the path's launches."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_fuzz
+
+    from snappier_tpu_torch.ops.cuda import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = torch_fuzz.run_campaigns(torch_fuzz.CAMPAIGNS, torch_fuzz.QUICK, 301, "cuda")
+        results.append(torch_fuzz.bigbatch(2048, 301, "cuda"))
+    except torch_fuzz.Mismatch as m:
+        check(False, f"fuzz mismatch: {m} (input in {torch_fuzz.write_failure(m)})")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(torch_fuzz.summary_line(results[-1]))
+    print(f"fuzz path launches: {launches}, {seconds:.1f} s")
+    for k in PATHS["fuzz"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the fuzz path")
+    corrupt = next(r for r in results if r["campaign"] == "corrupt")
+    check(corrupt["loaders"].get("ring") == corrupt["loaders"].get("bytes") == corrupt["batches"],
+          f"corrupt batches did not take both loaders: {corrupt['loaders']}")
+    keys = ("campaign", "rows", "bytes", "seconds", "launches", "mutants", "oracle_judged",
+            "verdicts", "loaders", "crc_caught", "ratio")
+    print(json.dumps({"card": card, "fuzz_seconds": seconds, "fuzz": [
+        {k: r[k] for k in keys if k in r} for r in results]}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2677,6 +2724,9 @@ def main() -> int:
     ms.update(ms_iso)
     work_mp.update(work_iso)
 
+    # --- 12. the fuzz campaigns and the B=2,048 codec check -------------------------
+    fuzz_launches = phase_fuzz(torch, card)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -2735,7 +2785,8 @@ def main() -> int:
                "ablation": ablation_launches, "scan": scan_launches,
                "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
                "encode_ablation": enc_launches, "hybrid": hybrid_launches,
-               "micro_probes": micro_launches, "isolation": iso_launches}
+               "micro_probes": micro_launches, "isolation": iso_launches,
+               "fuzz": fuzz_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

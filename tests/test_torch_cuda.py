@@ -1441,3 +1441,39 @@ def test_cuda_bitonic_on_an_unaligned_view(cuda_device):
     keys, vals = hp.bitonic(view)
     want = hp.bitonic_plain(_t(x[1:].copy()))
     assert (keys.cpu() == want[0]).all() and (vals.cpu() == want[1]).all()
+
+
+@pytest.fixture(scope="module")
+def torch_fuzz():
+    """``tools/torch_fuzz.py``, loaded by its path (it imports no JAX)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_fuzz.py"
+    spec = importlib.util.spec_from_file_location("torch_fuzz", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["roundtrip", "corrupt", "scalar", "facade", "device-stream"])
+def test_cuda_fuzz_campaign_at_default_volume(cuda_device, torch_fuzz, name):
+    """Each device campaign of the fuzz tool at its default volume on the
+    card: every row exact, each kernel it drives launched (the campaign
+    raises otherwise), the corrupt campaign's batches on both loaders."""
+    r = torch_fuzz.RUNNERS[name](torch_fuzz.DEFAULTS[name], 301, cuda_device)
+    assert r["rows"] >= torch_fuzz.DEFAULTS[name]
+    if name == "corrupt":
+        assert r["mutants"] >= 16384 and r["oracle_judged"] >= r["judged"] // 16
+        assert r["loaders"] == {"ring": r["batches"], "bytes": r["batches"]}
+    if name == "device-stream":
+        assert r["crc_caught"] > 0 and r["launches"]["crc32c"] > 0
+
+
+def test_cuda_codec_at_batch_2048(cuda_device, torch_fuzz):
+    """``SnappyCodec(with_crc=True)`` on 2,048 x 64 KiB (128 MiB, the batch a
+    100 MB stream picks): every body decodes through the native engine to
+    its row, every CRC equals the host's, and ``decompress_batch`` of the
+    native engine's streams is exact (tools/repro_bigbatch.py's check)."""
+    r = torch_fuzz.bigbatch(2048, 301, cuda_device)
+    assert r["rows"] == 2048 and r["launches"]["encode"] and r["launches"]["decode"]
