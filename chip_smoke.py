@@ -165,10 +165,20 @@ failure:
    the codec at B=2,048 x 64 KiB (``bigbatch``): bodies through the native
    engine, CRCs against the host's, the native engine's streams through
    ``decompress_batch``. It prints rows, bytes, seconds and launches per
-   campaign.
+   campaign;
+13. the tools: ``tools/torch_rehearsal_multihost.py`` at its defaults in a
+   subprocess (4,096 x 64 KiB over 4 processes x 2 shards of the card, gloo
+   over loopback; the joined stream and plaintext exact, the workers'
+   launches summed into the path's); ``tools/torch_ratio_table.py``'s
+   device columns (greedy, best, scan) on the card, equal to its CPU
+   columns, each stream decoded by the oracle, best no larger than greedy;
+   and ``utils.profiling.device_trace`` around one codec round trip of the
+   phase-3 batch, whose Chrome trace must name ``encode_kernel`` and
+   ``decode_kernel``, their device time printed beside phase 4's and
+   ``Throughput``'s GB/s.
 
 Each path (liveness, probe, codec, facade, stream, ablation, scan, sharded,
-sharded_scan, encode_ablation, hybrid, micro_probes, isolation, fuzz) runs with
+sharded_scan, encode_ablation, hybrid, micro_probes, isolation, fuzz, tools) runs with
 the launch counts set to 0 just before it and read just after; every kernel of a
 path must have launched, and the scan paths must launch none.
 The line before the last is a JSON object listing each kernel with its
@@ -264,6 +274,7 @@ PATHS = {  # path -> the kernels it must launch
     "micro_probes": ("encode_stats", "chain", "vcopy", "coissue"),
     "isolation": ("iso", "bprobe", "cliff", "bitonic"),
     "fuzz": ("encode", "encode_best", "decode", "crc32c"),
+    "tools": ("encode", "encode_best", "decode"),
 }
 VARIANTS = ("v2", "v4", "v3", "v1", "v1nock", "v1nocp")
 PROBE_ROWS = 300  # planted-match rows of 64 KiB beside the golden vectors
@@ -2498,6 +2509,127 @@ def phase_fuzz(torch, card):
     return launches
 
 
+def trace_kernel_us(log_dir) -> dict:
+    """Device time (us) by kernel name in the Chrome trace(s) under
+    ``log_dir``: the events of category ``kernel``."""
+    import pathlib
+
+    us: dict = {}
+    for f in sorted(pathlib.Path(log_dir).glob("*.json")):
+        for e in json.loads(f.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                us[e["name"]] = us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    return us
+
+
+def phase_tools(torch, card, codec, frags, lengths, ms):
+    """Phase 13, the tools path: the multi-process rehearsal at its default
+    size in a subprocess, the ratio table on the card against its CPU
+    columns, and a trace of one codec round trip of the phase-3 batch.
+    Returns the path's launches, the rehearsal workers' summed in."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_ratio_table as rt
+
+    from snappier_tpu_torch.format import oracle
+    from snappier_tpu_torch.ops.cuda import _build
+    from snappier_tpu_torch.utils.profiling import Throughput, device_trace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # room for the workers' four contexts
+    _build.reset_launches()
+
+    # (a) 4,096 x 64 KiB over 4 processes x 2 shards of the card, on gloo.
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(root, "tools", "torch_rehearsal_multihost.py")],
+                       capture_output=True, text=True, timeout=600, cwd=root)
+    secs["rehearsal"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"rehearsal failed ({r.returncode}):\n{r.stdout[-2000:]}"
+          f"{r.stderr[-4000:]}")
+    reh = json.loads(r.stdout.strip().splitlines()[-1])
+    print(json.dumps({"card": card, "rehearsal": reh}))
+    check(reh["bit_exact"] is True and reh["decoded_exact"] is True, f"rehearsal: {reh}")
+    check((reh["blocks"], reh["nprocs"], reh["devices_per_proc"]) == (4096, 4, 2)
+          and reh["device"].startswith("cuda") and reh["backend"] == "gloo", f"rehearsal: {reh}")
+    check(reh["launches"].get("encode", 0) > 0 and reh["launches"].get("decode", 0) > 0,
+          f"the rehearsal's workers launched no kernel: {reh['launches']}")
+
+    # (b) The ratio table: the card's streams against the CPU's (the plain
+    # versions, which the tests hold to the JAX package), each decoded by
+    # the oracle, and best no larger than greedy.
+    files = rt.corpus()
+    t0 = time.perf_counter()
+    host = rt.device_streams(files, "cpu")
+    secs["ratio_cpu_columns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = rt.device_streams(files, "cuda")
+    torch.cuda.synchronize()
+    secs["ratio_card_columns"] = time.perf_counter() - t0
+    for name, data in files.items():
+        for col in rt.DEVICE_COLUMNS:
+            check(dev[name][col] == host[name][col], f"ratio table: {name} {col} differs from "
+                  f"the CPU's ({len(dev[name][col])} against {len(host[name][col])} B)")
+            check(oracle.decompress(dev[name][col]) == data, f"ratio table: {name} {col} "
+                  "does not decode to its stand-in")
+        check(len(dev[name]["best"]) <= len(dev[name]["scalar"]),
+              f"ratio table: best is larger than greedy on {name}")
+    rows = rt.table(files, "cuda", streams=dev)
+    print(json.dumps({"card": card, "ratio_table": rows}))
+    print(rt.markdown(rows))
+
+    # (c) A trace of one round trip of the phase-3 batch: its device events
+    # must name the encode and decode kernels, launched through ctypes.
+    def roundtrip():
+        bodies, body_lens, _ = codec.compress_batch(frags, lengths)
+        n = frags.shape[0]
+        pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device=frags.device)
+        blocks = torch.cat([pre.expand(n, 3), bodies.to(torch.uint8)], dim=1)
+        blocks = torch.nn.functional.pad(blocks, (0, (-blocks.shape[1]) % 1024))
+        return codec.decompress_batch(blocks, body_lens + 3, out_cap=BLOCK)
+
+    nbytes = 2 * frags.shape[0] * frags.shape[1]  # bench.py's combined count
+    roundtrip()
+    with Throughput(nbytes) as t_plain:
+        outs, _, errs = roundtrip()
+    check(bool((errs == 0).all()) and bool((outs == frags.to(torch.int32)).all()),
+          "the traced round trip differs")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with device_trace(d) as prof, Throughput(nbytes) as t_traced:
+            roundtrip()
+        secs["trace"] = time.perf_counter() - t0
+        kernels_us = trace_kernel_us(d)
+        trace_files = len(list(os.scandir(d)))
+    named = {k: sum(us for n, us in kernels_us.items() if k in n)
+             for k in ("encode_kernel", "decode_kernel", "crc32c_kernel")}
+    print(json.dumps({
+        "card": card, "trace_files": trace_files, "trace_kernel_us": kernels_us,
+        "k2_encode_kernel_trace_ms": named["encode_kernel"] / 1e3,
+        "k1_decode_kernel_trace_ms": named["decode_kernel"] / 1e3,
+        "k3_crc32c_kernel_trace_ms": named["crc32c_kernel"] / 1e3,
+        "phase4_encode_ms": ms["encode"], "phase4_decode_ms": ms["decode"],
+        "phase4_crc32c_ms": ms["crc32c"],
+        "roundtrip_combined_gbps": t_plain.gbps, "roundtrip_s": t_plain.seconds,
+        "roundtrip_combined_gbps_traced": t_traced.gbps,
+        "profiler_rows": len(prof.key_averages()),
+    }))
+    check(named["encode_kernel"] > 0 and named["decode_kernel"] > 0,
+          f"the trace names no encode_kernel or decode_kernel: {sorted(kernels_us)}")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for k, v in reh["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"tools path launches: {launches} (the rehearsal's workers: {reh['launches']}); "
+          f"seconds {json.dumps(secs)}; the phase {time.perf_counter() - t_phase:.1f} s")
+    for k in PATHS["tools"]:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the tools path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2727,6 +2859,9 @@ def main() -> int:
     # --- 12. the fuzz campaigns and the B=2,048 codec check -------------------------
     fuzz_launches = phase_fuzz(torch, card)
 
+    # --- 13. the tools: the rehearsal, the ratio table, a trace on the card ------
+    tools_launches = phase_tools(torch, card, codec, frags, lengths, ms)
+
     f1, l1 = torch.from_numpy(data[:1].copy()), torch.from_numpy(np.array([BLOCK], np.int32))
     c1 = torch.from_numpy(comp_u8[:1].cpu().numpy())
     cl1 = block_lens[:1].cpu()
@@ -2786,7 +2921,7 @@ def main() -> int:
                "sharded": sharded_launches, "sharded_scan": sharded_scan_launches,
                "encode_ablation": enc_launches, "hybrid": hybrid_launches,
                "micro_probes": micro_launches, "isolation": iso_launches,
-               "fuzz": fuzz_launches}
+               "fuzz": fuzz_launches, "tools": tools_launches}
     rows = []
     for k, (kname, source, replaces) in KERNELS.items():
         t_bytes = moved[k] / HBM_BYTES_PER_S * 1e3

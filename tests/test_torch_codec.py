@@ -255,7 +255,8 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
              *sorted((root / "snappier_tpu_torch").rglob("*.py"))]
     names = {f.name for f in files}
     assert {"torch_dist_worker.py", "torch_perf_probe_enc.py", "torch_perf_probe_r4.py",
-            "torch_perf_probe_hybrid.py", "torch_fuzz.py", "graft_entry.py", "mesh.py", "distributed.py",
+            "torch_perf_probe_hybrid.py", "torch_fuzz.py", "torch_rehearsal_multihost.py",
+            "torch_ratio_table.py", "profiling.py", "graft_entry.py", "mesh.py", "distributed.py",
             "encode_variants.py", "decode_hybrid.py", "hybrid_probes.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():

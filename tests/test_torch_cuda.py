@@ -1477,3 +1477,61 @@ def test_cuda_codec_at_batch_2048(cuda_device, torch_fuzz):
     native engine's streams is exact (tools/repro_bigbatch.py's check)."""
     r = torch_fuzz.bigbatch(2048, 301, cuda_device)
     assert r["rows"] == 2048 and r["launches"]["encode"] and r["launches"]["decode"]
+
+
+@pytest.fixture(scope="module")
+def ratio_table():
+    """``tools/torch_ratio_table.py``, loaded by its path (it imports no JAX)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_ratio_table.py"
+    spec = importlib.util.spec_from_file_location("torch_ratio_table", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_cuda_ratio_table_matches_its_cpu_columns(cuda_device, ratio_table):
+    """The ratio table's device columns on the card at 8 KiB stand-ins: the
+    same streams as its CPU columns (which the CPU tests hold to the JAX
+    package), each decoded by the oracle; K2 and K4 launched once each."""
+    files = ratio_table.corpus(8192)
+    host = ratio_table.device_streams(files, "cpu")
+    _build.reset_launches()
+    dev = ratio_table.device_streams(files, cuda_device)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["encode"] == 1 and _build.LAUNCHES["encode_best"] == 1
+    for name, data in files.items():
+        assert dev[name] == host[name], name
+        assert all(oracle.decompress(s) == data for s in dev[name].values()), name
+        assert len(dev[name]["best"]) <= len(dev[name]["scalar"]), name
+
+
+def test_cuda_device_trace_names_the_encode_and_decode_kernels(cuda_device, tmp_path):
+    """``device_trace`` on the card around a codec round trip: its Chrome
+    trace holds kernel events named after K2 and K1 (launched through ctypes,
+    not as torch operators), and ``Throughput`` times the round trip to the
+    end of its kernels."""
+    import json
+
+    from snappier_tpu_torch.utils.profiling import Throughput, device_trace
+
+    frags = np.stack([html_like(65536, seed) for seed in range(8)]).astype(np.uint8)
+    f_c = _t(frags).to(cuda_device)
+    l_c = torch.full((8,), 65536, dtype=torch.int32, device=cuda_device)
+    codec = SnappyCodec(with_crc=False)
+    codec.compress_batch(f_c, l_c)
+    with device_trace(tmp_path) as prof, Throughput(2 * frags.size) as t:
+        bodies, body_lens, _ = codec.compress_batch(f_c, l_c)
+        pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device=cuda_device)
+        rows = torch.cat([pre.expand(8, 3), bodies.to(torch.uint8)], dim=1)
+        rows = torch.nn.functional.pad(rows, (0, (-rows.shape[1]) % 1024))
+        outs, out_lens, errs = codec.decompress_batch(rows, body_lens + 3, out_cap=65536)
+    assert t.seconds > 0 and t.gbps > 0 and len(prof.key_averages()) > 0
+    assert bool((errs == 0).all()) and bool((outs == f_c.to(torch.int32)).all())
+    (path,) = tmp_path.glob("trace-*.json")
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    assert any("encode_kernel" in n for n in names), names
+    assert any("decode_kernel" in n for n in names), names

@@ -9,12 +9,10 @@ reference's), so the CUDA tests can use it on a machine without JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import importlib.util
-import json
-import os
 import pathlib
-import socket
 import subprocess
 import sys
 import types
@@ -25,6 +23,7 @@ from snappier_tpu_torch.format import oracle
 from snappier_tpu_torch.format.varint import write_varint
 
 WORKER = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_dist_worker.py"
+REHEARSAL = WORKER.with_name("torch_rehearsal_multihost.py")
 
 # The forms of the pipelined decode walks: name -> decode_pipe2's arguments
 # ("pipe" is decode_pipe, which takes none).
@@ -486,76 +485,39 @@ def stream_inputs() -> dict[str, bytes]:
     }
 
 
-def worker_module():
-    """``tools/torch_dist_worker.py`` as a module (for its ``corpus`` and
-    ``stream_case``)."""
-    spec = importlib.util.spec_from_file_location("torch_dist_worker", WORKER)
+@functools.cache
+def rehearsal_tool():
+    """``tools/torch_rehearsal_multihost.py`` as a module: the worker
+    fan-out, the reading of the workers' files and their union."""
+    spec = importlib.util.spec_from_file_location("torch_rehearsal_multihost", REHEARSAL)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+def worker_module():
+    """``tools/torch_dist_worker.py`` as a module (for its ``corpus`` and
+    ``stream_case``)."""
+    return rehearsal_tool().worker_module()
+
+
 def run_workers(outdir, nprocs: int, shards: int, n_blocks: int, device: str = "cpu",
                 backend: str = "gloo", timeout: float = 240):
     """Start ``nprocs`` processes of ``tools/torch_dist_worker.py`` joined over
-    loopback, wait for each with a timeout of its own, and fail on a timeout
-    or a non-zero exit. Returns (metas, payloads, plains)."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(WORKER), f"tcp://localhost:{port}", str(nprocs), str(rank),
-             str(outdir), str(n_blocks), device, str(shards), backend],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(WORKER.parents[1]),
-        )
-        for rank in range(nprocs)
-    ]
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"a worker did not finish within {timeout} s") from None
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, f"worker failed ({p.returncode}):\n{log[-3000:]}"
-    outdir = pathlib.Path(outdir)
-    metas = [json.loads((outdir / f"meta_{r}.json").read_text()) for r in range(nprocs)]
-    payloads = [np.frombuffer((outdir / f"payload_{r}.bin").read_bytes(), np.uint8)
-                for r in range(nprocs)]
-    plains = [np.frombuffer((outdir / f"plain_{r}.bin").read_bytes(), np.uint8)
-              for r in range(nprocs)]
-    return metas, payloads, plains
+    loopback (the rehearsal tool's fan-out: a timeout each, the rest killed
+    when one fails, its log on stderr) and fail on a timeout or a non-zero
+    exit. Returns (metas, payloads, plains)."""
+    tool = rehearsal_tool()
+    assert tool.run_workers(n_blocks, nprocs, shards, device, outdir, timeout, backend), (
+        "a worker failed or did not finish in time (its log is on stderr)")
+    return tool.read_outputs(outdir, nprocs)
 
 
 def check_union(metas, parts, keys) -> np.ndarray:
     """Identical maps, local sets that partition the batch, and the union of
-    the partial buffers. ``keys`` names the lengths, offsets and local set."""
-    k_len, k_off, k_local = keys
-    for m in metas[1:]:
-        assert m[k_len] == metas[0][k_len], "the workers' assembly maps differ"
-        assert m[k_off] == metas[0][k_off], "the workers' assembly maps differ"
-    assert len({len(p) for p in parts}) == 1, "the workers' buffers differ in size"
-    union: set = set()
-    for m in metas:
-        local = set(m[k_local])
-        assert local, "a process produced nothing"
-        assert union.isdisjoint(local), "the workers' local sets overlap"
-        union |= local
-    assert union == set(range(len(metas[0][k_len]))), "the local sets do not cover the batch"
-    combined = parts[0].copy()
-    for m, p in zip(metas[1:], parts[1:]):
-        for i in m[k_local]:
-            o, ln = m[k_off][i], m[k_len][i]
-            combined[o : o + ln] = p[o : o + ln]
-    return combined
+    the partial buffers (the rehearsal tool's ``join_parts``). ``keys`` names
+    the lengths, offsets and local set."""
+    return rehearsal_tool().join_parts(metas, parts, keys)
 
 
 @contextlib.contextmanager

@@ -86,7 +86,14 @@ def main(init_method: str, world: int, rank: int, outdir: str, n_blocks: int = 8
     # bytes (and the replicated assembly map).
     sdata, scomp = stream_case(3 * world + 2)
     plain, dmeta = distributed.decompress_corpus_sharded(scomp, mesh=mesh, fragment_size=2048)
-    assert len(plain) == len(sdata)
+    # This process's fragments hold the stream's bytes and the rest zeros,
+    # so the bytes are checked here as well as in the parent's union.
+    expected = np.zeros(len(sdata), np.uint8)
+    src = np.frombuffer(sdata, np.uint8)
+    for i in dmeta["local_fragments"]:
+        o, ln = int(dmeta["fragment_offsets"][i]), int(dmeta["fragment_lengths"][i])
+        expected[o : o + ln] = src[o : o + ln]
+    assert plain == expected.tobytes(), "sharded decode of the shared stream differs"
     out = pathlib.Path(outdir)
     (out / f"payload_{rank}.bin").write_bytes(payload)
     (out / f"plain_{rank}.bin").write_bytes(plain)
