@@ -34,6 +34,7 @@ from snappier_tpu_torch.ops.cuda.scalar_codec import (
 )
 from snappier_tpu_torch.ops.decode import decode_blocks_scan
 from snappier_tpu_torch.ops.encode import encode_blocks_scan
+from snappier_tpu_torch.utils.profiling import span
 
 KERNELS = ("scalar", "scan")
 
@@ -201,28 +202,32 @@ class SnappyCodec:
         """(bodies uint8 [B, W], body_lens, crcs) with W >= F + 2048."""
         frags = self._in(frags)
         lengths = self._in(lengths).to(torch.int32)
-        bodies, body_lens = encode_rows(
-            frags, lengths, self.kernel, self.hash_bits, self.skip_base
-        )
-        if self.with_crc:
-            crcs = crc_rows(frags, lengths, self.kernel)
-        else:
-            crcs = torch.zeros_like(lengths)
+        with span("codec.encode", frags.nbytes):
+            bodies, body_lens = encode_rows(
+                frags, lengths, self.kernel, self.hash_bits, self.skip_base
+            )
+            if self.with_crc:
+                crcs = crc_rows(frags, lengths, self.kernel)
+            else:
+                crcs = torch.zeros_like(lengths)
         return bodies, body_lens, crcs
 
     def compress_batch(self, frags, lengths):
         """[B, F], [B] -> (bodies int32 [B, F+2048], body_lens [B], crcs [B])"""
-        bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
-        W = self._in(frags).shape[1] + 2048
-        return bodies[:, :W].to(torch.int32), body_lens, crcs
+        with span("codec.compress"):
+            bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
+            W = self._in(frags).shape[1] + 2048
+            return bodies[:, :W].to(torch.int32), body_lens, crcs
 
     def compress_batch_packed(self, frags, lengths):
         """compress_batch with word-packed bodies (int32, 4 LE bytes per
         word); lengths and CRCs unchanged."""
-        bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
-        W = self._in(frags).shape[1] + 2048
-        W += (-W) % 4
-        return pack_rows(bodies[:, :W]), body_lens, crcs
+        with span("codec.compress"):
+            bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
+            W = self._in(frags).shape[1] + 2048
+            W += (-W) % 4
+            with span("codec.pack", bodies.shape[0] * W, device=self.device):
+                return pack_rows(bodies[:, :W]), body_lens, crcs
 
     def decompress_batch_fn(self, out_cap: int, packed: bool = False):
         """The decode function for one output capacity:
@@ -233,10 +238,11 @@ class SnappyCodec:
             raise ValueError("packed output needs out_cap % 4 == 0")
 
         def fn(comp, comp_lens):
-            out, out_lens, errs = decode_rows(
-                self._in(comp), self._in(comp_lens), out_cap, self.kernel
-            )
-            return (out.view(torch.int32) if packed else out.to(torch.int32)), out_lens, errs
+            with span("codec.decompress"):
+                out, out_lens, errs = decode_rows(
+                    self._in(comp), self._in(comp_lens), out_cap, self.kernel
+                )
+                return (out.view(torch.int32) if packed else out.to(torch.int32)), out_lens, errs
 
         return fn
 
@@ -254,51 +260,52 @@ class SnappyCodec:
         preamble, chunk header, uncompressed fallback), leaving the host only
         the ragged concatenation of rows. Rows with length 0 get
         framed_len 0."""
-        F = self.fragment_size
-        PC = 3 + F + 2048  # varint (<= 3 bytes for F <= 64 KiB) + emission bound
-        frags = self._in(frags).to(torch.uint8)
-        lengths = self._in(lengths).to(torch.int32)
-        B = frags.shape[0]
-        bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
-        bodies = bodies[:, : F + 2048]
+        with span("codec.compress"):
+            F = self.fragment_size
+            PC = 3 + F + 2048  # varint (<= 3 bytes for F <= 64 KiB) + emission bound
+            frags = self._in(frags).to(torch.uint8)
+            lengths = self._in(lengths).to(torch.int32)
+            B = frags.shape[0]
+            bodies, body_lens, crcs = self._compress_bytes(frags, lengths)
+            bodies = bodies[:, : F + 2048]
 
-        # Masked CRC32C (Crc32CAlgorithm.cs:157) in uint32 space.
-        c = crcs.to(torch.int64) & 0xFFFFFFFF
-        masked = ((((c >> 15) | (c << 17)) & 0xFFFFFFFF) + CRC_MASK_DELTA) & 0xFFFFFFFF
+            # Masked CRC32C (Crc32CAlgorithm.cs:157) in uint32 space.
+            c = crcs.to(torch.int64) & 0xFFFFFFFF
+            masked = ((((c >> 15) | (c << 17)) & 0xFFFFFFFF) + CRC_MASK_DELTA) & 0xFFFFFFFF
 
-        pre_len = torch.where(lengths < 128, 1, torch.where(lengths < 16384, 2, 3))
-        b0 = torch.where(pre_len == 1, lengths & 0x7F, (lengths & 0x7F) | 0x80)
-        b1 = torch.where(pre_len == 2, (lengths >> 7) & 0x7F, ((lengths >> 7) & 0x7F) | 0x80)
-        b2 = (lengths >> 14) & 0x7F
+            pre_len = torch.where(lengths < 128, 1, torch.where(lengths < 16384, 2, 3))
+            b0 = torch.where(pre_len == 1, lengths & 0x7F, (lengths & 0x7F) | 0x80)
+            b1 = torch.where(pre_len == 2, (lengths >> 7) & 0x7F, ((lengths >> 7) & 0x7F) | 0x80)
+            b2 = (lengths >> 14) & 0x7F
 
-        def shifted(k):  # bodies shifted right by k preamble bytes
-            pre = torch.stack([b0, b1, b2][:k], dim=1).to(torch.uint8)
-            pad = bodies.new_zeros((B, PC - k - bodies.shape[1]))
-            return torch.cat([pre, bodies, pad], dim=1)
+            def shifted(k):  # bodies shifted right by k preamble bytes
+                pre = torch.stack([b0, b1, b2][:k], dim=1).to(torch.uint8)
+                pad = bodies.new_zeros((B, PC - k - bodies.shape[1]))
+                return torch.cat([pre, bodies, pad], dim=1)
 
-        comp_img = torch.where(
-            (pre_len == 1)[:, None],
-            shifted(1),
-            torch.where((pre_len == 2)[:, None], shifted(2), shifted(3)),
-        )
-        comp_len = pre_len + body_lens
+            comp_img = torch.where(
+                (pre_len == 1)[:, None],
+                shifted(1),
+                torch.where((pre_len == 2)[:, None], shifted(2), shifted(3)),
+            )
+            comp_len = pre_len + body_lens
 
-        # Incompressibility fallback (SnappyStreamCompressor.cs:213-229).
-        fallback = comp_len >= lengths
-        raw_img = torch.cat([frags, frags.new_zeros((B, PC - frags.shape[1]))], dim=1)
-        payload = torch.where(fallback[:, None], raw_img, comp_img)
-        payload_len = torch.where(fallback, lengths, comp_len)
+            # Incompressibility fallback (SnappyStreamCompressor.cs:213-229).
+            fallback = comp_len >= lengths
+            raw_img = torch.cat([frags, frags.new_zeros((B, PC - frags.shape[1]))], dim=1)
+            payload = torch.where(fallback[:, None], raw_img, comp_img)
+            payload_len = torch.where(fallback, lengths, comp_len)
 
-        # Chunk header: type byte + 3-byte LE length (of CRC + payload).
-        ctype = fallback.to(torch.int32)
-        clen = payload_len + 4
-        hdr = torch.stack(
-            [ctype, clen & 0xFF, (clen >> 8) & 0xFF, (clen >> 16) & 0xFF], dim=1
-        )
-        crc_bytes = torch.stack([(masked >> (8 * i)) & 0xFF for i in range(4)], dim=1)
-        framed = torch.cat([hdr.to(torch.uint8), crc_bytes.to(torch.uint8), payload], dim=1)
-        framed_len = torch.where(lengths > 0, 8 + payload_len, 0).to(torch.int32)
-        return framed, framed_len
+            # Chunk header: type byte + 3-byte LE length (of CRC + payload).
+            ctype = fallback.to(torch.int32)
+            clen = payload_len + 4
+            hdr = torch.stack(
+                [ctype, clen & 0xFF, (clen >> 8) & 0xFF, (clen >> 16) & 0xFF], dim=1
+            )
+            crc_bytes = torch.stack([(masked >> (8 * i)) & 0xFF for i in range(4)], dim=1)
+            framed = torch.cat([hdr.to(torch.uint8), crc_bytes.to(torch.uint8), payload], dim=1)
+            framed_len = torch.where(lengths > 0, 8 + payload_len, 0).to(torch.int32)
+            return framed, framed_len
 
     def frame_batch_packed(self, frags, lengths):
         """frame_batch with word-packed rows; pair with compact_words so a

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from snappier_tpu_torch.utils.profiling import span
+
 #: Two independent 32-bit fold multipliers (odd, so each step is bijective),
 #: as int32 values.
 _M1 = -1640531527  # 0x9E3779B9
@@ -71,24 +73,25 @@ def exact_candidates(frags: torch.Tensor, lengths: torch.Tensor,
     if frags.dim() != 2 or lengths.shape != (frags.shape[0],):
         raise ValueError("frags must be [B, F] and lengths [B]")
     B, F = frags.shape
-    d = torch.nn.functional.pad(frags.long(), (0, 4))
-    pos = torch.arange(F, dtype=torch.int64, device=frags.device)[None, :]
-    k4 = _wrap32(d[:, 0:F] | (d[:, 1 : F + 1] << 8) | (d[:, 2 : F + 2] << 16)
-                 | (d[:, 3 : F + 3] << 24))
-    fps = {4: (k4, _wrap32(k4.long() * _M2))}
-    w = 4
-    while w < ws[-1]:
-        hi, lo = fps[w]
-        hi_s = torch.roll(hi, -w, dims=1)  # [i+w]; wrapped positions are
-        lo_s = torch.roll(lo, -w, dims=1)  # masked by the validity test
-        fps[2 * w] = (_wrap32(hi.long() * _M1 + hi_s.long()),
-                      _wrap32(lo.long() * _M2 + lo_s.long()))
-        w *= 2
+    with span("best.candidates", B * F, device=frags.device):  # the fingerprints, every width
+        d = torch.nn.functional.pad(frags.long(), (0, 4))
+        pos = torch.arange(F, dtype=torch.int64, device=frags.device)[None, :]
+        k4 = _wrap32(d[:, 0:F] | (d[:, 1 : F + 1] << 8) | (d[:, 2 : F + 2] << 16)
+                     | (d[:, 3 : F + 3] << 24))
+        fps = {4: (k4, _wrap32(k4.long() * _M2))}
+        w = 4
+        while w < ws[-1]:
+            hi, lo = fps[w]
+            hi_s = torch.roll(hi, -w, dims=1)  # [i+w]; wrapped positions are
+            lo_s = torch.roll(lo, -w, dims=1)  # masked by the validity test
+            fps[2 * w] = (_wrap32(hi.long() * _M1 + hi_s.long()),
+                          _wrap32(lo.long() * _M2 + lo_s.long()))
+            w *= 2
 
-    lens = lengths.to(device=frags.device, dtype=torch.int64)[:, None]
-    cand = torch.full((B, F), -1, dtype=torch.int64, device=frags.device)
-    for w in ws:  # narrowest first; a wider width overwrites, so it wins
-        hi, lo = fps[w]
-        cw = _nearest_prev(hi, lo, pos + w <= lens, pos)
-        cand = torch.where(cw >= 0, cw, cand)
-    return cand.to(torch.int32)
+        lens = lengths.to(device=frags.device, dtype=torch.int64)[:, None]
+        cand = torch.full((B, F), -1, dtype=torch.int64, device=frags.device)
+        for w in ws:  # narrowest first; a wider width overwrites, so it wins
+            hi, lo = fps[w]
+            cw = _nearest_prev(hi, lo, pos + w <= lens, pos)
+            cand = torch.where(cw >= 0, cw, cand)
+        return cand.to(torch.int32)

@@ -65,7 +65,7 @@ from snappier_tpu_torch.ops.decode import (
 )
 from snappier_tpu_torch.runtime import native, prescan
 from snappier_tpu_torch.utils.pool import PooledMemory, default_pool
-from snappier_tpu_torch.utils.profiling import timed_call
+from snappier_tpu_torch.utils.profiling import span
 
 _ERR_MESSAGES = [
     (ERR_TRUNCATED_TAG, "tag overruns compressed input"),
@@ -197,15 +197,23 @@ def decompress_blocks(comp, comp_lens, out_cap: int, device=None):
 
 def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
     """Fragment ``arr`` into 64 KiB rows, compress the batch on ``dev`` and
-    return the host-fetched (per-row byte views, body_lens)."""
-    frags, lengths = _fragment_rows(arr)
-    fs = torch.from_numpy(frags).to(dev)
-    ls = torch.from_numpy(lengths).to(dev)
-    bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else _device_kernel(),
-                                     15, 32)
-    lens_h = body_lens.cpu().numpy()
-    check_body_lens(fs.shape[1] + 2048, lens_h)
-    return _fetch_ragged_packed(pack_rows(bodies), lens_h), lens_h
+    return the host-fetched (per-row byte views, body_lens). Each step is a
+    span: the host's fragmenting, the copy to ``dev``, the encode, the wait
+    for the body lengths and the fetch of the bodies."""
+    with span("block.fragment", len(arr)):
+        frags, lengths = _fragment_rows(arr)
+    with span("block.copy_in", frags.nbytes):
+        fs = torch.from_numpy(frags).to(dev)
+        ls = torch.from_numpy(lengths).to(dev)
+        del frags  # a card's copy is done with the host rows: free them inside the span
+    with span("block.encode"):
+        bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else _device_kernel(),
+                                         15, 32)
+    with span("block.wait"):
+        lens_h = body_lens.cpu().numpy()
+        check_body_lens(fs.shape[1] + 2048, lens_h)
+    with span("block.fetch"):
+        return _fetch_ragged_packed(pack_rows(bodies), lens_h), lens_h
 
 
 def _decode_compact(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int, capw: int):
@@ -282,13 +290,16 @@ def compress(data, engine: str = "auto", level: str = "fast", device=None) -> by
         raise ValueError("level='best' requires the device engine")
     engine = _pick_engine(engine)
     arr = _as_u8(data)
-    with timed_call(f"block.compress[{engine}]", len(arr)):
+    with span(f"block.compress[{engine}]", len(arr)):
         if engine == "native":
             return native.compress(arr.tobytes())
         if engine == "oracle":
             return oracle.compress(arr)
         rows, _ = _device_bodies(arr, level, resolve_device(device))
-        return write_varint(len(arr)) + b"".join(row.tobytes() for row in rows)
+        with span("block.join"):
+            out = write_varint(len(arr)) + b"".join(row.tobytes() for row in rows)
+            del rows  # free the fetched bodies inside the span
+        return out
 
 
 def decompress(data, engine: str = "auto", device=None) -> bytes:
@@ -297,7 +308,7 @@ def decompress(data, engine: str = "auto", device=None) -> bytes:
     :class:`InvalidDataError` on malformed input."""
     engine = _pick_engine(engine)
     arr = _as_u8(data)
-    with timed_call(f"block.decompress[{engine}]", len(arr)):
+    with span(f"block.decompress[{engine}]", len(arr)):
         if engine == "native":
             return native.decompress(arr.tobytes())
         if engine == "oracle":

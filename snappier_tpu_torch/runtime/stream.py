@@ -73,7 +73,7 @@ from snappier_tpu_torch.models.codec import (
 from snappier_tpu_torch.runtime import block as block_rt
 from snappier_tpu_torch.runtime import native
 from snappier_tpu_torch.utils.pool import staging_pool
-from snappier_tpu_torch.utils.profiling import timed_call
+from snappier_tpu_torch.utils.profiling import span
 
 #: Compressed capacity of the *device batch slot* for one framed chunk's
 #: block payload (varint + greedy body <= 3 + 66552). The framing format
@@ -430,7 +430,7 @@ def stream_compress(data, engine: str = "auto", threads: int = 0, device=None) -
     chunk-parallel pipeline (0 = hardware concurrency, 1 = serial; output
     bytes identical at every count)."""
     data = bytes(data)
-    with timed_call("stream.compress", len(data)):
+    with span("stream.compress", len(data)):
         if block_rt._pick_engine(engine) == "native":
             return native.stream_compress(data, threads=threads)
         view = memoryview(data)
@@ -446,7 +446,7 @@ def stream_decompress(data, engine: str = "auto", threads: int = 0, device=None)
     ``threads`` as in :func:`stream_compress` (identical verdicts at
     every count)."""
     data = bytes(data)
-    with timed_call("stream.decompress", len(data)):
+    with span("stream.decompress", len(data)):
         if block_rt._pick_engine(engine) == "native":
             return native.stream_decompress(data, threads=threads)
         d = StreamDecompressor(engine=engine, device=device)

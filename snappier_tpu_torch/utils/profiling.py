@@ -1,16 +1,26 @@
-"""Profiling helpers and per-call metrics of the public entry points (port
-of ``snappier_tpu/utils/profiling.py``).
+"""Profiling helpers and the program's spans (port of
+``snappier_tpu/utils/profiling.py``).
 
 :func:`device_trace` records a ``torch.profiler`` trace of a region (the
 card's kernels and copies, and the host's operators) into a Chrome trace
 file; :class:`Throughput` measures bytes per second over a region, to the
 end of the device work it queued.
 
-Call metrics: opt in with ``SNAPPIER_METRICS=1``: the block facade wraps
-each call in :func:`timed_call`, which then accumulates (calls, seconds,
-bytes) per entry point; disabled, the hot paths pay one falsy check. Times
-are host wall-clock around calls that end with their results on the host,
-so they include the device work and the transfers.
+Spans: :func:`span` marks a region of the codec (the block facade's
+fragmenting, copies, encode, wait, fetch and join; the candidate search;
+the batched codec's encode and pack). It records only while
+:func:`metrics_enabled`: ``SNAPPIER_METRICS=1`` in the environment (read at
+import) or a ``torch.profiler`` recording. Off, it hands back one shared
+null context and records nothing. On, each span adds (calls, seconds,
+bytes) to its name's totals (:func:`metrics_snapshot`) and one record to a
+bounded ring (:func:`spans_snapshot`): its name, its parent, the root call
+it belongs to, its host start and end on ``time.perf_counter_ns`` and its
+bytes; under a recording profiler it is also a ``record_function`` range,
+so the trace names the host's time by span; a span given a CUDA device
+also times its stream with two CUDA events, which cost the host tens of
+microseconds a span, so only the spans whose device time is read take one. Host times are wall-clock, so a
+root that ends with its result on the host includes the device work and the
+transfers.
 """
 
 from __future__ import annotations
@@ -21,7 +31,10 @@ import os
 import pathlib
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -36,7 +49,6 @@ def device_trace(log_dir, device=None):
     before it stops, so the region's queued work lands inside it.
     ``device="cpu"`` traces host activity only. The default device is the
     card; without one it raises."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from snappier_tpu_torch.models.codec import resolve_device
@@ -81,8 +93,6 @@ class Throughput:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            import torch
-
             torch.cuda.synchronize(self.device)
 
     def __enter__(self):
@@ -101,42 +111,118 @@ class Throughput:
 
 _ENABLED = bool(os.environ.get("SNAPPIER_METRICS"))
 _lock = threading.Lock()
-_stats: dict = defaultdict(lambda: [0, 0.0, 0])  # name -> [calls, secs, bytes]
+_stats: dict = defaultdict(lambda: [0, 0, 0])  # name -> [calls, ns, bytes]
 _trace_ids = itertools.count(1)  # numbers this process's trace files
+
+#: Records the span ring holds: a 50 s traced window of the batch codec
+#: makes about 16,000 (three a compress call, one a decompress call).
+SPAN_RING = 1 << 16
+_ring: deque = deque(maxlen=SPAN_RING)
+_appended = 0  # records ever appended since the last spans_reset
+_span_ids = itertools.count()
+_local = threading.local()  # .stack: this thread's open spans
 
 
 def metrics_enabled() -> bool:
-    return _ENABLED
+    """The one gate of :func:`span`: ``SNAPPIER_METRICS`` or a
+    ``torch.profiler`` recording."""
+    return _ENABLED or _autograd_profiler._is_profiler_enabled
 
 
-@contextlib.contextmanager
-def timed_call(name: str, nbytes: int = 0):
-    """Accumulate (calls, seconds, bytes) for ``name`` when
-    SNAPPIER_METRICS=1; a no-op otherwise."""
-    if not _ENABLED:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
+class _NullSpan:
+    """The context :func:`span` returns while metrics are off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One span; once closed, it is its own record in the ring."""
+
+    __slots__ = ("name", "nbytes", "device", "id", "parent", "call", "t0", "t1",
+                 "events", "stream_ms", "_range")
+
+    def __init__(self, name: str, nbytes: int, device):
+        self.name, self.nbytes, self.device = name, nbytes, device
+        self.events = self.stream_ms = self._range = None
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.id = next(_span_ids)
+        if stack:
+            self.parent, self.call = stack[-1].id, stack[-1].call
+        else:
+            self.parent, self.call = -1, self.id
+        stack.append(self)
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if (self.device and torch.device(self.device).type == "cuda"
+                and not torch.cuda.is_current_stream_capturing()):
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.device))
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _appended
+        self.t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        _local.stack.pop()
         with _lock:
-            s = _stats[name]
+            s = _stats[self.name]
             s[0] += 1
-            s[1] += dt
-            s[2] += nbytes
+            s[1] += self.t1 - self.t0
+            s[2] += self.nbytes
+            _ring.append(self)
+            _appended += 1
+        return False
+
+
+def span(name: str, nbytes: int = 0, device=False):
+    """A context manager timing a region of the codec as ``name`` (``bytes``
+    it moved or took: ``nbytes``). ``device``: the device the region's work
+    runs on; on a CUDA device the span times its current stream with two
+    timing events (none while the stream is captured into a graph), which
+    gives the record a device time. Spans opened inside it, on the same
+    thread, are its children. While :func:`metrics_enabled` is false it returns one shared
+    null context and records nothing."""
+    if not metrics_enabled():
+        return _NULL_SPAN
+    return _Span(name, nbytes, device)
+
+
+def timed_call(name: str, nbytes: int = 0):
+    """The JAX package's name for a public entry point's span:
+    ``span(name, nbytes)``."""
+    return span(name, nbytes)
 
 
 def metrics_snapshot() -> dict:
-    """{name: {calls, seconds, bytes, MBps}} accumulated so far."""
+    """{name: {calls, seconds, bytes, MBps}} accumulated so far, a name a
+    span."""
     with _lock:
         return {
             k: {
                 "calls": v[0],
-                "seconds": round(v[1], 6),
+                "seconds": round(v[1] * 1e-9, 6),
                 "bytes": v[2],
-                "MBps": round(v[2] / max(v[1], 1e-12) / 1e6, 2),
+                "MBps": round(v[2] / max(v[1] * 1e-9, 1e-12) / 1e6, 2),
             }
             for k, v in _stats.items()
         }
@@ -145,3 +231,35 @@ def metrics_snapshot() -> dict:
 def metrics_reset() -> None:
     with _lock:
         _stats.clear()
+
+
+def spans_snapshot() -> list[dict]:
+    """The ring's records, oldest first: ``name``, ``id``, ``parent`` (the
+    enclosing span's ``id``, -1 at a root), ``call`` (the root's ``id``),
+    ``t0_ns`` and ``t1_ns`` (``time.perf_counter_ns``), ``nbytes`` and
+    ``stream_ms``, the card's time between the span's edges: the current
+    stream's, by its events (resolving them waits for them); None for a
+    host span, a span on the CPU or one inside a graph capture."""
+    with _lock:
+        for r in _ring:
+            if r.events is not None:
+                r.events[1].synchronize()
+                r.stream_ms = r.events[0].elapsed_time(r.events[1])
+                r.events = None
+        return [{"name": r.name, "id": r.id, "parent": r.parent, "call": r.call,
+                 "t0_ns": r.t0, "t1_ns": r.t1, "nbytes": r.nbytes, "stream_ms": r.stream_ms}
+                for r in _ring]
+
+
+def spans_dropped() -> int:
+    """Records the ring let go since the last :func:`spans_reset` (the
+    oldest first): a reader of a window needs 0."""
+    with _lock:
+        return _appended - len(_ring)
+
+
+def spans_reset() -> None:
+    global _appended
+    with _lock:
+        _ring.clear()
+        _appended = 0

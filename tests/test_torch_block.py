@@ -310,3 +310,45 @@ def test_prescan_records_match_jax():
         for a, b in zip(prescan.assemble_fragment_rows(arr, got),
                         jprescan.assemble_fragment_rows(arr, ref)):
             assert (np.asarray(a) == np.asarray(b)).all()
+
+
+FACADE_STEPS = ["block.fragment", "block.copy_in", "block.encode", "block.wait", "block.fetch",
+                "block.join"]
+
+
+def test_facade_span_tree_under_the_cpu_profiler(monkeypatch):
+    """A recording profiler turns the spans on: the best-level facade call
+    is one root with its six steps in order, the candidate search inside
+    the encode step, both in the span records and in the profiler's user
+    annotations, each child inside its root and the steps covering at least
+    95% of the root's host time."""
+    monkeypatch.setattr(profiling, "_ENABLED", False)
+    profiling.spans_reset()
+    data = _multi_fragment(1)[: 65536 + 4000]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+        out = st.compress(data, level="best", **CPU)
+    assert st.decompress(out, engine="oracle") == data
+    recs = profiling.spans_snapshot()
+    profiling.spans_reset()
+    (root,) = [r for r in recs if r["parent"] == -1]
+    assert root["name"] == "block.compress[cuda]" and root["nbytes"] == len(data)
+    assert all(r["call"] == root["id"] for r in recs)
+    steps = sorted((r for r in recs if r["parent"] == root["id"]), key=lambda r: r["t0_ns"])
+    assert [r["name"] for r in steps] == FACADE_STEPS
+    (cand,) = [r for r in recs if r["name"] == "best.candidates"]
+    assert cand["parent"] == steps[2]["id"]
+    for r in recs:
+        assert root["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= root["t1_ns"]
+    covered = sum(r["t1_ns"] - r["t0_ns"] for r in steps)
+    assert covered >= 0.95 * (root["t1_ns"] - root["t0_ns"])
+
+    ann = [e for e in p.events() if e.name.startswith(("block.", "best."))]
+    assert sorted(e.name for e in ann) == sorted(r["name"] for r in recs)
+    (top,) = [e for e in ann if e.name == root["name"]]
+    kids = sorted((e for e in ann if e.name in FACADE_STEPS), key=lambda e: e.time_range.start)
+    assert [e.name for e in kids] == FACADE_STEPS
+    for e in ann:
+        assert top.time_range.start <= e.time_range.start <= e.time_range.end <= top.time_range.end
+    assert sum(e.time_range.elapsed_us() for e in kids) >= 0.95 * top.time_range.elapsed_us()
+    assert st.compress(data, level="best", **CPU) == out  # the profiler is gone: no spans
+    assert profiling.spans_snapshot() == []

@@ -26,6 +26,7 @@ from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.convert import CONFIG_KEYS, codec_from_reference
 from snappier_tpu_torch.models.codec import compact_words, pack_rows
 from snappier_tpu_torch.ops.cuda.crc32c import kernel_tables
+from snappier_tpu_torch.utils import profiling
 from tests.torch_cases import html_like
 
 F = 2048
@@ -286,3 +287,38 @@ def test_port_format_copies_match_reference(corpus_file):
     n = len(data)
     assert port_varint.write_varint(n) == ref_varint.write_varint(n)
     assert port_varint.read_varint(comp) == ref_varint.read_varint(comp)
+
+
+def test_codec_spans(monkeypatch):
+    """With spans on, each compress entry point is one ``codec.compress``
+    root over ``codec.encode`` (and ``codec.pack`` when it packs), each
+    decode one ``codec.decompress``; on the CPU no span carries a device
+    time (only a span on the card times its stream)."""
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.spans_reset()
+    frags, lens = _batch(F)
+    codec = SnappyCodec(fragment_size=F, device="cpu")
+    packed, _, _ = codec.compress_batch_packed(frags, lens)
+    bodies, body_lens, _ = codec.compress_batch(frags, lens)
+    codec.frame_batch(frags, lens)
+    pre = np.stack([(lens & 0x7F) | 0x80, ((lens >> 7) & 0x7F) | 0x80, (lens >> 14) & 0x7F],
+                   axis=1)
+    outs, _, errs = codec.decompress_batch(np.concatenate([pre, bodies.numpy()], axis=1),
+                                           body_lens.numpy() + 3, out_cap=F)
+    assert (errs == 0).all()
+    _rows_equal(outs, frags, lens)
+    recs = profiling.spans_snapshot()
+    profiling.spans_reset()
+    by_id = {r["id"]: r for r in recs}
+    roots = [r for r in recs if r["parent"] == -1]
+    assert [r["name"] for r in roots] == ["codec.compress"] * 3 + ["codec.decompress"]
+    trees = [sorted(r["name"] for r in recs if r["call"] == root["id"] and r is not root)
+             for root in roots]
+    assert trees == [["codec.encode", "codec.pack"], ["codec.encode"], ["codec.encode"], []]
+    for r in recs:
+        if r["parent"] != -1:
+            up = by_id[r["parent"]]
+            assert up["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= up["t1_ns"]
+    assert all(r["stream_ms"] is None for r in recs)
+    (pack,) = [r for r in recs if r["name"] == "codec.pack"]
+    assert pack["nbytes"] == packed.nbytes

@@ -1535,3 +1535,32 @@ def test_cuda_device_trace_names_the_encode_and_decode_kernels(cuda_device, tmp_
              if e.get("cat") == "kernel"]
     assert any("encode_kernel" in n for n in names), names
     assert any("decode_kernel" in n for n in names), names
+
+
+def test_cuda_device_spans_carry_stream_time(cuda_device, monkeypatch):
+    """With spans on, the candidate search's and the codec's pack span
+    carry the stream's time between their edges, above 0; the facade's no
+    more than its root's host time (the root ends with the bodies on the
+    host). Every other span is a host span."""
+    from snappier_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.spans_reset()
+    data = b"".join(html_like(65536, seed).tobytes() for seed in range(3))
+    assert st.decompress(st.compress(data, level="best")) == data
+    frags = np.stack([html_like(65536, seed) for seed in range(4)]).astype(np.uint8)
+    SnappyCodec(with_crc=False).compress_batch_packed(
+        _t(frags).to(cuda_device), torch.full((4,), 65536, dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize(cuda_device)
+    recs = profiling.spans_snapshot()
+    assert profiling.spans_dropped() == 0
+    by_id = {r["id"]: r for r in recs}
+    dev = [r for r in recs if r["stream_ms"] is not None]
+    assert sorted(r["name"] for r in dev) == ["best.candidates", "codec.pack"]
+    for r in dev:
+        assert r["stream_ms"] > 0, r
+        root = by_id[r["call"]]
+        assert root["name"] in ("block.compress[cuda]", "codec.compress"), root
+        if root["name"] == "block.compress[cuda]":
+            assert r["stream_ms"] <= (root["t1_ns"] - root["t0_ns"]) * 1e-6, (r, root)
+    profiling.spans_reset()
