@@ -49,7 +49,13 @@ failure:
    search and the new kernels; the decode kernel, T4 ``v1`` (the decode
    kernel's batched walk, every round of a step stored whole) and the best
    encode kernel on the 512 blocks in turns (each twice, the second time in
-   reverse order), with the best encode kernel's layout;
+   reverse order), with the best encode kernel's layout; the candidate
+   search's kernel (``best_candidates``) at the main path's shape (the 512
+   blocks, the default ladder): its cluster layout and ptxas figures
+   (printed), one launch a call, its candidates against its plain
+   version (the tensor chain) on the card and, for four rows, on the CPU, no
+   row sorted a width whole, its time with CUDA events beside the tensor
+   chain's on the card (``library_ms``: the port no longer calls it);
 6. the framing format and the stream layers at full size: 128 MiB (2,048
    chunks, every eighth of random bytes, so both chunk types occur)
    through ``stream_compress`` and ``stream_decompress`` on the card in 8
@@ -261,7 +267,7 @@ PATHS = {  # path -> the kernels it must launch
     "liveness": ("watch",),
     "probe": ("probe",),
     "codec": ("encode", "decode", "crc32c"),
-    "facade": ("encode", "encode_best", "decode"),
+    "facade": ("encode", "encode_best", "best_candidates", "decode"),
     "stream": ("encode", "crc32c", "decode"),
     "ablation": ("decode", "decode_v2", "decode_v4", "decode_v3", "decode_variant"),
     "scan": (),  # tensor code: it must launch none of the kernels
@@ -647,6 +653,47 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     errs["encode_best"] = max(errs["encode_best"], err)
     print(f"encode_best kernel == plain on the rows 1 byte into a buffer, max_abs_err {err}")
     return errs, streams
+
+
+def phase_candidates(torch, card, _build, frags, lengths) -> dict:
+    """The candidate search's kernel at the main path's shape: layout,
+    ptxas figures, one launch, its candidates against the plain version on
+    the card (the tensor chain, which is also timed, as ``library_ms``) and
+    on the CPU for four rows, no width sorted whole, its time with CUDA
+    events. Returns the JSON line's fields."""
+    from snappier_tpu_torch.ops import best_match as bm
+
+    B_, F = frags.shape
+    layout = bm.candidates_layout(F, frags.device)
+    ptxas = ptxas_figures(_build.BUILD_LOG.get("best_candidates", ""), "best_candidates_kernel")
+    check(len(ptxas) == 1, f"ptxas figures of best_candidates: {ptxas}")
+    check(layout["ctas"] == 8 and layout["clusters"] >= 1, f"best_candidates layout {layout}")
+    fallbacks = torch.zeros(1, dtype=torch.int32, device=frags.device)
+    _build.reset_launches()
+    got = bm.launch_candidates(frags, lengths, bm.DEFAULT_WIDTHS, fallbacks)
+    torch.cuda.synchronize()
+    check(dict(_build.LAUNCHES) == {"best_candidates": 1},
+          f"best_candidates launches {dict(_build.LAUNCHES)}")
+    chain = bm.exact_candidates_plain(frags, lengths)
+    check(bool((got == chain).all()), "best_candidates differs from the tensor chain on the card")
+    rows = [0, 1, B_ // 2, B_ - 1]
+    cpu = bm.exact_candidates_plain(frags[rows].cpu(), lengths[rows].cpu())
+    check(bool((got[rows].cpu() == cpu).all()), "best_candidates differs from the CPU's")
+    check(int(fallbacks) == 0, f"{int(fallbacks)} widths sorted whole on the main path")
+    f1, l1 = frags[:1].cpu(), lengths[:1].cpu()
+    n_in = B_ * F
+    out = {
+        "card": card, "layout": layout, "ptxas": ptxas,
+        "ms": cuda_ms(lambda: bm.exact_candidates(frags, lengths)),
+        "library_ms": cuda_ms(lambda: bm.exact_candidates_plain(frags, lengths), iters=2),
+        "plain_ms": host_ms(lambda: bm.exact_candidates_plain(f1, l1)), "plain_rows": 1,
+        "plain_device": "cpu",
+        # the rows and lengths in, the int32 candidates out, once each
+        "bound_ms": (n_in + 4 * B_ + 4 * n_in) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": 0,
+    }
+    print(json.dumps({"best_candidates": out}))
+    return out
 
 
 def phase_probe(torch, sc, _build):
@@ -2815,6 +2862,7 @@ def main() -> int:
     }))
     k4_layout, turns = redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8,
                                        block_lens)
+    phase_candidates(torch, card, _build, frags, lengths)
     # --- 6. the framing format and the stream layers at full size ---------------
     stream_launches, k3_stream_by_method = phase_streams(torch, card)
     k3_by_method.update(k3_stream_by_method)

@@ -92,6 +92,8 @@ SOURCES = {
     "cliff": ("probe_cliff_launch", [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
     "chase": ("probe_chase_launch", [_P, _I32, _I32, _I32, _I32, _P, _P]),
     "bitonic": ("probe_bitonic_launch", [_P, _P, _P, _P]),
+    "best_candidates": ("best_candidates_launch", [_P, _I64, _P, _I64, _U32, _P, _P, _P]),
+    "best_candidates_layout": ("best_candidates_layout", [_I64, _P]),
 }
 #: The source of each launcher that is not ``csrc/<launcher>.cu``.
 SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
@@ -101,6 +103,7 @@ SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "i
                  "best_layout": "encode_best", "crc32c_layout": "crc32c",
                  "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4",
                  "encode_stats_layout": "encode_stats",
+                 "best_candidates_layout": "best_candidates",
                  "decode_pipe_layout": "decode_pipe", "decode_variant_layout": "decode_variants"}
 
 #: Kernel launches per wrapper since the last reset.

@@ -22,6 +22,7 @@ from snappier_tpu.ops.pallas.scalar_codec import (
     match_extension_probe as jax_probe,
 )
 from snappier_tpu_torch.format import oracle
+from snappier_tpu_torch.ops import best_match
 from snappier_tpu_torch.ops.best_match import DEFAULT_WIDTHS, exact_candidates
 from snappier_tpu_torch.ops.cuda import _build
 from snappier_tpu_torch.ops.cuda.scalar_codec import (
@@ -59,6 +60,46 @@ def test_exact_candidates_reject_bad_ladders():
     for widths in [(8, 16), (4, 12), ()]:
         with pytest.raises(ValueError):
             exact_candidates(f, n, widths)
+
+
+@pytest.mark.parametrize("widths, mask", [
+    (DEFAULT_WIDTHS, 0b11111100),
+    ((4,), 0b100),
+    ((4, 8, 16, 32, 64, 128, 256), 0b111111100),
+    ((128, 4, 4, 8), 0b10001100),  # any order, repeats once
+    ((4, 1 << 30, 1 << 31, 1 << 40), 0b100 | 1 << 30),  # past 2**30 no position
+])
+def test_widths_mask_encodes_the_ladder(widths, mask):
+    """The kernel's ladder: bit k for width 2**k."""
+    assert best_match.widths_mask(widths) == mask
+
+
+def test_exact_candidates_checks_its_arguments():
+    """Refused before any device work, on the CPU as on the card: bad
+    ladders, frags that are not [B, F] uint8 or int32, lengths not [B]
+    integers, rows wider than the kernel's 65,536; and the kernel's
+    fallback counter and layout query take only what they can use."""
+    f, n = torch.zeros((2, 64), dtype=torch.uint8), torch.zeros(2, dtype=torch.int32)
+    bad = [
+        (f, n, (8, 16)), (f, n, (4, 12)), (f, n, ()), (f, n, (4, 0)),
+        (f[0], n, DEFAULT_WIDTHS),  # not 2-D
+        (f.to(torch.float32), n, DEFAULT_WIDTHS), (f.to(torch.int64), n, DEFAULT_WIDTHS),
+        (f, n[:1], DEFAULT_WIDTHS), (f, n.to(torch.float32), DEFAULT_WIDTHS),
+        (f, n.bool(), DEFAULT_WIDTHS), (f, [0, 0], DEFAULT_WIDTHS),
+        (torch.zeros((1, best_match.MAX_WIDTH + 1), dtype=torch.uint8), n[:1], DEFAULT_WIDTHS),
+    ]
+    for frags, lengths, widths in bad:
+        with pytest.raises(ValueError):
+            exact_candidates(frags, lengths, widths)
+    with pytest.raises(ValueError):
+        best_match.launch_candidates(f, n, DEFAULT_WIDTHS, torch.zeros(2, dtype=torch.int32))
+    for F, dev in ((0, "cuda"), (best_match.MAX_WIDTH + 1, "cuda"), (4096, "cpu")):
+        with pytest.raises(ValueError):
+            best_match.candidates_layout(F, dev)
+    # the widest row the kernel takes, and one of no bytes, pass the checks
+    wide = torch.zeros((1, best_match.MAX_WIDTH), dtype=torch.uint8)
+    assert (exact_candidates(wide, n[:1], (4,)) == -1).all()
+    assert exact_candidates(torch.zeros((2, 0), dtype=torch.int32), n).shape == (2, 0)
 
 
 def test_best_walk_matches_jax_on_same_candidates(rows):

@@ -24,7 +24,12 @@ import snappier_tpu_torch as st
 import snappier_tpu_torch.runtime.stream as S
 from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.format import oracle
-from snappier_tpu_torch.ops.best_match import exact_candidates
+from snappier_tpu_torch.ops.best_match import (
+    DEFAULT_WIDTHS,
+    candidates_layout,
+    exact_candidates,
+    exact_candidates_plain,
+)
 from snappier_tpu_torch.ops.cuda import _build, watch
 from snappier_tpu_torch.ops.cuda import decode_hybrid as dh
 from snappier_tpu_torch.ops.cuda import decode_variants as dv
@@ -57,6 +62,8 @@ from torch_cases import (
     empty_literal_streams,
     encode_rows,
     html_like,
+    invalid_collision_row,
+    long_walk_rows,
     pack_streams,
     planted_matches,
     probe_blocks,
@@ -161,6 +168,116 @@ def test_cuda_best_kernel_matches_plain(cuda_device, F):
     for i, n in enumerate(lens.tolist()):
         assert oracle.decompress(block_stream(n, p_bodies[i, : p_lens[i]].numpy())) == (
             frags[i, :n].astype(np.uint8).tobytes()), i
+
+
+@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (4,), (4, 8, 16, 32, 64, 128, 256)],
+                         ids=["default", "w4", "to256"])
+@pytest.mark.parametrize("F", [4096, 65536])
+def test_cuda_best_candidates_match_plain(cuda_device, F, widths):
+    """The candidate-search kernel against its plain version, bit for bit:
+    every kind of torch_cases.best_rows (markup, periods 1-7, random and
+    zeros: width-4 keys all alike and none alike) at lengths F, F - 7, 3000,
+    17, 1 and 0, the rows 0, 1 and 3 bytes into their buffer; one launch a
+    call."""
+    frags, lens = best_rows(F, lens=(F, F - 7, 3000, 17, 1, 0))
+    want = exact_candidates_plain(_t(frags), _t(lens), widths)
+    l_c = _t(lens).to(cuda_device)
+    for offset in (0, 1, 3):
+        rows = _offset_rows(frags, offset, cuda_device)
+        _build.reset_launches()
+        got = exact_candidates(rows, l_c, widths)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"best_candidates": 1}
+        assert got.dtype == torch.int32 and got.device == rows.device
+        assert (got.cpu() == want).all(), offset
+
+
+def test_cuda_best_candidates_pair_a_left_out_position(cuda_device):
+    """A width-8 key equal to a left-out position's (0x7F000000 + p, p), and
+    a width-4 key whose hi is a left-out position's: the plain version's
+    pairs, no more."""
+    row, n, at, p, q = invalid_collision_row()
+    frags, lens = _t(row[None]), torch.tensor([n], dtype=torch.int32)
+    for widths in (DEFAULT_WIDTHS, (4,)):
+        want = exact_candidates_plain(frags, lens, widths)
+        got = exact_candidates(frags.to(cuda_device), lens.to(cuda_device), widths).cpu()
+        assert (got == want).all() and int(got[0, q]) == -1
+        assert int(got[0, p]) == (at if 8 in widths else -1)
+
+
+def test_cuda_best_candidates_long_walks_sort_whole(cuda_device):
+    """The worst case of the bucket walk (torch_cases.long_walk_rows: 48
+    keys of one bucket, the first repeated): each row sorts that width by
+    its whole key, counted once a row, and the candidates stay the plain
+    version's; the ordinary rows of best_rows count none."""
+    from snappier_tpu_torch.ops.best_match import launch_candidates
+
+    rows, lens = long_walk_rows()
+    fallbacks = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = launch_candidates(_t(rows).to(cuda_device), _t(lens).to(cuda_device),
+                            DEFAULT_WIDTHS, fallbacks)
+    assert (got.cpu() == exact_candidates_plain(_t(rows), _t(lens))).all()
+    assert int(fallbacks) == 2
+    frags, blens = best_rows(65536, lens=(65536, 3000))
+    fallbacks.zero_()
+    got = launch_candidates(_t(frags.astype(np.uint8)).to(cuda_device),
+                            _t(blens).to(cuda_device), DEFAULT_WIDTHS, fallbacks)
+    assert (got.cpu() == exact_candidates_plain(_t(frags), _t(blens))).all()
+    assert int(fallbacks) == 0
+
+
+def test_cuda_best_candidates_layout(cuda_device):
+    """A cluster of 8 CTAs a row of 65,536 positions (one of 4,096), 1,024
+    threads and 225,296 shared bytes a CTA, and some clusters at once."""
+    for F, ctas in ((65536, 8), (4096, 1), (20000, 3)):
+        lay = candidates_layout(F, cuda_device)
+        assert lay["ctas"] == ctas and lay["threads"] == 1024, lay
+        assert lay["smem_bytes"] == 225296 and lay["clusters"] >= 1, lay
+
+
+FACADE_TRACE = r"""
+import json, pathlib, sys
+root = pathlib.Path.cwd()
+sys.path[:0] = [str(root), str(root / "tests")]
+import torch
+import snappier_tpu_torch as st
+from snappier_tpu_torch.ops.cuda import _build
+from snappier_tpu_torch.utils.profiling import device_trace
+from torch_cases import html_like
+
+data = b"".join(html_like(65536, seed).tobytes() for seed in range(5))[:300000]
+st.compress(data, level="best")  # built and warm
+_build.reset_launches()
+with device_trace(sys.argv[1]):
+    comp = st.compress(data, level="best")
+(path,) = pathlib.Path(sys.argv[1]).glob("trace-*.json")
+names = sorted({e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                if e.get("cat") == "kernel"})
+print(json.dumps({"launches": dict(_build.LAUNCHES), "kernels": names,
+                  "round_trip": st.decompress(comp) == data}))
+"""
+
+
+def test_cuda_facade_best_sorts_on_chip(cuda_device, tmp_path):
+    """compress(level="best") on the card: one launch of the candidate
+    search and one of the best encode walk, and no library sort or scatter
+    in its trace (``device_trace``, in a process of its own: a second
+    profiler session in one process has seen no kernel events)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", FACADE_TRACE, str(tmp_path)], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    launches, names = got["launches"], got["kernels"]
+    assert launches.get("best_candidates") == 1 and launches.get("encode_best") == 1, launches
+    assert any("best_candidates_kernel" in n for n in names), names
+    assert not any("RadixSort" in n or "scatter" in n.lower() for n in names), names
+    assert got["round_trip"]
 
 
 def _offset_rows(rows: np.ndarray, offset: int, dev) -> torch.Tensor:

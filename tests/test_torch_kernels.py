@@ -219,12 +219,14 @@ def test_build_names_every_source():
                                    "bitonic", "encode_layout", "decode_layout", "best_layout",
                                    "crc32c_layout", "encode_variant_layout", "encode_r4_layout",
                                    "prepass", "decode_hybrid_layout", "decode_pipe_layout",
-                                   "decode_variant_layout", "encode_stats_layout"}
+                                   "decode_variant_layout", "encode_stats_layout",
+                                   "best_candidates", "best_candidates_layout"}
     stems = {_build.source_of(n) for n in _build.SOURCES}
     shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "chase", "bitonic",
               "encode_layout", "decode_layout", "best_layout", "crc32c_layout",
               "encode_variant_layout", "encode_r4_layout", "prepass", "decode_hybrid_layout",
-              "decode_pipe_layout", "decode_variant_layout", "encode_stats_layout"}
+              "decode_pipe_layout", "decode_variant_layout", "encode_stats_layout",
+              "best_candidates_layout"}
     assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}

@@ -89,6 +89,63 @@ def best_rows(F: int = 4096, seed: int = 3, lens=(4096, 3000, 17, 1, 0)):
     return np.stack(rows).astype(np.int32), np.array(lengths, np.int32)
 
 
+def invalid_collision_row(F: int = 4096, at: int = 100, seed: int = 7):
+    """A row whose width-8 fingerprint at position ``at`` equals the key
+    that the candidate search gives a position ``p`` it leaves out at width
+    8, ``(0x7F000000 + p, p)`` (``p`` at or past the row's length, so
+    ``p + 8 > len``): the one way a left-out position pairs with another.
+    The 8 bytes at ``at`` solve ``a * M1 + b = 0x7F000000 + p`` and
+    ``(a * M2 + b) * M2 = p`` (mod 2**32) for the little-endian words a and
+    b. At ``at + 16`` the row holds the 4-byte key ``0x7F000000 + q`` of
+    the position ``q = len - 2``, which width 4 leaves out: hi alike, lo not
+    (``k * M2`` against ``q``), so the search pairs nothing there. Returns
+    (row uint8[F], length, at, p, q); the search gives p the candidate
+    ``at`` and q none."""
+    m32 = 1 << 32
+    m1, m2 = 0x9E3779B9, 0xC2B2AE35
+    d = (m2 - m1) % m32  # 4 times an odd number
+    inv_m2 = pow(m2, -1, m32)
+    length = F - 96
+    for p in range(length, F):
+        hi = 0x7F000000 + p
+        rhs = (p * inv_m2 - hi) % m32
+        if rhs % 4 == 0:
+            break
+    a = (rhs // 4) * pow(d // 4, -1, 1 << 30) % (1 << 30)
+    b = (hi - a * m1) % m32
+    assert (a * m1 + b) % m32 == hi and (a * m2 % m32 * m2 + b * m2) % m32 == p
+    row = np.random.default_rng(seed).integers(0, 256, F, dtype=np.uint8)
+    row[at : at + 8] = np.frombuffer(a.to_bytes(4, "little") + b.to_bytes(4, "little"), np.uint8)
+    q = length - 2
+    row[at + 16 : at + 20] = np.frombuffer((0x7F000000 + q).to_bytes(4, "little"), np.uint8)
+    return row, length, at, p, q
+
+
+def long_walk_rows(F: int = 4096, count: int = 48, seed: int = 8):
+    """Two rows on which the candidate search's walk over one bucket (16 bits
+    of ``hi * 0x9E3779B9``) crosses more than its bound of runs, so each
+    sorts one width by its whole key. Row 0: ``count`` 8-byte windows, 24
+    bytes apart, whose width-8 fingerprints share hi (``a * M1 + b`` fixed,
+    for distinct little-endian words a) and differ in lo. Row 1: ``count``
+    distinct 4-byte words, 8 bytes apart, of one bucket. In each the first
+    is repeated once more at the end: a real match, ``count`` runs back.
+    Returns (rows uint8[2, F], lengths int32[2])."""
+    m32 = 1 << 32
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (2, F), dtype=np.uint8)
+    hi = 0x12345679
+    inv = pow(0x9E3779B9, -1, m32)
+    for k in range(count + 1):
+        a = 1000 + 7 * (k % count)
+        b = (hi - a * 0x9E3779B9) % m32
+        at = 24 * k + 3
+        rows[0, at : at + 8] = np.frombuffer(a.to_bytes(4, "little") + b.to_bytes(4, "little"),
+                                             np.uint8)
+        word = ((0x5A5A << 16) + 11 * (k % count)) * inv % m32  # bucket 0x5A5A
+        rows[1, 8 * k + 1 : 8 * k + 5] = np.frombuffer(word.to_bytes(4, "little"), np.uint8)
+    return rows, np.array([F, F - 40], np.int32)
+
+
 # Row lengths at the CRC32C kernel's edges (csrc/crc32c.cuh): around a
 # 16-byte chunk, a 512-byte line of 32 chunks and a 4,096-byte batch of 8
 # lines, and near a 64 KiB row's end.
