@@ -39,7 +39,14 @@ failure:
    (blocks per SM, shared bytes per block, threads, loader; the decode
    kernel must hold three blocks an SM at out_cap 65,536) and ptxas's
    registers, stack and spills for the encode, decode, best encode and
-   CRC32C kernels (any stack or spill fails);
+   CRC32C kernels (any stack or spill fails); then RocksDB's 4 KiB data
+   blocks: 16,384 rows through ``SnappyCodec(fragment_size=4096)`` at its
+   default 13-bit table (the encode layout at 13 and 15 bits, the launch
+   counted by table width, the bodies of every 63rd row byte for byte
+   equal to the plain walk's at 13 bits (odd rows noised, so that the
+   width shows), the round trip exact, each call's
+   CUDA-event ms and host dispatch ms, and the walks' stream ms by the
+   codec's ``codec.encode`` and ``codec.decode`` spans);
 5. the public facade at full size on the same 32 MiB: ``compress`` at both
    levels and ``decompress`` of each (multi-block, through the native
    prescan and the decode kernel), round trips checked exactly, best no
@@ -653,6 +660,96 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     errs["encode_best"] = max(errs["encode_best"], err)
     print(f"encode_best kernel == plain on the rows 1 byte into a buffer, max_abs_err {err}")
     return errs, streams
+
+
+def phase_blocks_4k(torch, card, sc, _build, data):
+    """RocksDB's default data blocks: 16,384 rows of 4 KiB (one 64 MiB SST
+    file) through ``SnappyCodec(fragment_size=4096)`` at its default table
+    (13 bits, :func:`table_bits`): the encode layout at 13 and at 15 bits,
+    one launch at 13 bits a compress call, the round trip exact through the
+    decode kernel, and the walks' stream time by the codec's spans
+    (``codec.encode``, ``codec.decode``) beside each call's."""
+    from snappier_tpu_torch import SnappyCodec
+    from snappier_tpu_torch.models.codec import table_bits
+    from snappier_tpu_torch.utils import profiling
+
+    F, rows = 4096, 16384
+    dev = torch.device("cuda")
+    flat = np.tile(data.reshape(-1), -(-rows * F // data.size))[: rows * F].reshape(rows, F).copy()
+    # odd rows: one byte in eight replaced by a random one, so that a row
+    # holds thousands of distinct 4-byte keys and the table's width (its
+    # collisions) shows in the stream; the word mix alone encodes the same
+    # at 13 bits as at 14
+    rng = np.random.default_rng(F)
+    noisy = flat[1::2]
+    mask = rng.random(noisy.shape) < 1 / 8
+    noisy[mask] = rng.integers(0, 256, int(mask.sum()), dtype=np.uint8)
+    frags = torch.from_numpy(flat).to(dev)
+    lengths = torch.full((rows,), F, dtype=torch.int32, device=dev)
+    codec = SnappyCodec(fragment_size=F, with_crc=False)
+    check(codec.hash_bits == table_bits(F) == 13, f"4 KiB codec table: {codec.hash_bits} bits")
+    layouts = {b: sc.encode_layout(frags, b) for b in (13, 15)}
+    check(layouts[13]["blocks_per_sm"] > layouts[15]["blocks_per_sm"],
+          f"encode layout at 13 bits no wider than at 15: {layouts}")
+    _build.reset_launches()
+    packed, body_lens, _ = codec.compress_batch_packed(frags, lengths)
+    torch.cuda.synchronize()
+    check(dict(_build.ENCODE_TABLE_BITS) == {13: 1},
+          f"4 KiB encode launches by table bits: {dict(_build.ENCODE_TABLE_BITS)}")
+    # K2's bodies at the codec's table against the plain walk at 13 bits, byte
+    # for byte up to each length, on every 63rd row, odd and even (a wrong
+    # hash shift or a table not cleared between rows still emits valid,
+    # different streams)
+    picked = torch.arange(0, rows, 63)
+    p_bodies, p_lens = (x.numpy() for x in sc.encode_blocks_plain(
+        frags[picked].cpu(), lengths[picked].cpu(), 13, 32))
+    k_bodies = packed.view(torch.uint8)[picked].cpu().numpy()
+    k_lens = body_lens[picked].cpu().numpy()
+    err_13 = max_abs_err([(k_lens, p_lens)]
+                         + [(k_bodies[i, :n], p_bodies[i, :n]) for i, n in enumerate(p_lens)])
+    check(err_13 == 0, f"4 KiB encode kernel at 13 bits differs from its plain version: {err_13}")
+    print(f"4 KiB encode kernel == plain at 13 bits on {len(picked)} of {rows} rows, "
+          f"max_abs_err {err_13}")
+    pre = torch.tensor([0x80, 0x20], dtype=torch.uint8, device=dev).expand(rows, 2)
+    blocks = torch.cat([pre, packed.view(torch.uint8)], dim=1)
+    blocks = torch.nn.functional.pad(blocks, (0, (-blocks.shape[1]) % 4)).contiguous()
+    outs, out_lens, errs = codec.decompress_batch(blocks, body_lens + 2, packed=True)
+    torch.cuda.synchronize()
+    check(bool((errs == 0).all()) and bool((out_lens == F).all())
+          and bool((outs.view(torch.uint8) == frags).all()), "4 KiB round trip differs")
+    calls = {"compress": lambda: codec.compress_batch_packed(frags, lengths),
+             "decompress": lambda: codec.decompress_batch(blocks, body_lens + 2, packed=True)}
+    call_ms = {k: cuda_ms(fn) for k, fn in calls.items()}
+    dispatch_ms = {}  # the host's time to queue a call, the card still busy with the ones before
+    for k, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        dispatch_ms[k] = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+    was = profiling._ENABLED
+    profiling._ENABLED = True
+    try:
+        profiling.spans_reset()
+        for _ in range(5):
+            codec.compress_batch_packed(frags, lengths)
+            codec.decompress_batch(blocks, body_lens + 2, packed=True)
+        torch.cuda.synchronize()
+        recs = profiling.spans_snapshot()
+        profiling.spans_reset()
+    finally:
+        profiling._ENABLED = was
+    span_ms = {name: sorted(r["stream_ms"] for r in recs if r["name"] == name)
+               for name in ("codec.encode", "codec.decode")}
+    check(all(len(v) == 5 and v[0] > 0 for v in span_ms.values()), f"4 KiB spans: {span_ms}")
+    ratio = float(body_lens.sum()) / (rows * F)
+    print(json.dumps({"card": card, "blocks_4k": rows, "plain_rows_13": len(picked),
+                      "max_abs_err_13": err_13, "encode_layout_13": layouts[13],
+                      "encode_layout_15": layouts[15], "call_ms": call_ms,
+                      "dispatch_ms": dispatch_ms,
+                      "encode_ms": span_ms["codec.encode"][2],
+                      "decode_ms": span_ms["codec.decode"][2], "ratio": ratio}))
 
 
 def phase_candidates(torch, card, _build, frags, lengths) -> dict:
@@ -2823,6 +2920,7 @@ def main() -> int:
         "compress_gbps": gb / (t_c / 1e3), "decompress_gbps": gb / (t_d / 1e3),
         "ratio": ratio, "blocks": B,
     }))
+    phase_blocks_4k(torch, card, sc, _build, data)
 
     # --- 5. the public facade at full size ------------------------------------
     raw = data.tobytes()

@@ -12,7 +12,8 @@ after its source, except where one source has several
 (:data:`SHARED_SOURCE`).
 
 Every wrapper counts its launches in :data:`LAUNCHES`, so a caller can
-show that a run went through the kernels.
+show that a run went through the kernels; the greedy encoder's also by
+table width in :data:`ENCODE_TABLE_BITS`.
 """
 
 from __future__ import annotations
@@ -108,6 +109,9 @@ SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "i
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
+#: Greedy encode kernel launches per match-table width (hash bits) since
+#: the last reset: which table a codec ran.
+ENCODE_TABLE_BITS: collections.Counter = collections.Counter()
 #: nvcc's output (ptxas's registers, stack, spills and shared memory per
 #: kernel) for each source built, by source stem; kept beside each library
 #: in ``build/`` as ``<library>.log`` and read back when it is reused.
@@ -119,6 +123,7 @@ _launchers: dict = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    ENCODE_TABLE_BITS.clear()
 
 
 def _nvcc() -> str:

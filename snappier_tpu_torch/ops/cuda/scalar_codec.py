@@ -424,6 +424,7 @@ def encode_blocks_bytes(frags, lengths, hash_bits: int = HASH_BITS, skip_base: i
         "encode", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
         hash_bits, skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
     )
+    _build.ENCODE_TABLE_BITS[hash_bits] += 1
     return bodies, body_lens
 
 

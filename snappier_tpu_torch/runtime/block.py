@@ -56,7 +56,7 @@ from snappier_tpu_torch.models.codec import (
     resolve_device,
 )
 from snappier_tpu_torch.ops.best_match import exact_candidates
-from snappier_tpu_torch.ops.cuda.scalar_codec import _encode_best
+from snappier_tpu_torch.ops.cuda.scalar_codec import HASH_BITS, _encode_best
 from snappier_tpu_torch.ops.decode import (
     ERR_BAD_OFFSET,
     ERR_BAD_PREAMBLE,
@@ -146,7 +146,7 @@ def _encode_rows(fs: torch.Tensor, ls: torch.Tensor, kernel: str, hash_bits: int
     return encode_rows(fs, ls, kernel, hash_bits, skip_base)
 
 
-def compress_fragments(frags, lengths, hash_bits: int = 15, skip_base: int = 32,
+def compress_fragments(frags, lengths, hash_bits: int = HASH_BITS, skip_base: int = 32,
                        kernel: str | None = None, device=None):
     """Compress a batch of fragments on the device.
 
@@ -208,7 +208,7 @@ def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
         del frags  # a card's copy is done with the host rows: free them inside the span
     with span("block.encode"):
         bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else _device_kernel(),
-                                         15, 32)
+                                         HASH_BITS, 32)
     with span("block.wait"):
         lens_h = body_lens.cpu().numpy()
         check_body_lens(fs.shape[1] + 2048, lens_h)

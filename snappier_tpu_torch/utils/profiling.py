@@ -8,7 +8,7 @@ end of the device work it queued.
 
 Spans: :func:`span` marks a region of the codec (the block facade's
 fragmenting, copies, encode, wait, fetch and join; the candidate search;
-the batched codec's encode and pack). It records only while
+the batched codec's encode, pack and decode). It records only while
 :func:`metrics_enabled`: ``SNAPPIER_METRICS=1`` in the environment (read at
 import) or a ``torch.profiler`` recording. Off, it hands back one shared
 null context and records nothing. On, each span adds (calls, seconds,
@@ -18,7 +18,9 @@ it belongs to, its host start and end on ``time.perf_counter_ns`` and its
 bytes; under a recording profiler it is also a ``record_function`` range,
 so the trace names the host's time by span; a span given a CUDA device
 also times its stream with two CUDA events, which cost the host tens of
-microseconds a span, so only the spans whose device time is read take one. Host times are wall-clock, so a
+microseconds a span, so only the spans whose device time is read take one;
+its record waits outside the ring until the card reaches its end event, and
+the events are then reused. Host times are wall-clock, so a
 root that ends with its result on the host includes the device work and the
 transfers.
 """
@@ -115,12 +117,30 @@ _stats: dict = defaultdict(lambda: [0, 0, 0])  # name -> [calls, ns, bytes]
 _trace_ids = itertools.count(1)  # numbers this process's trace files
 
 #: Records the span ring holds: a 50 s traced window of the batch codec
-#: makes about 16,000 (three a compress call, one a decompress call).
-SPAN_RING = 1 << 16
+#: makes three a compress call and two a decompress call, up to about
+#: 90,000 on an H100 where the calls are short (4 KiB rows).
+SPAN_RING = 1 << 18
+#: The ring's records: plain tuples of numbers and names, the span's place
+#: in the order spans closed, then ``_FIELDS``. The garbage collector stops
+#: tracking such tuples, so a full ring adds nothing to a collection's walk.
 _ring: deque = deque(maxlen=SPAN_RING)
+_FIELDS = ("name", "id", "parent", "call", "t0_ns", "t1_ns", "nbytes", "stream_ms")
 _appended = 0  # records ever appended since the last spans_reset
 _span_ids = itertools.count()
+_closed = itertools.count()  # numbers the spans in the order they close
 _local = threading.local()  # .stack: this thread's open spans
+#: Closed device spans whose end event the card has not reached yet, oldest
+#: first: (record without its stream time, [start, end] events, device index).
+_pending: deque = deque()
+#: At most this many wait for their events; past it the oldest is waited for.
+PENDING_MAX = 4096
+#: Records a device span's close turns from pending into the ring at most:
+#: one more than it adds, so a backlog (a phase's calls queued ahead of the
+#: card) drains a little at each span and never in one burst that would
+#: keep the host from queueing the card's next work.
+RESOLVE_STEP = 2
+#: Timing events whose spans are resolved, by device index, for reuse.
+_event_pool: dict = defaultdict(list)
 
 
 def metrics_enabled() -> bool:
@@ -145,14 +165,15 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One span; once closed, it is its own record in the ring."""
+    """One open span; it leaves a tuple in the ring as it closes (a device
+    span once its end event has been reached)."""
 
-    __slots__ = ("name", "nbytes", "device", "id", "parent", "call", "t0", "t1",
-                 "events", "stream_ms", "_range")
+    __slots__ = ("name", "nbytes", "device", "id", "parent", "call", "t0", "stream", "events",
+                 "_range")
 
     def __init__(self, name: str, nbytes: int, device):
         self.name, self.nbytes, self.device = name, nbytes, device
-        self.events = self.stream_ms = self._range = None
+        self.events = self._range = None
 
     def __enter__(self):
         stack = getattr(_local, "stack", None)
@@ -169,29 +190,64 @@ class _Span:
             self._range.__enter__()
         if (self.device and torch.device(self.device).type == "cuda"
                 and not torch.cuda.is_current_stream_capturing()):
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-            self.events[0].record(torch.cuda.current_stream(self.device))
+            self.stream = torch.cuda.current_stream(self.device)
+            with _lock:
+                pool = _event_pool[self.stream.device_index]
+                pair = [pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+                        for _ in range(2)]
+            self.events = pair
+            pair[0].record(self.stream)
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        global _appended
-        self.t1 = time.perf_counter_ns()
-        if self.events is not None:
-            self.events[1].record(torch.cuda.current_stream(self.device))
+        t1 = time.perf_counter_ns()
+        events = self.events
+        if events is not None:
+            events[1].record(self.stream)
         if self._range is not None:
             self._range.__exit__(*exc)
             self._range = None
         _local.stack.pop()
         with _lock:
+            head = (next(_closed), self.name, self.id, self.parent, self.call, self.t0, t1,
+                    self.nbytes)
             s = _stats[self.name]
             s[0] += 1
-            s[1] += self.t1 - self.t0
+            s[1] += t1 - self.t0
             s[2] += self.nbytes
-            _ring.append(self)
-            _appended += 1
+            if events is None:
+                _append(head + (None,))
+            else:
+                _pending.append((head, events, self.stream.device_index))
+                self.events = None
+                _resolve(RESOLVE_STEP, wait=len(_pending) > PENDING_MAX)
         return False
+
+
+def _append(record: tuple) -> None:
+    global _appended
+    _ring.append(record)
+    _appended += 1
+
+
+def _resolve(limit: int | None, wait: bool = False) -> None:
+    """Turn at most ``limit`` (None: every one) of the oldest pending device
+    spans whose end the card has reached into records, their events back to
+    the pool; ``wait``: wait for the oldest one, ``limit`` None: for all of
+    them. Called under ``_lock``."""
+    n = 0
+    while _pending and (limit is None or n < limit):
+        head, (start, end), index = _pending[0]
+        if wait or limit is None:
+            end.synchronize()
+            wait = False
+        elif not end.query():
+            return
+        _pending.popleft()
+        _append(head + (start.elapsed_time(end),))
+        _event_pool[index].extend((start, end))
+        n += 1
 
 
 def span(name: str, nbytes: int = 0, device=False):
@@ -234,21 +290,17 @@ def metrics_reset() -> None:
 
 
 def spans_snapshot() -> list[dict]:
-    """The ring's records, oldest first: ``name``, ``id``, ``parent`` (the
-    enclosing span's ``id``, -1 at a root), ``call`` (the root's ``id``),
-    ``t0_ns`` and ``t1_ns`` (``time.perf_counter_ns``), ``nbytes`` and
-    ``stream_ms``, the card's time between the span's edges: the current
-    stream's, by its events (resolving them waits for them); None for a
+    """The ring's records in the order their spans closed, oldest first:
+    ``name``, ``id``, ``parent`` (the enclosing span's ``id``, -1 at a
+    root), ``call`` (the root's ``id``), ``t0_ns`` and ``t1_ns``
+    (``time.perf_counter_ns``), ``nbytes`` and ``stream_ms``, the card's
+    time between the span's edges: the current stream's, by its events
+    (device spans still waiting for theirs are waited for here); None for a
     host span, a span on the CPU or one inside a graph capture."""
     with _lock:
-        for r in _ring:
-            if r.events is not None:
-                r.events[1].synchronize()
-                r.stream_ms = r.events[0].elapsed_time(r.events[1])
-                r.events = None
-        return [{"name": r.name, "id": r.id, "parent": r.parent, "call": r.call,
-                 "t0_ns": r.t0, "t1_ns": r.t1, "nbytes": r.nbytes, "stream_ms": r.stream_ms}
-                for r in _ring]
+        _resolve(None)
+        recs = sorted(_ring)
+    return [dict(zip(_FIELDS, r[1:])) for r in recs]
 
 
 def spans_dropped() -> int:
@@ -262,4 +314,5 @@ def spans_reset() -> None:
     global _appended
     with _lock:
         _ring.clear()
+        _pending.clear()
         _appended = 0

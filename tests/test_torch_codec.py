@@ -24,7 +24,7 @@ import snappier_tpu_torch.constants as port_constants
 import snappier_tpu_torch.format.crc32c as port_crc
 from snappier_tpu_torch import SnappyCodec
 from snappier_tpu_torch.convert import CONFIG_KEYS, codec_from_reference
-from snappier_tpu_torch.models.codec import compact_words, pack_rows
+from snappier_tpu_torch.models.codec import compact_words, pack_rows, table_bits
 from snappier_tpu_torch.ops.cuda.crc32c import kernel_tables
 from snappier_tpu_torch.utils import profiling
 from tests.torch_cases import html_like
@@ -46,7 +46,10 @@ def _batch(F, seed=0):
 
 
 def _codecs(F, with_crc=True, **kw):
-    jax_codec = JaxCodec(fragment_size=F, with_crc=with_crc, kernel="scalar", **kw)
+    """The JAX codec and the port's at one match table: the port's default
+    (:func:`table_bits`) unless ``hash_bits`` is given."""
+    jax_kw = {"hash_bits": table_bits(F), **kw}
+    jax_codec = JaxCodec(fragment_size=F, with_crc=with_crc, kernel="scalar", **jax_kw)
     port = SnappyCodec(fragment_size=F, with_crc=with_crc, device="cpu", **kw)
     return jax_codec, port
 
@@ -74,6 +77,34 @@ def test_compress_batch_matches_jax(F, with_crc):
     assert (_np(pl) == _np(jl)).all()
     assert (_np(pcrc) == _np(jcrc)).all()
     _rows_equal(pb, jb, jl)
+
+
+@pytest.mark.parametrize("F,bits", [(1, 8), (256, 9), (1024, 11), (2048, 12), (4096, 13),
+                                    (8192, 14), (16384, 15), (65536, 15)])
+def test_table_bits_two_slots_a_byte(F, bits):
+    assert table_bits(F) == bits
+    assert SnappyCodec(fragment_size=F, device="cpu").hash_bits == bits
+
+
+@pytest.mark.parametrize("hash_bits", [None, 15], ids=["default", "explicit15"])
+def test_4k_rows_match_jax_at_the_codec_table(hash_bits):
+    """At 4 KiB the default table is 13 bits: the bodies equal the JAX
+    codec's at 13, and decode through the benchmark's plain reference; an
+    explicit width is honoured and still equals the JAX codec at it."""
+    from portbench.reference.snappy_torch import check_rows
+
+    F = 4096
+    frags, lens = _batch(F)
+    port = SnappyCodec(fragment_size=F, with_crc=False, device="cpu", hash_bits=hash_bits)
+    assert port.hash_bits == (13 if hash_bits is None else hash_bits)
+    jc = JaxCodec(fragment_size=F, with_crc=False, kernel="scalar", hash_bits=port.hash_bits)
+    jb, jl, _ = jc.compress_batch(jnp.asarray(frags), jnp.asarray(lens))
+    pb, pl, _ = port.compress_batch(frags, lens)
+    assert (_np(pl) == _np(jl)).all()
+    _rows_equal(pb, jb, jl)
+    good = check_rows(pb.to(torch.uint8), pl, torch.from_numpy(frags).to(torch.uint8),
+                      torch.from_numpy(lens))
+    assert good.all()
 
 
 def test_compress_batch_packed_matches_jax():
@@ -292,8 +323,9 @@ def test_port_format_copies_match_reference(corpus_file):
 def test_codec_spans(monkeypatch):
     """With spans on, each compress entry point is one ``codec.compress``
     root over ``codec.encode`` (and ``codec.pack`` when it packs), each
-    decode one ``codec.decompress``; on the CPU no span carries a device
-    time (only a span on the card times its stream)."""
+    decode one ``codec.decompress`` over ``codec.decode``; on the CPU no
+    span carries a device time (only a span on the card times its
+    stream)."""
     monkeypatch.setattr(profiling, "_ENABLED", True)
     profiling.spans_reset()
     frags, lens = _batch(F)
@@ -303,8 +335,8 @@ def test_codec_spans(monkeypatch):
     codec.frame_batch(frags, lens)
     pre = np.stack([(lens & 0x7F) | 0x80, ((lens >> 7) & 0x7F) | 0x80, (lens >> 14) & 0x7F],
                    axis=1)
-    outs, _, errs = codec.decompress_batch(np.concatenate([pre, bodies.numpy()], axis=1),
-                                           body_lens.numpy() + 3, out_cap=F)
+    comp = np.concatenate([pre, bodies.numpy()], axis=1)
+    outs, _, errs = codec.decompress_batch(comp, body_lens.numpy() + 3, out_cap=F)
     assert (errs == 0).all()
     _rows_equal(outs, frags, lens)
     recs = profiling.spans_snapshot()
@@ -314,7 +346,8 @@ def test_codec_spans(monkeypatch):
     assert [r["name"] for r in roots] == ["codec.compress"] * 3 + ["codec.decompress"]
     trees = [sorted(r["name"] for r in recs if r["call"] == root["id"] and r is not root)
              for root in roots]
-    assert trees == [["codec.encode", "codec.pack"], ["codec.encode"], ["codec.encode"], []]
+    assert trees == [["codec.encode", "codec.pack"], ["codec.encode"], ["codec.encode"],
+                     ["codec.decode"]]
     for r in recs:
         if r["parent"] != -1:
             up = by_id[r["parent"]]
@@ -322,3 +355,5 @@ def test_codec_spans(monkeypatch):
     assert all(r["stream_ms"] is None for r in recs)
     (pack,) = [r for r in recs if r["name"] == "codec.pack"]
     assert pack["nbytes"] == packed.nbytes
+    (decode,) = [r for r in recs if r["name"] == "codec.decode"]
+    assert decode["nbytes"] == comp.nbytes

@@ -14,6 +14,7 @@ Bytes past a row's length are unspecified and never compared.
 from __future__ import annotations
 
 import asyncio
+import collections
 import io
 
 import numpy as np
@@ -126,6 +127,69 @@ def test_cuda_encode_options_match_plain(cuda_device, hash_bits, skip_base):
                                            skip_base)
     assert (body_lens.cpu() == p_lens).all()
     _rows_equal(bodies, p_bodies, p_lens)
+
+
+def test_cuda_rocksdb_blocks_at_the_codec_table(cuda_device):
+    """16,384 rows of 4 KiB (one 64 MiB SST file of RocksDB's default data
+    blocks) through ``SnappyCodec()`` on the card: one encode launch at 13
+    table bits, whose bodies equal the plain version's at 13 bits byte for
+    byte, and a round trip through the decode kernel that gives every row
+    back. The plain version walks 1,024 distinct rows; row i of the batch is
+    distinct row i % 1,024. Every other markup row has one byte in eight
+    replaced by a random one: thousands of distinct keys a row, so a walk
+    at another table width gives other bytes (the markup alone does not)."""
+    F, B, D = 4096, 16384, 1024
+    rng = np.random.default_rng(27)
+    base, base_lens = encode_rows(F, seed=27)
+    distinct = rng.integers(0, 256, (D, F)).astype(np.uint8)
+    lens = rng.integers(1, F + 1, D).astype(np.int32)
+    lens[: D // 2] = F
+    distinct[: len(base)], lens[: len(base)] = base, base_lens
+    for i in range(len(base), D):
+        distinct[i, : lens[i]] = html_like(int(lens[i]), i)
+        if i % 2:
+            noise = rng.random(lens[i]) < 1 / 8
+            distinct[i, : lens[i]][noise] = rng.integers(0, 256, int(noise.sum()))
+    idx = np.arange(B) % D
+    f_c, l_c = _t(distinct[idx]).to(cuda_device), _t(lens[idx]).to(cuda_device)
+    codec = SnappyCodec(fragment_size=F, with_crc=False)
+    assert codec.hash_bits == 13
+    _build.reset_launches()
+    bodies, body_lens, _ = codec.compress_batch(f_c, l_c)
+    torch.cuda.synchronize()
+    assert dict(_build.ENCODE_TABLE_BITS) == {13: 1}
+    p_bodies, p_lens = encode_blocks_plain(_t(distinct), _t(lens), 13, 32)
+    assert (body_lens.cpu() == p_lens[idx]).all()
+    W = bodies.shape[1]
+    got = bodies.cpu().to(torch.uint8)
+    want = p_bodies[:, :W][idx]
+    col = torch.arange(W)[None, :]
+    assert bool(torch.where(col < p_lens[idx][:, None], got == want, True).all())
+    _, _, _, ok = codec.roundtrip_step(f_c, l_c)
+    torch.cuda.synchronize()
+    assert bool(ok) and _build.LAUNCHES["decode"] == 1
+
+
+@pytest.mark.parametrize("F,bits", [(4096, 13), (65536, 15)])
+def test_cuda_codec_launches_its_table_width(cuda_device, F, bits):
+    """The codec's default table by its fragment, counted by the encode
+    wrapper at each launch."""
+    frags, lens = encode_rows(F)
+    codec = SnappyCodec(fragment_size=F, with_crc=False)
+    _build.reset_launches()
+    codec.compress_batch_packed(_t(frags).to(cuda_device), _t(lens).to(cuda_device))
+    torch.cuda.synchronize()
+    assert codec.hash_bits == bits and dict(_build.ENCODE_TABLE_BITS) == {bits: 1}
+
+
+def test_cuda_encode_layout_at_13_and_15_bits(cuda_device):
+    """A 13-bit table (16 KiB of shared memory) holds more than three times
+    the walks an SM of the 15-bit one (64 KiB)."""
+    frags = torch.zeros((16, 4096), dtype=torch.uint8, device=cuda_device)
+    l13, l15 = sc.encode_layout(frags, 13), sc.encode_layout(frags, 15)
+    assert l13["smem_bytes"] == 16384 and l15["smem_bytes"] == 65536
+    assert l15["blocks_per_sm"] >= 3
+    assert l13["blocks_per_sm"] > 3 * l15["blocks_per_sm"], (l13, l15)
 
 
 def test_cuda_codec_matches_cpu_codec(cuda_device):
@@ -1654,11 +1718,51 @@ def test_cuda_device_trace_names_the_encode_and_decode_kernels(cuda_device, tmp_
     assert any("decode_kernel" in n for n in names), names
 
 
+def test_cuda_device_spans_free_their_events_as_the_card_passes(cuda_device, monkeypatch):
+    """Device spans queued ahead of the card all come back with their stream
+    time; once the card has passed them their events are reused, so calls
+    made one at a time take at most two calls' events in all."""
+    from snappier_tpu_torch.utils import profiling
+
+    class Counted(torch.cuda.Event):
+        made = 0
+
+        def __new__(cls, *args, **kwargs):
+            Counted.made += 1
+            return super().__new__(cls, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "Event", Counted)
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(profiling, "_event_pool", collections.defaultdict(list))
+    profiling.spans_reset()
+    frags = torch.from_numpy(np.stack([html_like(4096, seed) for seed in range(64)])).to(
+        cuda_device)
+    lengths = torch.full((64,), 4096, dtype=torch.int32, device=cuda_device)
+    codec = SnappyCodec(fragment_size=4096, with_crc=False)
+    for _ in range(40):  # queued: no wait between the calls
+        codec.compress_batch_packed(frags, lengths)
+    torch.cuda.synchronize(cuda_device)
+    recs = [r for r in profiling.spans_snapshot() if r["stream_ms"] is not None]
+    assert len(recs) == 80 and all(r["stream_ms"] > 0 for r in recs)
+    assert not profiling._pending
+    profiling.spans_reset()
+    profiling._event_pool.clear()
+    before = Counted.made
+    for _ in range(40):  # one at a time: a call's events are free by the next but one
+        codec.compress_batch_packed(frags, lengths)
+        torch.cuda.synchronize(cuda_device)
+    assert Counted.made - before <= 8 and len(profiling._pending) <= 2
+    recs = profiling.spans_snapshot()
+    assert len(recs) == 3 * 40 and profiling.spans_dropped() == 0
+    assert all(r["stream_ms"] > 0 for r in recs if r["name"] != "codec.compress")
+    profiling.spans_reset()
+
+
 def test_cuda_device_spans_carry_stream_time(cuda_device, monkeypatch):
-    """With spans on, the candidate search's and the codec's pack span
-    carry the stream's time between their edges, above 0; the facade's no
-    more than its root's host time (the root ends with the bodies on the
-    host). Every other span is a host span."""
+    """With spans on, the candidate search's and the codec's encode, pack
+    and decode spans carry the stream's time between their edges, above 0;
+    the facade's no more than its root's host time (the root ends with the
+    bodies on the host). Every other span is a host span."""
     from snappier_tpu_torch.utils import profiling
 
     monkeypatch.setattr(profiling, "_ENABLED", True)
@@ -1666,18 +1770,24 @@ def test_cuda_device_spans_carry_stream_time(cuda_device, monkeypatch):
     data = b"".join(html_like(65536, seed).tobytes() for seed in range(3))
     assert st.decompress(st.compress(data, level="best")) == data
     frags = np.stack([html_like(65536, seed) for seed in range(4)]).astype(np.uint8)
-    SnappyCodec(with_crc=False).compress_batch_packed(
+    codec = SnappyCodec(with_crc=False)
+    packed, body_lens, _ = codec.compress_batch_packed(
         _t(frags).to(cuda_device), torch.full((4,), 65536, dtype=torch.int32, device=cuda_device))
+    pre = torch.tensor([0x80, 0x80, 0x04], dtype=torch.uint8, device=cuda_device).expand(4, 3)
+    outs, _, errs = codec.decompress_batch(torch.cat([pre, packed.view(torch.uint8)], dim=1),
+                                           body_lens + 3)
     torch.cuda.synchronize(cuda_device)
+    assert bool((errs == 0).all()) and bool((outs.cpu() == _t(frags).to(torch.int32)).all())
     recs = profiling.spans_snapshot()
     assert profiling.spans_dropped() == 0
     by_id = {r["id"]: r for r in recs}
     dev = [r for r in recs if r["stream_ms"] is not None]
-    assert sorted(r["name"] for r in dev) == ["best.candidates", "codec.pack"]
+    assert sorted(r["name"] for r in dev) == [
+        "best.candidates", "codec.decode", "codec.encode", "codec.pack"]
     for r in dev:
         assert r["stream_ms"] > 0, r
         root = by_id[r["call"]]
-        assert root["name"] in ("block.compress[cuda]", "codec.compress"), root
+        assert root["name"] in ("block.compress[cuda]", "codec.compress", "codec.decompress"), root
         if root["name"] == "block.compress[cuda]":
             assert r["stream_ms"] <= (root["t1_ns"] - root["t0_ns"]) * 1e-6, (r, root)
     profiling.spans_reset()

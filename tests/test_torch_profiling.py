@@ -15,10 +15,12 @@ names.
 from __future__ import annotations
 
 import collections
+import gc
 import itertools
 import json
 import threading
 import tracemalloc
+import types
 
 import pytest
 import torch
@@ -173,7 +175,98 @@ def test_the_ring_drops_and_counts_past_its_size(monkeypatch):
     assert prof.spans_dropped() == 3
     prof.spans_reset()
     assert prof.spans_snapshot() == [] and prof.spans_dropped() == 0
-    assert prof.SPAN_RING >= 16_000 * 2  # a traced 50 s window of the batch codec, with room
+    assert prof.SPAN_RING >= 90_000 * 2  # a traced 50 s window of the batch codec, with room
+
+
+def test_the_ring_holds_records_the_collector_does_not_walk(monkeypatch):
+    """A full ring of a traced window must not lengthen the collector's
+    passes: its records are tuples of numbers and names, which a
+    collection stops tracking."""
+    monkeypatch.setattr(prof, "_ENABLED", True)
+    prof.spans_reset()
+    for _ in range(100):
+        with prof.span("outer", 8):
+            with prof.span("inner", device="cpu"):
+                pass
+    gc.collect()
+    assert len(prof._ring) == 200
+    assert all(type(r) is tuple and not gc.is_tracked(r) for r in prof._ring)
+    prof.spans_reset()
+
+
+class _FakeEvent:
+    """A CUDA timing event the test completes by hand."""
+
+    made: list = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.done, self.records = False, 0
+        _FakeEvent.made.append(self)
+
+    def record(self, stream):
+        self.done, self.records = False, self.records + 1
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        return 2.5
+
+
+def test_device_spans_wait_for_their_end_event_and_reuse_it(monkeypatch):
+    """A device span's record enters the ring once the card has reached its
+    end event (or a snapshot waits for it), at most ``RESOLVE_STEP`` a
+    span's close, and its two events go back to a pool for the next device
+    span; the ring keeps the order spans closed."""
+    stream = types.SimpleNamespace(device_index=0)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(_FakeEvent, "made", [])
+    monkeypatch.setattr(prof, "_ENABLED", True)
+    monkeypatch.setattr(prof, "_event_pool", collections.defaultdict(list))
+    prof.spans_reset()
+    made = _FakeEvent.made
+    with prof.span("root"):
+        for name in ("dev.a", "dev.b"):
+            with prof.span(name, device="cuda"):
+                pass
+    assert [r[1] for r in prof._ring] == ["root"] and len(prof._pending) == 2
+    made[1].done = True  # the card reaches dev.a's end; dev.b's not yet
+    with prof.span("dev.c", device="cuda"):
+        pass
+    assert [r[1] for r in prof._ring] == ["root", "dev.a"] and len(prof._pending) == 2
+    assert len(made) == 6 and len(prof._event_pool[0]) == 2
+    with prof.span("dev.d", device="cuda"):  # takes dev.a's events
+        pass
+    assert len(made) == 6 and made[0].records == made[1].records == 2
+    recs = prof.spans_snapshot()
+    assert [r["name"] for r in recs] == ["dev.a", "dev.b", "root", "dev.c", "dev.d"]
+    assert [r["stream_ms"] for r in recs] == [2.5, 2.5, None, 2.5, 2.5]
+    assert not prof._pending and len(prof._event_pool[0]) == 6
+    assert prof.spans_dropped() == 0
+    monkeypatch.setattr(prof, "PENDING_MAX", 2)
+    prof.spans_reset()
+    for _ in range(3):  # past the bound the oldest is waited for
+        with prof.span("dev.e", device="cuda"):
+            pass
+    assert len(prof._pending) == 2 and len(prof._ring) == 1
+    monkeypatch.setattr(prof, "PENDING_MAX", 4096)
+    prof.spans_reset()
+    for _ in range(4):  # a backlog the card has passed drains a step a span
+        with prof.span("dev.f", device="cuda"):
+            pass
+    for ev in made:
+        ev.done = True
+    with prof.span("dev.g", device="cuda"):
+        pass
+    assert len(prof._ring) == prof.RESOLVE_STEP == 2 and len(prof._pending) == 3
+    assert len(prof.spans_snapshot()) == 5 and not prof._pending
+    prof.spans_reset()
 
 
 def test_a_recording_profiler_turns_the_spans_on(monkeypatch):
