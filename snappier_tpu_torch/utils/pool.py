@@ -9,13 +9,14 @@ reference pool, which zeroizes only on dispose
 
 :class:`StagingPool` is the same for the stream layer's transfer buffers:
 flat uint8 host tensors, page-locked when they feed a CUDA device, so
-that a ``non_blocking`` copy really is asynchronous.
+that a ``non_blocking`` copy really is asynchronous. The block facade
+stages its input rows and fetches its bodies through the same pool.
 """
 
 from __future__ import annotations
 
 import threading
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
@@ -49,21 +50,33 @@ class StagingPool:
     """Thread-safe pool of flat uint8 host tensors of power-of-two sizes
     (which bounds the bucket count), keyed by (size, page-locked). A
     buffer must come back only after every device copy that reads or
-    writes it has finished."""
+    writes it has finished.
+
+    :attr:`rents` counts the rents since the last :meth:`reset_rents`,
+    ``"pinned.reused"``, ``"pinned.allocated"``, ``"pageable.reused"``
+    and ``"pageable.allocated"``: a steady caller reuses every buffer, and
+    an ``allocated`` per call is a fresh page-locked allocation each time."""
 
     def __init__(self, max_per_bucket: int = 8) -> None:
         self._buffers: dict = defaultdict(list)
         self._lock = threading.Lock()
         self._max = max_per_bucket
+        self.rents: Counter = Counter()
 
     def rent(self, nbytes: int, pinned: bool):
         """A buffer of at least ``nbytes`` bytes (at least 4 KiB)."""
         size = 1 << max(12, (max(nbytes, 1) - 1).bit_length())
+        kind = "pinned" if pinned else "pageable"
         with self._lock:
             bucket = self._buffers[(size, pinned)]
+            self.rents[f"{kind}.reused" if bucket else f"{kind}.allocated"] += 1
             if bucket:
                 return bucket.pop()
         return torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+
+    def reset_rents(self) -> None:
+        with self._lock:
+            self.rents.clear()
 
     def giveback(self, buf) -> None:
         with self._lock:
