@@ -5,11 +5,13 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` run for
 loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
 Libraries land in ``build/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. :func:`build_all` starts every ``nvcc`` at once.
-``csrc/watch.cu`` is the exception: :mod:`snappier_tpu_torch.ops.cuda.watch`
-compiles it anew at every call, which is its purpose. A launcher is named
-after its source, except where one source has several
-(:data:`SHARED_SOURCE`).
+one is loaded as it is. :data:`SOURCES` names each launcher's source. A
+launcher's first use builds its own source's library and binds that
+library's launchers, nothing else; :func:`build` takes several launchers'
+sources at once, and :func:`build_all` every source, for the tools that
+time or check every kernel. ``csrc/watch.cu`` is the exception:
+:mod:`snappier_tpu_torch.ops.cuda.watch` compiles it anew at every call,
+which is its purpose.
 
 Every wrapper counts its launches in :data:`LAUNCHES`, so a caller can
 show that a run went through the kernels; the greedy encoder's also by
@@ -39,73 +41,56 @@ _U32 = ctypes.c_uint32
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
-#: C signature of each launcher: (symbol, argtypes).
+#: Each launcher: the stem of its source in ``csrc/``, and its C symbol and
+#: argument types.
 SOURCES = {
-    "decode": (
-        "snappy_decode_launch", [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
-    ),
-    "encode": (
-        "snappy_encode_launch",
-        [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P],
-    ),
-    "encode_layout": ("snappy_encode_layout", [_P, _I64, _I32, _P]),
-    "crc32c": ("crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
-    "crc32c_layout": ("crc32c_layout", [_P]),
-    "decode_layout": ("snappy_decode_layout", [_P, _I64, _I32, _P]),
-    "encode_best": (
-        "snappy_encode_best_launch",
-        [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P],
-    ),
-    "best_layout": ("snappy_encode_best_layout", [_P, _I64, _P]),
-    "probe": ("match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
-    "decode_variants": (
-        "snappy_decode_variant_launch", [_I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]
-    ),
-    "decode_pipe": (
-        "snappy_decode_pipe_launch",
-        [_I32, _I32, _I32, _I32, _I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
-    ),
-    "decode_pipe_layout": ("snappy_decode_pipe_layout", [_P, _I64, _I32, _I32, _I32, _I32, _P]),
-    "decode_variant_layout": ("snappy_decode_variant_layout", [_P, _I64, _I32, _I32, _P]),
-    "encode_variants": (
-        "snappy_encode_variant_launch",
-        [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
-    ),
-    "encode_r4": (
-        "snappy_encode_r4_launch",
-        [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P],
-    ),
-    "encode_variant_layout": ("snappy_encode_variant_layout", [_P, _I64, _U32, _I32, _I32, _P]),
-    "encode_r4_layout": ("snappy_encode_r4_layout", [_P, _I64, _U32, _I32, _I32, _P]),
-    "decode_hybrid": (
-        "snappy_decode_hybrid_launch",
-        [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
-    ),
-    "prepass": ("snappy_prepass_launch", [_I32, _P, _I64, _I64, _P, _P, _P]),
-    "decode_hybrid_layout": ("snappy_decode_hybrid_layout", [_P, _I64, _I32, _I32, _P]),
-    "encode_stats": ("snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
-    "encode_stats_layout": ("snappy_encode_stats_layout", [_P, _I64, _P]),
-    "chain": ("probe_chain_launch", [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
-    "vcopy": ("probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
-    "coissue": ("probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
-    "iso": ("probe_iso_launch", [_I32, _P, _P, _P, _P, _P]),
-    "bprobe": ("probe_bprobe_launch", [_I32, _I32, _P, _P, _P]),
-    "cliff": ("probe_cliff_launch", [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
-    "chase": ("probe_chase_launch", [_P, _I32, _I32, _I32, _I32, _P, _P]),
-    "bitonic": ("probe_bitonic_launch", [_P, _P, _P, _P]),
-    "best_candidates": ("best_candidates_launch", [_P, _I64, _P, _I64, _U32, _P, _P, _P]),
-    "best_candidates_layout": ("best_candidates_layout", [_I64, _P]),
+    "decode": ("decode", "snappy_decode_launch", [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P]),
+    "encode": ("encode", "snappy_encode_launch",
+               [_P, _I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P]),
+    "encode_layout": ("encode", "snappy_encode_layout", [_P, _I64, _I32, _P]),
+    "crc32c": ("crc32c", "crc32c_launch", [_P, _I64, _P, _I64, _P, _P, _P]),
+    "crc32c_layout": ("crc32c", "crc32c_layout", [_P]),
+    "decode_layout": ("decode", "snappy_decode_layout", [_P, _I64, _I32, _P]),
+    "encode_best": ("encode_best", "snappy_encode_best_launch",
+                    [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P]),
+    "best_layout": ("encode_best", "snappy_encode_best_layout", [_P, _I64, _P]),
+    "probe": ("probe", "match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
+    "decode_variants": ("decode_variants", "snappy_decode_variant_launch",
+                        [_I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]),
+    "decode_pipe": ("decode_pipe", "snappy_decode_pipe_launch",
+                    [_I32, _I32, _I32, _I32, _I32, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]),
+    "decode_pipe_layout": ("decode_pipe", "snappy_decode_pipe_layout",
+                           [_P, _I64, _I32, _I32, _I32, _I32, _P]),
+    "decode_variant_layout": ("decode_variants", "snappy_decode_variant_layout",
+                              [_P, _I64, _I32, _I32, _P]),
+    "encode_variants": ("encode_variants", "snappy_encode_variant_launch",
+                        [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P]),
+    "encode_r4": ("encode_r4", "snappy_encode_r4_launch",
+                  [_U32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _P]),
+    "encode_variant_layout": ("encode_variants", "snappy_encode_variant_layout",
+                              [_P, _I64, _U32, _I32, _I32, _P]),
+    "encode_r4_layout": ("encode_r4", "snappy_encode_r4_layout", [_P, _I64, _U32, _I32, _I32, _P]),
+    "decode_hybrid": ("decode_hybrid", "snappy_decode_hybrid_launch",
+                      [_I32, _I32, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P]),
+    "prepass": ("decode_hybrid", "snappy_prepass_launch", [_I32, _P, _I64, _I64, _P, _P, _P]),
+    "decode_hybrid_layout": ("decode_hybrid", "snappy_decode_hybrid_layout",
+                             [_P, _I64, _I32, _I32, _P]),
+    "encode_stats": ("encode_stats", "snappy_encode_stats_launch", [_P, _I64, _P, _I64, _P, _P]),
+    "encode_stats_layout": ("encode_stats", "snappy_encode_stats_layout", [_P, _I64, _P]),
+    "chain": ("hybrid_probes", "probe_chain_launch",
+              [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
+    "vcopy": ("hybrid_probes", "probe_vcopy_launch", [_I32, _P, _P, _P, _P, _P]),
+    "coissue": ("hybrid_probes", "probe_coissue_launch", [_I32, _I32, _I32, _P, _P, _P, _P]),
+    "iso": ("hybrid_probes", "probe_iso_launch", [_I32, _P, _P, _P, _P, _P]),
+    "bprobe": ("hybrid_probes", "probe_bprobe_launch", [_I32, _I32, _P, _P, _P]),
+    "cliff": ("hybrid_probes", "probe_cliff_launch",
+              [_I32, _P, _I32, _I32, _I32, _I32, _P, _P, _P]),
+    "chase": ("hybrid_probes", "probe_chase_launch", [_P, _I32, _I32, _I32, _I32, _P, _P]),
+    "bitonic": ("bitonic_probe", "probe_bitonic_launch", [_P, _P, _P, _P]),
+    "best_candidates": ("best_candidates", "best_candidates_launch",
+                        [_P, _I64, _P, _I64, _U32, _P, _P, _P]),
+    "best_candidates_layout": ("best_candidates", "best_candidates_layout", [_I64, _P]),
 }
-#: The source of each launcher that is not ``csrc/<launcher>.cu``.
-SHARED_SOURCE = {**{k: "hybrid_probes" for k in ("chain", "vcopy", "coissue", "iso", "bprobe",
-                                                 "cliff", "chase")},
-                 **{k: "decode_hybrid" for k in ("prepass", "decode_hybrid_layout")},
-                 "bitonic": "bitonic_probe", "encode_layout": "encode", "decode_layout": "decode",
-                 "best_layout": "encode_best", "crc32c_layout": "crc32c",
-                 "encode_variant_layout": "encode_variants", "encode_r4_layout": "encode_r4",
-                 "encode_stats_layout": "encode_stats",
-                 "best_candidates_layout": "best_candidates",
-                 "decode_pipe_layout": "decode_pipe", "decode_variant_layout": "decode_variants"}
 
 #: Kernel launches per wrapper since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -134,11 +119,6 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
-
-
-def source_of(name: str) -> str:
-    """The stem of the source in ``csrc/`` that holds launcher ``name``."""
-    return SHARED_SOURCE.get(name, name)
 
 
 def _lib_path(name: str) -> pathlib.Path:
@@ -199,12 +179,12 @@ def bind(path: pathlib.Path, symbol: str, argtypes: list):
     return fn
 
 
-def build_all() -> None:
-    """Build every source not yet built, all nvcc runs at once, and bind
-    their launchers."""
+def build(names) -> None:
+    """Build the sources of the launchers ``names`` not yet bound, all nvcc
+    runs at once, and bind every launcher of each of those sources."""
     with _lock:
-        todo = [n for n in SOURCES if n not in _launchers]
-        started = [(s, *_start_build(s)) for s in sorted({source_of(n) for n in todo})]
+        started = [(s, *_start_build(s))
+                   for s in sorted({SOURCES[n][0] for n in names if n not in _launchers})]
         try:
             for src, st, path in started:
                 _finish_build(src, st, path)
@@ -214,14 +194,22 @@ def build_all() -> None:
                     st[0].kill()
                     st[0].wait()
         paths = {s: path for s, _, path in started}
-        for n in todo:
-            _launchers[n] = bind(paths[source_of(n)], *SOURCES[n])
+        for n, (src, symbol, argtypes) in SOURCES.items():
+            if src in paths:
+                _launchers[n] = bind(paths[src], symbol, argtypes)
+
+
+def build_all() -> None:
+    """Build and bind every source: for tools that time or check every
+    kernel."""
+    build(SOURCES)
 
 
 def launcher(name: str):
-    """The bound C launcher ``name``, built at first use."""
+    """The bound C launcher ``name``; its source alone is built at first
+    use."""
     if name not in _launchers:
-        build_all()
+        build((name,))
     return _launchers[name]
 
 

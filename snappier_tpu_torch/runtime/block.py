@@ -100,12 +100,6 @@ def _as_u8(data) -> np.ndarray:
     return np.frombuffer(bytes(data), dtype=np.uint8)
 
 
-def _device_kernel() -> str:
-    """The device engine's kind, ``"scalar"`` or ``"scan"``: one shared
-    choice (models.codec.default_kernel)."""
-    return default_kernel()
-
-
 def _raise_for_err(err: int) -> None:
     if err:
         reasons = [m for bit, m in _ERR_MESSAGES if err & bit]
@@ -206,7 +200,7 @@ def compress_fragments(frags, lengths, hash_bits: int = HASH_BITS, skip_base: in
     dev = resolve_device(device)
     fs = torch.as_tensor(frags).to(device=dev, dtype=torch.uint8)
     ls = torch.as_tensor(lengths).to(device=dev, dtype=torch.int32)
-    bodies, body_lens = _encode_rows(fs, ls, kernel or _device_kernel(), hash_bits, skip_base)
+    bodies, body_lens = _encode_rows(fs, ls, kernel or default_kernel(), hash_bits, skip_base)
     return bodies[:, : fs.shape[1] + 2048], body_lens
 
 
@@ -230,7 +224,7 @@ def decompress_blocks(comp, comp_lens, out_cap: int, device=None):
     dev = resolve_device(device)
     return decode_rows(torch.as_tensor(comp).to(device=dev, dtype=torch.uint8),
                        torch.as_tensor(comp_lens).to(device=dev, dtype=torch.int32),
-                       out_cap, _device_kernel())
+                       out_cap, default_kernel())
 
 
 @contextlib.contextmanager
@@ -255,7 +249,7 @@ def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
         ls = torch.full((rows.shape[0],), BLOCK_SIZE, dtype=torch.int32, device=dev)
         ls[-1] = n - (rows.shape[0] - 1) * BLOCK_SIZE
     with span("block.encode"):
-        bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else _device_kernel(),
+        bodies, body_lens = _encode_rows(fs, ls, "best" if level == "best" else default_kernel(),
                                          HASH_BITS, 32)
     with span("block.wait"):
         lens_h = body_lens.cpu().numpy()
@@ -278,7 +272,7 @@ def _device_bodies(arr: np.ndarray, level: str, dev: torch.device):
 def _decode_compact(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int, capw: int):
     """Decode, word-pack and compact the rows end to end into ``capw``
     words: (flat int32 [capw], out_lens, errs), all on the device."""
-    outs, out_lens, errs = decode_rows(comp, comp_lens, out_cap, _device_kernel())
+    outs, out_lens, errs = decode_rows(comp, comp_lens, out_cap, default_kernel())
     return compact_words(pack_rows(outs), (out_lens + 3) >> 2, capw), out_lens, errs
 
 

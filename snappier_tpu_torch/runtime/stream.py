@@ -67,6 +67,7 @@ from snappier_tpu_torch.models.codec import (
     compact_words,
     crc_rows,
     decode_rows,
+    default_kernel,
     pack_rows,
     resolve_device,
 )
@@ -253,7 +254,7 @@ def _compress_chunks_device(chunks: list, dev: torch.device) -> list[bytes]:
     the whole data-chunk pipeline (encode, CRC32C and masking, varint,
     chunk header, uncompressed fallback) on the device, then the ragged
     framed rows compacted end to end and fetched at their true size."""
-    codec = SnappyCodec(with_crc=True, kernel=block_rt._device_kernel(), device=dev)
+    codec = SnappyCodec(with_crc=True, kernel=default_kernel(), device=dev)
     results: list[bytes] = [b""] * len(chunks)
     nsub = -(-len(chunks) // _SUB_BATCH)
     sub = _SUB_BATCH if nsub > 1 else len(chunks)
@@ -318,7 +319,7 @@ def _decode_crc_pack(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int =
     for CPU tensors), or the scan engine's decoder and CRC when that is the
     process's engine. Returns (packed int32 [B, out_cap // 4], out_lens,
     errs, crcs)."""
-    kernel = block_rt._device_kernel()
+    kernel = default_kernel()
     outs, out_lens, errs = decode_rows(comp, comp_lens, out_cap, kernel)
     crcs = crc_rows(outs, out_lens, kernel)
     return pack_rows(outs), out_lens, errs, crcs

@@ -1,17 +1,15 @@
 """The port's parallel-scan engine on the corpus, cross-engine.
 
 The twin of ``tests/test_ops.py::test_corpus_cross_engine`` for every name
-of ``CORPUS_FILES``: 2 x 64 KiB of a stand-in built from a fixed function
-of the name (``zlib.crc32``, stable across processes). The port's
-``ops.encode.encode_block`` gives the JAX package's bytes fragment by
-fragment, no longer than the oracle's stream, which the oracle decodes
-back; ``ops.decode.decode_block`` decodes the stream from a bucket sized
-to it (at least its length + 8 bytes). Every comparison is exact.
+of ``CORPUS_FILES``: 2 x 64 KiB of the ratio table's stand-in
+(``tools/torch_ratio_table.py::standin``, seeded by the name's CRC-32).
+The port's ``ops.encode.encode_block`` gives the JAX package's bytes
+fragment by fragment, no longer than the oracle's stream, which the oracle
+decodes back; ``ops.decode.decode_block`` decodes the stream from a bucket
+sized to it (at least its length + 8 bytes). Every comparison is exact.
 """
 
 from __future__ import annotations
-
-import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,25 +23,14 @@ from snappier_tpu_torch.format.varint import write_varint
 from snappier_tpu_torch.ops.decode import decode_block
 from snappier_tpu_torch.ops.encode import encode_block
 from tests.conftest import CORPUS_FILES
+from tools.torch_ratio_table import standin
 
 SIZE = 2 * BLOCK_SIZE
-WORDS = [b"the", b"quick", b"brown", b"snappy", b"tpu", b"block", b"compress", b"format",
-         b"stream", b"<html><body>"]
-
-
-def standin(name: str, size: int = SIZE) -> bytes:
-    """Random bytes for the compressed formats (jpeg, pdf), else a word mix,
-    seeded by the name's CRC-32."""
-    rng = np.random.default_rng(zlib.crc32(name.encode()))
-    if name.endswith((".jpeg", ".pdf")):
-        return rng.integers(0, 256, size, dtype=np.uint8).tobytes()
-    parts = rng.integers(0, len(WORDS), size // 3)
-    return b" ".join(WORDS[i] for i in parts)[:size]
 
 
 @pytest.mark.parametrize("name", CORPUS_FILES)
 def test_port_scan_engine_corpus_cross_engine(name):
-    data = standin(name)
+    data = standin(name, SIZE)
     assert len(data) == SIZE
     comp = bytearray(write_varint(len(data)))
     for start in range(0, len(data), BLOCK_SIZE):

@@ -207,7 +207,7 @@ def test_build_types_every_argument():
     for src in _build.CSRC.glob("*.cu"):
         for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', src.read_text(), re.S):
             sigs[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
-    for name, (symbol, argtypes) in _build.SOURCES.items():
+    for name, (_, symbol, argtypes) in _build.SOURCES.items():
         assert sigs.get(symbol) == len(argtypes), (name, symbol, sigs.get(symbol), len(argtypes))
 
 
@@ -221,15 +221,42 @@ def test_build_names_every_source():
                                    "prepass", "decode_hybrid_layout", "decode_pipe_layout",
                                    "decode_variant_layout", "encode_stats_layout",
                                    "best_candidates", "best_candidates_layout"}
-    stems = {_build.source_of(n) for n in _build.SOURCES}
-    shared = {"chain", "vcopy", "coissue", "iso", "bprobe", "cliff", "chase", "bitonic",
-              "encode_layout", "decode_layout", "best_layout", "crc32c_layout",
-              "encode_variant_layout", "encode_r4_layout", "prepass", "decode_hybrid_layout",
-              "decode_pipe_layout", "decode_variant_layout", "encode_stats_layout",
-              "best_candidates_layout"}
-    assert stems == set(_build.SOURCES) - shared | {"hybrid_probes", "bitonic_probe"}
+    stems = {src for src, _, _ in _build.SOURCES.values()}
+    for name, (src, symbol, _) in _build.SOURCES.items():
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        assert f'extern "C" int {symbol}(' in text, (name, src, symbol)
     # Every source but the salted liveness kernel, which is built per call.
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == stems | {"watch"}
     for name in stems:
-        assert (_build.CSRC / f"{name}.cu").exists()
         assert _build._lib_path(name).name.startswith(f"lib{name}-")
+
+
+@pytest.mark.parametrize("name", ["decode", "chain", "best_candidates_layout", "build_all"])
+def test_build_binds_only_the_asked_source(monkeypatch, name):
+    """A launcher's first use starts nvcc for its own source alone and binds
+    every launcher of that source; ``build_all`` starts all 14 sources.
+    nvcc and the loader are stubbed, and nothing is bound beforehand."""
+    started = []
+
+    def start(src):
+        started.append(src)
+        return None, _build.BUILD_DIR / f"lib{src}.so"
+
+    monkeypatch.setattr(_build, "_launchers", {})
+    monkeypatch.setattr(_build, "_start_build", start)
+    monkeypatch.setattr(_build, "_finish_build", lambda src, st, path: None)
+    monkeypatch.setattr(_build, "bind", lambda path, symbol, argtypes: (path.name, symbol))
+    if name == "build_all":
+        _build.build_all()
+        want = {src for src, _, _ in _build.SOURCES.values()}
+        assert len(want) == 14
+    else:
+        src, symbol, _ = _build.SOURCES[name]
+        assert _build.launcher(name) == (f"lib{src}.so", symbol)
+        want = {src}
+    assert sorted(started) == sorted(want)
+    assert set(_build._launchers) == {n for n, (src, _, _) in _build.SOURCES.items()
+                                      if src in want}
+    for n in _build._launchers:  # bound now: no second build
+        _build.launcher(n)
+    assert len(started) == len(want)

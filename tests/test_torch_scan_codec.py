@@ -167,7 +167,7 @@ def _facade_inputs():
 def test_facade_under_scan_matches_jax(scan_env):
     """``compress`` / ``decompress`` (one block and the multi-block decode)
     and the ``*_into`` forms with the scan engine on both sides."""
-    assert block._device_kernel() == "scan"
+    assert codec_mod.default_kernel() == "scan"
     _build.reset_launches()
     for data in _facade_inputs():
         comp = st.compress(data, **CPU)

@@ -90,17 +90,12 @@ def pipe_cases() -> dict:
     return dict(mod.PIPE_CASES)
 
 
-def build_some(_build, names) -> None:
-    """Build only the sources of the launchers ``names`` (all nvcc runs at
-    once) and bind them."""
-    with _build._lock:
-        srcs = sorted({_build.source_of(n) for n in names})
-        started = [(s, *_build._start_build(s)) for s in srcs]
-        for src, st, path in started:
-            _build._finish_build(src, st, path)
-        paths = {s: path for s, _, path in started}
-        for n in names:
-            _build._launchers[n] = _build.bind(paths[_build.source_of(n)], *_build.SOURCES[n])
+def build(_build, names) -> None:
+    """Build and bind the sources of the launchers ``names`` at once."""
+    if hasattr(_build, "build"):
+        _build.build(names)
+    else:  # an older package, whose first launch builds every source
+        _build.build_all()
 
 
 def one(root: str) -> dict:
@@ -120,7 +115,7 @@ def one(root: str) -> dict:
     cs = smoke()
     check_root = os.path.abspath(os.path.join(os.path.dirname(dh.__file__), *[".."] * 3))
     cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
-    build_some(_build, [n for n in _build.SOURCES if _build.source_of(n) in SOURCES])
+    build(_build, [n for n, (src, *_) in _build.SOURCES.items() if src in SOURCES])
     B, BLOCK, ms = cs.B, cs.BLOCK, cs.cuda_ms
     html = cs.word_mix()
     reps = -(-B * BLOCK // len(html))
@@ -425,7 +420,7 @@ def block0(root: str, launchers) -> tuple:
     cs = smoke()
     check_root = os.path.abspath(os.path.join(os.path.dirname(sc.__file__), *[".."] * 3))
     cs.check(os.path.samefile(check_root, root), f"imported {check_root}, not {root}")
-    build_some(_build, ["encode", *(n for n in launchers if n in _build.SOURCES)])
+    build(_build, ["encode", *(n for n in launchers if n in _build.SOURCES)])
     html = cs.word_mix()
     data = np.frombuffer((html * (cs.BLOCK // len(html) + 1))[: cs.BLOCK], np.uint8)
     frags = torch.from_numpy(data.copy()).reshape(1, -1).cuda()
@@ -448,7 +443,7 @@ def sass(root: str, out: str) -> int:
     sys.path.insert(0, root)
     from snappier_tpu_torch.ops.cuda import _build
 
-    build_some(_build, ["cliff", "probe", "bitonic"])
+    build(_build, ["cliff", "probe", "bitonic"])
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = "".join(subprocess.run([cuobjdump, "-sass", str(_build._lib_path(stem))],
                                   capture_output=True, text=True, check=True, timeout=300).stdout
