@@ -20,7 +20,9 @@ failure:
    its rows 1 byte into a buffer and on the batch walk's edge rows
    (``torch_cases.batch_streams``) at out_cap 8,190, both loaders, the last
    row ending at its buffer's end; the best encode kernel also 1 byte into
-   a buffer; the CRC32C kernel on the edge lengths of its split
+   a buffer, and with its stats output, which counts no capped length on
+   rows whose matches never reach the cap and some on a row of zeros; the
+   CRC32C kernel on the edge lengths of its split
    (``torch_cases.crc_rows``) at 64 KiB, 1 byte into a buffer, at widths
    65,535 and 4,097 and as 2,048 rows;
    the probe path: the FindMatchLength golden
@@ -56,7 +58,9 @@ failure:
    search and the new kernels; the decode kernel, T4 ``v1`` (the decode
    kernel's batched walk, every round of a step stored whole) and the best
    encode kernel on the 512 blocks in turns (each twice, the second time in
-   reverse order), with the best encode kernel's layout; the candidate
+   reverse order), with the best encode kernel's layout (one block of 1,024
+   threads a 64 KiB row, one an SM) and its stats on those blocks; the
+   candidate
    search's kernel (``best_candidates``) at the main path's shape (the 512
    blocks, the default ladder): its cluster layout and ptxas figures
    (printed), one launch a call, its candidates against its plain
@@ -659,6 +663,25 @@ def phase_kernels(torch, sc, crc, oracle, write_varint, exact_candidates):
     check(err == 0, "encode_best differs from its plain version unaligned")
     errs["encode_best"] = max(errs["encode_best"], err)
     print(f"encode_best kernel == plain on the rows 1 byte into a buffer, max_abs_err {err}")
+    # Its stats: no capped length on rows whose matches stay short (random
+    # bytes with 12-byte repeats), some on a row of zeros; bodies unchanged.
+    rng = np.random.default_rng(17)
+    short = rng.integers(0, 256, (2, BLOCK)).astype(np.uint8)
+    short[:, 4096:4108] = short[:, 100:112]
+    rows = torch.from_numpy(np.concatenate([short, np.zeros((1, BLOCK), np.uint8)]))
+    r_lens = torch.full((3,), BLOCK, dtype=torch.int32)
+    r_c = exact_candidates(rows.to(dev), r_lens.to(dev))
+    got = {}
+    for name, pick in (("short", slice(0, 2)), ("zeros", slice(2, 3))):
+        stats = torch.zeros(2, dtype=torch.int32, device=dev)
+        g_b, g_l = sc._encode_best(rows[pick].to(dev), r_lens[pick].to(dev), r_c[pick], stats=stats)
+        w_b, w_l = sc.encode_best_plain(rows[pick], r_lens[pick], r_c[pick].cpu(), 32)
+        check(bool((g_l.cpu() == w_l).all()) and all(
+            bool((g_b[i, :n].cpu() == w_b[i, :n]).all()) for i, n in enumerate(w_l.tolist())),
+            f"encode_best with stats differs from its plain version ({name})")
+        got[name] = stats.tolist()
+    check(got["short"][0] == 0 and got["zeros"][0] > 0, f"encode_best stats {got}")
+    print(json.dumps({"encode_best_stats": got}))
     return errs, streams
 
 
@@ -1262,8 +1285,11 @@ def redesign_turns(torch, card, sc, frags, lengths, cands, comp_u8, block_lens):
     from snappier_tpu_torch.ops.cuda import decode_variants as dv
 
     layout = sc.best_layout(frags)
-    check(layout["smem_bytes"] == 0 and layout["blocks_per_sm"] >= 4,
+    check(layout["threads"] == 1024 and layout["blocks_per_sm"] >= 1,
           f"encode_best kernel: {layout}")
+    stats = torch.zeros(2, dtype=torch.int32, device=frags.device)
+    sc._encode_best(frags, lengths, cands, stats=stats)
+    layout = {**layout, "stats": dict(zip(("finished", "rewalked"), stats.tolist()))}
     fns = {
         "v1": lambda: dv.decode_variant(comp_u8, block_lens, BLOCK, "v1"),
         "decode": lambda: sc.decode_blocks_bytes(comp_u8, block_lens, BLOCK),

@@ -108,12 +108,6 @@ struct RowWords {
     return funnel_r(word(i >> 2), word((i >> 2) + 1), 8u * (uint32_t)(i & 3));
   }
   SC_HD uint32_t byte(int32_t i) const { return (word(i >> 2) >> (8 * (i & 3))) & 0xFFu; }
-  // Asks L1 for the line that holds byte i, if i < n (no load, no result).
-  SC_HD void prefetch(int32_t i) const {
-#ifdef __CUDA_ARCH__
-    if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(w + (i >> 2)));
-#endif
-  }
 };
 
 // The kernels that read rows as words (encode.cu, the encode ablation) take
@@ -397,6 +391,36 @@ struct CudaWarp {
     return __reduce_or_sync(0xFFFFFFFFu, x.v);
 #else
     return x.v;
+#endif
+  }
+  // Each lane's sum, and maximum, of x over the lanes below it (0 on lane 0).
+  SC_HD Lanes<uint32_t> excl_sum(const Lanes<uint32_t>& x) const {
+#ifdef __CUDA_ARCH__
+    const int l = (int)(threadIdx.x & 31u);
+    uint32_t s = x.v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, s, o);
+      s += l >= o ? y : 0u;
+    }
+    return {s - x.v};
+#else
+    return x;
+#endif
+  }
+  SC_HD Lanes<uint32_t> excl_max(const Lanes<uint32_t>& x) const {
+#ifdef __CUDA_ARCH__
+    const int l = (int)(threadIdx.x & 31u);
+    uint32_t s = x.v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, s, o);
+      s = l >= o && y > s ? y : s;
+    }
+    const uint32_t e = __shfl_up_sync(0xFFFFFFFFu, s, 1);
+    return {l == 0 ? 0u : e};
+#else
+    return x;
 #endif
   }
   // Orders the lanes' shared-memory stores before the next reads.
@@ -1175,55 +1199,6 @@ SC_HD int32_t load_i32(const int32_t* p) {
 #else
   return *p;
 #endif
-}
-
-// Asks L1 for the line of p[i], if i < n.
-SC_HD void prefetch_i32(const int32_t* p, int32_t i, int32_t n) {
-#ifdef __CUDA_ARCH__
-  if (i < n) asm volatile("prefetch.global.L1 [%0];" ::"l"(p + i));
-#endif
-}
-
-// The level="best" walk over one fragment of n bytes read through a loader
-// (RowWords, RowBytes; scalar_codec.py:964-996); returns the tag stream's
-// length.
-//
-// cands is the fragment's row of int32 candidates, read in device memory:
-// cands[i] is the one candidate for position i
-// (ops/best_match.py::exact_candidates, nearest first), and any value
-// outside [0, i), which a correct candidate array never holds, counts as
-// none, so every hit copies from earlier bytes. A hit is a candidate whose
-// first 4 bytes equal the position's; no table, no seeding, and a miss
-// steps 1 + (skip >> 7). out holds the bound of greedy emission plus 3
-// bytes (a literal's payload may store up to 3 bytes past its end).
-template <class Ld>
-SC_HD int32_t encode_fragment_best(const Ld& ld, int32_t n, const int32_t* cands,
-                                   int32_t skip_base, uint8_t* out) {
-  auto key = [&](int32_t i) { return ld.window(i); };
-  int32_t ip = n < 1 ? n : 1;
-  int32_t lit_start = 0;
-  int32_t op = 0;
-  int32_t skip = skip_base;
-  while (ip + INPUT_MARGIN < n) {
-    // The candidates and the fragment stream forward: ask L1 for their lines
-    // 128 positions ahead.
-    prefetch_i32(cands, ip + 128, n);
-    ld.prefetch(ip + 128);
-    const int32_t c = load_i32(cands + ip);
-    if (c < 0 || c >= ip || key(c) != key(ip)) {
-      ip += 1 + (skip >> 7);
-      skip += 1;
-      continue;
-    }
-    const int32_t m = extend_match(key, ip, c, n, [](int32_t) {});
-    if (ip > lit_start) op = emit_literal(out, op, ld, lit_start, ip - lit_start);
-    op = emit_copy(out, op, ip - c, m);
-    ip += m;
-    lit_start = ip;
-    skip = skip_base;
-  }
-  if (n > lit_start) op = emit_literal(out, op, ld, lit_start, n - lit_start);
-  return op;
 }
 
 }  // namespace sc

@@ -52,7 +52,7 @@ SOURCES = {
     "crc32c_layout": ("crc32c", "crc32c_layout", [_P]),
     "decode_layout": ("decode", "snappy_decode_layout", [_P, _I64, _I32, _P]),
     "encode_best": ("encode_best", "snappy_encode_best_launch",
-                    [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P]),
+                    [_P, _I64, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P]),
     "best_layout": ("encode_best", "snappy_encode_best_layout", [_P, _I64, _P]),
     "probe": ("probe", "match_probe_launch", [_P, _I64, _P, _P, _P, _I64, _P, _P]),
     "decode_variants": ("decode_variants", "snappy_decode_variant_launch",

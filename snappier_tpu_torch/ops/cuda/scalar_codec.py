@@ -35,6 +35,7 @@ from snappier_tpu_torch.ops.decode import (
     ERR_LENGTH_MISMATCH,
     ERR_MALFORMED,
 )
+from snappier_tpu_torch.utils.profiling import span
 
 #: Largest out_cap the decode kernel stages in one block's shared memory
 #: (Hopper allows 227 KB of dynamic shared memory per block).
@@ -350,8 +351,9 @@ def _encode_row(row: np.ndarray, n: int, hash_bits: int, skip_base: int) -> byte
 
 
 def _encode_best_row(row: np.ndarray, n: int, cands: list, skip_base: int) -> bytes:
-    """One fragment's level="best" walk; mirrors ``sc::encode_fragment_best``
-    (a candidate outside [0, i) counts as none)."""
+    """One fragment's level="best" walk, one probe at a time, as the JAX
+    kernel walks (scalar_codec.py's exact_cands branch; a candidate outside
+    [0, i) counts as none): the plain version of ``eb::run_row``."""
     s, keys_np = _staged_keys(row, n)
     keys = keys_np.tolist()
     key = keys.__getitem__
@@ -475,7 +477,7 @@ def encode_best_plain(frags: torch.Tensor, lengths: torch.Tensor, cands: torch.T
     return _rows_out(bodies, F)
 
 
-def _encode_best(frags, lengths, cands, skip_base: int = 32):
+def _encode_best(frags, lengths, cands, skip_base: int = 32, stats=None):
     """Encode a batch of fragments with one given candidate per position
     (the JAX ``_encode_best_pallas`` step, minus its unpacking).
 
@@ -486,7 +488,11 @@ def _encode_best(frags, lengths, cands, skip_base: int = 32):
         (:func:`snappier_tpu_torch.ops.best_match.exact_candidates`); a
         candidate outside [0, i) counts as none.
       skip_base: skip-heuristic start constant (the miss step is
-        ``1 + (skip >> 7)``).
+        ``1 + (skip >> 7)``), in [-128, 2**30]; every value below 0 walks as
+        0 does (a step of 0 probes the same position again).
+      stats: for CUDA rows, an int32 tensor of 2 on their device, or None
+        (the main path): the kernel adds each row's capped match lengths
+        that its walks extended and the copies its stitch walked again.
 
     Returns ``(bodies uint8[B, body_width(F)], body_lens int32[B])``.
     """
@@ -499,23 +505,32 @@ def _encode_best(frags, lengths, cands, skip_base: int = 32):
         raise ValueError(f"cands must be a tensor of shape ({B}, {F})")
     if cands.dtype.is_floating_point or cands.dtype == torch.bool:
         raise ValueError(f"cands must be integers, not {cands.dtype}")
+    if not -128 <= skip_base <= 1 << 30:
+        raise ValueError(f"skip_base must be in [-128, 2**30], got {skip_base}")
     cands = cands.to(torch.int32).contiguous()
-    if not on_cuda(frags, lengths, cands):
-        return encode_best_plain(frags, lengths, cands, skip_base)
-    W = body_width(F)
-    bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
-    body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
-    _build.launch(
-        "encode_best", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
-        cands.data_ptr(), skip_base, bodies.data_ptr(), W, body_lens.data_ptr(),
-    )
-    return bodies, body_lens
+    with span("best.encode", B * F, device=frags.device):
+        if not on_cuda(frags, lengths, cands):
+            return encode_best_plain(frags, lengths, cands, skip_base)
+        if stats is not None and (stats.dtype != torch.int32 or stats.numel() != 2
+                                  or stats.device != frags.device
+                                  or not stats.is_contiguous()):
+            raise ValueError("stats must be a contiguous int32 tensor of 2 on the rows' device")
+        W = body_width(F)
+        bodies = torch.empty((B, W), dtype=torch.uint8, device=frags.device)
+        body_lens = torch.empty(B, dtype=torch.int32, device=frags.device)
+        _build.launch(
+            "encode_best", frags.device, frags.data_ptr(), F, lengths.data_ptr(), B,
+            cands.data_ptr(), max(skip_base, 0), bodies.data_ptr(), W, body_lens.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+        )
+        return bodies, body_lens
 
 
 def best_layout(frags) -> dict:
     """The best-mode encode kernel's launch layout for these rows, as
-    :func:`_encode_best` launches it (:func:`_layout`; dynamic shared bytes,
-    the loader ``"words"`` for a base and width that are multiples of 4)."""
+    :func:`_encode_best` launches it (:func:`_layout`: one block a row, its
+    threads and dynamic shared bytes following the row width; the loader
+    ``"words"`` for a base and width that are multiples of 4)."""
     return _layout("best_layout", byte_rows(frags, "frags"))
 
 

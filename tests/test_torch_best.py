@@ -130,6 +130,23 @@ def test_best_walk_treats_out_of_range_candidates_as_none():
     assert (a[0] == b[0]).all()
 
 
+def test_best_walk_skip_base_range():
+    """A skip base in [-128, -1] walks as 0 does (its misses step 0, then
+    1), the kernel's range ends at 2**30, and values outside it are refused."""
+    frags, lens = best_rows(1024, seed=6, lens=(1024, 700))
+    cands = _t(np.asarray(jax_exact_candidates(jnp.asarray(frags), jnp.asarray(lens))))
+    want_b, want_l = _encode_best(_t(frags), _t(lens), cands, 0)
+    for skip_base in (-1, -77, -128):
+        got_b, got_l = _encode_best(_t(frags), _t(lens), cands, skip_base)
+        assert (got_l == want_l).all()
+        for i, n in enumerate(want_l.tolist()):
+            assert (got_b[i, :n] == want_b[i, :n]).all(), (skip_base, i)
+    _encode_best(_t(frags), _t(lens), cands, 1 << 30)
+    for skip_base in (-129, (1 << 30) + 1):
+        with pytest.raises(ValueError):
+            _encode_best(_t(frags), _t(lens), cands, skip_base)
+
+
 @pytest.mark.parametrize("F", [1024, 4096])
 def test_encode_blocks_best_matches_jax(F):
     frags, lens = best_rows(F, seed=5, lens=(F, F - 7, 40))

@@ -318,10 +318,10 @@ FACADE_STEPS = ["block.fragment", "block.copy_in", "block.encode", "block.wait",
 
 def test_facade_span_tree_under_the_cpu_profiler(monkeypatch):
     """A recording profiler turns the spans on: the best-level facade call
-    is one root with its six steps in order, the candidate search inside
-    the encode step, both in the span records and in the profiler's user
-    annotations, each child inside its root and the steps covering at least
-    95% of the root's host time."""
+    is one root with its six steps in order, the candidate search and then
+    the best encode inside the encode step, both in the span records and in
+    the profiler's user annotations, each child inside its root and the
+    steps covering at least 95% of the root's host time."""
     monkeypatch.setattr(profiling, "_ENABLED", False)
     profiling.spans_reset()
     data = _multi_fragment(1)[: 65536 + 4000]
@@ -336,7 +336,8 @@ def test_facade_span_tree_under_the_cpu_profiler(monkeypatch):
     steps = sorted((r for r in recs if r["parent"] == root["id"]), key=lambda r: r["t0_ns"])
     assert [r["name"] for r in steps] == FACADE_STEPS
     (cand,) = [r for r in recs if r["name"] == "best.candidates"]
-    assert cand["parent"] == steps[2]["id"]
+    (enc,) = [r for r in recs if r["name"] == "best.encode"]
+    assert cand["parent"] == enc["parent"] == steps[2]["id"] and cand["t1_ns"] <= enc["t0_ns"]
     for r in recs:
         assert root["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= root["t1_ns"]
     covered = sum(r["t1_ns"] - r["t0_ns"] for r in steps)

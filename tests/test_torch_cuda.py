@@ -56,6 +56,7 @@ from torch_cases import (
     PIPE_CASES,
     batch_streams,
     best_rows,
+    best_walk_cases,
     block_stream,
     corrupt_streams,
     count_records,
@@ -315,16 +316,18 @@ _build.reset_launches()
 with device_trace(sys.argv[1]):
     comp = st.compress(data, level="best")
 (path,) = pathlib.Path(sys.argv[1]).glob("trace-*.json")
-names = sorted({e["name"] for e in json.loads(path.read_text())["traceEvents"]
-                if e.get("cat") == "kernel"})
-print(json.dumps({"launches": dict(_build.LAUNCHES), "kernels": names,
+kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("cat") == "kernel"]
+print(json.dumps({"launches": dict(_build.LAUNCHES), "kernels": sorted(set(kernels)),
+                  "best_encodes": sum("encode_best_kernel" in n for n in kernels),
                   "round_trip": st.decompress(comp) == data}))
 """
 
 
 def test_cuda_facade_best_sorts_on_chip(cuda_device, tmp_path):
     """compress(level="best") on the card: one launch of the candidate
-    search and one of the best encode walk, and no library sort or scatter
+    search and one of the best encode walk (one kernel named
+    ``encode_best_kernel`` in the trace), and no library sort or scatter
     in its trace (``device_trace``, in a process of its own: a second
     profiler session in one process has seen no kernel events)."""
     import json
@@ -340,6 +343,7 @@ def test_cuda_facade_best_sorts_on_chip(cuda_device, tmp_path):
     launches, names = got["launches"], got["kernels"]
     assert launches.get("best_candidates") == 1 and launches.get("encode_best") == 1, launches
     assert any("best_candidates_kernel" in n for n in names), names
+    assert got["best_encodes"] == 1, names  # K4: one launch, named as the benchmark reads it
     assert not any("RadixSort" in n or "scatter" in n.lower() for n in names), names
     assert got["round_trip"]
 
@@ -529,8 +533,9 @@ def test_cuda_crc32c_of_decoded_rows_and_in_a_graph(cuda_device):
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_cuda_best_kernel_unaligned_matches_plain(cuda_device, offset):
     """K4 on rows of 65,536 bytes 0, 1 or 3 bytes into a buffer that ends at
-    the last row's end, against the plain version; it runs one thread a
-    block and no dynamic shared memory."""
+    the last row's end, against the plain version; it runs one block of
+    1,024 threads a row, the row and its lengths in shared memory, one
+    block an SM."""
     F = 65536
     frags, lens = best_rows(F, seed=offset, lens=(F, F - 5, 30000, 17, 0))
     rows = _offset_rows(frags, offset, cuda_device)
@@ -538,14 +543,81 @@ def test_cuda_best_kernel_unaligned_matches_plain(cuda_device, offset):
     cands = exact_candidates(rows, l_c)
     want_b, want_l = encode_best_plain(_t(frags.astype(np.uint8)), _t(lens), cands.cpu(), 32)
     layout = sc.best_layout(rows)
-    assert layout["loader"] == ("bytes" if offset else "words") and layout["smem_bytes"] == 0
-    assert layout["threads"] == 1 and layout["blocks_per_sm"] >= 4, layout
+    assert layout["loader"] == ("bytes" if offset else "words")
+    assert layout["smem_bytes"] == 213952 and layout["threads"] == 1024, layout
+    assert layout["blocks_per_sm"] == 1, layout
     _build.reset_launches()
     got_b, got_l = _encode_best(rows, l_c, cands)
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"encode_best": 1}
     assert (got_l.cpu() == want_l).all()
     _rows_equal(got_b, want_b, want_l)
+
+
+def _corpus_rows(seed: int, rows: int = 512, F: int = 65536) -> torch.Tensor:
+    """The first rows * F bytes of the benchmark's corpus traffic
+    (portbench/traffic/corpus.json) at ``seed``, as uint8 [rows, F]: the
+    facade's rows of a 32 MiB object."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from portbench import generator
+
+    mix = generator.load_mix("corpus")
+    per = sum(f["length"] for f in mix["files"])
+    made = generator.files(mix, seed, -(-rows * F // per), "cpu")
+    return generator.concatenated(made, mix)[: rows * F].view(rows, F).contiguous()
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 11])
+def test_cuda_best_kernel_on_corpus_rows(cuda_device, seed):
+    """K4 on 512 rows of 64 KiB of the benchmark's corpus traffic, the last
+    row short as the facade's is: bodies and lengths equal to the plain
+    version's, in one launch."""
+    frags = _corpus_rows(seed)
+    lens = torch.full((frags.shape[0],), frags.shape[1], dtype=torch.int32)
+    lens[-1] = 40000
+    f_c, l_c = frags.to(cuda_device), lens.to(cuda_device)
+    cands = exact_candidates(f_c, l_c)
+    _build.reset_launches()
+    bodies, body_lens = _encode_best(f_c, l_c, cands)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"encode_best": 1}
+    want_b, want_l = encode_best_plain(frags, lens, cands.cpu(), 32)
+    assert (body_lens.cpu() == want_l).all()
+    _rows_equal(bodies, want_b, want_l)
+
+
+@pytest.mark.parametrize("case", ["runs", "step2", "planted", "planted-skip0",
+                                  "planted-skip200", "overlap", "mixed", "invalid",
+                                  "short", "narrow"])
+def test_cuda_best_kernel_paths_match_plain(cuda_device, case):
+    """K4 on the rows that take each path of its schedule
+    (torch_cases.best_walk_cases), aligned and 1 byte into a buffer, against
+    the plain version; its stats count the capped lengths extended on the
+    rows of long runs, none on the rows that never cap, and nothing at all
+    on the rows whose segments all meet the chain at their first copy (a
+    single hit, rows shorter than a segment)."""
+    frags, lens, cands, skip_base, _ = best_walk_cases()[case]
+    want_b, want_l = encode_best_plain(_t(frags), _t(lens), _t(cands), skip_base)
+    l_c, c_c = _t(lens).to(cuda_device), _t(cands).to(cuda_device)
+    for offset in (0, 1):
+        stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        got_b, got_l = _encode_best(_offset_rows(frags, offset, cuda_device), l_c, c_c,
+                                    skip_base, stats=stats)
+        assert (got_l.cpu() == want_l).all(), (case, offset)
+        _rows_equal(got_b, want_b, want_l)
+        finished, rewalked = stats.tolist()
+        if case == "runs":
+            assert finished > 0
+        elif case in ("step2", "short"):
+            assert finished == rewalked == 0
+        elif case.startswith("planted"):
+            assert finished == 0
+        _build.reset_launches()
+        _encode_best(_offset_rows(frags, offset, cuda_device), l_c, c_c, skip_base)
+        assert dict(_build.LAUNCHES) == {"encode_best": 1}
 
 
 def test_cuda_decode_and_best_on_each_card_match_plain(cuda_device):
@@ -1759,8 +1831,9 @@ def test_cuda_device_spans_free_their_events_as_the_card_passes(cuda_device, mon
 
 
 def test_cuda_device_spans_carry_stream_time(cuda_device, monkeypatch):
-    """With spans on, the candidate search's and the codec's encode, pack
-    and decode spans carry the stream's time between their edges, above 0;
+    """With spans on, the candidate search's, the best encode's and the
+    codec's encode, pack and decode spans carry the stream's time between
+    their edges, above 0;
     the facade's no more than its root's host time (the root ends with the
     bodies on the host). Every other span is a host span."""
     from snappier_tpu_torch.utils import profiling
@@ -1783,7 +1856,7 @@ def test_cuda_device_spans_carry_stream_time(cuda_device, monkeypatch):
     by_id = {r["id"]: r for r in recs}
     dev = [r for r in recs if r["stream_ms"] is not None]
     assert sorted(r["name"] for r in dev) == [
-        "best.candidates", "codec.decode", "codec.encode", "codec.pack"]
+        "best.candidates", "best.encode", "codec.decode", "codec.encode", "codec.pack"]
     for r in dev:
         assert r["stream_ms"] > 0, r
         root = by_id[r["call"]]

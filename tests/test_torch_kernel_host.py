@@ -29,6 +29,7 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from snappier_tpu.format import oracle
 from snappier_tpu.format.varint import write_varint
@@ -46,6 +47,7 @@ from tests.torch_cases import (
     CRC_LENGTHS,
     batch_streams,
     best_rows,
+    best_walk_cases,
     corrupt_streams,
     crc_rows,
     empty_literal_streams,
@@ -72,6 +74,7 @@ SHIM = (r"""
 #include "crc32c.cuh"
 #include "decode_hybrid.cuh"
 #include "decode_variants.cuh"
+#include "encode_best.cuh"
 #include "encode_variants.cuh"
 #include "scalar_codec.cuh"
 
@@ -571,27 +574,57 @@ extern "C" int host_encode_rows(const uint8_t* frags, int64_t frag_w, const int3
   return 0;
 }
 
+// The best encode kernel's row (csrc/encode_best.cuh) on the host: each
+// phase on every thread in turn, a warp 32 array lanes (ArrayWarp).
+struct BestRunner {
+  int32_t n;
+  std::vector<eb::ThreadState> st;
+  explicit BestRunner(int32_t threads) : n(threads), st((size_t)threads) {}
+  template <class F>
+  void threads(F f) {
+    for (int32_t t = 0; t < n; t++) f(t, st[t]);
+  }
+  template <class F>
+  void warps(F f) {
+    const ArrayWarp<32> w;
+    for (int32_t wi = 0; wi < n / 32; wi++) {
+      f(wi, w, [&, wi](int l) -> eb::ThreadState& { return st[wi * 32 + l]; });
+    }
+  }
+  template <class F>
+  void warp0(F f) {
+    f(ArrayWarp<32>{});
+  }
+  void sync() {}
+};
+
 // The rows, guarded at `offset`, and their int32 candidates, ending at the
-// guard page (GuardedRows), through the level="best" walk as the best encode
-// kernel reads them: loader 0
-// sc::RowWords, 1 sc::RowBytes. Returns 0, or -1 if a buffer was refused.
+// guard page (GuardedRows), through the best encode kernel's row as it reads
+// them: loader 0 sc::RowWords, 1 sc::RowBytes; the block's shared memory
+// poisoned before each row. stats: int32[2] or null (eb::Row::stats).
+// Returns 0, or -1 if a buffer was refused.
 extern "C" int host_encode_best(const uint8_t* frags, int64_t frag_w, const int32_t* lens,
                                 const int32_t* cands, int64_t batch, int32_t offset,
                                 int32_t loader, int32_t skip_base, uint8_t* bodies,
-                                int64_t body_w, int32_t* body_lens) {
+                                int64_t body_w, int32_t* body_lens, int32_t* stats) {
   GuardedRows g(frags, batch, frag_w, offset);
   GuardedRows gc(reinterpret_cast<const uint8_t*>(cands), batch, frag_w * 4, kAtGuard);
   if (g.mem == nullptr || gc.mem == nullptr) return -1;
+  const eb::Layout lay = eb::layout_for((int32_t)frag_w);
+  std::vector<uint32_t> smem(lay.bytes / 4);
   for (int64_t b = 0; b < batch; b++) {
     int32_t n = lens[b] < 0 ? 0 : (lens[b] > frag_w ? (int32_t)frag_w : lens[b]);
+    for (auto& x : smem) x = 0xA5A5A5A5u;
+    const eb::Smem m = eb::smem_at(reinterpret_cast<unsigned char*>(smem.data()), lay);
     const uint8_t* row = g.rows + b * frag_w;
-    const int32_t* crow = reinterpret_cast<const int32_t*>(gc.rows) + b * frag_w;
-    uint8_t* out = bodies + b * body_w;
-    body_lens[b] =
-        loader == 0
-            ? sc::encode_fragment_best(sc::RowWords{reinterpret_cast<const uint32_t*>(row), n},
-                                       n, crow, skip_base, out)
-            : sc::encode_fragment_best(sc::RowBytes{row, n}, n, crow, skip_base, out);
+    const eb::Row r{reinterpret_cast<const int32_t*>(gc.rows) + b * frag_w, n, skip_base,
+                    bodies + b * body_w, body_lens + b, stats};
+    BestRunner run(lay.threads);
+    if (loader == 0) {
+      eb::run_row(run, lay, m, r, sc::RowWords{reinterpret_cast<const uint32_t*>(row), n});
+    } else {
+      eb::run_row(run, lay, m, r, sc::RowBytes{row, n});
+    }
   }
   return 0;
 }
@@ -695,7 +728,7 @@ def host_lib(tmp_path_factory):
     so.host_decode.restype = I32
     so.host_encode_rows.argtypes = [P, I64, P, I64, I32, I32, I32, I32, P, I64, P]
     so.host_encode_rows.restype = I32
-    so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, I32, I32, P, I64, P]
+    so.host_encode_best.argtypes = [P, I64, P, P, I64, I32, I32, I32, P, I64, P, P]
     so.host_encode_best.restype = I32
     so.host_probe.argtypes = [P, I64, P, P, P, I64, I32, P]
     so.host_probe.restype = I32
@@ -1016,7 +1049,7 @@ def _hold_best_to_jax(host_lib, cases):
         body_lens = np.zeros(B, np.int32)
         rc = host_lib.host_encode_best(f8.ctypes.data, F, lens.ctypes.data, cands.ctypes.data,
                                        B, _offset_arg(offset), loader, 32, bodies.ctypes.data,
-                                       F + 2048, body_lens.ctypes.data)
+                                       F + 2048, body_lens.ctypes.data, None)
         assert rc == 0
         _same_bodies(bodies, body_lens, ref_b, ref_l, (offset, loader))
 
@@ -1033,6 +1066,55 @@ def test_host_best_walk_on_unaligned_rows(host_lib):
     (the byte loader) and 0, 4, 8 and 12 past one (the word loader), under
     the guard page, equal to the JAX kernel in interpret mode."""
     _hold_best_to_jax(host_lib, _aligned_cases)
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_cases():
+    return best_walk_cases()
+
+
+@pytest.mark.parametrize("case", ["runs", "step2", "planted", "planted-skip0",
+                                  "planted-skip200", "overlap", "mixed", "invalid",
+                                  "short", "narrow"])
+def test_host_best_walk_paths(host_lib, case):
+    """The level="best" walk on rows that take each of its paths
+    (torch_cases.best_walk_cases: lengths past the cap and copies across
+    segments, a hit the step-2 probes skip, skip bases 0 and 200, walks
+    landing inside runs of candidates of long overlapping copies, any
+    earlier candidate, candidates at i, past the length and INT32_MAX,
+    lengths 0-100, rows of 1,002 bytes) through the byte loader at the
+    guard page and 3 bytes past a boundary, and the word loader at the
+    guard page where the width is a multiple of 4: equal to the plain
+    version, and the plain version to the JAX kernel in interpret mode where
+    every candidate is one the JAX kernel takes (and the width a multiple of
+    1,024, as the JAX kernel needs). Its stats count the capped
+    lengths it extended on the rows of long runs and none where no match
+    reaches the cap."""
+    from snappier_tpu_torch.ops.cuda.scalar_codec import encode_best_plain
+
+    frags, lens, cands, skip_base, valid = _walk_cases()[case]
+    B, F = frags.shape
+    want_b, want_l = (x.numpy() for x in encode_best_plain(
+        torch.from_numpy(frags), torch.from_numpy(lens), torch.from_numpy(cands), skip_base))
+    if valid and F <= 4096 and F % 1024 == 0:
+        ref_b, ref_l = (np.asarray(x) for x in _encode_best_pallas(
+            jnp.asarray(frags.astype(np.int32)), jnp.asarray(lens), jnp.asarray(cands),
+            skip_base=skip_base, interpret=True))
+        _same_bodies(want_b, want_l, ref_b, ref_l, (case, "plain"))
+    for offset, loader in [(AT_GUARD, 1), (3, 1)] + ([(AT_GUARD, 0)] if F % 4 == 0 else []):
+        bodies = np.zeros((B, F + 2048), np.uint8)
+        body_lens = np.zeros(B, np.int32)
+        stats = np.zeros(2, np.int32)
+        rc = host_lib.host_encode_best(frags.ctypes.data, F, lens.ctypes.data, cands.ctypes.data,
+                                       B, _offset_arg(offset), loader, skip_base,
+                                       bodies.ctypes.data, F + 2048, body_lens.ctypes.data,
+                                       stats.ctypes.data)
+        assert rc == 0
+        _same_bodies(bodies, body_lens, want_b, want_l, (case, offset, loader))
+        if case == "runs":
+            assert stats[0] > 0, stats
+        elif case.startswith("planted") or case in ("step2", "short"):
+            assert stats[0] == 0, stats
 
 
 def _host_probe(host_lib, bufs, ats, cands, ns, offset) -> np.ndarray:

@@ -153,6 +153,110 @@ CRC_LENGTHS = (0, 1, 15, 16, 17, 30, 31, 511, 512, 513, 4095, 4096, 4097, 57344,
                65536)
 
 
+def _runs_row(F: int, rng, longest: int) -> np.ndarray:
+    """Runs of one random byte each, of 1 to ``longest`` bytes."""
+    out, at = np.empty(F, np.uint8), 0
+    while at < F:
+        k = int(rng.integers(1, longest + 1))
+        out[at : at + k] = rng.integers(0, 256)
+        at += k
+    return out
+
+
+def _planted_row(F: int, rng, copies: int, longest: int = 40) -> np.ndarray:
+    """Random bytes with ``copies`` copies (4 to ``longest`` bytes) of earlier
+    bytes planted at random places: miss runs of every length between hits;
+    short copies end before a length reaches 64, long ones overlap and break
+    each other's runs of candidates."""
+    row = rng.integers(0, 256, F).astype(np.uint8)
+    for _ in range(copies):
+        k = int(rng.integers(4, longest + 1))
+        dst = int(rng.integers(8, F - k))
+        src = int(rng.integers(0, dst - 4))
+        row[dst : dst + k] = row[src : src + k].copy()
+    return row
+
+
+def best_walk_cases(seed: int = 21) -> dict:
+    """Rows for the best-mode walk's paths, each case (frags uint8[B, F],
+    lengths int32[B], cands int32[B, F], skip_base, valid): ``valid`` where
+    every candidate lies in [-1, i) (the JAX kernel's contract; it takes a
+    candidate at or past i as a hit where the port takes none).
+
+    ``runs``: 64 KiB rows of zeros, of runs up to 3,000 and up to 9 bytes
+    long and of period 3: lengths past the cap, copies across segments.
+    ``step2``: a random row whose only hits are at 98, which the probes skip
+    once the miss step is 2 (97, 99, ...), and at the 301st probe, which
+    they take. ``planted`` (three skip bases): random rows with short copies,
+    whose hits never reach the cap. ``overlap``: random rows
+    with long copies (up to 3,000 bytes) over each other, where walks land
+    inside runs of candidates. ``mixed``: rows of random bits whose
+    candidates are an earlier position (most within 64) or -1 at random. ``invalid``: the
+    same with candidates i, past the length, past the row and INT32_MAX
+    mixed in. ``short``: lengths 0, 1, 15, 16, 17, 18, 33 and 100. ``narrow``: rows of 1,002 bytes
+    (a block of 32 threads, the byte loader)."""
+    import torch
+
+    from snappier_tpu_torch.ops.best_match import exact_candidates_plain
+
+    rng = np.random.default_rng(seed)
+
+    def exact(frags, lens):
+        return exact_candidates_plain(torch.from_numpy(frags),
+                                      torch.from_numpy(lens)).numpy()
+
+    def case(frags, lens, skip_base=32, cands=None, valid=True):
+        frags = np.ascontiguousarray(frags, np.uint8)
+        lens = np.asarray(lens, np.int32)
+        cands = exact(frags, lens) if cands is None else np.asarray(cands, np.int32)
+        return frags, lens, np.ascontiguousarray(cands, np.int32), skip_base, valid
+
+    big = 65536
+    runs = np.stack([np.zeros(big, np.uint8), _runs_row(big, rng, 3000), _runs_row(big, rng, 9),
+                     np.tile(np.array([7, 1, 200], np.uint8), big // 3 + 1)[:big]])
+    step2 = rng.integers(0, 256, 4096).astype(np.uint8)
+    step2[98:102] = step2[10:14]
+    probes, ip, skip = [], 1, 32  # the miss run's probes from position 1
+    while ip < 4000:
+        probes.append(ip)
+        ip, skip = ip + 1 + (skip >> 7), skip + 1
+    at = probes[300]  # a probe 3 or more apart from the one before it
+    step2[at : at + 6] = step2[20:26]
+    planted = np.stack([_planted_row(4096, rng, c) for c in (8, 40, 160, 400)])
+    overlap = np.stack([_planted_row(4096, rng, c, longest) for c, longest in
+                        ((20, 1500), (60, 600), (200, 300), (40, 3000))])
+    F = 4096
+    low = rng.integers(0, 2, (4, F)).astype(np.uint8)
+    low_lens = np.array([F, F - 3, 2000, 300], np.int32)
+    pos = np.arange(F)
+    near = pos - rng.integers(1, 65, (4, F))
+    far = (rng.random((4, F)) * pos).astype(np.int64)
+    mixed = np.where(rng.random((4, F)) < 0.8, near, far)
+    mixed = np.where((rng.random((4, F)) < 0.2) | (mixed < 0), -1, mixed).astype(np.int32)
+    bad = mixed.copy()
+    pick = rng.integers(0, 5, (4, F))
+    bad = np.where(pick == 1, pos, bad)
+    bad = np.where(pick == 2, low_lens[:, None] + rng.integers(0, 50, (4, F)), bad)
+    bad = np.where(pick == 3, F + rng.integers(0, 1 << 20, (4, F)), bad)
+    bad = np.where((pick == 4) & (rng.random((4, F)) < 0.3), np.iinfo(np.int32).max, bad)
+    short_lens = [0, 1, 15, 16, 17, 18, 33, 100]
+    short = np.stack([_runs_row(F, rng, 6) for _ in short_lens])
+    narrow = np.stack([_runs_row(1002, rng, 40), _planted_row(1002, rng, 30, 200),
+                       np.zeros(1002, np.uint8), rng.integers(0, 256, 1002).astype(np.uint8)])
+    return {
+        "runs": case(runs, [big, big - 5, big, big - 1]),
+        "step2": case(step2[None], [4096]),
+        "planted": case(planted, [4096, 4096, 4000, 4096]),
+        "planted-skip0": case(planted, [4096, 4096, 4000, 4096], skip_base=0),
+        "planted-skip200": case(planted, [4096, 4096, 4000, 4096], skip_base=200),
+        "overlap": case(overlap, [4096, 4096, 4093, 3500]),
+        "mixed": case(low, low_lens, cands=mixed),
+        "invalid": case(low, low_lens, cands=bad, valid=False),
+        "short": case(short, short_lens),
+        "narrow": case(narrow, [1002, 1000, 517, 40]),
+    }
+
+
 def crc_rows(F: int, lengths=CRC_LENGTHS, seed: int = 13):
     """Rows of width F with the given lengths (clamped to F): random bytes,
     a markup row and an all-zero row, with random garbage past each
@@ -408,7 +512,8 @@ ARRAY_WARP = r"""
 // step: each() runs a lane body on every lane (highest lane first, so a
 // body that read another lane's result of the same step would differ from
 // the card), gather/read/ballot/or_all are __shfl_sync, __ballot_sync and
-// __reduce_or_sync over the arrays, sync() has nothing to order, and
+// __reduce_or_sync over the arrays, excl_sum/excl_max the shuffle scans,
+// sync() has nothing to order, and
 // batch() counts the walk's batches and their tags.
 template <int N>
 struct ArrayWarp {
@@ -443,6 +548,24 @@ struct ArrayWarp {
     uint32_t m = 0;
     for (int l = 0; l < N; l++) m |= x.v[l];
     return m;
+  }
+  Lanes<uint32_t> excl_sum(const Lanes<uint32_t>& x) const {
+    Lanes<uint32_t> r;
+    uint32_t s = 0;
+    for (int l = 0; l < N; l++) {
+      r.v[l] = s;
+      s += x.v[l];
+    }
+    return r;
+  }
+  Lanes<uint32_t> excl_max(const Lanes<uint32_t>& x) const {
+    Lanes<uint32_t> r;
+    uint32_t s = 0;
+    for (int l = 0; l < N; l++) {
+      r.v[l] = s;
+      s = x.v[l] > s ? x.v[l] : s;
+    }
+    return r;
   }
   void sync() const {}
   void batch(int tags) const {
